@@ -6,12 +6,15 @@ PyTorch, and every Pallas kernel on the ported path is a CUDA C++ kernel
 for Hopper (``csrc/``), built with nvcc on first use.  Each kernel keeps a
 plain PyTorch version beside it, which tensors on the CPU run.
 
-One :class:`PPOConfig` (re-exported from ``ppoc_tpu.config``, a plain
-dataclass) drives both packages.  Importing this package never imports jax.
+:class:`PPOConfig` is the port's own copy of the JAX package's dataclass
+(``config.py``), held to it by the tests.  Importing this package imports
+neither jax nor any module of ``ppoc_tpu``.
 """
-from ppoc_tpu_torch.config import PPOConfig, reference_preset, tpu_preset
+from ppoc_tpu_torch.config import (PPOConfig, reference_preset, tpu_preset,
+                                   tuned_preset)
 
-__all__ = ["PPOConfig", "reference_preset", "tpu_preset", "Trainer"]
+__all__ = ["PPOConfig", "reference_preset", "tpu_preset", "tuned_preset",
+           "Trainer"]
 
 
 def __getattr__(name):  # lazy: keep `import ppoc_tpu_torch` light

@@ -167,12 +167,46 @@ def compute_advantages(cfg: PPOConfig, env: Env, traj: Transition,
 # update phases
 # --------------------------------------------------------------------------
 
+# The JAX package runs its fused phases only for minibatches of at most this
+# many rows (`_MAX_TILE`, ppoc_tpu/ops/pallas_update.py:59) and the generic
+# per-minibatch phases above it.  The port keeps the reference's choice of
+# path; the value has not been re-derived on the H100 (ROADMAP.md).
+MAX_FUSED_MB = 2048
+
+
+def _stab_value_ok(cfg: PPOConfig) -> bool:
+    return (cfg.max_grad_norm == 0.0 and not cfg.lr_anneal
+            and cfg.clip_value == 0.0)
+
+
+def _stab_policy_ok(cfg: PPOConfig) -> bool:
+    return (cfg.max_grad_norm == 0.0 and not cfg.lr_anneal
+            and cfg.target_kl == 0.0 and not cfg.ent_anneal)
+
+
+def _fused(cfg: PPOConfig, n_mb: int, mb: int, stab_ok: bool) -> bool:
+    """The JAX package's gate for a whole-phase kernel (K3/K4):
+    ``ppoc_tpu/algo/ppo.py:598-604`` and ``:698-704``."""
+    return (stab_ok and mb <= MAX_FUSED_MB and mb == cfg.minibatch_size
+            and n_mb == cfg.num_minibatches)
+
+
+def _mb_rows(cfg: PPOConfig, idx: torch.Tensor) -> int:
+    """Rows per minibatch of a row-id or block-id stream."""
+    return idx.shape[2] * (cfg.shuffle_block or 1)
+
+
 def value_phase(cfg: PPOConfig, ts: TrainState, buf: buffer.RowBuffer,
                 idx: torch.Tensor):
-    """Fit V over the row-id stream ``idx`` [n_epochs, n_mb, mb] with one
-    K3 launch on the pre-gathered rows; returns (ts', mean minibatch
-    loss)."""
-    n_epochs, n_mb, mb = idx.shape
+    """Fit V over the row-id stream ``idx`` [n_epochs, n_mb, mb]: one K3
+    launch on the pre-gathered rows when the fused gate holds; returns
+    (ts', mean minibatch loss)."""
+    n_epochs, n_mb = idx.shape[:2]
+    mb = _mb_rows(cfg, idx)
+    if not _fused(cfg, n_mb, mb, _stab_value_ok(cfg)):
+        raise NotImplementedError(
+            f"the generic value phase (minibatch {mb} > {MAX_FUSED_MB}) is "
+            f"not ported yet")
     obs_seq, tgt_seq = buffer.gather_mb((buf.obs, buf.target), idx)
     v2, opt2, loss = cuda_update.value_phase(
         obs_seq, tgt_seq, ts.v_params, ts.opt_v, n_epochs * n_mb, mb,
@@ -182,9 +216,15 @@ def value_phase(cfg: PPOConfig, ts: TrainState, buf: buffer.RowBuffer,
 
 def policy_phase(cfg: PPOConfig, ts: TrainState, buf: buffer.RowBuffer,
                  idx: torch.Tensor):
-    """Clipped-surrogate passes over the row-id stream ``idx`` with one K4
-    launch; returns (ts', mean loss, mean entropy)."""
-    n_epochs, n_mb, mb = idx.shape
+    """Clipped-surrogate passes over the row-id stream ``idx``: one K4
+    launch when the fused gate holds; returns (ts', mean loss, mean
+    entropy)."""
+    n_epochs, n_mb = idx.shape[:2]
+    mb = _mb_rows(cfg, idx)
+    if not _fused(cfg, n_mb, mb, _stab_policy_ok(cfg)):
+        raise NotImplementedError(
+            f"the generic policy phase (minibatch {mb} > {MAX_FUSED_MB}) is "
+            f"not ported yet")
     pol = ts.policy_params
     o, a, lp, ad = buffer.gather_mb(
         (buf.obs, buf.action, buf.log_prob, buf.advantage), idx)

@@ -48,12 +48,24 @@ def check_ported(cfg: PPOConfig) -> None:
             f"not ported to ppoc_tpu_torch yet: {bad} (see ROADMAP.md)")
 
 
+def resolve_device(device=None) -> torch.device:
+    """``device=None`` means CUDA device 0; without CUDA that raises rather
+    than run on the CPU unasked."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "the port runs on CUDA device 0 by default, and CUDA is not "
+            "available; pass device=\"cpu\" to run on the CPU")
+    return torch.device("cuda", 0)
+
+
 class Trainer:
-    def __init__(self, cfg: PPOConfig, device):
+    def __init__(self, cfg: PPOConfig, device=None):
         validate(cfg)
         check_ported(cfg)
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.env = envs.make_for(cfg)
         resolve_backend(cfg.kernel_backend)   # refuses "jnp": not ported
         self.generator = torch.Generator().manual_seed(cfg.seed)

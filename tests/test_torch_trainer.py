@@ -154,6 +154,16 @@ def test_unported_options_are_refused():
             Trainer(_cfg(**kw), "cpu")
 
 
+def test_trainer_defaults_to_the_card():
+    """No device means CUDA device 0; without CUDA, a RuntimeError naming
+    device="cpu" rather than a quiet CPU run."""
+    if torch.cuda.is_available():
+        assert Trainer(_cfg()).device == torch.device("cuda", 0)
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            Trainer(_cfg())
+
+
 def test_train_state_numpy_roundtrip():
     tr = Trainer(_cfg(), "cpu")
     back = conv.train_state_from_numpy(conv.train_state_to_numpy(tr.state),
@@ -164,9 +174,15 @@ def test_train_state_numpy_roundtrip():
 
 
 def test_port_never_imports_jax():
+    """Neither jax nor any module of the JAX package ppoc_tpu is loaded by
+    importing the port's entry points."""
     code = ("import sys; import ppoc_tpu_torch.algo.trainer, "
-            "ppoc_tpu_torch.ops.cuda_update, ppoc_tpu_torch.utils.params; "
-            "assert 'jax' not in sys.modules, 'jax imported'")
+            "ppoc_tpu_torch.ops.cuda_update, ppoc_tpu_torch.utils.params, "
+            "ppoc_tpu_torch.config; "
+            "bad = sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith('jax.') or m == 'ppoc_tpu' "
+            "or m.startswith('ppoc_tpu.')); "
+            "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=REPO)
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO,
                    env=env, timeout=120)
