@@ -5,16 +5,30 @@
 1. Device: prints the card's name and power limit; exits non-zero without
    a CUDA device.
 2. Build: compiles ppoc_tpu_torch/csrc/*.cu with nvcc (sm_90a).
-3. Each kernel of the training path (K1 rollout, K2 GAE, K3 value phase,
-   K4 policy phase) against its plain PyTorch version on the card, at the
-   bench configuration's shapes, with TF32 off; prints both times.
-4. Main path: Trainer(bench config).solve(-200, max_epochs=40) on the card
+3. Bench path, kernels: K1 rollout, K2 GAE, K3 value phase and K4 policy
+   phase against their plain PyTorch versions on the card, at the bench
+   configuration's shapes, with TF32 off; prints both times.
+4. Bench path: Trainer(bench config).solve(-200, max_epochs=40) on the card
    (64 envs x 200 steps, minibatch 256, 4 fits per epoch, kernel_backend
    "pallas"), with each kernel's launch count read around it; then two
    epochs of the reference schedule PPOConfig(env="pendulum").
+5. Throughput path, kernels: K1 at 1024 envs, K2 at 200 x 1024 (past its
+   shared-memory size, so the global-memory branch), and K5 (the
+   whole-MLP forward and backward) at 8192 and 256 rows, each against its
+   plain version; K5's backward twice, bit for bit.
+6. Throughput path: Trainer(tpu_preset("pendulum")) on the card by default,
+   10 epochs (minibatch 8192: the generic phases, K5 forward and backward
+   per minibatch, no K3/K4), then Trainer.evaluate(deterministic=True),
+   with the launch counts read around each, and the mean policy's actions
+   held to the plain forward on the recorded obs.
 
 Any failed check raises, so the script exits non-zero.  The last two lines
-are a JSON object of per-kernel results and the JSON status line.
+are a JSON object of per-kernel results and the JSON status line.  Per
+kernel: "ms" and "plain_ms" are device-kernel time per call (the
+profiler's kernel durations summed), "call_ms" and "plain_call_ms" the
+CUDA-event time per call with the host's launch overhead; "bound_ms" is the
+least time the card could take for the same work, from the H100 SXM's FP32
+and memory peaks; "launches" come from the path's run.
 """
 from __future__ import annotations
 
@@ -25,17 +39,86 @@ import sys
 import time
 
 SOLVE_R = -200.0
-# (name, CUDA source, the TPU kernel it replaces: its pallas_call)
-KERNELS = [
-    ("rollout_pendulum", "ppoc_tpu_torch/csrc/rollout.cu",
-     "ppoc_tpu/ops/pallas_rollout.py:695"),
-    ("gae_norm", "ppoc_tpu_torch/csrc/gae.cu",
-     "ppoc_tpu/ops/pallas_gae.py:134"),
-    ("value_phase", "ppoc_tpu_torch/csrc/update.cu",
-     "ppoc_tpu/ops/pallas_update.py:396"),
-    ("policy_phase", "ppoc_tpu_torch/csrc/update.cu",
-     "ppoc_tpu/ops/pallas_update.py:749"),
-]
+THROUGHPUT_EPOCHS = 10
+# name -> (CUDA source, the TPU kernel it replaces: its pallas_call)
+KERNELS = {
+    "rollout_pendulum": ("ppoc_tpu_torch/csrc/rollout.cu",
+                         "ppoc_tpu/ops/pallas_rollout.py:695"),
+    "gae_norm": ("ppoc_tpu_torch/csrc/gae.cu",
+                 "ppoc_tpu/ops/pallas_gae.py:134"),
+    "value_phase": ("ppoc_tpu_torch/csrc/update.cu",
+                    "ppoc_tpu/ops/pallas_update.py:396"),
+    "policy_phase": ("ppoc_tpu_torch/csrc/update.cu",
+                     "ppoc_tpu/ops/pallas_update.py:749"),
+    "mlp_forward": ("ppoc_tpu_torch/csrc/mlp.cu",
+                    "ppoc_tpu/ops/pallas_mlp.py:139"),
+    "mlp_backward": ("ppoc_tpu_torch/csrc/mlp.cu",
+                     "ppoc_tpu/ops/pallas_mlp.py:226"),
+}
+# H100 SXM peaks (NVIDIA data sheet, 700 W): FP32 outside the tensor cores,
+# HBM3 bandwidth.  Every kernel of the port computes in plain FP32.
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+
+
+def bound_ms(ops: float, nbytes: float):
+    """(least ms, what sets it): the larger of operations over the FP32
+    peak and bytes over the memory peak."""
+    t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def products(widths) -> int:
+    """Multiply-adds of one row through an MLP: sum of d_in * d_out."""
+    return sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+
+
+def n_params(widths) -> int:
+    return products(widths) + sum(widths[1:])
+
+
+def rollout_bound(widths, T: int, E: int, act_dim: int = 1):
+    """K1 with the V planes: a policy forward and V(s), V(s') per env-step
+    (2 FLOP per multiply-add); reads both nets, writes obs, next_obs,
+    action, log_prob, reward, V, V' (float32), the two done planes (bytes)
+    and the final state."""
+    ops = 2 * T * E * 3 * products(widths)
+    nbytes = (4 * 2 * n_params(widths) + T * E * (4 * (3 + 3 + act_dim + 4)
+                                                  + 2) + 4 * 3 * E)
+    return bound_ms(ops, nbytes)
+
+
+def gae_bound(T: int, E: int):
+    """K2: reads r, V, V' (float32) and the two done planes, writes the
+    advantages and targets; about 16 operations an element."""
+    return bound_ms(16 * T * E, T * E * (4 * 3 + 2 + 4 * 2))
+
+
+def phase_bound(widths, n_steps: int, mb: int, extra_cols: int):
+    """K3/K4: per step the forward, dW/db and dX past layer 0 (2 FLOP per
+    multiply-add) and ~12 operations an Adam parameter; reads each row
+    once (d0 + extra_cols floats), reads and writes params and moments."""
+    per_step = 2 * mb * (2 * products(widths) + products(widths[1:]))
+    ops = n_steps * (per_step + 12 * n_params(widths))
+    nbytes = 4 * (n_steps * mb * (widths[0] + extra_cols)
+                  + 6 * n_params(widths))
+    return bound_ms(ops, nbytes)
+
+
+def mlp_bounds(widths, rows: int):
+    """K5 forward (products; reads x and the params, writes out and the
+    hidden post-activations) and backward with dX (dW/db and dX of every
+    layer; reads x, the hiddens, the cotangent and params, writes the
+    gradients and dX)."""
+    hidden = sum(widths[1:-1])
+    fwd = bound_ms(2 * rows * products(widths),
+                   4 * (rows * (widths[0] + widths[-1] + hidden)
+                        + n_params(widths)))
+    bwd = bound_ms(4 * rows * products(widths),
+                   4 * (rows * (2 * widths[0] + widths[-1] + hidden)
+                        + 2 * n_params(widths)))
+    return fwd, bwd
 
 
 def bench_config(seed: int = 0):
@@ -57,7 +140,8 @@ def card_line() -> str:
 
 
 def timed_ms(fn, reps: int) -> float:
-    """Milliseconds per call on the card (CUDA events), after a warm-up."""
+    """Milliseconds per call on the card (CUDA events), after a warm-up:
+    what a caller waits, the host's launch overhead included."""
     import torch
 
     fn()
@@ -70,6 +154,35 @@ def timed_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Milliseconds of device-kernel time per call, after a warm-up: the
+    durations of every kernel the call launches, summed from
+    torch.profiler's CUDA events.  Unlike timed_ms it leaves out the gaps
+    in which the device waits for the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / reps
+
+
+def timings(kernel, plain, reps: int, plain_reps: int):
+    """{"ms", "plain_ms"} as device-kernel time and {"call_ms",
+    "plain_call_ms"} as CUDA-event time per call."""
+    return {"ms": device_ms(kernel, reps),
+            "plain_ms": device_ms(plain, plain_reps),
+            "call_ms": timed_ms(kernel, reps),
+            "plain_call_ms": timed_ms(plain, plain_reps)}
 
 
 def max_err(a, b) -> float:
@@ -154,11 +267,11 @@ def check_rollout(cfg, ts, env, dev):
     check("R, J sums vs the trajectory (relative)", max(
         abs(float(sum_r / n_eps - want.R)) / abs(float(want.R)),
         abs(float(sum_j / n_eps - want.J)) / abs(float(want.J))), 1e-4)
-    ms = timed_ms(lambda: cr.rollout_kernel(
-        pp["mlp"], pp["log_std"], vp, seed, E, T), 20)
-    plain_ms = timed_ms(lambda: cr.rollout_plain(
-        pp["mlp"], pp["log_std"], vp, seed, E, T), 3)
-    return raw, max(errs.values()), ms, plain_ms
+    times = timings(
+        lambda: cr.rollout_kernel(pp["mlp"], pp["log_std"], vp, seed, E, T),
+        lambda: cr.rollout_plain(pp["mlp"], pp["log_std"], vp, seed, E, T),
+        20, 2)
+    return raw, max(errs.values()), times
 
 
 def check_gae(cfg, raw, dev):
@@ -174,9 +287,9 @@ def check_gae(cfg, raw, dev):
     err = check("advantages", max_err(adv, adv_p), 1e-5)
     check("targets (relative)",
           max_err(tgt, tgt_p) / float(tgt_p.abs().max()), 1e-5)
-    ms = timed_ms(lambda: cuda_gae.gae_norm_kernel(*args), 50)
-    plain_ms = timed_ms(lambda: cuda_gae.gae_norm_plain(*args), 3)
-    return adv, tgt, err, ms, plain_ms
+    times = timings(lambda: cuda_gae.gae_norm_kernel(*args),
+                    lambda: cuda_gae.gae_norm_plain(*args), 50, 3)
+    return adv, tgt, err, times
 
 
 def phase_rows(cfg, raw, adv, tgt, dev, draw_seed: int = 1):
@@ -323,11 +436,123 @@ def check_phases(cfg, ts, raw, adv, tgt, dev):
                              f"one {n_p}-step launch")
     print(f"  policy phase: {n_p} chained one-step launches equal one "
           f"{n_p}-step launch bit for bit", flush=True)
-    v_ms = timed_ms(lambda: value(cu.value_phase_kernel, n_v), 5)
-    v_plain = timed_ms(lambda: value(cu.value_phase_plain, n_v), 1)
-    p_ms = timed_ms(lambda: policy_(cu.policy_phase_kernel, n_p), 5)
-    p_plain = timed_ms(lambda: policy_(cu.policy_phase_plain, n_p), 1)
-    return (v_err, v_ms, v_plain), (p_err, p_ms, p_plain)
+    v_times = timings(lambda: value(cu.value_phase_kernel, n_v),
+                      lambda: value(cu.value_phase_plain, n_v), 5, 1)
+    p_times = timings(lambda: policy_(cu.policy_phase_kernel, n_p),
+                      lambda: policy_(cu.policy_phase_plain, n_p), 5, 1)
+    return (v_err, v_times), (p_err, p_times)
+
+
+def check_mlp(params, x, activation: str, dev):
+    """K5 at one batch of the path: forward (output and saved hiddens) and
+    backward (dW, db, dX) against the plain versions, with a seeded
+    cotangent; the backward twice, equal bit for bit.  Returns (max abs
+    error, forward timings, backward timings)."""
+    import torch
+
+    from ppoc_tpu_torch.models import mlp
+    from ppoc_tpu_torch.ops import cuda_mlp as cm
+
+    rows = x.shape[0]
+    ct = torch.randn(rows, mlp.dims(params)[-1],
+                     generator=torch.Generator().manual_seed(rows)).to(dev)
+    out, hid = cm.mlp_forward_kernel(params, x, activation)
+    out_p, hid_p = cm.mlp_forward_plain(params, x, activation)
+    torch.cuda.synchronize()
+    err = check(f"K5 forward, {rows} rows: output and hiddens", max(
+        max_err(a, b) for a, b in zip([out, *hid], [out_p, *hid_p])), 1e-5)
+    grads, dx = cm.mlp_backward_kernel(params, x, hid, ct, activation)
+    again, dx2 = cm.mlp_backward_kernel(params, x, hid, ct, activation)
+    grads_p, dx_p = cm.mlp_backward_plain(params, x, hid, ct, activation)
+    torch.cuda.synchronize()
+    got = [t for pair in grads for t in pair] + [dx]
+    want = [t for pair in grads_p for t in pair] + [dx_p]
+    # float32 sums of up to `rows` terms, taken in another order
+    check(f"K5 backward, {rows} rows: dW, db, dX, max |diff| over the "
+          f"leaf's max |plain|", max(max_err(a, b) / float(b.abs().max())
+                                     for a, b in zip(got, want)), 1e-4,
+          what="ratio")
+    err = max(err, *(max_err(a, b) for a, b in zip(got, want)))
+    if not (torch.equal(mlp.flatten(grads), mlp.flatten(again))
+            and torch.equal(dx, dx2)):
+        raise AssertionError("two runs of K5's backward differ")
+    print(f"  K5 backward, {rows} rows: two runs equal bit for bit",
+          flush=True)
+    fwd = timings(lambda: cm.mlp_forward_kernel(params, x, activation),
+                  lambda: cm.mlp_forward_plain(params, x, activation), 50, 20)
+    bwd = timings(
+        lambda: cm.mlp_backward_kernel(params, x, hid, ct, activation),
+        lambda: cm.mlp_backward_plain(params, x, hid, ct, activation), 50, 20)
+    return err, fwd, bwd
+
+
+def throughput_path(cfg, dev, counters):
+    """Trainer(cfg) on the card by default: THROUGHPUT_EPOCHS epochs, then
+    the mean-policy evaluation, each with the launch counts read around
+    it; the mean policy's actions held to the plain forward."""
+    import torch
+
+    from ppoc_tpu_torch.algo import ppo
+    from ppoc_tpu_torch.algo.trainer import Trainer
+    from ppoc_tpu_torch.models import mlp
+
+    tr = Trainer(cfg)
+    if tr.device != torch.device("cuda", 0):
+        raise AssertionError(f"Trainer(cfg) chose {tr.device}, not cuda:0")
+    names = [c.kernel for c in counters]
+    for c in counters:
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = tr.train(n_epochs=THROUGHPUT_EPOCHS, log=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    train_n = dict(zip(names, (c.n for c in counters)))
+    train_s = sum(h["time_s"] for h in hist)
+    steps = len(hist) * cfg.steps_per_epoch
+    print(f"  {len(hist)} epochs: R {[round(h['R'], 3) for h in hist]}",
+          flush=True)
+    print(f"  training time per epoch (s) "
+          f"{[round(h['time_s'], 4) for h in hist]}; {train_s:.3f} s of "
+          f"training, {steps / train_s:.0f} env-steps/s; {wall:.3f} s with "
+          f"the evaluations; launches {train_n}", flush=True)
+    if not all(math.isfinite(h["R"]) for h in hist):
+        raise AssertionError("non-finite eval return on the throughput path")
+    if not all(torch.isfinite(t).all() for t in (
+            mlp.flatten(tr.state.v_params),
+            mlp.flatten(tr.state.policy_params["mlp"]),
+            tr.state.policy_params["log_std"])):
+        raise AssertionError("non-finite weights on the throughput path")
+    if (min(train_n[k] for k in ("rollout_pendulum", "gae_norm",
+                                 "mlp_forward", "mlp_backward")) < 1
+            or train_n["value_phase"] or train_n["policy_phase"]):
+        raise AssertionError(f"the throughput path must run K1, K2 and K5 "
+                             f"and no K3/K4: {train_n}")
+
+    for c in counters:
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev = tr.evaluate(deterministic=True)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    eval_n = dict(zip(names, (c.n for c in counters)))
+    print(f"  evaluate(deterministic=True): R {ev.R:.3f}, J {ev.J:.3f}, "
+          f"episodes {int(ev.episodes)}, {eval_s:.3f} s; launches {eval_n}",
+          flush=True)
+    if not (math.isfinite(ev.R) and ev.episodes == cfg.eval_envs):
+        raise AssertionError(f"mean-policy evaluation failed: {ev}")
+    if eval_n["mlp_forward"] != cfg.eval_len or eval_n["rollout_pendulum"]:
+        raise AssertionError(f"the mean-policy evaluation must be "
+                             f"{cfg.eval_len} K5 forwards: {eval_n}")
+    pp = tr.state.policy_params
+    draws = ppo.draw_eval(cfg, tr.env, torch.Generator().manual_seed(7), dev,
+                          deterministic=True)
+    traj = ppo.rollout_env_loop(cfg, tr.env, pp, draws)
+    act_err = check("mean-policy actions vs the plain forward on the "
+                    "recorded obs", max_err(traj.action, mlp.apply(
+                        pp["mlp"], traj.obs, cfg.activation)), 1e-5)
+    return tr, train_n, eval_n, act_err
 
 
 def main() -> int:
@@ -344,10 +569,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from ppoc_tpu_torch import PPOConfig
+    from ppoc_tpu_torch import PPOConfig, tpu_preset
     from ppoc_tpu_torch.algo.trainer import Trainer
+    from ppoc_tpu_torch.data import buffer
+    from ppoc_tpu_torch.algo import ppo
     from ppoc_tpu_torch.models import mlp
-    from ppoc_tpu_torch.ops import _build, cuda_gae, cuda_rollout, cuda_update
+    from ppoc_tpu_torch.ops import (_build, cuda_gae, cuda_mlp, cuda_rollout,
+                                    cuda_update)
 
     print("[build]", flush=True)
     info = _build.build()
@@ -357,26 +585,39 @@ def main() -> int:
         if "registers" in line or "spill" in line.lower():
             print("  nvcc:", line.strip(), flush=True)
     _build.load()
+    counters = [cuda_rollout.launches, cuda_gae.launches,
+                cuda_update.value_launches, cuda_update.policy_launches,
+                cuda_mlp.fwd_launches, cuda_mlp.bwd_launches]
+    results = []
+
+    def record(name, path, shape, launches, err, times, bound):
+        # library_ms: no single PyTorch call computes any of these
+        src, replaces = KERNELS[name]
+        results.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": err, **times,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+            "path": path, "shape": shape})
+        print(f"  {name} ({path}, {shape}): device time kernel "
+              f"{times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms; per "
+              f"call kernel {times['call_ms']:.4f} ms, plain "
+              f"{times['plain_call_ms']:.4f} ms; bound {bound[0]:.4f} ms "
+              f"({bound[1]}); launches {launches}", flush=True)
 
     cfg = bench_config()
     tr = Trainer(cfg, dev)
+    widths = mlp.dims(tr.state.v_params)
     print("[K1 rollout]", flush=True)
-    raw, k1_err, k1_ms, k1_plain = check_rollout(cfg, tr.state, tr.env, dev)
+    raw, k1_err, k1_t = check_rollout(cfg, tr.state, tr.env, dev)
     print("[K2 gae]", flush=True)
-    adv, tgt, k2_err, k2_ms, k2_plain = check_gae(cfg, raw, dev)
+    adv, tgt, k2_err, k2_t = check_gae(cfg, raw, dev)
     print("[K3 value phase, K4 policy phase]", flush=True)
-    (k3_err, k3_ms, k3_plain), (k4_err, k4_ms, k4_plain) = check_phases(
-        cfg, tr.state, raw, adv, tgt, dev)
-    for name, ms, plain in (("K1 rollout", k1_ms, k1_plain),
-                            ("K2 gae", k2_ms, k2_plain),
-                            ("K3 value phase", k3_ms, k3_plain),
-                            ("K4 policy phase", k4_ms, k4_plain)):
-        print(f"  {name}: kernel {ms:.3f} ms, plain {plain:.3f} ms", flush=True)
+    (k3_err, k3_t), (k4_err, k4_t) = check_phases(cfg, tr.state, raw, adv,
+                                                  tgt, dev)
 
-    print("[main path: Trainer(bench_config).solve(-200, max_epochs=40)]",
+    print("[bench path: Trainer(bench_config).solve(-200, max_epochs=40)]",
           flush=True)
-    counters = [cuda_rollout.launches, cuda_gae.launches,
-                cuda_update.value_launches, cuda_update.policy_launches]
     tr = Trainer(bench_config(), dev)
     for c in counters:
         c.reset()
@@ -385,15 +626,15 @@ def main() -> int:
     res = tr.solve(SOLVE_R, max_epochs=40)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = [c.n for c in counters]
+    launches = {c.kernel: c.n for c in counters}
     steps = res["epochs"] * cfg.steps_per_epoch
     print(f"  epochs {res['epochs']}, final R {res['R']:.3f}, wall "
           f"{wall:.3f} s, {steps / wall:.0f} env-steps/s (training), "
-          f"launches {dict(zip([c.kernel for c in counters], launches))}",
-          flush=True)
+          f"launches {launches}", flush=True)
     if not (math.isfinite(res["R"]) and res["R"] >= SOLVE_R):
         raise AssertionError(f"not solved in 40 epochs: R {res['R']}")
-    if min(launches) < 1:
+    if min(launches[k] for k in ("rollout_pendulum", "gae_norm",
+                                 "value_phase", "policy_phase")) < 1:
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
     if not all(torch.isfinite(t).all() for t in (
@@ -401,6 +642,18 @@ def main() -> int:
             mlp.flatten(tr.state.policy_params["mlp"]),
             tr.state.policy_params["log_std"])):
         raise AssertionError("non-finite weights after the solve")
+    T, E, mb = cfg.rollout_len, cfg.n_envs, cfg.minibatch_size
+    n_v = cfg.n_epochs_value * cfg.num_minibatches
+    n_p = cfg.n_epochs_policy * cfg.num_minibatches
+    bench = f"bench, {E} envs x {T} steps, mb {mb}"
+    record("rollout_pendulum", bench, [T, E], launches["rollout_pendulum"],
+           k1_err, k1_t, rollout_bound(widths, T, E))
+    record("gae_norm", bench, [T, E], launches["gae_norm"], k2_err, k2_t,
+           gae_bound(T, E))
+    record("value_phase", bench, [n_v, mb], launches["value_phase"], k3_err,
+           k3_t, phase_bound(widths, n_v, mb, 1))
+    record("policy_phase", bench, [n_p, mb], launches["policy_phase"],
+           k4_err, k4_t, phase_bound(widths, n_p, mb, 3))
 
     print("[reference schedule: PPOConfig(env='pendulum'), 2 epochs]",
           flush=True)
@@ -413,14 +666,44 @@ def main() -> int:
     if not all(math.isfinite(h["R"]) for h in hist):
         raise AssertionError("non-finite eval return on the reference run")
 
-    results = []
-    for (name, src, replaces), n, err, ms, plain in zip(
-            KERNELS, launches, (k1_err, k2_err, k3_err, k4_err),
-            (k1_ms, k2_ms, k3_ms, k4_ms),
-            (k1_plain, k2_plain, k3_plain, k4_plain)):
-        results.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": n,
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain})
+    tcfg = tpu_preset("pendulum")
+    T, E, mb = tcfg.rollout_len, tcfg.n_envs, tcfg.minibatch_size
+    tr = Trainer(tcfg)
+    print(f"[K1 at the throughput shape: {E} envs x {T} steps]", flush=True)
+    raw, t1_err, t1_t = check_rollout(tcfg, tr.state, tr.env, dev)
+    print(f"[K2 at {T} x {E}: the global-memory branch]", flush=True)
+    adv, tgt, t2_err, t2_t = check_gae(tcfg, raw, dev)
+    print(f"[K5 mlp_forward at {mb} and {tcfg.eval_envs} rows, widths "
+          f"{widths}]", flush=True)
+    draws = ppo.draw_fit(tcfg, torch.Generator().manual_seed(3), dev)
+    x_mb, = buffer.gather_mb((raw.obs.reshape(-1, 3),), draws.value_idx[0, 0],
+                             tcfg.shuffle_block)
+    k5_err, k5_fwd, k5_bwd = check_mlp(tr.state.v_params, x_mb,
+                                       tcfg.activation, dev)
+    x_ev = raw.obs[0, : tcfg.eval_envs].contiguous()
+    k5e_err, k5e_fwd, _ = check_mlp(tr.state.policy_params["mlp"], x_ev,
+                                    tcfg.activation, dev)
+
+    print(f"[throughput path: Trainer(tpu_preset('pendulum')), "
+          f"{THROUGHPUT_EPOCHS} epochs, then evaluate(deterministic=True)]",
+          flush=True)
+    tr, train_n, eval_n, act_err = throughput_path(tcfg, dev, counters)
+    thr = f"throughput, {E} envs x {T} steps, mb {mb}"
+    fwd_b, bwd_b = mlp_bounds(widths, mb)
+    record("rollout_pendulum", thr, [T, E], train_n["rollout_pendulum"],
+           t1_err, t1_t, rollout_bound(widths, T, E))
+    record("gae_norm", thr, [T, E], train_n["gae_norm"], t2_err, t2_t,
+           gae_bound(T, E))
+    record("mlp_forward", thr, [mb] + widths, train_n["mlp_forward"], k5_err,
+           k5_fwd, fwd_b)
+    record("mlp_backward", thr, [mb] + widths, train_n["mlp_backward"],
+           k5_err, k5_bwd, bwd_b)
+    pwidths = mlp.dims(tr.state.policy_params["mlp"])
+    record("mlp_forward", "mean-policy evaluation",
+           [tcfg.eval_envs] + pwidths, eval_n["mlp_forward"],
+           max(k5e_err, act_err), k5e_fwd,
+           mlp_bounds(pwidths, tcfg.eval_envs)[0])
+
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

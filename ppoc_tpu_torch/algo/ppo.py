@@ -10,19 +10,24 @@ truncated so GAE never bootstraps across it; value targets are V + A taken
 before normalisation; every epoch reshuffles and drops the tail; three
 Adam states (policy net, value net, log_std).
 
-The port runs the JAX package's fused path (kernel_backend "pallas" or
-"auto"): one rollout kernel (K1, with V(s) and V(s') in-kernel), one GAE +
-normalise kernel (K2), one kernel per update phase (K3, K4).  On CPU
-tensors each runs its plain version.  The JAX package's generic "jnp"
-path (env loop, doubling-scan GAE, autograd phases) is not ported.
+The port runs the JAX package's "pallas" backend (kernel_backend "pallas"
+or "auto"): one rollout kernel (K1, with V(s) and V(s') in-kernel), one
+GAE + normalise kernel (K2), then per update phase either one whole-phase
+kernel (K3, K4) or, above the fused gate (minibatches over 2048 rows), the
+generic per-minibatch phase whose forward and backward are the whole-MLP
+kernel K5.  The mean policy evaluates through the env loop, one K5 forward
+per step.  On CPU tensors each kernel runs its plain version.  The JAX
+package's "jnp" backend (stochastic env-loop training rollout,
+doubling-scan GAE with Welford) is not ported.
 
-The JAX package compiles a fit into one program; here a fit is four kernel
-launches plus a few small PyTorch ops, driven eagerly from the host.
+The JAX package compiles a fit into one program; here a fit is a few kernel
+launches plus small PyTorch ops, driven eagerly from the host.
 
 Randomness is explicit: a fit's draws (:class:`FitDraws`) are the rollout's
-two seed words and the value/policy row-id streams, drawn up front from
-the trainer's ``torch.Generator`` -- or handed in, so tests can feed both
-packages the same randomness.
+two seed words and the value/policy row-id (or block-id) streams, and an
+env-loop evaluation's (:class:`LoopDraws`) its start and reset states,
+drawn up front from the trainer's ``torch.Generator`` -- or handed in, so
+tests can feed both packages the same randomness.
 """
 from __future__ import annotations
 
@@ -33,10 +38,13 @@ import torch
 
 from ppoc_tpu_torch.config import PPOConfig
 from ppoc_tpu_torch.data import buffer
-from ppoc_tpu_torch.envs.core import Env, vector_reset
+from ppoc_tpu_torch.envs.core import Env, vector_autoreset_step, vector_reset
 from ppoc_tpu_torch.models import mlp, policy as policy_mod
 from ppoc_tpu_torch.ops import (adam, cuda_gae, cuda_rollout, cuda_update,
-                                gae as gae_ops)
+                                gae as gae_ops, losses)
+
+# The port's one backend: every MLP call outside K1/K3/K4 goes through K5.
+BACKEND = "pallas"
 
 
 class Transition(NamedTuple):
@@ -67,8 +75,9 @@ class FitMetrics(NamedTuple):
 class FitDraws(NamedTuple):
     """All the randomness one fit consumes."""
     seed: Tuple[int, int]       # the rollout's two 32-bit seed words
-    value_idx: torch.Tensor     # [n_epochs_value, n_mb, mb] row ids
-    policy_idx: torch.Tensor    # [n_epochs_policy, n_mb, mb] row ids
+    value_idx: torch.Tensor     # [n_epochs_value, n_mb, mb] row ids, or
+                                # [.., mb / shuffle_block] block ids
+    policy_idx: torch.Tensor    # [n_epochs_policy, n_mb, ...] likewise
 
 
 class EvalMetrics(NamedTuple):
@@ -84,15 +93,19 @@ def _hyper(cfg: PPOConfig, lr: float) -> cuda_update.Hyper:
 
 def draw_fit(cfg: PPOConfig, generator: torch.Generator,
              device: torch.device) -> FitDraws:
-    """Draw one fit's seed words and row-id streams from ``generator``."""
+    """Draw one fit's seed words and row-id (block-id, with
+    cfg.shuffle_block) streams from ``generator``."""
     seed = cuda_rollout.seed_words(generator)
+    args = (cfg.steps_per_fit, cfg.num_minibatches, cfg.minibatch_size)
+
+    def epoch():
+        if cfg.shuffle_block:
+            return buffer.block_permutation_minibatches(
+                generator, *args, cfg.shuffle_block)
+        return buffer.permutation_minibatches(generator, *args)
 
     def stream(n_epochs):
-        return torch.stack([
-            buffer.permutation_minibatches(generator, cfg.steps_per_fit,
-                                           cfg.num_minibatches,
-                                           cfg.minibatch_size)
-            for _ in range(n_epochs)]).to(device)
+        return torch.stack([epoch() for _ in range(n_epochs)]).to(device)
 
     return FitDraws(seed, stream(cfg.n_epochs_value),
                     stream(cfg.n_epochs_policy))
@@ -148,6 +161,50 @@ def rollout(cfg: PPOConfig, env: Env, policy_params: Dict[str, Any], seed,
     return out
 
 
+class LoopDraws(NamedTuple):
+    """All the randomness one mean-policy env-loop rollout consumes."""
+    carry: Any   # (state, obs) the window starts from
+    fresh: Any   # (state, obs) with leading dims [T, E]: what an env that
+                 # finishes step t resets to
+
+
+def draw_loop(env: Env, generator: torch.Generator, n_envs: int, length: int,
+              device) -> LoopDraws:
+    """Draw an env-loop rollout's start and reset states from
+    ``generator``."""
+    carry = vector_reset(env, generator, n_envs, device)
+    state, obs = vector_reset(env, generator, length * n_envs, device)
+
+    def lead(x):
+        return x.reshape((length, n_envs) + x.shape[1:])
+
+    return LoopDraws(carry, (type(state)(*map(lead, state)), lead(obs)))
+
+
+@torch.no_grad()
+def rollout_env_loop(cfg: PPOConfig, env: Env, policy_params: Dict[str, Any],
+                     draws: LoopDraws) -> Transition:
+    """The JAX package's env-loop rollout of the mean policy
+    (``ppoc_tpu/algo/ppo.py:387-424`` with ``deterministic=True``), for
+    evaluation: per step, the policy's mode through K5, then
+    ``vector_autoreset_step`` with the drawn reset states.  Returns the
+    trajectory [T, E, ...] with its genuine done flags.  A stochastic
+    rollout is K1 (:func:`rollout`) on this backend, as in the JAX
+    package."""
+    state, obs = draws.carry
+    fstate, fobs = draws.fresh
+    steps = []
+    for t in range(fobs.shape[0]):
+        action, logp = policy_mod.mode(policy_params, obs, cfg.activation,
+                                       BACKEND)
+        fresh = (type(fstate)(*(f[t] for f in fstate)), fobs[t])
+        state, obs2, next_obs, reward, term, trunc = vector_autoreset_step(
+            env, state, action, fresh=fresh)
+        steps.append((obs, action, logp, next_obs, reward, term, trunc))
+        obs = obs2
+    return Transition(*(torch.stack(col) for col in zip(*steps)))
+
+
 # --------------------------------------------------------------------------
 # advantages
 # --------------------------------------------------------------------------
@@ -196,44 +253,106 @@ def _mb_rows(cfg: PPOConfig, idx: torch.Tensor) -> int:
     return idx.shape[2] * (cfg.shuffle_block or 1)
 
 
+def _requiring_grad(tree):
+    """Detached copies of a parameter tree's tensors that require grad."""
+    return adam.tree_map(lambda t: t.detach().requires_grad_(), tree)
+
+
+def _adam_step(cfg: PPOConfig, params, grads, opt, lr: float):
+    return adam.update(params, adam.tree_unflatten(params, list(grads)), opt,
+                       lr, cfg.adam_beta1, cfg.adam_beta2, cfg.adam_eps)
+
+
+def _minibatches(idx: torch.Tensor):
+    """The stream's minibatches in order: epoch-major, then minibatch."""
+    return idx.reshape(-1, idx.shape[-1])
+
+
 def value_phase(cfg: PPOConfig, ts: TrainState, buf: buffer.RowBuffer,
                 idx: torch.Tensor):
-    """Fit V over the row-id stream ``idx`` [n_epochs, n_mb, mb]: one K3
-    launch on the pre-gathered rows when the fused gate holds; returns
-    (ts', mean minibatch loss)."""
+    """Fit V over the id stream ``idx`` [n_epochs, n_mb, ...]; returns
+    (ts', mean minibatch loss).
+
+    Under the fused gate, one K3 launch on the pre-gathered rows.  Above
+    it, the JAX package's scan branch (``ppoc_tpu/algo/ppo.py:631-667``) as
+    a loop: per minibatch, gather, the MSE loss through K5,
+    ``torch.autograd.grad`` (K5's backward) and one Adam step.  The
+    stabilisers are not ported (the Trainer refuses them), so the JAX
+    package's ``_prep_grads`` and lr schedule are the identity and lr_v
+    here."""
     n_epochs, n_mb = idx.shape[:2]
-    mb = _mb_rows(cfg, idx)
-    if not _fused(cfg, n_mb, mb, _stab_value_ok(cfg)):
-        raise NotImplementedError(
-            f"the generic value phase (minibatch {mb} > {MAX_FUSED_MB}) is "
-            f"not ported yet")
-    obs_seq, tgt_seq = buffer.gather_mb((buf.obs, buf.target), idx)
-    v2, opt2, loss = cuda_update.value_phase(
-        obs_seq, tgt_seq, ts.v_params, ts.opt_v, n_epochs * n_mb, mb,
-        cfg.activation, _hyper(cfg, cfg.lr_v))
-    return ts._replace(v_params=v2, opt_v=opt2), loss
+    mb, blk = _mb_rows(cfg, idx), cfg.shuffle_block
+    cols = (buf.obs, buf.target)
+    if _fused(cfg, n_mb, mb, _stab_value_ok(cfg)):
+        obs_seq, tgt_seq = buffer.gather_mb(cols, idx, blk)
+        v2, opt2, loss = cuda_update.value_phase(
+            obs_seq, tgt_seq, ts.v_params, ts.opt_v, n_epochs * n_mb, mb,
+            cfg.activation, _hyper(cfg, cfg.lr_v))
+        return ts._replace(v_params=v2, opt_v=opt2), loss
+    if not _stab_value_ok(cfg):
+        raise NotImplementedError("the value-phase stabilisers are not "
+                                  "ported yet (ROADMAP.md)")
+    v_params, opt_v, mb_losses = ts.v_params, ts.opt_v, []
+    for ids in _minibatches(idx):
+        o, t = buffer.gather_mb(cols, ids, blk)
+        params = _requiring_grad(v_params)
+        v = mlp.apply(params, o, cfg.activation, BACKEND)[..., 0]
+        loss = losses.value_loss(v, t)
+        grads = torch.autograd.grad(loss, adam.tree_leaves(params))
+        v_params, opt_v = _adam_step(cfg, v_params, grads, opt_v, cfg.lr_v)
+        mb_losses.append(loss.detach())
+    return (ts._replace(v_params=v_params, opt_v=opt_v),
+            torch.stack(mb_losses).mean())
 
 
 def policy_phase(cfg: PPOConfig, ts: TrainState, buf: buffer.RowBuffer,
                  idx: torch.Tensor):
-    """Clipped-surrogate passes over the row-id stream ``idx``: one K4
-    launch when the fused gate holds; returns (ts', mean loss, mean
-    entropy)."""
+    """Clipped-surrogate passes over the id stream ``idx``; returns (ts',
+    mean loss, mean entropy).
+
+    Under the fused gate, one K4 launch.  Above it, the JAX package's scan
+    branch (``ppoc_tpu/algo/ppo.py:726-780``): per minibatch, the Gaussian
+    log-prob through K5, ``clipped_surrogate_loss - ent_coeff * entropy``,
+    ``torch.autograd.grad`` and one Adam step for the mean net and one for
+    log_std, each with its own state.  Without the stabilisers the entropy
+    coefficient is the constant cfg.ent_coeff."""
     n_epochs, n_mb = idx.shape[:2]
-    mb = _mb_rows(cfg, idx)
-    if not _fused(cfg, n_mb, mb, _stab_policy_ok(cfg)):
-        raise NotImplementedError(
-            f"the generic policy phase (minibatch {mb} > {MAX_FUSED_MB}) is "
-            f"not ported yet")
+    mb, blk = _mb_rows(cfg, idx), cfg.shuffle_block
+    cols = (buf.obs, buf.action, buf.log_prob, buf.advantage)
     pol = ts.policy_params
-    o, a, lp, ad = buffer.gather_mb(
-        (buf.obs, buf.action, buf.log_prob, buf.advantage), idx)
-    params2, ls2, opt_p2, opt_ls2, loss, ent = cuda_update.policy_phase(
-        o, a, lp, ad, pol["mlp"], pol["log_std"], ts.opt_policy,
-        ts.opt_log_std, n_epochs * n_mb, mb, cfg.activation,
-        _hyper(cfg, cfg.lr_policy), cfg.clip_eps, cfg.ent_coeff)
-    return ts._replace(policy_params={"mlp": params2, "log_std": ls2},
-                       opt_policy=opt_p2, opt_log_std=opt_ls2), loss, ent
+    if _fused(cfg, n_mb, mb, _stab_policy_ok(cfg)):
+        o, a, lp, ad = buffer.gather_mb(cols, idx, blk)
+        params2, ls2, opt_p2, opt_ls2, loss, ent = cuda_update.policy_phase(
+            o, a, lp, ad, pol["mlp"], pol["log_std"], ts.opt_policy,
+            ts.opt_log_std, n_epochs * n_mb, mb, cfg.activation,
+            _hyper(cfg, cfg.lr_policy), cfg.clip_eps, cfg.ent_coeff)
+        return ts._replace(policy_params={"mlp": params2, "log_std": ls2},
+                           opt_policy=opt_p2, opt_log_std=opt_ls2), loss, ent
+    if not _stab_policy_ok(cfg):
+        raise NotImplementedError("the policy-phase stabilisers are not "
+                                  "ported yet (ROADMAP.md)")
+    opt_p, opt_ls = ts.opt_policy, ts.opt_log_std
+    mb_losses, ents = [], []
+    for ids in _minibatches(idx):
+        o, a, lp, ad = buffer.gather_mb(cols, ids, blk)
+        params = {"mlp": _requiring_grad(pol["mlp"]),
+                  "log_std": pol["log_std"].detach().requires_grad_()}
+        logp = policy_mod.log_prob(params, o, a, cfg.activation, BACKEND)
+        ent = policy_mod.entropy(params)
+        loss = (losses.clipped_surrogate_loss(logp, lp, ad, cfg.clip_eps)
+                - cfg.ent_coeff * ent)
+        grads = torch.autograd.grad(
+            loss, adam.tree_leaves(params["mlp"]) + [params["log_std"]])
+        mlp2, opt_p = _adam_step(cfg, pol["mlp"], grads[:-1], opt_p,
+                                 cfg.lr_policy)
+        ls2, opt_ls = _adam_step(cfg, pol["log_std"], grads[-1:], opt_ls,
+                                 cfg.lr_policy)
+        pol = {"mlp": mlp2, "log_std": ls2}
+        mb_losses.append(loss.detach())
+        ents.append(ent.detach())
+    return (ts._replace(policy_params=pol, opt_policy=opt_p,
+                        opt_log_std=opt_ls),
+            torch.stack(mb_losses).mean(), torch.stack(ents).mean())
 
 
 # --------------------------------------------------------------------------
@@ -292,11 +411,12 @@ def train_until(cfg: PPOConfig, env: Env, ts: TrainState,
     """Train epochs until the stochastic-eval mean return reaches
     ``target_R`` or ``max_epochs`` ran; returns (ts, epochs_run, final_R).
     A host loop: one device sync per epoch, to read R."""
+    device = ts.policy_params["log_std"].device
     n, R = 0, -math.inf
     while R < target_R and n < max_epochs:
         ts, _ = train_epoch(cfg, env, ts, generator)
         ev = evaluate(cfg, env, ts.policy_params,
-                      cuda_rollout.seed_words(generator), eval_envs)
+                      draw_eval(cfg, env, generator, device, n_envs=eval_envs))
         n, R = n + 1, float(ev.R)
     return ts, n, R
 
@@ -331,12 +451,63 @@ def eval_metrics_from_traj(traj: Transition, gamma: float) -> EvalMetrics:
                          done.float().sum())
 
 
-def evaluate(cfg: PPOConfig, env: Env, policy_params: Dict[str, Any], seed,
-             n_envs: Optional[int] = None) -> EvalMetrics:
-    """Stochastic-policy evaluation over cfg.eval_len steps: one K1 launch
-    that sums the completed episodes' returns inside the kernel."""
+def eval_metrics_reference(traj: Transition, gamma: float) -> EvalMetrics:
+    """The reference's own eval estimator per env stream, pooled over the
+    streams (``ppoc_tpu/algo/ppo.py:1086-1138``, which documents its
+    quirks): per stream the backward walk seeds episode_J with r[T-1] and
+    for i = T-2..0 takes episode_J = r[i] + gamma * episode_J before it
+    checks done[i]; n_episodes starts at 1 and counts every interior done;
+    the oldest segment's J is never summed.  J = sum_J / n, R = sum(r) /
+    n."""
+    T = traj.reward.shape[0]
+    done = traj.terminated | traj.truncated
+    ep_j = traj.reward[T - 1].float()
+    sum_j = torch.zeros_like(ep_j)
+    for i in range(T - 2, -1, -1):
+        ep_j = traj.reward[i] + gamma * ep_j        # before the done check
+        sum_j = sum_j + torch.where(done[i], ep_j, torch.zeros_like(ep_j))
+        ep_j = torch.where(done[i], torch.zeros_like(ep_j), ep_j)
+    n_total = (1.0 + done[: T - 1].float().sum(dim=0)).sum()
+    return EvalMetrics(J=sum_j.sum() / n_total,
+                       R=traj.reward.sum(dim=0).sum() / n_total,
+                       episodes=n_total)
+
+
+def draw_eval(cfg: PPOConfig, env: Env, generator: torch.Generator, device,
+              deterministic: bool = False, n_envs: Optional[int] = None):
+    """Draw what one evaluation consumes: the env loop's
+    :class:`LoopDraws` for the mean policy, else K1's two seed words."""
     n_envs = cfg.eval_envs if n_envs is None else n_envs
-    _, _, (sum_r, sum_j, n_eps) = cuda_rollout.rollout_fused(
-        env.spec.name, policy_params, seed, n_envs, cfg.eval_len,
-        cfg.activation, None, gamma=env.spec.gamma, return_metrics=True)
-    return _eval_metrics(sum_j, sum_r, n_eps)
+    if deterministic:
+        return draw_loop(env, generator, n_envs, cfg.eval_len, device)
+    return cuda_rollout.seed_words(generator)
+
+
+def evaluate(cfg: PPOConfig, env: Env, policy_params: Dict[str, Any], draws,
+             n_envs: Optional[int] = None,
+             deterministic: bool = False) -> EvalMetrics:
+    """Evaluation over cfg.eval_len steps, with ``draws`` from
+    :func:`draw_eval`, as ``ppoc_tpu/algo/ppo.py:1141-1194`` chooses:
+
+    * the stochastic policy is K1 (``draws``: its two seed words).  With
+      the completed-episode estimator the kernel sums the returns itself;
+      with cfg.eval_estimator "reference" the estimator reads K1's
+      trajectory;
+    * ``deterministic=True`` (the mean policy) runs the env loop, one K5
+      forward per step (``draws``: a :class:`LoopDraws`, which also fixes
+      the env count)."""
+    n_envs = cfg.eval_envs if n_envs is None else n_envs
+    reference = cfg.eval_estimator == "reference"
+    if deterministic:
+        traj = rollout_env_loop(cfg, env, policy_params, draws)
+    elif reference:
+        traj, _ = rollout(cfg, env, policy_params, draws, n_envs,
+                          cfg.eval_len, force_truncate=False)
+    else:
+        _, _, (sum_r, sum_j, n_eps) = cuda_rollout.rollout_fused(
+            env.spec.name, policy_params, draws, n_envs, cfg.eval_len,
+            cfg.activation, None, gamma=env.spec.gamma, return_metrics=True)
+        return _eval_metrics(sum_j, sum_r, n_eps)
+    if reference:
+        return eval_metrics_reference(traj, env.spec.gamma)
+    return eval_metrics_from_traj(traj, env.spec.gamma)

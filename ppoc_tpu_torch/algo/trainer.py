@@ -5,7 +5,8 @@ owns one ``torch.Generator`` (seeded from cfg.seed) in place of the JAX
 package's key; every fit and evaluation draws its seed words and row-id
 streams from it.  ``solve`` is a host loop over epochs plus evaluation
 (``ppo.train_until``), where the JAX package compiles that loop into one
-``while_loop``.
+``while_loop``.  The trainer runs on CUDA device 0 unless it is given
+another device (the CPU tests pass ``device="cpu"``).
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import torch
 from ppoc_tpu_torch import envs
 from ppoc_tpu_torch.algo import ppo
 from ppoc_tpu_torch.config import PPOConfig, validate
-from ppoc_tpu_torch.ops import cuda_rollout, resolve_backend
+from ppoc_tpu_torch.ops import resolve_backend
 
 
 class EvalWindowWarning(UserWarning):
@@ -33,9 +34,8 @@ _NOT_PORTED = {
     "attn_dim": 0, "tp_size": 1, "pp_size": 1, "ep_size": 1, "sp_size": 1,
     "zero1": False, "max_grad_norm": 0.0, "target_kl": 0.0,
     "lr_anneal": False, "clip_value": 0.0, "ent_anneal": False,
-    "shuffle_block": 0, "transplant_patience": 0, "aux_value_coeff": 0.0,
+    "transplant_patience": 0, "aux_value_coeff": 0.0,
     "fit_dispatch": "fused", "rollout_chunk": 0, "fits_per_program": 0,
-    "eval_estimator": "completed",
 }
 
 
@@ -60,6 +60,34 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda", 0)
 
 
+def score(trainer, episodes: int = 100, deterministic: bool = True,
+          max_rounds: int = 1000) -> Dict[str, float]:
+    """Evaluation over at least ``episodes`` COMPLETED episodes: repeat
+    ``trainer.evaluate`` rounds, weighting each round's mean J/R by its
+    episode count (``ppoc_tpu/algo/trainer.py`` ``score``).  Returns {"J",
+    "R", "episodes", "rounds"}."""
+    tot_j = tot_r = tot_n = 0.0
+    rounds = zero_rounds = 0
+    while tot_n < episodes and rounds < max_rounds:
+        m = trainer.evaluate(deterministic=deterministic)
+        rounds += 1
+        if m.episodes > 0:
+            tot_j += m.J * m.episodes
+            tot_r += m.R * m.episodes
+            tot_n += m.episodes
+        else:
+            zero_rounds += 1
+            # eval_len < horizon completes no episode, every round alike
+            if zero_rounds >= 3 and tot_n == 0:
+                break
+    if tot_n == 0:
+        raise RuntimeError(
+            f"no episode completed in {rounds} evaluation rounds; is "
+            f"eval_len >= the env horizon?")
+    return {"J": tot_j / tot_n, "R": tot_r / tot_n,
+            "episodes": int(tot_n), "rounds": rounds}
+
+
 class Trainer:
     def __init__(self, cfg: PPOConfig, device=None):
         validate(cfg)
@@ -79,11 +107,14 @@ class Trainer:
         self.state = ppo.init_train_state(cfg, self.env, self.generator,
                                           self.device)
 
-    def evaluate(self) -> ppo.EvalMetrics:
-        """Stochastic-policy eval (mean-policy eval needs kernel K5, not
-        ported yet).  Returns Python floats."""
-        m = ppo.evaluate(self.cfg, self.env, self.state.policy_params,
-                         cuda_rollout.seed_words(self.generator))
+    def evaluate(self, deterministic: bool = False) -> ppo.EvalMetrics:
+        """Stochastic eval by default (one K1 launch);
+        ``deterministic=True`` rolls out the policy mean, the mean-policy
+        protocol, through the env loop.  Returns Python floats."""
+        draws = ppo.draw_eval(self.cfg, self.env, self.generator,
+                              self.device, deterministic)
+        m = ppo.evaluate(self.cfg, self.env, self.state.policy_params, draws,
+                         deterministic=deterministic)
         return ppo.EvalMetrics(*(float(x) for x in m))
 
     def train_epoch(self) -> ppo.FitMetrics:
@@ -93,13 +124,16 @@ class Trainer:
 
     def train(self, n_epochs: Optional[int] = None, log: bool = True,
               stop_at_R: Optional[float] = None,
-              initial_eval: bool = True) -> List[Dict[str, Any]]:
+              initial_eval: bool = True,
+              eval_deterministic: bool = False) -> List[Dict[str, Any]]:
         """Full training run; returns per-epoch metric dicts.  ``stop_at_R``
-        stops once the eval mean undiscounted return reaches it."""
+        stops once the eval mean undiscounted return reaches it.
+        ``eval_deterministic`` scores each epoch with the mean policy, and
+        stop_at_R then gates on that R."""
         n_epochs = self.cfg.n_epochs if n_epochs is None else n_epochs
         history: List[Dict[str, Any]] = []
         if initial_eval:
-            m0 = self.evaluate()
+            m0 = self.evaluate(deterministic=eval_deterministic)
             if log:
                 print(f"J: {m0.J:f} R: {m0.R:f} Episodes: {int(m0.episodes)}",
                       flush=True)
@@ -107,7 +141,7 @@ class Trainer:
             tic = time.perf_counter()
             fit = ppo.FitMetrics(*(float(x) for x in self.train_epoch()))
             toc = time.perf_counter()
-            ev = self.evaluate()
+            ev = self.evaluate(deterministic=eval_deterministic)
             row = {
                 "epoch": i,
                 "entropy": fit.entropy,

@@ -1,5 +1,7 @@
 // The forward, backward and Adam code that the fused update phases (K3, K4
 // in update.cu) share: one minibatch step of an MLP, run by ONE block.
+// K5 (mlp.cu) uses its padded weight layout and `block_gemm`; the
+// functions are inline because both sources include this header.
 //
 // Layout during a phase:
 //   * shared memory: the weights, each W_l row padded to d_{l+1} + 1 floats
@@ -114,7 +116,7 @@ __device__ __forceinline__ void block_gemm(int M, int N, int K, LA la, LB lb,
 
 // Forward of the minibatch x [mb, d0] -> post-activations in c.H.
 // Ends with __syncthreads.
-__device__ void mlp_forward(const StepCtx& c, const float* x) {
+__device__ inline void mlp_forward(const StepCtx& c, const float* x) {
   const Net& net = c.pn.net;
   const int L = net.n_layers;
   for (int l = 0; l < L; ++l) {
@@ -140,7 +142,7 @@ __device__ void mlp_forward(const StepCtx& c, const float* x) {
 // Backward from G[0] = dLoss/dOutput [mb, d_L]: writes the flat gradient
 // to c.dP.  Per layer, dW (with db as its extra row) and dX read the same
 // operands and run in one pass.  Ends with __syncthreads.
-__device__ void mlp_backward(const StepCtx& c, const float* x) {
+__device__ inline void mlp_backward(const StepCtx& c, const float* x) {
   const Net& net = c.pn.net;
   const int L = net.n_layers, mb = c.mb, act = c.act;
   int cur = 0;
@@ -177,8 +179,8 @@ __device__ void mlp_backward(const StepCtx& c, const float* x) {
 
 // Adam on every weight, with the bias corrections 1 - exp(t log b) folded
 // into the step size and eps outside the sqrt.  Ends with __syncthreads.
-__device__ void adam_step(const StepCtx& c, float* m, float* v, int t,
-                          const AdamHyper& h) {
+__device__ inline void adam_step(const StepCtx& c, float* m, float* v, int t,
+                                 const AdamHyper& h) {
   const float tf = (float)t;
   const float bc1 = 1.0f - expf(tf * h.logb1);
   const float bc2 = 1.0f - expf(tf * h.logb2);

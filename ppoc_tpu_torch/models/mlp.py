@@ -70,16 +70,15 @@ def apply(params: Params, x: torch.Tensor, activation: str = "relu",
           backend: str = "jnp") -> torch.Tensor:
     """Forward pass on a batch ``x`` of shape [..., fan_in].
 
-    ``backend="pallas"`` names the JAX package's whole-MLP kernel
-    (``ops/pallas_mlp.py``, K5), which is not ported yet: on a CUDA tensor
-    it raises rather than run the plain forward in its place.  On a CPU
-    tensor the plain forward below is that kernel's plain version.
+    ``backend="pallas"`` runs the whole-MLP kernel K5
+    (``ops/cuda_mlp.py``, the port of ``ops/pallas_mlp.py``): on a CUDA
+    tensor its forward and backward kernels, on a CPU tensor their plain
+    versions.  ``backend="jnp"`` is the plain PyTorch forward below.
     """
-    if backend == "pallas" and x.is_cuda:
-        raise NotImplementedError(
-            "mlp.apply(backend='pallas') on CUDA needs kernel K5 "
-            "(ppoc_tpu/ops/pallas_mlp.py mlp_forward), which is not ported "
-            "yet; the fused rollout/update kernels cover the training path")
+    if backend == "pallas":
+        from ppoc_tpu_torch.ops import cuda_mlp
+
+        return cuda_mlp.mlp_forward(params, x, activation)
     act = _ACTIVATIONS[activation]
     h = x
     for i, (w, b) in enumerate(params):

@@ -10,10 +10,11 @@ launches the kernel (or raises), a CPU tensor runs the plain version.
 def resolve_backend(kernel_backend: str) -> str:
     """Map the config's kernel_backend to a concrete backend name.
 
-    ``"pallas"`` and ``"auto"`` both select the fused kernel path: the
-    hand-written CUDA kernels for CUDA tensors and their plain PyTorch
-    versions for CPU tensors.  The JAX package's generic ``"jnp"`` path
-    (env loop, autograd update phases) is not ported yet.
+    ``"pallas"`` and ``"auto"`` both select the JAX package's "pallas"
+    backend: the hand-written CUDA kernels for CUDA tensors and their plain
+    PyTorch versions for CPU tensors.  The ``"jnp"`` backend (stochastic
+    env-loop training rollout, doubling-scan GAE with Welford) is not
+    ported yet.
     """
     if kernel_backend in ("pallas", "auto"):
         return "pallas"

@@ -24,6 +24,7 @@ import torch
 
 from ppoc_tpu_torch.models import mlp
 from ppoc_tpu_torch.ops import _build
+from ppoc_tpu_torch.ops.cuda_mlp import backward_layers, forward_layers
 from ppoc_tpu_torch.ops.adam import AdamState
 
 value_launches = _build.LaunchCount("value_phase")
@@ -46,45 +47,6 @@ class Hyper(ctypes.Structure):
 
 
 # --- plain versions -------------------------------------------------------
-
-def _act(h, activation: str):
-    if activation == "relu":
-        return torch.relu(h)
-    if activation == "tanh":
-        return torch.tanh(h)
-    return h
-
-
-def _act_grad(h_out, activation: str):
-    if activation == "relu":
-        return (h_out > 0).to(h_out.dtype)
-    if activation == "tanh":
-        return 1.0 - h_out * h_out
-    return torch.ones_like(h_out)
-
-
-def _forward(x, W, B, activation: str) -> List[torch.Tensor]:
-    """Post-activations of every layer (the last one linear)."""
-    hs, h = [], x
-    for l, (w, b) in enumerate(zip(W, B)):
-        h = h @ w + b
-        if l < len(W) - 1:
-            h = _act(h, activation)
-        hs.append(h)
-    return hs
-
-
-def _backward(x, hs, g, W, activation: str):
-    """Flat [dW0, db0, dW1, db1, ...] from the output cotangent g."""
-    grads = [None] * (2 * len(W))
-    for l in range(len(W) - 1, -1, -1):
-        a_in = x if l == 0 else hs[l - 1]
-        grads[2 * l] = a_in.T @ g
-        grads[2 * l + 1] = g.sum(dim=0)
-        if l > 0:
-            g = (g @ W[l].T) * _act_grad(hs[l - 1], activation)
-    return grads
-
 
 def _bias_corrections(t: int, h: Hyper) -> Tuple[float, float]:
     """(1 - b1^t, 1 - b2^t) as the kernels form them: float32 exp(t log b)."""
@@ -124,11 +86,11 @@ def value_phase_plain(obs_seq, tgt_seq, params, opt: AdamState, n_steps: int,
     loss = torch.zeros((), dtype=torch.float32, device=obs_seq.device)
     for s in range(n_steps):
         x = obs_seq[s * mb: (s + 1) * mb]
-        hs = _forward(x, P[0::2], P[1::2], activation)
+        hs = forward_layers(x, P[0::2], P[1::2], activation)
         diff = hs[-1][:, 0] - tgt_seq[s * mb: (s + 1) * mb]
         loss = loss + (diff * diff).sum()
         g = (2.0 / mb) * diff[:, None]
-        grads = _backward(x, hs, g, P[0::2], activation)
+        grads, _ = backward_layers(x, hs, g, P[0::2], activation)
         _adam_(P, grads, M, V, opt.t + s + 1, hyper)
     return (_pack(P), AdamState(_pack(M), _pack(V), opt.t + n_steps),
             loss / (n_steps * mb))
@@ -157,7 +119,7 @@ def policy_phase_plain(obs_seq, act_seq, lp_seq, adv_seq, params, log_std,
         ent_sum = ent_sum + ent
         loss = loss + (-ent_coeff) * ent
         inv_sigma = torch.exp(-ls)
-        hs = _forward(x, P[0::2], P[1::2], activation)
+        hs = forward_layers(x, P[0::2], P[1::2], activation)
         z = (act_seq[rows] - hs[-1]) * inv_sigma
         logp = lp0 - sum_ls - 0.5 * (z * z).sum(dim=1)
         ratio = torch.exp(logp - lp_seq[rows])
@@ -168,7 +130,7 @@ def policy_phase_plain(obs_seq, act_seq, lp_seq, adv_seq, params, log_std,
         dlogp = -(adv * ratio / mb) * (ra <= ca).to(torch.float32)
         gls = (dlogp[:, None] * (z * z - 1.0)).sum(dim=0) - ent_coeff
         g = dlogp[:, None] * z * inv_sigma
-        grads = _backward(x, hs, g, P[0::2], activation)
+        grads, _ = backward_layers(x, hs, g, P[0::2], activation)
         _adam_(P, grads, M, V, opt_policy.t + s + 1, hyper)
         _adam_([ls], [gls], [mls], [vls], opt_log_std.t + s + 1, hyper)
     return (_pack(P), ls,

@@ -9,7 +9,9 @@ where only PyTorch is installed:
 Tolerances: the RNG bits must match exactly; one kernel step rtol/atol
 1e-5 / 1e-6 (float32 sums in another order than cuBLAS); trajectories are
 held to the plain physics by re-stepping the recorded obs, which is robust
-to ulp drift in sin/cos/exp/log.
+to ulp drift in sin/cos/exp/log.  K5's backward sums up to 8192 rows per
+weight, so its gradients are held at rtol 1e-4 with atol 1e-5 of the
+leaf's largest magnitude.
 """
 import pytest
 import torch
@@ -19,7 +21,8 @@ from ppoc_tpu_torch.algo import ppo
 from ppoc_tpu_torch.algo.trainer import Trainer
 from ppoc_tpu_torch.envs.pendulum import PendulumState
 from ppoc_tpu_torch.models import mlp, policy
-from ppoc_tpu_torch.ops import cuda_gae, cuda_rollout as cr, cuda_update as cu
+from ppoc_tpu_torch.ops import (cuda_gae, cuda_mlp, cuda_rollout as cr,
+                                cuda_update as cu)
 from ppoc_tpu_torch.ops.adam import AdamState
 
 pytestmark = pytest.mark.cuda
@@ -176,11 +179,95 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
                           8, 4)
 
 
-def test_mlp_pallas_backend_on_cuda_names_k5(dev):
-    ts = _state(dev)
-    with pytest.raises(NotImplementedError, match="K5"):
-        mlp.apply(ts.v_params, torch.zeros(4, 3, device=dev), "relu",
-                  backend="pallas")
+def _mlp_case(dev, sizes, batch, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    params = mlp.init(sizes, g, dev)
+    x = torch.randn(batch, sizes[0], generator=g).to(dev)
+    ct = torch.randn(batch, sizes[-1], generator=g).to(dev)
+    return params, x, ct
+
+
+def _close_grads(got, want):
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-5 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("sizes,batch,activation", [
+    ((3, 128, 128, 1), 8192, "relu"), ((3, 128, 128, 1), 256, "relu"),
+    ((3, 128, 128, 1), 100, "tanh"), ((17, 32, 5), 1, "relu"),
+    ((3, 16, 16, 16, 1), 257, "tanh"), ((5, 64, 3), 65, "none"),
+    ((3, 32, 1), 204800, "relu")])
+def test_mlp_kernel_matches_plain(dev, sizes, batch, activation):
+    """K5 forward (output and saved hiddens) and backward (dW, db, dX),
+    ragged last tiles and the grid-stride loop over more tiles than
+    blocks included."""
+    params, x, ct = _mlp_case(dev, sizes, batch)
+    out, hid = cuda_mlp.mlp_forward_kernel(params, x, activation)
+    out_p, hid_p = cuda_mlp.mlp_forward_plain(params, x, activation)
+    torch.testing.assert_close(out, out_p, **TOL)
+    for a, b in zip(hid, hid_p):
+        torch.testing.assert_close(a, b, **TOL)
+    grads, dx = cuda_mlp.mlp_backward_kernel(params, x, hid_p, ct,
+                                             activation)
+    grads_p, dx_p = cuda_mlp.mlp_backward_plain(params, x, hid_p, ct,
+                                                activation)
+    _close_grads([t for pr in grads for t in pr] + [dx],
+                 [t for pr in grads_p for t in pr] + [dx_p])
+
+
+def test_mlp_backward_is_deterministic_and_skips_dx(dev):
+    params, x, ct = _mlp_case(dev, (3, 128, 128, 1), 8192, seed=1)
+    _, hid = cuda_mlp.mlp_forward_kernel(params, x, "relu")
+    a, dx = cuda_mlp.mlp_backward_kernel(params, x, hid, ct, "relu")
+    b, none = cuda_mlp.mlp_backward_kernel(params, x, hid, ct, "relu",
+                                           need_dx=False)
+    assert none is None and dx is not None
+    assert torch.equal(mlp.flatten(a), mlp.flatten(b))
+
+
+def test_mlp_pallas_backend_on_cuda_launches_k5(dev):
+    """mlp.apply(backend="pallas") with leading dims and autograd goes
+    through both K5 kernels, once each."""
+    params, _, _ = _mlp_case(dev, (3, 32, 32, 2), 1)
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(7, 13, 3, generator=g).to(dev).requires_grad_()
+    leaves = [t.clone().requires_grad_() for pr in params for t in pr]
+    pairs = cuda_mlp._pairs(leaves)
+    f0, b0 = cuda_mlp.fwd_launches.n, cuda_mlp.bwd_launches.n
+    out = mlp.apply(pairs, x, "relu", backend="pallas")
+    got = torch.autograd.grad(out.square().sum(), leaves + [x])
+    assert cuda_mlp.fwd_launches.n - f0 == 1
+    assert cuda_mlp.bwd_launches.n - b0 == 1
+    ref = mlp.apply(pairs, x, "relu", backend="jnp")
+    torch.testing.assert_close(out, ref, **TOL)
+    _close_grads(got, torch.autograd.grad(ref.square().sum(), leaves + [x]))
+
+
+def test_mlp_kernel_refuses_a_net_over_shared_memory(dev):
+    params, x, _ = _mlp_case(dev, (3, 512, 512, 1), 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_mlp.mlp_forward_kernel(params, x, "relu")
+
+
+def test_trainer_on_cuda_throughput_path(dev):
+    """Minibatches over 2048 rows take the generic phases (K5 forward and
+    backward, no K3/K4); the mean-policy evaluation is K5 forwards."""
+    counters = [cr.launches, cuda_gae.launches, cu.value_launches,
+                cu.policy_launches, cuda_mlp.fwd_launches,
+                cuda_mlp.bwd_launches]
+    cfg = PPOConfig(env="pendulum", n_envs=64, rollout_len=128,
+                    minibatch_size=4096, shuffle_block=1024,
+                    fits_per_epoch=1, n_epochs_value=2, n_epochs_policy=1,
+                    eval_envs=16, eval_len=200, hidden=(32, 32))
+    tr = Trainer(cfg)
+    before = [c.n for c in counters]
+    tr.train_epoch()
+    ev = tr.evaluate(deterministic=True)
+    n = [c.n - b for c, b in zip(counters, before)]
+    # 2 x 2 value + 2 x 1 policy minibatch steps, then 200 eval steps
+    assert n == [1, 1, 0, 0, 4 + 2 + 200, 4 + 2]
+    assert ev.episodes == 16 and torch.isfinite(torch.tensor(ev.R))
 
 
 def test_trainer_on_cuda_launches_every_kernel(dev):

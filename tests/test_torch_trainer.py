@@ -148,7 +148,7 @@ def test_same_seed_same_training():
 def test_unported_options_are_refused():
     check_ported(_cfg())
     for kw in (dict(max_grad_norm=0.5), dict(n_experts=2),
-               dict(shuffle_block=8), dict(lr_anneal=True),
+               dict(clip_value=0.2), dict(lr_anneal=True),
                dict(kernel_backend="jnp")):
         with pytest.raises(NotImplementedError, match=list(kw)[0]):
             Trainer(_cfg(**kw), "cpu")
@@ -177,8 +177,8 @@ def test_port_never_imports_jax():
     """Neither jax nor any module of the JAX package ppoc_tpu is loaded by
     importing the port's entry points."""
     code = ("import sys; import ppoc_tpu_torch.algo.trainer, "
-            "ppoc_tpu_torch.ops.cuda_update, ppoc_tpu_torch.utils.params, "
-            "ppoc_tpu_torch.config; "
+            "ppoc_tpu_torch.ops.cuda_update, ppoc_tpu_torch.ops.cuda_mlp, "
+            "ppoc_tpu_torch.utils.params, ppoc_tpu_torch.config; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'ppoc_tpu' "
             "or m.startswith('ppoc_tpu.')); "

@@ -1,18 +1,21 @@
-"""Profile one training epoch of the bench configuration, and time K3 per
-minibatch step against the minibatch size and hidden width.
+"""Profile one training epoch on the card.
 
-    python3 tools/profile_epoch.py
+    python3 tools/profile_epoch.py [--config bench|throughput]
 
-Needs a CUDA device.  Prints the wall time of three warm epochs (each with
-its evaluation) without the profiler; then, under torch.profiler, one more
-epoch's wall time, its summed device-kernel time, the device's idle share
-and each kernel's share of device time; then K3's microseconds per
+Needs a CUDA device.  ``bench`` (the default) is bench.py's bench_config:
+three warm epochs, each with its stochastic evaluation, timed without the
+profiler; then one more under torch.profiler; then K3's microseconds per
 minibatch step (100-step phases) at mb 256/128/64 with hidden 128 and at
-hidden 64/32 with mb 256.  The chrome trace goes to
-chiprun_out/epoch_trace.json under the checkout.
+hidden 64/32 with mb 256.  ``throughput`` is tpu_preset("pendulum"): three
+warm training epochs timed alone, then one epoch and one
+evaluate(deterministic=True) each under the profiler.  Each profiled
+window prints its wall time, summed device-kernel time, the device's idle
+share, the count of device kernels and each kernel's share of device
+time.  The gzipped chrome traces go to chiprun_out/ under the checkout.
 """
 from __future__ import annotations
 
+import argparse
 import sys
 import time
 from pathlib import Path
@@ -23,13 +26,45 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 
 
-def main() -> int:
+def profiled(name: str, fn) -> None:
+    """Run ``fn`` once under torch.profiler and print its device split."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in events) / 1e6
+    print(f"profiled {name}: wall {wall:.4f} s, device-kernel time "
+          f"{busy:.4f} s, idle share {1 - busy / wall:.4f}, "
+          f"{len(events)} device events", flush=True)
+    per = {}
+    for e in events:
+        per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e6
+    for kname, sec in sorted(per.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  {sec:.4f} s  {100 * sec / busy:.2f}%  {kname[:90]}")
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    prof.export_chrome_trace(
+        str(out / f"{name.replace(' ', '_')}_trace.json.gz"))
+
+
+def main() -> int:
+    import torch
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--config", choices=["bench", "throughput"],
+                    default="bench")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
+    from ppoc_tpu_torch import tpu_preset
     from ppoc_tpu_torch.algo.trainer import Trainer
     from ppoc_tpu_torch.models import mlp
     from ppoc_tpu_torch.ops import cuda_update as cu
@@ -37,35 +72,29 @@ def main() -> int:
 
     print(cs.card_line(), flush=True)
     dev = torch.device("cuda", 0)
-    tr = Trainer(cs.bench_config(), dev)
+    throughput = args.config == "throughput"
+    tr = Trainer(tpu_preset("pendulum") if throughput else cs.bench_config())
 
     def epoch():
         t = time.perf_counter()
         tr.train_epoch()
-        tr.evaluate()
+        if not throughput:
+            tr.evaluate()
         torch.cuda.synchronize()
         return time.perf_counter() - t
 
+    def det_eval():
+        tr.evaluate(deterministic=True)
+
     epoch()
-    print("epoch + eval wall, no profiler (s):",
+    what = "epoch" if throughput else "epoch + eval"
+    print(f"{what} wall, no profiler (s):",
           [round(epoch(), 4) for _ in range(3)], flush=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        wall = epoch()
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in events) / 1e6
-    print(f"profiled epoch + eval: wall {wall:.4f} s, device-kernel time "
-          f"{busy:.4f} s, idle share {1 - busy / wall:.4f}, "
-          f"{len(events)} device events", flush=True)
-    per = {}
-    for e in events:
-        per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e6
-    for name, sec in sorted(per.items(), key=lambda kv: -kv[1])[:8]:
-        print(f"  {sec:.4f} s  {100 * sec / busy:.2f}%  {name[:90]}")
-    out = ROOT / "chiprun_out"
-    out.mkdir(exist_ok=True)
-    prof.export_chrome_trace(str(out / "epoch_trace.json"))
+    profiled(what, epoch)
+    if throughput:
+        det_eval()
+        profiled("mean-policy eval", det_eval)
+        return 0
 
     h = cu.Hyper.of(3e-4, 0.9, 0.999, 1e-8)
     g = torch.Generator().manual_seed(0)
