@@ -25,10 +25,9 @@
 Any failed check raises, so the script exits non-zero.  The last two lines
 are a JSON object of per-kernel results and the JSON status line.  Per
 kernel: "ms" and "plain_ms" are device-kernel time per call (the
-profiler's kernel durations summed), "call_ms" and "plain_call_ms" the
-CUDA-event time per call with the host's launch overhead; "bound_ms" is the
-least time the card could take for the same work, from the H100 SXM's FP32
-and memory peaks; "launches" come from the path's run.
+profiler's kernel durations summed); "bound_ms" is the least time the card
+could take for the same work, from the H100 SXM's FP32 and memory peaks;
+"launches" come from the path's run.
 """
 from __future__ import annotations
 
@@ -78,12 +77,17 @@ def n_params(widths) -> int:
     return products(widths) + sum(widths[1:])
 
 
-def rollout_bound(widths, T: int, E: int, act_dim: int = 1):
-    """K1 with the V planes: a policy forward and V(s), V(s') per env-step
-    (2 FLOP per multiply-add); reads both nets, writes obs, next_obs,
-    action, log_prob, reward, V, V' (float32), the two done planes (bytes)
-    and the final state."""
-    ops = 2 * T * E * 3 * products(widths)
+def rollout_bound(widths, raw, act_dim: int = 1):
+    """K1 with the V planes, on the trajectory ``raw`` it produced (policy
+    and value nets of the same ``widths``).  Forwards: the policy's T*E and
+    the value net's T*E for V(s), plus V(s') only where it is not the next
+    step's V(s): the last step's E and each earlier done step (2 FLOP per
+    multiply-add).  Reads both nets, writes obs, next_obs, action,
+    log_prob, reward, V, V' (float32), the two done planes (bytes) and the
+    final state."""
+    T, E = raw.reward.shape
+    inner_done = int((raw.terminated | raw.truncated)[:-1].sum())
+    ops = 2 * (2 * T * E + E + inner_done) * products(widths)
     nbytes = (4 * 2 * n_params(widths) + T * E * (4 * (3 + 3 + act_dim + 4)
                                                   + 2) + 4 * 3 * E)
     return bound_ms(ops, nbytes)
@@ -177,12 +181,9 @@ def device_ms(fn, reps: int) -> float:
 
 
 def timings(kernel, plain, reps: int, plain_reps: int):
-    """{"ms", "plain_ms"} as device-kernel time and {"call_ms",
-    "plain_call_ms"} as CUDA-event time per call."""
+    """{"ms", "plain_ms"}: device-kernel time per call of each side."""
     return {"ms": device_ms(kernel, reps),
-            "plain_ms": device_ms(plain, plain_reps),
-            "call_ms": timed_ms(kernel, reps),
-            "plain_call_ms": timed_ms(plain, plain_reps)}
+            "plain_ms": device_ms(plain, plain_reps)}
 
 
 def max_err(a, b) -> float:
@@ -270,7 +271,7 @@ def check_rollout(cfg, ts, env, dev):
     times = timings(
         lambda: cr.rollout_kernel(pp["mlp"], pp["log_std"], vp, seed, E, T),
         lambda: cr.rollout_plain(pp["mlp"], pp["log_std"], vp, seed, E, T),
-        20, 2)
+        20, 1)
     return raw, max(errs.values()), times
 
 
@@ -446,8 +447,12 @@ def check_phases(cfg, ts, raw, adv, tgt, dev):
 def check_mlp(params, x, activation: str, dev):
     """K5 at one batch of the path: forward (output and saved hiddens) and
     backward (dW, db, dX) against the plain versions, with a seeded
-    cotangent; the backward twice, equal bit for bit.  Returns (max abs
-    error, forward timings, backward timings)."""
+    cotangent; the backward twice, equal bit for bit.  Then K5 as the
+    path reaches it: ``mlp.apply(backend="pallas")`` and
+    ``torch.autograd.grad`` with x not requiring grad, so the backward
+    skips dX; its dW/db are held to the plain backward and to the
+    dX-computing launch bit for bit.  Returns (max abs error, forward
+    timings, backward timings)."""
     import torch
 
     from ppoc_tpu_torch.models import mlp
@@ -478,6 +483,24 @@ def check_mlp(params, x, activation: str, dev):
         raise AssertionError("two runs of K5's backward differ")
     print(f"  K5 backward, {rows} rows: two runs equal bit for bit",
           flush=True)
+    leaves = [t.detach().clone().requires_grad_()
+              for pair in params for t in pair]
+    pairs = [(leaves[i], leaves[i + 1]) for i in range(0, len(leaves), 2)]
+    out_a = mlp.apply(pairs, x, activation, "pallas")
+    auto = torch.autograd.grad(out_a, leaves, grad_outputs=ct)
+    torch.cuda.synchronize()
+    want = [t for pair in grads_p for t in pair]
+    check(f"K5 through autograd (no dX), {rows} rows: dW, db, max |diff| "
+          f"over the leaf's max |plain|", max(
+              max_err(a, b) / float(b.abs().max())
+              for a, b in zip(auto, want)), 1e-4, what="ratio")
+    err = max(err, *(max_err(a, b) for a, b in zip(auto, want)))
+    if not all(torch.equal(a, b) for a, b in
+               zip(auto, [t for pair in grads for t in pair])):
+        raise AssertionError("K5's backward without dX differs from the "
+                             "launch with dX")
+    print(f"  K5 through autograd (no dX), {rows} rows: dW, db equal the "
+          f"launch with dX bit for bit", flush=True)
     fwd = timings(lambda: cm.mlp_forward_kernel(params, x, activation),
                   lambda: cm.mlp_forward_plain(params, x, activation), 50, 20)
     bwd = timings(
@@ -600,16 +623,16 @@ def main() -> int:
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
             "path": path, "shape": shape})
         print(f"  {name} ({path}, {shape}): device time kernel "
-              f"{times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms; per "
-              f"call kernel {times['call_ms']:.4f} ms, plain "
-              f"{times['plain_call_ms']:.4f} ms; bound {bound[0]:.4f} ms "
-              f"({bound[1]}); launches {launches}", flush=True)
+              f"{times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms; "
+              f"bound {bound[0]:.4f} ms ({bound[1]}); launches {launches}",
+              flush=True)
 
     cfg = bench_config()
     tr = Trainer(cfg, dev)
     widths = mlp.dims(tr.state.v_params)
     print("[K1 rollout]", flush=True)
     raw, k1_err, k1_t = check_rollout(cfg, tr.state, tr.env, dev)
+    k1_bound = rollout_bound(widths, raw)
     print("[K2 gae]", flush=True)
     adv, tgt, k2_err, k2_t = check_gae(cfg, raw, dev)
     print("[K3 value phase, K4 policy phase]", flush=True)
@@ -647,7 +670,7 @@ def main() -> int:
     n_p = cfg.n_epochs_policy * cfg.num_minibatches
     bench = f"bench, {E} envs x {T} steps, mb {mb}"
     record("rollout_pendulum", bench, [T, E], launches["rollout_pendulum"],
-           k1_err, k1_t, rollout_bound(widths, T, E))
+           k1_err, k1_t, k1_bound)
     record("gae_norm", bench, [T, E], launches["gae_norm"], k2_err, k2_t,
            gae_bound(T, E))
     record("value_phase", bench, [n_v, mb], launches["value_phase"], k3_err,
@@ -671,6 +694,7 @@ def main() -> int:
     tr = Trainer(tcfg)
     print(f"[K1 at the throughput shape: {E} envs x {T} steps]", flush=True)
     raw, t1_err, t1_t = check_rollout(tcfg, tr.state, tr.env, dev)
+    t1_bound = rollout_bound(widths, raw)
     print(f"[K2 at {T} x {E}: the global-memory branch]", flush=True)
     adv, tgt, t2_err, t2_t = check_gae(tcfg, raw, dev)
     print(f"[K5 mlp_forward at {mb} and {tcfg.eval_envs} rows, widths "
@@ -691,7 +715,7 @@ def main() -> int:
     thr = f"throughput, {E} envs x {T} steps, mb {mb}"
     fwd_b, bwd_b = mlp_bounds(widths, mb)
     record("rollout_pendulum", thr, [T, E], train_n["rollout_pendulum"],
-           t1_err, t1_t, rollout_bound(widths, T, E))
+           t1_err, t1_t, t1_bound)
     record("gae_norm", thr, [T, E], train_n["gae_norm"], t2_err, t2_t,
            gae_bound(T, E))
     record("mlp_forward", thr, [mb] + widths, train_n["mlp_forward"], k5_err,

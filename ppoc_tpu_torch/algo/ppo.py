@@ -241,16 +241,13 @@ def _stab_policy_ok(cfg: PPOConfig) -> bool:
             and cfg.target_kl == 0.0 and not cfg.ent_anneal)
 
 
-def _fused(cfg: PPOConfig, n_mb: int, mb: int, stab_ok: bool) -> bool:
+def _fused(cfg: PPOConfig, stab_ok: bool) -> bool:
     """The JAX package's gate for a whole-phase kernel (K3/K4):
-    ``ppoc_tpu/algo/ppo.py:598-604`` and ``:698-704``."""
-    return (stab_ok and mb <= MAX_FUSED_MB and mb == cfg.minibatch_size
-            and n_mb == cfg.num_minibatches)
-
-
-def _mb_rows(cfg: PPOConfig, idx: torch.Tensor) -> int:
-    """Rows per minibatch of a row-id or block-id stream."""
-    return idx.shape[2] * (cfg.shuffle_block or 1)
+    ``ppoc_tpu/algo/ppo.py:598-604`` and ``:698-704``.  Its other two
+    conditions (per-shard minibatch size and count equal to cfg's) hold
+    here always: the port has no sharding and draws its streams from
+    cfg."""
+    return stab_ok and cfg.minibatch_size <= MAX_FUSED_MB
 
 
 def _requiring_grad(tree):
@@ -281,9 +278,9 @@ def value_phase(cfg: PPOConfig, ts: TrainState, buf: buffer.RowBuffer,
     package's ``_prep_grads`` and lr schedule are the identity and lr_v
     here."""
     n_epochs, n_mb = idx.shape[:2]
-    mb, blk = _mb_rows(cfg, idx), cfg.shuffle_block
+    mb, blk = cfg.minibatch_size, cfg.shuffle_block
     cols = (buf.obs, buf.target)
-    if _fused(cfg, n_mb, mb, _stab_value_ok(cfg)):
+    if _fused(cfg, _stab_value_ok(cfg)):
         obs_seq, tgt_seq = buffer.gather_mb(cols, idx, blk)
         v2, opt2, loss = cuda_update.value_phase(
             obs_seq, tgt_seq, ts.v_params, ts.opt_v, n_epochs * n_mb, mb,
@@ -317,10 +314,10 @@ def policy_phase(cfg: PPOConfig, ts: TrainState, buf: buffer.RowBuffer,
     log_std, each with its own state.  Without the stabilisers the entropy
     coefficient is the constant cfg.ent_coeff."""
     n_epochs, n_mb = idx.shape[:2]
-    mb, blk = _mb_rows(cfg, idx), cfg.shuffle_block
+    mb, blk = cfg.minibatch_size, cfg.shuffle_block
     cols = (buf.obs, buf.action, buf.log_prob, buf.advantage)
     pol = ts.policy_params
-    if _fused(cfg, n_mb, mb, _stab_policy_ok(cfg)):
+    if _fused(cfg, _stab_policy_ok(cfg)):
         o, a, lp, ad = buffer.gather_mb(cols, idx, blk)
         params2, ls2, opt_p2, opt_ls2, loss, ent = cuda_update.policy_phase(
             o, a, lp, ad, pol["mlp"], pol["log_std"], ts.opt_policy,

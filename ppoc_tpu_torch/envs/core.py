@@ -16,7 +16,7 @@ bootstrap with V(s')).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 
@@ -63,21 +63,17 @@ def vector_reset(env: Env, generator: torch.Generator, n_envs: int,
     return env.reset(n_envs, generator, torch.device(device))
 
 
-def vector_autoreset_step(env: Env, state, action: torch.Tensor,
-                          generator: Optional[torch.Generator] = None,
-                          fresh=None):
+def vector_autoreset_step(env: Env, state, action: torch.Tensor, fresh):
     """Step, then reset every instance that finished.
 
     The reset states are ``fresh``, a batched ``(state, obs)`` pair drawn
-    beforehand, or else drawn from ``generator`` here.  Returns ``(state',
-    obs', next_obs, reward, terminated, truncated)``: ``next_obs`` is the
-    true successor observation (for GAE bootstrapping) and ``obs'`` the
-    observation the policy acts on next (the fresh-reset obs where done).
+    beforehand (``vector_reset``).  Returns ``(state', obs', next_obs,
+    reward, terminated, truncated)``: ``next_obs`` is the true successor
+    observation (for GAE bootstrapping) and ``obs'`` the observation the
+    policy acts on next (the fresh-reset obs where done).
     """
     new_state, next_obs, reward, terminated, truncated = env.step(state, action)
     done = terminated | truncated
-    if fresh is None:
-        fresh = env.reset(action.shape[0], generator, action.device)
     reset_state, reset_obs = fresh
 
     def pick(fresh, kept):

@@ -63,7 +63,7 @@ def test_autoreset_step_resets_done_envs_only():
     s = pendulum.PendulumState(torch.zeros(4), torch.zeros(4),
                                torch.tensor([0, 198, 199, 5], dtype=torch.int32))
     s2, obs2, next_obs, _, term, trunc = envs.vector_autoreset_step(
-        ENV, s, torch.zeros(4, 1), g)
+        ENV, s, torch.zeros(4, 1), fresh=envs.vector_reset(ENV, g, 4, "cpu"))
     assert trunc.tolist() == [False, False, True, False] and not term.any()
     assert s2.t.tolist() == [1, 199, 0, 6]
     torch.testing.assert_close(obs2[[0, 1, 3]], next_obs[[0, 1, 3]])

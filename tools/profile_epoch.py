@@ -7,11 +7,14 @@ three warm epochs, each with its stochastic evaluation, timed without the
 profiler; then one more under torch.profiler; then K3's microseconds per
 minibatch step (100-step phases) at mb 256/128/64 with hidden 128 and at
 hidden 64/32 with mb 256.  ``throughput`` is tpu_preset("pendulum"): three
-warm training epochs timed alone, then one epoch and one
-evaluate(deterministic=True) each under the profiler.  Each profiled
-window prints its wall time, summed device-kernel time, the device's idle
-share, the count of device kernels and each kernel's share of device
-time.  The gzipped chrome traces go to chiprun_out/ under the checkout.
+warm training epochs and three evaluate(deterministic=True) timed alone,
+then one of each under the profiler.  Each profiled window prints its wall
+time, summed device-kernel time, the count of device kernels and each
+kernel's share of device time, and the device's idle share two ways: 1 -
+device time / the mean unprofiled wall of the same window (the path's own
+idle share) and 1 - device time / the profiled wall (which the profiler's
+host overhead inflates).  The gzipped chrome traces go to chiprun_out/
+under the checkout.
 """
 from __future__ import annotations
 
@@ -26,8 +29,9 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 
 
-def profiled(name: str, fn) -> None:
-    """Run ``fn`` once under torch.profiler and print its device split."""
+def profiled(name: str, fn, walls) -> None:
+    """Run ``fn`` once under torch.profiler and print its device split;
+    ``walls`` are its unprofiled wall times (s)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -40,9 +44,11 @@ def profiled(name: str, fn) -> None:
     events = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in events) / 1e6
+    plain = sum(walls) / len(walls)
     print(f"profiled {name}: wall {wall:.4f} s, device-kernel time "
-          f"{busy:.4f} s, idle share {1 - busy / wall:.4f}, "
-          f"{len(events)} device events", flush=True)
+          f"{busy:.4f} s, idle share {1 - busy / plain:.4f} of the mean "
+          f"unprofiled wall {plain:.4f} s ({1 - busy / wall:.4f} of the "
+          f"profiled wall), {len(events)} device events", flush=True)
     per = {}
     for e in events:
         per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e6
@@ -84,16 +90,23 @@ def main() -> int:
         return time.perf_counter() - t
 
     def det_eval():
+        t = time.perf_counter()
         tr.evaluate(deterministic=True)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
 
     epoch()
     what = "epoch" if throughput else "epoch + eval"
-    print(f"{what} wall, no profiler (s):",
-          [round(epoch(), 4) for _ in range(3)], flush=True)
-    profiled(what, epoch)
+    walls = [epoch() for _ in range(3)]
+    print(f"{what} wall, no profiler (s):", [round(w, 4) for w in walls],
+          flush=True)
+    profiled(what, epoch, walls)
     if throughput:
         det_eval()
-        profiled("mean-policy eval", det_eval)
+        walls = [det_eval() for _ in range(3)]
+        print("mean-policy eval wall, no profiler (s):",
+              [round(w, 4) for w in walls], flush=True)
+        profiled("mean-policy eval", det_eval, walls)
         return 0
 
     h = cu.Hyper.of(3e-4, 0.9, 0.999, 1e-8)
