@@ -21,11 +21,29 @@
    per minibatch, no K3/K4), then Trainer.evaluate(deterministic=True),
    with the launch counts read around each, and the mean policy's actions
    held to the plain forward on the recorded obs.
+7. Discrete kernels, for cartpole and then acrobot: K1's lane at 64 envs x
+   200 steps with the V planes and at 64 x 500 with the metrics (RNG bits
+   exactly; the Gumbel-max sampler bit for bit on shared logits; the
+   kernel's draws, log-probs, V planes and physics held to the plain
+   versions on its own trajectory; whole trajectories per env up to the
+   first near-tie of the perturbed logits), K2 on the cartpole rollout's
+   planes (real terminations), and K6, the categorical policy phase, at
+   minibatch 256 x 200 steps ([4,128,128,2] with ent_coeff 0, then
+   [6,128,128,3] with ent_coeff 0.01): each step from the kernel's state
+   against one float64 step, chained one-step launches against one long
+   launch bit for bit, and the whole phase loosely.
+8. Discrete path: Trainer(bench config with env "cartpole", eval_len 500)
+   .solve(475, max_epochs=40), then the same for "acrobot" with
+   .solve(-100, max_epochs=40), with the launch counts read around each
+   (K1's lane, K2, K3 and K6 run; K4 does not); then
+   Trainer.evaluate(deterministic=True) on the trained CartPole policy
+   (argmax through K5).
 
 Any failed check raises, so the script exits non-zero.  The last two lines
 are a JSON object of per-kernel results and the JSON status line.  Per
-kernel: "ms" and "plain_ms" are device-kernel time per call (the
-profiler's kernel durations summed); "bound_ms" is the least time the card
+kernel: "ms" is the kernel's device time per call (CUDA events around
+many calls queued behind a spin kernel), "plain_ms" the plain version's
+device-kernel time per call (the profiler's kernel durations summed); "bound_ms" is the least time the card
 could take for the same work, from the H100 SXM's FP32 and memory peaks;
 "launches" come from the path's run.
 """
@@ -39,16 +57,25 @@ import time
 
 SOLVE_R = -200.0
 THROUGHPUT_EPOCHS = 10
+# the discrete path's solve targets: Gymnasium's CartPole-v1 threshold, and
+# the usual Acrobot-v1 one
+DISCRETE_SOLVE_R = {"cartpole": 475.0, "acrobot": -100.0}
+# a perturbed-logit gap below this is a near-tie: the kernel's logits and
+# cuBLAS's differ by ~1e-6, so only there may the two samplers pick apart
+NEAR_TIE = 1e-4
 # name -> (CUDA source, the TPU kernel it replaces: its pallas_call)
 KERNELS = {
-    "rollout_pendulum": ("ppoc_tpu_torch/csrc/rollout.cu",
-                         "ppoc_tpu/ops/pallas_rollout.py:695"),
+    **{f"rollout[{lane}]": ("ppoc_tpu_torch/csrc/rollout.cu",
+                            "ppoc_tpu/ops/pallas_rollout.py:695")
+       for lane in ("pendulum", "cartpole", "acrobot")},
     "gae_norm": ("ppoc_tpu_torch/csrc/gae.cu",
                  "ppoc_tpu/ops/pallas_gae.py:134"),
     "value_phase": ("ppoc_tpu_torch/csrc/update.cu",
                     "ppoc_tpu/ops/pallas_update.py:396"),
     "policy_phase": ("ppoc_tpu_torch/csrc/update.cu",
                      "ppoc_tpu/ops/pallas_update.py:749"),
+    "policy_phase_categorical": ("ppoc_tpu_torch/csrc/update.cu",
+                                 "ppoc_tpu/ops/pallas_update.py:944"),
     "mlp_forward": ("ppoc_tpu_torch/csrc/mlp.cu",
                     "ppoc_tpu/ops/pallas_mlp.py:139"),
     "mlp_backward": ("ppoc_tpu_torch/csrc/mlp.cu",
@@ -77,20 +104,27 @@ def n_params(widths) -> int:
     return products(widths) + sum(widths[1:])
 
 
-def rollout_bound(widths, raw, act_dim: int = 1):
-    """K1 with the V planes, on the trajectory ``raw`` it produced (policy
-    and value nets of the same ``widths``).  Forwards: the policy's T*E and
-    the value net's T*E for V(s), plus V(s') only where it is not the next
-    step's V(s): the last step's E and each earlier done step (2 FLOP per
-    multiply-add).  Reads both nets, writes obs, next_obs, action,
-    log_prob, reward, V, V' (float32), the two done planes (bytes) and the
-    final state."""
-    T, E = raw.reward.shape
-    inner_done = int((raw.terminated | raw.truncated)[:-1].sum())
-    ops = 2 * (2 * T * E + E + inner_done) * products(widths)
-    nbytes = (4 * 2 * n_params(widths) + T * E * (4 * (3 + 3 + act_dim + 4)
-                                                  + 2) + 4 * 3 * E)
-    return bound_ms(ops, nbytes)
+def rollout_bound(pwidths, vwidths, raw):
+    """K1 on the trajectory ``raw`` it produced, with the V planes when
+    ``vwidths`` is given, else with the metrics.  Forwards: the policy's
+    T*E, and the value net's T*E for V(s), plus V(s') only where it is not
+    the next step's V(s): the last step's E and each earlier done step (2
+    FLOP per multiply-add).  Reads the nets, writes obs, next_obs (the
+    lane's obs width), the action columns (float32, or one int32 class
+    id), log_prob, reward (and V, V'), the two done planes (bytes), the
+    final state and steps (and the three metrics rows)."""
+    T, E, O = raw.obs.shape
+    cols = O + O + raw.action.shape[-1] + 2
+    ops = 2 * T * E * products(pwidths)
+    nbytes = 4 * n_params(pwidths) + 4 * (raw.st_final.shape[1] + 1) * E
+    if vwidths is None:
+        nbytes += 4 * 3 * E
+    else:
+        inner_done = int((raw.terminated | raw.truncated)[:-1].sum())
+        ops += 2 * (T * E + E + inner_done) * products(vwidths)
+        nbytes += 4 * n_params(vwidths)
+        cols += 2
+    return bound_ms(ops, nbytes + T * E * (4 * cols + 2))
 
 
 def gae_bound(T: int, E: int):
@@ -180,9 +214,35 @@ def device_ms(fn, reps: int) -> float:
     return us / 1e3 / reps
 
 
+def queued_ms(fn, reps: int) -> float:
+    """Device milliseconds per call of a hand kernel's wrapper, after a
+    warm-up: the ``reps`` calls are queued behind a spin kernel
+    (``torch.cuda._sleep``), so the device runs them back to back once it
+    wakes, and CUDA events around them time the device alone, without the
+    host's launch costs.  A call is one launch of the kernel (two for K5's
+    backward) plus the wrapper's flatten of the weights."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(10_000_000 + 1_000_000 * reps)   # ~0.5 ms a call
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def timings(kernel, plain, reps: int, plain_reps: int):
-    """{"ms", "plain_ms"}: device-kernel time per call of each side."""
-    return {"ms": device_ms(kernel, reps),
+    """{"ms", "plain_ms"}: the kernel's device time per call
+    (:func:`queued_ms`) and the plain version's device-kernel time per call
+    (:func:`device_ms`).  The profiler does not time the hand kernels: on
+    this card it dropped whole records of their launches, 1, 3 or 5 of 5
+    in one window (PERF.md)."""
+    return {"ms": queued_ms(kernel, reps),
             "plain_ms": device_ms(plain, plain_reps)}
 
 
@@ -312,13 +372,15 @@ def phase_rows(cfg, raw, adv, tgt, dev, draw_seed: int = 1):
 
 
 def to_double(tree):
-    """A copy of a tensor tree (lists, tuples, AdamStates) in float64."""
+    """A copy of a tensor tree (lists, tuples, AdamStates) with its float
+    tensors in float64 (integer tensors, the class ids, stay as they
+    are)."""
     import torch
 
     from ppoc_tpu_torch.ops.adam import AdamState
 
     if isinstance(tree, torch.Tensor):
-        return tree.double()
+        return tree.double() if tree.is_floating_point() else tree
     if isinstance(tree, AdamState):
         return AdamState(to_double(tree.m), to_double(tree.v), tree.t)
     return type(tree)(to_double(x) for x in tree)
@@ -327,42 +389,20 @@ def to_double(tree):
 def check_phases(cfg, ts, raw, adv, tgt, dev):
     """K3 and K4 against their plain versions.
 
-    One step is held at 1e-6, 20 policy steps at 1e-4 and the 500-step
-    value phase at 2e-4.  A whole 200-step policy phase cannot be held
-    tightly: float32 rounding alone, in the plain version or in one
-    rounding of the starting weights under float64, moves its end by up
-    to 0.45 of what a 1% learning-rate error does (PERF.md).  So it is
-    held two ways.  Tightly, step by step: the phase is walked one launch
-    per step from the kernel's own state, each step must agree with one
-    float64 step from that state to 2e-7 (a 1% learning-rate error moves
-    one step by about 3e-6), and the chained launches must equal the
-    single 200-step launch bit for bit.  Loosely, as a whole: the kernel's
-    distance from float64 (L2, relative to the phase's weight travel) must
-    stay under half the distance of the 1% learning-rate run, and its
-    loss and entropy within 1e-4 of the plain version's."""
-    import torch
-
+    One value step is held at 1e-6 and the 500-step value phase at 2e-4;
+    the policy phase as :func:`check_policy_phase` holds it."""
     from ppoc_tpu_torch.models import mlp
     from ppoc_tpu_torch.ops import cuda_update as cu
 
     mb = cfg.minibatch_size
     hv = cu.Hyper.of(cfg.lr_v, cfg.adam_beta1, cfg.adam_beta2, cfg.adam_eps)
-    hp = cu.Hyper.of(cfg.lr_policy, cfg.adam_beta1, cfg.adam_beta2,
-                     cfg.adam_eps)
     vcols, pcols = phase_rows(cfg, raw, adv, tgt, dev)
-    n_v, n_p = vcols[0].shape[0] // mb, pcols[0].shape[0] // mb
-    pol = ts.policy_params
+    n_v = vcols[0].shape[0] // mb
     flat = mlp.flatten
 
     def value(fn, n):
         return fn(vcols[0][: n * mb], vcols[1][: n * mb], ts.v_params,
                   ts.opt_v, n, mb, cfg.activation, hv)
-
-    def policy_(fn, n, ent_coeff=cfg.ent_coeff, hyper=hp, cast=lambda x: x):
-        return fn(*(cast(c[: n * mb]) for c in pcols),
-                  *cast((pol["mlp"], pol["log_std"], ts.opt_policy,
-                         ts.opt_log_std)),
-                  n, mb, cfg.activation, hyper, cfg.clip_eps, ent_coeff)
 
     v_err = 0.0
     for n, tol in ((1, 1e-6), (n_v, 2e-4)):
@@ -371,77 +411,115 @@ def check_phases(cfg, ts, raw, adv, tgt, dev):
                                  max_err(flat(k[0]), flat(pl[0])), tol))
         check(f"value phase, {n} steps: loss (relative)",
               abs(float(k[2] - pl[2])) / abs(float(pl[2])), 1e-5)
-    p_err = 0.0
-    for n, ent, tol in ((1, cfg.ent_coeff, 1e-6), (1, 0.01, 1e-6),
-                        (20, cfg.ent_coeff, 1e-4), (20, 0.01, 1e-4)):
-        k = policy_(cu.policy_phase_kernel, n, ent)
-        pl = policy_(cu.policy_phase_plain, n, ent)
-        p_err = max(p_err, check(
-            f"policy phase, {n} steps, ent_coeff {ent}: weights, log_std",
-            max(max_err(flat(k[0]), flat(pl[0])), max_err(k[1], pl[1])), tol))
-        check(f"policy phase, {n} steps, ent_coeff {ent}: loss, entropy",
-              max(abs(float(k[4] - pl[4])), abs(float(k[5] - pl[5]))), tol)
-    k = policy_(cu.policy_phase_kernel, n_p)
-    pl = policy_(cu.policy_phase_plain, n_p)
-    exact = policy_(cu.policy_phase_plain, n_p, cast=to_double)
-    lr_fault = policy_(cu.policy_phase_plain, n_p, cast=to_double,
-                       hyper=cu.Hyper.of(1.01 * cfg.lr_policy, cfg.adam_beta1,
-                                         cfg.adam_beta2, cfg.adam_eps))
-    w0, wx = flat(pol["mlp"]).double(), flat(exact[0])
-    travel = float((wx - w0).norm())
-
-    def dist(run):
-        return float((flat(run[0]).double() - wx).norm()) / travel
-
-    d_k, d_p, d_lr = dist(k), dist(pl), dist(lr_fault)
-    print(f"  policy phase, {n_p} steps, |run - float64| / |travel| (L2): "
-          f"kernel {d_k:.4f}, plain float32 {d_p:.4f}, float64 with lr "
-          f"+1% {d_lr:.4f}; max |kernel - float64| {max_err(flat(k[0]), wx):.3e}"
-          f", max |plain - float64| {max_err(flat(pl[0]), wx):.3e}",
-          flush=True)
-    check(f"policy phase, {n_p} steps: kernel's distance from float64 over "
-          f"the lr +1% run's", d_k / d_lr, 0.5, what="ratio")
-    p_err = max(p_err, max_err(flat(k[0]), flat(pl[0])),
-                max_err(k[1], pl[1]))
-    check(f"policy phase, {n_p} steps: loss, entropy",
-          max(abs(float(k[4] - pl[4])), abs(float(k[5] - pl[5]))), 1e-4)
-
-    def one_step(fn, state, s, hyper=hp, cast=lambda x: x):
-        return fn(*(cast(c[s * mb:(s + 1) * mb]) for c in pcols),
-                  *cast(state), 1, mb, cfg.activation, hyper, cfg.clip_eps,
-                  cfg.ent_coeff)[:4]
-
-    def step_err(a, b):
-        return max(max_err(flat(a[0]), flat(b[0])), max_err(a[1], b[1]))
-
-    state = (pol["mlp"], pol["log_std"], ts.opt_policy, ts.opt_log_std)
-    lr_step = step_err(
-        one_step(cu.policy_phase_plain, state, 0, cast=to_double),
-        one_step(cu.policy_phase_plain, state, 0, cast=to_double,
-                 hyper=cu.Hyper.of(1.01 * cfg.lr_policy, cfg.adam_beta1,
-                                   cfg.adam_beta2, cfg.adam_eps)))
-    print(f"  policy phase, step 0: a 1% learning-rate error moves the "
-          f"weights by {lr_step:.3e}", flush=True)
-    local = 0.0
-    for s in range(n_p):
-        k1 = one_step(cu.policy_phase_kernel, state, s)
-        local = max(local, step_err(
-            k1, one_step(cu.policy_phase_plain, state, s, cast=to_double)))
-        state = k1
-    p_err = max(p_err, check(
-        f"policy phase, each of {n_p} steps from the kernel's state vs one "
-        f"float64 step", local, 2e-7))
-    if not (torch.equal(flat(state[0]), flat(k[0]))
-            and torch.equal(state[1], k[1])):
-        raise AssertionError(f"{n_p} chained one-step launches differ from "
-                             f"one {n_p}-step launch")
-    print(f"  policy phase: {n_p} chained one-step launches equal one "
-          f"{n_p}-step launch bit for bit", flush=True)
     v_times = timings(lambda: value(cu.value_phase_kernel, n_v),
                       lambda: value(cu.value_phase_plain, n_v), 5, 1)
-    p_times = timings(lambda: policy_(cu.policy_phase_kernel, n_p),
-                      lambda: policy_(cu.policy_phase_plain, n_p), 5, 1)
-    return (v_err, v_times), (p_err, p_times)
+    pol = ts.policy_params
+    return (v_err, v_times), check_policy_phase(
+        "policy phase", cu.policy_phase_kernel, cu.policy_phase_plain,
+        (pol["mlp"], pol["log_std"], ts.opt_policy, ts.opt_log_std), pcols,
+        cfg, cfg.ent_coeff, whole_ratio=0.5)
+
+
+def check_policy_phase(label, kernel, plain, state, pcols, cfg, ent_coeff,
+                       whole_ratio):
+    """A whole policy phase kernel (K4: ``state`` = (params, log_std,
+    Adam, log_std Adam); K6: (params, Adam)) against its plain version on
+    the pre-gathered rows ``pcols``; returns (max abs error, timings).
+
+    One step is held at 1e-6 and 20 steps at 1e-4, each at ``ent_coeff``
+    and at 0.01.  A whole 200-step phase cannot be held tightly: float32
+    rounding alone, in the plain version or in one rounding of the
+    starting weights under float64, moves its end by up to 0.45 of what a
+    1% learning-rate error does (PERF.md).  So it is held two ways.
+    Tightly, step by step: the phase is walked one launch per step from the
+    kernel's own state, each step must agree with one float64 step from
+    that state to 2e-7 (a 1% learning-rate error moves one step by about
+    3e-6), and the chained launches must equal the single 200-step launch
+    bit for bit.  Loosely, as a whole: the kernel's distance from float64
+    (L2, relative to the phase's weight travel) must stay under
+    ``whole_ratio`` times the distance of the 1% learning-rate run (K4:
+    half; K6: the same distance, PERF.md), and its loss and entropy within
+    1e-4 of the plain version's.  The whole-phase verdict comes last, after
+    the step-by-step one."""
+    import torch
+
+    from ppoc_tpu_torch.models import mlp
+    from ppoc_tpu_torch.ops import cuda_update as cu
+
+    mb = cfg.minibatch_size
+    n_p = pcols[0].shape[0] // mb
+    ns = len(state)
+    hp = cu.Hyper.of(cfg.lr_policy, cfg.adam_beta1, cfg.adam_beta2,
+                     cfg.adam_eps)
+    h_lr = cu.Hyper.of(1.01 * cfg.lr_policy, cfg.adam_beta1, cfg.adam_beta2,
+                       cfg.adam_eps)
+
+    def weights(out):
+        """The trained tensors of a run's state: the net, and log_std."""
+        return torch.cat([mlp.flatten(out[0])] + [
+            x.reshape(-1) for x in out[1:ns] if isinstance(x, torch.Tensor)])
+
+    def run(fn, n, ent=ent_coeff, hyper=hp, cast=lambda x: x, st=state,
+            s=0):
+        return fn(*(cast(c[s * mb:(s + n) * mb]) for c in pcols),
+                  *cast(st), n, mb, cfg.activation, hyper, cfg.clip_eps, ent)
+
+    def stats_err(a, b):
+        return max(abs(float(a[ns] - b[ns])), abs(float(a[ns + 1]
+                                                         - b[ns + 1])))
+
+    p_err = 0.0
+    for n, ent, tol in ((1, ent_coeff, 1e-6), (1, 0.01, 1e-6),
+                        (20, ent_coeff, 1e-4), (20, 0.01, 1e-4)):
+        k, pl = run(kernel, n, ent), run(plain, n, ent)
+        p_err = max(p_err, check(f"{label}, {n} steps, ent_coeff {ent}: "
+                                 f"weights", max_err(weights(k), weights(pl)),
+                                 tol))
+        check(f"{label}, {n} steps, ent_coeff {ent}: loss, entropy",
+              stats_err(k, pl), tol)
+    k, pl = run(kernel, n_p), run(plain, n_p)
+    exact = run(plain, n_p, cast=to_double)
+    lr_fault = run(plain, n_p, cast=to_double, hyper=h_lr)
+    w0, wx = weights(state).double(), weights(exact)
+    travel = float((wx - w0).norm())
+
+    def dist(r):
+        return float((weights(r).double() - wx).norm()) / travel
+
+    d_k, d_p, d_lr = dist(k), dist(pl), dist(lr_fault)
+    print(f"  {label}, {n_p} steps, |run - float64| / |travel| (L2): "
+          f"kernel {d_k:.4f}, plain float32 {d_p:.4f}, float64 with lr "
+          f"+1% {d_lr:.4f}; max |kernel - float64| "
+          f"{max_err(weights(k), wx):.3e}, max |plain - float64| "
+          f"{max_err(weights(pl), wx):.3e}", flush=True)
+    p_err = max(p_err, max_err(weights(k), weights(pl)))
+
+    def step_err(a, b):
+        return max_err(weights(a), weights(b))
+
+    lr_step = step_err(run(plain, 1, cast=to_double),
+                       run(plain, 1, cast=to_double, hyper=h_lr))
+    print(f"  {label}, step 0: a 1% learning-rate error moves the weights "
+          f"by {lr_step:.3e}", flush=True)
+    local, st = 0.0, state
+    for s in range(n_p):
+        k1 = run(kernel, 1, st=st, s=s)[:ns]
+        local = max(local, step_err(
+            k1, run(plain, 1, cast=to_double, st=st, s=s)))
+        st = k1
+    p_err = max(p_err, check(
+        f"{label}, each of {n_p} steps from the kernel's state vs one "
+        f"float64 step", local, 2e-7))
+    if not torch.equal(weights(st), weights(k)):
+        raise AssertionError(f"{label}: {n_p} chained one-step launches "
+                             f"differ from one {n_p}-step launch")
+    print(f"  {label}: {n_p} chained one-step launches equal one "
+          f"{n_p}-step launch bit for bit", flush=True)
+    check(f"{label}, {n_p} steps: kernel's distance from float64 over "
+          f"the lr +1% run's", d_k / d_lr, whole_ratio, what="ratio")
+    check(f"{label}, {n_p} steps: loss, entropy", stats_err(k, pl), 1e-4)
+    return p_err, timings(lambda: run(kernel, n_p), lambda: run(plain, n_p),
+                          5, 1)
 
 
 def check_mlp(params, x, activation: str, dev):
@@ -546,9 +624,10 @@ def throughput_path(cfg, dev, counters):
             mlp.flatten(tr.state.policy_params["mlp"]),
             tr.state.policy_params["log_std"])):
         raise AssertionError("non-finite weights on the throughput path")
-    if (min(train_n[k] for k in ("rollout_pendulum", "gae_norm",
+    if (min(train_n[k] for k in ("rollout[pendulum]", "gae_norm",
                                  "mlp_forward", "mlp_backward")) < 1
-            or train_n["value_phase"] or train_n["policy_phase"]):
+            or train_n["value_phase"] or train_n["policy_phase"]
+            or train_n["policy_phase_categorical"]):
         raise AssertionError(f"the throughput path must run K1, K2 and K5 "
                              f"and no K3/K4: {train_n}")
 
@@ -565,7 +644,7 @@ def throughput_path(cfg, dev, counters):
           flush=True)
     if not (math.isfinite(ev.R) and ev.episodes == cfg.eval_envs):
         raise AssertionError(f"mean-policy evaluation failed: {ev}")
-    if eval_n["mlp_forward"] != cfg.eval_len or eval_n["rollout_pendulum"]:
+    if eval_n["mlp_forward"] != cfg.eval_len or eval_n["rollout[pendulum]"]:
         raise AssertionError(f"the mean-policy evaluation must be "
                              f"{cfg.eval_len} K5 forwards: {eval_n}")
     pp = tr.state.policy_params
@@ -578,9 +657,191 @@ def throughput_path(cfg, dev, counters):
     return tr, train_n, eval_n, act_err
 
 
+def decode_state(lane: str, obs):
+    """The lane state a recorded obs [..., O] came from: cartpole's obs is
+    its state; acrobot's angles come back through atan2 (to ~1 ulp)."""
+    import torch
+
+    if lane == "cartpole":
+        return list(obs.unbind(-1))
+    return [torch.atan2(obs[..., 1], obs[..., 0]),
+            torch.atan2(obs[..., 3], obs[..., 2]), obs[..., 4], obs[..., 5]]
+
+
+def check_discrete_rollout(lane: str, ts, E: int, T: int, with_v: bool,
+                           seed, dev):
+    """K1's discrete ``lane`` at E x T, with the V planes (``with_v``) or
+    with the metrics, against its plain version; returns (kernel
+    trajectory, max abs error, timings).
+
+    * RNG bits exactly, for the sampler's draws 0..K-1 and the resets'
+      50..53.
+    * The sampler on shared logits (the plain forward on the kernel's
+      obs): the kernel's Gumbel-max bit for bit against the plain one.
+    * The kernel's own draws equal the shared-logit draws wherever the
+      perturbed top two lie NEAR_TIE or more apart; log-probs and V planes
+      held to the plain forward on the recorded obs; each recorded
+      (obs, action) re-stepped through the plain lane physics reproduces
+      next_obs, reward and the done flags.
+    * Whole trajectories per env against the plain rollout, up to the
+      first step where the two pick apart, which must be a near-tie; the
+      number of envs that reach one is printed.
+    * With the metrics: the completed-episode sums against the kernel's
+      own trajectory."""
+    import torch
+
+    from ppoc_tpu_torch.algo import ppo
+    from ppoc_tpu_torch.models import mlp
+    from ppoc_tpu_torch.ops import cuda_rollout as cr
+
+    ln = cr.LANES[lane]
+    K = ln.n_actions
+    pp, vp = ts.policy_params["mlp"], (ts.v_params if with_v else None)
+    s0, s1 = seed
+    lanes = torch.arange(E, dtype=torch.int64, device=dev)
+    for draw in [*range(K), *(50 + j for j in range(ln.state_dim))]:
+        for t in (0, T - 1, cr.T_INIT):
+            if not torch.equal(cr.rng_bits_cuda(s0, s1, t, draw, E, dev),
+                               cr.rng_bits(s0, s1, t, draw, lanes)):
+                raise AssertionError(f"RNG bits differ at {(t, draw)}")
+    print(f"  RNG bits of draws 0-{K - 1}, 50-{49 + ln.state_dim}: "
+          f"identical to the plain version", flush=True)
+    args = (pp, None, vp, seed, E, T, "relu", None, None, 0.99, lane)
+    raw, ref = cr.rollout_kernel(*args), cr.rollout_plain(*args)
+    torch.cuda.synchronize()
+    errs = {}
+    h = mlp.apply(pp, raw.obs, "relu")                      # [T, E, K]
+    shared = torch.empty(T, E, dtype=torch.int64, device=dev)
+    gap = torch.empty(T, E, device=dev)
+    lp_err = 0.0
+    for t in range(T):
+        i_k, lp_k = cr.gumbel_max_cuda(h[t].contiguous(), s0, s1, t)
+        i_p, lp_p = cr.gumbel_max_plain(h[t], s0, s1, t, lanes)
+        if not torch.equal(i_k, i_p):
+            raise AssertionError(f"the kernel's sampler picks other classes "
+                                 f"than the plain one at step {t}")
+        lp_err = max(lp_err, max_err(lp_k, lp_p))
+        shared[t] = i_p
+        gap[t] = cr.gumbel_gap(h[t], s0, s1, t, lanes)
+    errs["sampler"] = check("sampler on shared logits: classes equal, "
+                            "log-probs", lp_err, 1e-6)
+    near = gap < NEAR_TIE
+    act = raw.action[..., 0].long()
+    if ((act != shared) & ~near).any():
+        raise AssertionError("the kernel's draws differ from the sampler's "
+                             "on its own logits away from a near-tie")
+    print(f"  kernel draws equal the shared-logit draws at every step "
+          f"({int(near.sum())} of {T * E} steps near a tie, "
+          f"{int((act != shared).sum())} of them picked apart)", flush=True)
+    lp = torch.log_softmax(h, -1).gather(-1, act[..., None])[..., 0]
+    errs["log_prob"] = check("log_prob vs plain forward", max_err(
+        lp, raw.log_prob), 1e-5)
+    if with_v:
+        errs["value"] = check("V(s), V(s') vs plain forward", max(
+            max_err(mlp.apply(vp, raw.obs, "relu")[..., 0], raw.value),
+            max_err(mlp.apply(vp, raw.next_obs, "relu")[..., 0],
+                    raw.next_value)), 1e-4)
+    rows, reward, term = ln.step(decode_state(lane, raw.obs),
+                                 [act.to(torch.float32)])
+    nobs = torch.stack(ln.obs(rows), -1)
+    # cartpole re-steps its exact state; acrobot's decoded angles carry
+    # ~1 ulp into one RK4 step, whose velocity terms reach ~400
+    tol = 1e-6 if lane == "cartpole" else 1e-3
+    errs["physics"] = check("next_obs, reward vs re-stepped plain physics",
+                            max(max_err(nobs, raw.next_obs),
+                                max_err(reward, raw.reward)), tol)
+    if not torch.equal(term > 0, raw.terminated):
+        raise AssertionError("termination flags differ from the re-stepped "
+                             "physics")
+    if (raw.terminated & raw.truncated).any():
+        raise AssertionError("a step both terminated and truncated")
+    # per env: identical up to the first step the two rollouts pick apart
+    apart = raw.action[..., 0] != ref.action[..., 0]
+    first = torch.where(apart.any(0), apart.to(torch.int64).argmax(0),
+                        torch.full((E,), T, device=dev))
+    for e in torch.nonzero(first < T).flatten().tolist():
+        if not near[first[e], e]:
+            raise AssertionError(f"env {e}: the kernel and the plain rollout "
+                                 f"pick apart at step {int(first[e])}, not "
+                                 f"a near-tie")
+    keep = (torch.arange(T, device=dev)[:, None] < first[None, :])
+    traj_err = 0.0
+    for a, b in ((raw.obs, ref.obs), (raw.next_obs, ref.next_obs),
+                 (raw.reward, ref.reward), (raw.log_prob, ref.log_prob)):
+        mask = keep if a.dim() == 2 else keep[..., None]
+        traj_err = max(traj_err, max_err(a * mask, b * mask))
+    if not (torch.equal(raw.terminated & keep, ref.terminated & keep)
+            and torch.equal(raw.truncated & keep, ref.truncated & keep)):
+        raise AssertionError("done flags differ from the plain rollout")
+    hit = int((near & (torch.arange(T, device=dev)[:, None]
+                       <= first.clamp(max=T - 1)[None, :])).any(0).sum())
+    errs["trajectory"] = check(
+        f"trajectories per env up to the first pick-apart ({hit} of {E} envs "
+        f"reach a near-tie, {int((first < T).sum())} pick apart)", traj_err,
+        1e-4)
+    print(f"  {int(raw.terminated.sum())} terminations, "
+          f"{int(raw.truncated.sum())} truncations in the window",
+          flush=True)
+    if not with_v:
+        traj, _, (sum_r, sum_j, n_eps) = cr.rollout_fused(
+            lane, ts.policy_params, seed, E, T, return_metrics=True)
+        want = ppo.eval_metrics_from_traj(traj, 0.99)
+        if float(n_eps) != float(want.episodes) or float(n_eps) < 1:
+            raise AssertionError(f"episode count {n_eps} vs {want.episodes}")
+        check("R, J sums vs the trajectory (relative)", max(
+            abs(float(sum_r / n_eps - want.R)) / abs(float(want.R)),
+            abs(float(sum_j / n_eps - want.J)) / abs(float(want.J))), 1e-4)
+    times = timings(lambda: cr.rollout_kernel(*args),
+                    lambda: cr.rollout_plain(*args), 20, 1)
+    return raw, max(errs.values()), times
+
+
+def discrete_path(lane: str, dev, counters):
+    """Trainer(bench config for ``lane``, eval_len 500).solve(target, 40)
+    with the launch counts read around it; returns (trainer, result, wall,
+    launches)."""
+    import torch
+
+    from ppoc_tpu_torch.algo.trainer import Trainer
+    from ppoc_tpu_torch.models import mlp
+
+    cfg = bench_config().replace(env=lane, eval_len=500)
+    tr = Trainer(cfg, dev)
+    for c in counters:
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = tr.solve(DISCRETE_SOLVE_R[lane], max_epochs=40)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = {c.kernel: c.n for c in counters}
+    steps = res["epochs"] * cfg.steps_per_epoch
+    print(f"  epochs {res['epochs']}, final R {res['R']:.3f}, wall "
+          f"{wall:.3f} s, {steps / wall:.0f} env-steps/s (training and "
+          f"evaluation), launches {n}", flush=True)
+    if not (math.isfinite(res["R"]) and res["R"] >= DISCRETE_SOLVE_R[lane]):
+        raise AssertionError(f"{lane} not solved in 40 epochs: R {res['R']}")
+    if (min(n[k] for k in (f"rollout[{lane}]", "gae_norm", "value_phase",
+                           "policy_phase_categorical")) < 1
+            or n["policy_phase"]):
+        raise AssertionError(f"the discrete path must run K1's {lane} lane, "
+                             f"K2, K3 and K6, and no K4: {n}")
+    fits = res["epochs"] * cfg.fits_per_epoch
+    if n[f"rollout[{lane}]"] != fits + res["epochs"]:
+        raise AssertionError(f"K1 launches {n[f'rollout[{lane}]']}, not "
+                             f"{fits} training and {res['epochs']} "
+                             f"evaluation rollouts")
+    if not all(torch.isfinite(t).all() for t in (
+            mlp.flatten(tr.state.v_params),
+            mlp.flatten(tr.state.policy_params["mlp"]))):
+        raise AssertionError(f"non-finite weights after the {lane} solve")
+    return tr, res, wall, n
+
+
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -608,9 +869,10 @@ def main() -> int:
         if "registers" in line or "spill" in line.lower():
             print("  nvcc:", line.strip(), flush=True)
     _build.load()
-    counters = [cuda_rollout.launches, cuda_gae.launches,
+    counters = [*cuda_rollout.lane_launches.values(), cuda_gae.launches,
                 cuda_update.value_launches, cuda_update.policy_launches,
-                cuda_mlp.fwd_launches, cuda_mlp.bwd_launches]
+                cuda_update.categorical_launches, cuda_mlp.fwd_launches,
+                cuda_mlp.bwd_launches]
     results = []
 
     def record(name, path, shape, launches, err, times, bound):
@@ -632,7 +894,7 @@ def main() -> int:
     widths = mlp.dims(tr.state.v_params)
     print("[K1 rollout]", flush=True)
     raw, k1_err, k1_t = check_rollout(cfg, tr.state, tr.env, dev)
-    k1_bound = rollout_bound(widths, raw)
+    k1_bound = rollout_bound(widths, widths, raw)
     print("[K2 gae]", flush=True)
     adv, tgt, k2_err, k2_t = check_gae(cfg, raw, dev)
     print("[K3 value phase, K4 policy phase]", flush=True)
@@ -656,7 +918,7 @@ def main() -> int:
           f"launches {launches}", flush=True)
     if not (math.isfinite(res["R"]) and res["R"] >= SOLVE_R):
         raise AssertionError(f"not solved in 40 epochs: R {res['R']}")
-    if min(launches[k] for k in ("rollout_pendulum", "gae_norm",
+    if min(launches[k] for k in ("rollout[pendulum]", "gae_norm",
                                  "value_phase", "policy_phase")) < 1:
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
@@ -669,7 +931,7 @@ def main() -> int:
     n_v = cfg.n_epochs_value * cfg.num_minibatches
     n_p = cfg.n_epochs_policy * cfg.num_minibatches
     bench = f"bench, {E} envs x {T} steps, mb {mb}"
-    record("rollout_pendulum", bench, [T, E], launches["rollout_pendulum"],
+    record("rollout[pendulum]", bench, [T, E], launches["rollout[pendulum]"],
            k1_err, k1_t, k1_bound)
     record("gae_norm", bench, [T, E], launches["gae_norm"], k2_err, k2_t,
            gae_bound(T, E))
@@ -694,7 +956,7 @@ def main() -> int:
     tr = Trainer(tcfg)
     print(f"[K1 at the throughput shape: {E} envs x {T} steps]", flush=True)
     raw, t1_err, t1_t = check_rollout(tcfg, tr.state, tr.env, dev)
-    t1_bound = rollout_bound(widths, raw)
+    t1_bound = rollout_bound(widths, widths, raw)
     print(f"[K2 at {T} x {E}: the global-memory branch]", flush=True)
     adv, tgt, t2_err, t2_t = check_gae(tcfg, raw, dev)
     print(f"[K5 mlp_forward at {mb} and {tcfg.eval_envs} rows, widths "
@@ -714,7 +976,7 @@ def main() -> int:
     tr, train_n, eval_n, act_err = throughput_path(tcfg, dev, counters)
     thr = f"throughput, {E} envs x {T} steps, mb {mb}"
     fwd_b, bwd_b = mlp_bounds(widths, mb)
-    record("rollout_pendulum", thr, [T, E], train_n["rollout_pendulum"],
+    record("rollout[pendulum]", thr, [T, E], train_n["rollout[pendulum]"],
            t1_err, t1_t, t1_bound)
     record("gae_norm", thr, [T, E], train_n["gae_norm"], t2_err, t2_t,
            gae_bound(T, E))
@@ -728,6 +990,98 @@ def main() -> int:
            max(k5e_err, act_err), k5e_fwd,
            mlp_bounds(pwidths, tcfg.eval_envs)[0])
 
+    discrete = {}
+    for i, (lane, ent) in enumerate((("cartpole", 0.0), ("acrobot", 0.01))):
+        dcfg = bench_config().replace(env=lane, eval_len=500)
+        T, E, L = dcfg.rollout_len, dcfg.n_envs, dcfg.eval_len
+        ds = Trainer(dcfg, dev).state
+        pw, vw = mlp.dims(ds.policy_params["mlp"]), mlp.dims(ds.v_params)
+        print(f"[K1 {lane} lane: {E} envs x {T} steps with the V planes]",
+              flush=True)
+        raw, r_err, r_t = check_discrete_rollout(
+            lane, ds, E, T, True, (0x2545F491 + i, 0x9E3779B9), dev)
+        print(f"[K1 {lane} lane: {E} envs x {L} steps with the metrics]",
+              flush=True)
+        raw_m, m_err, m_t = check_discrete_rollout(
+            lane, ds, E, L, False, (0x632BE59B + i, 0x85EBCA6B), dev)
+        print(f"[K2 on the {lane} rollout's planes: "
+              f"{int(raw.terminated.sum())} terminations]", flush=True)
+        adv, tgt, g_err, g_t = check_gae(dcfg, raw, dev)
+        print(f"[K6 categorical policy phase, widths {pw}, ent_coeff {ent}]",
+              flush=True)
+        _, pcols = phase_rows(dcfg, raw, adv, tgt, dev, draw_seed=2 + i)
+        k6 = check_policy_phase(
+            "categorical policy phase",
+            cuda_update.policy_phase_categorical_kernel,
+            cuda_update.policy_phase_categorical_plain,
+            (ds.policy_params["mlp"], ds.opt_policy), pcols, dcfg, ent,
+            whole_ratio=1.0)
+        discrete[lane] = dict(
+            cfg=dcfg, pw=pw, rollout=(r_err, r_t, rollout_bound(pw, vw, raw)),
+            metrics=(m_err, m_t, rollout_bound(pw, None, raw_m)),
+            gae=(g_err, g_t), k6=k6,
+            terminated=bool(raw.terminated.any()))
+    if not discrete["cartpole"]["terminated"]:
+        raise AssertionError("the cartpole rollout fed K2 no termination")
+
+    for lane in discrete:
+        print(f"[discrete path: Trainer(bench_config, env {lane!r}, eval_len "
+              f"500).solve({DISCRETE_SOLVE_R[lane]}, max_epochs=40)]",
+              flush=True)
+        d = discrete[lane]
+        d["trainer"], res, _, n = discrete_path(lane, dev, counters)
+        dcfg, pw = d["cfg"], d["pw"]
+        T, E, L = dcfg.rollout_len, dcfg.n_envs, dcfg.eval_len
+        mb = dcfg.minibatch_size
+        n_p = dcfg.n_epochs_policy * dcfg.num_minibatches
+        path = f"{lane} solve, {E} envs x {T} steps, mb {mb}"
+        fits = res["epochs"] * dcfg.fits_per_epoch
+        record(f"rollout[{lane}]", path + " (training rollouts)", [T, E],
+               fits, *d["rollout"])
+        record(f"rollout[{lane}]", path + " (evaluation rollouts)", [L, E],
+               res["epochs"], *d["metrics"])
+        record("gae_norm", path, [T, E], n["gae_norm"], *d["gae"],
+               gae_bound(T, E))
+        record("policy_phase_categorical", path, [n_p, mb] + pw,
+               n["policy_phase_categorical"], *d["k6"],
+               phase_bound(pw, n_p, mb, 3))
+
+    print("[cartpole: evaluate(deterministic=True) on the trained policy]",
+          flush=True)
+    ctr = discrete["cartpole"]["trainer"]
+    ccfg = ctr.cfg
+    cp = ctr.state.policy_params["mlp"]
+    for c in counters:
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev = ctr.evaluate(deterministic=True)
+    torch.cuda.synchronize()
+    ev_n = {c.kernel: c.n for c in counters}
+    print(f"  R {ev.R:.3f}, J {ev.J:.3f}, episodes {int(ev.episodes)}, "
+          f"{time.perf_counter() - t0:.3f} s; launches {ev_n}", flush=True)
+    if not (math.isfinite(ev.R) and ev.episodes >= 1):
+        raise AssertionError(f"cartpole mean-policy evaluation failed: {ev}")
+    if ev_n["mlp_forward"] != ccfg.eval_len or ev_n["rollout[cartpole]"]:
+        raise AssertionError(f"the mean-policy evaluation must be "
+                             f"{ccfg.eval_len} K5 forwards: {ev_n}")
+    traj = ppo.rollout_env_loop(ccfg, ctr.env, ctr.state.policy_params,
+                                ppo.draw_eval(ccfg, ctr.env,
+                                              torch.Generator().manual_seed(9),
+                                              dev, deterministic=True))
+    argmax = mlp.apply(cp, traj.obs, ccfg.activation).argmax(-1)
+    if not torch.equal(traj.action[..., 0].long(), argmax):
+        raise AssertionError("mean-policy actions differ from the plain "
+                             "argmax on the recorded obs")
+    x_ev = traj.obs[0].contiguous()
+    c_err, c_fwd, _ = check_mlp(cp, x_ev, ccfg.activation, dev)
+    cpw = mlp.dims(cp)
+    record("mlp_forward", "cartpole mean-policy evaluation",
+           [ccfg.eval_envs] + cpw, ev_n["mlp_forward"], c_err, c_fwd,
+           mlp_bounds(cpw, ccfg.eval_envs)[0])
+
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
+          f"build included", flush=True)
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

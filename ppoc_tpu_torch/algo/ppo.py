@@ -13,10 +13,12 @@ Adam states (policy net, value net, log_std).
 The port runs the JAX package's "pallas" backend (kernel_backend "pallas"
 or "auto"): one rollout kernel (K1, with V(s) and V(s') in-kernel), one
 GAE + normalise kernel (K2), then per update phase either one whole-phase
-kernel (K3, K4) or, above the fused gate (minibatches over 2048 rows), the
-generic per-minibatch phase whose forward and backward are the whole-MLP
-kernel K5.  The mean policy evaluates through the env loop, one K5 forward
-per step.  On CPU tensors each kernel runs its plain version.  The JAX
+kernel (K3; K4 for a Gaussian policy, K6 for a categorical one) or, above
+the fused gate (minibatches over 2048 rows), the generic per-minibatch
+phase whose forward and backward are the whole-MLP kernel K5.  A discrete
+env (cartpole, acrobot) takes the same path with a categorical policy: K1
+samples its int32 class ids by Gumbel-max.  The mean policy evaluates
+through the env loop, one K5 forward per step.  On CPU tensors each kernel runs its plain version.  The JAX
 package's "jnp" backend (stochastic env-loop training rollout,
 doubling-scan GAE with Welford) is not ported.
 
@@ -49,7 +51,7 @@ BACKEND = "pallas"
 
 class Transition(NamedTuple):
     obs: torch.Tensor         # [T, E, obs_dim]
-    action: torch.Tensor      # [T, E, act_dim]
+    action: torch.Tensor      # [T, E, act_dim] (int32 [T, E, 1] if discrete)
     log_prob: torch.Tensor    # [T, E]
     next_obs: torch.Tensor    # [T, E, obs_dim]  true successor (pre-reset)
     reward: torch.Tensor      # [T, E]
@@ -62,7 +64,8 @@ class TrainState(NamedTuple):
     v_params: Any
     opt_policy: adam.AdamState    # over policy_params["mlp"]
     opt_v: adam.AdamState         # over v_params
-    opt_log_std: adam.AdamState   # over policy_params["log_std"]
+    opt_log_std: adam.AdamState   # over policy_params["log_std"] (empty
+                                  # moments if discrete)
 
 
 class FitMetrics(NamedTuple):
@@ -117,19 +120,23 @@ def draw_fit(cfg: PPOConfig, generator: torch.Generator,
 
 def init_train_state(cfg: PPOConfig, env: Env, generator: torch.Generator,
                      device: torch.device) -> TrainState:
-    """Policy (Gaussian MLP + log_std), value net with the same trunk and a
-    scalar head, and three fresh Adam states."""
+    """Policy (Gaussian MLP + log_std, or categorical MLP for a discrete
+    env), value net with the same trunk and a scalar head, and three fresh
+    Adam states; a categorical policy's log_std state has empty moments,
+    as the JAX package's ``adam.init(jnp.zeros((0,)))``."""
     spec = env.spec
-    policy_params = policy_mod.init_gaussian(
-        spec.obs_dim, spec.action_dim, cfg.hidden, cfg.init_std, generator,
-        device)
+    policy_params = policy_mod.init(
+        spec.obs_dim, spec.action_dim, cfg.hidden, cfg.init_std,
+        spec.discrete, generator, device)
     v_params = mlp.init((spec.obs_dim, *cfg.hidden, 1), generator, device)
+    log_std = policy_params.get(
+        "log_std", torch.zeros((0,), dtype=torch.float32, device=device))
     return TrainState(
         policy_params=policy_params,
         v_params=v_params,
         opt_policy=adam.init(policy_params["mlp"]),
         opt_v=adam.init(v_params),
-        opt_log_std=adam.init(policy_params["log_std"]),
+        opt_log_std=adam.init(log_std),
     )
 
 
@@ -196,7 +203,7 @@ def rollout_env_loop(cfg: PPOConfig, env: Env, policy_params: Dict[str, Any],
     steps = []
     for t in range(fobs.shape[0]):
         action, logp = policy_mod.mode(policy_params, obs, cfg.activation,
-                                       BACKEND)
+                                       BACKEND, env.spec.discrete)
         fresh = (type(fstate)(*(f[t] for f in fstate)), fobs[t])
         state, obs2, next_obs, reward, term, trunc = vector_autoreset_step(
             env, state, action, fresh=fresh)
@@ -242,7 +249,7 @@ def _stab_policy_ok(cfg: PPOConfig) -> bool:
 
 
 def _fused(cfg: PPOConfig, stab_ok: bool) -> bool:
-    """The JAX package's gate for a whole-phase kernel (K3/K4):
+    """The JAX package's gate for a whole-phase kernel (K3, K4, K6):
     ``ppoc_tpu/algo/ppo.py:598-604`` and ``:698-704``.  Its other two
     conditions (per-shard minibatch size and count equal to cfg's) hold
     here always: the port has no sharding and draws its streams from
@@ -303,22 +310,31 @@ def value_phase(cfg: PPOConfig, ts: TrainState, buf: buffer.RowBuffer,
 
 
 def policy_phase(cfg: PPOConfig, ts: TrainState, buf: buffer.RowBuffer,
-                 idx: torch.Tensor):
+                 idx: torch.Tensor, discrete: bool = False):
     """Clipped-surrogate passes over the id stream ``idx``; returns (ts',
     mean loss, mean entropy).
 
-    Under the fused gate, one K4 launch.  Above it, the JAX package's scan
-    branch (``ppoc_tpu/algo/ppo.py:726-780``): per minibatch, the Gaussian
-    log-prob through K5, ``clipped_surrogate_loss - ent_coeff * entropy``,
-    ``torch.autograd.grad`` and one Adam step for the mean net and one for
-    log_std, each with its own state.  Without the stabilisers the entropy
-    coefficient is the constant cfg.ent_coeff."""
+    Under the fused gate, one K4 launch, or one K6 launch for a categorical
+    policy (``discrete``), as ``ppoc_tpu/algo/ppo.py:687-708`` chooses.
+    Above it, the JAX package's scan branch (``ppoc_tpu/algo/ppo.py:726-780``):
+    per minibatch, the log-prob and entropy through K5,
+    ``clipped_surrogate_loss - ent_coeff * entropy``,
+    ``torch.autograd.grad`` and one Adam step for the policy net, plus one
+    for log_std with its own state if the policy is Gaussian.  Without the
+    stabilisers the entropy coefficient is the constant cfg.ent_coeff."""
     n_epochs, n_mb = idx.shape[:2]
     mb, blk = cfg.minibatch_size, cfg.shuffle_block
     cols = (buf.obs, buf.action, buf.log_prob, buf.advantage)
     pol = ts.policy_params
     if _fused(cfg, _stab_policy_ok(cfg)):
         o, a, lp, ad = buffer.gather_mb(cols, idx, blk)
+        if discrete:
+            params2, opt_p2, loss, ent = cuda_update.policy_phase_categorical(
+                o, a, lp, ad, pol["mlp"], ts.opt_policy, n_epochs * n_mb, mb,
+                cfg.activation, _hyper(cfg, cfg.lr_policy), cfg.clip_eps,
+                cfg.ent_coeff)
+            return ts._replace(policy_params={"mlp": params2},
+                               opt_policy=opt_p2), loss, ent
         params2, ls2, opt_p2, opt_ls2, loss, ent = cuda_update.policy_phase(
             o, a, lp, ad, pol["mlp"], pol["log_std"], ts.opt_policy,
             ts.opt_log_std, n_epochs * n_mb, mb, cfg.activation,
@@ -332,19 +348,25 @@ def policy_phase(cfg: PPOConfig, ts: TrainState, buf: buffer.RowBuffer,
     mb_losses, ents = [], []
     for ids in _minibatches(idx):
         o, a, lp, ad = buffer.gather_mb(cols, ids, blk)
-        params = {"mlp": _requiring_grad(pol["mlp"]),
-                  "log_std": pol["log_std"].detach().requires_grad_()}
-        logp = policy_mod.log_prob(params, o, a, cfg.activation, BACKEND)
-        ent = policy_mod.entropy(params)
+        params = {"mlp": _requiring_grad(pol["mlp"])}
+        if not discrete:
+            params["log_std"] = pol["log_std"].detach().requires_grad_()
+        logp = policy_mod.log_prob(params, o, a, cfg.activation, BACKEND,
+                                   discrete)
+        ent = policy_mod.entropy(params, o, cfg.activation, BACKEND, discrete)
         loss = (losses.clipped_surrogate_loss(logp, lp, ad, cfg.clip_eps)
                 - cfg.ent_coeff * ent)
+        leaves = adam.tree_leaves(params["mlp"])
         grads = torch.autograd.grad(
-            loss, adam.tree_leaves(params["mlp"]) + [params["log_std"]])
-        mlp2, opt_p = _adam_step(cfg, pol["mlp"], grads[:-1], opt_p,
+            loss, leaves + ([] if discrete else [params["log_std"]]))
+        mlp2, opt_p = _adam_step(cfg, pol["mlp"], grads[:len(leaves)], opt_p,
                                  cfg.lr_policy)
-        ls2, opt_ls = _adam_step(cfg, pol["log_std"], grads[-1:], opt_ls,
-                                 cfg.lr_policy)
-        pol = {"mlp": mlp2, "log_std": ls2}
+        if discrete:
+            pol = {"mlp": mlp2}
+        else:
+            ls2, opt_ls = _adam_step(cfg, pol["log_std"], grads[-1:], opt_ls,
+                                     cfg.lr_policy)
+            pol = {"mlp": mlp2, "log_std": ls2}
         mb_losses.append(loss.detach())
         ents.append(ent.detach())
     return (ts._replace(policy_params=pol, opt_policy=opt_p,
@@ -363,7 +385,8 @@ def update_step(cfg: PPOConfig, env: Env, ts: TrainState, traj: Transition,
     adv, target = compute_advantages(cfg, env, traj, values_pair)
     buf = buffer.from_rollout(traj, adv, target)
     ts, v_loss = value_phase(cfg, ts, buf, draws.value_idx)
-    ts, p_loss, ent = policy_phase(cfg, ts, buf, draws.policy_idx)
+    ts, p_loss, ent = policy_phase(cfg, ts, buf, draws.policy_idx,
+                                   env.spec.discrete)
     return ts, FitMetrics(v_loss, p_loss, ent, traj.reward.mean())
 
 
@@ -386,7 +409,7 @@ def train_epoch(cfg: PPOConfig, env: Env, ts: TrainState,
     """fits_per_epoch sequential fits; returns (ts', metrics meaned over the
     fits).  With cfg.reset_per_fit=False envs reset once at epoch entry and
     persist across the fits."""
-    device = ts.policy_params["log_std"].device
+    device = ts.v_params[0][0].device
     carry = None
     if not cfg.reset_per_fit:
         carry = vector_reset(env, generator, cfg.n_envs, device)
@@ -408,7 +431,7 @@ def train_until(cfg: PPOConfig, env: Env, ts: TrainState,
     """Train epochs until the stochastic-eval mean return reaches
     ``target_R`` or ``max_epochs`` ran; returns (ts, epochs_run, final_R).
     A host loop: one device sync per epoch, to read R."""
-    device = ts.policy_params["log_std"].device
+    device = ts.v_params[0][0].device
     n, R = 0, -math.inf
     while R < target_R and n < max_epochs:
         ts, _ = train_epoch(cfg, env, ts, generator)

@@ -1,10 +1,14 @@
-// K1: the whole T-step Pendulum rollout as one kernel launch.
+// K1: the whole T-step rollout as one kernel launch, for each ported env
+// lane (pendulum, cartpole, acrobot).
 //
 // Replaces ppoc_tpu/ops/pallas_rollout.py `rollout_fused` -> `_kernel`
-// (pendulum lane, `_pendulum_lane`; RNG `_fmix32`/`_uniform01`).  Each step
-// runs the policy MLP forward, Box-Muller Gaussian sampling and log-prob,
-// the pendulum physics, horizon truncation and auto-reset, and optionally
-// V(s) and V(s') from the value net or the completed-episode R/J sums.
+// (lanes `_pendulum_lane`, `_cartpole_lane`, `_acrobot_lane`; RNG
+// `_fmix32`/`_uniform01`).  Each step runs the policy MLP forward, samples
+// (Box-Muller Gaussian for a continuous lane, Gumbel-max over the class
+// logits with an exact log-softmax log-prob for a discrete one), steps the
+// lane's physics, applies termination, horizon truncation and auto-reset,
+// and optionally V(s) and V(s') from the value net or the completed-episode
+// R/J sums.
 //
 // What bounds it on the card: the T steps are a serial chain, and one step
 // is a few small dependent MLP layers (at the bench shape 64 envs through
@@ -15,9 +19,18 @@
 // launch per rollout, as on the TPU), the policy and value weights
 // (2 x 17,153 floats at the bench shape, 137 KB) sit in dynamic shared
 // memory for the whole rollout, and each block owns a tile of ET envs whose
-// state lives in registers.  A layer is one pass of the block: one thread
-// per (net, output unit), ET accumulators each, so the policy forward and
-// V(s) run side by side.  Blocks are independent (one per env tile).
+// state lives in registers (2 floats for pendulum, 4 for cartpole and
+// acrobot).  A layer is one pass of the block: one thread per (net, output
+// unit), ET accumulators each, so the policy forward and V(s) run side by
+// side.  Blocks are independent (one per env tile).
+//
+// A lane is a struct (`PendulumLane`, `CartPoleLane`, `AcrobotLane`) with
+// its state and obs widths D and O, its class count K (0: continuous), its
+// horizon and `reset`, `obs`, `step`; the kernel is a template over it.
+// The discrete lanes' physics multiplies with __fmul_rn, which the compiler
+// never fuses into an FMA, so each operation rounds as PyTorch's elementwise
+// kernels round it and the plain version on the card follows the same
+// trajectory bit for bit while the two draw the same actions.
 #include "common.cuh"
 
 using namespace ppoc;
@@ -27,10 +40,12 @@ namespace {
 constexpr int ET = 8;          // envs per block
 constexpr int THREADS = 256;   // >= 2 x the widest hidden layer works best
 
-// Pendulum constants as float32, as the JAX lane computes them.
 constexpr float PI_F = 3.14159265358979323846f;
 constexpr float TWO_PI_F = 6.28318530717958647692f;
-constexpr float HORIZON_F = 200.0f;
+constexpr uint32_t T_INIT = 0xFFFF0000u;   // the step counter of the entry reset
+// the Gumbel draws' clip [1e-12, 1 - 1e-7], as float32 rounds the bounds
+constexpr float U_LO = 1e-12f;
+constexpr float U_HI = 0.99999988f;
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t z) {
   z ^= z >> 16;
@@ -57,16 +72,191 @@ __device__ __forceinline__ float uniform01(uint32_t s0, uint32_t s1,
          (1.0f / 16777216.0f);
 }
 
+// A reset's uniforms: draw 50 + j at step t for state row j.
+struct ResetDraws {
+  uint32_t s0, s1, t, lane;
+  __device__ float operator()(int j) const {
+    return uniform01(s0, s1, t, 50u + (uint32_t)j, lane);
+  }
+};
+
+// Gumbel-max over K logits with the log-softmax log-prob of the pick
+// (pallas_rollout.py `_kernel`, discrete branch): u_k = clip(U(t, k)),
+// y_k = h_k - log(-log u_k), the strict > keeps the lower index on a tie,
+// log_prob = h_a - (zmax + log sum_k exp(h_k - zmax)).
+__device__ __forceinline__ int gumbel_max(const float* h, int K, uint32_t s0,
+                                          uint32_t s1, uint32_t t,
+                                          uint32_t lane, float* log_prob) {
+  float zmax = h[0];
+  for (int k = 1; k < K; ++k) zmax = fmaxf(zmax, h[k]);
+  float sum = 0.0f;
+  for (int k = 0; k < K; ++k) sum = sum + expf(h[k] - zmax);
+  const float lse = zmax + logf(sum);
+  float best = 0.0f;
+  int idx = 0;
+  for (int k = 0; k < K; ++k) {
+    const float u = fminf(fmaxf(uniform01(s0, s1, t, (uint32_t)k, lane), U_LO),
+                          U_HI);
+    const float y = h[k] - logf(-logf(u));
+    if (k == 0 || y > best) {
+      best = y;
+      idx = k;
+    }
+  }
+  *log_prob = h[idx] - lse;
+  return idx;
+}
+
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+
+// --- lanes (pallas_rollout.LANE_ENVS) ------------------------------------
+
+struct PendulumLane {
+  static constexpr int D = 2, O = 3, K = 0;
+  static constexpr float HORIZON = 200.0f;
+  template <class R>
+  __device__ static void reset(float* s, R rand) {
+    s[0] = -PI_F + TWO_PI_F * rand(0);
+    s[1] = -1.0f + 2.0f * rand(1);
+  }
+  __device__ static void obs(const float* s, float* o) {
+    o[0] = cosf(s[0]);
+    o[1] = sinf(s[0]);
+    o[2] = s[1];
+  }
+  // act[0]: the UNCLIPPED sampled torque
+  __device__ static void step(const float* s, const float* act, float* s2,
+                              float* reward, float* term) {
+    const float th = s[0], thd = s[1];
+    const float u = fminf(fmaxf(act[0], -2.0f), 2.0f);
+    const float v = th + PI_F;
+    const float an = v - TWO_PI_F * floorf(v / TWO_PI_F) - PI_F;
+    const float cost = an * an + 0.1f * thd * thd + 0.001f * u * u;
+    const float thd2 =
+        fminf(fmaxf(thd + (15.0f * sinf(th) + 3.0f * u) * 0.05f, -8.0f), 8.0f);
+    s2[0] = th + thd2 * 0.05f;
+    s2[1] = thd2;
+    *reward = -cost;
+    *term = 0.0f;   // pendulum never terminates
+  }
+};
+
+struct CartPoleLane {
+  static constexpr int D = 4, O = 4, K = 2;
+  static constexpr float HORIZON = 500.0f;
+  template <class R>
+  __device__ static void reset(float* s, R rand) {
+#pragma unroll
+    for (int j = 0; j < D; ++j) s[j] = -0.05f + mul(0.1f, rand(j));
+  }
+  __device__ static void obs(const float* s, float* o) {
+#pragma unroll
+    for (int j = 0; j < D; ++j) o[j] = s[j];
+  }
+  // act[0]: the class id as a float (1: push right)
+  __device__ static void step(const float* s, const float* act, float* s2,
+                              float* reward, float* term) {
+    const float x = s[0], xd = s[1], th = s[2], thd = s[3];
+    const float force = act[0] > 0.5f ? 10.0f : -10.0f;
+    const float c = cosf(th), si = sinf(th);
+    // POLEMASS_LENGTH 0.05, TOTAL_MASS 1.1, LENGTH 0.5, MASSPOLE 0.1
+    const float temp = (force + mul(mul(mul(0.05f, thd), thd), si)) / 1.1f;
+    const float th_acc = (mul(9.8f, si) - mul(c, temp)) /
+                         mul(0.5f, 1.3333334f - mul(mul(0.1f, c), c) / 1.1f);
+    const float x_acc = temp - mul(mul(0.05f, th_acc), c) / 1.1f;
+    s2[0] = x + mul(0.02f, xd);
+    s2[1] = xd + mul(0.02f, x_acc);
+    s2[2] = th + mul(0.02f, thd);
+    s2[3] = thd + mul(0.02f, th_acc);
+    // THETA_THRESHOLD 12 * 2 pi / 360 as float32
+    const bool out = fabsf(s2[0]) > 2.4f || fabsf(s2[2]) > 0.20943952f;
+    *reward = 1.0f;
+    *term = out ? 1.0f : 0.0f;
+  }
+};
+
+struct AcrobotLane {
+  static constexpr int D = 4, O = 6, K = 3;
+  static constexpr float HORIZON = 500.0f;
+  template <class R>
+  __device__ static void reset(float* s, R rand) {
+#pragma unroll
+    for (int j = 0; j < D; ++j) s[j] = -0.1f + mul(0.2f, rand(j));
+  }
+  __device__ static void obs(const float* s, float* o) {
+    o[0] = cosf(s[0]);
+    o[1] = sinf(s[0]);
+    o[2] = cosf(s[1]);
+    o[3] = sinf(s[1]);
+    o[4] = s[2];
+    o[5] = s[3];
+  }
+  // Book-convention dynamics with unit masses and link lengths, centres of
+  // mass at 0.5, unit inertias, g = 9.8; every product of Python constants
+  // is rounded to float32 once, as the JAX lane's are.
+  __device__ static void dsdt(const float* y, float torque, float* dy) {
+    const float th1 = y[0], th2 = y[1], d1_ = y[2], d2_ = y[3];
+    const float c2 = cosf(th2), s2 = sinf(th2);
+    const float d1 = 0.25f + (1.25f + c2) + 1.0f + 1.0f;
+    const float d2 = 0.25f + mul(0.5f, c2) + 1.0f;
+    const float phi2 = mul(4.9f, cosf(th1 + th2 - 1.5707964f));
+    const float phi1 = mul(mul(-0.5f, mul(d2_, d2_)), s2) -
+                       mul(mul(d2_, d1_), s2) +
+                       mul(14.7f, cosf(th1 - 1.5707964f)) + phi2;
+    const float dd2 =
+        (torque + mul(d2 / d1, phi1) - mul(mul(0.5f, mul(d1_, d1_)), s2) -
+         phi2) /
+        (1.25f - mul(d2, d2) / d1);
+    const float dd1 = -(mul(d2, dd2) + phi1) / d1;
+    dy[0] = d1_;
+    dy[1] = d2_;
+    dy[2] = dd1;
+    dy[3] = dd2;
+  }
+  __device__ static float wrap(float x) {
+    const float v = x + PI_F;
+    return v - mul(TWO_PI_F, floorf(v / TWO_PI_F)) - PI_F;
+  }
+  // act[0]: the class id as a float; the torque is act - 1
+  __device__ static void step(const float* s, const float* act, float* s2,
+                              float* reward, float* term) {
+    const float torque = act[0] - 1.0f;
+    float k1[4], k2[4], k3[4], k4[4], y[4];
+    dsdt(s, torque, k1);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) y[j] = s[j] + mul(0.1f, k1[j]);
+    dsdt(y, torque, k2);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) y[j] = s[j] + mul(0.1f, k2[j]);
+    dsdt(y, torque, k3);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) y[j] = s[j] + mul(0.2f, k3[j]);
+    dsdt(y, torque, k4);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      s2[j] = s[j] + mul(0.033333335f, k1[j] + mul(2.0f, k2[j]) +
+                                           mul(2.0f, k3[j]) + k4[j]);
+    s2[0] = wrap(s2[0]);
+    s2[1] = wrap(s2[1]);
+    s2[2] = fminf(fmaxf(s2[2], -12.566371f), 12.566371f);   // 4 pi
+    s2[3] = fminf(fmaxf(s2[3], -28.274334f), 28.274334f);   // 9 pi
+    const bool up = -cosf(s2[0]) - cosf(s2[1] + s2[0]) > 1.0f;
+    *term = up ? 1.0f : 0.0f;
+    *reward = *term - 1.0f;
+  }
+};
+
 struct DevArgs {
   Net net[2];                 // [0] policy, [1] value
   const float* params[2];
   const float* log_std;
-  const float* st0;           // [E, 2] carried (theta, theta_dot)
+  const float* st0;           // [E, D] carried lane state
   const float* steps0;        // [E]
   int fresh, with_v, act_dim, activation, T, E, hmax;
   uint32_t s0, s1;
   float gamma, lp0;
   float *obs, *next_obs, *action, *log_prob, *reward, *value, *next_value;
+  int32_t* action_idx;        // discrete lanes: [T, E] class ids
   bool *terminated, *truncated;
   float *st_final, *steps_final, *metrics;
 };
@@ -110,8 +300,9 @@ __device__ void tile_forward(const Net* nets, float* const* P, int first,
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-rollout_pendulum_kernel(const DevArgs a) {
+template <class Lane>
+__global__ void __launch_bounds__(THREADS) rollout_kernel(const DevArgs a) {
+  constexpr int D = Lane::D, O = Lane::O;
   extern __shared__ float smem[];
   __shared__ Net nets[2];
   __shared__ float log_std[MAX_ACT];
@@ -119,7 +310,7 @@ rollout_pendulum_kernel(const DevArgs a) {
   const int tid = threadIdx.x;
   const int n_nets = a.with_v ? 2 : 1;
   if (tid < 2) nets[tid] = a.net[tid];
-  if (tid < a.act_dim) log_std[tid] = a.log_std[tid];
+  if (Lane::K == 0 && tid < a.act_dim) log_std[tid] = a.log_std[tid];
 
   // shared memory: params of each net, input tile, per-net ping-pong
   // hidden buffers, per-net output tile
@@ -143,16 +334,17 @@ rollout_pendulum_kernel(const DevArgs a) {
   const bool owner = tid < ET;
   const bool live = owner && e < a.E;
   const uint32_t lane = (uint32_t)e;
-  float th = 0.0f, thd = 0.0f, steps = 0.0f;
+  float s[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) s[d] = 0.0f;
+  float steps = 0.0f;
   float racc = 0.0f, jacc = 0.0f, gpow = 1.0f, mR = 0.0f, mJ = 0.0f, mN = 0.0f;
   if (live) {
     if (a.fresh) {
-      const uint32_t t_init = 0xFFFF0000u;
-      th = -PI_F + TWO_PI_F * uniform01(a.s0, a.s1, t_init, 50, lane);
-      thd = -1.0f + 2.0f * uniform01(a.s0, a.s1, t_init, 51, lane);
+      Lane::reset(s, ResetDraws{a.s0, a.s1, T_INIT, lane});
     } else {
-      th = a.st0[2 * e];
-      thd = a.st0[2 * e + 1];
+#pragma unroll
+      for (int d = 0; d < D; ++d) s[d] = a.st0[(size_t)e * D + d];
       steps = a.steps0[e];
     }
   }
@@ -161,59 +353,62 @@ rollout_pendulum_kernel(const DevArgs a) {
   for (int t = 0; t < a.T; ++t) {
     const size_t row = (size_t)t * a.E + e;
     if (owner) {
-      const float o0 = cosf(th), o1 = sinf(th);
-      x[0 * ET + tid] = o0;
-      x[1 * ET + tid] = o1;
-      x[2 * ET + tid] = thd;
-      if (live) {
-        a.obs[row * 3 + 0] = o0;
-        a.obs[row * 3 + 1] = o1;
-        a.obs[row * 3 + 2] = thd;
+      float o[O];
+      Lane::obs(s, o);
+#pragma unroll
+      for (int d = 0; d < O; ++d) {
+        x[d * ET + tid] = o[d];
+        if (live) a.obs[row * O + d] = o[d];
       }
     }
     __syncthreads();
     tile_forward(nets, P, 0, n_nets, x, bufs, outs, a.hmax, a.activation);
 
     if (owner) {
-      // Box-Muller sampling; the stored action is the UNCLIPPED mu + eps*sigma
-      float lp = a.lp0, u0 = 0.0f;
-      for (int j = 0; j < a.act_dim; ++j) {
-        const float ls = log_std[j];
-        const float sigma = expf(ls);
-        const float u1 = fmaxf(uniform01(a.s0, a.s1, t, 2 * j, lane), 1e-12f);
-        const float u2 = uniform01(a.s0, a.s1, t, 2 * j + 1, lane);
-        const float eps = sqrtf(-2.0f * logf(u1)) * cosf(TWO_PI_F * u2);
-        const float mu = outs[0][j * ET + tid];
-        const float act = mu + eps * sigma;
-        const float z = (act - mu) / sigma;
-        lp = lp - ls - 0.5f * z * z;
-        if (live) a.action[row * a.act_dim + j] = act;
-        if (j == 0) u0 = act;
+      float act[MAX_ACT];
+      float lp;
+      if constexpr (Lane::K > 0) {
+        float h[Lane::K];
+#pragma unroll
+        for (int k = 0; k < Lane::K; ++k) h[k] = outs[0][k * ET + tid];
+        const int idx = gumbel_max(h, Lane::K, a.s0, a.s1, (uint32_t)t, lane,
+                                   &lp);
+        act[0] = (float)idx;
+        if (live) a.action_idx[row] = idx;
+      } else {
+        // Box-Muller sampling; the stored action is the UNCLIPPED mu + eps*sigma
+        lp = a.lp0;
+        for (int j = 0; j < a.act_dim; ++j) {
+          const float ls = log_std[j];
+          const float sigma = expf(ls);
+          const float u1 = fmaxf(uniform01(a.s0, a.s1, t, 2 * j, lane), 1e-12f);
+          const float u2 = uniform01(a.s0, a.s1, t, 2 * j + 1, lane);
+          const float eps = sqrtf(-2.0f * logf(u1)) * cosf(TWO_PI_F * u2);
+          const float mu = outs[0][j * ET + tid];
+          const float ac = mu + eps * sigma;
+          const float z = (ac - mu) / sigma;
+          lp = lp - ls - 0.5f * z * z;
+          if (live) a.action[row * a.act_dim + j] = ac;
+          act[j] = ac;
+        }
       }
-      // pendulum physics (pallas_rollout._pendulum_lane.step)
-      const float u = fminf(fmaxf(u0, -2.0f), 2.0f);
-      const float v = th + PI_F;
-      const float an = v - TWO_PI_F * floorf(v / TWO_PI_F) - PI_F;
-      const float cost = an * an + 0.1f * thd * thd + 0.001f * u * u;
-      const float thd2 =
-          fminf(fmaxf(thd + (15.0f * sinf(th) + 3.0f * u) * 0.05f, -8.0f), 8.0f);
-      const float th2 = th + thd2 * 0.05f;
-      const float reward = -cost;
+      float s2[D], reward, term;
+      Lane::step(s, act, s2, &reward, &term);
       const float steps2 = steps + 1.0f;
-      const float trunc = fmaxf((steps2 >= HORIZON_F ? 1.0f : 0.0f), 0.0f);
-      const float done = trunc;   // pendulum never terminates
-      const float n0 = cosf(th2), n1 = sinf(th2);
-      x[0 * ET + tid] = n0;
-      x[1 * ET + tid] = n1;
-      x[2 * ET + tid] = thd2;
+      const float trunc =
+          fmaxf((steps2 >= Lane::HORIZON ? 1.0f : 0.0f) - term, 0.0f);
+      const float done = fmaxf(term, trunc);
+      float no[O];
+      Lane::obs(s2, no);
+#pragma unroll
+      for (int d = 0; d < O; ++d) x[d * ET + tid] = no[d];
       if (live) {
         a.log_prob[row] = lp;
         a.reward[row] = reward;
-        a.terminated[row] = false;
+        a.terminated[row] = term > 0.0f;
         a.truncated[row] = trunc > 0.0f;
-        a.next_obs[row * 3 + 0] = n0;
-        a.next_obs[row * 3 + 1] = n1;
-        a.next_obs[row * 3 + 2] = thd2;
+#pragma unroll
+        for (int d = 0; d < O; ++d) a.next_obs[row * O + d] = no[d];
         if (a.with_v) a.value[row] = outs[1][tid];
       }
       // completed-episode metrics
@@ -225,11 +420,11 @@ rollout_pendulum_kernel(const DevArgs a) {
       racc = (1.0f - done) * racc2;
       jacc = (1.0f - done) * jacc2;
       gpow = done > 0.0f ? 1.0f : gpow * a.gamma;
-      // auto-reset with draws 50, 51 at step t
-      const float fth = -PI_F + TWO_PI_F * uniform01(a.s0, a.s1, t, 50, lane);
-      const float fthd = -1.0f + 2.0f * uniform01(a.s0, a.s1, t, 51, lane);
-      th = done > 0.0f ? fth : th2;
-      thd = done > 0.0f ? fthd : thd2;
+      // auto-reset with draws 50 + j at step t
+      float fresh[D];
+      Lane::reset(fresh, ResetDraws{a.s0, a.s1, (uint32_t)t, lane});
+#pragma unroll
+      for (int d = 0; d < D; ++d) s[d] = done > 0.0f ? fresh[d] : s2[d];
       steps = done > 0.0f ? 0.0f : steps2;
     }
     __syncthreads();
@@ -239,8 +434,8 @@ rollout_pendulum_kernel(const DevArgs a) {
     }
   }
   if (live) {
-    a.st_final[2 * e] = th;
-    a.st_final[2 * e + 1] = thd;
+#pragma unroll
+    for (int d = 0; d < D; ++d) a.st_final[(size_t)e * D + d] = s[d];
     a.steps_final[e] = steps;
     a.metrics[e] = mR;
     a.metrics[a.E + e] = mJ;
@@ -254,6 +449,29 @@ __global__ void rng_bits_kernel(int32_t* out, int n, uint32_t s0, uint32_t s1,
   if (i < n) out[i] = (int32_t)rng_bits(s0, s1, t, draw, (uint32_t)i);
 }
 
+// The rollout's sampler alone, on given logits [n, K] at step t for lanes
+// 0..n-1: writes the class ids and log-probs.
+__global__ void gumbel_max_kernel(const float* logits, int n, int K,
+                                  uint32_t s0, uint32_t s1, uint32_t t,
+                                  int32_t* idx, float* log_prob) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float h[MAX_ACT];
+  for (int k = 0; k < K; ++k) h[k] = logits[(size_t)i * K + k];
+  idx[i] = gumbel_max(h, K, s0, s1, t, (uint32_t)i, &log_prob[i]);
+}
+
+template <class Lane>
+cudaError_t launch(const DevArgs& d, long smem, int blocks,
+                   cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      rollout_kernel<Lane>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  rollout_kernel<Lane><<<blocks, THREADS, smem, stream>>>(d);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Host-side argument block; ppoc_tpu_torch/ops/cuda_rollout.py mirrors it
@@ -261,15 +479,17 @@ __global__ void rng_bits_kernel(int32_t* out, int n, uint32_t s0, uint32_t s1,
 struct RolloutArgs {
   const float* policy_params;
   const float* value_params;     // null: no V planes
-  const float* log_std;
-  const float* st0;              // null: fresh reset
+  const float* log_std;          // continuous lanes only
+  const float* st0;              // null: fresh reset; else [E, D]
   const float* steps0;
   const int* policy_dims;        // host arrays of n_layers + 1 widths
   const int* value_dims;
+  int lane;                      // 0 pendulum, 1 cartpole, 2 acrobot
   int n_layers, act_dim, activation, T, E;
   uint32_t s0, s1;
   float gamma, lp0;
   float *obs, *next_obs, *action, *log_prob, *reward, *value, *next_value;
+  int32_t* action_idx;
   bool *terminated, *truncated;
   float *st_final, *steps_final, *metrics;
 };
@@ -287,30 +507,36 @@ static long rollout_smem(const DevArgs& d) {
   return floats * (long)sizeof(float);
 }
 
+// Fills the nets of `d` from `a`; false for a shape the kernel refuses.
+static bool make_nets(DevArgs* d, const RolloutArgs* a) {
+  if (!make_net(&d->net[0], a->n_layers, a->policy_dims)) return false;
+  d->with_v = a->value_params != nullptr;
+  if (d->with_v && !make_net(&d->net[1], a->n_layers, a->value_dims))
+    return false;
+  d->hmax = 1;
+  for (int n = 0; n < (d->with_v ? 2 : 1); ++n)
+    for (int l = 1; l < a->n_layers; ++l)
+      d->hmax = d->net[n].dim[l] > d->hmax ? d->net[n].dim[l] : d->hmax;
+  return true;
+}
+
 extern "C" long ppoc_rollout_smem_bytes(const RolloutArgs* a) {
   DevArgs d{};
-  if (!make_net(&d.net[0], a->n_layers, a->policy_dims)) return -1;
-  d.with_v = a->value_params != nullptr;
-  if (d.with_v && !make_net(&d.net[1], a->n_layers, a->value_dims)) return -1;
-  d.hmax = 1;
-  for (int n = 0; n < (d.with_v ? 2 : 1); ++n)
-    for (int l = 1; l < a->n_layers; ++l)
-      d.hmax = d.net[n].dim[l] > d.hmax ? d.net[n].dim[l] : d.hmax;
+  if (!make_nets(&d, a)) return -1;
   return rollout_smem(d);
 }
 
-extern "C" int ppoc_rollout_pendulum(const RolloutArgs* a, cudaStream_t stream) {
+extern "C" int ppoc_rollout(const RolloutArgs* a, cudaStream_t stream) {
   DevArgs d{};
-  if (!make_net(&d.net[0], a->n_layers, a->policy_dims)) return cudaErrorInvalidValue;
-  d.with_v = a->value_params != nullptr;
-  if (d.with_v && !make_net(&d.net[1], a->n_layers, a->value_dims))
+  if (!make_nets(&d, a)) return cudaErrorInvalidValue;
+  const int obs_dim[3] = {PendulumLane::O, CartPoleLane::O, AcrobotLane::O};
+  const int classes[3] = {PendulumLane::K, CartPoleLane::K, AcrobotLane::K};
+  if (a->lane < 0 || a->lane > 2 || d.net[0].dim[0] != obs_dim[a->lane])
     return cudaErrorInvalidValue;
-  if (a->act_dim < 1 || a->act_dim > MAX_ACT || d.net[0].dim[0] != 3)
+  const int out = classes[a->lane] > 0 ? classes[a->lane] : a->act_dim;
+  if (a->act_dim < 1 || a->act_dim > MAX_ACT || out != a->act_dim ||
+      d.net[0].dim[a->n_layers] != out)
     return cudaErrorInvalidValue;
-  d.hmax = 1;
-  for (int n = 0; n < (d.with_v ? 2 : 1); ++n)
-    for (int l = 1; l < a->n_layers; ++l)
-      d.hmax = d.net[n].dim[l] > d.hmax ? d.net[n].dim[l] : d.hmax;
   d.params[0] = a->policy_params;
   d.params[1] = a->value_params;
   d.log_std = a->log_std;
@@ -328,6 +554,7 @@ extern "C" int ppoc_rollout_pendulum(const RolloutArgs* a, cudaStream_t stream) 
   d.obs = a->obs;
   d.next_obs = a->next_obs;
   d.action = a->action;
+  d.action_idx = a->action_idx;
   d.log_prob = a->log_prob;
   d.reward = a->reward;
   d.value = a->value;
@@ -339,17 +566,25 @@ extern "C" int ppoc_rollout_pendulum(const RolloutArgs* a, cudaStream_t stream) 
   d.metrics = a->metrics;
 
   const long smem = rollout_smem(d);
-  cudaError_t err = cudaFuncSetAttribute(
-      rollout_pendulum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
   const int blocks = (a->E + ET - 1) / ET;
-  rollout_pendulum_kernel<<<blocks, THREADS, smem, stream>>>(d);
-  return cudaGetLastError();
+  switch (a->lane) {
+    case 0: return launch<PendulumLane>(d, smem, blocks, stream);
+    case 1: return launch<CartPoleLane>(d, smem, blocks, stream);
+    default: return launch<AcrobotLane>(d, smem, blocks, stream);
+  }
 }
 
 extern "C" int ppoc_rng_bits(int32_t* out, int n, uint32_t s0, uint32_t s1,
                              uint32_t t, uint32_t draw, cudaStream_t stream) {
   rng_bits_kernel<<<(n + 255) / 256, 256, 0, stream>>>(out, n, s0, s1, t, draw);
+  return cudaGetLastError();
+}
+
+extern "C" int ppoc_gumbel_max(const float* logits, int n, int K, uint32_t s0,
+                               uint32_t s1, uint32_t t, int32_t* idx,
+                               float* log_prob, cudaStream_t stream) {
+  if (K < 1 || K > MAX_ACT) return cudaErrorInvalidValue;
+  gumbel_max_kernel<<<(n + 255) / 256, 256, 0, stream>>>(logits, n, K, s0, s1,
+                                                         t, idx, log_prob);
   return cudaGetLastError();
 }

@@ -1,14 +1,17 @@
-// K3 and K4: a whole PPO update phase (every epoch x minibatch step) as one
-// kernel launch.
+// K3, K4 and K6: a whole PPO update phase (every epoch x minibatch step) as
+// one kernel launch.
 //
 // Replaces ppoc_tpu/ops/pallas_update.py `value_phase_fused` ->
-// `_run_value_phase` -> `_value_kernel`/`_value_kernel_unrolled` (K3) and
+// `_run_value_phase` -> `_value_kernel`/`_value_kernel_unrolled` (K3),
 // `policy_phase_fused` -> `_policy_kernel`/`_policy_kernel_unrolled` (K4,
-// Gaussian).  Each step: MLP forward on the pre-gathered minibatch, the
-// loss gradient in closed form (K3: MSE, 2/mb (v - target); K4: clipped
-// surrogate, gradient only through the unclipped branch, plus the entropy
-// term on log_std), backward, and Adam (K4: two Adams, the net's and
-// log_std's, each with its own timestep).
+// Gaussian) and `policy_phase_fused_categorical` -> `_policy_kernel_cat`/
+// `_policy_kernel_cat_unrolled` (K6, categorical).  Each step: MLP forward
+// on the pre-gathered minibatch, the loss gradient in closed form (K3: MSE,
+// 2/mb (v - target); K4: clipped surrogate, gradient only through the
+// unclipped branch, plus the entropy term on log_std; K6: the same
+// surrogate through a log-softmax over the class logits plus the entropy
+// bonus, as one gradient on the logits), backward, and Adam (K4: two
+// Adams, the net's and log_std's, each with its own timestep; K3, K6: one).
 //
 // What bounds it on the card: the steps are serial through Adam (500 value
 // and 200 policy steps per fit at the bench shape), and one step of a
@@ -40,6 +43,7 @@ struct PhaseDev {
   const float *ls_in, *mls_in, *vls_in;
   float *ls_out, *mls_out, *vls_out;
   float *scratch, *stats;
+  const int32_t* act_idx;
   int activation, n_steps, mb, t0, t0_ls, k_act;
   float two_over_mb, lp0, ent0, clip_lo, clip_hi, ent_coeff;
   AdamHyper hyper;
@@ -186,11 +190,89 @@ __global__ void __launch_bounds__(THREADS, 1) policy_phase_kernel(const PhaseDev
   }
 }
 
+// K6, per step and row r of the minibatch (pallas_update.py:824-883):
+// log-softmax of the K logits h, logp = logp_all[a] through the one-hot
+// sum, ratio = exp(logp - lp_old), surr = min(ratio adv, clip(ratio) adv),
+// H = -sum_k p_k logp_all_k, and the logit gradient
+// G[r,k] = dlogp (onehot - p) + (ent_coeff / mb) p (logp_all + H) with
+// dlogp = -(adv ratio / mb) on the unclipped branch, else 0.  The rows'
+// class ids are read as int32.  Loss and entropy sums come back in stats.
+__global__ void __launch_bounds__(THREADS, 1)
+categorical_policy_phase_kernel(const PhaseDev a) {
+  extern __shared__ float smem[];
+  __shared__ float red[33];
+  const StepCtx c = make_ctx(a, smem);
+  const int K = a.k_act;
+  load_state(a, c);
+  const int d0 = a.pn.net.dim[0];
+  const float* logits = c.H + a.pn.h_off[a.pn.net.n_layers - 1];   // [mb, K]
+  const float mbf = (float)a.mb;
+  const float ent_mb = a.ent_coeff / mbf;
+  float loss = 0.0f, ent_sum = 0.0f;
+  for (int s = 0; s < a.n_steps; ++s) {
+    const size_t row0 = (size_t)s * a.mb;
+    const float* x = a.x + row0 * d0;
+    mlp_forward(c, x);
+    float surr_part = 0.0f, h_part = 0.0f;
+    for (int r = threadIdx.x; r < a.mb; r += blockDim.x) {
+      const size_t row = row0 + r;
+      const float* h = logits + (size_t)r * K;
+      float zmax = h[0];
+      for (int k = 1; k < K; ++k) zmax = fmaxf(zmax, h[k]);
+      float sum = 0.0f;
+      for (int k = 0; k < K; ++k) sum += expf(h[k] - zmax);
+      const float lse = zmax + logf(sum);
+      const int act = a.act_idx[row];
+      float lpa[MAX_ACT], p[MAX_ACT];
+      float logp = 0.0f, H = 0.0f;
+#pragma unroll
+      for (int k = 0; k < MAX_ACT; ++k) {
+        if (k < K) {
+          lpa[k] = h[k] - lse;
+          p[k] = expf(lpa[k]);
+          logp += k == act ? lpa[k] : 0.0f;
+          H += p[k] * lpa[k];
+        }
+      }
+      H = -H;
+      const float adv = a.adv[row];
+      const float ratio = expf(logp - a.lp_old[row]);
+      const float clipped = fminf(fmaxf(ratio, a.clip_lo), a.clip_hi);
+      const float ra = ratio * adv, ca = clipped * adv;
+      surr_part += fminf(ra, ca);
+      h_part += H;
+      // only the unclipped branch carries the surrogate's gradient
+      const float dlogp = ra <= ca ? -(adv * ratio / mbf) : 0.0f;
+      float* g = c.G[0] + (size_t)r * K;
+#pragma unroll
+      for (int k = 0; k < MAX_ACT; ++k) {
+        if (k < K) {
+          const float onehot = k == act ? 1.0f : 0.0f;
+          g[k] = dlogp * (onehot - p[k]) + ent_mb * p[k] * (lpa[k] + H);
+        }
+      }
+    }
+    const float surr = block_sum(surr_part, red);
+    const float hsum = block_sum(h_part, red);
+    loss += (-surr - a.ent_coeff * hsum) / mbf;
+    ent_sum += hsum / mbf;
+
+    mlp_backward(c, x);
+    adam_step(c, a.m_out, a.v_out, a.t0 + s + 1, a.hyper);
+  }
+  store_params(a, c);
+  if (threadIdx.x == 0) {
+    a.stats[0] = loss;
+    a.stats[1] = ent_sum;
+  }
+}
+
 }  // namespace
 
 // Host-side argument block; ppoc_tpu_torch/ops/cuda_update.py mirrors it
 // field for field as a ctypes.Structure.  Value phases leave the policy
-// fields null, policy phases `tgt`.
+// fields null, policy phases `tgt`; the categorical phase reads its actions
+// from `act_idx` and leaves `act` and the log_std fields null.
 struct PhaseArgs {
   const float *x, *tgt, *act, *lp_old, *adv;
   const float *p_in, *m_in, *v_in;
@@ -198,6 +280,7 @@ struct PhaseArgs {
   const float *ls_in, *mls_in, *vls_in;
   float *ls_out, *mls_out, *vls_out;
   float *scratch, *stats;
+  const int32_t* act_idx;
   const int* dims;   // host array of n_layers + 1 widths
   int n_layers, activation, n_steps, mb, t0, t0_ls, k_act;
   float two_over_mb, lp0, ent0, clip_lo, clip_hi, ent_coeff;
@@ -216,26 +299,31 @@ extern "C" int ppoc_phase_sizes(const PhaseArgs* a, long* sizes) {
   return 1;
 }
 
-static int launch_phase(const PhaseArgs* a, cudaStream_t stream, bool policy) {
+enum PhaseKind { VALUE, POLICY, CATEGORICAL };
+
+static int launch_phase(const PhaseArgs* a, cudaStream_t stream,
+                        PhaseKind kind) {
   PhaseDev d{};
   if (!make_padded(&d.pn, a->n_layers, a->dims, a->mb)) return cudaErrorInvalidValue;
-  if (policy && (a->k_act < 1 || a->k_act > MAX_ACT ||
-                 d.pn.net.dim[a->n_layers] != a->k_act))
+  if (kind != VALUE && (a->k_act < 1 || a->k_act > MAX_ACT ||
+                        d.pn.net.dim[a->n_layers] != a->k_act))
     return cudaErrorInvalidValue;
-  if (!policy && d.pn.net.dim[a->n_layers] != 1) return cudaErrorInvalidValue;
+  if (kind == VALUE && d.pn.net.dim[a->n_layers] != 1) return cudaErrorInvalidValue;
   d.x = a->x; d.tgt = a->tgt; d.act = a->act; d.lp_old = a->lp_old; d.adv = a->adv;
   d.p_in = a->p_in; d.m_in = a->m_in; d.v_in = a->v_in;
   d.p_out = a->p_out; d.m_out = a->m_out; d.v_out = a->v_out;
   d.ls_in = a->ls_in; d.mls_in = a->mls_in; d.vls_in = a->vls_in;
   d.ls_out = a->ls_out; d.mls_out = a->mls_out; d.vls_out = a->vls_out;
-  d.scratch = a->scratch; d.stats = a->stats;
+  d.scratch = a->scratch; d.stats = a->stats; d.act_idx = a->act_idx;
   d.activation = a->activation; d.n_steps = a->n_steps; d.mb = a->mb;
   d.t0 = a->t0; d.t0_ls = a->t0_ls; d.k_act = a->k_act;
   d.two_over_mb = a->two_over_mb; d.lp0 = a->lp0; d.ent0 = a->ent0;
   d.clip_lo = a->clip_lo; d.clip_hi = a->clip_hi; d.ent_coeff = a->ent_coeff;
   d.hyper = a->hyper;
   const int smem = d.pn.n_padded * (int)sizeof(float);
-  auto kernel = policy ? policy_phase_kernel : value_phase_kernel;
+  auto kernel = kind == VALUE    ? value_phase_kernel
+                : kind == POLICY ? policy_phase_kernel
+                                 : categorical_policy_phase_kernel;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -244,9 +332,14 @@ static int launch_phase(const PhaseArgs* a, cudaStream_t stream, bool policy) {
 }
 
 extern "C" int ppoc_value_phase(const PhaseArgs* a, cudaStream_t stream) {
-  return launch_phase(a, stream, false);
+  return launch_phase(a, stream, VALUE);
 }
 
 extern "C" int ppoc_policy_phase(const PhaseArgs* a, cudaStream_t stream) {
-  return launch_phase(a, stream, true);
+  return launch_phase(a, stream, POLICY);
+}
+
+extern "C" int ppoc_policy_phase_categorical(const PhaseArgs* a,
+                                             cudaStream_t stream) {
+  return launch_phase(a, stream, CATEGORICAL);
 }

@@ -17,7 +17,7 @@ import torch
 class RowBuffer(NamedTuple):
     """Flattened per-transition training rows (the post-GAE buffer)."""
     obs: torch.Tensor        # [N, obs_dim]
-    action: torch.Tensor     # [N, act_dim]
+    action: torch.Tensor     # [N, act_dim], or int32 [N, 1] class ids
     log_prob: torch.Tensor   # [N]
     advantage: torch.Tensor  # [N]
     target: torch.Tensor     # [N]  value targets V(s) + A
@@ -26,7 +26,8 @@ class RowBuffer(NamedTuple):
 def from_rollout(traj, advantage: torch.Tensor,
                  target: torch.Tensor) -> RowBuffer:
     """Flatten a [T, E, ...] rollout and its GAE outputs into [T*E, ...] rows
-    (row t*E + e is step t of env e)."""
+    (row t*E + e is step t of env e).  Every column keeps its dtype, so a
+    discrete env's class ids stay int32 through here and ``gather_mb``."""
     n = traj.obs.shape[0] * traj.obs.shape[1]
     return RowBuffer(
         obs=traj.obs.reshape(n, -1),

@@ -1,10 +1,13 @@
 """Batched PyTorch environments (counterpart of ``ppoc_tpu.envs``).
 
-Only Pendulum is ported so far; the other environments and the wrappers
+Ported: Pendulum (continuous), CartPole and Acrobot (discrete).  The other
+environments (simple, mountain_car, reacher, recall) and the wrappers
 follow in later slices.
 """
 from .core import (Env, EnvSpec, make, register, vector_autoreset_step,
                    vector_reset)
+from . import acrobot as _acrobot  # noqa: F401  (registers "acrobot")
+from . import cartpole as _cartpole  # noqa: F401  (registers "cartpole")
 from . import pendulum as _pendulum  # noqa: F401  (registers "pendulum")
 
 

@@ -1,13 +1,21 @@
-"""Diagonal Gaussian policy (counterpart of ``ppoc_tpu/models/policy.py``).
+"""Stochastic policies (counterpart of ``ppoc_tpu/models/policy.py``).
 
-An MLP mean ``mu`` plus a state-independent learnable ``log_std`` vector
-initialised to log(init_std), with
+Diagonal Gaussian: an MLP mean ``mu`` plus a state-independent learnable
+``log_std`` vector initialised to log(init_std), with
 
   * sampling  a = mu + eps * exp(log_std)
   * log-prob  -k/2 log(2 pi) - sum_j [log_std_j + ((a_j - mu_j) / exp(log_std_j))^2 / 2]
   * entropy   k/2 (1 + log(2 pi)) + sum_j log_std_j
 
-Categorical policies (and kernel K6) are not ported yet.
+Categorical (the discrete envs): an MLP over the K class logits and no
+``log_std``; the log-prob is the log-softmax at the action's class, the
+entropy the mean over rows of -sum_k p_k log p_k.  Its whole fused policy
+phase is kernel K6 (``ops/cuda_update.py``); sampling is K1's Gumbel-max
+(``ops/cuda_rollout.py``).
+
+``init``, ``mode``, ``log_prob`` and ``entropy`` dispatch on ``discrete``
+as the JAX package's do; every MLP call goes through ``mlp.apply`` with the
+caller's backend, so through K5 on the card.
 """
 from __future__ import annotations
 
@@ -31,6 +39,15 @@ def init_gaussian(obs_dim: int, action_dim: int, hidden: Sequence[int],
     }
 
 
+def init_categorical(obs_dim: int, n_actions: int, hidden: Sequence[int],
+                     generator: torch.Generator,
+                     device: torch.device) -> Dict:
+    return {"mlp": mlp.init((obs_dim, *hidden, n_actions), generator,
+                            device)}
+
+
+# --- Gaussian ---------------------------------------------------------------
+
 def gaussian_log_prob_from_mean(mu: torch.Tensor, log_std: torch.Tensor,
                                 action: torch.Tensor) -> torch.Tensor:
     k = action.shape[-1]
@@ -42,8 +59,8 @@ def sample(params: Dict, obs: torch.Tensor, activation: str, backend: str,
            eps: Optional[torch.Tensor] = None,
            generator: Optional[torch.Generator] = None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Sample actions and their log-probs.  The standard-normal noise is
-    ``eps`` when given, else drawn from ``generator``."""
+    """Sample Gaussian actions and their log-probs.  The standard-normal
+    noise is ``eps`` when given, else drawn from ``generator``."""
     mu = mlp.apply(params["mlp"], obs, activation, backend)
     if eps is None:
         eps = torch.randn(mu.shape, generator=generator,
@@ -52,20 +69,71 @@ def sample(params: Dict, obs: torch.Tensor, activation: str, backend: str,
     return action, gaussian_log_prob_from_mean(mu, params["log_std"], action)
 
 
-def mode(params: Dict, obs: torch.Tensor, activation: str,
-         backend: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(action, log_prob) of the distribution mode (the Gaussian mean); the
-    log_prob is that of the mean under the stochastic policy."""
+def gaussian_entropy(params: Dict) -> torch.Tensor:
+    k = params["log_std"].shape[0]
+    return 0.5 * k * (1.0 + LOG_2PI) + torch.sum(params["log_std"])
+
+
+# --- Categorical -------------------------------------------------------------
+
+def categorical_log_prob(params: Dict, obs: torch.Tensor,
+                         action: torch.Tensor, activation: str,
+                         backend: str) -> torch.Tensor:
+    """log softmax(logits)[action]; ``action`` holds class ids [..., 1]."""
+    logits = mlp.apply(params["mlp"], obs, activation, backend)
+    logp_all = torch.log_softmax(logits, dim=-1)
+    return torch.take_along_dim(logp_all, action.long(), dim=-1)[..., 0]
+
+
+def categorical_entropy(params: Dict, obs: torch.Tensor, activation: str,
+                        backend: str) -> torch.Tensor:
+    """Mean over rows of -sum_k p_k log p_k."""
+    logits = mlp.apply(params["mlp"], obs, activation, backend)
+    logp = torch.log_softmax(logits, dim=-1)
+    return torch.mean(-torch.sum(torch.exp(logp) * logp, dim=-1))
+
+
+# --- unified dispatch ---------------------------------------------------------
+
+def init(obs_dim: int, action_dim: int, hidden: Sequence[int],
+         init_std: float, discrete: bool, generator: torch.Generator,
+         device: torch.device) -> Dict:
+    if discrete:
+        return init_categorical(obs_dim, action_dim, hidden, generator,
+                                device)
+    return init_gaussian(obs_dim, action_dim, hidden, init_std, generator,
+                         device)
+
+
+def mode(params: Dict, obs: torch.Tensor, activation: str, backend: str,
+         discrete: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(action, log_prob) of the distribution mode: the Gaussian mean, or
+    the categorical argmax as int32 [..., 1] (the first of tied maxima).
+    The log_prob is that of the returned action under the stochastic
+    policy."""
     out = mlp.apply(params["mlp"], obs, activation, backend)
+    if discrete:
+        action = torch.argmax(out, dim=-1, keepdim=True)
+        logp = torch.take_along_dim(torch.log_softmax(out, dim=-1), action,
+                                    dim=-1)[..., 0]
+        return action.to(torch.int32), logp
     return out, gaussian_log_prob_from_mean(out, params["log_std"], out)
 
 
 def log_prob(params: Dict, obs: torch.Tensor, action: torch.Tensor,
-             activation: str, backend: str) -> torch.Tensor:
+             activation: str, backend: str,
+             discrete: bool = False) -> torch.Tensor:
+    if discrete:
+        return categorical_log_prob(params, obs, action, activation, backend)
     mu = mlp.apply(params["mlp"], obs, activation, backend)
     return gaussian_log_prob_from_mean(mu, params["log_std"], action)
 
 
-def entropy(params: Dict) -> torch.Tensor:
-    k = params["log_std"].shape[0]
-    return 0.5 * k * (1.0 + LOG_2PI) + torch.sum(params["log_std"])
+def entropy(params: Dict, obs: Optional[torch.Tensor] = None,
+            activation: str = "relu", backend: str = "jnp",
+            discrete: bool = False) -> torch.Tensor:
+    """The policy's entropy: closed form for the Gaussian (no obs needed),
+    the mean over the rows of ``obs`` for the categorical."""
+    if discrete:
+        return categorical_entropy(params, obs, activation, backend)
+    return gaussian_entropy(params)

@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernel library.
 
-Every ``csrc/*.cu`` file is compiled by nvcc, on first use, into one shared
-library with a plain C interface, loaded with ctypes:
+Every ``csrc/*.cu`` file is compiled by its own nvcc, all started
+together, on first use, and the objects are linked into one shared library
+with a plain C interface, loaded with ctypes:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o build/ppoc_tpu_torch/libppoc_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c csrc/<name>.cu -o <name>.o   # each
+    nvcc -shared -o build/ppoc_tpu_torch/libppoc_kernels.so *.o
 
 No ``--use_fast_math``: the parity checks compare the kernels' logf, cosf,
 sinf, expf and sqrtf with PyTorch's.  The library lands in ``build/`` at the
@@ -31,7 +33,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ppoc_tpu_torch"
 LIB_NAME = "libppoc_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def _sources():
@@ -77,16 +79,34 @@ def build() -> Dict[str, object]:
         if lib.exists() and stamp.exists() and stamp.read_text() == digest:
             return {"path": str(lib), "built": False,
                     "seconds": time.perf_counter() - t0}
+        nvcc = find_nvcc()
         tmp = BUILD_DIR / (LIB_NAME + f".tmp{os.getpid()}")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        (BUILD_DIR / "nvcc.log").write_text(
-            " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = BUILD_DIR / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log, failed = [], []
+        for cmd, _, proc in jobs:
+            out = proc.communicate()[0]
+            log.append(" ".join(cmd) + "\n" + out)
+            if proc.returncode != 0:
+                failed.append(f"{cmd[-3]} (exit {proc.returncode}):\n"
+                              f"{out[-4000:]}")
+        if not failed:
+            cmd = [nvcc, "-shared", "-o", str(tmp),
+                   *[str(obj) for _, obj, _ in jobs]]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(f"link (exit {proc.returncode}):\n"
+                              f"{proc.stderr[-4000:]}")
+        (BUILD_DIR / "nvcc.log").write_text("\n".join(log))
+        if failed:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}):\n{proc.stderr[-4000:]}")
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
         os.replace(tmp, lib)
         stamp.write_text(digest)
     return {"path": str(lib), "built": True,

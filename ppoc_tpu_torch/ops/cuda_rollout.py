@@ -1,15 +1,21 @@
 """K1: the whole-rollout kernel (``csrc/rollout.cu``) and its plain version.
 
-Counterpart of ``ppoc_tpu/ops/pallas_rollout.py`` ``rollout_fused``, the
-Pendulum lane.  One launch runs all T steps: policy forward, Box-Muller
-sampling and log-prob, physics, truncation and auto-reset, plus either the
-value planes V(s), V(s') (``v_params``) or the completed-episode R/J sums
-(``return_metrics``).
+Counterpart of ``ppoc_tpu/ops/pallas_rollout.py`` ``rollout_fused`` for the
+pendulum, cartpole and acrobot lanes (:data:`LANES`, the port's own copy of
+those entries of the JAX package's ``LANE_ENVS``).  One launch runs all T
+steps: policy forward, sampling and log-prob (Box-Muller for a continuous
+lane; Gumbel-max over the class logits with an exact log-softmax for a
+discrete one), the lane's physics, termination, truncation and auto-reset,
+plus either the value planes V(s), V(s') (``v_params``) or the
+completed-episode R/J sums (``return_metrics``).
 
 Randomness is the JAX kernel's counter RNG, bit for bit: a murmur3
-finalizer over (seed words, step, draw, env lane).  The caller passes the
-two 32-bit seed words; given the JAX package's seed words (its
-``fold_in(key, 0)`` key data) both packages draw the same uniforms.
+finalizer over (seed words, step, draw, env lane).  Draws 0.. are the
+sampler's (2j, 2j+1 for Gaussian dim j; k for class k), draws 50 + j the
+resets' (state row j, at step t, or at ``T_INIT`` for the entry reset).
+The caller passes the two 32-bit seed words; given the JAX package's seed
+words (its ``fold_in(key, 0)`` key data) both packages draw the same
+uniforms.
 
 A CUDA tensor launches the kernel, a CPU tensor runs :func:`rollout_plain`,
 which repeats the kernel's arithmetic op for op in PyTorch (uint32
@@ -19,20 +25,21 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
-from ppoc_tpu_torch.envs.pendulum import HORIZON, PendulumState, obs_of
+from ppoc_tpu_torch.envs import acrobot as ac, cartpole as cp
+from ppoc_tpu_torch.envs import pendulum as pd
 from ppoc_tpu_torch.models import mlp
 from ppoc_tpu_torch.ops import _build
-
-launches = _build.LaunchCount("rollout_pendulum")
 
 _TWO_PI = 2.0 * math.pi
 _M32 = 0xFFFFFFFF
 T_INIT = 0xFFFF0000          # the step counter of the entry reset
-SUPPORTED = frozenset({"pendulum"})
+# the Gumbel draws' clip [1e-12, 1 - 1e-7], as float32 rounds the bounds
+U_LO, U_HI = float(np.float32(1e-12)), float(np.float32(1.0 - 1e-7))
 
 
 # --- counter RNG (pallas_rollout._fmix32 / _uniform01) --------------------
@@ -68,124 +75,298 @@ def uniform01(s0: int, s1: int, t: int, draw: int,
     return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
-def rng_bits_cuda(s0: int, s1: int, t: int, draw: int, n: int,
-                  device) -> torch.Tensor:
-    """The kernel's RNG bits for lanes 0..n-1 (int64 holding uint32), from
-    a one-line kernel that calls the same device function as the rollout;
-    for checking the bits exactly on the card."""
-    lib = _declare()
-    out = torch.empty(n, dtype=torch.int32, device=device)
-    _build.check(lib, lib.ppoc_rng_bits(out.data_ptr(), n, s0, s1, t, draw,
-                                        _build.stream_of(device)),
-                 "rng_bits kernel")
-    return out.to(torch.int64) & _M32
-
-
 def seed_words(generator: torch.Generator) -> Tuple[int, int]:
     """Two fresh 32-bit seed words for one rollout."""
     s = torch.randint(0, 1 << 32, (2,), generator=generator, dtype=torch.int64)
     return int(s[0]), int(s[1])
 
 
+def gumbel_max_plain(h: torch.Tensor, s0: int, s1: int, t: int,
+                     lanes: torch.Tensor):
+    """The discrete lanes' sampler on logits ``h`` [E, K] at step t:
+    Gumbel-max with draws k = 0..K-1 (the strict > keeps the lower class
+    on a tie) and the log-softmax log-prob of the pick.  Returns (class ids
+    int64 [E], log-probs [E])."""
+    K = h.shape[1]
+    zmax = h[:, 0]
+    for k in range(1, K):
+        zmax = torch.maximum(zmax, h[:, k])
+    total = torch.zeros_like(zmax)
+    for k in range(K):
+        total = total + torch.exp(h[:, k] - zmax)
+    lse = zmax + torch.log(total)
+    best = idx = None
+    for k in range(K):
+        u = torch.clamp(uniform01(s0, s1, t, k, lanes).to(h.device),
+                        U_LO, U_HI)
+        y = h[:, k] - torch.log(-torch.log(u))
+        if best is None:
+            best, idx = y, torch.zeros(h.shape[0], dtype=torch.int64,
+                                       device=h.device)
+        else:
+            take = y > best
+            best = torch.where(take, y, best)
+            idx = torch.where(take, k, idx)
+    return idx, h.gather(1, idx[:, None])[:, 0] - lse
+
+
+def gumbel_gap(h: torch.Tensor, s0: int, s1: int, t: int,
+               lanes: torch.Tensor) -> torch.Tensor:
+    """How far the sampler's pick is from a tie at step t: the top
+    perturbed logit minus the runner-up, per env [E].  Two samplers whose
+    logits differ by less than this draw the same class."""
+    ys = torch.stack([
+        h[:, k] - torch.log(-torch.log(torch.clamp(
+            uniform01(s0, s1, t, k, lanes).to(h.device), U_LO, U_HI)))
+        for k in range(h.shape[1])], dim=1)
+    top2 = torch.topk(ys, 2, dim=1).values
+    return top2[:, 0] - top2[:, 1]
+
+
+# --- lanes (pallas_rollout.LANE_ENVS) --------------------------------------
+
+class Lane(NamedTuple):
+    """An env as functions on lists of [E] rows, in the JAX lane's own
+    operation order (which may differ from the env module's)."""
+    code: int            # the kernel's lane id (csrc/rollout.cu RolloutArgs)
+    state_dim: int
+    obs_dim: int
+    n_actions: int       # class count (0: continuous)
+    horizon: int
+    reset: Callable      # rand(j) -> state rows
+    obs: Callable        # state rows -> obs rows
+    step: Callable       # (rows, action rows) -> (rows, reward, term)
+    pack: Callable       # env state -> ([E, state_dim] float, steps [E])
+    unpack: Callable     # ([E, state_dim], int32 steps [E]) -> env state
+
+
+def _div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c rounded as one float32 division, as the kernel and XLA divide.
+    (On CUDA, PyTorch multiplies by the reciprocal when the divisor is a
+    Python scalar, which can differ in the last bit.)"""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
+def _pendulum_step(s, act):
+    th, thd = s
+    u = torch.clamp(act[0], -pd.MAX_TORQUE, pd.MAX_TORQUE)
+    v = th + math.pi
+    an = v - _TWO_PI * torch.floor(_div(v, _TWO_PI)) - math.pi
+    cost = an * an + 0.1 * thd * thd + 0.001 * u * u
+    thd2 = torch.clamp(thd + (15.0 * torch.sin(th) + 3.0 * u) * 0.05,
+                       -pd.MAX_SPEED, pd.MAX_SPEED)
+    return [th + thd2 * 0.05, thd2], -cost, torch.zeros_like(th)
+
+
+def _cartpole_step(s, act):
+    x, xd, th, thd = s
+    force = torch.where(act[0] > 0.5, cp.FORCE_MAG, -cp.FORCE_MAG)
+    c, si = torch.cos(th), torch.sin(th)
+    temp = _div(force + cp.POLEMASS_LENGTH * thd * thd * si, cp.TOTAL_MASS)
+    th_acc = (cp.GRAVITY * si - c * temp) / (
+        cp.LENGTH * (4.0 / 3.0 - _div(cp.MASSPOLE * c * c, cp.TOTAL_MASS)))
+    x_acc = temp - _div(cp.POLEMASS_LENGTH * th_acc * c, cp.TOTAL_MASS)
+    x2, th2 = x + cp.TAU * xd, th + cp.TAU * thd
+    term = ((x2.abs() > cp.X_THRESHOLD)
+            | (th2.abs() > cp.THETA_THRESHOLD)).to(torch.float32)
+    return ([x2, xd + cp.TAU * x_acc, th2, thd + cp.TAU * th_acc],
+            torch.ones_like(x2), term)
+
+
+def _acrobot_dsdt(th1, th2, d1_, d2_, torque):
+    m1 = m2 = 1.0
+    l1 = 1.0
+    lc1 = lc2 = 0.5
+    i1 = i2 = 1.0
+    g = 9.8
+    c2, s2 = torch.cos(th2), torch.sin(th2)
+    d1 = m1 * lc1 ** 2 + m2 * (l1 ** 2 + lc2 ** 2 + 2 * l1 * lc2 * c2) + i1 + i2
+    d2 = m2 * (lc2 ** 2 + l1 * lc2 * c2) + i2
+    phi2 = m2 * lc2 * g * torch.cos(th1 + th2 - math.pi / 2.0)
+    phi1 = (-m2 * l1 * lc2 * d2_ ** 2 * s2
+            - 2 * m2 * l1 * lc2 * d2_ * d1_ * s2
+            + (m1 * lc1 + m2 * l1) * g * torch.cos(th1 - math.pi / 2.0)
+            + phi2)
+    dd2 = (torque + d2 / d1 * phi1 - m2 * l1 * lc2 * d1_ ** 2 * s2 - phi2) / (
+        m2 * lc2 ** 2 + i2 - d2 ** 2 / d1)
+    dd1 = -(d2 * dd2 + phi1) / d1
+    return d1_, d2_, dd1, dd2
+
+
+def _acrobot_wrap(x):
+    v = x + math.pi
+    return v - _TWO_PI * torch.floor(_div(v, _TWO_PI)) - math.pi
+
+
+def _acrobot_step(s, act):
+    torque = act[0] - 1.0                      # class id {0, 1, 2}
+    dt = ac.DT
+    y = tuple(s)
+    k1 = _acrobot_dsdt(*y, torque)
+    k2 = _acrobot_dsdt(*(a + dt / 2.0 * b for a, b in zip(y, k1)), torque)
+    k3 = _acrobot_dsdt(*(a + dt / 2.0 * b for a, b in zip(y, k2)), torque)
+    k4 = _acrobot_dsdt(*(a + dt * b for a, b in zip(y, k3)), torque)
+    out = [a + dt / 6.0 * (p + 2 * q + 2 * r + w)
+           for a, p, q, r, w in zip(y, k1, k2, k3, k4)]
+    out[0] = _acrobot_wrap(out[0])
+    out[1] = _acrobot_wrap(out[1])
+    out[2] = torch.clamp(out[2], -ac.MAX_VEL_1, ac.MAX_VEL_1)
+    out[3] = torch.clamp(out[3], -ac.MAX_VEL_2, ac.MAX_VEL_2)
+    term = ((-torch.cos(out[0]) - torch.cos(out[1] + out[0])) > 1.0
+            ).to(torch.float32)
+    return out, term - 1.0, term
+
+
+LANES: Dict[str, Lane] = {
+    "pendulum": Lane(
+        0, 2, 3, 0, pd.HORIZON,
+        reset=lambda rand: [-math.pi + _TWO_PI * rand(0),
+                            -1.0 + 2.0 * rand(1)],
+        obs=lambda s: [torch.cos(s[0]), torch.sin(s[0]), s[1]],
+        step=_pendulum_step,
+        pack=lambda st: (torch.stack([st.theta, st.theta_dot], 1), st.t),
+        unpack=lambda m, t: pd.PendulumState(m[:, 0], m[:, 1], t)),
+    "cartpole": Lane(
+        1, 4, 4, 2, cp.HORIZON,
+        reset=lambda rand: [-0.05 + 0.1 * rand(j) for j in range(4)],
+        obs=list,
+        step=_cartpole_step,
+        pack=lambda st: (torch.stack(list(st[:4]), 1), st.t),
+        unpack=lambda m, t: cp.CartPoleState(*m.unbind(1), t)),
+    "acrobot": Lane(
+        2, 4, 6, 3, ac.HORIZON,
+        reset=lambda rand: [-0.1 + 0.2 * rand(j) for j in range(4)],
+        obs=lambda s: [torch.cos(s[0]), torch.sin(s[0]), torch.cos(s[1]),
+                       torch.sin(s[1]), s[2], s[3]],
+        step=_acrobot_step,
+        pack=lambda st: (st.s, st.t),
+        unpack=lambda m, t: ac.AcrobotState(m, t)),
+}
+SUPPORTED = frozenset(LANES)
+
+# one launch count per lane: the kernel is one template, run per lane
+lane_launches = {name: _build.LaunchCount(f"rollout[{name}]")
+                 for name in LANES}
+
+
 # --- raw outputs shared by the kernel and the plain version ---------------
 
 class RawRollout(NamedTuple):
-    obs: torch.Tensor          # [T, E, 3]
-    next_obs: torch.Tensor     # [T, E, 3]
-    action: torch.Tensor       # [T, E, A]  unclipped mu + eps * sigma
+    obs: torch.Tensor          # [T, E, O]
+    next_obs: torch.Tensor     # [T, E, O]
+    action: torch.Tensor       # [T, E, A] unclipped mu + eps * sigma, or
+                               # int32 [T, E, 1] class ids
     log_prob: torch.Tensor     # [T, E]
     reward: torch.Tensor       # [T, E]
     terminated: torch.Tensor   # [T, E] bool
     truncated: torch.Tensor    # [T, E] bool
     value: Optional[torch.Tensor]       # [T, E] V(s) or None
     next_value: Optional[torch.Tensor]  # [T, E] V(s') or None
-    st_final: torch.Tensor     # [E, 2] (theta, theta_dot)
+    st_final: torch.Tensor     # [E, D] lane state
     steps_final: torch.Tensor  # [E] float
     metrics: torch.Tensor      # [3, E] completed-episode R sum, J sum, count
 
 
-def rollout_plain(params, log_std: torch.Tensor, v_params, seed, n_envs: int,
-                  length: int, activation: str = "relu",
+def _outputs(ln: Lane, A: int, T: int, E: int, with_v: bool,
+             dev) -> RawRollout:
+    f32 = dict(dtype=torch.float32, device=dev)
+    O = ln.obs_dim
+    action = (torch.empty(T, E, 1, dtype=torch.int32, device=dev)
+              if ln.n_actions else torch.empty(T, E, A, **f32))
+    return RawRollout(
+        obs=torch.empty(T, E, O, **f32), next_obs=torch.empty(T, E, O, **f32),
+        action=action, log_prob=torch.empty(T, E, **f32),
+        reward=torch.empty(T, E, **f32),
+        terminated=torch.empty(T, E, dtype=torch.bool, device=dev),
+        truncated=torch.empty(T, E, dtype=torch.bool, device=dev),
+        value=torch.empty(T, E, **f32) if with_v else None,
+        next_value=torch.empty(T, E, **f32) if with_v else None,
+        st_final=torch.empty(E, ln.state_dim, **f32),
+        steps_final=torch.empty(E, **f32), metrics=torch.empty(3, E, **f32))
+
+
+def rollout_plain(params, log_std: Optional[torch.Tensor], v_params, seed,
+                  n_envs: int, length: int, activation: str = "relu",
                   st0: Optional[torch.Tensor] = None,
                   steps0: Optional[torch.Tensor] = None,
-                  gamma: float = 0.99) -> RawRollout:
-    """Plain PyTorch version of the kernel, step for step."""
+                  gamma: float = 0.99, lane: str = "pendulum") -> RawRollout:
+    """Plain PyTorch version of the kernel, step for step.  ``log_std`` is
+    None for a discrete lane; ``st0`` is the carried [E, D] lane state."""
+    ln = LANES[lane]
     s0, s1 = seed[0] & _M32, seed[1] & _M32
-    E, T, A = n_envs, length, log_std.shape[0]
-    dev = log_std.device
+    E, T = n_envs, length
+    dev = params[0][0].device
+    discrete = ln.n_actions > 0
+    A = 1 if discrete else log_std.shape[0]
     lanes = torch.arange(E, dtype=torch.int64, device=dev)
-    f32 = dict(dtype=torch.float32, device=dev)
+
+    def draws(t):
+        return lambda j: uniform01(s0, s1, t, 50 + j, lanes)
+
     if st0 is None:
-        th = -math.pi + _TWO_PI * uniform01(s0, s1, T_INIT, 50, lanes)
-        thd = -1.0 + 2.0 * uniform01(s0, s1, T_INIT, 51, lanes)
-        steps = torch.zeros(E, **f32)
+        rows = ln.reset(draws(T_INIT))
+        steps = torch.zeros(E, dtype=torch.float32, device=dev)
     else:
-        th, thd, steps = st0[:, 0].clone(), st0[:, 1].clone(), steps0.clone()
-    racc, jacc = torch.zeros(E, **f32), torch.zeros(E, **f32)
-    gpow = torch.ones(E, **f32)
-    metrics = torch.zeros(3, E, **f32)
-    obs = torch.empty(T, E, 3, **f32)
-    next_obs = torch.empty(T, E, 3, **f32)
-    action = torch.empty(T, E, A, **f32)
-    log_prob = torch.empty(T, E, **f32)
-    reward = torch.empty(T, E, **f32)
-    truncated = torch.empty(T, E, dtype=torch.bool, device=dev)
+        rows = [st0[:, d].clone() for d in range(ln.state_dim)]
+        steps = steps0.clone()
+    racc, jacc = torch.zeros_like(steps), torch.zeros_like(steps)
+    gpow = torch.ones_like(steps)
     with_v = v_params is not None
-    value = torch.empty(T, E, **f32) if with_v else None
-    next_value = torch.empty(T, E, **f32) if with_v else None
+    out = _outputs(ln, A, T, E, with_v, dev)
+    out.metrics.zero_()
     lp0 = -0.5 * A * math.log(_TWO_PI)
     for t in range(T):
-        ob = torch.stack([torch.cos(th), torch.sin(th), thd], dim=-1)
-        obs[t] = ob
-        mu = mlp.apply(params, ob, activation)
+        ob = torch.stack(ln.obs(rows), dim=-1)
+        out.obs[t] = ob
+        h = mlp.apply(params, ob, activation)
         if with_v:
-            value[t] = mlp.apply(v_params, ob, activation)[:, 0]
-        lp = torch.full((E,), lp0, **f32)
-        for j in range(A):
-            ls = log_std[j]
-            sigma = torch.exp(ls)
-            u1 = torch.clamp_min(uniform01(s0, s1, t, 2 * j, lanes), 1e-12)
-            u2 = uniform01(s0, s1, t, 2 * j + 1, lanes)
-            eps = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(_TWO_PI * u2)
-            a = mu[:, j] + eps * sigma
-            z = (a - mu[:, j]) / sigma
-            lp = lp - ls - 0.5 * z * z
-            action[t, :, j] = a
-        log_prob[t] = lp
-        # pendulum physics, the lane's operation order
-        u = torch.clamp(action[t, :, 0], -2.0, 2.0)
-        v = th + math.pi
-        an = v - _TWO_PI * torch.floor(v / _TWO_PI) - math.pi
-        cost = an * an + 0.1 * thd * thd + 0.001 * u * u
-        thd2 = torch.clamp(thd + (15.0 * torch.sin(th) + 3.0 * u) * 0.05,
-                           -8.0, 8.0)
-        th2 = th + thd2 * 0.05
-        reward[t] = -cost
+            out.value[t] = mlp.apply(v_params, ob, activation)[:, 0]
+        if discrete:
+            idx, lp = gumbel_max_plain(h, s0, s1, t, lanes)
+            out.action[t, :, 0] = idx
+            act_rows = [idx.to(torch.float32)]
+        else:
+            lp = torch.full((E,), lp0, dtype=torch.float32, device=dev)
+            for j in range(A):
+                ls = log_std[j]
+                sigma = torch.exp(ls)
+                u1 = torch.clamp_min(uniform01(s0, s1, t, 2 * j, lanes),
+                                     1e-12)
+                u2 = uniform01(s0, s1, t, 2 * j + 1, lanes)
+                eps = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(
+                    _TWO_PI * u2)
+                a = h[:, j] + eps * sigma
+                z = (a - h[:, j]) / sigma
+                lp = lp - ls - 0.5 * z * z
+                out.action[t, :, j] = a
+            act_rows = list(out.action[t].unbind(1))
+        out.log_prob[t] = lp
+        new_rows, reward, term = ln.step(rows, act_rows)
+        out.reward[t] = reward
         steps2 = steps + 1.0
-        done = steps2 >= HORIZON          # pendulum never terminates
-        truncated[t] = done
-        nob = torch.stack([torch.cos(th2), torch.sin(th2), thd2], dim=-1)
-        next_obs[t] = nob
+        trunc = torch.clamp_min(
+            (steps2 >= ln.horizon).to(torch.float32) - term, 0.0)
+        out.terminated[t] = term > 0
+        out.truncated[t] = trunc > 0
+        nob = torch.stack(ln.obs(new_rows), dim=-1)
+        out.next_obs[t] = nob
         if with_v:
-            next_value[t] = mlp.apply(v_params, nob, activation)[:, 0]
-        d = done.to(torch.float32)
-        racc2 = racc + reward[t]
-        jacc2 = jacc + gpow * reward[t]
-        metrics[0] += d * racc2
-        metrics[1] += d * jacc2
-        metrics[2] += d
-        racc = (1.0 - d) * racc2
-        jacc = (1.0 - d) * jacc2
-        gpow = torch.where(done, torch.ones_like(gpow), gpow * gamma)
-        fth = -math.pi + _TWO_PI * uniform01(s0, s1, t, 50, lanes)
-        fthd = -1.0 + 2.0 * uniform01(s0, s1, t, 51, lanes)
-        th = torch.where(done, fth, th2)
-        thd = torch.where(done, fthd, thd2)
-        steps = torch.where(done, torch.zeros_like(steps), steps2)
-    return RawRollout(obs, next_obs, action, log_prob, reward,
-                      torch.zeros_like(truncated), truncated, value,
-                      next_value, torch.stack([th, thd], dim=1), steps,
-                      metrics)
+            out.next_value[t] = mlp.apply(v_params, nob, activation)[:, 0]
+        done = torch.maximum(term, trunc)
+        racc2 = racc + reward
+        jacc2 = jacc + gpow * reward
+        out.metrics[0] += done * racc2
+        out.metrics[1] += done * jacc2
+        out.metrics[2] += done
+        racc = (1.0 - done) * racc2
+        jacc = (1.0 - done) * jacc2
+        gpow = torch.where(done > 0, torch.ones_like(gpow), gpow * gamma)
+        reset = ln.reset(draws(t))
+        rows = [torch.where(done > 0, f, n) for f, n in zip(reset, new_rows)]
+        steps = torch.where(done > 0, torch.zeros_like(steps), steps2)
+    out.st_final.copy_(torch.stack(rows, dim=1))
+    out.steps_final.copy_(steps)
+    return out
 
 
 # --- the kernel -----------------------------------------------------------
@@ -198,6 +379,7 @@ class _RolloutArgs(ctypes.Structure):
         ("steps0", ctypes.c_void_p),
         ("policy_dims", ctypes.POINTER(ctypes.c_int)),
         ("value_dims", ctypes.POINTER(ctypes.c_int)),
+        ("lane", ctypes.c_int),
         ("n_layers", ctypes.c_int), ("act_dim", ctypes.c_int),
         ("activation", ctypes.c_int), ("T", ctypes.c_int), ("E", ctypes.c_int),
         ("s0", ctypes.c_uint32), ("s1", ctypes.c_uint32),
@@ -205,7 +387,8 @@ class _RolloutArgs(ctypes.Structure):
         ("obs", ctypes.c_void_p), ("next_obs", ctypes.c_void_p),
         ("action", ctypes.c_void_p), ("log_prob", ctypes.c_void_p),
         ("reward", ctypes.c_void_p), ("value", ctypes.c_void_p),
-        ("next_value", ctypes.c_void_p), ("terminated", ctypes.c_void_p),
+        ("next_value", ctypes.c_void_p), ("action_idx", ctypes.c_void_p),
+        ("terminated", ctypes.c_void_p),
         ("truncated", ctypes.c_void_p), ("st_final", ctypes.c_void_p),
         ("steps_final", ctypes.c_void_p), ("metrics", ctypes.c_void_p),
     ]
@@ -221,67 +404,96 @@ def _declare() -> ctypes.CDLL:
         args = [ctypes.POINTER(_RolloutArgs)]
         lib.ppoc_rollout_smem_bytes.argtypes = args
         lib.ppoc_rollout_smem_bytes.restype = ctypes.c_long
-        lib.ppoc_rollout_pendulum.argtypes = args + [ctypes.c_void_p]
-        lib.ppoc_rollout_pendulum.restype = ctypes.c_int
-        lib.ppoc_rng_bits.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                      ctypes.c_uint32, ctypes.c_uint32,
-                                      ctypes.c_uint32, ctypes.c_uint32,
-                                      ctypes.c_void_p]
+        lib.ppoc_rollout.argtypes = args + [ctypes.c_void_p]
+        lib.ppoc_rollout.restype = ctypes.c_int
+        u32 = ctypes.c_uint32
+        lib.ppoc_rng_bits.argtypes = [ctypes.c_void_p, ctypes.c_int, u32, u32,
+                                      u32, u32, ctypes.c_void_p]
         lib.ppoc_rng_bits.restype = ctypes.c_int
+        lib.ppoc_gumbel_max.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, u32, u32, u32,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        lib.ppoc_gumbel_max.restype = ctypes.c_int
         lib._rollout_declared = True
     return lib
 
 
-def rollout_kernel(params, log_std: torch.Tensor, v_params, seed,
+def rng_bits_cuda(s0: int, s1: int, t: int, draw: int, n: int,
+                  device) -> torch.Tensor:
+    """The kernel's RNG bits for lanes 0..n-1 (int64 holding uint32), from
+    a one-line kernel that calls the same device function as the rollout;
+    for checking the bits exactly on the card."""
+    lib = _declare()
+    out = torch.empty(n, dtype=torch.int32, device=device)
+    _build.check(lib, lib.ppoc_rng_bits(out.data_ptr(), n, s0, s1, t, draw,
+                                        _build.stream_of(device)),
+                 "rng_bits kernel")
+    return out.to(torch.int64) & _M32
+
+
+def gumbel_max_cuda(logits: torch.Tensor, s0: int, s1: int, t: int):
+    """The kernel's sampler alone (the device function the discrete lanes
+    call) on logits [n, K] for lanes 0..n-1 at step t: (class ids int64,
+    log-probs); for checking the sampler exactly on the card."""
+    lib = _declare()
+    dev = logits.device
+    n, K = logits.shape
+    _build.require(logits, "logits", device=dev)
+    idx = torch.empty(n, dtype=torch.int32, device=dev)
+    lp = torch.empty(n, dtype=torch.float32, device=dev)
+    _build.check(lib, lib.ppoc_gumbel_max(
+        logits.data_ptr(), n, K, s0 & _M32, s1 & _M32, t, idx.data_ptr(),
+        lp.data_ptr(), _build.stream_of(dev)), "gumbel_max kernel")
+    return idx.to(torch.int64), lp
+
+
+def rollout_kernel(params, log_std: Optional[torch.Tensor], v_params, seed,
                    n_envs: int, length: int, activation: str = "relu",
                    st0: Optional[torch.Tensor] = None,
                    steps0: Optional[torch.Tensor] = None,
-                   gamma: float = 0.99) -> RawRollout:
+                   gamma: float = 0.99, lane: str = "pendulum") -> RawRollout:
     """Launch the kernel; same arguments and results as rollout_plain."""
-    dev = log_std.device
-    E, T, A = n_envs, length, log_std.shape[0]
+    ln = LANES[lane]
+    E, T = n_envs, length
     widths = mlp.dims(params)
     flat = mlp.flatten(params)
-    _build.require(log_std, "log_std", (A,))
+    dev = flat.device
     _build.require(flat, "policy params", device=dev)
-    if widths[0] != 3 or widths[-1] != A:
-        raise ValueError(f"pendulum policy net must map 3 -> {A}, got "
-                         f"{widths}")
+    if ln.n_actions:
+        A = out_w = ln.n_actions
+    else:
+        A = out_w = log_std.shape[0]
+        _build.require(log_std, "log_std", (A,), device=dev)
+    if widths[0] != ln.obs_dim or widths[-1] != out_w:
+        raise ValueError(f"the {lane} policy net must map {ln.obs_dim} -> "
+                         f"{out_w}, got {widths}")
     if not 1 <= A <= 8 or len(widths) - 1 > 8:
-        raise ValueError("the rollout kernel takes 1-8 action dims and "
-                         "1-8 layers")
+        raise ValueError("the rollout kernel takes 1-8 action dims or "
+                         "classes and 1-8 layers")
     vflat, vwidths = None, None
     if v_params is not None:
         vflat, vwidths = mlp.flatten(v_params), mlp.dims(v_params)
         _build.require(vflat, "value params", device=dev)
-        if len(vwidths) != len(widths) or vwidths[0] != 3 or vwidths[-1] != 1:
-            raise ValueError(f"value net {vwidths} must map 3 -> 1 with the "
-                             f"policy net's depth {len(widths) - 1}")
+        if (len(vwidths) != len(widths) or vwidths[0] != ln.obs_dim
+                or vwidths[-1] != 1):
+            raise ValueError(f"value net {vwidths} must map {ln.obs_dim} -> 1 "
+                             f"with the policy net's depth {len(widths) - 1}")
     if st0 is not None:
-        _build.require(st0, "st0", (E, 2), device=dev)
+        _build.require(st0, "st0", (E, ln.state_dim), device=dev)
         _build.require(steps0, "steps0", (E,), device=dev)
-    f32 = dict(dtype=torch.float32, device=dev)
-    with_v = v_params is not None
-    out = RawRollout(
-        obs=torch.empty(T, E, 3, **f32), next_obs=torch.empty(T, E, 3, **f32),
-        action=torch.empty(T, E, A, **f32), log_prob=torch.empty(T, E, **f32),
-        reward=torch.empty(T, E, **f32),
-        terminated=torch.empty(T, E, dtype=torch.bool, device=dev),
-        truncated=torch.empty(T, E, dtype=torch.bool, device=dev),
-        value=torch.empty(T, E, **f32) if with_v else None,
-        next_value=torch.empty(T, E, **f32) if with_v else None,
-        st_final=torch.empty(E, 2, **f32), steps_final=torch.empty(E, **f32),
-        metrics=torch.empty(3, E, **f32),
-    )
+    out = _outputs(ln, A, T, E, v_params is not None, dev)
     pdims = (ctypes.c_int * len(widths))(*widths)
     vdims = (ctypes.c_int * len(widths))(*(vwidths or widths))
     p = _build.ptr
+    discrete = ln.n_actions > 0
     args = _RolloutArgs(
-        p(flat), p(vflat), p(log_std), p(st0), p(steps0), pdims, vdims,
-        len(widths) - 1, A, _build.ACTIVATIONS[activation], T, E,
-        seed[0] & _M32, seed[1] & _M32, gamma, -0.5 * A * math.log(_TWO_PI),
-        p(out.obs), p(out.next_obs), p(out.action), p(out.log_prob),
-        p(out.reward), p(out.value), p(out.next_value), p(out.terminated),
+        p(flat), p(vflat), None if discrete else p(log_std), p(st0),
+        p(steps0), pdims, vdims, ln.code, len(widths) - 1, A,
+        _build.ACTIVATIONS[activation], T, E, seed[0] & _M32, seed[1] & _M32,
+        gamma, -0.5 * A * math.log(_TWO_PI),
+        p(out.obs), p(out.next_obs), None if discrete else p(out.action),
+        p(out.log_prob), p(out.reward), p(out.value), p(out.next_value),
+        p(out.action) if discrete else None, p(out.terminated),
         p(out.truncated), p(out.st_final), p(out.steps_final),
         p(out.metrics))
     lib = _declare()
@@ -290,10 +502,10 @@ def rollout_kernel(params, log_std: torch.Tensor, v_params, seed,
         raise ValueError(
             f"rollout kernel needs {smem} B of shared memory for nets "
             f"{widths}/{vwidths}; more than one block can hold")
-    _build.check(lib, lib.ppoc_rollout_pendulum(ctypes.byref(args),
-                                                _build.stream_of(dev)),
+    _build.check(lib, lib.ppoc_rollout(ctypes.byref(args),
+                                       _build.stream_of(dev)),
                  "rollout kernel")
-    launches.n += 1
+    lane_launches[lane].n += 1
     return out
 
 
@@ -305,7 +517,8 @@ def rollout_fused(env_name: str, policy_params, seed, n_envs: int,
     ``(sum_R, sum_J, n_episodes)`` over COMPLETED episodes with
     ``return_metrics`` or the ``(values, next_values)`` planes with
     ``v_params`` -- the JAX ``rollout_fused`` contract, with the two seed
-    words in place of the key."""
+    words in place of the key.  A discrete lane's actions are int32
+    [T, E, 1] class ids."""
     from ppoc_tpu_torch.algo.ppo import Transition
 
     if return_metrics and v_params is not None:
@@ -314,21 +527,22 @@ def rollout_fused(env_name: str, policy_params, seed, n_envs: int,
         raise NotImplementedError(
             f"the {env_name!r} rollout lane is not ported yet "
             f"(ported: {sorted(SUPPORTED)})")
-    log_std = policy_params["log_std"]
+    ln = LANES[env_name]
+    params = policy_params["mlp"]
     st0 = steps0 = None
     if env_carry is not None:
         state, _ = env_carry
-        st0 = torch.stack([state.theta, state.theta_dot], dim=1).float()
-        steps0 = state.t.float()
-    run = rollout_kernel if log_std.is_cuda else rollout_plain
-    raw = run(policy_params["mlp"], log_std, v_params, seed, n_envs, length,
-              activation, st0, steps0, gamma)
+        mat, steps = ln.pack(state)
+        st0 = mat.to(torch.float32).contiguous()
+        steps0 = steps.to(torch.float32)
+    run = rollout_kernel if params[0][0].is_cuda else rollout_plain
+    raw = run(params, policy_params.get("log_std"), v_params, seed, n_envs,
+              length, activation, st0, steps0, gamma, env_name)
     traj = Transition(obs=raw.obs, action=raw.action, log_prob=raw.log_prob,
                       next_obs=raw.next_obs, reward=raw.reward,
                       terminated=raw.terminated, truncated=raw.truncated)
-    state = PendulumState(raw.st_final[:, 0], raw.st_final[:, 1],
-                          raw.steps_final.to(torch.int32))
-    carry = (state, obs_of(state))
+    state = ln.unpack(raw.st_final, raw.steps_final.to(torch.int32))
+    carry = (state, torch.stack(ln.obs(list(raw.st_final.unbind(1))), -1))
     if return_metrics:
         return traj, carry, tuple(raw.metrics.sum(dim=1))
     if v_params is not None:

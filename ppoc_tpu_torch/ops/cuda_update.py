@@ -1,17 +1,19 @@
-"""K3 and K4: whole update phases (``csrc/update.cu``) and their plain
+"""K3, K4 and K6: whole update phases (``csrc/update.cu``) and their plain
 versions.
 
 Counterparts of ``ppoc_tpu/ops/pallas_update.py`` ``value_phase_fused``
-(K3) and ``policy_phase_fused`` (K4, Gaussian).  The caller gathers the
-rows of every epoch x minibatch step in order beforehand (as the JAX
+(K3), ``policy_phase_fused`` (K4, Gaussian) and
+``policy_phase_fused_categorical`` (K6, categorical).  The caller gathers
+the rows of every epoch x minibatch step in order beforehand (as the JAX
 wrappers do); one launch then runs every step: forward, the loss gradient
 in closed form, backward and Adam, with the weights in shared memory.
 
 Adam here is the kernels' own: bias corrections 1 - exp(t log b) folded
 into the step size, eps outside the sqrt; K4 runs a second Adam for
-log_std with its own timestep.  A CUDA tensor launches the kernel, a CPU
-tensor runs the plain version beside it, which spells out the same
-forward, backward and update in PyTorch.
+log_std with its own timestep, K6 has no log_std.  K6 reads the actions as
+int32 class ids, the buffer's own type, so nothing converts them.  A CUDA
+tensor launches the kernel, a CPU tensor runs the plain version beside it,
+which spells out the same forward, backward and update in PyTorch.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from ppoc_tpu_torch.ops.adam import AdamState
 
 value_launches = _build.LaunchCount("value_phase")
 policy_launches = _build.LaunchCount("policy_phase")
+categorical_launches = _build.LaunchCount("policy_phase_categorical")
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -139,6 +142,48 @@ def policy_phase_plain(obs_seq, act_seq, lp_seq, adv_seq, params, log_std,
             loss / n_steps, ent_sum / n_steps)
 
 
+def policy_phase_categorical_plain(obs_seq, act_seq, lp_seq, adv_seq, params,
+                                   opt_policy: AdamState, n_steps: int,
+                                   mb: int, activation: str, hyper: Hyper,
+                                   clip_eps: float, ent_coeff: float):
+    """Plain PyTorch version of K6 (``_policy_kernel_cat``): per step the
+    logits, their log-softmax, the one-hot log-prob of the int32 class ids
+    ``act_seq`` [rows, 1], the clipped surrogate with gradient only through
+    the unclipped branch, the entropy bonus, the closed-form logit gradient
+    dlogp (onehot - p) + (ent_coeff / mb) p (log p + H), backward and one
+    Adam.  Returns (params', opt_policy', mean loss, mean entropy)."""
+    P, M, V = _unpack(params, opt_policy)
+    lp_seq, adv_seq = lp_seq.reshape(-1), adv_seq.reshape(-1)
+    loss = torch.zeros((), dtype=P[0].dtype, device=obs_seq.device)
+    ent_sum = torch.zeros_like(loss)
+    classes = torch.arange(P[-1].shape[0], device=obs_seq.device)
+    for s in range(n_steps):
+        rows = slice(s * mb, (s + 1) * mb)
+        x, adv = obs_seq[rows], adv_seq[rows]
+        hs = forward_layers(x, P[0::2], P[1::2], activation)
+        logits = hs[-1]
+        zmax = logits.max(dim=1, keepdim=True).values
+        lse = zmax + torch.log(torch.exp(logits - zmax).sum(dim=1,
+                                                             keepdim=True))
+        logp_all = logits - lse
+        p = torch.exp(logp_all)
+        onehot = (classes == act_seq[rows]).to(logits.dtype)
+        logp = (onehot * logp_all).sum(dim=1)
+        ratio = torch.exp(logp - lp_seq[rows])
+        clipped = torch.clamp(ratio, 1.0 - clip_eps, 1.0 + clip_eps)
+        ra, ca = ratio * adv, clipped * adv
+        H = -(p * logp_all).sum(dim=1)
+        loss = loss + (-torch.minimum(ra, ca).sum() - ent_coeff * H.sum()) / mb
+        ent_sum = ent_sum + H.sum() / mb
+        dlogp = -(adv * ratio / mb) * (ra <= ca).to(logits.dtype)
+        g = (dlogp[:, None] * (onehot - p)
+             + (ent_coeff / mb) * p * (logp_all + H[:, None]))
+        grads, _ = backward_layers(x, hs, g, P[0::2], activation)
+        _adam_(P, grads, M, V, opt_policy.t + s + 1, hyper)
+    return (_pack(P), AdamState(_pack(M), _pack(V), opt_policy.t + n_steps),
+            loss / n_steps, ent_sum / n_steps)
+
+
 # --- the kernels ----------------------------------------------------------
 
 class _PhaseArgs(ctypes.Structure):
@@ -147,7 +192,7 @@ class _PhaseArgs(ctypes.Structure):
         [(n, ctypes.c_void_p) for n in (
             "x", "tgt", "act", "lp_old", "adv", "p_in", "m_in", "v_in",
             "p_out", "m_out", "v_out", "ls_in", "mls_in", "vls_in", "ls_out",
-            "mls_out", "vls_out", "scratch", "stats")]
+            "mls_out", "vls_out", "scratch", "stats", "act_idx")]
         + [("dims", ctypes.POINTER(ctypes.c_int))]
         + [(n, ctypes.c_int) for n in (
             "n_layers", "activation", "n_steps", "mb", "t0", "t0_ls",
@@ -168,7 +213,8 @@ def _declare() -> ctypes.CDLL:
         args = [ctypes.POINTER(_PhaseArgs)]
         lib.ppoc_phase_sizes.argtypes = args + [ctypes.POINTER(ctypes.c_long)]
         lib.ppoc_phase_sizes.restype = ctypes.c_int
-        for fn in (lib.ppoc_value_phase, lib.ppoc_policy_phase):
+        for fn in (lib.ppoc_value_phase, lib.ppoc_policy_phase,
+                   lib.ppoc_policy_phase_categorical):
             fn.argtypes = args + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib._phase_declared = True
@@ -187,7 +233,8 @@ def _launch(kind: str, args: _PhaseArgs, dev, keep) -> None:
                          f"memory for the weights; more than one block holds")
     scratch = torch.empty(sizes[0], dtype=torch.float32, device=dev)
     args.scratch = scratch.data_ptr()
-    fn = lib.ppoc_value_phase if kind == "value" else lib.ppoc_policy_phase
+    fn = {"value": lib.ppoc_value_phase, "policy": lib.ppoc_policy_phase,
+          "categorical policy": lib.ppoc_policy_phase_categorical}[kind]
     _build.check(lib, fn(ctypes.byref(args), _build.stream_of(dev)),
                  f"{kind} phase kernel")
     del keep
@@ -270,6 +317,38 @@ def policy_phase_kernel(obs_seq, act_seq, lp_seq, adv_seq, params, log_std,
             stats[0] / n_steps, stats[1] / n_steps)
 
 
+def policy_phase_categorical_kernel(obs_seq, act_seq, lp_seq, adv_seq, params,
+                                    opt_policy: AdamState, n_steps: int,
+                                    mb: int, activation: str, hyper: Hyper,
+                                    clip_eps: float, ent_coeff: float):
+    """Launch K6; same arguments and results as
+    policy_phase_categorical_plain.  The kernel reads the int32 class ids
+    as they are."""
+    dev = obs_seq.device
+    k = mlp.dims(params)[-1]
+    rows = n_steps * mb
+    lp_seq = lp_seq.reshape(-1).contiguous()
+    adv_seq = adv_seq.reshape(-1).contiguous()
+    _build.require(act_seq, "class ids", (rows, 1), dtype=torch.int32,
+                   device=dev)
+    _build.require(lp_seq, "log-prob rows", (rows,), device=dev)
+    _build.require(adv_seq, "advantage rows", (rows,), device=dev)
+    if not 1 <= k <= 8:
+        raise ValueError(f"the categorical policy phase takes 1-8 classes, "
+                         f"got a head of width {k}")
+    args, new_params, new_opt, keep = _common_args(
+        obs_seq, params, opt_policy, n_steps, mb, activation, hyper)
+    stats = torch.empty(2, dtype=torch.float32, device=dev)
+    p = _build.ptr
+    args.act_idx, args.lp_old, args.adv = p(act_seq), p(lp_seq), p(adv_seq)
+    args.stats, args.k_act = p(stats), k
+    args.clip_lo, args.clip_hi = 1.0 - clip_eps, 1.0 + clip_eps
+    args.ent_coeff = ent_coeff
+    _launch("categorical policy", args, dev, keep)
+    categorical_launches.n += 1
+    return new_params, new_opt, stats[0] / n_steps, stats[1] / n_steps
+
+
 def value_phase(obs_seq, tgt_seq, params, opt: AdamState, n_steps: int,
                 mb: int, activation: str, hyper: Hyper):
     """The whole value phase on pre-gathered rows: kernel on CUDA, plain
@@ -288,3 +367,16 @@ def policy_phase(obs_seq, act_seq, lp_seq, adv_seq, params, log_std,
     return run(obs_seq, act_seq, lp_seq, adv_seq, params, log_std,
                opt_policy, opt_log_std, n_steps, mb, activation, hyper,
                clip_eps, ent_coeff)
+
+
+def policy_phase_categorical(obs_seq, act_seq, lp_seq, adv_seq, params,
+                             opt_policy: AdamState, n_steps: int, mb: int,
+                             activation: str, hyper: Hyper, clip_eps: float,
+                             ent_coeff: float):
+    """The whole categorical policy phase on pre-gathered rows (class ids
+    int32 [rows, 1]): K6 on CUDA, plain version on the CPU.  Returns
+    (params', opt_policy', mean loss, mean entropy)."""
+    run = (policy_phase_categorical_kernel if obs_seq.is_cuda
+           else policy_phase_categorical_plain)
+    return run(obs_seq, act_seq, lp_seq, adv_seq, params, opt_policy,
+               n_steps, mb, activation, hyper, clip_eps, ent_coeff)

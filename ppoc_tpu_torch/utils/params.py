@@ -2,7 +2,8 @@
 
 The port keeps the JAX package's layouts (an MLP is a list of
 ``(W [in, out], b [out])`` pairs, a Gaussian policy ``{"mlp", "log_std"}``,
-an Adam state ``(m, v, t)``), so conversion is leaf by leaf: numpy arrays in
+a categorical policy ``{"mlp"}`` whose log_std optimizer holds empty
+``(0,)`` moments, an Adam state ``(m, v, t)``), so conversion is leaf by leaf: numpy arrays in
 (for instance ``jax.device_get`` of a ``ppoc_tpu`` TrainState), tensors out,
 and back.  Nothing here imports jax: any object with the right attribute
 names converts.
@@ -44,7 +45,8 @@ def _mlp_list(tree) -> list:
 
 def adam_from_numpy(state, device, mlp: bool = True) -> AdamState:
     """An Adam state with ``m``, ``v``, ``t`` attributes -> the port's.
-    ``mlp=False`` for the log_std optimizer, whose moments are one vector."""
+    ``mlp=False`` for the log_std optimizer, whose moments are one vector
+    (of length 0 for a categorical policy)."""
     m = tree_from_numpy(state.m, device)
     v = tree_from_numpy(state.v, device)
     if mlp:
@@ -58,7 +60,8 @@ def adam_to_numpy(state: AdamState) -> AdamState:
 
 
 def train_state_from_numpy(ts, device):
-    """A TrainState-shaped object of numpy arrays -> the port's TrainState."""
+    """A TrainState-shaped object of numpy arrays -> the port's TrainState,
+    Gaussian (``log_std`` in the policy) or categorical (none)."""
     from ppoc_tpu_torch.algo.ppo import TrainState
 
     pol = tree_from_numpy(dict(ts.policy_params), device)

@@ -9,7 +9,10 @@ where only PyTorch is installed:
 Tolerances: the RNG bits must match exactly; one kernel step rtol/atol
 1e-5 / 1e-6 (float32 sums in another order than cuBLAS); trajectories are
 held to the plain physics by re-stepping the recorded obs, which is robust
-to ulp drift in sin/cos/exp/log.  K5's backward sums up to 8192 rows per
+to ulp drift in sin/cos/exp/log.  The discrete lanes' sampler must pick the
+plain sampler's classes exactly on shared logits; their trajectories are
+held per env to the plain rollout up to the first step the two pick apart,
+which must be a near-tie of the perturbed logits (gap under 1e-4).  K5's backward sums up to 8192 rows per
 weight, so its gradients are held at rtol 1e-4 with atol 1e-5 of the
 leaf's largest magnitude.
 """
@@ -39,10 +42,10 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _state(dev, hidden=(16, 16), seed=0):
-    cfg = PPOConfig(env="pendulum", hidden=hidden)
-    return ppo.init_train_state(cfg, ENV, torch.Generator().manual_seed(seed),
-                                dev)
+def _state(dev, hidden=(16, 16), seed=0, env="pendulum"):
+    cfg = PPOConfig(env=env, hidden=hidden)
+    return ppo.init_train_state(cfg, envs.make(env),
+                                torch.Generator().manual_seed(seed), dev)
 
 
 @pytest.mark.parametrize("t,draw", [(0, 0), (cr.T_INIT, 50), (199, 51)])
@@ -161,6 +164,109 @@ def test_policy_phase_kernel_matches_plain(dev, hidden, activation, mb, n,
     torch.testing.assert_close(k[5], p[5], rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("K", [2, 3, 8])
+def test_gumbel_sampler_kernel_matches_plain(dev, K):
+    g = torch.Generator().manual_seed(K)
+    h = torch.randn(4096, K, generator=g).to(dev)
+    h[:100, 1] = h[:100, 0]                    # exact logit ties
+    for t in (0, 7, 499):
+        idx, lp = cr.gumbel_max_cuda(h, 0xDEADBEEF, 0x01234567, t)
+        idx_p, lp_p = cr.gumbel_max_plain(h, 0xDEADBEEF, 0x01234567, t,
+                                          torch.arange(4096, device=dev))
+        assert torch.equal(idx, idx_p)
+        torch.testing.assert_close(lp, lp_p, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("lane,hidden,E,T,with_v", [
+    ("cartpole", (16, 16), 15, 64, True), ("cartpole", (128, 128), 64, 200,
+                                           True),
+    ("acrobot", (16, 16), 9, 32, True), ("acrobot", (128, 128), 64, 32,
+                                         False)])
+def test_rollout_discrete_lane_matches_plain(dev, lane, hidden, E, T, with_v):
+    ts = _state(dev, hidden, env=lane)
+    pp = ts.policy_params["mlp"]
+    vp = ts.v_params if with_v else None
+    seed = (11, 0x9E3779B9)
+    args = (pp, None, vp, seed, E, T, "relu", None, None, 0.99, lane)
+    raw, ref = cr.rollout_kernel(*args), cr.rollout_plain(*args)
+    assert raw.action.dtype == torch.int32 and raw.action.shape == (T, E, 1)
+    lanes = torch.arange(E, device=dev)
+    h = mlp.apply(pp, raw.obs, "relu")
+    near = torch.zeros(T, E, dtype=torch.bool, device=dev)
+    for t in range(T):
+        idx, _ = cr.gumbel_max_cuda(h[t].contiguous(), *seed, t)
+        near[t] = cr.gumbel_gap(h[t], *seed, t, lanes) < 1e-4
+        assert torch.equal((idx != raw.action[t, :, 0]) & ~near[t],
+                           torch.zeros_like(near[t]))
+    apart = raw.action[..., 0] != ref.action[..., 0]
+    first = torch.where(apart.any(0), apart.to(torch.int64).argmax(0),
+                        torch.full((E,), T, device=dev))
+    for e in range(E):
+        n = int(first[e])
+        assert n == T or near[n, e]
+        torch.testing.assert_close(raw.obs[:n, e], ref.obs[:n, e],
+                                   rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(raw.reward[:n, e], ref.reward[:n, e])
+        torch.testing.assert_close(raw.log_prob[:n, e], ref.log_prob[:n, e],
+                                   rtol=1e-5, atol=1e-5)
+        assert torch.equal(raw.terminated[:n, e], ref.terminated[:n, e])
+        assert torch.equal(raw.truncated[:n, e], ref.truncated[:n, e])
+        if with_v:
+            torch.testing.assert_close(raw.value[:n, e], ref.value[:n, e],
+                                       rtol=1e-4, atol=1e-5)
+    if lane == "cartpole" and T >= 64:
+        assert raw.terminated.any()
+
+
+def _categorical_case(dev, hidden, K, n_rows, seed=1):
+    env = "cartpole" if K == 2 else "acrobot"
+    ts = _state(dev, hidden, env=env)
+    g = torch.Generator().manual_seed(seed)
+    d0 = envs.make(env).spec.obs_dim
+    x = torch.randn(n_rows, d0, generator=g).to(dev)
+    a = torch.randint(0, K, (n_rows, 1), generator=g,
+                      dtype=torch.int32).to(dev)
+    lp = (torch.log(torch.full((n_rows,), 1.0 / K))
+          + 0.3 * torch.randn(n_rows, generator=g)).to(dev)
+    adv = torch.randn(n_rows, generator=g).to(dev)
+    return ts, (x, a, lp, adv)
+
+
+@pytest.mark.parametrize("hidden,activation,mb,n,ent,K", [
+    ((16, 16), "relu", 32, 1, 0.0, 2), ((128, 128), "relu", 256, 1, 0.01, 3),
+    ((24, 40), "tanh", 48, 3, 0.01, 3), ((128, 128), "relu", 256, 8, 0.0, 2)])
+def test_categorical_phase_kernel_matches_plain(dev, hidden, activation, mb,
+                                                n, ent, K):
+    ts, rows = _categorical_case(dev, hidden, K, n * mb)
+    h = cu.Hyper.of(3e-4, 0.9, 0.999, 1e-8)
+    args = (*rows, ts.policy_params["mlp"], ts.opt_policy._replace(t=3), n,
+            mb, activation, h, 0.2, ent)
+    k = cu.policy_phase_categorical_kernel(*args)
+    p = cu.policy_phase_categorical_plain(*args)
+    torch.testing.assert_close(mlp.flatten(k[0]), mlp.flatten(p[0]),
+                               rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(mlp.flatten(k[1].m), mlp.flatten(p[1].m),
+                               rtol=1e-3, atol=1e-7)
+    assert k[1].t == p[1].t == 3 + n
+    torch.testing.assert_close(k[2], p[2], rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(k[3], p[3], rtol=1e-6, atol=1e-6)
+
+
+def test_categorical_phase_chained_launches_equal_one_launch(dev):
+    ts, rows = _categorical_case(dev, (128, 128), 3, 6 * 256, seed=2)
+    h = cu.Hyper.of(3e-4, 0.9, 0.999, 1e-8)
+    whole = cu.policy_phase_categorical_kernel(
+        *rows, ts.policy_params["mlp"], ts.opt_policy, 6, 256, "relu", h,
+        0.2, 0.01)
+    params, opt = ts.policy_params["mlp"], ts.opt_policy
+    for s in range(6):
+        params, opt, _, _ = cu.policy_phase_categorical_kernel(
+            *(r[s * 256:(s + 1) * 256] for r in rows), params, opt, 1, 256,
+            "relu", h, 0.2, 0.01)
+    assert torch.equal(mlp.flatten(params), mlp.flatten(whole[0]))
+    assert torch.equal(mlp.flatten(opt.v), mlp.flatten(whole[1].v))
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     ts = _state(dev)
     h = cu.Hyper.of(3e-4, 0.9, 0.999, 1e-8)
@@ -177,6 +283,19 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         cr.rollout_kernel(tsb.policy_params["mlp"],
                           tsb.policy_params["log_std"], tsb.v_params, (0, 0),
                           8, 4)
+    wide = mlp.init((4, 16, 9), torch.Generator().manual_seed(0), dev)
+    ts_c, (x, a, lp, adv) = _categorical_case(dev, (16, 16), 2, 64)
+    with pytest.raises(ValueError, match="1-8 classes"):
+        cu.policy_phase_categorical_kernel(
+            x, a, lp, adv, wide, ppo.adam.init(wide), 2, 32, "relu", h, 0.2,
+            0.0)
+    with pytest.raises(ValueError, match="int32"):
+        cu.policy_phase_categorical_kernel(
+            x, a.float(), lp, adv, ts_c.policy_params["mlp"],
+            ts_c.opt_policy, 2, 32, "relu", h, 0.2, 0.0)
+    with pytest.raises(ValueError, match="cartpole policy net"):
+        cr.rollout_kernel(ts.policy_params["mlp"], None, None, (0, 0), 8, 4,
+                          lane="cartpole")
 
 
 def _mlp_case(dev, sizes, batch, seed=0):
@@ -253,9 +372,9 @@ def test_mlp_kernel_refuses_a_net_over_shared_memory(dev):
 def test_trainer_on_cuda_throughput_path(dev):
     """Minibatches over 2048 rows take the generic phases (K5 forward and
     backward, no K3/K4); the mean-policy evaluation is K5 forwards."""
-    counters = [cr.launches, cuda_gae.launches, cu.value_launches,
-                cu.policy_launches, cuda_mlp.fwd_launches,
-                cuda_mlp.bwd_launches]
+    counters = [cr.lane_launches["pendulum"], cuda_gae.launches,
+                cu.value_launches, cu.policy_launches, cuda_mlp.fwd_launches,
+                cuda_mlp.bwd_launches, cu.categorical_launches]
     cfg = PPOConfig(env="pendulum", n_envs=64, rollout_len=128,
                     minibatch_size=4096, shuffle_block=1024,
                     fits_per_epoch=1, n_epochs_value=2, n_epochs_policy=1,
@@ -266,13 +385,13 @@ def test_trainer_on_cuda_throughput_path(dev):
     ev = tr.evaluate(deterministic=True)
     n = [c.n - b for c, b in zip(counters, before)]
     # 2 x 2 value + 2 x 1 policy minibatch steps, then 200 eval steps
-    assert n == [1, 1, 0, 0, 4 + 2 + 200, 4 + 2]
+    assert n == [1, 1, 0, 0, 4 + 2 + 200, 4 + 2, 0]
     assert ev.episodes == 16 and torch.isfinite(torch.tensor(ev.R))
 
 
 def test_trainer_on_cuda_launches_every_kernel(dev):
-    counters = [cr.launches, cuda_gae.launches, cu.value_launches,
-                cu.policy_launches]
+    counters = [cr.lane_launches["pendulum"], cuda_gae.launches,
+                cu.value_launches, cu.policy_launches]
     before = [c.n for c in counters]
     cfg = PPOConfig(env="pendulum", n_envs=16, rollout_len=50,
                     minibatch_size=64, fits_per_epoch=2, n_epochs_value=2,
@@ -285,3 +404,24 @@ def test_trainer_on_cuda_launches_every_kernel(dev):
     assert [c.n - b for c, b in zip(counters, before)] == [7, 4, 4, 4]
     assert tr.state.opt_v.t == 2 * 2 * 2 * (16 * 50 // 64)
     assert isinstance(tr.state.opt_log_std, AdamState)
+
+
+@pytest.mark.parametrize("lane", ["cartpole", "acrobot"])
+def test_trainer_on_cuda_discrete_path(dev, lane):
+    """One discrete epoch under the fused gate runs K1's lane, K2, K3 and
+    K6, and no K4; the mean-policy evaluation is K5 forwards only."""
+    counters = [cr.lane_launches[lane], cuda_gae.launches, cu.value_launches,
+                cu.categorical_launches, cu.policy_launches,
+                cuda_mlp.fwd_launches]
+    cfg = PPOConfig(env=lane, n_envs=16, rollout_len=64, minibatch_size=64,
+                    fits_per_epoch=2, n_epochs_value=2, n_epochs_policy=2,
+                    eval_envs=8, eval_len=500)
+    tr = Trainer(cfg, dev)
+    before = [c.n for c in counters]
+    fit = tr.train_epoch()
+    assert [c.n - b for c, b in zip(counters, before)] == [2, 2, 2, 2, 0, 0]
+    assert torch.isfinite(fit.entropy) and tr.state.opt_log_std.t == 0
+    before = [c.n for c in counters]
+    ev = tr.evaluate(deterministic=True)
+    assert [c.n - b for c, b in zip(counters, before)] == [0, 0, 0, 0, 0, 500]
+    assert ev.episodes >= 1

@@ -173,5 +173,5 @@ def test_plain_rollout_sampling_is_standard_normal():
 
 
 def test_rollout_refuses_unported_lane():
-    with pytest.raises(NotImplementedError, match="cartpole"):
-        cuda_rollout.rollout_fused("cartpole", TS.policy_params, (0, 0), E, T)
+    with pytest.raises(NotImplementedError, match="reacher"):
+        cuda_rollout.rollout_fused("reacher", TS.policy_params, (0, 0), E, T)
