@@ -244,9 +244,12 @@ LANES: Dict[str, Lane] = {
 }
 SUPPORTED = frozenset(LANES)
 
-# one launch count per lane: the kernel is one template, run per lane
-lane_launches = {name: _build.LaunchCount(f"rollout[{name}]")
-                 for name in LANES}
+# one launch count per lane and mode: the kernel is one template, run per
+# lane, with the V planes ("values", the training rollouts) or with the
+# completed-episode sums ("metrics", the evaluation rollouts)
+MODES = ("values", "metrics")
+lane_launches = {(name, mode): _build.LaunchCount(f"rollout[{name}]/{mode}")
+                 for name in LANES for mode in MODES}
 
 
 # --- raw outputs shared by the kernel and the plain version ---------------
@@ -505,7 +508,8 @@ def rollout_kernel(params, log_std: Optional[torch.Tensor], v_params, seed,
     _build.check(lib, lib.ppoc_rollout(ctypes.byref(args),
                                        _build.stream_of(dev)),
                  "rollout kernel")
-    lane_launches[lane].n += 1
+    mode = "values" if v_params is not None else "metrics"
+    lane_launches[lane, mode].n += 1
     return out
 
 

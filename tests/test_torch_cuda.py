@@ -372,7 +372,8 @@ def test_mlp_kernel_refuses_a_net_over_shared_memory(dev):
 def test_trainer_on_cuda_throughput_path(dev):
     """Minibatches over 2048 rows take the generic phases (K5 forward and
     backward, no K3/K4); the mean-policy evaluation is K5 forwards."""
-    counters = [cr.lane_launches["pendulum"], cuda_gae.launches,
+    counters = [cr.lane_launches["pendulum", "values"],
+                cr.lane_launches["pendulum", "metrics"], cuda_gae.launches,
                 cu.value_launches, cu.policy_launches, cuda_mlp.fwd_launches,
                 cuda_mlp.bwd_launches, cu.categorical_launches]
     cfg = PPOConfig(env="pendulum", n_envs=64, rollout_len=128,
@@ -385,12 +386,13 @@ def test_trainer_on_cuda_throughput_path(dev):
     ev = tr.evaluate(deterministic=True)
     n = [c.n - b for c, b in zip(counters, before)]
     # 2 x 2 value + 2 x 1 policy minibatch steps, then 200 eval steps
-    assert n == [1, 1, 0, 0, 4 + 2 + 200, 4 + 2, 0]
+    assert n == [1, 0, 1, 0, 0, 4 + 2 + 200, 4 + 2, 0]
     assert ev.episodes == 16 and torch.isfinite(torch.tensor(ev.R))
 
 
 def test_trainer_on_cuda_launches_every_kernel(dev):
-    counters = [cr.lane_launches["pendulum"], cuda_gae.launches,
+    counters = [cr.lane_launches["pendulum", "values"],
+                cr.lane_launches["pendulum", "metrics"], cuda_gae.launches,
                 cu.value_launches, cu.policy_launches]
     before = [c.n for c in counters]
     cfg = PPOConfig(env="pendulum", n_envs=16, rollout_len=50,
@@ -400,8 +402,10 @@ def test_trainer_on_cuda_launches_every_kernel(dev):
     tr = Trainer(cfg, dev)
     hist = tr.train(n_epochs=2, log=False)
     assert all(torch.isfinite(torch.tensor(r["R"])) for r in hist)
-    # per epoch: 2 fits + 1 eval rollouts, 2 GAEs, 2 value, 2 policy phases
-    assert [c.n - b for c, b in zip(counters, before)] == [7, 4, 4, 4]
+    # per epoch: 2 training rollouts (V planes), 1 evaluation rollout
+    # (metrics) after each epoch and one before the first, 2 GAEs, 2 value
+    # and 2 policy phases
+    assert [c.n - b for c, b in zip(counters, before)] == [4, 3, 4, 4, 4]
     assert tr.state.opt_v.t == 2 * 2 * 2 * (16 * 50 // 64)
     assert isinstance(tr.state.opt_log_std, AdamState)
 
@@ -410,18 +414,21 @@ def test_trainer_on_cuda_launches_every_kernel(dev):
 def test_trainer_on_cuda_discrete_path(dev, lane):
     """One discrete epoch under the fused gate runs K1's lane, K2, K3 and
     K6, and no K4; the mean-policy evaluation is K5 forwards only."""
-    counters = [cr.lane_launches[lane], cuda_gae.launches, cu.value_launches,
-                cu.categorical_launches, cu.policy_launches,
-                cuda_mlp.fwd_launches]
+    counters = [cr.lane_launches[lane, "values"],
+                cr.lane_launches[lane, "metrics"], cuda_gae.launches,
+                cu.value_launches, cu.categorical_launches,
+                cu.policy_launches, cuda_mlp.fwd_launches]
     cfg = PPOConfig(env=lane, n_envs=16, rollout_len=64, minibatch_size=64,
                     fits_per_epoch=2, n_epochs_value=2, n_epochs_policy=2,
                     eval_envs=8, eval_len=500)
     tr = Trainer(cfg, dev)
     before = [c.n for c in counters]
     fit = tr.train_epoch()
-    assert [c.n - b for c, b in zip(counters, before)] == [2, 2, 2, 2, 0, 0]
+    assert [c.n - b for c, b in zip(counters, before)] == [2, 0, 2, 2, 2, 0,
+                                                           0]
     assert torch.isfinite(fit.entropy) and tr.state.opt_log_std.t == 0
     before = [c.n for c in counters]
     ev = tr.evaluate(deterministic=True)
-    assert [c.n - b for c, b in zip(counters, before)] == [0, 0, 0, 0, 0, 500]
+    assert [c.n - b for c, b in zip(counters, before)] == [0, 0, 0, 0, 0, 0,
+                                                           500]
     assert ev.episodes >= 1

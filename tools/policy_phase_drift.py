@@ -1,16 +1,26 @@
-"""Where a 200-step policy phase (kernel K4) drifts from exact arithmetic.
+"""Where a 200-step policy phase (kernel K4 or K6), or a 500-step value
+phase (K3), drifts from exact arithmetic.
 
-    python3 tools/policy_phase_drift.py [--seeds 0 1 2]
+    python3 tools/policy_phase_drift.py [--lane pendulum] [--seeds 0 1 2]
+    python3 tools/policy_phase_drift.py --lane cartpole|acrobot \
+        [--seeds 0 1 2] [--draws 2 12] [--phase value]
 
-Needs a CUDA device.  For each seed it builds one fit's policy rows at the
-bench configuration's shapes (kernel rollout, kernel GAE) and runs the
-whole phase five ways: the kernel; the plain version in float32 on the
-card and on the CPU; the plain version in float64 (the exact answer); and
-float64 again from starting weights perturbed by one float32 rounding
-(relative 2^-24, random sign), which measures how far the phase itself
-amplifies a rounding-sized difference.  Each run's distance from float64
-is printed as max |diff| and as L2 relative to the phase's weight travel,
-beside a float64 run with the learning rate 1% off.
+Needs a CUDA device.  ``--lane pendulum`` holds K4, the Gaussian phase;
+``cartpole`` and ``acrobot`` hold K6, the categorical phase, with
+chip_smoke.py's entropy coefficients (0 and 0.01); ``--phase value`` holds
+K3 on the same fit's value rows instead (no clip branch: its counts are
+0).  For each seed (the
+weights) and each row draw it builds one fit's policy rows at the bench
+configuration's shapes (kernel rollout, kernel GAE) and runs the whole
+phase five ways: the kernel; the plain version in float32 on the card and
+on the CPU; the plain version in float64 (the exact answer); and float64
+again from starting weights perturbed by one float32 rounding (relative
+2^-24, random sign), which measures how far the phase itself amplifies a
+rounding-sized difference.  Each run's distance from float64 is printed as
+max |diff| and as L2 relative to the phase's weight travel, beside a
+float64 run with the learning rate 1% off, and as the ratio of the two L2
+distances (what chip_smoke.py's whole-phase check bounds).  At seed 0 and
+the first draw the rows are chip_smoke.py's own.
 
 Then it walks the kernel, plain float32 and float64 runs one step at a
 time (one launch per step; the chained kernel must equal the single
@@ -20,7 +30,7 @@ units of the minibatch's rows the other ReLU gate, than float64 does
 (evaluated in float64 on each run's own weights); and the local error,
 one kernel / plain-float32 step against one float64 step from the same
 (kernel) state.  Writes everything to chiprun_out/policy_phase_drift.json
-under the checkout.
+under the checkout (``<phase>_phase_drift_<lane>.json``).
 """
 from __future__ import annotations
 
@@ -37,9 +47,17 @@ import chip_smoke as cs  # noqa: E402
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--lane", default="pendulum",
+                    choices=["pendulum", *DISCRETE])
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
+    ap.add_argument("--draws", type=int, nargs="+", default=None,
+                    help="row-draw seeds (default: seed + 1 for pendulum, "
+                         "chip_smoke's and one more for a discrete lane)")
+    ap.add_argument("--phase", default="policy", choices=["policy", "value"])
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
+    lane = args.lane
+    value = args.phase == "value"
 
     import torch
 
@@ -56,92 +74,133 @@ def main() -> int:
 
     print(cs.card_line(), flush=True)
     flat = mlp.flatten
-    report = {"card": cs.card_line(), "seeds": {}}
-    for seed in args.seeds:
+    discrete = lane != "pendulum"
+    if discrete:
+        i, ent = DISCRETE[lane]
+        kernel = cu.policy_phase_categorical_kernel
+        plain = cu.policy_phase_categorical_plain
+        draws = args.draws or [2 + i, 12 + i]
+    else:
+        kernel, plain = cu.policy_phase_kernel, cu.policy_phase_plain
+    if value:
+        kernel, plain = cu.value_phase_kernel, cu.value_phase_plain
+    report = {"card": cs.card_line(), "lane": lane, "phase": args.phase,
+              "cases": {}}
+    cases = [(seed, draw) for seed in args.seeds
+             for draw in (draws if discrete else args.draws or [seed + 1])]
+    for seed, draw in cases:
         cfg = cs.bench_config(seed)
+        if discrete:
+            cfg = cfg.replace(env=lane, eval_len=500)
+        else:
+            ent = cfg.ent_coeff
         tr = Trainer(cfg, dev)
         ts = tr.state
         pp, vp = ts.policy_params, ts.v_params
         E, T, mb = cfg.n_envs, cfg.rollout_len, cfg.minibatch_size
-        raw = cr.rollout_kernel(pp["mlp"], pp["log_std"], vp,
-                                (0x01234567 + seed, 0x89ABCDEF), E, T)
+        if discrete:     # chip_smoke.py's discrete rows at seed 0
+            raw = cr.rollout_kernel(pp["mlp"], None, vp,
+                                    (0x2545F491 + i, 0x9E3779B9 + seed), E,
+                                    T, "relu", None, None, 0.99, lane)
+            state0 = (pp["mlp"], ts.opt_policy)
+        elif value:
+            raw = cr.rollout_kernel(pp["mlp"], pp["log_std"], vp,
+                                    (0x01234567 + seed, 0x89ABCDEF), E, T)
+        else:
+            raw = cr.rollout_kernel(pp["mlp"], pp["log_std"], vp,
+                                    (0x01234567 + seed, 0x89ABCDEF), E, T)
+            state0 = (pp["mlp"], pp["log_std"], ts.opt_policy,
+                      ts.opt_log_std)
+        if value:
+            state0 = (vp, ts.opt_v)
+        ns = len(state0)
         trunc = raw.truncated.clone()
         trunc[-1] |= ~raw.terminated[-1]
         adv, tgt = cuda_gae.gae_norm_kernel(
             raw.reward, raw.value, raw.next_value, raw.terminated, trunc,
             0.99, cfg.lam)
-        _, pcols = cs.phase_rows(cfg, raw, adv, tgt, dev, draw_seed=seed + 1)
-        n = pcols[0].shape[0] // mb
-        hp = cu.Hyper.of(cfg.lr_policy, cfg.adam_beta1, cfg.adam_beta2,
-                         cfg.adam_eps)
-        state0 = (pp["mlp"], pp["log_std"], ts.opt_policy, ts.opt_log_std)
+        vcols, pcols = cs.phase_rows(cfg, raw, adv, tgt, dev,
+                                     draw_seed=draw)
+        cols = vcols if value else pcols
+        extra = () if value else (cfg.clip_eps, ent)
+        lr = cfg.lr_v if value else cfg.lr_policy
+        n = cols[0].shape[0] // mb
+        hp = cu.Hyper.of(lr, cfg.adam_beta1, cfg.adam_beta2, cfg.adam_eps)
 
         def run(fn, state, s0, steps, cast=lambda x: x, hyper=hp,
                 device=dev):
             rows = [cast(c[s0 * mb:(s0 + steps) * mb]).to(device)
-                    for c in pcols]
+                    for c in cols]
             st = cs.to_double(state) if cast is cs.to_double else state
             st = _to(st, device)
-            out = fn(*rows, *st, steps, mb, cfg.activation, hyper,
-                     cfg.clip_eps, cfg.ent_coeff)
-            return out[:4]
+            out = fn(*rows, *st, steps, mb, cfg.activation, hyper, *extra)
+            return out[:ns]
 
         def weights(state):
-            return torch.cat([flat(state[0]).double().cpu(),
-                              state[1].double().cpu()])
+            ls = [] if discrete or value else [state[1].double().cpu()]
+            return torch.cat([flat(state[0]).double().cpu()] + ls)
 
         # whole-phase runs
         w0 = weights(state0)
-        exact = run(cu.policy_phase_plain, state0, 0, n, cs.to_double)
+        exact = run(plain, state0, 0, n, cs.to_double)
         wx = weights(exact)
         travel = float((wx - w0).norm())
         runs = {
-            "kernel": run(cu.policy_phase_kernel, state0, 0, n),
-            "plain_f32_card": run(cu.policy_phase_plain, state0, 0, n),
-            "plain_f32_cpu": run(cu.policy_phase_plain, state0, 0, n,
+            "kernel": run(kernel, state0, 0, n),
+            "plain_f32_card": run(plain, state0, 0, n),
+            "plain_f32_cpu": run(plain, state0, 0, n,
                                  device=torch.device("cpu")),
             "f64_lr_plus_1pct": run(
-                cu.policy_phase_plain, state0, 0, n, cs.to_double,
-                cu.Hyper.of(1.01 * cfg.lr_policy, cfg.adam_beta1,
-                            cfg.adam_beta2, cfg.adam_eps)),
+                plain, state0, 0, n, cs.to_double,
+                cu.Hyper.of(1.01 * lr, cfg.adam_beta1, cfg.adam_beta2,
+                            cfg.adam_eps)),
         }
         gen = torch.Generator().manual_seed(100 + seed)
-        for i in range(2):
+        for k in range(2):
             def nudge(t):
                 t = t.double()
                 sign = torch.randint(0, 2, t.shape, generator=gen) * 2 - 1
                 return t * (1 + sign.to(t.device, torch.float64) * 2.0 ** -24)
-            pert = (_tmap(nudge, state0[0]), nudge(state0[1]), state0[2],
-                    state0[3])
-            runs[f"f64_rounding_nudge_{i}"] = run(
-                cu.policy_phase_plain, cs.to_double(pert), 0, n, cs.to_double)
+            pert = ((_tmap(nudge, state0[0]), state0[1]) if ns == 2 else
+                    (_tmap(nudge, state0[0]), nudge(state0[1]), state0[2],
+                     state0[3]))
+            runs[f"f64_rounding_nudge_{k}"] = run(
+                plain, cs.to_double(pert), 0, n, cs.to_double)
+        tag = f"seed {seed} draw {draw}"
+        d_lr = float((weights(runs["f64_lr_plus_1pct"]) - wx).norm())
         whole = {}
         for name, st in runs.items():
             w = weights(st)
             whole[name] = {"max_abs": float((w - wx).abs().max()),
                            "rel_l2": float((w - wx).norm()) / travel,
+                           "ratio_to_lr": float((w - wx).norm()) / d_lr,
                            "frac_gt_1e-5": float(((w - wx).abs() > 1e-5)
                                                  .double().mean())}
-            print(f"seed {seed} {name:>22}: max |diff from f64| "
+            print(f"{tag} {name:>22}: max |diff from f64| "
                   f"{whole[name]['max_abs']:.3e}, L2/travel "
-                  f"{whole[name]['rel_l2']:.4f}, share > 1e-5 "
+                  f"{whole[name]['rel_l2']:.4f}, over the lr +1% run's "
+                  f"{whole[name]['ratio_to_lr']:.4f}, share > 1e-5 "
                   f"{whole[name]['frac_gt_1e-5']:.3f}", flush=True)
 
         # step by step
         k_st, p_st, x_st = state0, state0, cs.to_double(state0)
         steps = []
         for s in range(n):
-            one_x_from_k = run(cu.policy_phase_plain, k_st, s, 1,
-                               cs.to_double)
-            one_p_from_k = run(cu.policy_phase_plain, k_st, s, 1)
-            mask_k = _branch(k_st, pcols, s, mb, cfg)
-            mask_p = _branch(p_st, pcols, s, mb, cfg)
-            mask_x, near_x = _branch(x_st, pcols, s, mb, cfg, near=True)
-            gate_k, gate_p, gate_x = (_gates(st, pcols, s, mb, cfg)
+            one_x_from_k = run(plain, k_st, s, 1, cs.to_double)
+            one_p_from_k = run(plain, k_st, s, 1)
+            if value:       # no clip branch
+                mask_k = mask_p = mask_x = torch.zeros(mb, dtype=torch.bool)
+                near_x = 0
+            else:
+                mask_k = _branch(k_st, pcols, s, mb, cfg, discrete)
+                mask_p = _branch(p_st, pcols, s, mb, cfg, discrete)
+                mask_x, near_x = _branch(x_st, pcols, s, mb, cfg, discrete,
+                                         near=True)
+            gate_k, gate_p, gate_x = (_gates(st, cols, s, mb, cfg)
                                       for st in (k_st, p_st, x_st))
-            k_st = run(cu.policy_phase_kernel, k_st, s, 1)
-            p_st = run(cu.policy_phase_plain, p_st, s, 1)
-            x_st = run(cu.policy_phase_plain, x_st, s, 1, cs.to_double)
+            k_st = run(kernel, k_st, s, 1)
+            p_st = run(plain, p_st, s, 1)
+            x_st = run(plain, x_st, s, 1, cs.to_double)
             wx_s = weights(x_st)
             wk1 = weights(k_st)
             steps.append({
@@ -162,12 +221,14 @@ def main() -> int:
                                          weights(runs["kernel"])))
         summary = _summarise(steps)
         summary["chained_kernel_equals_single_launch"] = chained_equal
-        print(f"seed {seed} step by step: {json.dumps(summary)}", flush=True)
-        report["seeds"][seed] = {"travel_l2": travel, "whole": whole,
-                                 "summary": summary, "steps": steps}
+        print(f"{tag} step by step: {json.dumps(summary)}", flush=True)
+        report["cases"][f"{seed}/{draw}"] = {
+            "ent_coeff": ent, "travel_l2": travel, "whole": whole,
+            "summary": summary, "steps": steps}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "policy_phase_drift.json").write_text(json.dumps(report))
+    (out / f"{args.phase}_phase_drift_{lane}.json").write_text(
+        json.dumps(report))
     return 0
 
 
@@ -189,7 +250,7 @@ def _to(state, device):
     return tuple(mv(x) for x in state)
 
 
-def _branch(state, pcols, s, mb, cfg, near=False):
+def _branch(state, pcols, s, mb, cfg, discrete, near=False):
     """Which rows of step s's minibatch carry gradient (the unclipped
     branch), evaluated in float64 on ``state``'s weights; with ``near``
     also the count of rows whose ratio lies within 1e-5 (relative) of a
@@ -198,12 +259,15 @@ def _branch(state, pcols, s, mb, cfg, near=False):
 
     from ppoc_tpu_torch.models import mlp, policy
 
-    params, log_std = cs.to_double(state[0]), state[1].double()
-    o, a, lp, ad = (c[s * mb:(s + 1) * mb].double() for c in pcols)
-    params = _to((params,), o.device)[0]
-    log_std = log_std.to(o.device)
-    mu = mlp.apply(params, o, cfg.activation)
-    logp = policy.gaussian_log_prob_from_mean(mu, log_std, a)
+    o, a, lp, ad = (c[s * mb:(s + 1) * mb] for c in pcols)
+    o, lp, ad = o.double(), lp.double(), ad.double()
+    params = _to((cs.to_double(state[0]),), o.device)[0]
+    out = mlp.apply(params, o, cfg.activation)
+    if discrete:      # a holds int32 class ids
+        logp = torch.log_softmax(out, -1).gather(-1, a.long())[:, 0]
+    else:
+        logp = policy.gaussian_log_prob_from_mean(
+            out, state[1].double().to(o.device), a.double())
     ratio = torch.exp(logp - lp.reshape(-1))
     ad = ad.reshape(-1)
     lo, hi = 1.0 - cfg.clip_eps, 1.0 + cfg.clip_eps
@@ -264,6 +328,10 @@ def _summarise(steps):
             "kernel": sum(s["kernel_local_err"] > 1e-6 for s in steps),
             "plain": sum(s["plain_local_err"] > 1e-6 for s in steps)},
     }
+
+
+# the discrete lanes: (index in chip_smoke.py's loop, K6's ent_coeff there)
+DISCRETE = {"cartpole": (0, 0.0), "acrobot": (1, 0.01)}
 
 
 if __name__ == "__main__":
