@@ -40,7 +40,27 @@
    (K1's lane, K2, K3 and K6 run; K4 does not); then
    Trainer.evaluate(deterministic=True) on the trained CartPole policy
    (argmax through K5).
+9. K7, the flash attention: forward (out, lse), dq and dk/dv against the
+   plain version (autograd through materialised scores) at the recall_xl
+   minibatch shape (T 1024, B 4, H 4, hd 8) with a recall_xl rollout's
+   episodes and with p_done 0.02, at the value-pass shape (B 32), at a
+   ragged T 1030, at the JAX package's X-ray shape (T 2048, B 16, H 8,
+   hd 64) and with rel -1, 0 and +1; the backward twice, bit for bit;
+   timed beside the plain version and scaled_dot_product_attention with
+   the boolean mask (library_ms; the port never calls it).
+10. apply_seq through K7 against apply_seq through the materialised core
+   at recall_xl's widths (d 32, 2 layers, 4 heads, T 1024, E 4): outputs
+   and every parameter gradient.
+11. The attention learning check: Trainer(recall, attn_dim 16).train(5)
+   on the card must reach R > 0.9 (T 6: the materialised path).
+12. The attention path: Trainer(recall_xl at the width of
+   examples/recall_xl_curriculum.py, rollout_len = eval_len = 1024), the
+   decode-against-replay log-prob gap at the initial weights, then 2
+   epochs with K7's launches read around them and held to the count the
+   config gives, each epoch's R and its wall time split by phase; then
+   Trainer.evaluate(deterministic=True), which launches no kernel.
 
+Each phase's title line gives the seconds since the script started.
 Any failed check raises, so the script exits non-zero.  The last two lines
 are a JSON object of per-kernel results and the JSON status line.  Per
 kernel: "ms" is the kernel's device time per call (CUDA events around
@@ -49,7 +69,12 @@ device-kernel time per call (the profiler's kernel durations summed);
 "bound_ms" is the least time the card could take for the same work, from
 the H100 SXM's FP32 and memory peaks;
 "launches" come from the path's run: K1 counts its launches per lane and
-per mode, with the V planes (training) and with the metrics (evaluation).
+per mode, with the V planes (training) and with the metrics (evaluation);
+K7's are split between the recall_xl minibatch shape and the value pass
+(layers x fits forwards) from the counts the config gives.
+"library_ms" is scaled_dot_product_attention with the mask for K7 (its
+backward, dq, dk and dv in one call, for both backward kernels), else
+null: no single PyTorch call computes K1-K6's functions.
 """
 from __future__ import annotations
 
@@ -84,6 +109,12 @@ KERNELS = {
                     "ppoc_tpu/ops/pallas_mlp.py:139"),
     "mlp_backward": ("ppoc_tpu_torch/csrc/mlp.cu",
                      "ppoc_tpu/ops/pallas_mlp.py:226"),
+    "flash_fwd": ("ppoc_tpu_torch/csrc/attn.cu",
+                  "ppoc_tpu/ops/pallas_attn.py:189"),
+    "flash_bwd_dq": ("ppoc_tpu_torch/csrc/attn.cu",
+                     "ppoc_tpu/ops/pallas_attn.py:335"),
+    "flash_bwd_dkv": ("ppoc_tpu_torch/csrc/attn.cu",
+                      "ppoc_tpu/ops/pallas_attn.py:352"),
 }
 # the loose whole-phase limits of check_phase: a kernel's distance from
 # float64 over a 1% learning-rate error's, about 1.5x the largest reading
@@ -96,6 +127,14 @@ STEP_TOL = 2e-7
 # HBM3 bandwidth.  Every kernel of the port computes in plain FP32.
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+
+
+T_START = time.perf_counter()
+
+
+def header(text: str, **_) -> None:
+    """A phase's title line, with the seconds since the script started."""
+    print(f"{text} (at {time.perf_counter() - T_START:.1f} s)", flush=True)
 
 
 def bound_ms(ops: float, nbytes: float):
@@ -875,6 +914,494 @@ def discrete_path(lane: str, dev, counters):
     return tr, res, wall, n
 
 
+# --- the attention sequence path (K7) ----------------------------------------
+
+# recall_xl at the width of the repo's recipe
+# (examples/recall_xl_curriculum.py), without its stabiliser and checkpoint
+# hand-off (transplant_patience), one window of 1024 steps
+RECALL_XL = dict(env="recall_xl", n_envs=32, rollout_len=1024,
+                 eval_len=1024, minibatch_size=4096, fits_per_epoch=2,
+                 eval_envs=64, hidden=(32,), seed=0, lr_policy=1e-3,
+                 lr_v=1e-3, attn_dim=32, attn_layers=2, attn_heads=4,
+                 kernel_backend="pallas")
+RECALL_XL_EPOCHS = 2
+# the JAX package's own attention learning check (tests/test_pallas_attn.py)
+RECALL = dict(env="recall", n_envs=128, rollout_len=6, minibatch_size=192,
+              fits_per_epoch=8, eval_envs=256, eval_len=6, hidden=(32,),
+              seed=1, lr_policy=1e-3, lr_v=1e-3, attn_dim=16, attn_layers=1,
+              attn_heads=2, kernel_backend="pallas")
+# K7 against its plain version: out and lse to 1e-5, the gradients to 1e-4,
+# each over the largest magnitude of the plain result (at least 1): the
+# kernel's online softmax and its sums over up to 2048 keys run in another
+# order than the plain version's matmuls
+FLASH_OUT_TOL, FLASH_GRAD_TOL = 1e-5, 1e-4
+
+
+def dones_of_rollout(name: str, T: int, B: int, dev):
+    """[T, B] done flags of a T-step window of env ``name`` (the episode
+    pattern that window's rollout has: recall's ends depend on time
+    alone)."""
+    import torch
+
+    from ppoc_tpu_torch import envs
+
+    env = envs.make(name)
+    g = torch.Generator().manual_seed(0)
+    state, _ = envs.vector_reset(env, g, B, dev)
+    dones = []
+    for _ in range(T):
+        fresh = envs.vector_reset(env, g, B, dev)
+        state, _, _, _, term, trunc = envs.vector_autoreset_step(
+            env, state, torch.zeros(B, 1, device=dev), fresh)
+        dones.append(term | trunc)
+    return torch.stack(dones)
+
+
+def random_dones(T: int, B: int, p_done: float, seed: int, dev):
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    return (torch.rand(T, B, generator=g) < p_done).to(dev)
+
+
+def flash_case(T: int, B: int, H: int, hd: int, dones, seed: int, dev,
+               k_dones=None):
+    """Folded K7 inputs: q, k, v, an output cotangent and an lse cotangent
+    from a seeded generator, and the two sides' episode ids [B, T] from
+    ``dones`` (and ``k_dones`` for the key side, else the same)."""
+    import torch
+
+    from ppoc_tpu_torch.models import attn
+    from ppoc_tpu_torch.ops import cuda_attn as ca
+
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, dout = (torch.randn(B * H, T, hd, generator=g).to(dev)
+                     for _ in range(4))
+    g_lse = torch.randn(B * H, T, generator=g).to(dev)
+    ep_q = ca.fold_ep(attn.episode_ids(dones))
+    ep_k = ep_q if k_dones is None else ca.fold_ep(attn.episode_ids(k_dones))
+    return q, k, v, dout, g_lse, ep_q, ep_k
+
+
+def flash_bounds(case, rel: int, H: int):
+    """K7's three bounds for ``case``: FP32 operations over the valid
+    (query, key) pairs this case's episode ids allow -- forward 4 hd + 4 a
+    pair (q.k, p.v, the max, exp and sum), dq 6 hd + 4, dk/dv 8 hd + 4 --
+    or the bytes (each input read once, each output written once)."""
+    from ppoc_tpu_torch.ops import cuda_attn as ca
+
+    q, _, _, _, _, ep_q, ep_k = case
+    BH, T, hd = q.shape
+    pairs = int(ca.valid_mask(ep_q, ep_k, rel, 1).sum()) * H
+    row, ids, vec = 4 * BH * T * hd, 4 * 2 * ep_q.numel(), 4 * BH * T
+    return (bound_ms(pairs * (4 * hd + 4), 3 * row + ids + row + vec),
+            bound_ms(pairs * (6 * hd + 4), 4 * row + ids + 2 * vec + row),
+            bound_ms(pairs * (8 * hd + 4), 4 * row + ids + 2 * vec
+                     + 2 * row)), pairs
+
+
+def check_flash(label: str, case, rel: int, H: int, dev, time_it=False):
+    """K7's forward (out, lse) and its dq and dk/dv kernels against the
+    plain version (autograd through it) on ``case``, each held over the
+    largest magnitude of the plain result; rows with no valid key must
+    come back out 0 and lse NEG exactly; the backward launched twice must
+    agree bit for bit.  Returns ({name: max abs error}, {kernel: timings}
+    or None)."""
+    import torch
+
+    from ppoc_tpu_torch.ops import cuda_attn as ca
+
+    q, k, v, dout, g_lse, ep_q, ep_k = case
+    kargs = (q, k, v, ep_q, ep_k, rel, H)
+    out, lse = ca.flash_fwd_kernel(*kargs)
+    dsum = ca.dsum_of(dout, out, g_lse).contiguous()
+    bargs = kargs + (dout, dsum, lse)
+    dq = ca.flash_dq_kernel(*bargs)
+    dk, dv = ca.flash_dkv_kernel(*bargs)
+    dq2 = ca.flash_dq_kernel(*bargs)
+    dk2, dv2 = ca.flash_dkv_kernel(*bargs)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out_p, lse_p = ca.attention_plain(*leaves, ep_q, ep_k, rel, H)
+    grads_p = torch.autograd.grad((out_p, lse_p), leaves, (dout, g_lse))
+    out_p, lse_p = out_p.detach(), lse_p.detach()
+    torch.cuda.synchronize()
+    if not (torch.equal(dq, dq2) and torch.equal(dk, dk2)
+            and torch.equal(dv, dv2)):
+        raise AssertionError(f"{label}: two runs of K7's backward differ")
+    empty = lse_p <= ca.NEG / 2
+    if not (torch.equal(lse[empty], lse_p[empty])
+            and (out[empty] == 0).all()):
+        raise AssertionError(f"{label}: rows with no valid key are not out "
+                             f"0 and lse NEG")
+    errs = {}
+    for name, a, b, tol in (
+            ("out", out, out_p, FLASH_OUT_TOL),
+            ("lse", lse[~empty], lse_p[~empty], FLASH_OUT_TOL),
+            ("dq", dq, grads_p[0], FLASH_GRAD_TOL),
+            ("dk", dk, grads_p[1], FLASH_GRAD_TOL),
+            ("dv", dv, grads_p[2], FLASH_GRAD_TOL)):
+        errs[name] = max_err(a, b) if a.numel() else 0.0
+        scale = max(1.0, float(b.abs().max())) if b.numel() else 1.0
+        print(f"  {label}, {name}: max |diff| {errs[name]:.3e}, over the "
+              f"plain max {errs[name] / scale:.3e} (tolerance {tol:.0e})",
+              flush=True)
+        if not errs[name] / scale <= tol:
+            raise AssertionError(f"{label}: {name} exceeds {tol}")
+    print(f"  {label}: backward twice, bit for bit; "
+          f"{int(empty.sum())} rows with no valid key", flush=True)
+    if not time_it:
+        return errs, None
+    import torch.nn.functional as F
+
+    B = ep_q.shape[0]
+    T, hd = q.shape[1], q.shape[2]
+    mask = ca.valid_mask(ep_q, ep_k, rel, 1)[:, None]              # [B, 1, T, T]
+    q4, k4, v4 = (t.detach().reshape(B, H, T, hd).requires_grad_()
+                  for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+    d4 = dout.reshape(B, H, T, hd)
+    plain_graph = ca.attention_plain(*leaves, ep_q, ep_k, rel, H)
+    times = {
+        "flash_fwd": timings(lambda: ca.flash_fwd_kernel(*kargs),
+                             lambda: ca.attention_plain(*kargs), 20, 3),
+        "flash_bwd_dq": {"ms": queued_ms(lambda: ca.flash_dq_kernel(*bargs),
+                                         20)},
+        "flash_bwd_dkv": {"ms": queued_ms(
+            lambda: ca.flash_dkv_kernel(*bargs), 20)},
+    }
+    bwd_plain = device_ms(lambda: torch.autograd.grad(
+        plain_graph, leaves, (dout, g_lse), retain_graph=True), 3)
+    times["flash_bwd_dq"]["plain_ms"] = bwd_plain
+    times["flash_bwd_dkv"]["plain_ms"] = bwd_plain
+    times["flash_fwd"]["library_ms"] = queued_ms(
+        lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask),
+        20)
+    lib_bwd = queued_ms(lambda: torch.autograd.grad(
+        lib_out, (q4, k4, v4), d4, retain_graph=True), 20)
+    times["flash_bwd_dq"]["library_ms"] = lib_bwd
+    times["flash_bwd_dkv"]["library_ms"] = lib_bwd
+    fwd_bwd = {"kernel": times["flash_fwd"]["ms"]
+               + times["flash_bwd_dq"]["ms"] + times["flash_bwd_dkv"]["ms"],
+               "plain": times["flash_fwd"]["plain_ms"] + bwd_plain,
+               "library": times["flash_fwd"]["library_ms"] + lib_bwd}
+    print(f"  {label}: device ms, forward kernel "
+          f"{times['flash_fwd']['ms']:.4f} / plain "
+          f"{times['flash_fwd']['plain_ms']:.4f} / SDPA "
+          f"{times['flash_fwd']['library_ms']:.4f}; dq kernel "
+          f"{times['flash_bwd_dq']['ms']:.4f}, dk/dv kernel "
+          f"{times['flash_bwd_dkv']['ms']:.4f}, plain backward "
+          f"{bwd_plain:.4f}, SDPA backward {lib_bwd:.4f}; forward + "
+          f"backward kernel {fwd_bwd['kernel']:.4f} / plain "
+          f"{fwd_bwd['plain']:.4f} / SDPA {fwd_bwd['library']:.4f}",
+          flush=True)
+    return errs, times
+
+
+def check_flash_all(dev):
+    """K7 at every shape the path gives it and at the JAX package's chip
+    X-ray shape; returns {shape name: (case, rel, H, errors, timings)}."""
+    T, B, H, hd = 1024, 4, 4, 8
+    xl = dones_of_rollout("recall_xl", T, 32, dev)
+    runs = {}
+    for name, case, rel, Hn, time_it in (
+            ("recall_xl minibatch (T 1024, B 4, H 4, hd 8), rollout "
+             "episodes", flash_case(T, B, H, hd, xl[:, :B], 1, dev), 0, H,
+             True),
+            ("recall_xl minibatch, p_done 0.02",
+             flash_case(T, B, H, hd, random_dones(T, B, 0.02, 2, dev), 3,
+                        dev), 0, H, False),
+            ("recall_xl value pass (T 1024, B 32, H 4, hd 8)",
+             flash_case(T, 32, H, hd, xl, 4, dev), 0, H, True),
+            ("ragged T 1030 (B 4, H 4, hd 8), p_done 0.02",
+             flash_case(1030, B, H, hd, random_dones(1030, B, 0.02, 5, dev),
+                        6, dev), 0, H, False),
+            ("X-ray (T 2048, B 16, H 8, hd 64), p_done 0.02",
+             flash_case(2048, 16, 8, 64, random_dones(2048, 16, 0.02, 7,
+                                                      dev), 8, dev),
+             0, 8, True)):
+        errs, times = check_flash(name, case, rel, Hn, dev, time_it)
+        runs[name] = (case, rel, Hn, errs, times)
+    q_d = random_dones(T, B, 0.02, 9, dev)
+    k_d = random_dones(T, B, 0.02, 10, dev)
+    for rel in (-1, 0, 1):
+        name = f"ring block rel {rel:+d} (T 1024, B 4, H 4, hd 8)"
+        errs, _ = check_flash(name, flash_case(T, B, H, hd, q_d, 11, dev,
+                                               k_dones=k_d), rel, H, dev)
+        runs[name] = (None, rel, H, errs, None)
+    return runs
+
+
+def check_apply_seq(dev):
+    """apply_seq through K7 ("pallas", T >= FLASH_MIN_T) against apply_seq
+    through the materialised core ("jnp") at recall_xl's widths (d 32, 2
+    layers, 4 heads, T 1024, E 4): the outputs and every parameter
+    gradient of sum(out * c), each over the leaf's largest magnitude."""
+    import torch
+
+    from ppoc_tpu_torch.models import attn
+    from ppoc_tpu_torch.ops import adam
+
+    T, E = 1024, 4
+    g = torch.Generator().manual_seed(12)
+    p = attn.init(2, 32, 2, 4, 128, T + 1, (32, 32, 1), g, dev)
+    xs = torch.randn(T, E, 2, generator=g).to(dev)
+    dones = torch.cat([dones_of_rollout("recall_xl", T, 2, dev),
+                       random_dones(T, 2, 0.02, 13, dev)], dim=1)
+    c = torch.randn(T, E, 1, generator=g).to(dev)
+    res = {}
+    for backend in ("pallas", "jnp"):
+        leaves = adam.tree_map(lambda t: t.detach().requires_grad_(), p)
+        out = attn.apply_seq(leaves, xs, dones, "relu", backend=backend)
+        res[backend] = (out.detach(), torch.autograd.grad(
+            (out * c).sum(), adam.tree_leaves(leaves)))
+    torch.cuda.synchronize()
+    out_err = max_err(res["pallas"][0], res["jnp"][0])
+    check("apply_seq outputs, K7 vs the materialised core", out_err,
+          FLASH_OUT_TOL)
+    ratio = max(max_err(a, b) / max(1.0, float(b.abs().max())) for a, b in
+                zip(res["pallas"][1], res["jnp"][1]))
+    check(f"apply_seq: {len(res['jnp'][1])} parameter gradients, max |diff| "
+          f"over the leaf's max (at least 1)", ratio, FLASH_GRAD_TOL,
+          what="ratio")
+    return max(out_err, *(max_err(a, b) for a, b in
+                          zip(res["pallas"][1], res["jnp"][1])))
+
+
+def recall_learning(counters):
+    """The JAX package's attention learning check on the card: 5 epochs of
+    recall (T 6: the materialised path, no K7 launch) must reach
+    R > 0.9."""
+    import torch
+
+    from ppoc_tpu_torch import PPOConfig
+    from ppoc_tpu_torch.algo.trainer import Trainer
+
+    tr = Trainer(PPOConfig(**RECALL))
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    hist = tr.train(5, log=False)
+    torch.cuda.synchronize()
+    n = {c.kernel: c.n for c in counters}
+    print(f"  R {[round(h['R'], 4) for h in hist]}, "
+          f"{time.perf_counter() - t0:.3f} s; launches {n}", flush=True)
+    if not hist[-1]["R"] > 0.9:
+        raise AssertionError(f"recall not learned in 5 epochs: "
+                             f"R {hist[-1]['R']}")
+    if any(n.values()):
+        raise AssertionError(f"recall at T 6 launched a kernel: {n}")
+    return hist[-1]["R"]
+
+
+class PhaseClock:
+    """Wall time of the sequence path's phases, summed per epoch: wraps
+    the functions the trainer calls (module attributes, looked up at call
+    time) with a synchronise on each side.  The path is unchanged; the
+    synchronisation only ends each phase where the host would wait
+    anyway at the next one's first read."""
+
+    PHASES = ("rollout", "values + GAE", "value phase", "policy phase",
+              "evaluation")
+
+    def __init__(self):
+        self.t = dict.fromkeys(self.PHASES, 0.0)
+        self.in_eval = False
+        self.saved = []
+
+    def wrap(self, mod, name, phase):
+        import functools
+
+        import torch
+
+        fn = getattr(mod, name)
+
+        @functools.wraps(fn)
+        def timed(*a, **kw):
+            if self.in_eval and phase != "evaluation":
+                return fn(*a, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self.in_eval = phase == "evaluation"
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                self.in_eval = False
+                self.t[phase] += time.perf_counter() - t0
+
+        self.saved.append((mod, name, fn))
+        setattr(mod, name, timed)
+
+    def __enter__(self):
+        from ppoc_tpu_torch.algo import ppo, recurrent
+
+        self.wrap(recurrent, "rollout_rnn", "rollout")
+        self.wrap(recurrent, "compute_values_rnn", "values + GAE")
+        self.wrap(ppo, "_seq_advantages", "values + GAE")
+        self.wrap(recurrent, "value_phase_rnn", "value phase")
+        self.wrap(recurrent, "policy_phase_rnn", "policy phase")
+        self.wrap(ppo, "evaluate", "evaluation")
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in reversed(self.saved):
+            setattr(mod, name, fn)
+
+    def take(self):
+        out, self.t = self.t, dict.fromkeys(self.PHASES, 0.0)
+        return out
+
+
+def recall_xl_path(dev, counters):
+    """Trainer(recall_xl at the recipe's widths) on the card by default:
+    the decode-against-replay gap at the initial weights, then
+    RECALL_XL_EPOCHS epochs through K7 with its launches read around them
+    and held to the count the config gives, each epoch's R and its wall
+    time split by phase; then evaluate(deterministic=True).  Returns
+    (trainer, launches, per-fit launch counts, log-prob gap)."""
+    import torch
+
+    from ppoc_tpu_torch import PPOConfig
+    from ppoc_tpu_torch.algo import ppo, recurrent
+    from ppoc_tpu_torch.algo.trainer import Trainer
+    from ppoc_tpu_torch.ops import adam
+
+    cfg = PPOConfig(**RECALL_XL)
+    tr = Trainer(cfg)
+    if tr.device != torch.device("cuda", 0):
+        raise AssertionError(f"Trainer(cfg) chose {tr.device}, not cuda:0")
+    # decode against replay at the initial weights: the rollout's stored
+    # log-probs (plain decode) and the epoch-0 replay through K7
+    draws = ppo.draw_fit(cfg, torch.Generator().manual_seed(11), dev,
+                         tr.env)
+    pp = tr.state.policy_params
+    traj, _ = recurrent.rollout_rnn(cfg, tr.env, pp, draws.seq)
+    with torch.no_grad():
+        logp, _ = recurrent.policy_log_probs_rnn(
+            cfg, pp, traj.obs, traj.action, traj.terminated | traj.truncated,
+            False, "pallas")
+    gap = max_err(logp, traj.log_prob)
+    print(f"  decode against the K7 replay at epoch 0: largest log-prob gap "
+          f"{gap:.3e}, largest |ratio - 1| "
+          f"{float((torch.exp(logp - traj.log_prob) - 1).abs().max()):.3e}",
+          flush=True)
+    # 16x the first reading on the card (6.2e-6): decode and replay sum the
+    # same attention sets in another order
+    check("decode against replay, log-probs", gap, 1e-4)
+
+    seqs, n_mb = recurrent.seq_minibatch_plan(cfg.n_envs, cfg.rollout_len,
+                                              cfg.minibatch_size)
+    L = cfg.attn_layers
+    per_fit = {"flash_fwd": L * (1 + (cfg.n_epochs_value
+                                      + cfg.n_epochs_policy) * n_mb),
+               "flash_bwd_dq": L * (cfg.n_epochs_value
+                                    + cfg.n_epochs_policy) * n_mb}
+    per_fit["flash_bwd_dkv"] = per_fit["flash_bwd_dq"]
+    for c in counters:
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with PhaseClock() as clock:
+        hist = []
+        for i in range(RECALL_XL_EPOCHS):
+            row = tr.train(1, log=False, initial_eval=False)[0]
+            split = clock.take()
+            hist.append(row)
+            print(f"  epoch {i}: R {row['R']:.4f}, value loss "
+                  f"{row['value_loss']:.5f}, policy loss "
+                  f"{row['policy_loss']:.5f}, training {row['time_s']:.3f} "
+                  f"s; wall split (s) " + ", ".join(
+                      f"{k} {v:.3f}" for k, v in split.items()), flush=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = {c.kernel: c.n for c in counters}
+    fits = RECALL_XL_EPOCHS * cfg.fits_per_epoch
+    want = {k: v * fits for k, v in per_fit.items()}
+    print(f"  {RECALL_XL_EPOCHS} epochs in {wall:.3f} s; launches {n}; "
+          f"from the config (layers x (1 + (value + policy epochs) x "
+          f"{n_mb} minibatches) forwards a fit, {fits} fits) {want}",
+          flush=True)
+    if {k: n[k] for k in want} != want:
+        raise AssertionError(f"K7 launches {n} differ from the config's "
+                             f"{want}")
+    if any(v for k, v in n.items() if k not in want):
+        raise AssertionError(f"the attention path launched another kernel: "
+                             f"{n}")
+    for h in hist:
+        if not all(math.isfinite(h[k]) for k in ("value_loss", "policy_loss",
+                                                 "entropy", "R")):
+            raise AssertionError(f"non-finite loss on recall_xl: {h}")
+    if not all(torch.isfinite(t).all() for t in adam.tree_leaves(
+            (tr.state.v_params, tr.state.policy_params))):
+        raise AssertionError("non-finite weights after recall_xl")
+
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    ev = tr.evaluate(deterministic=True)
+    torch.cuda.synchronize()
+    ev_n = {c.kernel: c.n for c in counters}
+    print(f"  evaluate(deterministic=True): R {ev.R:.4f}, episodes "
+          f"{int(ev.episodes)}, {time.perf_counter() - t0:.3f} s; launches "
+          f"{ev_n}", flush=True)
+    if any(ev_n.values()) or ev.episodes != cfg.eval_envs:
+        raise AssertionError(f"the mean-policy evaluation of recall_xl: "
+                             f"{ev}, launches {ev_n}")
+    return tr, n, per_fit, gap
+
+
+def attention_phases(dev, counters, record):
+    """The attention sequence path: K7 against its plain version at every
+    shape, apply_seq through K7 against the plain core, the recall
+    learning check, then recall_xl at full width through K7."""
+    header("[K7 flash attention: forward, dq, dk/dv against the plain "
+          "version]", flush=True)
+    runs = check_flash_all(dev)
+    header("[apply_seq through K7 against the materialised core, recall_xl "
+          "widths]", flush=True)
+    seq_err = check_apply_seq(dev)
+    header("[recall learning check: Trainer(recall, attn_dim 16).train(5)]",
+          flush=True)
+    recall_learning(counters)
+    header(f"[recall_xl path: Trainer(recall_xl, attn_dim 32, 2 layers, 4 "
+          f"heads), {RECALL_XL_EPOCHS} epochs, then "
+          f"evaluate(deterministic=True)]", flush=True)
+    _, n, per_fit, gap = recall_xl_path(dev, counters)
+    cfg_fits = RECALL_XL_EPOCHS * RECALL_XL["fits_per_epoch"]
+    L = RECALL_XL["attn_layers"]
+    shapes = (("recall_xl minibatch (T 1024, B 4, H 4, hd 8), rollout "
+               "episodes", "recall_xl update phases, minibatch of 4 env "
+               "columns", [1024, 4, 4, 8]),
+              ("recall_xl value pass (T 1024, B 32, H 4, hd 8)",
+               "recall_xl value pass of the V planes", [1024, 32, 4, 8]))
+    for key, path, shape in shapes:
+        case, rel, H, errs, times = runs[key]
+        bounds, pairs = flash_bounds(case, rel, H)
+        value_pass = "value pass" in key
+        for i, name in enumerate(("flash_fwd", "flash_bwd_dq",
+                                  "flash_bwd_dkv")):
+            if value_pass and name != "flash_fwd":
+                continue      # the value pass runs no backward
+            launches = L * cfg_fits if value_pass else (
+                n[name] - (L * cfg_fits if name == "flash_fwd" else 0))
+            err = (max(errs["out"], errs["lse"]), errs["dq"],
+                   max(errs["dk"], errs["dv"]))[i]
+            record(name, path + f" ({pairs} valid pairs)", shape, launches,
+                   err, times[name], bounds[i], times[name]["library_ms"])
+    case, rel, H, errs, times = runs[
+        "X-ray (T 2048, B 16, H 8, hd 64), p_done 0.02"]
+    bounds, pairs = flash_bounds(case, rel, H)
+    xray = {name: dict(times[name], bound_ms=bounds[i][0],
+                       bound_by=bounds[i][1])
+            for i, name in enumerate(("flash_fwd", "flash_bwd_dq",
+                                      "flash_bwd_dkv"))}
+    print(f"  K7 at the X-ray shape (T 2048, B 16, H 8, hd 64, {pairs} valid "
+          f"pairs; not on the path): {json.dumps(xray)}", flush=True)
+    print(f"  apply_seq through K7 against the plain core, max |diff| "
+          f"{seq_err:.3e}; decode against replay, largest log-prob gap "
+          f"{gap:.3e}; per fit K7 launches {per_fit}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -895,10 +1422,10 @@ def main() -> int:
     from ppoc_tpu_torch.data import buffer
     from ppoc_tpu_torch.algo import ppo
     from ppoc_tpu_torch.models import mlp
-    from ppoc_tpu_torch.ops import (_build, cuda_gae, cuda_mlp, cuda_rollout,
-                                    cuda_update)
+    from ppoc_tpu_torch.ops import (_build, cuda_attn, cuda_gae, cuda_mlp,
+                                    cuda_rollout, cuda_update)
 
-    print("[build]", flush=True)
+    header("[build]", flush=True)
     info = _build.build()
     print(f"  {info['path']}: {'built' if info['built'] else 'up to date'} "
           f"in {info['seconds']:.1f} s", flush=True)
@@ -909,38 +1436,42 @@ def main() -> int:
     counters = [*cuda_rollout.lane_launches.values(), cuda_gae.launches,
                 cuda_update.value_launches, cuda_update.policy_launches,
                 cuda_update.categorical_launches, cuda_mlp.fwd_launches,
-                cuda_mlp.bwd_launches]
+                cuda_mlp.bwd_launches, cuda_attn.fwd_launches,
+                cuda_attn.dq_launches, cuda_attn.dkv_launches]
     results = []
 
-    def record(name, path, shape, launches, err, times, bound):
-        # library_ms: no single PyTorch call computes any of these
+    def record(name, path, shape, launches, err, times, bound, library=None):
+        # library_ms: the one PyTorch call that computes the same function
+        # (K7: scaled_dot_product_attention with the mask), else None
         src, replaces = KERNELS[name]
         results.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches,
-            "max_abs_err": err, **times,
-            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
-            "path": path, "shape": shape})
+            "max_abs_err": err, "ms": times["ms"],
+            "plain_ms": times["plain_ms"], "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": library, "path": path,
+            "shape": shape})
+        lib = "" if library is None else f", library {library:.4f} ms"
         print(f"  {name} ({path}, {shape}): device time kernel "
-              f"{times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms; "
-              f"bound {bound[0]:.4f} ms ({bound[1]}); launches {launches}",
-              flush=True)
+              f"{times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms"
+              f"{lib}; bound {bound[0]:.4f} ms ({bound[1]}); launches "
+              f"{launches}", flush=True)
 
     cfg = bench_config()
     tr = Trainer(cfg, dev)
     widths = mlp.dims(tr.state.v_params)
-    print("[K1 rollout]", flush=True)
+    header("[K1 rollout]", flush=True)
     (raw, k1_err, k1_t), (raw_m, k1m_err, k1m_t) = check_rollout(
         cfg, tr.state, tr.env, dev)
     k1_bound = rollout_bound(widths, widths, raw)
     k1m_bound = rollout_bound(widths, None, raw_m)
-    print("[K2 gae]", flush=True)
+    header("[K2 gae]", flush=True)
     adv, tgt, k2_err, k2_t = check_gae(cfg, raw, dev)
-    print("[K3 value phase, K4 policy phase]", flush=True)
+    header("[K3 value phase, K4 policy phase]", flush=True)
     (k3_err, k3_t), (k4_err, k4_t) = check_phases(cfg, tr.state, raw, adv,
                                                   tgt, dev)
 
-    print("[bench path: Trainer(bench_config).solve(-200, max_epochs=40)]",
+    header("[bench path: Trainer(bench_config).solve(-200, max_epochs=40)]",
           flush=True)
     tr = Trainer(bench_config(), dev)
     for c in counters:
@@ -983,7 +1514,7 @@ def main() -> int:
     record("policy_phase", bench, [n_p, mb], launches["policy_phase"],
            k4_err, k4_t, phase_bound(widths, n_p, mb, 3))
 
-    print("[reference schedule: PPOConfig(env='pendulum'), 2 epochs]",
+    header("[reference schedule: PPOConfig(env='pendulum'), 2 epochs]",
           flush=True)
     ref = Trainer(PPOConfig(env="pendulum"), dev)
     t0 = time.perf_counter()
@@ -997,14 +1528,14 @@ def main() -> int:
     tcfg = tpu_preset("pendulum")
     T, E, mb = tcfg.rollout_len, tcfg.n_envs, tcfg.minibatch_size
     tr = Trainer(tcfg)
-    print(f"[K1 at the throughput shape: {E} envs x {T} steps]", flush=True)
+    header(f"[K1 at the throughput shape: {E} envs x {T} steps]", flush=True)
     (raw, t1_err, t1_t), (raw_m, t1m_err, t1m_t) = check_rollout(
         tcfg, tr.state, tr.env, dev)
     t1_bound = rollout_bound(widths, widths, raw)
     t1m_bound = rollout_bound(widths, None, raw_m)
-    print(f"[K2 at {T} x {E}: the global-memory branch]", flush=True)
+    header(f"[K2 at {T} x {E}: the global-memory branch]", flush=True)
     adv, tgt, t2_err, t2_t = check_gae(tcfg, raw, dev)
-    print(f"[K5 mlp_forward at {mb} and {tcfg.eval_envs} rows, widths "
+    header(f"[K5 mlp_forward at {mb} and {tcfg.eval_envs} rows, widths "
           f"{widths}]", flush=True)
     draws = ppo.draw_fit(tcfg, torch.Generator().manual_seed(3), dev)
     x_mb, = buffer.gather_mb((raw.obs.reshape(-1, 3),), draws.value_idx[0, 0],
@@ -1015,7 +1546,7 @@ def main() -> int:
     k5e_err, k5e_fwd, _ = check_mlp(tr.state.policy_params["mlp"], x_ev,
                                     tcfg.activation, dev)
 
-    print(f"[throughput path: Trainer(tpu_preset('pendulum')), "
+    header(f"[throughput path: Trainer(tpu_preset('pendulum')), "
           f"{THROUGHPUT_EPOCHS} epochs, then evaluate(deterministic=True)]",
           flush=True)
     tr, train_n, eval_n, act_err = throughput_path(tcfg, dev, counters)
@@ -1044,21 +1575,21 @@ def main() -> int:
         T, E, L = dcfg.rollout_len, dcfg.n_envs, dcfg.eval_len
         ds = Trainer(dcfg, dev).state
         pw, vw = mlp.dims(ds.policy_params["mlp"]), mlp.dims(ds.v_params)
-        print(f"[K1 {lane} lane: {E} envs x {T} steps with the V planes]",
+        header(f"[K1 {lane} lane: {E} envs x {T} steps with the V planes]",
               flush=True)
         raw, r_err, r_t = check_discrete_rollout(
             lane, ds, E, T, True, (0x2545F491 + i, 0x9E3779B9), dev)
-        print(f"[K1 {lane} lane: {E} envs x {L} steps with the metrics]",
+        header(f"[K1 {lane} lane: {E} envs x {L} steps with the metrics]",
               flush=True)
         raw_m, m_err, m_t = check_discrete_rollout(
             lane, ds, E, L, False, (0x632BE59B + i, 0x85EBCA6B), dev)
-        print(f"[K2 on the {lane} rollout's planes: "
+        header(f"[K2 on the {lane} rollout's planes: "
               f"{int(raw.terminated.sum())} terminations]", flush=True)
         adv, tgt, g_err, g_t = check_gae(dcfg, raw, dev)
         vcols, pcols = phase_rows(dcfg, raw, adv, tgt, dev, draw_seed=2 + i)
-        print(f"[K3 value phase on the {lane} rows, widths {vw}]", flush=True)
+        header(f"[K3 value phase on the {lane} rows, widths {vw}]", flush=True)
         k3 = check_value_phase(dcfg, ds, vcols)
-        print(f"[K6 categorical policy phase, widths {pw}, ent_coeff {ent}]",
+        header(f"[K6 categorical policy phase, widths {pw}, ent_coeff {ent}]",
               flush=True)
         k6 = check_phase(
             "categorical policy phase",
@@ -1077,7 +1608,7 @@ def main() -> int:
         raise AssertionError("the cartpole rollout fed K2 no termination")
 
     for lane in discrete:
-        print(f"[discrete path: Trainer(bench_config, env {lane!r}, eval_len "
+        header(f"[discrete path: Trainer(bench_config, env {lane!r}, eval_len "
               f"500).solve({DISCRETE_SOLVE_R[lane]}, max_epochs=40)]",
               flush=True)
         d = discrete[lane]
@@ -1100,7 +1631,7 @@ def main() -> int:
                n["policy_phase_categorical"], *d["k6"],
                phase_bound(pw, n_p, mb, 3))
 
-    print("[cartpole: evaluate(deterministic=True) on the trained policy]",
+    header("[cartpole: evaluate(deterministic=True) on the trained policy]",
           flush=True)
     ctr = discrete["cartpole"]["trainer"]
     ccfg = ctr.cfg
@@ -1135,6 +1666,8 @@ def main() -> int:
     record("mlp_forward", "cartpole mean-policy evaluation",
            [ccfg.eval_envs] + cpw, ev_n["mlp_forward"], c_err, c_fwd,
            mlp_bounds(cpw, ccfg.eval_envs)[0])
+
+    attention_phases(dev, counters, record)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
           f"build included", flush=True)

@@ -22,12 +22,23 @@ through the env loop, one K5 forward per step.  On CPU tensors each kernel runs 
 package's "jnp" backend (stochastic env-loop training rollout,
 doubling-scan GAE with Welford) is not ported.
 
+An attention trunk (cfg.attn_dim > 0) takes the sequence path of
+``algo/recurrent.py``, as the JAX package does: the rollout is a host loop
+of KV-cache decode steps, V(s) and V(s') come from one parallel pass plus a
+one-step decode, the advantages from the doubling-scan GAE and the
+Welford moments (the JAX "jnp" GAE the sequence branch runs there), and
+both phases fit on minibatches of whole env columns; every parallel pass of
+a window of at least 1024 steps runs its attention core through the flash
+kernel K7 (``ops/cuda_attn.py``).
+
 The JAX package compiles a fit into one program; here a fit is a few kernel
 launches plus small PyTorch ops, driven eagerly from the host.
 
 Randomness is explicit: a fit's draws (:class:`FitDraws`) are the rollout's
-two seed words and the value/policy row-id (or block-id) streams, and an
-env-loop evaluation's (:class:`LoopDraws`) its start and reset states,
+two seed words and the value/policy row-id (or block-id) streams (for a
+sequence trunk: its :class:`recurrent.SeqDraws` and the env-column
+streams), and an env-loop evaluation's (:class:`LoopDraws`) its start and
+reset states,
 drawn up front from the trainer's ``torch.Generator`` -- or handed in, so
 tests can feed both packages the same randomness.
 """
@@ -41,9 +52,9 @@ import torch
 from ppoc_tpu_torch.config import PPOConfig
 from ppoc_tpu_torch.data import buffer
 from ppoc_tpu_torch.envs.core import Env, vector_autoreset_step, vector_reset
-from ppoc_tpu_torch.models import mlp, policy as policy_mod
+from ppoc_tpu_torch.models import attn, mlp, policy as policy_mod
 from ppoc_tpu_torch.ops import (adam, cuda_gae, cuda_rollout, cuda_update,
-                                gae as gae_ops, losses)
+                                gae as gae_ops, losses, welford)
 
 # The port's one backend: every MLP call outside K1/K3/K4 goes through K5.
 BACKEND = "pallas"
@@ -77,10 +88,13 @@ class FitMetrics(NamedTuple):
 
 class FitDraws(NamedTuple):
     """All the randomness one fit consumes."""
-    seed: Tuple[int, int]       # the rollout's two 32-bit seed words
+    seed: Optional[Tuple[int, int]]   # the rollout's two 32-bit seed words
+                                      # (None for a sequence trunk)
     value_idx: torch.Tensor     # [n_epochs_value, n_mb, mb] row ids, or
-                                # [.., mb / shuffle_block] block ids
+                                # [.., mb / shuffle_block] block ids, or
+                                # [.., n_mb, seqs] env columns (sequence)
     policy_idx: torch.Tensor    # [n_epochs_policy, n_mb, ...] likewise
+    seq: Any = None             # a sequence trunk's recurrent.SeqDraws
 
 
 class EvalMetrics(NamedTuple):
@@ -95,9 +109,22 @@ def _hyper(cfg: PPOConfig, lr: float) -> cuda_update.Hyper:
 
 
 def draw_fit(cfg: PPOConfig, generator: torch.Generator,
-             device: torch.device) -> FitDraws:
+             device: torch.device, env: Optional[Env] = None) -> FitDraws:
     """Draw one fit's seed words and row-id (block-id, with
-    cfg.shuffle_block) streams from ``generator``."""
+    cfg.shuffle_block) streams from ``generator``; for an attention trunk
+    the rollout's :class:`recurrent.SeqDraws` (from ``env``) and the
+    env-column streams instead."""
+    if cfg.attn_dim > 0:
+        from ppoc_tpu_torch.algo import recurrent
+
+        seq = recurrent.draw_seq(env, generator, cfg.n_envs, cfg.rollout_len,
+                                 device)
+        return FitDraws(None,
+                        recurrent.draw_columns(cfg, generator,
+                                               cfg.n_epochs_value, device),
+                        recurrent.draw_columns(cfg, generator,
+                                               cfg.n_epochs_policy, device),
+                        seq)
     seed = cuda_rollout.seed_words(generator)
     args = (cfg.steps_per_fit, cfg.num_minibatches, cfg.minibatch_size)
 
@@ -123,12 +150,36 @@ def init_train_state(cfg: PPOConfig, env: Env, generator: torch.Generator,
     """Policy (Gaussian MLP + log_std, or categorical MLP for a discrete
     env), value net with the same trunk and a scalar head, and three fresh
     Adam states; a categorical policy's log_std state has empty moments,
-    as the JAX package's ``adam.init(jnp.zeros((0,)))``."""
+    as the JAX package's ``adam.init(jnp.zeros((0,)))``.
+
+    With cfg.attn_dim > 0 both trunks are attention encoders
+    (``models/attn.py``) with MLP heads, drawn policy first, then value,
+    as the JAX package draws them; their positional tables cover
+    max(rollout_len, eval_len) + 1 steps, so the next-token decode at a
+    window's last row gets a position of its own."""
     spec = env.spec
-    policy_params = policy_mod.init(
-        spec.obs_dim, spec.action_dim, cfg.hidden, cfg.init_std,
-        spec.discrete, generator, device)
-    v_params = mlp.init((spec.obs_dim, *cfg.hidden, 1), generator, device)
+    if cfg.attn_dim > 0:
+        t_max = max(cfg.rollout_len, cfg.eval_len) + 1
+        ff = cfg.attn_ff or 4 * cfg.attn_dim
+
+        def trunk(out_dim):
+            return attn.init(spec.obs_dim, cfg.attn_dim, cfg.attn_layers,
+                             cfg.attn_heads, ff, t_max,
+                             (cfg.attn_dim, *cfg.hidden, out_dim),
+                             generator, device)
+
+        policy_params = {"mlp": trunk(spec.action_dim)}
+        if not spec.discrete:
+            policy_params["log_std"] = torch.full(
+                (spec.action_dim,), math.log(cfg.init_std),
+                dtype=torch.float32, device=device)
+        v_params = trunk(1)
+    else:
+        policy_params = policy_mod.init(
+            spec.obs_dim, spec.action_dim, cfg.hidden, cfg.init_std,
+            spec.discrete, generator, device)
+        v_params = mlp.init((spec.obs_dim, *cfg.hidden, 1), generator,
+                            device)
     log_std = policy_params.get(
         "log_std", torch.zeros((0,), dtype=torch.float32, device=device))
     return TrainState(
@@ -159,7 +210,21 @@ def rollout(cfg: PPOConfig, env: Env, policy_params: Dict[str, Any], seed,
     """Collect [length, n_envs] transitions with one K1 launch; returns
     (traj, final carry), and with ``v_params`` a third element, the
     (V(s), V(s')) planes the kernel computed.  ``seed`` is K1's two 32-bit
-    seed words; ``env_carry=None`` resets every env at entry."""
+    seed words; ``env_carry=None`` resets every env at entry.
+
+    An attention trunk takes the decode loop of ``recurrent.rollout_rnn``
+    instead (``seed``: its :class:`recurrent.SeqDraws`, which fix the
+    shape), always from a fresh window; the third element is then None."""
+    if attn.is_attn(policy_params["mlp"]):
+        from ppoc_tpu_torch.algo import recurrent
+
+        if env_carry is not None:
+            raise ValueError("sequence-trunk rollouts always start from a "
+                             "fresh window; reset_per_fit=False is not "
+                             "supported with attn_dim > 0")
+        traj, carry = recurrent.rollout_rnn(cfg, env, policy_params, seed,
+                                            force_truncate)
+        return (traj, carry) + (() if v_params is None else (None,))
     out = cuda_rollout.rollout_fused(
         env.spec.name, policy_params, seed, n_envs, length, cfg.activation,
         env_carry, gamma=env.spec.gamma, v_params=v_params)
@@ -378,10 +443,37 @@ def policy_phase(cfg: PPOConfig, ts: TrainState, buf: buffer.RowBuffer,
 # fit step / epoch / train-until
 # --------------------------------------------------------------------------
 
+def _seq_advantages(cfg: PPOConfig, env: Env, traj: Transition,
+                    values_pair):
+    """GAE by the doubling scan, then the whole-buffer normalisation with
+    Welford moments: the JAX package's "jnp" advantages, which its
+    sequence branch takes (``ppoc_tpu/algo/ppo.py:827-828``)."""
+    values, next_values = values_pair
+    adv, target = gae_ops.gae(traj.reward, values, next_values,
+                              traj.terminated, traj.truncated,
+                              env.spec.gamma, cfg.lam)
+    if cfg.norm_adv_global:
+        mean, var = welford.mean_var(adv)
+        adv = gae_ops.normalize(adv, mean, torch.sqrt(var))
+    return adv, target
+
+
 def update_step(cfg: PPOConfig, env: Env, ts: TrainState, traj: Transition,
                 draws: FitDraws, values_pair):
     """Learner half of a fit: GAE + normalisation, then the value and
-    policy phases on an already-collected trajectory."""
+    policy phases on an already-collected trajectory.  A sequence trunk
+    (attention) computes its value planes itself and ignores
+    ``values_pair``."""
+    if attn.is_attn(ts.v_params):
+        from ppoc_tpu_torch.algo import recurrent
+
+        vpair = recurrent.compute_values_rnn(cfg, ts.v_params, traj, BACKEND)
+        adv, target = _seq_advantages(cfg, env, traj, vpair)
+        ts, v_loss = recurrent.value_phase_rnn(cfg, ts, traj, target,
+                                               draws.value_idx, BACKEND)
+        ts, p_loss, ent = recurrent.policy_phase_rnn(
+            cfg, env, ts, traj, adv, draws.policy_idx, BACKEND)
+        return ts, FitMetrics(v_loss, p_loss, ent, traj.reward.mean())
     adv, target = compute_advantages(cfg, env, traj, values_pair)
     buf = buffer.from_rollout(traj, adv, target)
     ts, v_loss = value_phase(cfg, ts, buf, draws.value_idx)
@@ -398,10 +490,15 @@ def fit_step(cfg: PPOConfig, env: Env, ts: TrainState, draws: FitDraws,
     across fits (cfg.reset_per_fit=False)."""
     n_envs = cfg.n_envs if n_envs is None else n_envs
     traj, env_carry, vpair = rollout(
-        cfg, env, ts.policy_params, draws.seed, n_envs, cfg.rollout_len,
-        env_carry, v_params=ts.v_params)
+        cfg, env, ts.policy_params,
+        draws.seed if draws.seq is None else draws.seq, n_envs,
+        cfg.rollout_len, env_carry, v_params=ts.v_params)
     ts, metrics = update_step(cfg, env, ts, traj, draws, vpair)
     return (ts, env_carry, metrics) if return_env_carry else (ts, metrics)
+
+
+def _device(ts: TrainState) -> torch.device:
+    return adam.tree_leaves(ts.v_params)[0].device
 
 
 def train_epoch(cfg: PPOConfig, env: Env, ts: TrainState,
@@ -409,13 +506,13 @@ def train_epoch(cfg: PPOConfig, env: Env, ts: TrainState,
     """fits_per_epoch sequential fits; returns (ts', metrics meaned over the
     fits).  With cfg.reset_per_fit=False envs reset once at epoch entry and
     persist across the fits."""
-    device = ts.v_params[0][0].device
+    device = _device(ts)
     carry = None
     if not cfg.reset_per_fit:
         carry = vector_reset(env, generator, cfg.n_envs, device)
     metrics = []
     for _ in range(cfg.fits_per_epoch):
-        draws = draw_fit(cfg, generator, device)
+        draws = draw_fit(cfg, generator, device, env)
         if cfg.reset_per_fit:
             ts, m = fit_step(cfg, env, ts, draws)
         else:
@@ -431,7 +528,7 @@ def train_until(cfg: PPOConfig, env: Env, ts: TrainState,
     """Train epochs until the stochastic-eval mean return reaches
     ``target_R`` or ``max_epochs`` ran; returns (ts, epochs_run, final_R).
     A host loop: one device sync per epoch, to read R."""
-    device = ts.v_params[0][0].device
+    device = _device(ts)
     n, R = 0, -math.inf
     while R < target_R and n < max_epochs:
         ts, _ = train_epoch(cfg, env, ts, generator)
@@ -496,8 +593,14 @@ def eval_metrics_reference(traj: Transition, gamma: float) -> EvalMetrics:
 def draw_eval(cfg: PPOConfig, env: Env, generator: torch.Generator, device,
               deterministic: bool = False, n_envs: Optional[int] = None):
     """Draw what one evaluation consumes: the env loop's
-    :class:`LoopDraws` for the mean policy, else K1's two seed words."""
+    :class:`LoopDraws` for the mean policy, else K1's two seed words; for
+    an attention trunk the decode loop's :class:`recurrent.SeqDraws`."""
     n_envs = cfg.eval_envs if n_envs is None else n_envs
+    if cfg.attn_dim > 0:
+        from ppoc_tpu_torch.algo import recurrent
+
+        return recurrent.draw_seq(env, generator, n_envs, cfg.eval_len,
+                                  device, deterministic)
     if deterministic:
         return draw_loop(env, generator, n_envs, cfg.eval_len, device)
     return cuda_rollout.seed_words(generator)
@@ -515,10 +618,19 @@ def evaluate(cfg: PPOConfig, env: Env, policy_params: Dict[str, Any], draws,
       trajectory;
     * ``deterministic=True`` (the mean policy) runs the env loop, one K5
       forward per step (``draws``: a :class:`LoopDraws`, which also fixes
-      the env count)."""
+      the env count);
+    * an attention trunk, either way, runs the decode loop
+      (``recurrent.rollout_rnn``; ``draws``: a ``SeqDraws``), as
+      ``ppoc_tpu/algo/ppo.py:1164-1193`` does; no kernel launches."""
     n_envs = cfg.eval_envs if n_envs is None else n_envs
     reference = cfg.eval_estimator == "reference"
-    if deterministic:
+    if attn.is_attn(policy_params["mlp"]):
+        from ppoc_tpu_torch.algo import recurrent
+
+        traj, _ = recurrent.rollout_rnn(cfg, env, policy_params, draws,
+                                        force_truncate=False,
+                                        deterministic=deterministic)
+    elif deterministic:
         traj = rollout_env_loop(cfg, env, policy_params, draws)
     elif reference:
         traj, _ = rollout(cfg, env, policy_params, draws, n_envs,

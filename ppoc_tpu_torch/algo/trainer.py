@@ -31,7 +31,7 @@ class EvalWindowWarning(UserWarning):
 # package that are not ported yet, with the value that is supported.
 _NOT_PORTED = {
     "n_experts": 1, "moe_topk": 0, "moe_aux_coeff": 0.0, "rnn_hidden": 0,
-    "attn_dim": 0, "tp_size": 1, "pp_size": 1, "ep_size": 1, "sp_size": 1,
+    "tp_size": 1, "pp_size": 1, "ep_size": 1, "sp_size": 1,
     "zero1": False, "max_grad_norm": 0.0, "target_kl": 0.0,
     "lr_anneal": False, "clip_value": 0.0, "ent_anneal": False,
     "transplant_patience": 0, "aux_value_coeff": 0.0,
@@ -110,7 +110,8 @@ class Trainer:
     def evaluate(self, deterministic: bool = False) -> ppo.EvalMetrics:
         """Stochastic eval by default (one K1 launch);
         ``deterministic=True`` rolls out the policy mean, the mean-policy
-        protocol, through the env loop.  Returns Python floats."""
+        protocol, through the env loop.  An attention trunk evaluates
+        through its decode loop either way.  Returns Python floats."""
         draws = ppo.draw_eval(self.cfg, self.env, self.generator,
                               self.device, deterministic)
         m = ppo.evaluate(self.cfg, self.env, self.state.policy_params, draws,

@@ -1,7 +1,8 @@
 """Batched PyTorch environments (counterpart of ``ppoc_tpu.envs``).
 
-Ported: Pendulum (continuous), CartPole and Acrobot (discrete).  The other
-environments (simple, mountain_car, reacher, recall) and the wrappers
+Ported: Pendulum (continuous), CartPole and Acrobot (discrete), and the
+recall memory tasks of the sequence trunks (``recall`` ... ``recall_16k``).
+The other environments (simple, mountain_car, reacher) and the wrappers
 follow in later slices.
 """
 from .core import (Env, EnvSpec, make, register, vector_autoreset_step,
@@ -9,6 +10,7 @@ from .core import (Env, EnvSpec, make, register, vector_autoreset_step,
 from . import acrobot as _acrobot  # noqa: F401  (registers "acrobot")
 from . import cartpole as _cartpole  # noqa: F401  (registers "cartpole")
 from . import pendulum as _pendulum  # noqa: F401  (registers "pendulum")
+from . import recall as _recall  # noqa: F401  (registers "recall", ...)
 
 
 def make_for(cfg) -> Env:

@@ -15,7 +15,9 @@ phase is kernel K6 (``ops/cuda_update.py``); sampling is K1's Gumbel-max
 
 ``init``, ``mode``, ``log_prob`` and ``entropy`` dispatch on ``discrete``
 as the JAX package's do; every MLP call goes through ``mlp.apply`` with the
-caller's backend, so through K5 on the card.
+caller's backend, so through K5 on the card.  :func:`act_from_out` is the
+distribution math for callers that run the trunk themselves (the sequence
+rollout, ``algo/recurrent.py``), on noise drawn beforehand.
 """
 from __future__ import annotations
 
@@ -137,3 +139,26 @@ def entropy(params: Dict, obs: Optional[torch.Tensor] = None,
     if discrete:
         return categorical_entropy(params, obs, activation, backend)
     return gaussian_entropy(params)
+
+
+def act_from_out(out: torch.Tensor, discrete: bool,
+                 log_std: Optional[torch.Tensor] = None,
+                 deterministic: bool = False,
+                 noise: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(action, log_prob) from a precomputed head output ``out`` (logits or
+    the Gaussian mean), as ``ppoc_tpu/models/policy.py`` ``act_from_out``.
+    ``noise`` is shaped like ``out``: standard normals for the Gaussian
+    (a = mu + noise * exp(log_std)), Gumbel(0, 1) draws for the categorical
+    (the class is argmax(noise + logits), ``jax.random.categorical``'s
+    sampler).  ``deterministic`` takes the mode and reads no noise.  The
+    log_prob is that of the returned action under the stochastic policy;
+    a class comes back as int32 [..., 1]."""
+    if discrete:
+        a_idx = torch.argmax(out if deterministic else noise + out, dim=-1,
+                             keepdim=True)
+        logp = torch.take_along_dim(torch.log_softmax(out, dim=-1), a_idx,
+                                    dim=-1)[..., 0]
+        return a_idx.to(torch.int32), logp
+    action = out if deterministic else out + noise * torch.exp(log_std)
+    return action, gaussian_log_prob_from_mean(out, log_std, action)

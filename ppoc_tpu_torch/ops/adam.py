@@ -7,7 +7,8 @@
     p      -= lr / (1 - b1^t) * m / denom         # bias correction in the step
 
 A parameter tree is a tensor, or a list/tuple of trees (an MLP is a list of
-``(W, b)`` pairs).  The timestep ``t`` is a Python int: it only ever counts
+``(W, b)`` pairs), or a dict of trees (an attention trunk, whose leaves go
+in sorted key order, as ``jax.tree.leaves`` takes them).  The timestep ``t`` is a Python int: it only ever counts
 minibatch steps, and keeping it on the host spares a device sync.
 """
 from __future__ import annotations
@@ -31,12 +32,16 @@ def tree_map(fn: Callable, *trees):
     if isinstance(head, (list, tuple)):
         out = [tree_map(fn, *sub) for sub in zip(*trees)]
         return out if isinstance(head, list) else tuple(out)
+    if isinstance(head, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in sorted(head)}
     raise TypeError(f"unsupported parameter tree node {type(head).__name__}")
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
     if isinstance(tree, torch.Tensor):
         return [tree]
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
     return [leaf for sub in tree for leaf in tree_leaves(sub)]
 
 

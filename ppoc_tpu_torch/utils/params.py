@@ -3,7 +3,9 @@
 The port keeps the JAX package's layouts (an MLP is a list of
 ``(W [in, out], b [out])`` pairs, a Gaussian policy ``{"mlp", "log_std"}``,
 a categorical policy ``{"mlp"}`` whose log_std optimizer holds empty
-``(0,)`` moments, an Adam state ``(m, v, t)``), so conversion is leaf by leaf: numpy arrays in
+``(0,)`` moments, an attention trunk a dict of lists of dicts of tuples
+with an MLP ``"head"`` (``models/attn.py``), an Adam state ``(m, v, t)``),
+so conversion is leaf by leaf: numpy arrays in
 (for instance ``jax.device_get`` of a ``ppoc_tpu`` TrainState), tensors out,
 and back.  Nothing here imports jax: any object with the right attribute
 names converts.
@@ -43,6 +45,20 @@ def _mlp_list(tree) -> list:
     return [tuple(layer) for layer in tree]
 
 
+def _trunk(tree):
+    """A trunk tree in the port's layout: an MLP as a list of (W, b)
+    tuples; an attention trunk with its head so, the rest as it came."""
+    if isinstance(tree, dict):
+        return dict(tree, head=_mlp_list(tree["head"]))
+    return _mlp_list(tree)
+
+
+def trunk_from_numpy(tree, device):
+    """One trunk (an MLP or an attention encoder with its head) of numpy
+    arrays -> the port's tensors."""
+    return _trunk(tree_from_numpy(tree, device))
+
+
 def adam_from_numpy(state, device, mlp: bool = True) -> AdamState:
     """An Adam state with ``m``, ``v``, ``t`` attributes -> the port's.
     ``mlp=False`` for the log_std optimizer, whose moments are one vector
@@ -50,7 +66,7 @@ def adam_from_numpy(state, device, mlp: bool = True) -> AdamState:
     m = tree_from_numpy(state.m, device)
     v = tree_from_numpy(state.v, device)
     if mlp:
-        m, v = _mlp_list(m), _mlp_list(v)
+        m, v = _trunk(m), _trunk(v)
     return AdamState(m=m, v=v, t=int(np.asarray(state.t)))
 
 
@@ -61,14 +77,15 @@ def adam_to_numpy(state: AdamState) -> AdamState:
 
 def train_state_from_numpy(ts, device):
     """A TrainState-shaped object of numpy arrays -> the port's TrainState,
-    Gaussian (``log_std`` in the policy) or categorical (none)."""
+    Gaussian (``log_std`` in the policy) or categorical (none), with MLP or
+    attention trunks."""
     from ppoc_tpu_torch.algo.ppo import TrainState
 
     pol = tree_from_numpy(dict(ts.policy_params), device)
-    pol["mlp"] = _mlp_list(pol["mlp"])
+    pol["mlp"] = _trunk(pol["mlp"])
     return TrainState(
         policy_params=pol,
-        v_params=_mlp_list(tree_from_numpy(ts.v_params, device)),
+        v_params=_trunk(tree_from_numpy(ts.v_params, device)),
         opt_policy=adam_from_numpy(ts.opt_policy, device),
         opt_v=adam_from_numpy(ts.opt_v, device),
         opt_log_std=adam_from_numpy(ts.opt_log_std, device, mlp=False),

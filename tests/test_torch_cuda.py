@@ -432,3 +432,102 @@ def test_trainer_on_cuda_discrete_path(dev, lane):
     assert [c.n - b for c, b in zip(counters, before)] == [0, 0, 0, 0, 0, 0,
                                                            500]
     assert ev.episodes >= 1
+
+
+# --- K7: flash attention ------------------------------------------------------
+# Out and lse at atol 1e-5 and the gradients at 1e-4 of the leaf's largest
+# magnitude: the kernel's online softmax and its dot products sum in another
+# order than the plain version's matmuls (the JAX suite holds its kernel at
+# 1e-5 and 2e-4).
+
+def _flash_case(dev, T, B, H, hd, p_done, seed=0):
+    g = torch.Generator().manual_seed(seed + T)
+    q, k, v = (torch.randn(T, B, H, hd, generator=g).to(dev)
+               for _ in range(3))
+    done = (torch.rand(T, B, generator=g) < p_done).to(dev)
+    d = done.to(torch.int32)
+    return q, k, v, torch.cumsum(d, 0) - d
+
+
+def _flash_grads(fn, q, k, v, ep, rel):
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out, lse = fn(*leaves, ep, ep, rel)
+    g = torch.Generator().manual_seed(5)
+    c = torch.randn(lse.shape, generator=g).to(lse.device)
+    # the lse cotangent only where a key is valid (NEG rows carry none)
+    loss = torch.sin(out).sum() + (torch.where(lse > -1e8, lse, 0.0) * c).sum()
+    return (out, lse), torch.autograd.grad(loss, leaves, allow_unused=True)
+
+
+def _plain_block(q, k, v, qe, ke, rel):
+    from ppoc_tpu_torch.ops import cuda_attn as ca
+
+    o, l = ca.attention_plain(ca.fold(q), ca.fold(k), ca.fold(v),
+                              ca.fold_ep(qe), ca.fold_ep(ke), rel,
+                              q.shape[-2])
+    return ca.unfold(o, q.shape), ca.unfold(l, q.shape)
+
+
+@pytest.mark.parametrize("T,B,H,hd,p_done,rel", [
+    (12, 3, 2, 8, 0.25, 0), (130, 2, 2, 16, 0.05, 0),
+    (200, 2, 2, 32, 0.1, -1), (100, 1, 2, 64, 0.1, 0),
+    (1030, 1, 1, 8, 0.02, 0), (70, 2, 2, 8, 0.1, 1)])
+def test_flash_kernel_matches_plain(dev, T, B, H, hd, p_done, rel):
+    from ppoc_tpu_torch.ops import cuda_attn as ca
+
+    q, k, v, ep = _flash_case(dev, T, B, H, hd, p_done)
+    (out, lse), grads = _flash_grads(ca.flash_mha_block, q, k, v, ep, rel)
+    (out_p, lse_p), grads_p = _flash_grads(_plain_block, q, k, v, ep, rel)
+    torch.testing.assert_close(out, out_p, rtol=0, atol=1e-5)
+    torch.testing.assert_close(lse, lse_p, rtol=0, atol=1e-5)
+    if rel > 0:
+        assert (out == 0).all() and (lse == ca.NEG).all()
+    for a, b in zip(grads, grads_p):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * max(1.0, float(b.abs().max())))
+
+
+def test_flash_backward_is_deterministic_and_counted(dev):
+    """One forward and one backward launch each of K7's three kernels;
+    two backward passes agree bit for bit."""
+    from ppoc_tpu_torch.ops import cuda_attn as ca
+
+    q, k, v, ep = _flash_case(dev, 300, 2, 2, 8, 0.02, seed=3)
+    counters = (ca.fwd_launches, ca.dq_launches, ca.dkv_launches)
+    before = [c.n for c in counters]
+    _, g1 = _flash_grads(ca.flash_mha_block, q, k, v, ep, 0)
+    assert [c.n - b for c, b in zip(counters, before)] == [1, 1, 1]
+    _, g2 = _flash_grads(ca.flash_mha_block, q, k, v, ep, 0)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+    out = ca.flash_mha(q, k, v, ep)
+    assert [c.n - b for c, b in zip(counters, before)] == [3, 2, 2]
+    assert out.shape == q.shape
+
+
+def test_flash_refuses_what_the_kernel_does_not_take(dev):
+    from ppoc_tpu_torch.ops import cuda_attn as ca
+
+    q, k, v, ep = _flash_case(dev, 16, 1, 2, 8, 0.1)
+    fq, fk, fv, fe = ca.fold(q), ca.fold(k), ca.fold(v), ca.fold_ep(ep)
+    with pytest.raises(ValueError, match="head dims"):
+        ca.flash_fwd_kernel(fq[..., :6].contiguous(), fk[..., :6].contiguous(),
+                            fv[..., :6].contiguous(), fe, fe, 0, 2)
+    with pytest.raises(ValueError, match="float32"):
+        ca.flash_fwd_kernel(fq.double(), fk, fv, fe, fe, 0, 2)
+    with pytest.raises(ValueError, match="int32"):
+        ca.flash_fwd_kernel(fq, fk, fv, fe.long(), fe, 0, 2)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ca.flash_fwd_kernel(fq.cpu(), fk, fv, fe, fe, 0, 2)
+    # a launch the library itself refuses (a head dim it has no template
+    # for) returns a CUDA error, which the wrapper's check raises
+    from ppoc_tpu_torch.ops import _build
+
+    lib = ca._declare()
+    out, lse = torch.empty_like(fq), torch.empty(4, 16, device=dev)
+    code = lib.ppoc_flash_fwd(fq.data_ptr(), fk.data_ptr(), fv.data_ptr(),
+                              fe.data_ptr(), fe.data_ptr(), out.data_ptr(),
+                              lse.data_ptr(), 4, 2, 16, 12, 0, 0.3,
+                              _build.stream_of(dev))
+    assert code != 0
+    with pytest.raises(RuntimeError, match="K7 forward failed"):
+        _build.check(lib, code, "K7 forward")

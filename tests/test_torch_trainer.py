@@ -178,6 +178,8 @@ def test_port_never_imports_jax():
     importing the port's entry points."""
     code = ("import sys; import ppoc_tpu_torch.algo.trainer, "
             "ppoc_tpu_torch.ops.cuda_update, ppoc_tpu_torch.ops.cuda_mlp, "
+            "ppoc_tpu_torch.ops.cuda_attn, ppoc_tpu_torch.algo.recurrent, "
+            "ppoc_tpu_torch.models.attn, ppoc_tpu_torch.envs.recall, "
             "ppoc_tpu_torch.utils.params, ppoc_tpu_torch.config; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'ppoc_tpu' "
