@@ -47,7 +47,9 @@
    ragged T 1030, at the JAX package's X-ray shape (T 2048, B 16, H 8,
    hd 64) and with rel -1, 0 and +1; the backward twice, bit for bit;
    timed beside the plain version and scaled_dot_product_attention with
-   the boolean mask (library_ms; the port never calls it).
+   the boolean mask (library_ms; the port never calls it), each backward
+   kernel beside the plain and library backward with respect to its own
+   inputs (q for dq, k and v for dk/dv).
 10. apply_seq through K7 against apply_seq through the materialised core
    at recall_xl's widths (d 32, 2 layers, 4 heads, T 1024, E 4): outputs
    and every parameter gradient.
@@ -56,9 +58,11 @@
 12. The attention path: Trainer(recall_xl at the width of
    examples/recall_xl_curriculum.py, rollout_len = eval_len = 1024), the
    decode-against-replay log-prob gap at the initial weights, then 2
-   epochs with K7's launches read around them and held to the count the
-   config gives, each epoch's R and its wall time split by phase; then
-   Trainer.evaluate(deterministic=True), which launches no kernel.
+   epochs (Trainer.train_epoch, then Trainer.evaluate), each epoch's R
+   and its wall time split by phase, with the launches read around each
+   phase and held to the count the config gives (the split must cover
+   the epoch's wall); then Trainer.evaluate(deterministic=True), which
+   launches no kernel.
 
 Each phase's title line gives the seconds since the script started.
 Any failed check raises, so the script exits non-zero.  The last two lines
@@ -70,11 +74,14 @@ device-kernel time per call (the profiler's kernel durations summed);
 the H100 SXM's FP32 and memory peaks;
 "launches" come from the path's run: K1 counts its launches per lane and
 per mode, with the V planes (training) and with the metrics (evaluation);
-K7's are split between the recall_xl minibatch shape and the value pass
-(layers x fits forwards) from the counts the config gives.
-"library_ms" is scaled_dot_product_attention with the mask for K7 (its
-backward, dq, dk and dv in one call, for both backward kernels), else
-null: no single PyTorch call computes K1-K6's functions.
+K7's are read around each phase of the recall_xl run, so the value
+pass's forwards (B 32) and the update phases' (B 4) are counted apart.
+For K7's backward kernels "plain_ms" is autograd through the plain
+version with respect to the kernel's own inputs (q for dq, k and v for
+dk/dv).  "library_ms" is scaled_dot_product_attention with the mask for
+K7 (its backward with respect to the same inputs for the backward
+kernels), else null: no single PyTorch call computes K1-K6's
+functions.
 """
 from __future__ import annotations
 
@@ -1061,39 +1068,42 @@ def check_flash(label: str, case, rel: int, H: int, dev, time_it=False):
     lib_out = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
     d4 = dout.reshape(B, H, T, hd)
     plain_graph = ca.attention_plain(*leaves, ep_q, ep_k, rel, H)
+
+    def plain_bwd(wrt):
+        # autograd through the plain version, with respect to ``wrt`` only
+        return lambda: torch.autograd.grad(plain_graph, wrt, (dout, g_lse),
+                                           retain_graph=True)
+
+    def lib_bwd(wrt):
+        return lambda: torch.autograd.grad(lib_out, wrt, d4,
+                                           retain_graph=True)
+
     times = {
         "flash_fwd": timings(lambda: ca.flash_fwd_kernel(*kargs),
                              lambda: ca.attention_plain(*kargs), 20, 3),
-        "flash_bwd_dq": {"ms": queued_ms(lambda: ca.flash_dq_kernel(*bargs),
-                                         20)},
-        "flash_bwd_dkv": {"ms": queued_ms(
-            lambda: ca.flash_dkv_kernel(*bargs), 20)},
+        "flash_bwd_dq": timings(lambda: ca.flash_dq_kernel(*bargs),
+                                plain_bwd(leaves[:1]), 20, 3),
+        "flash_bwd_dkv": timings(lambda: ca.flash_dkv_kernel(*bargs),
+                                 plain_bwd(leaves[1:]), 20, 3),
     }
-    bwd_plain = device_ms(lambda: torch.autograd.grad(
-        plain_graph, leaves, (dout, g_lse), retain_graph=True), 3)
-    times["flash_bwd_dq"]["plain_ms"] = bwd_plain
-    times["flash_bwd_dkv"]["plain_ms"] = bwd_plain
     times["flash_fwd"]["library_ms"] = queued_ms(
         lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask),
         20)
-    lib_bwd = queued_ms(lambda: torch.autograd.grad(
-        lib_out, (q4, k4, v4), d4, retain_graph=True), 20)
-    times["flash_bwd_dq"]["library_ms"] = lib_bwd
-    times["flash_bwd_dkv"]["library_ms"] = lib_bwd
-    fwd_bwd = {"kernel": times["flash_fwd"]["ms"]
-               + times["flash_bwd_dq"]["ms"] + times["flash_bwd_dkv"]["ms"],
-               "plain": times["flash_fwd"]["plain_ms"] + bwd_plain,
-               "library": times["flash_fwd"]["library_ms"] + lib_bwd}
-    print(f"  {label}: device ms, forward kernel "
-          f"{times['flash_fwd']['ms']:.4f} / plain "
-          f"{times['flash_fwd']['plain_ms']:.4f} / SDPA "
-          f"{times['flash_fwd']['library_ms']:.4f}; dq kernel "
-          f"{times['flash_bwd_dq']['ms']:.4f}, dk/dv kernel "
-          f"{times['flash_bwd_dkv']['ms']:.4f}, plain backward "
-          f"{bwd_plain:.4f}, SDPA backward {lib_bwd:.4f}; forward + "
-          f"backward kernel {fwd_bwd['kernel']:.4f} / plain "
-          f"{fwd_bwd['plain']:.4f} / SDPA {fwd_bwd['library']:.4f}",
-          flush=True)
+    times["flash_bwd_dq"]["library_ms"] = queued_ms(lib_bwd((q4,)), 20)
+    times["flash_bwd_dkv"]["library_ms"] = queued_ms(lib_bwd((k4, v4)), 20)
+    whole = {"plain": device_ms(plain_bwd(leaves), 3),
+             "library": queued_ms(lib_bwd((q4, k4, v4)), 20)}
+    fwd_bwd = {"kernel": sum(times[k]["ms"] for k in times),
+               "plain": times["flash_fwd"]["plain_ms"] + whole["plain"],
+               "library": times["flash_fwd"]["library_ms"]
+               + whole["library"]}
+    parts = "; ".join(f"{k} {t['ms']:.4f} / {t['plain_ms']:.4f} / "
+                      f"{t['library_ms']:.4f}" for k, t in times.items())
+    print(f"  {label}: device ms, kernel / plain / SDPA: {parts}; whole "
+          f"backward (dq, dk, dv) plain {whole['plain']:.4f}, SDPA "
+          f"{whole['library']:.4f}; forward + backward kernel "
+          f"{fwd_bwd['kernel']:.4f} / plain {fwd_bwd['plain']:.4f} / SDPA "
+          f"{fwd_bwd['library']:.4f}", flush=True)
     return errs, times
 
 
@@ -1194,18 +1204,27 @@ def recall_learning(counters):
 
 
 class PhaseClock:
-    """Wall time of the sequence path's phases, summed per epoch: wraps
-    the functions the trainer calls (module attributes, looked up at call
-    time) with a synchronise on each side.  The path is unchanged; the
-    synchronisation only ends each phase where the host would wait
-    anyway at the next one's first read."""
+    """Wall time and kernel launches of one sequence fit's phases: wraps
+    the functions ``ppo.train_epoch`` calls (module attributes, looked up
+    at call time) with a synchronise on each side and reads the launch
+    counters around each call.  It is entered around
+    ``Trainer.train_epoch`` alone, so the evaluation's own decode rollout
+    is not counted.  :meth:`split` fails if a phase was never called or
+    the phases leave more than UNTIMED_SHARE of the epoch's wall untimed:
+    a call the wrappers miss fails the run.  The path is unchanged; the
+    synchronisation only ends each phase where the host would wait anyway
+    at the next one's first read."""
 
-    PHASES = ("rollout", "values + GAE", "value phase", "policy phase",
-              "evaluation")
+    PHASES = ("rollout", "values + GAE", "value phase", "policy phase")
+    # the untimed rest of a recall_xl epoch read 6-8 ms of 7-10 s (0.1%)
+    UNTIMED_SHARE = 0.01
 
-    def __init__(self):
+    def __init__(self, counters):
+        self.counters = counters
         self.t = dict.fromkeys(self.PHASES, 0.0)
-        self.in_eval = False
+        self.calls = dict.fromkeys(self.PHASES, 0)
+        self.launches = {ph: {c.kernel: 0 for c in counters}
+                         for ph in self.PHASES}
         self.saved = []
 
     def wrap(self, mod, name, phase):
@@ -1217,17 +1236,17 @@ class PhaseClock:
 
         @functools.wraps(fn)
         def timed(*a, **kw):
-            if self.in_eval and phase != "evaluation":
-                return fn(*a, **kw)
             torch.cuda.synchronize()
+            n0 = {c.kernel: c.n for c in self.counters}
             t0 = time.perf_counter()
-            self.in_eval = phase == "evaluation"
             try:
                 return fn(*a, **kw)
             finally:
                 torch.cuda.synchronize()
-                self.in_eval = False
                 self.t[phase] += time.perf_counter() - t0
+                self.calls[phase] += 1
+                for c in self.counters:
+                    self.launches[phase][c.kernel] += c.n - n0[c.kernel]
 
         self.saved.append((mod, name, fn))
         setattr(mod, name, timed)
@@ -1240,25 +1259,35 @@ class PhaseClock:
         self.wrap(ppo, "_seq_advantages", "values + GAE")
         self.wrap(recurrent, "value_phase_rnn", "value phase")
         self.wrap(recurrent, "policy_phase_rnn", "policy phase")
-        self.wrap(ppo, "evaluate", "evaluation")
         return self
 
     def __exit__(self, *exc):
         for mod, name, fn in reversed(self.saved):
             setattr(mod, name, fn)
 
-    def take(self):
-        out, self.t = self.t, dict.fromkeys(self.PHASES, 0.0)
-        return out
+    def split(self, wall: float):
+        """{phase: seconds} plus "untimed", checked against the epoch's
+        ``wall``."""
+        if not all(self.calls.values()):
+            raise AssertionError(f"a phase of the epoch was never timed: "
+                                 f"calls {self.calls}")
+        untimed = wall - sum(self.t.values())
+        if not 0.0 <= untimed <= self.UNTIMED_SHARE * wall:
+            raise AssertionError(
+                f"the phases {self.t} leave {untimed:.3f} s of the epoch's "
+                f"{wall:.3f} s untimed (limit {self.UNTIMED_SHARE:.0%})")
+        return dict(self.t, untimed=untimed)
 
 
 def recall_xl_path(dev, counters):
     """Trainer(recall_xl at the recipe's widths) on the card by default:
     the decode-against-replay gap at the initial weights, then
-    RECALL_XL_EPOCHS epochs through K7 with its launches read around them
-    and held to the count the config gives, each epoch's R and its wall
-    time split by phase; then evaluate(deterministic=True).  Returns
-    (trainer, launches, per-fit launch counts, log-prob gap)."""
+    RECALL_XL_EPOCHS epochs through K7, each epoch's R and its wall time
+    split by phase (:class:`PhaseClock`), with the launches read around
+    each phase and held to the count the config gives; then
+    evaluate(deterministic=True).  Returns (trainer, {phase: {kernel:
+    launches}} of the epochs, {phase: {kernel: launches}} a fit from the
+    config, log-prob gap)."""
     import torch
 
     from ppoc_tpu_torch import PPOConfig
@@ -1291,46 +1320,67 @@ def recall_xl_path(dev, counters):
 
     seqs, n_mb = recurrent.seq_minibatch_plan(cfg.n_envs, cfg.rollout_len,
                                               cfg.minibatch_size)
+    # K7's launches a fit by phase, from the config: one forward a layer
+    # in the value pass, a forward and both backwards a layer in each
+    # minibatch step of the two phases
     L = cfg.attn_layers
-    per_fit = {"flash_fwd": L * (1 + (cfg.n_epochs_value
-                                      + cfg.n_epochs_policy) * n_mb),
-               "flash_bwd_dq": L * (cfg.n_epochs_value
-                                    + cfg.n_epochs_policy) * n_mb}
-    per_fit["flash_bwd_dkv"] = per_fit["flash_bwd_dq"]
+    per_fit = {"rollout": {},
+               "values + GAE": {"flash_fwd": L},
+               "value phase": dict.fromkeys(
+                   ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                   L * cfg.n_epochs_value * n_mb),
+               "policy phase": dict.fromkeys(
+                   ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                   L * cfg.n_epochs_policy * n_mb),
+               "evaluation": {}}
+    fits = RECALL_XL_EPOCHS * cfg.fits_per_epoch
+    by_phase = {ph: {c.kernel: 0 for c in counters} for ph in per_fit}
     for c in counters:
         c.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with PhaseClock() as clock:
-        hist = []
-        for i in range(RECALL_XL_EPOCHS):
-            row = tr.train(1, log=False, initial_eval=False)[0]
-            split = clock.take()
-            hist.append(row)
-            print(f"  epoch {i}: R {row['R']:.4f}, value loss "
-                  f"{row['value_loss']:.5f}, policy loss "
-                  f"{row['policy_loss']:.5f}, training {row['time_s']:.3f} "
-                  f"s; wall split (s) " + ", ".join(
-                      f"{k} {v:.3f}" for k, v in split.items()), flush=True)
+    for i in range(RECALL_XL_EPOCHS):
+        # Trainer.train(1, initial_eval=False), one phase at a time
+        t_fit = time.perf_counter()
+        with PhaseClock(counters) as clock:
+            fit = ppo.FitMetrics(*(float(x) for x in tr.train_epoch()))
+            torch.cuda.synchronize()
+        split = clock.split(time.perf_counter() - t_fit)
+        n0 = {c.kernel: c.n for c in counters}
+        t_ev = time.perf_counter()
+        ev = tr.evaluate()
+        torch.cuda.synchronize()
+        split["evaluation"] = time.perf_counter() - t_ev
+        for ph, counts in clock.launches.items():
+            for k, v in counts.items():
+                by_phase[ph][k] += v
+        for c in counters:
+            by_phase["evaluation"][c.kernel] += c.n - n0[c.kernel]
+        print(f"  epoch {i}: R {ev.R:.4f}, value loss {fit.value_loss:.5f}, "
+              f"policy loss {fit.policy_loss:.5f}; wall split (s) "
+              + ", ".join(f"{k} {v:.3f}" for k, v in split.items()),
+              flush=True)
+        if not all(math.isfinite(x) for x in (*fit, ev.R)):
+            raise AssertionError(f"non-finite loss on recall_xl: {fit}, "
+                                 f"R {ev.R}")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     n = {c.kernel: c.n for c in counters}
-    fits = RECALL_XL_EPOCHS * cfg.fits_per_epoch
-    want = {k: v * fits for k, v in per_fit.items()}
-    print(f"  {RECALL_XL_EPOCHS} epochs in {wall:.3f} s; launches {n}; "
-          f"from the config (layers x (1 + (value + policy epochs) x "
-          f"{n_mb} minibatches) forwards a fit, {fits} fits) {want}",
+    want = {ph: {c.kernel: per_fit[ph].get(c.kernel, 0) * fits
+                 for c in counters} for ph in per_fit}
+    print(f"  {RECALL_XL_EPOCHS} epochs in {wall:.3f} s; launches {n}",
           flush=True)
-    if {k: n[k] for k in want} != want:
-        raise AssertionError(f"K7 launches {n} differ from the config's "
-                             f"{want}")
-    if any(v for k, v in n.items() if k not in want):
-        raise AssertionError(f"the attention path launched another kernel: "
-                             f"{n}")
-    for h in hist:
-        if not all(math.isfinite(h[k]) for k in ("value_loss", "policy_loss",
-                                                 "entropy", "R")):
-            raise AssertionError(f"non-finite loss on recall_xl: {h}")
+    for ph in per_fit:
+        got = {k: v for k, v in by_phase[ph].items() if v}
+        print(f"    {ph}: launches {got}; from the config ({n_mb} "
+              f"minibatches, {fits} fits) "
+              f"{ {k: v * fits for k, v in per_fit[ph].items()} }",
+              flush=True)
+        if by_phase[ph] != want[ph]:
+            raise AssertionError(f"{ph}: launches {by_phase[ph]} differ "
+                                 f"from the config's {want[ph]}")
+    if n != {k: sum(want[ph][k] for ph in want) for k in n}:
+        raise AssertionError(f"K7 launches {n} are not the phases' sum")
     if not all(torch.isfinite(t).all() for t in adam.tree_leaves(
             (tr.state.v_params, tr.state.policy_params))):
         raise AssertionError("non-finite weights after recall_xl")
@@ -1347,7 +1397,7 @@ def recall_xl_path(dev, counters):
     if any(ev_n.values()) or ev.episodes != cfg.eval_envs:
         raise AssertionError(f"the mean-policy evaluation of recall_xl: "
                              f"{ev}, launches {ev_n}")
-    return tr, n, per_fit, gap
+    return tr, by_phase, per_fit, gap
 
 
 def attention_phases(dev, counters, record):
@@ -1366,9 +1416,7 @@ def attention_phases(dev, counters, record):
     header(f"[recall_xl path: Trainer(recall_xl, attn_dim 32, 2 layers, 4 "
           f"heads), {RECALL_XL_EPOCHS} epochs, then "
           f"evaluate(deterministic=True)]", flush=True)
-    _, n, per_fit, gap = recall_xl_path(dev, counters)
-    cfg_fits = RECALL_XL_EPOCHS * RECALL_XL["fits_per_epoch"]
-    L = RECALL_XL["attn_layers"]
+    _, by_phase, per_fit, gap = recall_xl_path(dev, counters)
     shapes = (("recall_xl minibatch (T 1024, B 4, H 4, hd 8), rollout "
                "episodes", "recall_xl update phases, minibatch of 4 env "
                "columns", [1024, 4, 4, 8]),
@@ -1382,8 +1430,9 @@ def attention_phases(dev, counters, record):
                                   "flash_bwd_dkv")):
             if value_pass and name != "flash_fwd":
                 continue      # the value pass runs no backward
-            launches = L * cfg_fits if value_pass else (
-                n[name] - (L * cfg_fits if name == "flash_fwd" else 0))
+            launches = (by_phase["values + GAE"][name] if value_pass else
+                        by_phase["value phase"][name]
+                        + by_phase["policy phase"][name])
             err = (max(errs["out"], errs["lse"]), errs["dq"],
                    max(errs["dk"], errs["dv"]))[i]
             record(name, path + f" ({pairs} valid pairs)", shape, launches,
@@ -1399,7 +1448,8 @@ def attention_phases(dev, counters, record):
           f"pairs; not on the path): {json.dumps(xray)}", flush=True)
     print(f"  apply_seq through K7 against the plain core, max |diff| "
           f"{seq_err:.3e}; decode against replay, largest log-prob gap "
-          f"{gap:.3e}; per fit K7 launches {per_fit}", flush=True)
+          f"{gap:.3e}; K7 launches a fit by phase, from the config "
+          f"{per_fit}", flush=True)
 
 
 def main() -> int:
