@@ -63,6 +63,33 @@
    phase and held to the count the config gives (the split must cover
    the epoch's wall); then Trainer.evaluate(deterministic=True), which
    launches no kernel.
+13. K1's four new lanes against their plain versions at each path's
+   shapes (RNG bits exactly; the entry reset and the first 10 steps
+   against the plain rollout; the kernel's own actions replayed through
+   the plain physics, equal bit for bit; log-probs and V planes against
+   the plain forward; the metrics against the kernel's trajectory):
+   reacher at 4096 x 150 with the V planes and 2x256 nets (the
+   global-memory variant) and at 256 x 150 with the metrics,
+   mountain_car_norm at 512 x 999 and 256 x 999, simple and mountain_car
+   at the bench shape (64 x 200; mountain_car's evaluation 64 x 999); K2
+   on the reacher and MountainCar planes; K5 at 16384 rows of the 2x256
+   nets and at 256 rows (the global-memory variant), and at 8192 rows of
+   [2,128,128,1]; K4 at two action dims on reacher rows (hidden 64,
+   minibatch 256), as the bench's K4 is held.
+14. The simple lane's path (the bench shape, solve(0.5, 10)) and raw
+   mountain_car's (2 epochs), with their launches.
+15. The reacher regime at full width (4096 envs x 150, minibatch 16384 in
+   blocks of 4096, hidden 2x256): evaluate, 5 epochs, each split by
+   phase and evaluated, every launch held to the config's count (a fit:
+   one K1 rollout with the V planes, one K2, 370 + 148 K5 forwards and
+   backwards; an evaluation one K1 rollout with the metrics), eval R up
+   by more than 5, training env-steps/s; then evaluate(deterministic=True)
+   (150 K5 forwards).
+16. The MountainCarContinuous recipe (512 envs x 999, minibatch 8192,
+   ent_coeff 0.005): Trainer.train(30, stop_at_R=90) on seed 0, which
+   must solve; by the rule declared before any run, if it misses seeds 1
+   and 2 run and must both solve; R per epoch, the solve epoch, the wall
+   and the launches against the config's.
 
 Each phase's title line gives the seconds since the script started.
 Any failed check raises, so the script exits non-zero.  The last two lines
@@ -73,7 +100,10 @@ device-kernel time per call (the profiler's kernel durations summed);
 "bound_ms" is the least time the card could take for the same work, from
 the H100 SXM's FP32 and memory peaks;
 "launches" come from the path's run: K1 counts its launches per lane and
-per mode, with the V planes (training) and with the metrics (evaluation);
+per mode, with the V planes (training) and with the metrics (evaluation),
+and per variant (``rollout[lane]``: the nets in shared memory;
+``rollout_global[lane]``: in global memory), K5 per variant
+(``mlp_forward``, ``mlp_forward_global``);
 K7's are read around each phase of the recall_xl run, so the value
 pass's forwards (B 32) and the update phases' (B 4) are counted apart.
 For K7's backward kernels "plain_ms" is autograd through the plain
@@ -101,9 +131,11 @@ DISCRETE_SOLVE_R = {"cartpole": 475.0, "acrobot": -100.0}
 NEAR_TIE = 1e-4
 # name -> (CUDA source, the TPU kernel it replaces: its pallas_call)
 KERNELS = {
-    **{f"rollout[{lane}]": ("ppoc_tpu_torch/csrc/rollout.cu",
-                            "ppoc_tpu/ops/pallas_rollout.py:695")
-       for lane in ("pendulum", "cartpole", "acrobot")},
+    **{f"rollout{variant}[{lane}]": ("ppoc_tpu_torch/csrc/rollout.cu",
+                                     "ppoc_tpu/ops/pallas_rollout.py:695")
+       for variant in ("", "_global")
+       for lane in ("pendulum", "simple", "cartpole", "mountain_car",
+                    "mountain_car_norm", "acrobot", "reacher")},
     "gae_norm": ("ppoc_tpu_torch/csrc/gae.cu",
                  "ppoc_tpu/ops/pallas_gae.py:134"),
     "value_phase": ("ppoc_tpu_torch/csrc/update.cu",
@@ -116,6 +148,10 @@ KERNELS = {
                     "ppoc_tpu/ops/pallas_mlp.py:139"),
     "mlp_backward": ("ppoc_tpu_torch/csrc/mlp.cu",
                      "ppoc_tpu/ops/pallas_mlp.py:226"),
+    "mlp_forward_global": ("ppoc_tpu_torch/csrc/mlp.cu",
+                           "ppoc_tpu/ops/pallas_mlp.py:139"),
+    "mlp_backward_global": ("ppoc_tpu_torch/csrc/mlp.cu",
+                            "ppoc_tpu/ops/pallas_mlp.py:226"),
     "flash_fwd": ("ppoc_tpu_torch/csrc/attn.cu",
                   "ppoc_tpu/ops/pallas_attn.py:189"),
     "flash_bwd_dq": ("ppoc_tpu_torch/csrc/attn.cu",
@@ -251,24 +287,30 @@ def timed_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int) -> float:
-    """Milliseconds of device-kernel time per call, after a warm-up: the
-    durations of every kernel the call launches, summed from
-    torch.profiler's CUDA events.  Unlike timed_ms it leaves out the gaps
-    in which the device waits for the host."""
+def device_ms(fn, reps: int, warm: bool = True) -> float:
+    """Milliseconds of device-kernel time per call, after a warm-up (unless
+    ``warm`` is false, for a function that just ran): the durations of
+    every kernel the call launches, summed from torch.profiler's CUDA
+    activity, read from the profiler's raw records.  Unlike timed_ms it
+    leaves out the gaps in which the device waits for the host.  The raw
+    records spare building the profiler's Python event list, whose cost
+    grows with the records (a plain rollout launches ~100 kernels a step,
+    so its long windows dominated the run's time, PERF.md); CPU activity
+    is not recorded, as no reading here needs it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / 1e3 / reps
+    cuda = torch.autograd.DeviceType.CUDA
+    ns = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == cuda)
+    return ns / 1e6 / reps
 
 
 def queued_ms(fn, reps: int) -> float:
@@ -293,14 +335,14 @@ def queued_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def timings(kernel, plain, reps: int, plain_reps: int):
+def timings(kernel, plain, reps: int, plain_reps: int, warm: bool = True):
     """{"ms", "plain_ms"}: the kernel's device time per call
     (:func:`queued_ms`) and the plain version's device-kernel time per call
-    (:func:`device_ms`).  The profiler does not time the hand kernels: on
+    (:func:`device_ms`; ``warm`` false: the plain version has just run).  The profiler does not time the hand kernels: on
     this card it dropped whole records of their launches, 1, 3 or 5 of 5
     in one window (PERF.md)."""
     return {"ms": queued_ms(kernel, reps),
-            "plain_ms": device_ms(plain, plain_reps)}
+            "plain_ms": device_ms(plain, plain_reps, warm)}
 
 
 def max_err(a, b) -> float:
@@ -313,6 +355,23 @@ def check(name: str, err: float, tol: float, what: str = "max |diff|"
     if not err <= tol:
         raise AssertionError(f"{name}: {err} exceeds {tol}")
     return err
+
+
+def read_counts(counters):
+    return {c.kernel: c.n for c in counters}
+
+
+def check_on_card(tr) -> None:
+    """Trainer(cfg) without a device must have chosen CUDA device 0."""
+    import torch
+
+    if tr.device != torch.device("cuda", 0):
+        raise AssertionError(f"Trainer(cfg) chose {tr.device}, not cuda:0")
+
+
+def count_diff(before, after):
+    """The counters that moved, by how much."""
+    return {k: after[k] - before[k] for k in before if after[k] != before[k]}
 
 
 def check_rollout(cfg, ts, env, dev):
@@ -380,7 +439,7 @@ def check_rollout(cfg, ts, env, dev):
     times = timings(
         lambda: cr.rollout_kernel(pp["mlp"], pp["log_std"], vp, seed, E, T),
         lambda: cr.rollout_plain(pp["mlp"], pp["log_std"], vp, seed, E, T),
-        20, 1)
+        20, 1, warm=False)
     # metrics: the kernel's completed-episode sums vs its own trajectory
     margs = (pp["mlp"], pp["log_std"], None, seed, cfg.eval_envs,
              cfg.eval_len, "relu", None, None, env.spec.gamma)
@@ -398,7 +457,7 @@ def check_rollout(cfg, ts, env, dev):
                       abs(float(sum_j / n_eps - want.J)) / abs(float(want.J))),
                   1e-4)
     m_times = timings(lambda: cr.rollout_kernel(*margs),
-                      lambda: cr.rollout_plain(*margs), 20, 1)
+                      lambda: cr.rollout_plain(*margs), 20, 1, warm=False)
     return (raw, max(errs.values()), times), (raw_m, m_err, m_times)
 
 
@@ -677,8 +736,7 @@ def throughput_path(cfg, dev, counters):
     from ppoc_tpu_torch.models import mlp
 
     tr = Trainer(cfg)
-    if tr.device != torch.device("cuda", 0):
-        raise AssertionError(f"Trainer(cfg) chose {tr.device}, not cuda:0")
+    check_on_card(tr)
     names = [c.kernel for c in counters]
     for c in counters:
         c.reset()
@@ -873,7 +931,7 @@ def check_discrete_rollout(lane: str, ts, E: int, T: int, with_v: bool,
             abs(float(sum_r / n_eps - want.R)) / abs(float(want.R)),
             abs(float(sum_j / n_eps - want.J)) / abs(float(want.J))), 1e-4)
     times = timings(lambda: cr.rollout_kernel(*args),
-                    lambda: cr.rollout_plain(*args), 20, 1)
+                    lambda: cr.rollout_plain(*args), 20, 1, warm=False)
     return raw, max(errs.values()), times
 
 
@@ -1204,27 +1262,38 @@ def recall_learning(counters):
 
 
 class PhaseClock:
-    """Wall time and kernel launches of one sequence fit's phases: wraps
-    the functions ``ppo.train_epoch`` calls (module attributes, looked up
-    at call time) with a synchronise on each side and reads the launch
-    counters around each call.  It is entered around
-    ``Trainer.train_epoch`` alone, so the evaluation's own decode rollout
-    is not counted.  :meth:`split` fails if a phase was never called or
-    the phases leave more than UNTIMED_SHARE of the epoch's wall untimed:
-    a call the wrappers miss fails the run.  The path is unchanged; the
+    """Wall time and kernel launches of one fit's phases: wraps the
+    functions ``ppo.train_epoch`` calls (module attributes, looked up at
+    call time; ``targets``: (module, function, phase), SEQUENCE for an
+    attention trunk, MLP for the MLP fit) with a synchronise on each side
+    and reads the launch counters around each call.  It is entered around
+    ``Trainer.train_epoch`` alone, so the evaluation's own rollout is not
+    counted.  :meth:`split` fails if a phase was never called or the phases
+    leave more than UNTIMED_SHARE of the epoch's wall untimed: a call the
+    wrappers miss fails the run.  The path is unchanged; the
     synchronisation only ends each phase where the host would wait anyway
     at the next one's first read."""
 
-    PHASES = ("rollout", "values + GAE", "value phase", "policy phase")
+    SEQUENCE = (("recurrent", "rollout_rnn", "rollout"),
+                ("recurrent", "compute_values_rnn", "values + GAE"),
+                ("ppo", "_seq_advantages", "values + GAE"),
+                ("recurrent", "value_phase_rnn", "value phase"),
+                ("recurrent", "policy_phase_rnn", "policy phase"))
+    MLP = (("ppo", "rollout", "rollout"),
+           ("ppo", "compute_advantages", "GAE"),
+           ("ppo", "value_phase", "value phase"),
+           ("ppo", "policy_phase", "policy phase"))
     # the untimed rest of a recall_xl epoch read 6-8 ms of 7-10 s (0.1%)
     UNTIMED_SHARE = 0.01
 
-    def __init__(self, counters):
+    def __init__(self, counters, targets=SEQUENCE):
         self.counters = counters
-        self.t = dict.fromkeys(self.PHASES, 0.0)
-        self.calls = dict.fromkeys(self.PHASES, 0)
+        self.targets = targets
+        self.phases = tuple(dict.fromkeys(ph for _, _, ph in targets))
+        self.t = dict.fromkeys(self.phases, 0.0)
+        self.calls = dict.fromkeys(self.phases, 0)
         self.launches = {ph: {c.kernel: 0 for c in counters}
-                         for ph in self.PHASES}
+                         for ph in self.phases}
         self.saved = []
 
     def wrap(self, mod, name, phase):
@@ -1254,11 +1323,9 @@ class PhaseClock:
     def __enter__(self):
         from ppoc_tpu_torch.algo import ppo, recurrent
 
-        self.wrap(recurrent, "rollout_rnn", "rollout")
-        self.wrap(recurrent, "compute_values_rnn", "values + GAE")
-        self.wrap(ppo, "_seq_advantages", "values + GAE")
-        self.wrap(recurrent, "value_phase_rnn", "value phase")
-        self.wrap(recurrent, "policy_phase_rnn", "policy phase")
+        mods = {"ppo": ppo, "recurrent": recurrent}
+        for mod, name, phase in self.targets:
+            self.wrap(mods[mod], name, phase)
         return self
 
     def __exit__(self, *exc):
@@ -1297,8 +1364,7 @@ def recall_xl_path(dev, counters):
 
     cfg = PPOConfig(**RECALL_XL)
     tr = Trainer(cfg)
-    if tr.device != torch.device("cuda", 0):
-        raise AssertionError(f"Trainer(cfg) chose {tr.device}, not cuda:0")
+    check_on_card(tr)
     # decode against replay at the initial weights: the rollout's stored
     # log-probs (plain decode) and the epoch-0 replay through K7
     draws = ppo.draw_fit(cfg, torch.Generator().manual_seed(11), dev,
@@ -1452,6 +1518,524 @@ def attention_phases(dev, counters, record):
           f"{per_fit}", flush=True)
 
 
+# --- K1's last four lanes, the reacher regime, MountainCarContinuous -----
+
+# the reacher throughput regime (bench_phases.py:44-46 with
+# docs/RESULTS.md's shuffle_block 4096) and the MountainCarContinuous recipe
+# (docs/RESULTS.md:980, 986-995)
+REACHER = dict(env="reacher", n_envs=4096, rollout_len=150,
+               minibatch_size=16384, fits_per_epoch=1, hidden=(256, 256),
+               eval_envs=256, eval_len=150, shuffle_block=4096,
+               kernel_backend="pallas")
+REACHER_EPOCHS = 5
+# eval R must rise by more than this: the JAX package's bar
+# (tests/test_envs.py:209-223)
+REACHER_GAIN = 5.0
+MCC = dict(env="mountain_car_norm", n_envs=512, rollout_len=999,
+           minibatch_size=8192, fits_per_epoch=1, eval_envs=256,
+           eval_len=999, ent_coeff=0.005, kernel_backend="pallas")
+MCC_EPOCHS = 30
+MCC_SOLVED = 90.0
+# the rule, declared before any run: seed 0 must solve; if it misses,
+# seeds 1 and 2 run and both must solve
+MCC_SEEDS = (0, 1, 2)
+# simple's learning check: R > 0.5, the bar of the JAX package's standard
+# drive of this env, at the bench shape, within 10 epochs
+SIMPLE_SOLVED = 0.5
+
+
+def check_lane(lane: str, ts, E: int, T: int, with_v: bool, seed, dev,
+               st0=None, steps0=None):
+    """K1's continuous ``lane`` at E x T, with the V planes (``with_v``) or
+    with the metrics, against its plain version; returns (kernel
+    trajectory, max abs error, timings, variant launched).
+
+    * RNG bits exactly, for the sampler's draws 0..2A-1 and the resets'.
+    * The entry reset (or the carried state's obs) equal bit for bit; the
+      first 10 steps held to a 10-step plain rollout (the two policies'
+      forwards, the kernel's loop and cuBLAS, differ by ~1e-6).
+    * The whole trajectory: the kernel's own actions replayed through the
+      plain physics (``cuda_rollout.replay_plain``) reproduce its obs,
+      next_obs, rewards, done flags and final state bit for bit (the lanes'
+      physics rounds as PyTorch's ops do).
+    * Log-probs and V planes held to the plain forward on the recorded
+      obs; the sampling noise a standard normal.
+    * With the metrics: the completed-episode sums against the kernel's
+      own trajectory."""
+    import torch
+
+    from ppoc_tpu_torch.algo import ppo
+    from ppoc_tpu_torch.models import mlp, policy
+    from ppoc_tpu_torch.ops import cuda_rollout as cr
+
+    ln = cr.LANES[lane]
+    pp = ts.policy_params
+    vp = ts.v_params if with_v else None
+    A = pp["log_std"].shape[0]
+    s0, s1 = seed
+    lanes = torch.arange(E, dtype=torch.int64, device=dev)
+    for draw in [*range(2 * A), *(50 + j for j in range(ln.state_dim))]:
+        for t in (0, T - 1, cr.T_INIT):
+            if not torch.equal(cr.rng_bits_cuda(s0, s1, t, draw, E, dev),
+                               cr.rng_bits(s0, s1, t, draw, lanes)):
+                raise AssertionError(f"RNG bits differ at {(t, draw)}")
+    print(f"  RNG bits of draws 0-{2 * A - 1}, 50-{49 + ln.state_dim}: "
+          f"identical to the plain version", flush=True)
+    args = (pp["mlp"], pp["log_std"], vp, seed, E, T, "relu", st0, steps0,
+            0.99, lane)
+    g0 = sum(c.n for c in cr.global_launches.values())
+    raw = cr.rollout_kernel(*args)
+    variant = ("global" if sum(c.n for c in cr.global_launches.values()) > g0
+               else "smem")
+    ref = cr.rollout_plain(*args[:5], min(T, 10), *args[6:])
+    torch.cuda.synchronize()
+    print(f"  the launch took the {variant!r} variant", flush=True)
+    errs = {}
+    if not torch.equal(raw.obs[0], ref.obs[0]):
+        raise AssertionError("the first obs differs from the plain version")
+    errs["early"] = check("steps 0-9 vs plain", max(
+        max_err(raw.action[:10], ref.action[:10]),
+        max_err(raw.next_obs[:10], ref.next_obs[:10])), 1e-4)
+    rep = cr.replay_plain(lane, raw.action, seed, st0, steps0)
+    for key in ("obs", "next_obs", "reward", "terminated", "truncated",
+                "st_final", "steps_final"):
+        if not torch.equal(rep[key], getattr(raw, key)):
+            raise AssertionError(
+                f"{key} differs from the kernel's actions replayed through "
+                f"the plain physics: max |diff| "
+                f"{max_err(rep[key], getattr(raw, key)):.3e}")
+    print("  the kernel's actions replayed through the plain physics: obs, "
+          "next_obs, rewards, done flags and final state equal bit for bit",
+          flush=True)
+    mu = mlp.apply(pp["mlp"], raw.obs, "relu")
+    lp = policy.gaussian_log_prob_from_mean(mu, pp["log_std"], raw.action)
+    errs["log_prob"] = check("log_prob vs plain forward",
+                             max_err(lp, raw.log_prob), 1e-4)
+    if with_v:
+        errs["value"] = check("V(s), V(s') vs plain forward", max(
+            max_err(mlp.apply(vp, raw.obs, "relu")[..., 0], raw.value),
+            max_err(mlp.apply(vp, raw.next_obs, "relu")[..., 0],
+                    raw.next_value)), 1e-4)
+    eps = (raw.action - mu) / torch.exp(pp["log_std"])
+    if abs(float(eps.mean())) > 0.03 or abs(float(eps.std()) - 1) > 0.03:
+        raise AssertionError(f"sampling noise not N(0,1): {eps.mean()}, "
+                             f"{eps.std()}")
+    print(f"  {int(raw.terminated.sum())} terminations, "
+          f"{int(raw.truncated.sum())} truncations in the window", flush=True)
+    if not with_v:
+        traj = ppo.Transition(raw.obs, raw.action, raw.log_prob, raw.next_obs,
+                              raw.reward, raw.terminated, raw.truncated)
+        want = ppo.eval_metrics_from_traj(traj, 0.99)
+        sum_r, sum_j, n_eps = raw.metrics.sum(dim=1)
+        if float(n_eps) != float(want.episodes) or float(n_eps) < 1:
+            raise AssertionError(f"episode count {n_eps} vs {want.episodes}")
+        check(f"R, J sums over {int(n_eps)} episodes vs the trajectory "
+              f"(relative where above 1)", max(
+                  abs(float(sum_r / n_eps - want.R))
+                  / max(1.0, abs(float(want.R))),
+                  abs(float(sum_j / n_eps - want.J))
+                  / max(1.0, abs(float(want.J)))), 1e-4)
+    times = timings(lambda: cr.rollout_kernel(*args),
+                    lambda: cr.rollout_plain(*args), 10, 1, warm=False)
+    return raw, max(errs.values()), times, variant
+
+
+def check_mlp_variant(params, x, dev, counters):
+    """:func:`check_mlp`, and which variant of K5 it launched (from the
+    launch counters)."""
+    from ppoc_tpu_torch.ops import cuda_mlp as cm
+
+    g0 = cm.fwd_global_launches.n
+    out = check_mlp(params, x, "relu", dev)
+    return out, "global" if cm.fwd_global_launches.n > g0 else "smem"
+
+
+def reacher_path(dev, counters):
+    """Trainer(REACHER) on the card by default: evaluate, REACHER_EPOCHS
+    epochs each timed by phase (:class:`PhaseClock`) and evaluated, with
+    every launch counter read around each phase and held to the config's
+    count; eval R must rise by more than REACHER_GAIN; then
+    evaluate(deterministic=True), eval_len K5 forwards.  Returns
+    (trainer, {phase: {kernel: launches}} of the run, per-epoch rows)."""
+    import torch
+
+    from ppoc_tpu_torch import PPOConfig
+    from ppoc_tpu_torch.algo import ppo
+    from ppoc_tpu_torch.algo.trainer import Trainer
+    from ppoc_tpu_torch.models import mlp
+
+    cfg = PPOConfig(**REACHER)
+    tr = Trainer(cfg)
+    check_on_card(tr)
+    n_v = cfg.n_epochs_value * cfg.num_minibatches
+    n_p = cfg.n_epochs_policy * cfg.num_minibatches
+    f = cfg.fits_per_epoch
+    # each fit: one K1 rollout with the V planes, one K2, a K5 forward and
+    # backward (2x256 nets: the global-memory variant) per minibatch step;
+    # each evaluation one K1 rollout with the metrics
+    per_epoch = {
+        "rollout": {"rollout_global[reacher]/values": f},
+        "GAE": {"gae_norm": f},
+        "value phase": {"mlp_forward_global": f * n_v,
+                        "mlp_backward_global": f * n_v},
+        "policy phase": {"mlp_forward_global": f * n_p,
+                         "mlp_backward_global": f * n_p},
+        "evaluation": {"rollout_global[reacher]/metrics": 1}}
+    for c in counters:
+        c.reset()
+    torch.cuda.synchronize()
+    n0 = read_counts(counters)
+    ev0 = tr.evaluate()
+    torch.cuda.synchronize()
+    if count_diff(n0, read_counts(counters)) != per_epoch["evaluation"]:
+        raise AssertionError("the reacher evaluation's launches differ from "
+                             "one K1 rollout with the metrics")
+    print(f"  evaluation before training: R {ev0.R:.4f}, episodes "
+          f"{int(ev0.episodes)}", flush=True)
+    by_phase = {ph: {} for ph in per_epoch}
+    rows, train_s = [], 0.0
+    for i in range(REACHER_EPOCHS):
+        t_fit = time.perf_counter()
+        with PhaseClock(counters, PhaseClock.MLP) as clock:
+            fit = ppo.FitMetrics(*(float(x) for x in tr.train_epoch()))
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t_fit
+        split = clock.split(wall)
+        train_s += wall
+        n0 = read_counts(counters)
+        t_ev = time.perf_counter()
+        ev = tr.evaluate()
+        torch.cuda.synchronize()
+        split["evaluation"] = time.perf_counter() - t_ev
+        got = {ph: {k: v for k, v in clock.launches[ph].items() if v}
+               for ph in clock.phases}
+        got["evaluation"] = count_diff(n0, read_counts(counters))
+        if got != per_epoch:
+            raise AssertionError(f"reacher epoch {i}: launches {got} differ "
+                                 f"from the config's {per_epoch}")
+        for ph, counts in got.items():
+            for k, v in counts.items():
+                by_phase[ph][k] = by_phase[ph].get(k, 0) + v
+        rows.append(dict(R=ev.R, wall=wall, split=split))
+        print(f"  epoch {i}: R {ev.R:.4f}, value loss {fit.value_loss:.5f}, "
+              f"policy loss {fit.policy_loss:.5f}; fit {wall:.3f} s, split "
+              f"(s) " + ", ".join(f"{k} {v:.4f}" for k, v in split.items()),
+              flush=True)
+        if not all(math.isfinite(x) for x in (*fit, ev.R)):
+            raise AssertionError(f"non-finite loss on reacher: {fit}, R "
+                                 f"{ev.R}")
+    print(f"  launches a fit by phase, from the config (37 minibatches): "
+          f"{per_epoch}; each epoch's equal", flush=True)
+    steps = REACHER_EPOCHS * cfg.steps_per_epoch
+    print(f"  {REACHER_EPOCHS} epochs: {train_s:.3f} s of training, "
+          f"{steps / train_s:.0f} env-steps/s (training alone)", flush=True)
+    check(f"eval R rise over {REACHER_EPOCHS} epochs ({ev0.R:.3f} -> "
+          f"{rows[-1]['R']:.3f}), above {REACHER_GAIN}",
+          -(rows[-1]["R"] - ev0.R), -REACHER_GAIN, what="minus the rise")
+    if not all(torch.isfinite(t).all() for t in (
+            mlp.flatten(tr.state.v_params),
+            mlp.flatten(tr.state.policy_params["mlp"]),
+            tr.state.policy_params["log_std"])):
+        raise AssertionError("non-finite weights after the reacher epochs")
+    n0 = read_counts(counters)
+    t0 = time.perf_counter()
+    evd = tr.evaluate(deterministic=True)
+    torch.cuda.synchronize()
+    det = count_diff(n0, read_counts(counters))
+    print(f"  evaluate(deterministic=True): R {evd.R:.4f}, episodes "
+          f"{int(evd.episodes)}, {time.perf_counter() - t0:.3f} s; launches "
+          f"{det}", flush=True)
+    if det != {"mlp_forward_global": cfg.eval_len} or not math.isfinite(
+            evd.R):
+        raise AssertionError(f"the reacher mean-policy evaluation must be "
+                             f"{cfg.eval_len} K5 forwards: {det}, {evd}")
+    by_phase["evaluation"]["rollout_global[reacher]/metrics"] += 1
+    by_phase["mean-policy evaluation"] = det
+    return tr, by_phase, rows
+
+
+def mcc_path(dev, counters):
+    """The MountainCarContinuous recipe: Trainer(MCC, seed)
+    .train(MCC_EPOCHS, stop_at_R=MCC_SOLVED) on seed 0; if it misses, on
+    seeds 1 and 2, which must both solve (MCC_SEEDS' rule).  The launch
+    counters are held to the config's count for each run.  Returns the
+    seed-0 run's (trainer, launches, history)."""
+    import torch
+
+    from ppoc_tpu_torch import PPOConfig
+    from ppoc_tpu_torch.algo.trainer import Trainer
+
+    runs = []
+    for seed in MCC_SEEDS:
+        if runs and runs[0]["solved"]:
+            break
+        cfg = PPOConfig(**MCC, seed=seed)
+        tr = Trainer(cfg)
+        check_on_card(tr)
+        for c in counters:
+            c.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = tr.train(n_epochs=MCC_EPOCHS, stop_at_R=MCC_SOLVED)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = {k: v for k, v in read_counts(counters).items() if v}
+        epochs = len(hist)
+        steps = (cfg.n_epochs_value + cfg.n_epochs_policy) * \
+            cfg.num_minibatches * cfg.fits_per_epoch * epochs
+        want = {"rollout[mountain_car_norm]/values":
+                cfg.fits_per_epoch * epochs,
+                "rollout[mountain_car_norm]/metrics": epochs + 1,
+                "gae_norm": cfg.fits_per_epoch * epochs,
+                "mlp_forward": steps, "mlp_backward": steps}
+        solved = hist[-1]["R"] >= MCC_SOLVED
+        R = [round(h["R"], 3) for h in hist]
+        train_s = sum(h["time_s"] for h in hist)
+        print(f"  seed {seed}: {'solved' if solved else 'NOT solved'} at "
+              f"epoch {epochs} with R {hist[-1]['R']:.3f}; R per epoch {R}; "
+              f"wall {wall:.3f} s (training {train_s:.3f} s, "
+              f"{cfg.steps_per_epoch * epochs / wall:.0f} env-steps/s with "
+              f"the evaluations); launches {n}", flush=True)
+        if n != want:
+            raise AssertionError(f"MountainCar launches {n} differ from the "
+                                 f"config's {want}")
+        runs.append(dict(seed=seed, solved=solved, tr=tr, n=n, hist=hist,
+                         wall=wall))
+    if not (runs[0]["solved"] or all(r["solved"] for r in runs[1:])):
+        raise AssertionError(f"MountainCarContinuous not solved: seed 0 "
+                             f"missed, and seeds 1 and 2 gave "
+                             f"{[r['solved'] for r in runs[1:]]}")
+    r0 = runs[0]
+    return r0["tr"], r0["n"], r0["hist"], runs
+
+
+def small_lane_config(lane: str):
+    """The bench shape on ``simple`` (hidden 32) or raw ``mountain_car``
+    (one fit an epoch, its 999-step horizon as the evaluation window)."""
+    if lane == "simple":
+        return bench_config().replace(env="simple", hidden=(32, 32))
+    return bench_config().replace(env="mountain_car", fits_per_epoch=1,
+                                  eval_len=999)
+
+
+def small_lane_path(lane: str, dev, counters):
+    """The bench shape on a small lane: ``simple`` must learn to reach its
+    goal (Trainer.solve(SIMPLE_SOLVED, 10)), raw ``mountain_car`` trains 2
+    epochs (a sparse reward: no solve expected).  Returns (trainer,
+    launches, result)."""
+    import torch
+
+    from ppoc_tpu_torch.algo.trainer import Trainer
+
+    cfg = small_lane_config(lane)
+    tr = Trainer(cfg, dev)
+    for c in counters:
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if lane == "simple":
+        res = tr.solve(SIMPLE_SOLVED, max_epochs=10)
+        epochs = res["epochs"]
+    else:
+        hist = tr.train(n_epochs=2, log=False)
+        res = {"epochs": 2, "R": hist[-1]["R"]}
+        epochs = 2
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = {k: v for k, v in read_counts(counters).items() if v}
+    print(f"  {lane}: epochs {epochs}, R {res['R']:.4f}, wall {wall:.3f} s; "
+          f"launches {n}", flush=True)
+    fits = epochs * cfg.fits_per_epoch
+    evals = epochs + (0 if lane == "simple" else 1)
+    if (n.get(f"rollout[{lane}]/values"), n.get(f"rollout[{lane}]/metrics"),
+            n.get("value_phase"), n.get("policy_phase")) != (
+                fits, evals, fits, fits):
+        raise AssertionError(f"{lane}: launches {n}, not {fits} training "
+                             f"and {evals} evaluation rollouts, {fits} K3 "
+                             f"and K4 phases")
+    if lane == "simple" and not res["R"] > SIMPLE_SOLVED:
+        raise AssertionError(f"simple did not learn: R {res['R']}")
+    if not math.isfinite(res["R"]):
+        raise AssertionError(f"{lane}: non-finite R")
+    return tr, n, res
+
+
+def reacher_mcc_phases(dev, counters, record):
+    """K1's four new lanes against their plain versions at each path's
+    shapes, K5's global-memory variant, K4 at two action dims; then the
+    simple and mountain_car lanes' paths, the reacher regime and the
+    MountainCarContinuous recipe, each with its launches; records every
+    kernel row."""
+    import torch
+
+    from ppoc_tpu_torch import PPOConfig
+    from ppoc_tpu_torch.algo import ppo
+    from ppoc_tpu_torch.algo.trainer import Trainer
+    from ppoc_tpu_torch.data import buffer
+    from ppoc_tpu_torch.models import mlp
+    from ppoc_tpu_torch.ops import cuda_rollout, cuda_update
+
+    rcfg = PPOConfig(**REACHER)
+    ts = Trainer(rcfg, dev).state
+    pw, vw = mlp.dims(ts.policy_params["mlp"]), mlp.dims(ts.v_params)
+    E, T = rcfg.n_envs, rcfg.rollout_len
+    header(f"[K1 reacher lane: {E} envs x {T} steps with the V planes, nets "
+           f"{pw} / {vw}]")
+    raw, r_err, r_t, var = check_lane("reacher", ts, E, T, True,
+                                      (0x01234567, 0x7F4A7C15), dev)
+    if var != "global":
+        raise AssertionError("2x256 nets must take the global-memory variant")
+    L, EE = rcfg.eval_len, rcfg.eval_envs
+    header(f"[K1 reacher lane: {EE} x {L} with the metrics]")
+    raw_m, rm_err, rm_t, _ = check_lane("reacher", ts, EE, L, False,
+                                        (0x0BADF00D, 0x5EED), dev)
+    header(f"[K2 at {T} x {E}: the reacher rollout's planes]")
+    _, _, rg_err, rg_t = check_gae(rcfg, raw, dev)
+    draws = ppo.draw_fit(rcfg, torch.Generator().manual_seed(3), dev)
+    x_mb, = buffer.gather_mb((raw.obs.reshape(-1, pw[0]),),
+                             draws.value_idx[0, 0], rcfg.shuffle_block)
+    header(f"[K5 at {rcfg.minibatch_size} rows, widths {vw} and {pw}, and "
+           f"at {EE} rows (the mean-policy evaluation)]")
+    (k5v, v_var) = check_mlp_variant(ts.v_params, x_mb, dev, counters)
+    (k5p, p_var) = check_mlp_variant(ts.policy_params["mlp"], x_mb, dev,
+                                     counters)
+    (k5e, e_var) = check_mlp_variant(ts.policy_params["mlp"],
+                                     raw.obs[0, :EE].contiguous(), dev,
+                                     counters)
+    if {v_var, p_var, e_var} != {"global"}:
+        raise AssertionError("K5 at 2x256 must take the global-memory "
+                             "variant")
+
+    mcfg = PPOConfig(**MCC)
+    tsm = Trainer(mcfg, dev).state
+    mw = mlp.dims(tsm.v_params)
+    mpw = mlp.dims(tsm.policy_params["mlp"])
+    E, T, L, EE = mcfg.n_envs, mcfg.rollout_len, mcfg.eval_len, \
+        mcfg.eval_envs
+    header(f"[K1 mountain_car_norm lane: {E} envs x {T} steps with the V "
+           f"planes]")
+    rawc, c_err, c_t, _ = check_lane("mountain_car_norm", tsm, E, T, True,
+                                     (0x9E3779B9, 0x85EBCA6B), dev)
+    header(f"[K1 mountain_car_norm lane: {EE} x {L} with the metrics]")
+    rawcm, cm_err, cm_t, _ = check_lane("mountain_car_norm", tsm, EE, L,
+                                        False, (0xC2B2AE35, 0x632BE59B), dev)
+    header(f"[K2 at {T} x {E}: the MountainCar rollout's planes]")
+    _, _, cg_err, cg_t = check_gae(mcfg, rawc, dev)
+    draws = ppo.draw_fit(mcfg, torch.Generator().manual_seed(4), dev)
+    xc_mb, = buffer.gather_mb((rawc.obs.reshape(-1, mw[0]),),
+                              draws.value_idx[0, 0])
+    header(f"[K5 at {mcfg.minibatch_size} rows, widths {mw}]")
+    (k5c, c_var) = check_mlp_variant(tsm.v_params, xc_mb, dev, counters)
+
+    small = {}
+    for i, lane in enumerate(("simple", "mountain_car")):
+        scfg = small_lane_config(lane)
+        sts = Trainer(scfg, dev).state
+        E, T, L = scfg.n_envs, scfg.rollout_len, scfg.eval_len
+        header(f"[K1 {lane} lane: {E} envs x {T} steps with the V planes]")
+        sraw, s_err, s_t, _ = check_lane(lane, sts, E, T, True,
+                                         (0x2545F491 + i, 17), dev)
+        header(f"[K1 {lane} lane: {E} x {L} with the metrics]")
+        sraw_m, sm_err, sm_t, _ = check_lane(lane, sts, E, L, False,
+                                             (0x632BE59B + i, 29), dev)
+        small[lane] = dict(cfg=scfg, pw=mlp.dims(sts.policy_params["mlp"]),
+                           vw=mlp.dims(sts.v_params),
+                           rollout=(s_err, s_t), metrics=(sm_err, sm_t),
+                           raw=sraw, raw_m=sraw_m)
+
+    kcfg = PPOConfig(env="reacher", n_envs=64, rollout_len=150,
+                     minibatch_size=256, hidden=(64, 64),
+                     kernel_backend="pallas")
+    kts = Trainer(kcfg, dev).state
+    header(f"[K4 at two action dims: reacher rows, widths "
+           f"{mlp.dims(kts.policy_params['mlp'])}, minibatch 256]")
+    pol = kts.policy_params
+    kraw = cuda_rollout.rollout_kernel(
+        pol["mlp"], pol["log_std"], kts.v_params, (0x1234, 0x5678),
+        kcfg.n_envs, kcfg.rollout_len, lane="reacher")
+    kadv, ktgt, _, _ = check_gae(kcfg, kraw, dev)
+    _, pcols = phase_rows(kcfg, kraw, kadv, ktgt, dev, draw_seed=5)
+    k4_err, k4_t = check_phase(
+        "policy phase (2 action dims)", cuda_update.policy_phase_kernel,
+        cuda_update.policy_phase_plain,
+        (pol["mlp"], pol["log_std"], kts.opt_policy, kts.opt_log_std), pcols,
+        kcfg, kcfg.lr_policy, [(kcfg.clip_eps, kcfg.ent_coeff),
+                               (kcfg.clip_eps, 0.01)], WHOLE_RATIO["K4"])
+    n_k4 = kcfg.n_epochs_policy * kcfg.num_minibatches
+    k4_b = phase_bound(mlp.dims(pol["mlp"]), n_k4, 256, 4)
+    print(f"  K4 at two action dims ({n_k4} steps x 256; not on a main "
+          f"path): device time kernel {k4_t['ms']:.4f} ms, plain "
+          f"{k4_t['plain_ms']:.4f} ms; bound {k4_b[0]:.4f} ms ({k4_b[1]})",
+          flush=True)
+
+    for lane in small:
+        header(f"[{lane} path: bench shape, "
+               + ("solve(0.5, max_epochs=10)]" if lane == "simple"
+                  else "2 epochs]"))
+        d = small[lane]
+        _, n, _ = small_lane_path(lane, dev, counters)
+        scfg = d["cfg"]
+        E, T, L = scfg.n_envs, scfg.rollout_len, scfg.eval_len
+        path = f"{lane}, {E} envs x {T} steps, mb {scfg.minibatch_size}"
+        record(f"rollout[{lane}]", path + " (training rollouts)", [T, E],
+               n[f"rollout[{lane}]/values"], *d["rollout"],
+               rollout_bound(d["pw"], d["vw"], d["raw"]))
+        record(f"rollout[{lane}]", path + " (evaluation rollouts)", [L, E],
+               n[f"rollout[{lane}]/metrics"], *d["metrics"],
+               rollout_bound(d["pw"], None, d["raw_m"]))
+
+    header(f"[reacher regime: Trainer(reacher, 4096 envs x 150, mb 16384 in "
+           f"blocks of 4096, 2x256), evaluate, {REACHER_EPOCHS} epochs, "
+           f"evaluate(deterministic=True)]")
+    _, by, _ = reacher_path(dev, counters)
+    E, T, mb = rcfg.n_envs, rcfg.rollout_len, rcfg.minibatch_size
+    path = f"reacher regime, {E} envs x {T} steps, mb {mb}"
+    record("rollout_global[reacher]", path + " (training rollouts)", [T, E],
+           by["rollout"]["rollout_global[reacher]/values"], r_err, r_t,
+           rollout_bound(pw, vw, raw))
+    record("rollout_global[reacher]", path + " (evaluation rollouts)",
+           [rcfg.eval_len, rcfg.eval_envs],
+           by["evaluation"]["rollout_global[reacher]/metrics"], rm_err, rm_t,
+           rollout_bound(pw, None, raw_m))
+    record("gae_norm", path, [T, E], by["GAE"]["gae_norm"], rg_err, rg_t,
+           gae_bound(T, E))
+    for ph, name, (err, fwd, bwd), w in (
+            ("value phase", "value net", k5v, vw),
+            ("policy phase", "policy net", k5p, pw)):
+        fb, bb = mlp_bounds(w, mb)
+        record("mlp_forward_global", f"{path}, {name}", [mb] + w,
+               by[ph]["mlp_forward_global"], err, fwd, fb)
+        record("mlp_backward_global", f"{path}, {name}", [mb] + w,
+               by[ph]["mlp_backward_global"], err, bwd, bb)
+    record("mlp_forward_global", "reacher mean-policy evaluation",
+           [rcfg.eval_envs] + pw,
+           by["mean-policy evaluation"]["mlp_forward_global"], k5e[0],
+           k5e[1], mlp_bounds(pw, rcfg.eval_envs)[0])
+
+    header(f"[MountainCarContinuous recipe: Trainer(mountain_car_norm, 512 "
+           f"envs x 999, mb 8192, ent_coeff 0.005).train({MCC_EPOCHS}, "
+           f"stop_at_R={MCC_SOLVED}), seeds by the declared rule]")
+    _, n, hist, _ = mcc_path(dev, counters)
+    E, T, mb = mcfg.n_envs, mcfg.rollout_len, mcfg.minibatch_size
+    path = f"MountainCarContinuous recipe (seed 0), {E} envs x {T} steps, " \
+        f"mb {mb}"
+    record("rollout[mountain_car_norm]", path + " (training rollouts)",
+           [T, E], n["rollout[mountain_car_norm]/values"], c_err, c_t,
+           rollout_bound(mpw, mw, rawc))
+    record("rollout[mountain_car_norm]", path + " (evaluation rollouts)",
+           [mcfg.eval_len, mcfg.eval_envs],
+           n["rollout[mountain_car_norm]/metrics"], cm_err, cm_t,
+           rollout_bound(mpw, None, rawcm))
+    record("gae_norm", path, [T, E], n["gae_norm"], cg_err, cg_t,
+           gae_bound(T, E))
+    fb, bb = mlp_bounds(mw, mb)
+    # the policy net [2,128,128,1] has the value net's widths
+    record("mlp_forward", path + ", value and policy nets", [mb] + mw,
+           n["mlp_forward"], k5c[0], k5c[1], fb)
+    record("mlp_backward", path + ", value and policy nets", [mb] + mw,
+           n["mlp_backward"], k5c[0], k5c[2], bb)
+
+
 def main() -> int:
     import torch
 
@@ -1483,10 +2067,12 @@ def main() -> int:
         if "registers" in line or "spill" in line.lower():
             print("  nvcc:", line.strip(), flush=True)
     _build.load()
-    counters = [*cuda_rollout.lane_launches.values(), cuda_gae.launches,
+    counters = [*cuda_rollout.lane_launches.values(),
+                *cuda_rollout.global_launches.values(), cuda_gae.launches,
                 cuda_update.value_launches, cuda_update.policy_launches,
                 cuda_update.categorical_launches, cuda_mlp.fwd_launches,
-                cuda_mlp.bwd_launches, cuda_attn.fwd_launches,
+                cuda_mlp.bwd_launches, cuda_mlp.fwd_global_launches,
+                cuda_mlp.bwd_global_launches, cuda_attn.fwd_launches,
                 cuda_attn.dq_launches, cuda_attn.dkv_launches]
     results = []
 
@@ -1718,6 +2304,7 @@ def main() -> int:
            mlp_bounds(cpw, ccfg.eval_envs)[0])
 
     attention_phases(dev, counters, record)
+    reacher_mcc_phases(dev, counters, record)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
           f"build included", flush=True)

@@ -1,8 +1,10 @@
-// K1: the whole T-step rollout as one kernel launch, for each ported env
-// lane (pendulum, cartpole, acrobot).
+// K1: the whole T-step rollout as one kernel launch, for every env lane of
+// the JAX package (pendulum, simple, cartpole, mountain_car,
+// mountain_car_norm, acrobot, reacher).
 //
 // Replaces ppoc_tpu/ops/pallas_rollout.py `rollout_fused` -> `_kernel`
-// (lanes `_pendulum_lane`, `_cartpole_lane`, `_acrobot_lane`; RNG
+// (lanes `_pendulum_lane`, `_simple_lane`, `_cartpole_lane`,
+// `_mountain_car_lane`, `_acrobot_lane`, `_reacher_lane`; RNG
 // `_fmix32`/`_uniform01`).  Each step runs the policy MLP forward, samples
 // (Box-Muller Gaussian for a continuous lane, Gumbel-max over the class
 // logits with an exact log-softmax log-prob for a discrete one), steps the
@@ -13,32 +15,50 @@
 // What bounds it on the card: the T steps are a serial chain, and one step
 // is a few small dependent MLP layers (at the bench shape 64 envs through
 // [3,128,128,1] nets: about 2 MFLOP per net per step).  So the kernel is
-// latency-bound: bytes and FLOPs are far below the card's rates.
+// latency-bound there: bytes and FLOPs are far below the card's rates.  At
+// reacher's throughput shape (4096 envs through [10,256,256,2] and
+// [10,256,256,1] nets, V(s) and V(s') each step) a step is ~410 KFLOP per
+// env, 252 GFLOP in all over 150 steps: FP32 operations bound it (~3.8 ms).
 //
 // What the design does about it: the T loop runs inside the kernel (one
-// launch per rollout, as on the TPU), the policy and value weights
-// (2 x 17,153 floats at the bench shape, 137 KB) sit in dynamic shared
-// memory for the whole rollout, and each block owns a tile of ET envs whose
-// state lives in registers (2 floats for pendulum, 4 for cartpole and
-// acrobot).  A layer is one pass of the block: one thread per (net, output
-// unit), ET accumulators each, so the policy forward and V(s) run side by
-// side.  Blocks are independent (one per env tile).
+// launch per rollout, as on the TPU) and each block owns a tile of ET envs
+// whose state lives in registers.  A layer is one pass of the block: one
+// thread per (net, output unit), ET accumulators each, so the policy
+// forward and V(s) run side by side.  Blocks are independent (one per env
+// tile).  Two variants of one template, picked by size at the launch:
+//   * small nets (the bench's 2 x 17,153 floats, 137 KB) sit in dynamic
+//     shared memory for the whole rollout; ET = 8 envs a block, 256
+//     threads;
+//   * nets larger than one block's shared memory (reacher's two 2x256 nets,
+//     ~137 K floats, 550 KB) stay in global memory, where they remain
+//     resident in the 50 MB L2, and are read with __ldg, four input rows
+//     in flight per thread; ET = 32 envs a block, so each weight read
+//     serves 32 envs (read from shared memory as float4s), and 512
+//     threads, one per (net, unit) of a 2x256 layer.  Only the
+//     activations of the tile sit in shared memory.
+// Both sum each unit's products in input order, so for the same nets the
+// two variants give the same bits.
 //
-// A lane is a struct (`PendulumLane`, `CartPoleLane`, `AcrobotLane`) with
-// its state and obs widths D and O, its class count K (0: continuous), its
-// horizon and `reset`, `obs`, `step`; the kernel is a template over it.
-// The discrete lanes' physics multiplies with __fmul_rn, which the compiler
-// never fuses into an FMA, so each operation rounds as PyTorch's elementwise
-// kernels round it and the plain version on the card follows the same
-// trajectory bit for bit while the two draw the same actions.
+// A lane is a struct (`PendulumLane`, `SimpleLane`, `CartPoleLane`,
+// `MountainCarLane<norm>`, `AcrobotLane`, `ReacherLane`) with its state and
+// obs widths D and O, its class count K (0: continuous), its horizon and
+// `reset`, `obs`, `step`; the kernel is a template over it.  Every lane but
+// pendulum multiplies with __fmul_rn, which the compiler never fuses into
+// an FMA, so each operation rounds as PyTorch's elementwise kernels round
+// it and the plain version on the card follows the same trajectory bit for
+// bit while the two draw the same actions (MountainCar's goal test and
+// left wall, and reacher's distance, flip on one ulp).
 #include "common.cuh"
 
 using namespace ppoc;
 
 namespace {
 
-constexpr int ET = 8;          // envs per block
-constexpr int THREADS = 256;   // >= 2 x the widest hidden layer works best
+// the two variants: envs per block and threads per block
+constexpr int ET = 8;            // nets in shared memory
+constexpr int THREADS = 256;     // >= 2 x the widest hidden layer works best
+constexpr int ET_L = 32;         // nets in global memory (a multiple of 4)
+constexpr int THREADS_L = 512;
 
 constexpr float PI_F = 3.14159265358979323846f;
 constexpr float TWO_PI_F = 6.28318530717958647692f;
@@ -246,6 +266,118 @@ struct AcrobotLane {
   }
 };
 
+struct SimpleLane {
+  static constexpr int D = 1, O = 1, K = 0;
+  static constexpr float HORIZON = 15.0f;
+  template <class R>
+  __device__ static void reset(float* s, R) {
+    s[0] = 0.0f;
+  }
+  __device__ static void obs(const float* s, float* o) { o[0] = s[0]; }
+  __device__ static void step(const float* s, const float* act, float* s2,
+                              float* reward, float* term) {
+    const float x = s[0] + fminf(fmaxf(act[0], -1.0f), 1.0f);
+    s2[0] = x;
+    *term = x >= 5.0f ? 1.0f : 0.0f;
+    *reward = *term;   // reward 1 iff terminated
+  }
+};
+
+// MountainCarContinuous; NORM maps the obs to [-1, 1] with the JAX lane's
+// Python-float mid and half-width (-0.3 and 0.9 as float32), which the
+// normalize_obs wrapper's float32 arrays differ from in the last bit.
+template <bool NORM>
+struct MountainCarLane {
+  static constexpr int D = 2, O = 2, K = 0;
+  static constexpr float HORIZON = 999.0f;
+  template <class R>
+  __device__ static void reset(float* s, R rand) {
+    s[0] = -0.6f + mul(0.2f, rand(0));
+    s[1] = 0.0f;
+  }
+  __device__ static void obs(const float* s, float* o) {
+    if (NORM) {
+      o[0] = (s[0] - -0.3f) / 0.9f;
+      o[1] = s[1] / 0.07f;
+    } else {
+      o[0] = s[0];
+      o[1] = s[1];
+    }
+  }
+  // act[0]: the UNCLIPPED sampled force; the reward penalises it raw
+  __device__ static void step(const float* s, const float* act, float* s2,
+                              float* reward, float* term) {
+    const float pos = s[0], vel = s[1];
+    const float force = fminf(fmaxf(act[0], -1.0f), 1.0f);
+    float vel2 = vel + mul(force, 0.0015f) - mul(0.0025f, cosf(mul(3.0f, pos)));
+    vel2 = fminf(fmaxf(vel2, -0.07f), 0.07f);
+    const float pos2 = fminf(fmaxf(pos + vel2, -1.2f), 0.6f);
+    if (pos2 <= -1.2f && vel2 < 0.0f) vel2 = 0.0f;   // the left wall
+    s2[0] = pos2;
+    s2[1] = vel2;
+    *term = pos2 >= 0.45f && vel2 >= 0.0f ? 1.0f : 0.0f;
+    *reward = mul(*term, 100.0f) - mul(mul(0.1f, act[0]), act[0]);
+  }
+};
+
+// Two-link reacher: state q1, q2, qd1, qd2, target x, y; links 0.5 long.
+struct ReacherLane {
+  static constexpr int D = 6, O = 10, K = 0;
+  static constexpr float HORIZON = 150.0f;
+  __device__ static void tip(float q1, float q2, float* x, float* y) {
+    const float q12 = q1 + q2;
+    *x = mul(0.5f, cosf(q1)) + mul(0.5f, cosf(q12));
+    *y = mul(0.5f, sinf(q1)) + mul(0.5f, sinf(q12));
+  }
+  template <class R>
+  __device__ static void reset(float* s, R rand) {
+    s[0] = -PI_F + mul(TWO_PI_F, rand(0));
+    s[1] = -PI_F + mul(TWO_PI_F, rand(1));
+    const float radius = 0.1f + mul(0.8f, rand(2));   // 0.9 (L1 + L2) - 0.1
+    const float angle = -PI_F + mul(TWO_PI_F, rand(3));
+    s[2] = 0.0f;
+    s[3] = 0.0f;
+    s[4] = mul(radius, cosf(angle));
+    s[5] = mul(radius, sinf(angle));
+  }
+  __device__ static void obs(const float* s, float* o) {
+    float x, y;
+    tip(s[0], s[1], &x, &y);
+    o[0] = cosf(s[0]);
+    o[1] = cosf(s[1]);
+    o[2] = sinf(s[0]);
+    o[3] = sinf(s[1]);
+    o[4] = s[2] / 4.0f;
+    o[5] = s[3] / 4.0f;
+    o[6] = s[4];
+    o[7] = s[5];
+    o[8] = x - s[4];
+    o[9] = y - s[5];
+  }
+  // act[0], act[1]: the UNCLIPPED sampled torques
+  __device__ static void step(const float* s, const float* act, float* s2,
+                              float* reward, float* term) {
+    const float u1 = fminf(fmaxf(act[0], -1.0f), 1.0f);
+    const float u2 = fminf(fmaxf(act[1], -1.0f), 1.0f);
+    const float qd1 = fminf(
+        fmaxf(s[2] + mul(mul(8.0f, u1) - mul(0.5f, s[2]), 0.05f), -4.0f), 4.0f);
+    const float qd2 = fminf(
+        fmaxf(s[3] + mul(mul(8.0f, u2) - mul(0.5f, s[3]), 0.05f), -4.0f), 4.0f);
+    s2[0] = s[0] + mul(qd1, 0.05f);
+    s2[1] = s[1] + mul(qd2, 0.05f);
+    s2[2] = qd1;
+    s2[3] = qd2;
+    s2[4] = s[4];
+    s2[5] = s[5];
+    float x, y;
+    tip(s2[0], s2[1], &x, &y);
+    const float dx = x - s[4], dy = y - s[5];
+    const float dist = sqrtf(mul(dx, dx) + mul(dy, dy));
+    *reward = -dist - mul(0.01f, mul(u1, u1) + mul(u2, u2));
+    *term = 0.0f;   // reacher only truncates
+  }
+};
+
 struct DevArgs {
   Net net[2];                 // [0] policy, [1] value
   const float* params[2];
@@ -261,13 +393,17 @@ struct DevArgs {
   float *st_final, *steps_final, *metrics;
 };
 
-// Forward nets [first, first+count) over the block's env tile: `in` is
-// smem [d0][ET]; net n ping-pongs its hidden layers through bufs[n] and
-// writes its output to outs[n] (smem [d_L][ET]).  The nets have equal
-// depth.  Ends with __syncthreads.
-__device__ void tile_forward(const Net* nets, float* const* P, int first,
-                             int count, const float* in, float* const* bufs,
-                             float* const* outs, int hmax, int act) {
+// Forward nets [first, first+count) over the block's env tile of ET_
+// envs: `in` is smem [d0][ET_]; net n reads its weights from P[n] (shared
+// memory, or global memory with GLOBAL_W), ping-pongs its hidden layers
+// through bufs[n] and writes its output to outs[n] (smem [d_L][ET_]).  The
+// nets have equal depth.  Each unit sums its products in input order.
+// Ends with __syncthreads.
+template <int ET_, bool GLOBAL_W>
+__device__ void tile_forward(const Net* nets, const float* const* P,
+                             int first, int count, const float* in,
+                             float* const* bufs, float* const* outs, int hmax,
+                             int act) {
   const int L = nets[first].n_layers;
   for (int l = 0; l < L; ++l) {
     int total = 0;
@@ -278,32 +414,66 @@ __device__ void tile_forward(const Net* nets, float* const* P, int first,
       const Net& net = nets[n];
       const int din = net.dim[l], dout = net.dim[l + 1];
       const float* W = P[n] + net.w_off[l];
-      const float* src = l == 0 ? in : bufs[n] + ((l - 1) & 1) * hmax * ET;
-      float acc[ET];
+      const float* src = l == 0 ? in : bufs[n] + ((l - 1) & 1) * hmax * ET_;
+      float acc[ET_];
 #pragma unroll
-      for (int e = 0; e < ET; ++e) acc[e] = 0.0f;
-      for (int k = 0; k < din; ++k) {
-        const float w = W[k * dout + j];
+      for (int e = 0; e < ET_; ++e) acc[e] = 0.0f;
+      float b;
+      if constexpr (GLOBAL_W) {
+        // four weight loads in flight before their FMAs; the tile's inputs
+        // read as float4 (each row of ET_ floats is 16-byte aligned)
+        int k = 0;
+        for (; k + 4 <= din; k += 4) {
+          float w[4];
 #pragma unroll
-        for (int e = 0; e < ET; ++e) acc[e] += src[k * ET + e] * w;
+          for (int u = 0; u < 4; ++u) w[u] = __ldg(W + (k + u) * dout + j);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const float4* s4 =
+                reinterpret_cast<const float4*>(src + (k + u) * ET_);
+#pragma unroll
+            for (int e = 0; e < ET_ / 4; ++e) {
+              const float4 v = s4[e];
+              acc[4 * e] += v.x * w[u];
+              acc[4 * e + 1] += v.y * w[u];
+              acc[4 * e + 2] += v.z * w[u];
+              acc[4 * e + 3] += v.w * w[u];
+            }
+          }
+        }
+        for (; k < din; ++k) {
+          const float w = __ldg(W + k * dout + j);
+#pragma unroll
+          for (int e = 0; e < ET_; ++e) acc[e] += src[k * ET_ + e] * w;
+        }
+        b = __ldg(P[n] + net.b_off[l] + j);
+      } else {
+        for (int k = 0; k < din; ++k) {
+          const float w = W[k * dout + j];
+#pragma unroll
+          for (int e = 0; e < ET_; ++e) acc[e] += src[k * ET_ + e] * w;
+        }
+        b = P[n][net.b_off[l] + j];
       }
-      const float b = P[n][net.b_off[l] + j];
-      float* dst = l == L - 1 ? outs[n] : bufs[n] + (l & 1) * hmax * ET;
+      float* dst = l == L - 1 ? outs[n] : bufs[n] + (l & 1) * hmax * ET_;
 #pragma unroll
-      for (int e = 0; e < ET; ++e) {
+      for (int e = 0; e < ET_; ++e) {
         float h = acc[e] + b;
         if (l < L - 1) h = act_fwd(h, act);
-        dst[j * ET + e] = h;
+        dst[j * ET_ + e] = h;
       }
     }
     __syncthreads();
   }
 }
 
-template <class Lane>
-__global__ void __launch_bounds__(THREADS) rollout_kernel(const DevArgs a) {
+// One block runs ET_ envs for all T steps.  GLOBAL_W: the nets stay in
+// global memory; else they are copied into dynamic shared memory first.
+template <class Lane, int ET_, bool GLOBAL_W>
+__global__ void __launch_bounds__(GLOBAL_W ? THREADS_L : THREADS)
+    rollout_kernel(const DevArgs a) {
   constexpr int D = Lane::D, O = Lane::O;
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   __shared__ Net nets[2];
   __shared__ float log_std[MAX_ACT];
 
@@ -312,26 +482,30 @@ __global__ void __launch_bounds__(THREADS) rollout_kernel(const DevArgs a) {
   if (tid < 2) nets[tid] = a.net[tid];
   if (Lane::K == 0 && tid < a.act_dim) log_std[tid] = a.log_std[tid];
 
-  // shared memory: params of each net, input tile, per-net ping-pong
-  // hidden buffers, per-net output tile
-  float* P[2];
+  // shared memory: params of each net (unless GLOBAL_W), input tile,
+  // per-net ping-pong hidden buffers, per-net output tile
+  const float* P[2] = {a.params[0], a.params[1]};
   float* bufs[2];
   float* outs[2];
   float* p = smem;
-  for (int n = 0; n < n_nets; ++n) { P[n] = p; p += a.net[n].n_params; }
-  float* x = p;                          p += a.net[0].dim[0] * ET;
-  for (int n = 0; n < n_nets; ++n) { bufs[n] = p; p += 2 * a.hmax * ET; }
+  if (!GLOBAL_W) {
+    for (int n = 0; n < n_nets; ++n) {
+      for (int i = tid; i < a.net[n].n_params; i += blockDim.x)
+        p[i] = a.params[n][i];
+      P[n] = p;
+      p += a.net[n].n_params;
+    }
+  }
+  float* x = p;                          p += a.net[0].dim[0] * ET_;
+  for (int n = 0; n < n_nets; ++n) { bufs[n] = p; p += 2 * a.hmax * ET_; }
   for (int n = 0; n < n_nets; ++n) {
     outs[n] = p;
-    p += a.net[n].dim[a.net[n].n_layers] * ET;
+    p += a.net[n].dim[a.net[n].n_layers] * ET_;
   }
-  for (int n = 0; n < n_nets; ++n)
-    for (int i = tid; i < a.net[n].n_params; i += blockDim.x)
-      P[n][i] = a.params[n][i];
 
-  // env state: thread tid < ET owns env e of this block's tile
-  const int e = blockIdx.x * ET + tid;
-  const bool owner = tid < ET;
+  // env state: thread tid < ET_ owns env e of this block's tile
+  const int e = blockIdx.x * ET_ + tid;
+  const bool owner = tid < ET_;
   const bool live = owner && e < a.E;
   const uint32_t lane = (uint32_t)e;
   float s[D];
@@ -357,12 +531,13 @@ __global__ void __launch_bounds__(THREADS) rollout_kernel(const DevArgs a) {
       Lane::obs(s, o);
 #pragma unroll
       for (int d = 0; d < O; ++d) {
-        x[d * ET + tid] = o[d];
+        x[d * ET_ + tid] = o[d];
         if (live) a.obs[row * O + d] = o[d];
       }
     }
     __syncthreads();
-    tile_forward(nets, P, 0, n_nets, x, bufs, outs, a.hmax, a.activation);
+    tile_forward<ET_, GLOBAL_W>(nets, P, 0, n_nets, x, bufs, outs, a.hmax,
+                                 a.activation);
 
     if (owner) {
       float act[MAX_ACT];
@@ -370,7 +545,7 @@ __global__ void __launch_bounds__(THREADS) rollout_kernel(const DevArgs a) {
       if constexpr (Lane::K > 0) {
         float h[Lane::K];
 #pragma unroll
-        for (int k = 0; k < Lane::K; ++k) h[k] = outs[0][k * ET + tid];
+        for (int k = 0; k < Lane::K; ++k) h[k] = outs[0][k * ET_ + tid];
         const int idx = gumbel_max(h, Lane::K, a.s0, a.s1, (uint32_t)t, lane,
                                    &lp);
         act[0] = (float)idx;
@@ -384,7 +559,7 @@ __global__ void __launch_bounds__(THREADS) rollout_kernel(const DevArgs a) {
           const float u1 = fmaxf(uniform01(a.s0, a.s1, t, 2 * j, lane), 1e-12f);
           const float u2 = uniform01(a.s0, a.s1, t, 2 * j + 1, lane);
           const float eps = sqrtf(-2.0f * logf(u1)) * cosf(TWO_PI_F * u2);
-          const float mu = outs[0][j * ET + tid];
+          const float mu = outs[0][j * ET_ + tid];
           const float ac = mu + eps * sigma;
           const float z = (ac - mu) / sigma;
           lp = lp - ls - 0.5f * z * z;
@@ -401,7 +576,7 @@ __global__ void __launch_bounds__(THREADS) rollout_kernel(const DevArgs a) {
       float no[O];
       Lane::obs(s2, no);
 #pragma unroll
-      for (int d = 0; d < O; ++d) x[d * ET + tid] = no[d];
+      for (int d = 0; d < O; ++d) x[d * ET_ + tid] = no[d];
       if (live) {
         a.log_prob[row] = lp;
         a.reward[row] = reward;
@@ -429,7 +604,8 @@ __global__ void __launch_bounds__(THREADS) rollout_kernel(const DevArgs a) {
     }
     __syncthreads();
     if (a.with_v) {
-      tile_forward(nets, P, 1, 1, x, bufs, outs, a.hmax, a.activation);
+      tile_forward<ET_, GLOBAL_W>(nets, P, 1, 1, x, bufs, outs, a.hmax,
+                                   a.activation);
       if (live) a.next_value[row] = outs[1][tid];
     }
   }
@@ -461,15 +637,31 @@ __global__ void gumbel_max_kernel(const float* logits, int n, int K,
   idx[i] = gumbel_max(h, K, s0, s1, t, (uint32_t)i, &log_prob[i]);
 }
 
-template <class Lane>
-cudaError_t launch(const DevArgs& d, long smem, int blocks,
-                   cudaStream_t stream) {
+template <class Lane, int ET_, bool GLOBAL_W>
+cudaError_t launch(const DevArgs& d, long smem, cudaStream_t stream) {
+  auto kernel = rollout_kernel<Lane, ET_, GLOBAL_W>;
   cudaError_t err = cudaFuncSetAttribute(
-      rollout_kernel<Lane>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  rollout_kernel<Lane><<<blocks, THREADS, smem, stream>>>(d);
+  kernel<<<(d.E + ET_ - 1) / ET_, GLOBAL_W ? THREADS_L : THREADS, smem,
+           stream>>>(d);
   return cudaGetLastError();
+}
+
+// Calls f(Lane{}) for the lane with code `lane` (RolloutArgs::lane);
+// returns cudaErrorInvalidValue for an unknown code.
+template <class F>
+cudaError_t with_lane(int lane, F f) {
+  switch (lane) {
+    case 0: return f(PendulumLane{});
+    case 1: return f(CartPoleLane{});
+    case 2: return f(AcrobotLane{});
+    case 3: return f(SimpleLane{});
+    case 4: return f(MountainCarLane<false>{});
+    case 5: return f(MountainCarLane<true>{});
+    case 6: return f(ReacherLane{});
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -484,7 +676,9 @@ struct RolloutArgs {
   const float* steps0;
   const int* policy_dims;        // host arrays of n_layers + 1 widths
   const int* value_dims;
-  int lane;                      // 0 pendulum, 1 cartpole, 2 acrobot
+  int lane;     // 0 pendulum, 1 cartpole, 2 acrobot, 3 simple,
+                // 4 mountain_car, 5 mountain_car_norm, 6 reacher
+  int variant;  // 0: nets in shared memory, 1: nets in global memory
   int n_layers, act_dim, activation, T, E;
   uint32_t s0, s1;
   float gamma, lp0;
@@ -496,13 +690,15 @@ struct RolloutArgs {
 
 extern "C" int ppoc_rollout_args_size() { return (int)sizeof(RolloutArgs); }
 
-// Dynamic shared memory the rollout kernel needs, in bytes (or -1).
-static long rollout_smem(const DevArgs& d) {
+// Dynamic shared memory the rollout kernel needs in `variant`, in bytes.
+static long rollout_smem(const DevArgs& d, int variant) {
+  const long et = variant == 0 ? ET : ET_L;
   const int n_nets = d.with_v ? 2 : 1;
-  long floats = (long)d.net[0].dim[0] * ET;
+  long floats = (long)d.net[0].dim[0] * et;
   for (int n = 0; n < n_nets; ++n) {
     const Net& net = d.net[n];
-    floats += net.n_params + 2L * d.hmax * ET + (long)net.dim[net.n_layers] * ET;
+    floats += 2L * d.hmax * et + (long)net.dim[net.n_layers] * et;
+    if (variant == 0) floats += net.n_params;
   }
   return floats * (long)sizeof(float);
 }
@@ -520,23 +716,28 @@ static bool make_nets(DevArgs* d, const RolloutArgs* a) {
   return true;
 }
 
-extern "C" long ppoc_rollout_smem_bytes(const RolloutArgs* a) {
+// Dynamic shared memory of the launch in `variant` (0 or 1), or -1 for
+// nets the kernel refuses.
+extern "C" long ppoc_rollout_smem_bytes(const RolloutArgs* a, int variant) {
   DevArgs d{};
-  if (!make_nets(&d, a)) return -1;
-  return rollout_smem(d);
+  if (!make_nets(&d, a) || variant < 0 || variant > 1) return -1;
+  return rollout_smem(d, variant);
 }
 
 extern "C" int ppoc_rollout(const RolloutArgs* a, cudaStream_t stream) {
   DevArgs d{};
-  if (!make_nets(&d, a)) return cudaErrorInvalidValue;
-  const int obs_dim[3] = {PendulumLane::O, CartPoleLane::O, AcrobotLane::O};
-  const int classes[3] = {PendulumLane::K, CartPoleLane::K, AcrobotLane::K};
-  if (a->lane < 0 || a->lane > 2 || d.net[0].dim[0] != obs_dim[a->lane])
+  if (!make_nets(&d, a) || a->variant < 0 || a->variant > 1)
     return cudaErrorInvalidValue;
-  const int out = classes[a->lane] > 0 ? classes[a->lane] : a->act_dim;
-  if (a->act_dim < 1 || a->act_dim > MAX_ACT || out != a->act_dim ||
-      d.net[0].dim[a->n_layers] != out)
-    return cudaErrorInvalidValue;
+  const int n_out = d.net[0].dim[a->n_layers];
+  const cudaError_t shape = with_lane(a->lane, [&](auto lane) {
+    using Lane = decltype(lane);
+    const int out = Lane::K > 0 ? Lane::K : a->act_dim;
+    const bool ok = d.net[0].dim[0] == Lane::O && a->act_dim >= 1 &&
+                    a->act_dim <= MAX_ACT && out == a->act_dim &&
+                    n_out == out;
+    return ok ? cudaSuccess : cudaErrorInvalidValue;
+  });
+  if (shape != cudaSuccess) return shape;
   d.params[0] = a->policy_params;
   d.params[1] = a->value_params;
   d.log_std = a->log_std;
@@ -565,13 +766,12 @@ extern "C" int ppoc_rollout(const RolloutArgs* a, cudaStream_t stream) {
   d.steps_final = a->steps_final;
   d.metrics = a->metrics;
 
-  const long smem = rollout_smem(d);
-  const int blocks = (a->E + ET - 1) / ET;
-  switch (a->lane) {
-    case 0: return launch<PendulumLane>(d, smem, blocks, stream);
-    case 1: return launch<CartPoleLane>(d, smem, blocks, stream);
-    default: return launch<AcrobotLane>(d, smem, blocks, stream);
-  }
+  const long smem = rollout_smem(d, a->variant);
+  return with_lane(a->lane, [&](auto lane) {
+    using Lane = decltype(lane);
+    return a->variant == 0 ? launch<Lane, ET, false>(d, smem, stream)
+                           : launch<Lane, ET_L, true>(d, smem, stream);
+  });
 }
 
 extern "C" int ppoc_rng_bits(int32_t* out, int n, uint32_t s0, uint32_t s1,

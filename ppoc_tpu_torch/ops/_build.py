@@ -178,6 +178,30 @@ def stream_of(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+# the two variants of K1 and K5, by where the weights live during a launch
+VARIANTS = ("smem", "global")
+
+
+def pick_variant(sizes, optin: int, forced: Optional[str], what: str) -> int:
+    """Index into VARIANTS of the variant a launch takes: the first whose
+    dynamic shared memory (``sizes``, bytes, -1 if it refuses the shape)
+    fits in ``optin``, or the one ``forced`` names.  Raises if it does not
+    fit."""
+    fits = [0 <= n <= optin for n in sizes]
+    if forced is None:
+        if not any(fits):
+            raise ValueError(f"{what} needs {max(sizes)} B of shared memory "
+                             f"in every variant ({list(sizes)}); one block "
+                             f"holds at most {optin} B")
+        return fits.index(True)
+    i = VARIANTS.index(forced)
+    if not fits[i]:
+        raise ValueError(f"{what} needs {sizes[i]} B of shared memory in "
+                         f"the {forced!r} variant; one block holds at most "
+                         f"{optin} B")
+    return i
+
+
 def smem_optin(device) -> int:
     """Dynamic shared memory one block may opt in to on ``device``."""
     import torch

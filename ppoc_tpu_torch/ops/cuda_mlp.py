@@ -10,6 +10,11 @@ saved post-activation.  :class:`MLPForward` binds the two halves as a
 kernel, on a CPU tensor it runs its plain version.  The backward skips dX
 when autograd does not need it (``ctx.needs_input_grad``).
 
+Each half has two variants (``_build.VARIANTS``): the weights in one
+block's shared memory, or, for nets larger than that (the reacher regime's
+2x256), in global memory, staged a slice at a time.  The launch picks the
+first that fits, by size; the launch counts are kept per variant.
+
 K3/K4's plain versions (``cuda_update.py``) are built from the same plain
 forward and backward (:func:`forward_layers`, :func:`backward_layers`).
 """
@@ -25,6 +30,8 @@ from ppoc_tpu_torch.ops import _build
 
 fwd_launches = _build.LaunchCount("mlp_forward")
 bwd_launches = _build.LaunchCount("mlp_backward")
+fwd_global_launches = _build.LaunchCount("mlp_forward_global")
+bwd_global_launches = _build.LaunchCount("mlp_backward_global")
 
 _MAX_LAYERS = 8   # csrc/common.cuh MAX_LAYERS
 
@@ -108,7 +115,7 @@ class _MlpArgs(ctypes.Structure):
         ("partial", ctypes.c_void_p), ("grads", ctypes.c_void_p),
         ("dims", ctypes.POINTER(ctypes.c_int)),
         ("n_layers", ctypes.c_int), ("activation", ctypes.c_int),
-        ("B", ctypes.c_int),
+        ("B", ctypes.c_int), ("variant", ctypes.c_int),
     ]
 
 
@@ -120,7 +127,8 @@ def _declare() -> ctypes.CDLL:
             raise RuntimeError("MlpArgs layout differs between csrc/mlp.cu "
                                "and cuda_mlp.py")
         args = [ctypes.POINTER(_MlpArgs)]
-        lib.ppoc_mlp_sizes.argtypes = args + [ctypes.POINTER(ctypes.c_long)]
+        lib.ppoc_mlp_sizes.argtypes = args + [ctypes.c_int,
+                                              ctypes.POINTER(ctypes.c_long)]
         lib.ppoc_mlp_sizes.restype = ctypes.c_int
         for fn in (lib.ppoc_mlp_forward, lib.ppoc_mlp_backward):
             fn.argtypes = args + [ctypes.c_void_p]
@@ -129,8 +137,11 @@ def _declare() -> ctypes.CDLL:
     return lib
 
 
-def _args(params, x: torch.Tensor, hiddens, activation: str):
-    """Argument block, sizes and the host arrays it points to."""
+def _args(params, x: torch.Tensor, hiddens, activation: str,
+          variant=None):
+    """Argument block, the chosen variant's sizes and the host arrays it
+    points to.  The variant is the first whose forward and backward both
+    fit in shared memory, unless ``variant`` names one."""
     dev = x.device
     widths = mlp.dims(params)
     if not 1 <= len(widths) - 1 <= _MAX_LAYERS:
@@ -152,39 +163,42 @@ def _args(params, x: torch.Tensor, hiddens, activation: str):
     for i, h in enumerate(hiddens):
         args.hidden[i] = h.data_ptr()
     lib = _declare()
-    sizes = (ctypes.c_long * 4)()
-    if not lib.ppoc_mlp_sizes(ctypes.byref(args), sizes):
-        raise ValueError(f"K5 refuses widths {widths} at batch {x.shape[0]}")
-    optin = _build.smem_optin(dev)
-    if max(sizes[0], sizes[1]) > optin:
-        raise ValueError(
-            f"K5 needs {sizes[1]} B of shared memory for widths {widths}; "
-            f"one block holds at most {optin} B")
-    return lib, args, sizes, widths, (flat, dims)
+    sizes = [(ctypes.c_long * 4)() for _ in _build.VARIANTS]
+    for v, out in enumerate(sizes):
+        if not lib.ppoc_mlp_sizes(ctypes.byref(args), v, out):
+            raise ValueError(f"K5 refuses widths {widths} at batch "
+                             f"{x.shape[0]}")
+    args.variant = _build.pick_variant(
+        [max(n[0], n[1]) for n in sizes], _build.smem_optin(dev), variant,
+        f"K5 for widths {widths}")
+    return lib, args, sizes[args.variant], widths, (flat, dims)
 
 
-def mlp_forward_kernel(params, x: torch.Tensor, activation: str):
+def mlp_forward_kernel(params, x: torch.Tensor, activation: str,
+                       variant=None):
     """Launch K5's forward; same arguments and results as
-    mlp_forward_plain."""
+    mlp_forward_plain (``variant``: see :func:`_args`)."""
     widths = mlp.dims(params)
     f32 = dict(dtype=torch.float32, device=x.device)
     hiddens = [torch.empty(x.shape[0], d, **f32) for d in widths[1:-1]]
-    lib, args, _, _, keep = _args(params, x, hiddens, activation)
+    lib, args, _, _, keep = _args(params, x, hiddens, activation, variant)
     out = torch.empty(x.shape[0], widths[-1], **f32)
     args.out = out.data_ptr()
     _build.check(lib, lib.ppoc_mlp_forward(ctypes.byref(args),
                                            _build.stream_of(x.device)),
                  "K5 forward")
     del keep
-    fwd_launches.n += 1
+    (fwd_global_launches if args.variant else fwd_launches).n += 1
     return out, hiddens
 
 
 def mlp_backward_kernel(params, x: torch.Tensor, hiddens, g: torch.Tensor,
-                        activation: str, need_dx: bool = True):
+                        activation: str, need_dx: bool = True, variant=None):
     """Launch K5's backward (the tile kernel and the fixed-order sum of its
-    partials); same arguments and results as mlp_backward_plain."""
-    lib, args, sizes, widths, keep = _args(params, x, hiddens, activation)
+    partials); same arguments and results as mlp_backward_plain
+    (``variant``: see :func:`_args`)."""
+    lib, args, sizes, widths, keep = _args(params, x, hiddens, activation,
+                                           variant)
     dev = x.device
     _build.require(g, "output cotangent", (x.shape[0], widths[-1]),
                    device=dev)
@@ -198,7 +212,7 @@ def mlp_backward_kernel(params, x: torch.Tensor, hiddens, g: torch.Tensor,
                                             _build.stream_of(dev)),
                  "K5 backward")
     del keep
-    bwd_launches.n += 1
+    (bwd_global_launches if args.variant else bwd_launches).n += 1
     return mlp.unflatten(grads, widths), dx
 
 

@@ -1,11 +1,12 @@
 """K1: the whole-rollout kernel (``csrc/rollout.cu``) and its plain version.
 
-Counterpart of ``ppoc_tpu/ops/pallas_rollout.py`` ``rollout_fused`` for the
-pendulum, cartpole and acrobot lanes (:data:`LANES`, the port's own copy of
-those entries of the JAX package's ``LANE_ENVS``).  One launch runs all T
-steps: policy forward, sampling and log-prob (Box-Muller for a continuous
-lane; Gumbel-max over the class logits with an exact log-softmax for a
-discrete one), the lane's physics, termination, truncation and auto-reset,
+Counterpart of ``ppoc_tpu/ops/pallas_rollout.py`` ``rollout_fused`` for
+every lane of the JAX package's ``LANE_ENVS`` (:data:`LANES`, the port's
+own copy: pendulum, simple, cartpole, mountain_car, mountain_car_norm,
+acrobot, reacher).  One launch runs all T steps: policy forward,
+sampling and log-prob (Box-Muller for a continuous lane; Gumbel-max over
+the class logits with an exact log-softmax for a discrete one), the
+lane's physics, termination, truncation and auto-reset,
 plus either the value planes V(s), V(s') (``v_params``) or the
 completed-episode R/J sums (``return_metrics``).
 
@@ -20,18 +21,25 @@ uniforms.
 A CUDA tensor launches the kernel, a CPU tensor runs :func:`rollout_plain`,
 which repeats the kernel's arithmetic op for op in PyTorch (uint32
 arithmetic done in int64 with masks, products split so none overflows).
+The kernel has two variants: nets that fit in one block's shared memory
+stay there, larger ones (reacher's 2x256) are read from global memory
+over a wider env tile; the launch picks by size
+(``_build.pick_variant``).
+:func:`replay_plain` steps a lane's plain physics on recorded actions,
+the trajectory the kernel must have produced from them.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ppoc_tpu_torch.envs import acrobot as ac, cartpole as cp
-from ppoc_tpu_torch.envs import pendulum as pd
+from ppoc_tpu_torch.envs import mountain_car as mc, pendulum as pd
+from ppoc_tpu_torch.envs import reacher as rc, simple as sp
 from ppoc_tpu_torch.models import mlp
 from ppoc_tpu_torch.ops import _build
 
@@ -217,6 +225,88 @@ def _acrobot_step(s, act):
     return out, term - 1.0, term
 
 
+def _mountain_car_obs(norm: bool):
+    # the JAX lane's Python-float mid/half (pallas_rollout.py:200-209), not
+    # the float32 arrays of envs.wrappers.normalize_obs
+    mid_p = (mc.MAX_POSITION + mc.MIN_POSITION) / 2.0
+    half_p = (mc.MAX_POSITION - mc.MIN_POSITION) / 2.0
+
+    def obs(s):
+        pos, vel = s
+        if norm:
+            return [_div(pos - mid_p, half_p), _div(vel, mc.MAX_SPEED)]
+        return [pos, vel]
+
+    return obs
+
+
+def _mountain_car_step(s, act):
+    pos, vel = s
+    force = torch.clamp(act[0], -1.0, 1.0)
+    vel2 = torch.clamp(vel + force * mc.POWER
+                       - 0.0025 * torch.cos(3.0 * pos),
+                       -mc.MAX_SPEED, mc.MAX_SPEED)
+    pos2 = torch.clamp(pos + vel2, mc.MIN_POSITION, mc.MAX_POSITION)
+    vel2 = torch.where((pos2 <= mc.MIN_POSITION) & (vel2 < 0.0),
+                       torch.zeros_like(vel2), vel2)
+    term = ((pos2 >= mc.GOAL_POSITION)
+            & (vel2 >= mc.GOAL_VELOCITY)).to(torch.float32)
+    return [pos2, vel2], term * 100.0 - 0.1 * act[0] * act[0], term
+
+
+def _reacher_tip(q1, q2):
+    return (rc.L1 * torch.cos(q1) + rc.L2 * torch.cos(q1 + q2),
+            rc.L1 * torch.sin(q1) + rc.L2 * torch.sin(q1 + q2))
+
+
+def _reacher_reset(rand):
+    q1 = -math.pi + _TWO_PI * rand(0)
+    q2 = -math.pi + _TWO_PI * rand(1)
+    radius = 0.1 + (0.9 * (rc.L1 + rc.L2) - 0.1) * rand(2)
+    angle = -math.pi + _TWO_PI * rand(3)
+    z = torch.zeros_like(q1)
+    return [q1, q2, z, z, radius * torch.cos(angle), radius * torch.sin(angle)]
+
+
+def _reacher_obs(s):
+    q1, q2, qd1, qd2, tx, ty = s
+    tx_, ty_ = _reacher_tip(q1, q2)
+    return [torch.cos(q1), torch.cos(q2), torch.sin(q1), torch.sin(q2),
+            _div(qd1, rc.MAX_SPEED), _div(qd2, rc.MAX_SPEED), tx, ty,
+            tx_ - tx, ty_ - ty]
+
+
+def _reacher_step(s, act):
+    q1, q2, qd1, qd2, tx, ty = s
+    u1 = torch.clamp(act[0], -rc.MAX_TORQUE, rc.MAX_TORQUE)
+    u2 = torch.clamp(act[1], -rc.MAX_TORQUE, rc.MAX_TORQUE)
+    qd1n = torch.clamp(qd1 + (rc.ACCEL_GAIN * u1 - rc.DAMPING * qd1) * rc.DT,
+                       -rc.MAX_SPEED, rc.MAX_SPEED)
+    qd2n = torch.clamp(qd2 + (rc.ACCEL_GAIN * u2 - rc.DAMPING * qd2) * rc.DT,
+                       -rc.MAX_SPEED, rc.MAX_SPEED)
+    q1n, q2n = q1 + qd1n * rc.DT, q2 + qd2n * rc.DT
+    tx_, ty_ = _reacher_tip(q1n, q2n)
+    dist = torch.sqrt(torch.square(tx_ - tx) + torch.square(ty_ - ty))
+    reward = -dist - 0.01 * (u1 * u1 + u2 * u2)
+    return [q1n, q2n, qd1n, qd2n, tx, ty], reward, torch.zeros_like(q1)
+
+
+def _simple_step(s, act):
+    x = s[0] + torch.clamp(act[0], -1.0, 1.0)
+    term = (x >= 5.0).to(torch.float32)
+    return [x], term, term                  # reward 1 iff terminated
+
+
+def _mountain_car_lane(code: int, norm: bool) -> Lane:
+    return Lane(
+        code, 2, 2, 0, mc.HORIZON,
+        reset=lambda rand: [-0.6 + 0.2 * rand(0), torch.zeros_like(rand(0))],
+        obs=_mountain_car_obs(norm),
+        step=_mountain_car_step,
+        pack=lambda st: (torch.stack([st.position, st.velocity], 1), st.t),
+        unpack=lambda m, t: mc.MountainCarState(m[:, 0], m[:, 1], t))
+
+
 LANES: Dict[str, Lane] = {
     "pendulum": Lane(
         0, 2, 3, 0, pd.HORIZON,
@@ -241,15 +331,37 @@ LANES: Dict[str, Lane] = {
         step=_acrobot_step,
         pack=lambda st: (st.s, st.t),
         unpack=lambda m, t: ac.AcrobotState(m, t)),
+    "simple": Lane(
+        3, 1, 1, 0, sp.HORIZON,
+        reset=lambda rand: [torch.zeros_like(rand(0))],
+        obs=list,
+        step=_simple_step,
+        pack=lambda st: (st.s[:, None], st.t),
+        unpack=lambda m, t: sp.SimpleState(m[:, 0], t)),
+    "mountain_car": _mountain_car_lane(4, False),
+    "mountain_car_norm": _mountain_car_lane(5, True),
+    "reacher": Lane(
+        6, 6, 10, 0, rc.HORIZON,
+        reset=_reacher_reset,
+        obs=_reacher_obs,
+        step=_reacher_step,
+        pack=lambda st: (torch.cat([st.q, st.qd, st.target], 1), st.t),
+        unpack=lambda m, t: rc.ReacherState(m[:, 0:2], m[:, 2:4], m[:, 4:6],
+                                            t)),
 }
 SUPPORTED = frozenset(LANES)
 
-# one launch count per lane and mode: the kernel is one template, run per
-# lane, with the V planes ("values", the training rollouts) or with the
-# completed-episode sums ("metrics", the evaluation rollouts)
+# one launch count per lane and mode for each variant: the kernel is one
+# template, run per lane, with the V planes ("values", the training
+# rollouts) or with the completed-episode sums ("metrics", the evaluation
+# rollouts), with the nets in shared memory (lane_launches) or in global
+# memory (global_launches)
 MODES = ("values", "metrics")
 lane_launches = {(name, mode): _build.LaunchCount(f"rollout[{name}]/{mode}")
                  for name in LANES for mode in MODES}
+global_launches = {
+    (name, mode): _build.LaunchCount(f"rollout_global[{name}]/{mode}")
+    for name in LANES for mode in MODES}
 
 
 # --- raw outputs shared by the kernel and the plain version ---------------
@@ -288,6 +400,33 @@ def _outputs(ln: Lane, A: int, T: int, E: int, with_v: bool,
         steps_final=torch.empty(E, **f32), metrics=torch.empty(3, E, **f32))
 
 
+def _entry(ln: Lane, s0: int, s1: int, lanes, st0, steps0):
+    """The lane state rows and step counts a rollout starts from: the entry
+    reset (draws 50 + j at T_INIT) or the carried ``st0``/``steps0``."""
+    if st0 is None:
+        rows = ln.reset(lambda j: uniform01(s0, s1, T_INIT, 50 + j, lanes))
+        return rows, torch.zeros(lanes.shape[0], dtype=torch.float32,
+                                 device=lanes.device)
+    return [st0[:, d].clone() for d in range(ln.state_dim)], steps0.clone()
+
+
+def _advance(ln: Lane, s0: int, s1: int, t: int, lanes, rows, steps,
+             act_rows):
+    """Step t of the lane on actions ``act_rows``: physics, horizon
+    truncation and auto-reset with draws 50 + j at step t.  Returns
+    (successor rows, reward, term, trunc, done, rows and steps the next
+    step starts from)."""
+    new_rows, reward, term = ln.step(rows, act_rows)
+    steps2 = steps + 1.0
+    trunc = torch.clamp_min(
+        (steps2 >= ln.horizon).to(torch.float32) - term, 0.0)
+    done = torch.maximum(term, trunc)
+    fresh = ln.reset(lambda j: uniform01(s0, s1, t, 50 + j, lanes))
+    rows = [torch.where(done > 0, f, n) for f, n in zip(fresh, new_rows)]
+    steps = torch.where(done > 0, torch.zeros_like(steps), steps2)
+    return new_rows, reward, term, trunc, done, rows, steps
+
+
 def rollout_plain(params, log_std: Optional[torch.Tensor], v_params, seed,
                   n_envs: int, length: int, activation: str = "relu",
                   st0: Optional[torch.Tensor] = None,
@@ -302,16 +441,7 @@ def rollout_plain(params, log_std: Optional[torch.Tensor], v_params, seed,
     discrete = ln.n_actions > 0
     A = 1 if discrete else log_std.shape[0]
     lanes = torch.arange(E, dtype=torch.int64, device=dev)
-
-    def draws(t):
-        return lambda j: uniform01(s0, s1, t, 50 + j, lanes)
-
-    if st0 is None:
-        rows = ln.reset(draws(T_INIT))
-        steps = torch.zeros(E, dtype=torch.float32, device=dev)
-    else:
-        rows = [st0[:, d].clone() for d in range(ln.state_dim)]
-        steps = steps0.clone()
+    rows, steps = _entry(ln, s0, s1, lanes, st0, steps0)
     racc, jacc = torch.zeros_like(steps), torch.zeros_like(steps)
     gpow = torch.ones_like(steps)
     with_v = v_params is not None
@@ -344,18 +474,15 @@ def rollout_plain(params, log_std: Optional[torch.Tensor], v_params, seed,
                 out.action[t, :, j] = a
             act_rows = list(out.action[t].unbind(1))
         out.log_prob[t] = lp
-        new_rows, reward, term = ln.step(rows, act_rows)
+        new_rows, reward, term, trunc, done, rows, steps = _advance(
+            ln, s0, s1, t, lanes, rows, steps, act_rows)
         out.reward[t] = reward
-        steps2 = steps + 1.0
-        trunc = torch.clamp_min(
-            (steps2 >= ln.horizon).to(torch.float32) - term, 0.0)
         out.terminated[t] = term > 0
         out.truncated[t] = trunc > 0
         nob = torch.stack(ln.obs(new_rows), dim=-1)
         out.next_obs[t] = nob
         if with_v:
             out.next_value[t] = mlp.apply(v_params, nob, activation)[:, 0]
-        done = torch.maximum(term, trunc)
         racc2 = racc + reward
         jacc2 = jacc + gpow * reward
         out.metrics[0] += done * racc2
@@ -364,11 +491,39 @@ def rollout_plain(params, log_std: Optional[torch.Tensor], v_params, seed,
         racc = (1.0 - done) * racc2
         jacc = (1.0 - done) * jacc2
         gpow = torch.where(done > 0, torch.ones_like(gpow), gpow * gamma)
-        reset = ln.reset(draws(t))
-        rows = [torch.where(done > 0, f, n) for f, n in zip(reset, new_rows)]
-        steps = torch.where(done > 0, torch.zeros_like(steps), steps2)
     out.st_final.copy_(torch.stack(rows, dim=1))
     out.steps_final.copy_(steps)
+    return out
+
+
+def replay_plain(lane: str, action: torch.Tensor, seed,
+                 st0: Optional[torch.Tensor] = None,
+                 steps0: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+    """The lane's plain physics stepped on recorded actions ``action``
+    [T, E, A] (float32; a discrete lane's class ids as they are) with the
+    rollout's resets: what a rollout that drew these actions must have
+    recorded.  Returns {"obs", "next_obs", "reward", "terminated",
+    "truncated", "st_final", "steps_final"}; the kernel's physics rounds as
+    these PyTorch ops do, so on the card the two agree bit for bit."""
+    ln = LANES[lane]
+    s0, s1 = seed[0] & _M32, seed[1] & _M32
+    T, E = action.shape[:2]
+    lanes = torch.arange(E, dtype=torch.int64, device=action.device)
+    rows, steps = _entry(ln, s0, s1, lanes, st0, steps0)
+    cols = {k: [] for k in ("obs", "next_obs", "reward", "terminated",
+                            "truncated")}
+    for t in range(T):
+        cols["obs"].append(torch.stack(ln.obs(rows), dim=-1))
+        act_rows = list(action[t].to(torch.float32).unbind(1))
+        new_rows, reward, term, trunc, _, rows, steps = _advance(
+            ln, s0, s1, t, lanes, rows, steps, act_rows)
+        cols["next_obs"].append(torch.stack(ln.obs(new_rows), dim=-1))
+        cols["reward"].append(reward)
+        cols["terminated"].append(term > 0)
+        cols["truncated"].append(trunc > 0)
+    out = {k: torch.stack(v) for k, v in cols.items()}
+    out["st_final"] = torch.stack(rows, dim=1)
+    out["steps_final"] = steps
     return out
 
 
@@ -382,7 +537,7 @@ class _RolloutArgs(ctypes.Structure):
         ("steps0", ctypes.c_void_p),
         ("policy_dims", ctypes.POINTER(ctypes.c_int)),
         ("value_dims", ctypes.POINTER(ctypes.c_int)),
-        ("lane", ctypes.c_int),
+        ("lane", ctypes.c_int), ("variant", ctypes.c_int),
         ("n_layers", ctypes.c_int), ("act_dim", ctypes.c_int),
         ("activation", ctypes.c_int), ("T", ctypes.c_int), ("E", ctypes.c_int),
         ("s0", ctypes.c_uint32), ("s1", ctypes.c_uint32),
@@ -405,7 +560,7 @@ def _declare() -> ctypes.CDLL:
             raise RuntimeError("RolloutArgs layout differs between "
                                "csrc/rollout.cu and cuda_rollout.py")
         args = [ctypes.POINTER(_RolloutArgs)]
-        lib.ppoc_rollout_smem_bytes.argtypes = args
+        lib.ppoc_rollout_smem_bytes.argtypes = args + [ctypes.c_int]
         lib.ppoc_rollout_smem_bytes.restype = ctypes.c_long
         lib.ppoc_rollout.argtypes = args + [ctypes.c_void_p]
         lib.ppoc_rollout.restype = ctypes.c_int
@@ -454,8 +609,12 @@ def rollout_kernel(params, log_std: Optional[torch.Tensor], v_params, seed,
                    n_envs: int, length: int, activation: str = "relu",
                    st0: Optional[torch.Tensor] = None,
                    steps0: Optional[torch.Tensor] = None,
-                   gamma: float = 0.99, lane: str = "pendulum") -> RawRollout:
-    """Launch the kernel; same arguments and results as rollout_plain."""
+                   gamma: float = 0.99, lane: str = "pendulum",
+                   variant: Optional[str] = None) -> RawRollout:
+    """Launch the kernel; same arguments and results as rollout_plain.
+    The variant (``_build.VARIANTS``: the nets in shared memory, or in
+    global memory) is the first whose shared memory fits, unless
+    ``variant`` names one."""
     ln = LANES[lane]
     E, T = n_envs, length
     widths = mlp.dims(params)
@@ -491,7 +650,7 @@ def rollout_kernel(params, log_std: Optional[torch.Tensor], v_params, seed,
     discrete = ln.n_actions > 0
     args = _RolloutArgs(
         p(flat), p(vflat), None if discrete else p(log_std), p(st0),
-        p(steps0), pdims, vdims, ln.code, len(widths) - 1, A,
+        p(steps0), pdims, vdims, ln.code, 0, len(widths) - 1, A,
         _build.ACTIVATIONS[activation], T, E, seed[0] & _M32, seed[1] & _M32,
         gamma, -0.5 * A * math.log(_TWO_PI),
         p(out.obs), p(out.next_obs), None if discrete else p(out.action),
@@ -500,16 +659,19 @@ def rollout_kernel(params, log_std: Optional[torch.Tensor], v_params, seed,
         p(out.truncated), p(out.st_final), p(out.steps_final),
         p(out.metrics))
     lib = _declare()
-    smem = lib.ppoc_rollout_smem_bytes(ctypes.byref(args))
-    if smem < 0 or smem + 1024 > _build.smem_optin(dev):
-        raise ValueError(
-            f"rollout kernel needs {smem} B of shared memory for nets "
-            f"{widths}/{vwidths}; more than one block can hold")
+    # 1 KB of the block's shared memory is static (the nets' shapes)
+    sizes = [lib.ppoc_rollout_smem_bytes(ctypes.byref(args), v)
+             for v in range(len(_build.VARIANTS))]
+    sizes = [n + 1024 if n >= 0 else n for n in sizes]
+    args.variant = _build.pick_variant(
+        sizes, _build.smem_optin(dev), variant,
+        f"rollout kernel for nets {widths}/{vwidths}")
     _build.check(lib, lib.ppoc_rollout(ctypes.byref(args),
                                        _build.stream_of(dev)),
                  "rollout kernel")
     mode = "values" if v_params is not None else "metrics"
-    lane_launches[lane, mode].n += 1
+    counts = global_launches if args.variant else lane_launches
+    counts[lane, mode].n += 1
     return out
 
 
@@ -529,8 +691,7 @@ def rollout_fused(env_name: str, policy_params, seed, n_envs: int,
         raise ValueError("return_metrics and v_params are mutually exclusive")
     if env_name not in SUPPORTED:
         raise NotImplementedError(
-            f"the {env_name!r} rollout lane is not ported yet "
-            f"(ported: {sorted(SUPPORTED)})")
+            f"no rollout lane for {env_name!r} (lanes: {sorted(SUPPORTED)})")
     ln = LANES[env_name]
     params = policy_params["mlp"]
     st0 = steps0 = None

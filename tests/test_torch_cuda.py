@@ -277,7 +277,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     r = torch.zeros(8, 4, device=dev).t()
     with pytest.raises(ValueError, match="contiguous"):
         cuda_gae.gae_norm_kernel(r, r, r, r.bool(), r.bool(), 0.99, 0.95)
-    big = PPOConfig(env="pendulum", hidden=(256, 256))
+    # past both variants: the activation tiles alone exceed shared memory
+    big = PPOConfig(env="pendulum", hidden=(512, 512))
     tsb = ppo.init_train_state(big, ENV, torch.Generator().manual_seed(0), dev)
     with pytest.raises(ValueError, match="shared memory"):
         cr.rollout_kernel(tsb.policy_params["mlp"],
@@ -364,9 +365,211 @@ def test_mlp_pallas_backend_on_cuda_launches_k5(dev):
 
 
 def test_mlp_kernel_refuses_a_net_over_shared_memory(dev):
+    """Past both variants: at width 512 even the global-memory variant's
+    activation tiles and weight slice exceed one block's shared memory."""
     params, x, _ = _mlp_case(dev, (3, 512, 512, 1), 4)
     with pytest.raises(ValueError, match="shared memory"):
         cuda_mlp.mlp_forward_kernel(params, x, "relu")
+
+
+# --- K1's last four lanes, and K1 and K5 for nets past shared memory ---------
+# The new lanes' physics rounds as PyTorch's ops do (__fmul_rn), so
+# replay_plain on the kernel's own actions reproduces its trajectory bit
+# for bit; the draws are held to the plain rollout where the two policies'
+# forwards (kernel loop against cuBLAS) still agree to ~1e-6.
+
+NEW_LANES = ("simple", "mountain_car", "mountain_car_norm", "reacher")
+H100_OPTIN = 232448   # the H100's opt-in shared memory per block
+
+
+def _check_lane(raw, ref, lane, pp, vp, seed, steps):
+    assert torch.equal(raw.obs[0], ref.obs[0])        # the entry reset
+    torch.testing.assert_close(raw.action[:steps], ref.action[:steps],
+                               rtol=1e-4, atol=1e-5)
+    rep = cr.replay_plain(lane, raw.action, seed)
+    for key in ("obs", "next_obs", "reward", "terminated", "truncated",
+                "st_final", "steps_final"):
+        assert torch.equal(rep[key], getattr(raw, key)), key
+    mu = mlp.apply(pp["mlp"], raw.obs, "relu")
+    torch.testing.assert_close(
+        policy.gaussian_log_prob_from_mean(mu, pp["log_std"], raw.action),
+        raw.log_prob, rtol=1e-4, atol=1e-4)
+    if vp is not None:
+        torch.testing.assert_close(mlp.apply(vp, raw.obs, "relu")[..., 0],
+                                   raw.value, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(
+            mlp.apply(vp, raw.next_obs, "relu")[..., 0], raw.next_value,
+            rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("lane", NEW_LANES)
+@pytest.mark.parametrize("variant", ["smem", "global"])
+def test_rollout_new_lane_matches_plain(dev, lane, variant):
+    ts = _state(dev, (16, 16), env=lane)
+    pp, vp = ts.policy_params, ts.v_params
+    seed, E, T = (7, 0x2545F491), 40, 60
+    args = (pp["mlp"], pp["log_std"], vp, seed, E, T, "relu", None, None,
+            0.99, lane)
+    raw = cr.rollout_kernel(*args, variant=variant)
+    _check_lane(raw, cr.rollout_plain(*args), lane, pp, vp, seed, 4)
+    if lane == "simple":
+        assert raw.truncated.any()
+    m = cr.rollout_kernel(*args[:2], None, *args[3:], variant=variant)
+    traj = ppo.Transition(m.obs, m.action, m.log_prob, m.next_obs, m.reward,
+                          m.terminated, m.truncated)
+    want = ppo.eval_metrics_from_traj(traj, 0.99)
+    n = m.metrics[2].sum()
+    assert float(n) == float(want.episodes)
+    if float(n):
+        torch.testing.assert_close(m.metrics[0].sum() / n, want.R,
+                                   rtol=1e-5, atol=1e-6)
+
+
+def test_mountain_car_kernel_terminates_on_the_last_step(dev):
+    """Cars carried to the goal's doorstep reach it on their 999th step,
+    the window's last: terminated, not truncated, and reset."""
+    ts = _state(dev, (16, 16), env="mountain_car")
+    pp = ts.policy_params
+    E = 16
+    st0 = torch.tensor([[0.3, 0.07], [-0.9, 0.0]] * (E // 2), device=dev)
+    steps0 = torch.full((E,), 996.0, device=dev)
+    args = (pp["mlp"], pp["log_std"], None, (1, 2), E, 3, "relu", st0,
+            steps0, 0.99, "mountain_car")
+    raw = cr.rollout_kernel(*args)
+    assert raw.terminated[2, 0::2].all() and not raw.terminated[:2].any()
+    assert raw.truncated[2, 1::2].all() and not raw.truncated[2, 0::2].any()
+    assert (raw.steps_final == 0).all()
+    rep = cr.replay_plain("mountain_car", raw.action, (1, 2), st0, steps0)
+    for key in ("obs", "next_obs", "reward", "terminated", "truncated",
+                "st_final"):
+        assert torch.equal(rep[key], getattr(raw, key)), key
+
+
+def test_rollout_global_variant_at_2x256(dev):
+    """Reacher with its regime's 2x256 nets: past one block's shared
+    memory, so the launch takes the global-memory variant by size."""
+    ts = _state(dev, (256, 256), env="reacher")
+    pp, vp = ts.policy_params, ts.v_params
+    seed = (3, 0x632BE59B)
+    args = (pp["mlp"], pp["log_std"], vp, seed, 70, 24, "relu", None, None,
+            0.99, "reacher")
+    n_s = cr.lane_launches["reacher", "values"].n
+    n_g = cr.global_launches["reacher", "values"].n
+    raw = cr.rollout_kernel(*args)
+    assert cr.global_launches["reacher", "values"].n == n_g + 1
+    assert cr.lane_launches["reacher", "values"].n == n_s
+    _check_lane(raw, cr.rollout_plain(*args), "reacher", pp, vp, seed, 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        cr.rollout_kernel(*args, variant="smem")
+
+
+@pytest.mark.parametrize("lane", ["pendulum", "reacher", "cartpole"])
+def test_rollout_variants_give_the_same_bits(dev, lane):
+    """On nets both variants take, the global-memory variant sums each unit
+    in the same order as the shared-memory one: equal outputs."""
+    ts = _state(dev, (64, 64), env=lane)
+    pp = ts.policy_params
+    for vp in (ts.v_params, None):
+        args = (pp["mlp"], pp.get("log_std"), vp, (5, 6), 45, 30, "relu",
+                None, None, 0.99, lane)
+        a = cr.rollout_kernel(*args, variant="smem")
+        b = cr.rollout_kernel(*args, variant="global")
+        for x, y in zip(a, b):
+            assert (x is None and y is None) or torch.equal(x, y)
+
+
+def test_variant_is_chosen_by_size(dev):
+    """K1 (pendulum, policy and value [3,h,h,1]) and K5 ([3,h,h,1]): the
+    largest nets that fit one block's shared memory take it, one unit
+    wider take the global-memory variant.  At the H100's 232,448 B: K1's
+    shared-memory variant needs 4 (2h^2 + 44h + 42) + 1024 B (h 159 fits,
+    160 does not), K5's backward 4 (h^2 + 200h + 4) B (160 fits, 161 not)."""
+    from ppoc_tpu_torch.ops import _build
+
+    if _build.smem_optin(dev) != H100_OPTIN:
+        pytest.skip("the boundary widths are the H100's")
+    for h, counts in ((159, cr.lane_launches), (160, cr.global_launches)):
+        ts = _state(dev, (h, h))
+        before = counts["pendulum", "values"].n
+        cr.rollout_kernel(ts.policy_params["mlp"],
+                          ts.policy_params["log_std"], ts.v_params, (1, 1),
+                          8, 2)
+        assert counts["pendulum", "values"].n == before + 1, h
+    for h, fwd, bwd in ((160, cuda_mlp.fwd_launches, cuda_mlp.bwd_launches),
+                        (161, cuda_mlp.fwd_global_launches,
+                         cuda_mlp.bwd_global_launches)):
+        params, x, ct = _mlp_case(dev, (3, h, h, 1), 100)
+        f0, b0 = fwd.n, bwd.n
+        _, hid = cuda_mlp.mlp_forward_kernel(params, x, "relu")
+        cuda_mlp.mlp_backward_kernel(params, x, hid, ct, "relu")
+        assert (fwd.n, bwd.n) == (f0 + 1, b0 + 1), h
+
+
+@pytest.mark.parametrize("sizes,batch,activation", [
+    ((10, 256, 256, 1), 512, "relu"), ((10, 256, 256, 2), 512, "relu"),
+    ((10, 256, 256, 2), 37, "tanh"), ((3, 200, 300, 70, 1), 129, "relu")])
+def test_mlp_global_variant_matches_plain(dev, sizes, batch, activation):
+    """K5 for nets past shared memory: forward (output and hiddens) and
+    backward (dW, db, dX), ragged tiles and slices included; the backward
+    twice, bit for bit."""
+    params, x, ct = _mlp_case(dev, sizes, batch)
+    f0 = cuda_mlp.fwd_global_launches.n
+    out, hid = cuda_mlp.mlp_forward_kernel(params, x, activation)
+    assert cuda_mlp.fwd_global_launches.n == f0 + 1
+    out_p, hid_p = cuda_mlp.mlp_forward_plain(params, x, activation)
+    torch.testing.assert_close(out, out_p, **TOL)
+    for a, b in zip(hid, hid_p):
+        torch.testing.assert_close(a, b, **TOL)
+    grads, dx = cuda_mlp.mlp_backward_kernel(params, x, hid_p, ct,
+                                             activation)
+    again, dx2 = cuda_mlp.mlp_backward_kernel(params, x, hid_p, ct,
+                                              activation)
+    grads_p, dx_p = cuda_mlp.mlp_backward_plain(params, x, hid_p, ct,
+                                                activation)
+    _close_grads([t for pr in grads for t in pr] + [dx],
+                 [t for pr in grads_p for t in pr] + [dx_p])
+    assert torch.equal(mlp.flatten(grads), mlp.flatten(again))
+    assert torch.equal(dx, dx2)
+
+
+def test_mlp_variants_agree(dev):
+    """On a net both variants take: the forward and dX are the same bits
+    (each output summed in the same order); dW/db group rows by 32-row
+    tiles instead of 64, so they agree to rounding."""
+    params, x, ct = _mlp_case(dev, (10, 64, 64, 2), 300, seed=3)
+    out_s, hid_s = cuda_mlp.mlp_forward_kernel(params, x, "relu", "smem")
+    out_g, hid_g = cuda_mlp.mlp_forward_kernel(params, x, "relu", "global")
+    assert torch.equal(out_s, out_g)
+    assert all(torch.equal(a, b) for a, b in zip(hid_s, hid_g))
+    gs, dxs = cuda_mlp.mlp_backward_kernel(params, x, hid_s, ct, "relu",
+                                           variant="smem")
+    gg, dxg = cuda_mlp.mlp_backward_kernel(params, x, hid_s, ct, "relu",
+                                           variant="global")
+    assert torch.equal(dxs, dxg)
+    _close_grads([t for pr in gg for t in pr], [t for pr in gs for t in pr])
+
+
+def test_trainer_on_cuda_reacher_regime_in_small(dev):
+    """The reacher regime's path at 2x256 nets and a small batch: K1's
+    reacher lane in global memory (V planes, then metrics), K2, and K5's
+    global-memory variant per generic minibatch step; no K3/K4."""
+    counters = [cr.global_launches["reacher", "values"],
+                cr.global_launches["reacher", "metrics"], cuda_gae.launches,
+                cuda_mlp.fwd_global_launches, cuda_mlp.bwd_global_launches,
+                cuda_mlp.fwd_launches, cu.value_launches, cu.policy_launches]
+    cfg = PPOConfig(env="reacher", n_envs=128, rollout_len=64,
+                    minibatch_size=4096, shuffle_block=1024,
+                    fits_per_epoch=1, n_epochs_value=2, n_epochs_policy=1,
+                    eval_envs=16, eval_len=150, hidden=(256, 256),
+                    kernel_backend="pallas")
+    tr = Trainer(cfg)
+    before = [c.n for c in counters]
+    fit = tr.train_epoch()
+    ev = tr.evaluate()
+    # 2 x 2 value + 1 x 2 policy minibatch steps
+    assert [c.n - b for c, b in zip(counters, before)] == [1, 1, 1, 6, 6, 0,
+                                                           0, 0]
+    assert torch.isfinite(fit.entropy) and ev.episodes == 16
 
 
 def test_trainer_on_cuda_throughput_path(dev):

@@ -173,5 +173,7 @@ def test_plain_rollout_sampling_is_standard_normal():
 
 
 def test_rollout_refuses_unported_lane():
-    with pytest.raises(NotImplementedError, match="reacher"):
-        cuda_rollout.rollout_fused("reacher", TS.policy_params, (0, 0), E, T)
+    """Every lane of the JAX registry is ported; a name that has a lane in
+    neither package is refused by name."""
+    with pytest.raises(NotImplementedError, match="recall"):
+        cuda_rollout.rollout_fused("recall", TS.policy_params, (0, 0), E, T)

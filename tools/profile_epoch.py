@@ -1,6 +1,6 @@
 """Profile one training epoch on the card.
 
-    python3 tools/profile_epoch.py [--config bench|throughput]
+    python3 tools/profile_epoch.py [--config bench|throughput|reacher]
 
 Needs a CUDA device.  ``bench`` (the default) is bench.py's bench_config:
 three warm epochs, each with its stochastic evaluation, timed without the
@@ -8,7 +8,10 @@ profiler; then one more under torch.profiler; then K3's microseconds per
 minibatch step (100-step phases) at mb 256/128/64 with hidden 128 and at
 hidden 64/32 with mb 256.  ``throughput`` is tpu_preset("pendulum"): three
 warm training epochs and three evaluate(deterministic=True) timed alone,
-then one of each under the profiler.  Each profiled window prints its wall
+then one of each under the profiler.  ``reacher`` is the reacher regime
+(chip_smoke.REACHER: 4096 envs x 150, minibatch 16384 in blocks of 4096,
+2x256 nets): one warm epoch, then three training epochs timed alone and
+one under the profiler.  Each profiled window prints its wall
 time, summed device-kernel time, the count of device kernels and each
 kernel's share of device time, and the device's idle share two ways: 1 -
 device time / the mean unprofiled wall of the same window (the path's own
@@ -64,13 +67,13 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--config", choices=["bench", "throughput"],
+    ap.add_argument("--config", choices=["bench", "throughput", "reacher"],
                     default="bench")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
-    from ppoc_tpu_torch import tpu_preset
+    from ppoc_tpu_torch import PPOConfig, tpu_preset
     from ppoc_tpu_torch.algo.trainer import Trainer
     from ppoc_tpu_torch.models import mlp
     from ppoc_tpu_torch.ops import cuda_update as cu
@@ -78,8 +81,10 @@ def main() -> int:
 
     print(cs.card_line(), flush=True)
     dev = torch.device("cuda", 0)
-    throughput = args.config == "throughput"
-    tr = Trainer(tpu_preset("pendulum") if throughput else cs.bench_config())
+    throughput = args.config != "bench"
+    tr = Trainer({"bench": cs.bench_config,
+                  "throughput": lambda: tpu_preset("pendulum"),
+                  "reacher": lambda: PPOConfig(**cs.REACHER)}[args.config]())
 
     def epoch():
         t = time.perf_counter()
@@ -101,6 +106,8 @@ def main() -> int:
     print(f"{what} wall, no profiler (s):", [round(w, 4) for w in walls],
           flush=True)
     profiled(what, epoch, walls)
+    if args.config == "reacher":
+        return 0
     if throughput:
         det_eval()
         walls = [det_eval() for _ in range(3)]
