@@ -90,6 +90,22 @@
    must solve; by the rule declared before any run, if it misses seeds 1
    and 2 run and must both solve; R per epoch, the solve epoch, the wall
    and the launches against the config's.
+17. K3, K4 and K6 with the nets in global memory (past one block's shared
+   memory): K3 and K4 on REACHER_REF's rows (the reference schedule at
+   2x256: [10,256,256,1] for 460 steps and [10,256,256,2], two action
+   dims, for 184, minibatch 64), K3 and K6 on CARTPOLE_WIDE's rows
+   ([4,256,256,1], [4,256,256,2]), each as the bench's phases are held
+   (each step from the kernel's state against float64, chained launches
+   against one launch bit for bit, the whole phase within its
+   WHOLE_RATIO row) and launched in its global-memory variant; K3 for 20
+   steps at minibatch 2048, the fused gate's edge, against the plain
+   version; each timed beside its plain version.
+18. The two 2x256 paths under the fused gate: REACHER_REF for 3 epochs
+   by phase (eval R up by more than 5) and CARTPOLE_WIDE's
+   solve(475, max_epochs=10), which must solve; each phase's launches
+   held to the config's (a fit: one K1 rollout with the V planes and one
+   K3 and one K4 or K6, all in global memory, one K2; an evaluation one
+   K1 rollout with the metrics; no shared-memory phase kernel).
 
 Each phase's title line gives the seconds since the script started.
 Any failed check raises, so the script exits non-zero.  The last two lines
@@ -102,8 +118,9 @@ the H100 SXM's FP32 and memory peaks;
 "launches" come from the path's run: K1 counts its launches per lane and
 per mode, with the V planes (training) and with the metrics (evaluation),
 and per variant (``rollout[lane]``: the nets in shared memory;
-``rollout_global[lane]``: in global memory), K5 per variant
-(``mlp_forward``, ``mlp_forward_global``);
+``rollout_global[lane]``: in global memory), K3, K4, K6 and K5 per
+variant (``value_phase``, ``value_phase_global``, ``mlp_forward``,
+``mlp_forward_global``, ...);
 K7's are read around each phase of the recall_xl run, so the value
 pass's forwards (B 32) and the update phases' (B 4) are counted apart.
 For K7's backward kernels "plain_ms" is autograd through the plain
@@ -144,6 +161,12 @@ KERNELS = {
                      "ppoc_tpu/ops/pallas_update.py:749"),
     "policy_phase_categorical": ("ppoc_tpu_torch/csrc/update.cu",
                                  "ppoc_tpu/ops/pallas_update.py:944"),
+    "value_phase_global": ("ppoc_tpu_torch/csrc/update.cu",
+                           "ppoc_tpu/ops/pallas_update.py:396"),
+    "policy_phase_global": ("ppoc_tpu_torch/csrc/update.cu",
+                            "ppoc_tpu/ops/pallas_update.py:749"),
+    "policy_phase_categorical_global": ("ppoc_tpu_torch/csrc/update.cu",
+                                        "ppoc_tpu/ops/pallas_update.py:944"),
     "mlp_forward": ("ppoc_tpu_torch/csrc/mlp.cu",
                     "ppoc_tpu/ops/pallas_mlp.py:139"),
     "mlp_backward": ("ppoc_tpu_torch/csrc/mlp.cu",
@@ -161,8 +184,11 @@ KERNELS = {
 }
 # the loose whole-phase limits of check_phase: a kernel's distance from
 # float64 over a 1% learning-rate error's, about 1.5x the largest reading
-# of tools/policy_phase_drift.py over seeds and row draws (PERF.md)
-WHOLE_RATIO = {"K3": 0.5, "K4": 0.5, "K6": 0.75}
+# of tools/policy_phase_drift.py over seeds and row draws (PERF.md); the
+# 2x256 rows from its --hidden 256 256 readings (3 seeds x 2 draws each:
+# K3 0.1025 on CARTPOLE_WIDE's rows, K4 0.5518, K6 0.1484)
+WHOLE_RATIO = {"K3": 0.5, "K4": 0.5, "K6": 0.75,
+               "K3 2x256": 0.16, "K4 2x256": 0.83, "K6 2x256": 0.23}
 # check_phase's step-by-step limit: one kernel step against one float64
 # step from the same state, beyond twice the plain float32 step's distance
 STEP_TOL = 2e-7
@@ -539,7 +565,8 @@ def check_value_phase(cfg, ts, vcols, **whole):
 
 
 def check_phase(label, kernel, plain, state, cols, cfg, lr, extras,
-                whole_ratio, whole_tol=None, whole_stats_tol=1e-4):
+                whole_ratio, whole_tol=None, whole_stats_tol=1e-4,
+                against_float64=True):
     """A whole update phase kernel against its plain version on one fit's
     pre-gathered rows ``cols``; returns (max abs error, timings).  K3:
     ``state`` = (params, Adam) and ``extras`` [()]; K4: (params, log_std,
@@ -564,7 +591,10 @@ def check_phase(label, kernel, plain, state, cols, cfg, lr, extras,
     of the 1% learning-rate run (WHOLE_RATIO), its loss (and entropy)
     within ``whole_stats_tol`` of the plain version's and, with
     ``whole_tol``, its weights within that of the plain version's.  The
-    whole-phase verdict comes last, after the step-by-step one."""
+    whole-phase verdict comes last, after the step-by-step one.  With
+    ``against_float64`` false only the 1- and 20-step checks against the
+    plain version run (``whole_ratio`` unused): rows beside the path's own
+    (PERF.md, PR 6)."""
     import torch
 
     from ppoc_tpu_torch.models import mlp
@@ -602,6 +632,9 @@ def check_phase(label, kernel, plain, state, cols, cfg, lr, extras,
             p_err = max(p_err, check(f"{what}: weights",
                                      max_err(weights(k), weights(pl)), tol))
             check(f"{what}: {stats}", stats_err(k, pl), tol)
+    if not against_float64:
+        return p_err, timings(lambda: run(kernel, n_p),
+                              lambda: run(plain, n_p), 5, 1)
     k, pl = run(kernel, n_p), run(plain, n_p)
     if whole_tol is not None:
         check(f"{label}, {n_p} steps: weights", max_err(weights(k),
@@ -1265,10 +1298,11 @@ class PhaseClock:
     """Wall time and kernel launches of one fit's phases: wraps the
     functions ``ppo.train_epoch`` calls (module attributes, looked up at
     call time; ``targets``: (module, function, phase), SEQUENCE for an
-    attention trunk, MLP for the MLP fit) with a synchronise on each side
-    and reads the launch counters around each call.  It is entered around
-    ``Trainer.train_epoch`` alone, so the evaluation's own rollout is not
-    counted.  :meth:`split` fails if a phase was never called or the phases
+    attention trunk, MLP for the MLP fit, its row draws included) with a
+    synchronise on each side and reads the launch counters around each
+    call.  It is entered around ``Trainer.train_epoch`` alone, so the
+    evaluation's own rollout is not counted, or (MLP_SOLVE) around
+    ``Trainer.solve``, whose evaluations are a phase.  :meth:`split` fails if a phase was never called or the phases
     leave more than UNTIMED_SHARE of the epoch's wall untimed: a call the
     wrappers miss fails the run.  The path is unchanged; the
     synchronisation only ends each phase where the host would wait anyway
@@ -1282,8 +1316,14 @@ class PhaseClock:
     MLP = (("ppo", "rollout", "rollout"),
            ("ppo", "compute_advantages", "GAE"),
            ("ppo", "value_phase", "value phase"),
-           ("ppo", "policy_phase", "policy phase"))
-    # the untimed rest of a recall_xl epoch read 6-8 ms of 7-10 s (0.1%)
+           ("ppo", "policy_phase", "policy phase"),
+           ("ppo", "draw_fit", "draws"))
+    # a solve: the fits, then each epoch's evaluation and its draws
+    MLP_SOLVE = MLP + (("ppo", "evaluate", "evaluation"),
+                       ("ppo", "draw_eval", "draws"))
+    # the untimed rest of a recall_xl epoch read 6-8 ms of 7-10 s (0.1%);
+    # of a REACHER_REF epoch (10 fits) 0.63% with the row draws untimed,
+    # about half of it the draws, which MLP times as a phase of their own
     UNTIMED_SHARE = 0.01
 
     def __init__(self, counters, targets=SEQUENCE):
@@ -1650,19 +1690,90 @@ def check_mlp_variant(params, x, dev, counters):
     return out, "global" if cm.fwd_global_launches.n > g0 else "smem"
 
 
+def epochs_by_phase(tr, n_epochs: int, per_epoch, counters, label: str):
+    """Trainer ``tr``: evaluate, then ``n_epochs`` epochs, each
+    ``Trainer.train_epoch`` timed by phase (:class:`PhaseClock`) and then
+    evaluated, with every launch counter read around each phase and held
+    to ``per_epoch`` ({phase: {kernel: launches}}, "evaluation" one
+    evaluation's); eval R must rise by more than REACHER_GAIN.  Returns
+    ({phase: {kernel: launches}} of the run, the initial evaluation
+    included, per-epoch rows)."""
+    import torch
+
+    from ppoc_tpu_torch.algo import ppo
+    from ppoc_tpu_torch.models import mlp
+
+    for c in counters:
+        c.reset()
+    torch.cuda.synchronize()
+    n0 = read_counts(counters)
+    ev0 = tr.evaluate()
+    torch.cuda.synchronize()
+    if count_diff(n0, read_counts(counters)) != per_epoch["evaluation"]:
+        raise AssertionError(f"the {label} evaluation's launches differ from "
+                             f"{per_epoch['evaluation']}")
+    print(f"  evaluation before training: R {ev0.R:.4f}, episodes "
+          f"{int(ev0.episodes)}", flush=True)
+    by_phase = {ph: dict(v) if ph == "evaluation" else {}
+                for ph, v in per_epoch.items()}
+    rows, train_s = [], 0.0
+    for i in range(n_epochs):
+        t_fit = time.perf_counter()
+        with PhaseClock(counters, PhaseClock.MLP) as clock:
+            fit = ppo.FitMetrics(*(float(x) for x in tr.train_epoch()))
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t_fit
+        split = clock.split(wall)
+        train_s += wall
+        n0 = read_counts(counters)
+        t_ev = time.perf_counter()
+        ev = tr.evaluate()
+        torch.cuda.synchronize()
+        split["evaluation"] = time.perf_counter() - t_ev
+        got = {ph: {k: v for k, v in clock.launches[ph].items() if v}
+               for ph in clock.phases}
+        got["evaluation"] = count_diff(n0, read_counts(counters))
+        if got != per_epoch:
+            raise AssertionError(f"{label} epoch {i}: launches {got} differ "
+                                 f"from the config's {per_epoch}")
+        for ph, counts in got.items():
+            for k, v in counts.items():
+                by_phase[ph][k] = by_phase[ph].get(k, 0) + v
+        rows.append(dict(R=ev.R, wall=wall, split=split))
+        print(f"  epoch {i}: R {ev.R:.4f}, value loss {fit.value_loss:.5f}, "
+              f"policy loss {fit.policy_loss:.5f}; fit {wall:.3f} s, split "
+              f"(s) " + ", ".join(f"{k} {v:.4f}" for k, v in split.items()),
+              flush=True)
+        if not all(math.isfinite(x) for x in (*fit, ev.R)):
+            raise AssertionError(f"non-finite loss on {label}: {fit}, R "
+                                 f"{ev.R}")
+    print(f"  launches by phase, from the config: {per_epoch}; each epoch's "
+          f"equal", flush=True)
+    steps = n_epochs * tr.cfg.steps_per_epoch
+    print(f"  {n_epochs} epochs: {train_s:.3f} s of training, "
+          f"{steps / train_s:.0f} env-steps/s (training alone)", flush=True)
+    check(f"eval R rise over {n_epochs} epochs ({ev0.R:.3f} -> "
+          f"{rows[-1]['R']:.3f}), above {REACHER_GAIN}",
+          -(rows[-1]["R"] - ev0.R), -REACHER_GAIN, what="minus the rise")
+    if not all(torch.isfinite(t).all() for t in (
+            mlp.flatten(tr.state.v_params),
+            mlp.flatten(tr.state.policy_params["mlp"]),
+            tr.state.policy_params.get("log_std", torch.zeros(0)))):
+        raise AssertionError(f"non-finite weights after the {label} epochs")
+    return by_phase, rows
+
+
 def reacher_path(dev, counters):
-    """Trainer(REACHER) on the card by default: evaluate, REACHER_EPOCHS
-    epochs each timed by phase (:class:`PhaseClock`) and evaluated, with
-    every launch counter read around each phase and held to the config's
-    count; eval R must rise by more than REACHER_GAIN; then
-    evaluate(deterministic=True), eval_len K5 forwards.  Returns
-    (trainer, {phase: {kernel: launches}} of the run, per-epoch rows)."""
+    """Trainer(REACHER) on the card by default: REACHER_EPOCHS epochs by
+    phase (:func:`epochs_by_phase`: a fit one K1 rollout with the V
+    planes, one K2, a K5 forward and backward per minibatch step; an
+    evaluation one K1 rollout with the metrics); then
+    evaluate(deterministic=True), eval_len K5 forwards.  Returns (trainer,
+    {phase: {kernel: launches}} of the run, per-epoch rows)."""
     import torch
 
     from ppoc_tpu_torch import PPOConfig
-    from ppoc_tpu_torch.algo import ppo
     from ppoc_tpu_torch.algo.trainer import Trainer
-    from ppoc_tpu_torch.models import mlp
 
     cfg = PPOConfig(**REACHER)
     tr = Trainer(cfg)
@@ -1680,63 +1791,10 @@ def reacher_path(dev, counters):
                         "mlp_backward_global": f * n_v},
         "policy phase": {"mlp_forward_global": f * n_p,
                          "mlp_backward_global": f * n_p},
+        "draws": {},
         "evaluation": {"rollout_global[reacher]/metrics": 1}}
-    for c in counters:
-        c.reset()
-    torch.cuda.synchronize()
-    n0 = read_counts(counters)
-    ev0 = tr.evaluate()
-    torch.cuda.synchronize()
-    if count_diff(n0, read_counts(counters)) != per_epoch["evaluation"]:
-        raise AssertionError("the reacher evaluation's launches differ from "
-                             "one K1 rollout with the metrics")
-    print(f"  evaluation before training: R {ev0.R:.4f}, episodes "
-          f"{int(ev0.episodes)}", flush=True)
-    by_phase = {ph: {} for ph in per_epoch}
-    rows, train_s = [], 0.0
-    for i in range(REACHER_EPOCHS):
-        t_fit = time.perf_counter()
-        with PhaseClock(counters, PhaseClock.MLP) as clock:
-            fit = ppo.FitMetrics(*(float(x) for x in tr.train_epoch()))
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t_fit
-        split = clock.split(wall)
-        train_s += wall
-        n0 = read_counts(counters)
-        t_ev = time.perf_counter()
-        ev = tr.evaluate()
-        torch.cuda.synchronize()
-        split["evaluation"] = time.perf_counter() - t_ev
-        got = {ph: {k: v for k, v in clock.launches[ph].items() if v}
-               for ph in clock.phases}
-        got["evaluation"] = count_diff(n0, read_counts(counters))
-        if got != per_epoch:
-            raise AssertionError(f"reacher epoch {i}: launches {got} differ "
-                                 f"from the config's {per_epoch}")
-        for ph, counts in got.items():
-            for k, v in counts.items():
-                by_phase[ph][k] = by_phase[ph].get(k, 0) + v
-        rows.append(dict(R=ev.R, wall=wall, split=split))
-        print(f"  epoch {i}: R {ev.R:.4f}, value loss {fit.value_loss:.5f}, "
-              f"policy loss {fit.policy_loss:.5f}; fit {wall:.3f} s, split "
-              f"(s) " + ", ".join(f"{k} {v:.4f}" for k, v in split.items()),
-              flush=True)
-        if not all(math.isfinite(x) for x in (*fit, ev.R)):
-            raise AssertionError(f"non-finite loss on reacher: {fit}, R "
-                                 f"{ev.R}")
-    print(f"  launches a fit by phase, from the config (37 minibatches): "
-          f"{per_epoch}; each epoch's equal", flush=True)
-    steps = REACHER_EPOCHS * cfg.steps_per_epoch
-    print(f"  {REACHER_EPOCHS} epochs: {train_s:.3f} s of training, "
-          f"{steps / train_s:.0f} env-steps/s (training alone)", flush=True)
-    check(f"eval R rise over {REACHER_EPOCHS} epochs ({ev0.R:.3f} -> "
-          f"{rows[-1]['R']:.3f}), above {REACHER_GAIN}",
-          -(rows[-1]["R"] - ev0.R), -REACHER_GAIN, what="minus the rise")
-    if not all(torch.isfinite(t).all() for t in (
-            mlp.flatten(tr.state.v_params),
-            mlp.flatten(tr.state.policy_params["mlp"]),
-            tr.state.policy_params["log_std"])):
-        raise AssertionError("non-finite weights after the reacher epochs")
+    by_phase, rows = epochs_by_phase(tr, REACHER_EPOCHS, per_epoch, counters,
+                                     "reacher")
     n0 = read_counts(counters)
     t0 = time.perf_counter()
     evd = tr.evaluate(deterministic=True)
@@ -1749,7 +1807,6 @@ def reacher_path(dev, counters):
             evd.R):
         raise AssertionError(f"the reacher mean-policy evaluation must be "
                              f"{cfg.eval_len} K5 forwards: {det}, {evd}")
-    by_phase["evaluation"]["rollout_global[reacher]/metrics"] += 1
     by_phase["mean-policy evaluation"] = det
     return tr, by_phase, rows
 
@@ -2036,6 +2093,241 @@ def reacher_mcc_phases(dev, counters, record):
            n["mlp_backward"], k5c[0], k5c[2], bb)
 
 
+# --- K3, K4 and K6 with the nets in global memory (slice 6) -----------------
+
+# the reference schedule (15 envs x 200 steps, minibatch 64: 46
+# minibatches, 10 value and 4 policy epochs, 10 fits an epoch) at the
+# reacher regime's 2x256 width, and the discrete path at that width: both
+# under the fused gate, with nets past one block's shared memory
+REACHER_REF = dict(env="reacher", hidden=(256, 256), kernel_backend="pallas")
+REACHER_REF_EPOCHS = 3
+CARTPOLE_WIDE = dict(env="cartpole", hidden=(256, 256), eval_len=500,
+                     kernel_backend="pallas")
+WIDE_SOLVE_EPOCHS = 10
+# K3 at the fused gate's edge (ppo.MAX_FUSED_MB rows a minibatch)
+GATE_MB, GATE_STEPS = 2048, 20
+
+
+def wide_config(env: str, hidden=(256, 256), seed: int = 0):
+    """REACHER_REF's schedule (CARTPOLE_WIDE's for a discrete env) for
+    ``env`` at ``hidden``: REACHER_REF and CARTPOLE_WIDE themselves at
+    2x256."""
+    from ppoc_tpu_torch import PPOConfig
+
+    base = CARTPOLE_WIDE if env in DISCRETE_SOLVE_R else REACHER_REF
+    return PPOConfig(**dict(base, env=env, hidden=tuple(hidden), seed=seed))
+
+
+def wide_launches(cfg, epochs: int):
+    """The launches ``epochs`` epochs of a 2x256 fused path make, by phase:
+    per fit one K1 rollout with the V planes, one K2, one K3 and one K4
+    (K6 for a discrete env), all but K2 with the nets in global memory;
+    per evaluation one K1 rollout with the metrics; the host's row draws
+    none."""
+    lane, f = cfg.env, cfg.fits_per_epoch * epochs
+    policy = ("policy_phase_categorical_global" if lane in DISCRETE_SOLVE_R
+              else "policy_phase_global")
+    return {"rollout": {f"rollout_global[{lane}]/values": f},
+            "GAE": {"gae_norm": f},
+            "value phase": {"value_phase_global": f},
+            "policy phase": {policy: f}, "draws": {},
+            "evaluation": {f"rollout_global[{lane}]/metrics": epochs}}
+
+
+def check_global_phase(counter_g, counter_s, *args, **kw):
+    """:func:`check_phase`, and every launch it made took the global-memory
+    variant (``counter_g``), none the shared-memory one (``counter_s``)."""
+    g0, s0 = counter_g.n, counter_s.n
+    out = check_phase(*args, **kw)
+    if counter_s.n != s0 or counter_g.n == g0:
+        raise AssertionError(f"{args[0]}: the 2x256 nets must take the "
+                             f"global-memory variant ({counter_g.kernel} "
+                             f"{counter_g.n - g0}, {counter_s.kernel} "
+                             f"{counter_s.n - s0} launches)")
+    return out
+
+
+def wide_rows(cfg, ts, seed, draw_seed: int, dev):
+    """One fit's value and policy rows of ``cfg``'s lane at the reference
+    shape: K1 (the global-memory variant) with the V planes, K2 as
+    :func:`check_gae` holds it, then :func:`phase_rows`.  At seed 0 these
+    are tools/policy_phase_drift.py's rows of its first draw."""
+    from ppoc_tpu_torch.ops import cuda_rollout
+
+    pol = ts.policy_params
+    raw = cuda_rollout.rollout_kernel(
+        pol["mlp"], pol.get("log_std"), ts.v_params, seed, cfg.n_envs,
+        cfg.rollout_len, cfg.activation, None, None, 0.99, cfg.env)
+    adv, tgt, _, _ = check_gae(cfg, raw, dev)
+    return raw, tgt, phase_rows(cfg, raw, adv, tgt, dev, draw_seed=draw_seed)
+
+
+def check_gate_edge(cfg, ts, raw, tgt, dev):
+    """K3 with the 2x256 value net at the fused gate's edge: GATE_STEPS
+    steps of GATE_MB rows (drawn from one fit's rows with replacement; 32
+    rounds of warp tiles a product, each re-staging W), held to the plain
+    version by :func:`check_phase`'s 1- and 20-step checks; returns (max
+    abs error, timings)."""
+    import torch
+
+    from ppoc_tpu_torch.ops import cuda_update as cu
+
+    idx = torch.randint(0, tgt.numel(), (GATE_STEPS * GATE_MB,),
+                        generator=torch.Generator().manual_seed(6)).to(dev)
+    cols = (raw.obs.reshape(tgt.numel(), -1)[idx].contiguous(),
+            tgt.reshape(-1)[idx].contiguous())
+    return check_global_phase(
+        cu.value_global_launches, cu.value_launches,
+        f"value phase (2x256, mb {GATE_MB})", cu.value_phase_kernel,
+        cu.value_phase_plain, (ts.v_params, ts.opt_v), cols,
+        cfg.replace(minibatch_size=GATE_MB), cfg.lr_v, [()], None,
+        against_float64=False)
+
+
+def reacher_ref_path(counters):
+    """Trainer(REACHER_REF) on the card by default: REACHER_REF_EPOCHS
+    epochs by phase (:func:`epochs_by_phase`), each fit's K3 and K4 in
+    their global-memory variants and no shared-memory phase, eval R up by
+    more than REACHER_GAIN.  Returns {phase: {kernel: launches}}."""
+    from ppoc_tpu_torch.algo.trainer import Trainer
+
+    tr = Trainer(wide_config("reacher"))
+    check_on_card(tr)
+    per_epoch = wide_launches(tr.cfg, 1)
+    by_phase, _ = epochs_by_phase(tr, REACHER_REF_EPOCHS, per_epoch,
+                                  counters, "REACHER_REF")
+    return by_phase
+
+
+def cartpole_wide_path(counters):
+    """Trainer(CARTPOLE_WIDE).solve(475, WIDE_SOLVE_EPOCHS) on the card by
+    default, timed by phase with the evaluations as a phase of their own
+    (:class:`PhaseClock`), every launch counter read around each phase and
+    held to the config's count for the epochs it ran (K6 and K3 in their
+    global-memory variants, no K4, no shared-memory phase); it must solve.
+    Returns {phase: {kernel: launches}}."""
+    import torch
+
+    from ppoc_tpu_torch.algo.trainer import Trainer
+    from ppoc_tpu_torch.models import mlp
+
+    tr = Trainer(wide_config("cartpole"))
+    check_on_card(tr)
+    target = DISCRETE_SOLVE_R["cartpole"]
+    for c in counters:
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with PhaseClock(counters, PhaseClock.MLP_SOLVE) as clock:
+        res = tr.solve(target, max_epochs=WIDE_SOLVE_EPOCHS)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    split = clock.split(wall)
+    got = {ph: {k: v for k, v in clock.launches[ph].items() if v}
+           for ph in clock.phases}
+    want = wide_launches(tr.cfg, res["epochs"])
+    print(f"  epochs {res['epochs']}, final R {res['R']:.3f}, wall "
+          f"{wall:.3f} s, split (s) "
+          + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+          + f"; launches by phase {got}", flush=True)
+    if got != want:
+        raise AssertionError(f"CARTPOLE_WIDE launches {got} differ from the "
+                             f"config's {want}")
+    if not (math.isfinite(res["R"]) and res["R"] >= target):
+        raise AssertionError(f"CARTPOLE_WIDE not solved in "
+                             f"{WIDE_SOLVE_EPOCHS} epochs: R {res['R']}")
+    if not all(torch.isfinite(mlp.flatten(t)).all() for t in (
+            tr.state.v_params, tr.state.policy_params["mlp"])):
+        raise AssertionError("non-finite weights after the CARTPOLE_WIDE "
+                             "solve")
+    return got
+
+
+def wide_phases(dev, counters, record):
+    """K3 and K4 on REACHER_REF's rows and K3 and K6 on CARTPOLE_WIDE's,
+    each as :func:`check_phase` holds a phase and in its global-memory
+    variant; K3 at the gate's edge; then the two paths, with their
+    launches; records every kernel row."""
+    from ppoc_tpu_torch.algo.trainer import Trainer
+    from ppoc_tpu_torch.models import mlp
+    from ppoc_tpu_torch.ops import cuda_update as cu
+
+    rcfg, ccfg = wide_config("reacher"), wide_config("cartpole")
+    rts, cts = Trainer(rcfg, dev).state, Trainer(ccfg, dev).state
+    pw, vw = mlp.dims(rts.policy_params["mlp"]), mlp.dims(rts.v_params)
+    cpw, cvw = mlp.dims(cts.policy_params["mlp"]), mlp.dims(cts.v_params)
+    mb = rcfg.minibatch_size
+    n_v = rcfg.n_epochs_value * rcfg.num_minibatches
+    n_p = rcfg.n_epochs_policy * rcfg.num_minibatches
+    header(f"[fused phases, nets in global memory: REACHER_REF's rows, K3 on "
+           f"{vw} ({n_v} steps x {mb}), K4 on {pw} ({n_p} steps)]")
+    raw, tgt, (vcols, pcols) = wide_rows(rcfg, rts, (0x01234567, 0x89ABCDEF),
+                                         1, dev)
+    pol = rts.policy_params
+    k3 = check_global_phase(
+        cu.value_global_launches, cu.value_launches, "value phase (2x256)",
+        cu.value_phase_kernel, cu.value_phase_plain, (rts.v_params, rts.opt_v),
+        vcols, rcfg, rcfg.lr_v, [()], WHOLE_RATIO["K3 2x256"])
+    k4 = check_global_phase(
+        cu.policy_global_launches, cu.policy_launches,
+        "policy phase (2x256, 2 action dims)", cu.policy_phase_kernel,
+        cu.policy_phase_plain,
+        (pol["mlp"], pol["log_std"], rts.opt_policy, rts.opt_log_std), pcols,
+        rcfg, rcfg.lr_policy, [(rcfg.clip_eps, rcfg.ent_coeff),
+                               (rcfg.clip_eps, 0.01)], WHOLE_RATIO["K4 2x256"])
+    header(f"[K3 at the fused gate's edge: {GATE_STEPS} steps x {GATE_MB}, "
+           f"{vw}]")
+    edge = check_gate_edge(rcfg, rts, raw, tgt, dev)
+    header(f"[fused phases, nets in global memory: CARTPOLE_WIDE's rows, K3 "
+           f"on {cvw}, K6 on {cpw}]")
+    _, _, (cvcols, cpcols) = wide_rows(ccfg, cts, (0x2545F491, 0x9E3779B9),
+                                       2, dev)
+    # against the plain version only: on these rows one kernel step (of
+    # 460) parts from float64 by 1.35e-6 where cuBLAS's parts by 2.8e-8, a
+    # ReLU gate within rounding; the mirror case (cuBLAS's step off, the
+    # kernel's not) is as common at 2x256 (tools/policy_phase_drift.py,
+    # PERF.md), so the float64 walk holds the path's own K3 rows above
+    k3c = check_global_phase(
+        cu.value_global_launches, cu.value_launches,
+        "value phase (2x256, cartpole rows)", cu.value_phase_kernel,
+        cu.value_phase_plain, (cts.v_params, cts.opt_v), cvcols, ccfg,
+        ccfg.lr_v, [()], None, against_float64=False)
+    k6 = check_global_phase(
+        cu.categorical_global_launches, cu.categorical_launches,
+        "categorical policy phase (2x256)", cu.policy_phase_categorical_kernel,
+        cu.policy_phase_categorical_plain,
+        (cts.policy_params["mlp"], cts.opt_policy), cpcols, ccfg,
+        ccfg.lr_policy, [(ccfg.clip_eps, ccfg.ent_coeff),
+                         (ccfg.clip_eps, 0.01)], WHOLE_RATIO["K6 2x256"])
+
+    header(f"[REACHER_REF: Trainer(reacher, 2x256, the reference schedule), "
+           f"evaluate, {REACHER_REF_EPOCHS} epochs]")
+    rn = reacher_ref_path(counters)
+    header(f"[CARTPOLE_WIDE: Trainer(cartpole, 2x256, eval_len 500)"
+           f".solve({DISCRETE_SOLVE_R['cartpole']}, "
+           f"max_epochs={WIDE_SOLVE_EPOCHS})]")
+    cn = cartpole_wide_path(counters)
+
+    path = f"REACHER_REF, {rcfg.n_envs} envs x {rcfg.rollout_len} steps, mb {mb}"
+    record("value_phase_global", path, [n_v, mb] + vw,
+           rn["value phase"]["value_phase_global"], *k3,
+           phase_bound(vw, n_v, mb, 1))
+    record("policy_phase_global", path, [n_p, mb] + pw,
+           rn["policy phase"]["policy_phase_global"], *k4,
+           phase_bound(pw, n_p, mb, pw[-1] + 2))
+    record("value_phase_global", f"the fused gate's edge (not on a path; "
+           f"REACHER_REF's rows)", [GATE_STEPS, GATE_MB] + vw, 0, *edge,
+           phase_bound(vw, GATE_STEPS, GATE_MB, 1))
+    path = (f"CARTPOLE_WIDE solve, {ccfg.n_envs} envs x {ccfg.rollout_len} "
+            f"steps, mb {mb}")
+    record("value_phase_global", path, [n_v, mb] + cvw,
+           cn["value phase"]["value_phase_global"], *k3c,
+           phase_bound(cvw, n_v, mb, 1))
+    record("policy_phase_categorical_global", path, [n_p, mb] + cpw,
+           cn["policy phase"]["policy_phase_categorical_global"], *k6,
+           phase_bound(cpw, n_p, mb, 3))
+
+
 def main() -> int:
     import torch
 
@@ -2070,7 +2362,10 @@ def main() -> int:
     counters = [*cuda_rollout.lane_launches.values(),
                 *cuda_rollout.global_launches.values(), cuda_gae.launches,
                 cuda_update.value_launches, cuda_update.policy_launches,
-                cuda_update.categorical_launches, cuda_mlp.fwd_launches,
+                cuda_update.categorical_launches,
+                cuda_update.value_global_launches,
+                cuda_update.policy_global_launches,
+                cuda_update.categorical_global_launches, cuda_mlp.fwd_launches,
                 cuda_mlp.bwd_launches, cuda_mlp.fwd_global_launches,
                 cuda_mlp.bwd_global_launches, cuda_attn.fwd_launches,
                 cuda_attn.dq_launches, cuda_attn.dkv_launches]
@@ -2305,6 +2600,7 @@ def main() -> int:
 
     attention_phases(dev, counters, record)
     reacher_mcc_phases(dev, counters, record)
+    wide_phases(dev, counters, record)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
           f"build included", flush=True)

@@ -45,16 +45,18 @@ tests can feed both packages the same randomness.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from ppoc_tpu_torch import envs
 from ppoc_tpu_torch.config import PPOConfig
 from ppoc_tpu_torch.data import buffer
 from ppoc_tpu_torch.envs.core import Env, vector_autoreset_step, vector_reset
 from ppoc_tpu_torch.models import attn, mlp, policy as policy_mod
-from ppoc_tpu_torch.ops import (adam, cuda_gae, cuda_rollout, cuda_update,
-                                gae as gae_ops, losses, welford)
+from ppoc_tpu_torch.ops import (_build, adam, cuda_gae, cuda_mlp,
+                                cuda_rollout, cuda_update, gae as gae_ops,
+                                losses, welford)
 
 # The port's one backend: every MLP call outside K1/K3/K4 goes through K5.
 BACKEND = "pallas"
@@ -320,6 +322,54 @@ def _fused(cfg: PPOConfig, stab_ok: bool) -> bool:
     here always: the port has no sharding and draws its streams from
     cfg."""
     return stab_ok and cfg.minibatch_size <= MAX_FUSED_MB
+
+
+class KernelFit(NamedTuple):
+    """One kernel of a config's path on the card: the nets it takes, the
+    shared memory it needs in each variant (``_build.VARIANTS``: the
+    weights in shared memory, or in global memory), and the first variant
+    that fits (None: none does)."""
+    kernel: str
+    widths: Tuple[Tuple[int, ...], ...]
+    nbytes: Tuple[int, ...]
+    variant: Optional[str]
+
+
+def kernel_fit(cfg: PPOConfig, optin: int,
+               env: Optional[Env] = None) -> List[KernelFit]:
+    """The kernels ``cfg``'s MLP path launches on the card, in path order,
+    each with its shared-memory needs from the widths alone (the ops
+    modules' ``variant_bytes``) and the variant that fits a block's
+    ``optin`` bytes: K1 with the V planes (a fit's rollout; the
+    evaluation's, with the metrics, needs less), K5 on the policy and the
+    value net (the mean-policy evaluation, and the generic phases above the
+    fused gate), then under the gate K3 and K4, or K6 for a categorical
+    policy.  K2 and K7 take no width-dependent shared memory, so an
+    attention trunk's list is empty.  Needs no card."""
+    if cfg.attn_dim > 0:
+        return []
+    spec = (env if env is not None else envs.make_for(cfg)).spec
+    pw = (spec.obs_dim, *cfg.hidden, spec.action_dim)
+    vw = (spec.obs_dim, *cfg.hidden, 1)
+    plan = [(f"K1 (rollout, {spec.name} lane, with the V planes)", (pw, vw),
+             cuda_rollout.variant_bytes(pw, vw)),
+            ("K5 (whole-MLP forward and backward, policy net)", (pw,),
+             cuda_mlp.variant_bytes(pw)),
+            ("K5 (whole-MLP forward and backward, value net)", (vw,),
+             cuda_mlp.variant_bytes(vw))]
+    if _fused(cfg, _stab_value_ok(cfg)):
+        plan.append(("K3 (value phase)", (vw,), cuda_update.variant_bytes(vw)))
+    if _fused(cfg, _stab_policy_ok(cfg)):
+        plan.append(("K6 (categorical policy phase)" if spec.discrete
+                     else "K4 (policy phase)", (pw,),
+                     cuda_update.variant_bytes(pw)))
+    out = []
+    for name, nets, nbytes in plan:
+        fits = [0 <= n <= optin for n in nbytes]
+        out.append(KernelFit(name, nets, tuple(nbytes),
+                             _build.VARIANTS[fits.index(True)]
+                             if any(fits) else None))
+    return out
 
 
 def _requiring_grad(tree):

@@ -19,7 +19,7 @@ import torch
 from ppoc_tpu_torch import envs
 from ppoc_tpu_torch.algo import ppo
 from ppoc_tpu_torch.config import PPOConfig, validate
-from ppoc_tpu_torch.ops import resolve_backend
+from ppoc_tpu_torch.ops import _build, resolve_backend
 
 
 class EvalWindowWarning(UserWarning):
@@ -46,6 +46,19 @@ def check_ported(cfg: PPOConfig) -> None:
     if bad:
         raise NotImplementedError(
             f"not ported to ppoc_tpu_torch yet: {bad} (see ROADMAP.md)")
+
+
+def check_kernel_fit(cfg: PPOConfig, env, optin: int) -> None:
+    """Raise NotImplementedError if a kernel of cfg's path takes its nets
+    in neither variant within a block's ``optin`` bytes of shared memory
+    (``ppo.kernel_fit``), naming the first such kernel and its widths."""
+    for k in ppo.kernel_fit(cfg, optin, env):
+        if k.variant is None:
+            raise NotImplementedError(
+                f"{k.kernel} takes the nets {' and '.join(map(str, k.widths))}"
+                f" in no variant: it needs {list(k.nbytes)} B of shared "
+                f"memory (weights in shared memory, in global memory) and "
+                f"one block holds at most {optin} B")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -96,6 +109,8 @@ class Trainer:
         self.device = resolve_device(device)
         self.env = envs.make_for(cfg)
         resolve_backend(cfg.kernel_backend)   # refuses "jnp": not ported
+        if self.device.type == "cuda":
+            check_kernel_fit(cfg, self.env, _build.smem_optin(self.device))
         self.generator = torch.Generator().manual_seed(cfg.seed)
         if cfg.eval_len < self.env.spec.horizon:
             warnings.warn(

@@ -32,7 +32,8 @@
 // [10,256,256,1]: 69.6 K padded floats, 278 KB, and the backward's three
 // 64x256 tiles add 196 KB) take a second variant, picked by size at the
 // launch: the weights stay in global memory (L2-resident) and each product
-// stages its weight operand SLICE = 32 rows at a time (`sliced_gemm`): the
+// stages its weight operand SLICE = 32 rows at a time (`sliced_gemm`,
+// mlp_step.cuh, shared with the update phases' global variant): the
 // forward W[k0:k0+32, :], the dX product W[:, j0:j0+32] transposed.  The
 // tile is TILE_L = 32 rows, so three tiles and a slice fit; each warp keeps
 // its 4x4 sums per lane in registers across the slices.  dW/db reads no
@@ -50,7 +51,6 @@ constexpr int TILE = 64;          // rows per tile
 constexpr int THREADS = 512;
 constexpr int MAX_BLOCKS = 128;   // grid cap: bounds the backward's scratch
 constexpr int TILE_L = 32;        // rows per tile, weights in global memory
-constexpr int SLICE = 32;         // rows of a product's B per staged slice
 
 struct MlpDev {
   PaddedNet pn;        // the padded shared-memory layout of the weights
@@ -171,62 +171,6 @@ __global__ void __launch_bounds__(THREADS) mlp_bwd_kernel(const MlpDev a) {
       cur = 1 - cur;
     }
     first = false;
-  }
-}
-
-// C = A x B over the block with B staged through shared memory in slices
-// of SLICE rows: out(r, j) for r < M, j < N is epi(r, j, sum_k la(r, k) *
-// lb(k - k0, j)), the sum taken in k order; before the slice of rows
-// k0..k0+kn every thread calls load_b(k0, kn), which writes them where lb
-// reads.  Each warp owns one 4-row x 128-column tile of C at a time, as in
-// block_gemm, and keeps its sums in registers across the slices, so B is
-// staged once for every round of n_warps tiles (one round for M <= 32,
-// N <= 256 at 512 threads).  Every thread of the block must call it.
-template <class LA, class LB, class SB, class Epi>
-__device__ __forceinline__ void sliced_gemm(int M, int N, int K, LA la,
-                                            LB lb, SB load_b, Epi epi) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
-  const int tm = (M + 3) >> 2, tn = (N + 127) >> 7;
-  for (int base = 0; base < tm * tn; base += n_warps) {
-    const int wt = base + warp;
-    const bool own = wt < tm * tn;
-    const int r0 = own ? (wt / tn) * 4 : 0;
-    const int c0 = own ? (wt % tn) * 128 + lane : 0;
-    bool rv[4], cv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      rv[i] = own && r0 + i < M;
-      cv[i] = own && c0 + 32 * i < N;
-    }
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][q] = 0.0f;
-    for (int k0 = 0; k0 < K; k0 += SLICE) {
-      const int kn = min(SLICE, K - k0);
-      __syncthreads();   // the previous slice's (or product's) reads are done
-      load_b(k0, kn);
-      __syncthreads();
-      if (!cv[0]) continue;
-      for (int k = 0; k < kn; ++k) {
-        float av[4], bv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) av[i] = rv[i] ? la(r0 + i, k0 + k) : 0.0f;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) bv[q] = cv[q] ? lb(k, c0 + 32 * q) : 0.0f;
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[i][q] += av[i] * bv[q];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        if (rv[i] && cv[q]) epi(r0 + i, c0 + 32 * q, acc[i][q]);
   }
 }
 

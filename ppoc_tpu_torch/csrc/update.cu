@@ -27,6 +27,22 @@
 // wrapper allocates, which stays in the 50 MB L2; the products are
 // register-tiled block loops (mlp_step.cuh).  Tensor cores and a
 // thread-block cluster (distributed shared memory) are later steps.
+//
+// Nets larger than one block's shared memory (2x256: [10,256,256,1] is
+// 69,387 padded floats, 277.5 KB, against 227 KB) take a second variant of
+// each kernel, picked by size at the launch (GLOBAL_W, one body per
+// kernel): the weights live in the output params in global memory
+// (`load_state` copies p_in there, Adam updates them in place), and each
+// product stages its weight operand SLICE = 32 rows at a time through 33
+// KB of shared memory (`sliced_gemm`): the forward W's rows, the dX
+// product W's columns transposed.  dW/db reads no weights.  The weights
+// change every step, so they are read with plain loads (never __ldg or a
+// const __restrict__ pointer, whose non-coherent cache could return the
+// previous step's values); adam_step's closing __syncthreads orders the
+// update before the next step's staging.  Every output is summed in the
+// same order in both variants, so on a net both take the whole phase is
+// the same bits.  Each round of 32 warp tiles re-stages W: one round at mb
+// 64 x 256 columns, 32 rounds at the 2048-row gate.
 #include "mlp_step.cuh"
 
 using namespace ppoc;
@@ -49,12 +65,15 @@ struct PhaseDev {
   AdamHyper hyper;
 };
 
+// GLOBAL_W: the weights are the output params, `smem` the staging slice.
+template <bool GLOBAL_W>
 __device__ StepCtx make_ctx(const PhaseDev& a, float* smem) {
   StepCtx c;
   c.pn = a.pn;
   c.mb = a.mb;
   c.act = a.activation;
-  c.W = smem;
+  c.W = GLOBAL_W ? a.p_out : smem;
+  c.Ws = smem;
   c.H = a.scratch;
   c.G[0] = c.H + a.pn.h_floats;
   c.G[1] = c.G[0] + a.pn.g_floats;
@@ -62,33 +81,39 @@ __device__ StepCtx make_ctx(const PhaseDev& a, float* smem) {
   return c;
 }
 
-// Seed the outputs from the inputs (params into shared memory).
+// Seed the outputs from the inputs (params into shared memory, or into
+// the output params where the weights stay in global memory).
+template <bool GLOBAL_W>
 __device__ void load_state(const PhaseDev& a, const StepCtx& c) {
   for (int i = threadIdx.x; i < a.pn.net.n_params; i += blockDim.x) {
-    c.W[padded_index(a.pn, i)] = a.p_in[i];
+    c.W[GLOBAL_W ? i : padded_index(a.pn, i)] = a.p_in[i];
     a.m_out[i] = a.m_in[i];
     a.v_out[i] = a.v_in[i];
   }
   __syncthreads();
 }
 
+template <bool GLOBAL_W>
 __device__ void store_params(const PhaseDev& a, const StepCtx& c) {
-  for (int i = threadIdx.x; i < a.pn.net.n_params; i += blockDim.x)
-    a.p_out[i] = c.W[padded_index(a.pn, i)];
+  if constexpr (!GLOBAL_W)
+    for (int i = threadIdx.x; i < a.pn.net.n_params; i += blockDim.x)
+      a.p_out[i] = c.W[padded_index(a.pn, i)];
 }
 
-__global__ void __launch_bounds__(THREADS, 1) value_phase_kernel(const PhaseDev a) {
+template <bool GLOBAL_W>
+__global__ void __launch_bounds__(THREADS, 1) value_phase_kernel(
+    const PhaseDev a) {
   extern __shared__ float smem[];
   __shared__ float red[33];
-  const StepCtx c = make_ctx(a, smem);
-  load_state(a, c);
+  const StepCtx c = make_ctx<GLOBAL_W>(a, smem);
+  load_state<GLOBAL_W>(a, c);
   const int d0 = a.pn.net.dim[0];
   const float* out = c.H + a.pn.h_off[a.pn.net.n_layers - 1];   // [mb, 1]
   float loss = 0.0f;
   for (int s = 0; s < a.n_steps; ++s) {
     const float* x = a.x + (size_t)s * a.mb * d0;
     const float* tgt = a.tgt + (size_t)s * a.mb;
-    mlp_forward(c, x);
+    mlp_forward<GLOBAL_W>(c, x);
     float sq = 0.0f;
     for (int r = threadIdx.x; r < a.mb; r += blockDim.x) {
       const float diff = out[r] - tgt[r];
@@ -96,25 +121,27 @@ __global__ void __launch_bounds__(THREADS, 1) value_phase_kernel(const PhaseDev 
       c.G[0][r] = a.two_over_mb * diff;
     }
     loss += block_sum(sq, red);
-    mlp_backward(c, x);
-    adam_step(c, a.m_out, a.v_out, a.t0 + s + 1, a.hyper);
+    mlp_backward<GLOBAL_W>(c, x);
+    adam_step<GLOBAL_W>(c, a.m_out, a.v_out, a.t0 + s + 1, a.hyper);
   }
-  store_params(a, c);
+  store_params<GLOBAL_W>(a, c);
   if (threadIdx.x == 0) a.stats[0] = loss;
 }
 
-__global__ void __launch_bounds__(THREADS, 1) policy_phase_kernel(const PhaseDev a) {
+template <bool GLOBAL_W>
+__global__ void __launch_bounds__(THREADS, 1) policy_phase_kernel(
+    const PhaseDev a) {
   extern __shared__ float smem[];
   __shared__ float red[33];
   __shared__ float ls[MAX_ACT], mls[MAX_ACT], vls[MAX_ACT];
-  const StepCtx c = make_ctx(a, smem);
+  const StepCtx c = make_ctx<GLOBAL_W>(a, smem);
   const int k = a.k_act;
   if (threadIdx.x < k) {
     ls[threadIdx.x] = a.ls_in[threadIdx.x];
     mls[threadIdx.x] = a.mls_in[threadIdx.x];
     vls[threadIdx.x] = a.vls_in[threadIdx.x];
   }
-  load_state(a, c);
+  load_state<GLOBAL_W>(a, c);
   const int d0 = a.pn.net.dim[0];
   const float* mu = c.H + a.pn.h_off[a.pn.net.n_layers - 1];   // [mb, k]
   const float mbf = (float)a.mb;
@@ -132,7 +159,7 @@ __global__ void __launch_bounds__(THREADS, 1) policy_phase_kernel(const PhaseDev
     ent_sum += ent;
     loss += -a.ent_coeff * ent;
 
-    mlp_forward(c, x);
+    mlp_forward<GLOBAL_W>(c, x);
     float surr_part = 0.0f, gls_part[MAX_ACT];
     for (int j = 0; j < k; ++j) gls_part[j] = 0.0f;
     for (int r = threadIdx.x; r < a.mb; r += blockDim.x) {
@@ -160,8 +187,8 @@ __global__ void __launch_bounds__(THREADS, 1) policy_phase_kernel(const PhaseDev
     float gls[MAX_ACT];
     for (int j = 0; j < k; ++j) gls[j] = block_sum(gls_part[j], red);
 
-    mlp_backward(c, x);
-    adam_step(c, a.m_out, a.v_out, a.t0 + s + 1, a.hyper);
+    mlp_backward<GLOBAL_W>(c, x);
+    adam_step<GLOBAL_W>(c, a.m_out, a.v_out, a.t0 + s + 1, a.hyper);
     // log_std Adam (its own timestep); the entropy bonus adds -ent_coeff
     if (threadIdx.x < k) {
       const int j = threadIdx.x;
@@ -178,7 +205,7 @@ __global__ void __launch_bounds__(THREADS, 1) policy_phase_kernel(const PhaseDev
     }
     __syncthreads();
   }
-  store_params(a, c);
+  store_params<GLOBAL_W>(a, c);
   if (threadIdx.x < k) {
     a.ls_out[threadIdx.x] = ls[threadIdx.x];
     a.mls_out[threadIdx.x] = mls[threadIdx.x];
@@ -197,13 +224,14 @@ __global__ void __launch_bounds__(THREADS, 1) policy_phase_kernel(const PhaseDev
 // G[r,k] = dlogp (onehot - p) + (ent_coeff / mb) p (logp_all + H) with
 // dlogp = -(adv ratio / mb) on the unclipped branch, else 0.  The rows'
 // class ids are read as int32.  Loss and entropy sums come back in stats.
+template <bool GLOBAL_W>
 __global__ void __launch_bounds__(THREADS, 1)
 categorical_policy_phase_kernel(const PhaseDev a) {
   extern __shared__ float smem[];
   __shared__ float red[33];
-  const StepCtx c = make_ctx(a, smem);
+  const StepCtx c = make_ctx<GLOBAL_W>(a, smem);
   const int K = a.k_act;
-  load_state(a, c);
+  load_state<GLOBAL_W>(a, c);
   const int d0 = a.pn.net.dim[0];
   const float* logits = c.H + a.pn.h_off[a.pn.net.n_layers - 1];   // [mb, K]
   const float mbf = (float)a.mb;
@@ -212,7 +240,7 @@ categorical_policy_phase_kernel(const PhaseDev a) {
   for (int s = 0; s < a.n_steps; ++s) {
     const size_t row0 = (size_t)s * a.mb;
     const float* x = a.x + row0 * d0;
-    mlp_forward(c, x);
+    mlp_forward<GLOBAL_W>(c, x);
     float surr_part = 0.0f, h_part = 0.0f;
     for (int r = threadIdx.x; r < a.mb; r += blockDim.x) {
       const size_t row = row0 + r;
@@ -257,10 +285,10 @@ categorical_policy_phase_kernel(const PhaseDev a) {
     loss += (-surr - a.ent_coeff * hsum) / mbf;
     ent_sum += hsum / mbf;
 
-    mlp_backward(c, x);
-    adam_step(c, a.m_out, a.v_out, a.t0 + s + 1, a.hyper);
+    mlp_backward<GLOBAL_W>(c, x);
+    adam_step<GLOBAL_W>(c, a.m_out, a.v_out, a.t0 + s + 1, a.hyper);
   }
-  store_params(a, c);
+  store_params<GLOBAL_W>(a, c);
   if (threadIdx.x == 0) {
     a.stats[0] = loss;
     a.stats[1] = ent_sum;
@@ -283,28 +311,50 @@ struct PhaseArgs {
   const int32_t* act_idx;
   const int* dims;   // host array of n_layers + 1 widths
   int n_layers, activation, n_steps, mb, t0, t0_ls, k_act;
+  int variant;       // 0: weights in shared memory, 1: in global memory
   float two_over_mb, lp0, ent0, clip_lo, clip_hi, ent_coeff;
   AdamHyper hyper;
 };
 
 extern "C" int ppoc_phase_args_size() { return (int)sizeof(PhaseArgs); }
 
-// sizes[0]: scratch floats the wrapper must allocate; sizes[1]: dynamic
-// shared-memory bytes.  Returns false (0) for a shape the kernels refuse.
+// Dynamic shared memory of `variant`: the padded weights, or one staged
+// slice of a product's weight operand (SLICE rows of the widest layer + 1).
+static long phase_smem(const PaddedNet& pn, int variant) {
+  if (variant == 0) return (long)pn.n_padded * (long)sizeof(float);
+  int dmax = 1;
+  for (int l = 0; l <= pn.net.n_layers; ++l)
+    dmax = pn.net.dim[l] > dmax ? pn.net.dim[l] : dmax;
+  return (long)SLICE * (dmax + 1) * (long)sizeof(float);
+}
+
+// sizes[0]: scratch floats the wrapper must allocate (either variant);
+// sizes[1], sizes[2]: dynamic shared-memory bytes of the variant with the
+// weights in shared memory and of the one with them in global memory.
+// Returns false (0) for a shape the kernels refuse.
 extern "C" int ppoc_phase_sizes(const PhaseArgs* a, long* sizes) {
   PaddedNet pn;
   if (!make_padded(&pn, a->n_layers, a->dims, a->mb)) return 0;
   sizes[0] = (long)pn.h_floats + 2L * pn.g_floats + pn.net.n_params;
-  sizes[1] = (long)pn.n_padded * (long)sizeof(float);
+  sizes[1] = phase_smem(pn, 0);
+  sizes[2] = phase_smem(pn, 1);
   return 1;
 }
 
 enum PhaseKind { VALUE, POLICY, CATEGORICAL };
 
+template <bool GLOBAL_W>
+static void (*phase_kernel(PhaseKind kind))(const PhaseDev) {
+  return kind == VALUE    ? value_phase_kernel<GLOBAL_W>
+         : kind == POLICY ? policy_phase_kernel<GLOBAL_W>
+                          : categorical_policy_phase_kernel<GLOBAL_W>;
+}
+
 static int launch_phase(const PhaseArgs* a, cudaStream_t stream,
                         PhaseKind kind) {
   PhaseDev d{};
   if (!make_padded(&d.pn, a->n_layers, a->dims, a->mb)) return cudaErrorInvalidValue;
+  if (a->variant < 0 || a->variant > 1) return cudaErrorInvalidValue;
   if (kind != VALUE && (a->k_act < 1 || a->k_act > MAX_ACT ||
                         d.pn.net.dim[a->n_layers] != a->k_act))
     return cudaErrorInvalidValue;
@@ -320,10 +370,9 @@ static int launch_phase(const PhaseArgs* a, cudaStream_t stream,
   d.two_over_mb = a->two_over_mb; d.lp0 = a->lp0; d.ent0 = a->ent0;
   d.clip_lo = a->clip_lo; d.clip_hi = a->clip_hi; d.ent_coeff = a->ent_coeff;
   d.hyper = a->hyper;
-  const int smem = d.pn.n_padded * (int)sizeof(float);
-  auto kernel = kind == VALUE    ? value_phase_kernel
-                : kind == POLICY ? policy_phase_kernel
-                                 : categorical_policy_phase_kernel;
+  const int smem = (int)phase_smem(d.pn, a->variant);
+  auto kernel = a->variant == 0 ? phase_kernel<false>(kind)
+                                : phase_kernel<true>(kind);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;

@@ -178,7 +178,8 @@ def stream_of(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-# the two variants of K1 and K5, by where the weights live during a launch
+# the two variants of K1, K3, K4, K5 and K6, by where the weights live during
+# a launch
 VARIANTS = ("smem", "global")
 
 

@@ -137,6 +137,22 @@ def _declare() -> ctypes.CDLL:
     return lib
 
 
+_TILE, _TILE_L, _SLICE = 64, 32, 32   # csrc/mlp.cu TILE, TILE_L, SLICE
+
+
+def variant_bytes(widths: Sequence[int]) -> List[int]:
+    """Shared memory K5 needs on the net ``widths`` in each variant
+    (``_build.VARIANTS``), in bytes: the larger of the forward's and the
+    backward's (the launch picks a variant both fit), which is the
+    backward's three row tiles, plus the padded weights or one staged weight
+    slice.  The same as csrc/mlp.cu ``smem_bytes`` (a card test holds the
+    two together); the batch does not enter."""
+    dmax = max(widths)
+    padded = sum(a * (b + 1) + b for a, b in zip(widths[:-1], widths[1:]))
+    return [4 * (padded + 3 * _TILE * dmax),
+            4 * (3 * _TILE_L * dmax + _SLICE * (dmax + 1))]
+
+
 def _args(params, x: torch.Tensor, hiddens, activation: str,
           variant=None):
     """Argument block, the chosen variant's sizes and the host arrays it

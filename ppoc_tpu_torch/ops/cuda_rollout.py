@@ -32,7 +32,8 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -364,6 +365,33 @@ global_launches = {
     for name in LANES for mode in MODES}
 
 
+_ET, _ET_L = 8, 32      # csrc/rollout.cu ET, ET_L: envs a block, per variant
+_STATIC_SMEM = 1024     # the kernel's static shared memory (the nets' shapes)
+
+
+def variant_bytes(pwidths: Sequence[int],
+                  vwidths: Optional[Sequence[int]] = None) -> List[int]:
+    """Shared memory one rollout launch needs in each variant
+    (``_build.VARIANTS``), in bytes, the static share included: per net
+    two ping-pong hidden tiles and the output tile over the block's envs,
+    plus the obs tile, plus the nets themselves in the shared-memory
+    variant.  ``vwidths``: the value net of a launch with the V planes
+    (``None``: with the metrics, which needs less).  The same as
+    csrc/rollout.cu ``rollout_smem`` (a card test holds the two
+    together)."""
+    nets = [pwidths] + ([vwidths] if vwidths is not None else [])
+    hmax = max([1] + [w for n in nets for w in n[1:-1]])
+    out = []
+    for variant, et in enumerate((_ET, _ET_L)):
+        floats = pwidths[0] * et
+        for n in nets:
+            floats += 2 * hmax * et + n[-1] * et
+            if variant == 0:
+                floats += sum(a * b + b for a, b in zip(n[:-1], n[1:]))
+        out.append(4 * floats + _STATIC_SMEM)
+    return out
+
+
 # --- raw outputs shared by the kernel and the plain version ---------------
 
 class RawRollout(NamedTuple):
@@ -659,10 +687,9 @@ def rollout_kernel(params, log_std: Optional[torch.Tensor], v_params, seed,
         p(out.truncated), p(out.st_final), p(out.steps_final),
         p(out.metrics))
     lib = _declare()
-    # 1 KB of the block's shared memory is static (the nets' shapes)
     sizes = [lib.ppoc_rollout_smem_bytes(ctypes.byref(args), v)
              for v in range(len(_build.VARIANTS))]
-    sizes = [n + 1024 if n >= 0 else n for n in sizes]
+    sizes = [n + _STATIC_SMEM if n >= 0 else n for n in sizes]
     args.variant = _build.pick_variant(
         sizes, _build.smem_optin(dev), variant,
         f"rollout kernel for nets {widths}/{vwidths}")

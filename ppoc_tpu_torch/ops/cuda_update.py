@@ -6,7 +6,16 @@ Counterparts of ``ppoc_tpu/ops/pallas_update.py`` ``value_phase_fused``
 ``policy_phase_fused_categorical`` (K6, categorical).  The caller gathers
 the rows of every epoch x minibatch step in order beforehand (as the JAX
 wrappers do); one launch then runs every step: forward, the loss gradient
-in closed form, backward and Adam, with the weights in shared memory.
+in closed form, backward and Adam.
+
+Each kernel has two variants (``_build.VARIANTS``): the weights in one
+block's shared memory, or, for nets larger than that (2x256: the
+[10,256,256,1] value net is 277.5 KB padded against the H100's 227 KB), in
+global memory, where Adam updates the output params in place and each
+product stages its weight operand 32 rows at a time.  The launch takes the
+first whose shared memory fits (:func:`variant_bytes` gives the same bytes
+from the widths alone); ``variant=`` forces one for tests.  The two sum every output in the same order, so on a net both
+take they give the same bits.  The launch counts are kept per variant.
 
 Adam here is the kernels' own: bias corrections 1 - exp(t log b) folded
 into the step size, eps outside the sqrt; K4 runs a second Adam for
@@ -19,7 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +41,13 @@ from ppoc_tpu_torch.ops.adam import AdamState
 value_launches = _build.LaunchCount("value_phase")
 policy_launches = _build.LaunchCount("policy_phase")
 categorical_launches = _build.LaunchCount("policy_phase_categorical")
+value_global_launches = _build.LaunchCount("value_phase_global")
+policy_global_launches = _build.LaunchCount("policy_phase_global")
+categorical_global_launches = _build.LaunchCount(
+    "policy_phase_categorical_global")
+
+_SLICE = 32          # csrc/mlp_step.cuh SLICE
+_STATIC_SMEM = 1024  # the kernels' static shared memory, rounded up
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -186,6 +202,18 @@ def policy_phase_categorical_plain(obs_seq, act_seq, lp_seq, adv_seq, params,
 
 # --- the kernels ----------------------------------------------------------
 
+def variant_bytes(widths: Sequence[int]) -> List[int]:
+    """Shared memory one launch on the net ``widths`` needs in each variant
+    (``_build.VARIANTS``), in bytes, the kernels' static share included:
+    the padded weights (each W_l row d_{l+1} + 1 floats, plus the biases),
+    or one staged slice of 32 rows of the widest layer + 1.  The same as
+    csrc/update.cu ``phase_smem`` (a card test holds the two together);
+    the minibatch size does not enter."""
+    padded = sum(a * (b + 1) + b for a, b in zip(widths[:-1], widths[1:]))
+    staged = _SLICE * (max(widths) + 1)
+    return [4 * n + _STATIC_SMEM for n in (padded, staged)]
+
+
 class _PhaseArgs(ctypes.Structure):
     """Mirror of `struct PhaseArgs` in csrc/update.cu."""
     _fields_ = (
@@ -196,7 +224,7 @@ class _PhaseArgs(ctypes.Structure):
         + [("dims", ctypes.POINTER(ctypes.c_int))]
         + [(n, ctypes.c_int) for n in (
             "n_layers", "activation", "n_steps", "mb", "t0", "t0_ls",
-            "k_act")]
+            "k_act", "variant")]
         + [(n, ctypes.c_float) for n in (
             "two_over_mb", "lp0", "ent0", "clip_lo", "clip_hi", "ent_coeff")]
         + [("hyper", Hyper)]
@@ -221,22 +249,34 @@ def _declare() -> ctypes.CDLL:
     return lib
 
 
-def _launch(kind: str, args: _PhaseArgs, dev, keep) -> None:
-    """Size the scratch, check shared memory, launch.  ``keep`` holds the
-    tensors and host arrays the launch reads until it is enqueued."""
+_KINDS = {"value": ("ppoc_value_phase", value_launches,
+                     value_global_launches),
+          "policy": ("ppoc_policy_phase", policy_launches,
+                     policy_global_launches),
+          "categorical policy": ("ppoc_policy_phase_categorical",
+                                 categorical_launches,
+                                 categorical_global_launches)}
+
+
+def _launch(kind: str, args: _PhaseArgs, widths, dev, keep,
+            variant: Optional[str]) -> None:
+    """Size the scratch, pick the variant by shared memory (or take
+    ``variant``), launch, count.  ``keep`` holds the tensors and host arrays
+    the launch reads until it is enqueued."""
     lib = _declare()
-    sizes = (ctypes.c_long * 2)()
+    sizes = (ctypes.c_long * 3)()
     if not lib.ppoc_phase_sizes(ctypes.byref(args), sizes):
         raise ValueError("update kernels take 1-8 layers and mb >= 1")
-    if sizes[1] + 1024 > _build.smem_optin(dev):
-        raise ValueError(f"{kind} kernel needs {sizes[1]} B of shared "
-                         f"memory for the weights; more than one block holds")
+    args.variant = _build.pick_variant(
+        [n + _STATIC_SMEM for n in sizes[1:]], _build.smem_optin(dev),
+        variant, f"{kind} phase kernel for the net {list(widths)}")
     scratch = torch.empty(sizes[0], dtype=torch.float32, device=dev)
     args.scratch = scratch.data_ptr()
-    fn = {"value": lib.ppoc_value_phase, "policy": lib.ppoc_policy_phase,
-          "categorical policy": lib.ppoc_policy_phase_categorical}[kind]
-    _build.check(lib, fn(ctypes.byref(args), _build.stream_of(dev)),
+    name, smem_count, global_count = _KINDS[kind]
+    _build.check(lib, getattr(lib, name)(ctypes.byref(args),
+                                         _build.stream_of(dev)),
                  f"{kind} phase kernel")
+    (global_count if args.variant else smem_count).n += 1
     del keep
 
 
@@ -258,30 +298,34 @@ def _common_args(x, params, opt: AdamState, n_steps: int, mb: int,
         n_steps=n_steps, mb=mb, t0=opt.t, hyper=hyper)
     new_opt = AdamState(mlp.unflatten(outs[1], widths),
                         mlp.unflatten(outs[2], widths), opt.t + n_steps)
-    return args, mlp.unflatten(outs[0], widths), new_opt, (flat, dims)
+    return args, widths, mlp.unflatten(outs[0], widths), new_opt, (flat, dims)
 
 
 def value_phase_kernel(obs_seq, tgt_seq, params, opt: AdamState,
-                       n_steps: int, mb: int, activation: str, hyper: Hyper):
-    """Launch K3; same arguments and results as value_phase_plain."""
+                       n_steps: int, mb: int, activation: str, hyper: Hyper,
+                       variant: Optional[str] = None):
+    """Launch K3; same arguments and results as value_phase_plain.  The
+    variant is the first whose shared memory fits, unless ``variant``
+    (``"smem"`` or ``"global"``) names one."""
     dev = obs_seq.device
     tgt_seq = tgt_seq.reshape(-1).contiguous()
     _build.require(tgt_seq, "targets", (n_steps * mb,), device=dev)
-    args, new_params, new_opt, keep = _common_args(
+    args, widths, new_params, new_opt, keep = _common_args(
         obs_seq, params, opt, n_steps, mb, activation, hyper)
     stats = torch.empty(1, dtype=torch.float32, device=dev)
     args.tgt, args.stats = tgt_seq.data_ptr(), stats.data_ptr()
     args.two_over_mb = 2.0 / mb
-    _launch("value", args, dev, keep)
-    value_launches.n += 1
+    _launch("value", args, widths, dev, keep, variant)
     return new_params, new_opt, stats[0] / (n_steps * mb)
 
 
 def policy_phase_kernel(obs_seq, act_seq, lp_seq, adv_seq, params, log_std,
                         opt_policy: AdamState, opt_log_std: AdamState,
                         n_steps: int, mb: int, activation: str, hyper: Hyper,
-                        clip_eps: float, ent_coeff: float):
-    """Launch K4; same arguments and results as policy_phase_plain."""
+                        clip_eps: float, ent_coeff: float,
+                        variant: Optional[str] = None):
+    """Launch K4; same arguments and results as policy_phase_plain
+    (``variant``: see :func:`value_phase_kernel`)."""
     dev = obs_seq.device
     k = log_std.shape[0]
     rows = n_steps * mb
@@ -296,7 +340,7 @@ def policy_phase_kernel(obs_seq, act_seq, lp_seq, adv_seq, params, log_std,
     if mlp.dims(params)[-1] != k or not 1 <= k <= 8:
         raise ValueError(f"policy head width {mlp.dims(params)[-1]} must equal "
                          f"the action dim {k} (1-8)")
-    args, new_params, new_opt, keep = _common_args(
+    args, widths, new_params, new_opt, keep = _common_args(
         obs_seq, params, opt_policy, n_steps, mb, activation, hyper)
     ls_out = [torch.empty_like(t) for t in ls_in]
     stats = torch.empty(2, dtype=torch.float32, device=dev)
@@ -310,8 +354,7 @@ def policy_phase_kernel(obs_seq, act_seq, lp_seq, adv_seq, params, log_std,
     args.ent0 = 0.5 * k * (1.0 + _LOG_2PI)
     args.clip_lo, args.clip_hi = 1.0 - clip_eps, 1.0 + clip_eps
     args.ent_coeff = ent_coeff
-    _launch("policy", args, dev, keep)
-    policy_launches.n += 1
+    _launch("policy", args, widths, dev, keep, variant)
     return (new_params, ls_out[0], new_opt,
             AdamState(ls_out[1], ls_out[2], opt_log_std.t + n_steps),
             stats[0] / n_steps, stats[1] / n_steps)
@@ -320,10 +363,12 @@ def policy_phase_kernel(obs_seq, act_seq, lp_seq, adv_seq, params, log_std,
 def policy_phase_categorical_kernel(obs_seq, act_seq, lp_seq, adv_seq, params,
                                     opt_policy: AdamState, n_steps: int,
                                     mb: int, activation: str, hyper: Hyper,
-                                    clip_eps: float, ent_coeff: float):
+                                    clip_eps: float, ent_coeff: float,
+                                    variant: Optional[str] = None):
     """Launch K6; same arguments and results as
-    policy_phase_categorical_plain.  The kernel reads the int32 class ids
-    as they are."""
+    policy_phase_categorical_plain (``variant``: see
+    :func:`value_phase_kernel`).  The kernel reads the int32 class ids as
+    they are."""
     dev = obs_seq.device
     k = mlp.dims(params)[-1]
     rows = n_steps * mb
@@ -336,7 +381,7 @@ def policy_phase_categorical_kernel(obs_seq, act_seq, lp_seq, adv_seq, params,
     if not 1 <= k <= 8:
         raise ValueError(f"the categorical policy phase takes 1-8 classes, "
                          f"got a head of width {k}")
-    args, new_params, new_opt, keep = _common_args(
+    args, widths, new_params, new_opt, keep = _common_args(
         obs_seq, params, opt_policy, n_steps, mb, activation, hyper)
     stats = torch.empty(2, dtype=torch.float32, device=dev)
     p = _build.ptr
@@ -344,8 +389,7 @@ def policy_phase_categorical_kernel(obs_seq, act_seq, lp_seq, adv_seq, params,
     args.stats, args.k_act = p(stats), k
     args.clip_lo, args.clip_hi = 1.0 - clip_eps, 1.0 + clip_eps
     args.ent_coeff = ent_coeff
-    _launch("categorical policy", args, dev, keep)
-    categorical_launches.n += 1
+    _launch("categorical policy", args, widths, dev, keep, variant)
     return new_params, new_opt, stats[0] / n_steps, stats[1] / n_steps
 
 

@@ -734,3 +734,197 @@ def test_flash_refuses_what_the_kernel_does_not_take(dev):
     assert code != 0
     with pytest.raises(RuntimeError, match="K7 forward failed"):
         _build.check(lib, code, "K7 forward")
+
+
+# --- K3, K4 and K6 for nets past shared memory --------------------------------
+# The global-memory variant sums every output in the shared-memory
+# variant's order, so on a net both take a whole phase is the same bits;
+# against the plain version it is held as chip_smoke.check_phase holds a
+# phase: one step within 1e-6, 20 steps within 1e-4 (weights and the loss
+# and entropy, relative where above 1).
+
+def _phase_case(dev, kind, hidden, n, mb, seed=0):
+    """(kernel, plain, args, global counter, smem counter) of one whole
+    phase on seeded rows: K3 on the value net and K4 on the Gaussian
+    policy, reacher's at 2x256 (two action dims), else pendulum's; K6 on
+    cartpole's categorical policy."""
+    h = cu.Hyper.of(3e-4, 0.9, 0.999, 1e-8)
+    if kind == "K6":
+        ts, rows = _categorical_case(dev, hidden, 2, n * mb, seed=seed)
+        return (cu.policy_phase_categorical_kernel,
+                cu.policy_phase_categorical_plain,
+                (*rows, ts.policy_params["mlp"], ts.opt_policy._replace(t=4),
+                 n, mb, "relu", h, 0.2, 0.01),
+                cu.categorical_global_launches, cu.categorical_launches)
+    env = "reacher" if hidden == (256, 256) else "pendulum"
+    ts = _state(dev, hidden, seed=seed, env=env)
+    spec = envs.make(env).spec
+    x, a, lp, adv = _rows(dev, n * mb, spec.obs_dim, spec.action_dim,
+                          seed=seed)
+    if kind == "K3":
+        return (cu.value_phase_kernel, cu.value_phase_plain,
+                (x, adv * 50, ts.v_params, ts.opt_v._replace(t=5), n, mb,
+                 "relu", h), cu.value_global_launches, cu.value_launches)
+    pol = ts.policy_params
+    return (cu.policy_phase_kernel, cu.policy_phase_plain,
+            (x, a, lp[:, 0], adv[:, 0], pol["mlp"], pol["log_std"],
+             ts.opt_policy._replace(t=3), ts.opt_log_std._replace(t=7), n,
+             mb, "relu", h, 0.2, 0.01),
+            cu.policy_global_launches, cu.policy_launches)
+
+
+def _phase_weights(out):
+    """The trained tensors of a phase's results: the net, and log_std."""
+    extra = [out[1]] if isinstance(out[1], torch.Tensor) else []
+    return torch.cat([mlp.flatten(out[0])] + extra)
+
+
+def _phase_stats(out):
+    return out[-2:] if isinstance(out[1], torch.Tensor) else out[2:]
+
+
+def _phase_outputs(out):
+    """Every output of a phase as flat tensors (Adam steps as tensors)."""
+    def flat(t):
+        return t.reshape(-1) if isinstance(t, torch.Tensor) else mlp.flatten(t)
+
+    got = []
+    for x in out:
+        if isinstance(x, AdamState):
+            got += [flat(x.m), flat(x.v), torch.tensor(x.t)]
+        else:
+            got.append(flat(x))
+    return got
+
+
+@pytest.mark.parametrize("kind", ["K3", "K4", "K6"])
+@pytest.mark.parametrize("n,tol", [(1, 1e-6), (20, 1e-4)])
+def test_phase_global_variant_matches_plain_at_2x256(dev, kind, n, tol):
+    """K3 on [10,256,256,1] and K4 on [10,256,256,2] (the reference
+    schedule at reacher's width, minibatch 64), K6 on [4,256,256,2]: past
+    one block's shared memory, so the launch takes the global-memory
+    variant by size and counts it there."""
+    kernel, plain, args, count_g, count_s = _phase_case(dev, kind,
+                                                        (256, 256), n, 64)
+    g0, s0 = count_g.n, count_s.n
+    k = kernel(*args)
+    assert (count_g.n, count_s.n) == (g0 + 1, s0)
+    p = plain(*args)
+    torch.testing.assert_close(_phase_weights(k), _phase_weights(p),
+                               rtol=0, atol=tol)
+    for a, b in zip(_phase_stats(k), _phase_stats(p)):
+        assert abs(float(a - b)) <= tol * max(1.0, abs(float(b)))
+
+
+@pytest.mark.parametrize("kind,n", [("K3", 500), ("K4", 200), ("K6", 200)])
+def test_phase_variants_give_the_same_bits(dev, kind, n):
+    """On the bench nets ([3,128,128,1]; K6 [4,128,128,2]), minibatch 256,
+    the bench's whole phase: the global-memory variant equals the
+    shared-memory one bit for bit in every output."""
+    kernel, _, args, _, _ = _phase_case(dev, kind, (128, 128), n, 256,
+                                        seed=3)
+    a = _phase_outputs(kernel(*args, variant="smem"))
+    b = _phase_outputs(kernel(*args, variant="global"))
+    assert len(a) == len(b)
+    assert all(torch.equal(x, y.to(x.device)) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("kind,h", [("K3", 236), ("K6", 235)])
+def test_phase_variant_is_chosen_by_size(dev, kind, h):
+    """At the H100's 232,448 B: K3 keeps [3,h,h,1] in shared memory to h
+    236 (4 (h^2 + 8h + 4) + 1024 B) and K6 [4,h,h,2] to h 235 (4 (h^2 +
+    10h + 6) + 1024 B); one unit wider takes the global-memory variant."""
+    from ppoc_tpu_torch.ops import _build
+
+    if _build.smem_optin(dev) != H100_OPTIN:
+        pytest.skip("the boundary widths are the H100's")
+    for width, wide in ((h, False), (h + 1, True)):
+        kernel, _, args, count_g, count_s = _phase_case(
+            dev, kind, (width, width), 2, 32)
+        g0, s0 = count_g.n, count_s.n
+        kernel(*args)
+        assert (count_g.n - g0, count_s.n - s0) == (
+            (1, 0) if wide else (0, 1)), width
+
+
+@pytest.mark.parametrize("kind,nbytes", [("K3", 278572), ("K4", 279600),
+                                         ("K6", 273432)])
+def test_phase_smem_variant_refused_at_2x256(dev, kind, nbytes):
+    """Forcing the shared-memory variant on a 2x256 net raises, naming the
+    bytes it needs (the padded weights and the static 1 KB)."""
+    from ppoc_tpu_torch.ops import _build
+
+    if _build.smem_optin(dev) != H100_OPTIN:
+        pytest.skip("the byte counts are checked against the H100's")
+    kernel, _, args, count_g, count_s = _phase_case(dev, kind, (256, 256),
+                                                    1, 64)
+    n0 = (count_g.n, count_s.n)
+    with pytest.raises(ValueError, match=f"{nbytes} B of shared memory"):
+        kernel(*args, variant="smem")
+    assert (count_g.n, count_s.n) == n0
+
+
+@pytest.mark.parametrize("widths", [(10, 256, 256, 1), (4, 256, 256, 2),
+                                    (3, 237, 237, 1), (3, 64, 64, 1),
+                                    (6, 100, 300, 70, 3)])
+def test_kernel_fit_bytes_equal_the_kernels(dev, widths):
+    """ppo.kernel_fit sizes each kernel from the widths alone (the ops
+    modules' variant_bytes): the same bytes as the kernels' own size
+    functions, in each variant (K1 with and without the value net)."""
+    import ctypes
+
+    from ppoc_tpu_torch.ops import _build
+
+    lib = _build.load()
+    dims = (ctypes.c_int * len(widths))(*widths)
+    pa = cu._PhaseArgs(dims=dims, n_layers=len(widths) - 1, mb=64)
+    sizes = (ctypes.c_long * 3)()
+    cu._declare()
+    assert lib.ppoc_phase_sizes(ctypes.byref(pa), sizes)
+    assert cu.variant_bytes(widths) == [n + 1024 for n in sizes[1:]]
+    cuda_mlp._declare()
+    ma = cuda_mlp._MlpArgs(dims=dims, n_layers=len(widths) - 1, B=300)
+    want = []
+    for v in range(2):
+        out = (ctypes.c_long * 4)()
+        assert lib.ppoc_mlp_sizes(ctypes.byref(ma), v, out)
+        want.append(max(out[0], out[1]))
+    assert cuda_mlp.variant_bytes(widths) == want
+    cr._declare()
+    vw = (widths[0], *widths[1:-1], 1)
+    vdims = (ctypes.c_int * len(vw))(*vw)
+    for with_v in (True, False):
+        ra = cr._RolloutArgs(policy_dims=dims, value_dims=vdims,
+                             value_params=1 if with_v else None,
+                             n_layers=len(widths) - 1)
+        got = cr.variant_bytes(widths, vw if with_v else None)
+        assert got == [lib.ppoc_rollout_smem_bytes(ctypes.byref(ra), v) + 1024
+                       for v in range(2)]
+
+
+def test_trainer_refuses_512_at_construction(dev):
+    """hidden (512, 512) fits K1 in no variant: Trainer raises before it
+    builds any state, naming K1 and the widths."""
+    with pytest.raises(NotImplementedError, match=r"K1 .*512, 512"):
+        Trainer(PPOConfig(env="pendulum", hidden=(512, 512)))
+
+
+def test_trainer_on_cuda_wide_fused_path(dev):
+    """The reference schedule's path at 2x256 in small (reacher, minibatch
+    64): K1's reacher lane and K3/K4 all in their global-memory variants,
+    no shared-memory phase and no K5."""
+    counters = [cr.global_launches["reacher", "values"], cuda_gae.launches,
+                cu.value_global_launches, cu.policy_global_launches,
+                cu.value_launches, cu.policy_launches,
+                cuda_mlp.fwd_global_launches, cuda_mlp.bwd_global_launches]
+    cfg = PPOConfig(env="reacher", n_envs=8, rollout_len=64,
+                    minibatch_size=64, fits_per_epoch=2, n_epochs_value=2,
+                    n_epochs_policy=1, eval_envs=8, eval_len=150,
+                    hidden=(256, 256), kernel_backend="pallas")
+    tr = Trainer(cfg)
+    before = [c.n for c in counters]
+    fit = tr.train_epoch()
+    assert [c.n - b for c, b in zip(counters, before)] == [2, 2, 2, 2, 0, 0,
+                                                           0, 0]
+    assert tr.state.opt_v.t == 2 * 2 * 8 and tr.state.opt_log_std.t == 2 * 8
+    assert torch.isfinite(fit.entropy) and torch.isfinite(fit.value_loss)

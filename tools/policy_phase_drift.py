@@ -4,14 +4,20 @@ phase (K3), drifts from exact arithmetic.
     python3 tools/policy_phase_drift.py [--lane pendulum] [--seeds 0 1 2]
     python3 tools/policy_phase_drift.py --lane cartpole|acrobot \
         [--seeds 0 1 2] [--draws 2 12] [--phase value]
+    python3 tools/policy_phase_drift.py --lane reacher|cartpole \
+        --hidden 256 256 [--draws 1 11] [--phase value]
 
-Needs a CUDA device.  ``--lane pendulum`` holds K4, the Gaussian phase;
-``cartpole`` and ``acrobot`` hold K6, the categorical phase, with
-chip_smoke.py's entropy coefficients (0 and 0.01); ``--phase value`` holds
-K3 on the same fit's value rows instead (no clip branch: its counts are
-0).  For each seed (the
+Needs a CUDA device.  ``--lane pendulum`` (or ``reacher``, two action
+dims) holds K4, the Gaussian phase; ``cartpole`` and ``acrobot`` hold K6,
+the categorical phase, with chip_smoke.py's entropy coefficients (0 and
+0.01); ``--phase value`` holds K3 on the same fit's value rows instead (no
+clip branch: its counts are 0).  ``--env`` is another name for ``--lane``.
+For each seed (the
 weights) and each row draw it builds one fit's policy rows at the bench
-configuration's shapes (kernel rollout, kernel GAE) and runs the whole
+configuration's shapes, or with ``--hidden`` at the reference schedule's
+(``chip_smoke.wide_config``: 15 envs x 200, minibatch 64, 10 value and 4
+policy epochs; nets past one block's shared memory take the kernels'
+global-memory variant), (kernel rollout, kernel GAE) and runs the whole
 phase five ways: the kernel; the plain version in float32 on the card and
 on the CPU; the plain version in float64 (the exact answer); and float64
 again from starting weights perturbed by one float32 rounding (relative
@@ -30,7 +36,7 @@ units of the minibatch's rows the other ReLU gate, than float64 does
 (evaluated in float64 on each run's own weights); and the local error,
 one kernel / plain-float32 step against one float64 step from the same
 (kernel) state.  Writes everything to chiprun_out/policy_phase_drift.json
-under the checkout (``<phase>_phase_drift_<lane>.json``).
+under the checkout (``<phase>_phase_drift_<lane>[_<hidden>].json``).
 """
 from __future__ import annotations
 
@@ -47,8 +53,11 @@ import chip_smoke as cs  # noqa: E402
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--lane", default="pendulum",
-                    choices=["pendulum", *DISCRETE])
+    ap.add_argument("--lane", "--env", default="pendulum",
+                    choices=["pendulum", "reacher", *DISCRETE])
+    ap.add_argument("--hidden", type=int, nargs="+", default=None,
+                    help="hidden widths: the reference schedule at these "
+                         "widths in place of the bench configuration")
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
     ap.add_argument("--draws", type=int, nargs="+", default=None,
                     help="row-draw seeds (default: seed + 1 for pendulum, "
@@ -74,7 +83,7 @@ def main() -> int:
 
     print(cs.card_line(), flush=True)
     flat = mlp.flatten
-    discrete = lane != "pendulum"
+    discrete = lane in DISCRETE
     if discrete:
         i, ent = DISCRETE[lane]
         kernel = cu.policy_phase_categorical_kernel
@@ -85,14 +94,17 @@ def main() -> int:
     if value:
         kernel, plain = cu.value_phase_kernel, cu.value_phase_plain
     report = {"card": cs.card_line(), "lane": lane, "phase": args.phase,
-              "cases": {}}
+              "hidden": args.hidden, "cases": {}}
     cases = [(seed, draw) for seed in args.seeds
              for draw in (draws if discrete else args.draws or [seed + 1])]
     for seed, draw in cases:
-        cfg = cs.bench_config(seed)
-        if discrete:
-            cfg = cfg.replace(env=lane, eval_len=500)
+        if args.hidden:
+            cfg = cs.wide_config(lane, tuple(args.hidden), seed)
         else:
+            cfg = cs.bench_config(seed)
+            if discrete:
+                cfg = cfg.replace(env=lane, eval_len=500)
+        if not discrete:
             ent = cfg.ent_coeff
         tr = Trainer(cfg, dev)
         ts = tr.state
@@ -103,12 +115,10 @@ def main() -> int:
                                     (0x2545F491 + i, 0x9E3779B9 + seed), E,
                                     T, "relu", None, None, 0.99, lane)
             state0 = (pp["mlp"], ts.opt_policy)
-        elif value:
-            raw = cr.rollout_kernel(pp["mlp"], pp["log_std"], vp,
-                                    (0x01234567 + seed, 0x89ABCDEF), E, T)
         else:
             raw = cr.rollout_kernel(pp["mlp"], pp["log_std"], vp,
-                                    (0x01234567 + seed, 0x89ABCDEF), E, T)
+                                    (0x01234567 + seed, 0x89ABCDEF), E, T,
+                                    lane=lane)
             state0 = (pp["mlp"], pp["log_std"], ts.opt_policy,
                       ts.opt_log_std)
         if value:
@@ -227,7 +237,8 @@ def main() -> int:
             "summary": summary, "steps": steps}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / f"{args.phase}_phase_drift_{lane}.json").write_text(
+    wide = "_" + "x".join(map(str, args.hidden)) if args.hidden else ""
+    (out / f"{args.phase}_phase_drift_{lane}{wide}.json").write_text(
         json.dumps(report))
     return 0
 

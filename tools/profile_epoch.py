@@ -1,6 +1,6 @@
 """Profile one training epoch on the card.
 
-    python3 tools/profile_epoch.py [--config bench|throughput|reacher]
+    python3 tools/profile_epoch.py [--config bench|throughput|reacher|reacher_ref]
 
 Needs a CUDA device.  ``bench`` (the default) is bench.py's bench_config:
 three warm epochs, each with its stochastic evaluation, timed without the
@@ -11,7 +11,9 @@ warm training epochs and three evaluate(deterministic=True) timed alone,
 then one of each under the profiler.  ``reacher`` is the reacher regime
 (chip_smoke.REACHER: 4096 envs x 150, minibatch 16384 in blocks of 4096,
 2x256 nets): one warm epoch, then three training epochs timed alone and
-one under the profiler.  Each profiled window prints its wall
+one under the profiler; ``reacher_ref`` the same for chip_smoke.REACHER_REF
+(the reference schedule at 2x256: 10 fits an epoch through K3 and K4 in
+their global-memory variants).  Each profiled window prints its wall
 time, summed device-kernel time, the count of device kernels and each
 kernel's share of device time, and the device's idle share two ways: 1 -
 device time / the mean unprofiled wall of the same window (the path's own
@@ -67,8 +69,8 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--config", choices=["bench", "throughput", "reacher"],
-                    default="bench")
+    ap.add_argument("--config", default="bench",
+                    choices=["bench", "throughput", "reacher", "reacher_ref"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -84,7 +86,9 @@ def main() -> int:
     throughput = args.config != "bench"
     tr = Trainer({"bench": cs.bench_config,
                   "throughput": lambda: tpu_preset("pendulum"),
-                  "reacher": lambda: PPOConfig(**cs.REACHER)}[args.config]())
+                  "reacher": lambda: PPOConfig(**cs.REACHER),
+                  "reacher_ref": lambda: cs.wide_config("reacher")
+                  }[args.config]())
 
     def epoch():
         t = time.perf_counter()
@@ -106,7 +110,7 @@ def main() -> int:
     print(f"{what} wall, no profiler (s):", [round(w, 4) for w in walls],
           flush=True)
     profiled(what, epoch, walls)
-    if args.config == "reacher":
+    if args.config in ("reacher", "reacher_ref"):
         return 0
     if throughput:
         det_eval()
