@@ -106,6 +106,27 @@
    held to the config's (a fit: one K1 rollout with the V planes and one
    K3 and one K4 or K6, all in global memory, one K2; an evaluation one
    K1 rollout with the metrics; no shared-memory phase kernel).
+19. K7's bf16 variant (kernel_backend "bf16": q, k, v, dout as bf16, p, ds
+   and w rounded to bf16 for their products, dq, dk, dv written as bf16)
+   against its plain versions (the forward chunked as the kernel) at
+   phase 9's shapes and relations, on the same inputs rounded to bf16;
+   the backward twice, bit for bit; timed beside the plain versions and
+   scaled_dot_product_attention in bf16 with the mask.  Then apply_seq
+   "bf16" through it against the same through its plain versions at
+   recall_xl's widths, each output and gradient leaf held by its distance
+   against the bf16-vs-float32 distance.
+20. RECALL_XL_BF16 (RECALL_XL with kernel_backend "bf16"): the decode
+   against the bf16 replay at the initial weights, 2 epochs by phase with
+   every launch held to the config's count (K7's bf16 kernels only: 2, 160
+   and 64 of each a fit), then evaluate(deterministic=True).
+21. REACHER_BF16 (the reacher regime with kernel_backend "bf16", the JAX
+   package's "bf16 + shuffle_block" recipe): evaluate, 3 epochs by phase
+   (a fit is one K1 launch without the V planes, as the JAX package's
+   "bf16" rollout takes none, and one K2; the value forwards and both
+   phases are bf16 library products: no K3, K4, K5 or K6), eval R up by
+   more than 5, then evaluate(deterministic=True) (no kernel); the bf16
+   MLP product (mlp.bf16_dot, bf16 tensor cores) against the CPU form run
+   on the card with TF32 off.
 
 Each phase's title line gives the seconds since the script started.
 Any failed check raises, so the script exits non-zero.  The last two lines
@@ -114,7 +135,8 @@ kernel: "ms" is the kernel's device time per call (CUDA events around
 many calls queued behind a spin kernel), "plain_ms" the plain version's
 device-kernel time per call (the profiler's kernel durations summed);
 "bound_ms" is the least time the card could take for the same work, from
-the H100 SXM's FP32 and memory peaks;
+the H100 SXM's FP32 and memory peaks (the bf16 rows: its bf16 tensor-core
+peak, and their bytes at 2 B a bf16 element);
 "launches" come from the path's run: K1 counts its launches per lane and
 per mode, with the V planes (training) and with the metrics (evaluation),
 and per variant (``rollout[lane]``: the nets in shared memory;
@@ -122,16 +144,21 @@ and per variant (``rollout[lane]``: the nets in shared memory;
 variant (``value_phase``, ``value_phase_global``, ``mlp_forward``,
 ``mlp_forward_global``, ...);
 K7's are read around each phase of the recall_xl run, so the value
-pass's forwards (B 32) and the update phases' (B 4) are counted apart.
+pass's forwards (B 32) and the update phases' (B 4) are counted apart, and
+per variant (``flash_*``, ``flash_*_bf16``).  A K1 launch without the V
+planes (evaluation, and REACHER_BF16's training rollouts) counts under
+"metrics".
 For K7's backward kernels "plain_ms" is autograd through the plain
 version with respect to the kernel's own inputs (q for dq, k and v for
-dk/dv).  "library_ms" is scaled_dot_product_attention with the mask for
-K7 (its backward with respect to the same inputs for the backward
-kernels), else null: no single PyTorch call computes K1-K6's
+dk/dv); for the bf16 rows it is the bf16 backward's plain version of
+that kernel.  "library_ms" is scaled_dot_product_attention with the mask for
+K7 (in bf16 for the bf16 rows; its backward with respect to the same
+inputs for the backward kernels), else null: no single PyTorch call computes K1-K6's
 functions.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -181,6 +208,12 @@ KERNELS = {
                      "ppoc_tpu/ops/pallas_attn.py:335"),
     "flash_bwd_dkv": ("ppoc_tpu_torch/csrc/attn.cu",
                       "ppoc_tpu/ops/pallas_attn.py:352"),
+    "flash_fwd_bf16": ("ppoc_tpu_torch/csrc/attn.cu",
+                       "ppoc_tpu/ops/pallas_attn.py:189"),
+    "flash_bwd_dq_bf16": ("ppoc_tpu_torch/csrc/attn.cu",
+                          "ppoc_tpu/ops/pallas_attn.py:335"),
+    "flash_bwd_dkv_bf16": ("ppoc_tpu_torch/csrc/attn.cu",
+                           "ppoc_tpu/ops/pallas_attn.py:352"),
 }
 # the loose whole-phase limits of check_phase: a kernel's distance from
 # float64 over a 1% learning-rate error's, about 1.5x the largest reading
@@ -1033,6 +1066,9 @@ RECALL = dict(env="recall", n_envs=128, rollout_len=6, minibatch_size=192,
 # kernel's online softmax and its sums over up to 2048 keys run in another
 # order than the plain version's matmuls
 FLASH_OUT_TOL, FLASH_GRAD_TOL = 1e-5, 1e-4
+# K7's three kernels (forward, dq, dk/dv) in each variant
+K7_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+K7_BF16_NAMES = tuple(n + "_bf16" for n in K7_NAMES)
 
 
 def dones_of_rollout(name: str, T: int, B: int, dev):
@@ -1386,15 +1422,17 @@ class PhaseClock:
         return dict(self.t, untimed=untimed)
 
 
-def recall_xl_path(dev, counters):
-    """Trainer(recall_xl at the recipe's widths) on the card by default:
-    the decode-against-replay gap at the initial weights, then
-    RECALL_XL_EPOCHS epochs through K7, each epoch's R and its wall time
-    split by phase (:class:`PhaseClock`), with the launches read around
-    each phase and held to the count the config gives; then
-    evaluate(deterministic=True).  Returns (trainer, {phase: {kernel:
-    launches}} of the epochs, {phase: {kernel: launches}} a fit from the
-    config, log-prob gap)."""
+def recall_xl_path(dev, counters, config=None, names=K7_NAMES,
+                   gap_tol=1e-4):
+    """Trainer(``config``, recall_xl at the recipe's widths by default) on
+    the card by default: the decode-against-replay gap at the initial
+    weights, then RECALL_XL_EPOCHS epochs through K7 (the kernels
+    ``names``: forward, dq, dk/dv of the config's variant), each epoch's R
+    and its wall time split by phase (:class:`PhaseClock`), with the
+    launches read around each phase and held to the count the config gives
+    (every other kernel none); then evaluate(deterministic=True).  Returns
+    (trainer, {phase: {kernel: launches}} of the epochs, {phase: {kernel:
+    launches}} a fit from the config, log-prob gap, per-epoch rows)."""
     import torch
 
     from ppoc_tpu_torch import PPOConfig
@@ -1402,11 +1440,11 @@ def recall_xl_path(dev, counters):
     from ppoc_tpu_torch.algo.trainer import Trainer
     from ppoc_tpu_torch.ops import adam
 
-    cfg = PPOConfig(**RECALL_XL)
+    cfg = PPOConfig(**(RECALL_XL if config is None else config))
     tr = Trainer(cfg)
     check_on_card(tr)
     # decode against replay at the initial weights: the rollout's stored
-    # log-probs (plain decode) and the epoch-0 replay through K7
+    # log-probs (plain float32 decode) and the epoch-0 replay through K7
     draws = ppo.draw_fit(cfg, torch.Generator().manual_seed(11), dev,
                          tr.env)
     pp = tr.state.policy_params
@@ -1414,15 +1452,13 @@ def recall_xl_path(dev, counters):
     with torch.no_grad():
         logp, _ = recurrent.policy_log_probs_rnn(
             cfg, pp, traj.obs, traj.action, traj.terminated | traj.truncated,
-            False, "pallas")
+            False, ppo.backend_of(cfg))
     gap = max_err(logp, traj.log_prob)
     print(f"  decode against the K7 replay at epoch 0: largest log-prob gap "
           f"{gap:.3e}, largest |ratio - 1| "
           f"{float((torch.exp(logp - traj.log_prob) - 1).abs().max()):.3e}",
           flush=True)
-    # 16x the first reading on the card (6.2e-6): decode and replay sum the
-    # same attention sets in another order
-    check("decode against replay, log-probs", gap, 1e-4)
+    check("decode against replay, log-probs", gap, gap_tol)
 
     seqs, n_mb = recurrent.seq_minibatch_plan(cfg.n_envs, cfg.rollout_len,
                                               cfg.minibatch_size)
@@ -1430,17 +1466,17 @@ def recall_xl_path(dev, counters):
     # in the value pass, a forward and both backwards a layer in each
     # minibatch step of the two phases
     L = cfg.attn_layers
+    fwd = names[0]
     per_fit = {"rollout": {},
-               "values + GAE": {"flash_fwd": L},
+               "values + GAE": {fwd: L},
                "value phase": dict.fromkeys(
-                   ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
-                   L * cfg.n_epochs_value * n_mb),
+                   names, L * cfg.n_epochs_value * n_mb),
                "policy phase": dict.fromkeys(
-                   ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
-                   L * cfg.n_epochs_policy * n_mb),
+                   names, L * cfg.n_epochs_policy * n_mb),
                "evaluation": {}}
     fits = RECALL_XL_EPOCHS * cfg.fits_per_epoch
     by_phase = {ph: {c.kernel: 0 for c in counters} for ph in per_fit}
+    rows = []
     for c in counters:
         c.reset()
     torch.cuda.synchronize()
@@ -1462,12 +1498,13 @@ def recall_xl_path(dev, counters):
                 by_phase[ph][k] += v
         for c in counters:
             by_phase["evaluation"][c.kernel] += c.n - n0[c.kernel]
+        rows.append(dict(R=ev.R, split=split))
         print(f"  epoch {i}: R {ev.R:.4f}, value loss {fit.value_loss:.5f}, "
               f"policy loss {fit.policy_loss:.5f}; wall split (s) "
               + ", ".join(f"{k} {v:.3f}" for k, v in split.items()),
               flush=True)
         if not all(math.isfinite(x) for x in (*fit, ev.R)):
-            raise AssertionError(f"non-finite loss on recall_xl: {fit}, "
+            raise AssertionError(f"non-finite loss on {cfg.env}: {fit}, "
                                  f"R {ev.R}")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1503,7 +1540,7 @@ def recall_xl_path(dev, counters):
     if any(ev_n.values()) or ev.episodes != cfg.eval_envs:
         raise AssertionError(f"the mean-policy evaluation of recall_xl: "
                              f"{ev}, launches {ev_n}")
-    return tr, by_phase, per_fit, gap
+    return tr, by_phase, per_fit, gap, rows
 
 
 def attention_phases(dev, counters, record):
@@ -1522,7 +1559,7 @@ def attention_phases(dev, counters, record):
     header(f"[recall_xl path: Trainer(recall_xl, attn_dim 32, 2 layers, 4 "
           f"heads), {RECALL_XL_EPOCHS} epochs, then "
           f"evaluate(deterministic=True)]", flush=True)
-    _, by_phase, per_fit, gap = recall_xl_path(dev, counters)
+    _, by_phase, per_fit, gap, _ = recall_xl_path(dev, counters)
     shapes = (("recall_xl minibatch (T 1024, B 4, H 4, hd 8), rollout "
                "episodes", "recall_xl update phases, minibatch of 4 env "
                "columns", [1024, 4, 4, 8]),
@@ -2328,6 +2365,428 @@ def wide_phases(dev, counters, record):
            phase_bound(cpw, n_p, mb, 3))
 
 
+# --- the bf16 backend: K7's bf16 variant, RECALL_XL_BF16, REACHER_BF16 -----
+
+# the two paths of the JAX package's kernel_backend "bf16" at full width
+RECALL_XL_BF16 = dict(RECALL_XL, kernel_backend="bf16")
+REACHER_BF16 = dict(REACHER, kernel_backend="bf16")
+REACHER_BF16_EPOCHS = 3
+# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet, 700 W): the
+# bound of K7's bf16 rows, with their bytes at 2 B a bf16 element
+PEAK_BF16 = 989e12
+# K7's bf16 variant against its plain versions (the forward with the
+# kernel's CHUNK) on the same bf16 inputs: every output within two bf16
+# roundoffs (2^-7) of the leaf's largest magnitude (at least 1), and at
+# most BF16_SHARE of the elements apart by more than 1e-5 of it: the two
+# sum in another order, so a p, ds or w on a bf16 rounding boundary, or a
+# bf16 output, now and then rounds the other way; a kernel that skipped a
+# rounding would part on nearly all (tests/test_torch_cuda.py holds the
+# same); lse is float32 throughout, FLASH_OUT_TOL
+BF16_TOL, BF16_SHARE = 2.0 ** -7, 0.01
+# apply_seq "bf16" through K7 against the same through its plain versions:
+# the trunk carries each such flip on through every later product, and a
+# gradient sums 4096 rows of them, so the two part on most elements by a
+# little.  Held per output and gradient leaf by the relative two-norm: the
+# kernel's path parts from the plain one by at most SEQ_RATIO of what bf16
+# rounding itself moves the leaf (the plain bf16 path against the float32
+# "pallas" path; the first card reading: at most 0.157)
+SEQ_RATIO = 0.25
+# the decode (float32, as the JAX package's rollout) against the bf16
+# replay at the initial weights: bf16-sized by design; a replay over the
+# wrong attention sets parts by order 1
+BF16_GAP_TOL = 0.25
+
+
+def bf16_bound_ms(ops: float, nbytes: float):
+    """(least ms, what sets it): operations over the bf16 tensor-core peak
+    or bytes over the memory peak, the larger."""
+    t_ops, t_bytes = ops / PEAK_BF16, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def flash_bounds_bf16(case, rel: int, H: int):
+    """K7's bf16 bounds for ``case``, as :func:`flash_bounds` counts its
+    operations, with q, k, v, dout, dq, dk, dv at 2 B an element and out,
+    lse, dsum at 4 B."""
+    from ppoc_tpu_torch.ops import cuda_attn as ca
+
+    q, _, _, _, _, ep_q, ep_k = case
+    BH, T, hd = q.shape
+    pairs = int(ca.valid_mask(ep_q, ep_k, rel, 1).sum()) * H
+    e2, f4 = 2 * BH * T * hd, 4 * BH * T * hd
+    ids, vec = 4 * 2 * ep_q.numel(), 4 * BH * T
+    return (bf16_bound_ms(pairs * (4 * hd + 4), 3 * e2 + ids + f4 + vec),
+            bf16_bound_ms(pairs * (6 * hd + 4), 4 * e2 + ids + 2 * vec + e2),
+            bf16_bound_ms(pairs * (8 * hd + 4), 4 * e2 + ids + 2 * vec
+                          + 2 * e2)), pairs
+
+
+def bf16_agree(label: str, got, want, tol: float = BF16_TOL,
+               share: float = BF16_SHARE) -> float:
+    """Hold ``got`` to ``want`` as BF16_TOL says; returns the max |diff|."""
+    top = max(1.0, float(want.abs().max())) if want.numel() else 1.0
+    diff = (got.double() - want.double()).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    apart = float((diff > 1e-5 * top).double().mean()) if diff.numel() \
+        else 0.0
+    print(f"  {label}: max |diff| {err:.3e}, over the plain max (at least 1) "
+          f"{err / top:.3e} (tolerance {tol:.1e}); {apart:.2%} of elements "
+          f"apart by more than 1e-5 of it (at most {share:.0%})", flush=True)
+    if not (err <= tol * top and apart <= share):
+        raise AssertionError(f"{label}: {err} over {top}, {apart} apart")
+    return err
+
+
+def check_flash_bf16(label: str, case, rel: int, H: int, dev,
+                     time_it=False):
+    """K7's bf16 forward (out, lse) and its bf16 dq and dk/dv kernels
+    against their plain versions (the forward chunked as the kernel,
+    ``CHUNK``) on ``case`` rounded to bf16; rows with no valid key out 0
+    and lse NEG exactly; the backward twice, bit for bit.  Returns
+    ({name: max abs error}, {kernel: timings} or None)."""
+    import torch
+
+    from ppoc_tpu_torch.ops import cuda_attn as ca
+
+    q, k, v, dout, g_lse, ep_q, ep_k = case
+    bf = torch.bfloat16
+    kargs = (q.to(bf), k.to(bf), v.to(bf), ep_q, ep_k, rel, H)
+    out, lse = ca.flash_fwd_kernel(*kargs)
+    dsum = ca.dsum_of(dout, out, g_lse).contiguous()
+    bargs = kargs + (dout.to(bf), dsum, lse)
+    got = (ca.flash_dq_kernel(*bargs),) + ca.flash_dkv_kernel(*bargs)
+    again = (ca.flash_dq_kernel(*bargs),) + ca.flash_dkv_kernel(*bargs)
+    out_p, lse_p = ca.attention_plain_bf16(*kargs, chunk=ca.CHUNK)
+    want = ((ca.flash_dq_plain_bf16(*bargs),)
+            + ca.flash_dkv_plain_bf16(*bargs))
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{label}: two runs of K7's bf16 backward "
+                             f"differ")
+    if not (out.dtype == lse.dtype == torch.float32
+            and all(g.dtype == bf for g in got)):
+        raise AssertionError(f"{label}: out and lse must be float32, dq, "
+                             f"dk, dv bf16")
+    empty = lse_p <= ca.NEG / 2
+    if not (torch.equal(lse[empty], lse_p[empty])
+            and (out[empty] == 0).all()):
+        raise AssertionError(f"{label}: rows with no valid key are not out "
+                             f"0 and lse NEG")
+    errs = {"out": bf16_agree(f"{label}, out", out, out_p)}
+    lse_err = max_err(lse[~empty], lse_p[~empty]) if (~empty).any() else 0.0
+    top = max(1.0, float(lse_p[~empty].abs().max())) if (~empty).any() \
+        else 1.0
+    errs["lse"] = check(f"{label}, lse over the plain max", lse_err / top,
+                        FLASH_OUT_TOL, what="ratio") * top
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        errs[name] = bf16_agree(f"{label}, {name}", a, b)
+    print(f"  {label}: backward twice, bit for bit; {int(empty.sum())} rows "
+          f"with no valid key", flush=True)
+    if not time_it:
+        return errs, None
+    import torch.nn.functional as F
+
+    B = ep_q.shape[0]
+    T, hd = q.shape[1], q.shape[2]
+    mask = ca.valid_mask(ep_q, ep_k, rel, 1)[:, None]              # [B, 1, T, T]
+    q4, k4, v4 = (t.reshape(B, H, T, hd).requires_grad_()
+                  for t in kargs[:3])
+    lib_out = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+    d4 = bargs[7].reshape(B, H, T, hd)
+
+    def lib_bwd(wrt):
+        return lambda: torch.autograd.grad(lib_out, wrt, d4,
+                                           retain_graph=True)
+
+    times = {
+        "flash_fwd_bf16": timings(
+            lambda: ca.flash_fwd_kernel(*kargs),
+            lambda: ca.attention_plain_bf16(*kargs, chunk=ca.CHUNK), 20, 3),
+        "flash_bwd_dq_bf16": timings(
+            lambda: ca.flash_dq_kernel(*bargs),
+            lambda: ca.flash_dq_plain_bf16(*bargs), 20, 3),
+        "flash_bwd_dkv_bf16": timings(
+            lambda: ca.flash_dkv_kernel(*bargs),
+            lambda: ca.flash_dkv_plain_bf16(*bargs), 20, 3),
+    }
+    times["flash_fwd_bf16"]["library_ms"] = queued_ms(
+        lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask),
+        20)
+    times["flash_bwd_dq_bf16"]["library_ms"] = queued_ms(lib_bwd((q4,)), 20)
+    times["flash_bwd_dkv_bf16"]["library_ms"] = queued_ms(
+        lib_bwd((k4, v4)), 20)
+    parts = "; ".join(f"{k} {t['ms']:.4f} / {t['plain_ms']:.4f} / "
+                      f"{t['library_ms']:.4f}" for k, t in times.items())
+    print(f"  {label}: device ms, kernel / plain / SDPA in bf16 (its output "
+          f"bf16; timed, not compared): {parts}", flush=True)
+    return errs, times
+
+
+def check_flash_bf16_all(dev):
+    """K7's bf16 variant at every shape phase 9 holds the f32 one at, on
+    the same inputs; returns {shape name: (case, rel, H, errors,
+    timings)}."""
+    T, B, H, hd = 1024, 4, 4, 8
+    xl = dones_of_rollout("recall_xl", T, 32, dev)
+    runs = {}
+    for name, case, rel, Hn, time_it in (
+            ("recall_xl minibatch (T 1024, B 4, H 4, hd 8), rollout "
+             "episodes", flash_case(T, B, H, hd, xl[:, :B], 1, dev), 0, H,
+             True),
+            ("recall_xl minibatch, p_done 0.02",
+             flash_case(T, B, H, hd, random_dones(T, B, 0.02, 2, dev), 3,
+                        dev), 0, H, False),
+            ("recall_xl value pass (T 1024, B 32, H 4, hd 8)",
+             flash_case(T, 32, H, hd, xl, 4, dev), 0, H, True),
+            ("ragged T 1030 (B 4, H 4, hd 8), p_done 0.02",
+             flash_case(1030, B, H, hd, random_dones(1030, B, 0.02, 5, dev),
+                        6, dev), 0, H, False),
+            ("X-ray (T 2048, B 16, H 8, hd 64), p_done 0.02",
+             flash_case(2048, 16, 8, 64, random_dones(2048, 16, 0.02, 7,
+                                                      dev), 8, dev),
+             0, 8, True)):
+        errs, times = check_flash_bf16(name, case, rel, Hn, dev, time_it)
+        runs[name] = (case, rel, Hn, errs, times)
+    q_d = random_dones(T, B, 0.02, 9, dev)
+    k_d = random_dones(T, B, 0.02, 10, dev)
+    for rel in (-1, 0, 1):
+        name = f"ring block rel {rel:+d} (T 1024, B 4, H 4, hd 8)"
+        errs, _ = check_flash_bf16(name, flash_case(T, B, H, hd, q_d, 11,
+                                                    dev, k_dones=k_d),
+                                   rel, H, dev)
+        runs[name] = (None, rel, H, errs, None)
+    return runs
+
+
+class PlainK7Bf16:
+    """Within the block, K7's bf16 wrappers run their plain versions on
+    CUDA tensors (the forward chunked as the kernel): ``FlashAttention``
+    looks the three wrappers up at call time, so apply_seq's path is the
+    same but for the kernels."""
+
+    def __enter__(self):
+        from ppoc_tpu_torch.ops import cuda_attn as ca
+
+        self.saved = (ca.flash_fwd_kernel, ca.flash_dq_kernel,
+                      ca.flash_dkv_kernel)
+        ca.flash_fwd_kernel = lambda *a: ca.attention_plain_bf16(
+            *a, chunk=ca.CHUNK)
+        ca.flash_dq_kernel = ca.flash_dq_plain_bf16
+        ca.flash_dkv_kernel = ca.flash_dkv_plain_bf16
+        return self
+
+    def __exit__(self, *exc):
+        from ppoc_tpu_torch.ops import cuda_attn as ca
+
+        (ca.flash_fwd_kernel, ca.flash_dq_kernel,
+         ca.flash_dkv_kernel) = self.saved
+
+
+def check_apply_seq_bf16(dev):
+    """apply_seq(backend="bf16") through K7's bf16 variant against the same
+    through its plain versions (:class:`PlainK7Bf16`) at recall_xl's
+    widths, on check_apply_seq's inputs: the output and every parameter
+    gradient of sum(out * c), each leaf within SEQ_RATIO of the float32
+    path's distance (apply_seq "pallas"); the kernel run launches each
+    bf16 kernel once a layer, the plain run none.  Returns the largest
+    ratio."""
+    import torch
+
+    from ppoc_tpu_torch.models import attn
+    from ppoc_tpu_torch.ops import adam, cuda_attn as ca
+
+    T, E = 1024, 4
+    g = torch.Generator().manual_seed(12)
+    p = attn.init(2, 32, 2, 4, 128, T + 1, (32, 32, 1), g, dev)
+    xs = torch.randn(T, E, 2, generator=g).to(dev)
+    dones = torch.cat([dones_of_rollout("recall_xl", T, 2, dev),
+                       random_dones(T, 2, 0.02, 13, dev)], dim=1)
+    c = torch.randn(T, E, 1, generator=g).to(dev)
+    counters = (ca.fwd_bf16_launches, ca.dq_bf16_launches,
+                ca.dkv_bf16_launches)
+    res, launches = {}, {}
+    for name, backend in (("kernel", "bf16"), ("plain", "bf16"),
+                          ("float32", "pallas")):
+        n0 = [x.n for x in counters]
+        with (PlainK7Bf16() if name == "plain" else
+              contextlib.nullcontext()):
+            leaves = adam.tree_map(lambda t: t.detach().requires_grad_(), p)
+            out = attn.apply_seq(leaves, xs, dones, "relu", backend=backend)
+            res[name] = [out.detach()] + list(torch.autograd.grad(
+                (out * c).sum(), adam.tree_leaves(leaves)))
+        torch.cuda.synchronize()
+        launches[name] = [x.n - n for x, n in zip(counters, n0)]
+    if launches != {"kernel": [2, 2, 2], "plain": [0, 0, 0],
+                    "float32": [0, 0, 0]}:
+        raise AssertionError(f"apply_seq bf16 launches {launches}")
+    ratios = []
+    for k, pl, f in zip(res["kernel"], res["plain"], res["float32"]):
+        apart, bf16_move = float((k - pl).norm()), float((pl - f).norm())
+        ratios.append(apart / bf16_move if bf16_move else
+                      (0.0 if apart == 0 else math.inf))
+    worst = max(ratios)
+    print(f"  apply_seq bf16, K7 against its plain versions: the output and "
+          f"{len(ratios) - 1} parameter gradients part by at most "
+          f"{worst:.3f} of the bf16-against-float32 distance (output "
+          f"{ratios[0]:.3f}; max |diff| of the output "
+          f"{max_err(res['kernel'][0], res['plain'][0]):.3e})", flush=True)
+    if not worst <= SEQ_RATIO:
+        raise AssertionError(f"apply_seq bf16 through K7 parts from its plain "
+                             f"versions: ratios {ratios}")
+    return worst
+
+
+def check_bf16_products(dev, v_params, rows: int):
+    """The bf16 MLP product on the card (``mlp.bf16_dot``: bf16 tensor
+    cores, float32 output) against the CPU form run on the card with TF32
+    off (float32 products of the bf16 values), at REACHER_BF16's widest
+    layer ([rows, 256] x [256, 256]): the forward within 1e-5 of the sum of
+    |products| (exact products summed in another order); the gradients
+    are the same float32 products rounded to bf16, so equal but for a
+    rounding flip (within 2^-7 of the element) on at most 1% of them.
+    Returns the forward's and the gradients' max |diff| and the device ms
+    of each form's forward."""
+    import torch
+
+    from ppoc_tpu_torch.models import mlp
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the CPU form is held with TF32 off")
+    w0 = v_params[1][0].detach()
+    g = torch.Generator().manual_seed(21)
+    a = torch.randn(rows, w0.shape[0], generator=g).to(dev).requires_grad_()
+    w = w0.clone().requires_grad_()
+    c = torch.randn(rows, w0.shape[1], generator=g).to(dev)
+    out = mlp.bf16_dot(a, w)
+    ga, gw = torch.autograd.grad((out * c).sum(), (a, w))
+    ab, wb = (t.detach().to(torch.bfloat16).float().requires_grad_()
+              for t in (a, w))
+    ref = ab @ wb
+    ra, rw = (x.to(torch.bfloat16).float() for x in torch.autograd.grad(
+        (ref * c).sum(), (ab, wb)))
+    bound = 1e-5 * (ab.detach().abs() @ wb.detach().abs()) + 1e-6
+    apart = (out.detach() - ref.detach()).abs()
+    fwd_err = float(apart.max())
+    print(f"  bf16_dot forward ({rows} x {list(w0.shape)}): max |diff| "
+          f"{fwd_err:.3e}, worst over 1e-5 of sum |products| "
+          f"{float((apart / bound).max()):.3f} (at most 1)", flush=True)
+    if not (apart <= bound).all():
+        raise AssertionError("bf16_dot forward parts from the CPU form")
+    grad_err = 0.0
+    for name, x, y in (("d input", ga, ra), ("d weight", gw, rw)):
+        diff = (x - y).abs()
+        apart = float((diff > 0).double().mean())
+        grad_err = max(grad_err, float(diff.max()))
+        print(f"  bf16_dot {name}: max |diff| {float(diff.max()):.3e}, "
+              f"{apart:.3%} of elements apart (at most 1%)", flush=True)
+        if not ((diff <= 2.0 ** -7 * y.abs()).all() and apart <= 0.01):
+            raise AssertionError(f"bf16_dot {name} parts from the CPU form")
+    ms = {"bf16 tensor cores": device_ms(lambda: mlp.bf16_dot(a, w), 20),
+          "CPU form (float32)": device_ms(lambda: ab @ wb, 20)}
+    print(f"  bf16_dot forward device ms: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in ms.items()), flush=True)
+    return fwd_err, grad_err, ms
+
+
+def reacher_bf16_path(dev, counters):
+    """Trainer(REACHER_BF16) on the card by default: evaluate, then
+    REACHER_BF16_EPOCHS epochs by phase (:func:`epochs_by_phase`; a fit is
+    one K1 launch without the V planes, in the global variant and counted
+    under "metrics", and one K2: the value forwards and both phases are
+    bf16 library products, no K3, K4, K5 or K6), eval R up by more than
+    REACHER_GAIN; then evaluate(deterministic=True), which launches no
+    kernel.  Returns (trainer, {phase: {kernel: launches}}, rows)."""
+    import torch
+
+    from ppoc_tpu_torch import PPOConfig
+    from ppoc_tpu_torch.algo.trainer import Trainer
+
+    cfg = PPOConfig(**REACHER_BF16)
+    tr = Trainer(cfg)
+    check_on_card(tr)
+    f = cfg.fits_per_epoch
+    per_epoch = {"rollout": {"rollout_global[reacher]/metrics": f},
+                 "GAE": {"gae_norm": f}, "value phase": {},
+                 "policy phase": {}, "draws": {},
+                 "evaluation": {"rollout_global[reacher]/metrics": 1}}
+    by_phase, rows = epochs_by_phase(tr, REACHER_BF16_EPOCHS, per_epoch,
+                                     counters, "REACHER_BF16")
+    n0 = read_counts(counters)
+    t0 = time.perf_counter()
+    evd = tr.evaluate(deterministic=True)
+    torch.cuda.synchronize()
+    det = count_diff(n0, read_counts(counters))
+    print(f"  evaluate(deterministic=True): R {evd.R:.4f}, episodes "
+          f"{int(evd.episodes)}, {time.perf_counter() - t0:.3f} s; launches "
+          f"{det}", flush=True)
+    if det or not math.isfinite(evd.R):
+        raise AssertionError(f"the REACHER_BF16 mean-policy evaluation must "
+                             f"launch no kernel: {det}, {evd}")
+    return tr, by_phase, rows
+
+
+def bf16_phases(dev, counters, record):
+    """The bf16 backend: K7's bf16 variant against its plain versions at
+    every shape, apply_seq "bf16" through it against the plain bf16 core,
+    RECALL_XL_BF16 (2 epochs by phase, every K7 launch the bf16 variant),
+    the bf16 product check and REACHER_BF16 (3 epochs by phase); records
+    the three K7 bf16 rows."""
+    header("[K7 bf16 variant: forward, dq, dk/dv against their plain "
+           "versions]")
+    runs = check_flash_bf16_all(dev)
+    header("[apply_seq 'bf16' through K7's bf16 variant against its plain "
+           "versions, recall_xl widths]")
+    seq_ratio = check_apply_seq_bf16(dev)
+    header(f"[RECALL_XL_BF16: Trainer(recall_xl, kernel_backend 'bf16'), "
+           f"{RECALL_XL_EPOCHS} epochs, then evaluate(deterministic=True)]")
+    _, by_phase, per_fit, gap, xl_rows = recall_xl_path(
+        dev, counters, RECALL_XL_BF16, K7_BF16_NAMES, BF16_GAP_TOL)
+    for key, path, shape in (
+            ("recall_xl minibatch (T 1024, B 4, H 4, hd 8), rollout "
+             "episodes", "RECALL_XL_BF16 update phases, minibatch of 4 env "
+             "columns", [1024, 4, 4, 8]),
+            ("recall_xl value pass (T 1024, B 32, H 4, hd 8)",
+             "RECALL_XL_BF16 value pass of the V planes", [1024, 32, 4, 8])):
+        case, rel, H, errs, times = runs[key]
+        bounds, pairs = flash_bounds_bf16(case, rel, H)
+        value_pass = "value pass" in key
+        for i, name in enumerate(K7_BF16_NAMES):
+            if value_pass and i:
+                continue      # the value pass runs no backward
+            launches = (by_phase["values + GAE"][name] if value_pass else
+                        by_phase["value phase"][name]
+                        + by_phase["policy phase"][name])
+            err = (max(errs["out"], errs["lse"]), errs["dq"],
+                   max(errs["dk"], errs["dv"]))[i]
+            record(name, path + f" ({pairs} valid pairs)", shape, launches,
+                   err, times[name], bounds[i], times[name]["library_ms"])
+    case, rel, H, errs, times = runs[
+        "X-ray (T 2048, B 16, H 8, hd 64), p_done 0.02"]
+    bounds, pairs = flash_bounds_bf16(case, rel, H)
+    xray = {name: dict(times[name], bound_ms=bounds[i][0],
+                       bound_by=bounds[i][1])
+            for i, name in enumerate(K7_BF16_NAMES)}
+    print(f"  K7 bf16 at the X-ray shape (T 2048, B 16, H 8, hd 64, {pairs} "
+          f"valid pairs; not on the path): {json.dumps(xray)}", flush=True)
+    print(f"  apply_seq bf16 through K7 against its plain versions, largest "
+          f"norm ratio {seq_ratio:.3f}; decode against the bf16 replay, largest "
+          f"log-prob gap {gap:.3e}; K7 launches a fit by phase {per_fit}; "
+          f"epoch R {[round(r['R'], 4) for r in xl_rows]}", flush=True)
+
+    header(f"[REACHER_BF16: Trainer(reacher regime, kernel_backend 'bf16'), "
+           f"evaluate, {REACHER_BF16_EPOCHS} epochs, then "
+           f"evaluate(deterministic=True)]")
+    tr, _, rows = reacher_bf16_path(dev, counters)
+    header(f"[the bf16 MLP product on the card against the CPU form, "
+           f"{tr.cfg.minibatch_size} rows]")
+    check_bf16_products(dev, tr.state.v_params, tr.cfg.minibatch_size)
+    fits = [r["wall"] for r in rows]
+    print(f"  REACHER_BF16 fit walls (s) {[round(x, 3) for x in fits]}, "
+          f"{tr.cfg.steps_per_epoch / min(fits):.0f} training env-steps/s "
+          f"at the fastest", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2368,7 +2827,9 @@ def main() -> int:
                 cuda_update.categorical_global_launches, cuda_mlp.fwd_launches,
                 cuda_mlp.bwd_launches, cuda_mlp.fwd_global_launches,
                 cuda_mlp.bwd_global_launches, cuda_attn.fwd_launches,
-                cuda_attn.dq_launches, cuda_attn.dkv_launches]
+                cuda_attn.dq_launches, cuda_attn.dkv_launches,
+                cuda_attn.fwd_bf16_launches, cuda_attn.dq_bf16_launches,
+                cuda_attn.dkv_bf16_launches]
     results = []
 
     def record(name, path, shape, launches, err, times, bound, library=None):
@@ -2601,6 +3062,7 @@ def main() -> int:
     attention_phases(dev, counters, record)
     reacher_mcc_phases(dev, counters, record)
     wide_phases(dev, counters, record)
+    bf16_phases(dev, counters, record)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
           f"build included", flush=True)

@@ -18,9 +18,17 @@ the fused gate (minibatches over 2048 rows), the generic per-minibatch
 phase whose forward and backward are the whole-MLP kernel K5.  A discrete
 env (cartpole, acrobot) takes the same path with a categorical policy: K1
 samples its int32 class ids by Gumbel-max.  The mean policy evaluates
-through the env loop, one K5 forward per step.  On CPU tensors each kernel runs its plain version.  The JAX
-package's "jnp" backend (stochastic env-loop training rollout,
-doubling-scan GAE with Welford) is not ported.
+through the env loop, one K5 forward per step.  On CPU tensors each kernel
+runs its plain version.
+
+The "bf16" backend (kernel_backend "bf16") is the JAX package's: K1 rolls
+out without the V planes (its fused value forwards are gated to "pallas",
+``ppoc_tpu/algo/ppo.py:363``), so V(s) and V(s') are two whole-buffer
+forwards with bf16 products, then K2; no whole-phase kernel runs at any
+minibatch size, so both phases are generic, and every MLP product there
+and in the mean-policy evaluation is bf16 with float32 output
+(``models/mlp.bf16_dot``).  The JAX package's "jnp" backend (stochastic
+env-loop training rollout, doubling-scan GAE with Welford) is not ported.
 
 An attention trunk (cfg.attn_dim > 0) takes the sequence path of
 ``algo/recurrent.py``, as the JAX package does: the rollout is a host loop
@@ -29,7 +37,7 @@ one-step decode, the advantages from the doubling-scan GAE and the
 Welford moments (the JAX "jnp" GAE the sequence branch runs there), and
 both phases fit on minibatches of whole env columns; every parallel pass of
 a window of at least 1024 steps runs its attention core through the flash
-kernel K7 (``ops/cuda_attn.py``).
+kernel K7 (``ops/cuda_attn.py``), its bf16 variant under "bf16".
 
 The JAX package compiles a fit into one program; here a fit is a few kernel
 launches plus small PyTorch ops, driven eagerly from the host.
@@ -56,10 +64,13 @@ from ppoc_tpu_torch.envs.core import Env, vector_autoreset_step, vector_reset
 from ppoc_tpu_torch.models import attn, mlp, policy as policy_mod
 from ppoc_tpu_torch.ops import (_build, adam, cuda_gae, cuda_mlp,
                                 cuda_rollout, cuda_update, gae as gae_ops,
-                                losses, welford)
+                                losses, resolve_backend, welford)
 
-# The port's one backend: every MLP call outside K1/K3/K4 goes through K5.
-BACKEND = "pallas"
+
+def backend_of(cfg: PPOConfig) -> str:
+    """The backend cfg.kernel_backend selects: "pallas" (every MLP call
+    outside K1/K3/K4/K6 through K5) or "bf16" (bf16 products)."""
+    return resolve_backend(cfg.kernel_backend)
 
 
 class Transition(NamedTuple):
@@ -211,8 +222,10 @@ def rollout(cfg: PPOConfig, env: Env, policy_params: Dict[str, Any], seed,
             force_truncate: bool = True, v_params=None):
     """Collect [length, n_envs] transitions with one K1 launch; returns
     (traj, final carry), and with ``v_params`` a third element, the
-    (V(s), V(s')) planes the kernel computed.  ``seed`` is K1's two 32-bit
-    seed words; ``env_carry=None`` resets every env at entry.
+    (V(s), V(s')) planes the kernel computed -- None under the "bf16"
+    backend, whose K1 launch takes no value net (the JAX package's).
+    ``seed`` is K1's two 32-bit seed words; ``env_carry=None`` resets
+    every env at entry.
 
     An attention trunk takes the decode loop of ``recurrent.rollout_rnn``
     instead (``seed``: its :class:`recurrent.SeqDraws`, which fix the
@@ -227,9 +240,13 @@ def rollout(cfg: PPOConfig, env: Env, policy_params: Dict[str, Any], seed,
         traj, carry = recurrent.rollout_rnn(cfg, env, policy_params, seed,
                                             force_truncate)
         return (traj, carry) + (() if v_params is None else (None,))
+    fused_v = v_params is not None and backend_of(cfg) == "pallas"
     out = cuda_rollout.rollout_fused(
         env.spec.name, policy_params, seed, n_envs, length, cfg.activation,
-        env_carry, gamma=env.spec.gamma, v_params=v_params)
+        env_carry, gamma=env.spec.gamma,
+        v_params=v_params if fused_v else None)
+    if v_params is not None and not fused_v:
+        out = out + (None,)
     if force_truncate:
         out = (_force_truncate_last(out[0]),) + tuple(out[1:])
     return out
@@ -260,17 +277,18 @@ def rollout_env_loop(cfg: PPOConfig, env: Env, policy_params: Dict[str, Any],
                      draws: LoopDraws) -> Transition:
     """The JAX package's env-loop rollout of the mean policy
     (``ppoc_tpu/algo/ppo.py:387-424`` with ``deterministic=True``), for
-    evaluation: per step, the policy's mode through K5, then
+    evaluation: per step, the policy's mode (through K5, or bf16 products
+    under "bf16"), then
     ``vector_autoreset_step`` with the drawn reset states.  Returns the
     trajectory [T, E, ...] with its genuine done flags.  A stochastic
     rollout is K1 (:func:`rollout`) on this backend, as in the JAX
     package."""
     state, obs = draws.carry
     fstate, fobs = draws.fresh
-    steps = []
+    steps, backend = [], backend_of(cfg)
     for t in range(fobs.shape[0]):
         action, logp = policy_mod.mode(policy_params, obs, cfg.activation,
-                                       BACKEND, env.spec.discrete)
+                                       backend, env.spec.discrete)
         fresh = (type(fstate)(*(f[t] for f in fstate)), fobs[t])
         state, obs2, next_obs, reward, term, trunc = vector_autoreset_step(
             env, state, action, fresh=fresh)
@@ -284,10 +302,17 @@ def rollout_env_loop(cfg: PPOConfig, env: Env, policy_params: Dict[str, Any],
 # --------------------------------------------------------------------------
 
 def compute_advantages(cfg: PPOConfig, env: Env, traj: Transition,
-                       values_pair):
+                       values_pair, v_params=None):
     """GAE + whole-buffer normalisation (one K2 launch) on the rollout
-    kernel's (V(s), V(s')) planes; returns (advantages, targets), both
-    [T, E]."""
+    kernel's (V(s), V(s')) planes, or with ``values_pair`` None (the
+    "bf16" backend) on two whole-buffer forwards of ``v_params``
+    (``ppoc_tpu/algo/ppo.py:439-444``); returns (advantages, targets),
+    both [T, E]."""
+    if values_pair is None:
+        with torch.no_grad():
+            values_pair = tuple(
+                mlp.apply(v_params, o, cfg.activation, backend_of(cfg))[..., 0]
+                for o in (traj.obs, traj.next_obs))
     values, next_values = values_pair
     return cuda_gae.gae_norm_fused(
         traj.reward, values, next_values, traj.terminated, traj.truncated,
@@ -317,11 +342,12 @@ def _stab_policy_ok(cfg: PPOConfig) -> bool:
 
 def _fused(cfg: PPOConfig, stab_ok: bool) -> bool:
     """The JAX package's gate for a whole-phase kernel (K3, K4, K6):
-    ``ppoc_tpu/algo/ppo.py:598-604`` and ``:698-704``.  Its other two
-    conditions (per-shard minibatch size and count equal to cfg's) hold
-    here always: the port has no sharding and draws its streams from
-    cfg."""
-    return stab_ok and cfg.minibatch_size <= MAX_FUSED_MB
+    ``ppoc_tpu/algo/ppo.py:598-604`` and ``:698-704``, the "pallas"
+    backend only.  Its other two conditions (per-shard minibatch size and
+    count equal to cfg's) hold here always: the port has no sharding and
+    draws its streams from cfg."""
+    return (backend_of(cfg) == "pallas" and stab_ok
+            and cfg.minibatch_size <= MAX_FUSED_MB)
 
 
 class KernelFit(NamedTuple):
@@ -344,19 +370,25 @@ def kernel_fit(cfg: PPOConfig, optin: int,
     evaluation's, with the metrics, needs less), K5 on the policy and the
     value net (the mean-policy evaluation, and the generic phases above the
     fused gate), then under the gate K3 and K4, or K6 for a categorical
-    policy.  K2 and K7 take no width-dependent shared memory, so an
-    attention trunk's list is empty.  Needs no card."""
+    policy.  Under the "bf16" backend only K1, without the V planes: the
+    MLP products are library calls and no whole-phase kernel runs.  K2
+    and K7 take no width-dependent shared memory, so an attention trunk's
+    list is empty.  Needs no card."""
     if cfg.attn_dim > 0:
         return []
     spec = (env if env is not None else envs.make_for(cfg)).spec
     pw = (spec.obs_dim, *cfg.hidden, spec.action_dim)
     vw = (spec.obs_dim, *cfg.hidden, 1)
-    plan = [(f"K1 (rollout, {spec.name} lane, with the V planes)", (pw, vw),
-             cuda_rollout.variant_bytes(pw, vw)),
-            ("K5 (whole-MLP forward and backward, policy net)", (pw,),
-             cuda_mlp.variant_bytes(pw)),
-            ("K5 (whole-MLP forward and backward, value net)", (vw,),
-             cuda_mlp.variant_bytes(vw))]
+    if backend_of(cfg) == "bf16":
+        plan = [(f"K1 (rollout, {spec.name} lane)", (pw,),
+                 cuda_rollout.variant_bytes(pw))]
+    else:
+        plan = [(f"K1 (rollout, {spec.name} lane, with the V planes)",
+                 (pw, vw), cuda_rollout.variant_bytes(pw, vw)),
+                ("K5 (whole-MLP forward and backward, policy net)", (pw,),
+                 cuda_mlp.variant_bytes(pw)),
+                ("K5 (whole-MLP forward and backward, value net)", (vw,),
+                 cuda_mlp.variant_bytes(vw))]
     if _fused(cfg, _stab_value_ok(cfg)):
         plan.append(("K3 (value phase)", (vw,), cuda_update.variant_bytes(vw)))
     if _fused(cfg, _stab_policy_ok(cfg)):
@@ -393,8 +425,9 @@ def value_phase(cfg: PPOConfig, ts: TrainState, buf: buffer.RowBuffer,
     (ts', mean minibatch loss).
 
     Under the fused gate, one K3 launch on the pre-gathered rows.  Above
-    it, the JAX package's scan branch (``ppoc_tpu/algo/ppo.py:631-667``) as
-    a loop: per minibatch, gather, the MSE loss through K5,
+    it, or under the "bf16" backend at any size, the JAX package's scan
+    branch (``ppoc_tpu/algo/ppo.py:631-667``) as a loop: per minibatch,
+    gather, the MSE loss through K5 (bf16 products under "bf16"),
     ``torch.autograd.grad`` (K5's backward) and one Adam step.  The
     stabilisers are not ported (the Trainer refuses them), so the JAX
     package's ``_prep_grads`` and lr schedule are the identity and lr_v
@@ -412,10 +445,11 @@ def value_phase(cfg: PPOConfig, ts: TrainState, buf: buffer.RowBuffer,
         raise NotImplementedError("the value-phase stabilisers are not "
                                   "ported yet (ROADMAP.md)")
     v_params, opt_v, mb_losses = ts.v_params, ts.opt_v, []
+    backend = backend_of(cfg)
     for ids in _minibatches(idx):
         o, t = buffer.gather_mb(cols, ids, blk)
         params = _requiring_grad(v_params)
-        v = mlp.apply(params, o, cfg.activation, BACKEND)[..., 0]
+        v = mlp.apply(params, o, cfg.activation, backend)[..., 0]
         loss = losses.value_loss(v, t)
         grads = torch.autograd.grad(loss, adam.tree_leaves(params))
         v_params, opt_v = _adam_step(cfg, v_params, grads, opt_v, cfg.lr_v)
@@ -431,8 +465,9 @@ def policy_phase(cfg: PPOConfig, ts: TrainState, buf: buffer.RowBuffer,
 
     Under the fused gate, one K4 launch, or one K6 launch for a categorical
     policy (``discrete``), as ``ppoc_tpu/algo/ppo.py:687-708`` chooses.
-    Above it, the JAX package's scan branch (``ppoc_tpu/algo/ppo.py:726-780``):
-    per minibatch, the log-prob and entropy through K5,
+    Above it, or under the "bf16" backend at any size, the JAX package's
+    scan branch (``ppoc_tpu/algo/ppo.py:726-780``): per minibatch, the
+    log-prob and entropy through K5 (bf16 products under "bf16"),
     ``clipped_surrogate_loss - ent_coeff * entropy``,
     ``torch.autograd.grad`` and one Adam step for the policy net, plus one
     for log_std with its own state if the policy is Gaussian.  Without the
@@ -460,15 +495,15 @@ def policy_phase(cfg: PPOConfig, ts: TrainState, buf: buffer.RowBuffer,
         raise NotImplementedError("the policy-phase stabilisers are not "
                                   "ported yet (ROADMAP.md)")
     opt_p, opt_ls = ts.opt_policy, ts.opt_log_std
-    mb_losses, ents = [], []
+    mb_losses, ents, backend = [], [], backend_of(cfg)
     for ids in _minibatches(idx):
         o, a, lp, ad = buffer.gather_mb(cols, ids, blk)
         params = {"mlp": _requiring_grad(pol["mlp"])}
         if not discrete:
             params["log_std"] = pol["log_std"].detach().requires_grad_()
-        logp = policy_mod.log_prob(params, o, a, cfg.activation, BACKEND,
+        logp = policy_mod.log_prob(params, o, a, cfg.activation, backend,
                                    discrete)
-        ent = policy_mod.entropy(params, o, cfg.activation, BACKEND, discrete)
+        ent = policy_mod.entropy(params, o, cfg.activation, backend, discrete)
         loss = (losses.clipped_surrogate_loss(logp, lp, ad, cfg.clip_eps)
                 - cfg.ent_coeff * ent)
         leaves = adam.tree_leaves(params["mlp"])
@@ -517,14 +552,16 @@ def update_step(cfg: PPOConfig, env: Env, ts: TrainState, traj: Transition,
     if attn.is_attn(ts.v_params):
         from ppoc_tpu_torch.algo import recurrent
 
-        vpair = recurrent.compute_values_rnn(cfg, ts.v_params, traj, BACKEND)
+        backend = backend_of(cfg)
+        vpair = recurrent.compute_values_rnn(cfg, ts.v_params, traj, backend)
         adv, target = _seq_advantages(cfg, env, traj, vpair)
         ts, v_loss = recurrent.value_phase_rnn(cfg, ts, traj, target,
-                                               draws.value_idx, BACKEND)
+                                               draws.value_idx, backend)
         ts, p_loss, ent = recurrent.policy_phase_rnn(
-            cfg, env, ts, traj, adv, draws.policy_idx, BACKEND)
+            cfg, env, ts, traj, adv, draws.policy_idx, backend)
         return ts, FitMetrics(v_loss, p_loss, ent, traj.reward.mean())
-    adv, target = compute_advantages(cfg, env, traj, values_pair)
+    adv, target = compute_advantages(cfg, env, traj, values_pair,
+                                     ts.v_params)
     buf = buffer.from_rollout(traj, adv, target)
     ts, v_loss = value_phase(cfg, ts, buf, draws.value_idx)
     ts, p_loss, ent = policy_phase(cfg, ts, buf, draws.policy_idx,
@@ -667,8 +704,8 @@ def evaluate(cfg: PPOConfig, env: Env, policy_params: Dict[str, Any], draws,
       with cfg.eval_estimator "reference" the estimator reads K1's
       trajectory;
     * ``deterministic=True`` (the mean policy) runs the env loop, one K5
-      forward per step (``draws``: a :class:`LoopDraws`, which also fixes
-      the env count);
+      forward per step, bf16 products under "bf16" (``draws``: a
+      :class:`LoopDraws`, which also fixes the env count);
     * an attention trunk, either way, runs the decode loop
       (``recurrent.rollout_rnn``; ``draws``: a ``SeqDraws``), as
       ``ppoc_tpu/algo/ppo.py:1164-1193`` does; no kernel launches."""

@@ -7,10 +7,13 @@ and values depend on episode history, so the update replays whole
 sequences: a minibatch is ``seqs`` env COLUMNS of the [T, E] window
 (``seq_minibatch_plan``), reshuffled every epoch with the tail dropped,
 and every loss runs the trunk's parallel pass (``attn.apply_seq``) over
-the window -- through the flash kernel K7 once T >= attn.FLASH_MIN_T.
+the window -- through the flash kernel K7 once T >= attn.FLASH_MIN_T, its
+bf16 variant under the "bf16" backend.
 
 The rollout is a host loop over ``attn.step`` (one decode step per env
-step, the KV cache carried), with its randomness drawn up front into a
+step, the KV cache carried; float32 under every backend, as in the JAX
+package, so stored log-probs are float32), with its randomness drawn up
+front into a
 :class:`SeqDraws`; V(s) and V(s') come from one parallel pass plus a
 one-step decode of every next observation (:func:`compute_values_rnn`).
 """
@@ -151,7 +154,8 @@ def compute_values_rnn(cfg: PPOConfig, v_params, traj, backend: str
     """(V(s_t), V(s'_t)) planes [T, E] for GAE: one parallel pass with the
     keys and values kept, then a one-step decode of all T next
     observations at once (V(s'_t) attends obs_<=t of the same episode and
-    next_obs_t, at position t + 1)."""
+    next_obs_t, at position t + 1), both on ``backend`` ("pallas" or
+    "bf16")."""
     _require_attn(v_params)
     done = traj.terminated | traj.truncated
     values, ks, vs = attn.apply_seq(v_params, traj.obs, done,
@@ -161,7 +165,8 @@ def compute_values_rnn(cfg: PPOConfig, v_params, traj, backend: str
     pos_idx = torch.clamp(torch.arange(T, device=traj.obs.device) + 1,
                           max=attn.window(v_params) - 1)
     nv = attn.decode_next(v_params, traj.next_obs, pos_idx, ks, vs,
-                          attn.causal_episode_mask(done), cfg.activation)
+                          attn.causal_episode_mask(done), cfg.activation,
+                          backend)
     return values[..., 0], nv[..., 0]
 
 

@@ -108,7 +108,9 @@ class Trainer:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.env = envs.make_for(cfg)
-        resolve_backend(cfg.kernel_backend)   # refuses "jnp": not ported
+        # "pallas"/"auto" or "bf16" (an attention trunk keeps "bf16", as
+        # ppoc_tpu/algo/trainer.py:150-158 does); refuses "jnp": not ported
+        resolve_backend(cfg.kernel_backend)
         if self.device.type == "cuda":
             check_kernel_fit(cfg, self.env, _build.smem_optin(self.device))
         self.generator = torch.Generator().manual_seed(cfg.seed)

@@ -31,8 +31,18 @@ window of at least ``FLASH_MIN_T`` steps to the flash kernel K7
 materialise the [T, T] mask (:func:`_mha`).  The decode paths
 (:func:`decode_next`, :func:`step`) are plain PyTorch, as they are plain jnp
 in the JAX package.  The head is the plain MLP forward (the JAX package's
-``mlp.apply(..., "jnp")``).  Not ported yet: the sequence-parallel forms
-(``apply_seq_sp``, ``decode_next_sp``) and the "bf16" backend.
+``mlp.apply(..., "jnp")``).
+
+The "bf16" backend takes the GEMM sites named in ``BF16_SITES`` on bf16
+operands with float32 output (``mlp.bf16_dot``; softmax statistics and
+sums stay float32): the flash core then runs K7's bf16 variant when both
+"scores" and "av" are sites, else the materialised core with bf16 q, k
+(scores) and v and the weights (av).  :func:`decode_next` gates its
+embed, qkv, out, ff and head sites by ``BF16_SITES`` too (the JAX
+package's decode rounds all five whatever the set, ``ROADMAP.md`` §3);
+its scores and P.V stay float32, as there; :func:`step`, the rollout's
+decode, is float32.  Not ported yet: the sequence-parallel forms
+(``apply_seq_sp``, ``decode_next_sp``).
 """
 from __future__ import annotations
 
@@ -51,6 +61,14 @@ FLASH_MIN_T = 1024   # the JAX package's choice of path (models/attn.py:63),
                      # a TPU crossover not re-derived on the H100 (PERF.md)
 
 _DECODE_CHUNK = 128
+
+# The GEMM sites the "bf16" backend runs in bf16 (the JAX package's
+# default set, ppoc_tpu/models/attn.py:74): embed | qkv | scores (the Q.K
+# logits) | av (the weights x V product) | out (the attention output
+# projection) | ff | head.  A bisect removes sites to keep their operands
+# float32.
+BF16_SITES = frozenset({"embed", "qkv", "scores", "av", "out", "ff",
+                        "head"})
 
 
 def is_attn(params) -> bool:
@@ -118,21 +136,41 @@ def _ln(x: torch.Tensor, gb) -> torch.Tensor:
     return (x - mu) * torch.rsqrt(var + 1e-6) * g + b
 
 
-def _ff(x: torch.Tensor, blk, activation: str) -> torch.Tensor:
+def _site(backend: str):
+    """site name -> does the "bf16" backend run it in bf16 (read from
+    ``BF16_SITES`` at call time)."""
+    return lambda name: backend == "bf16" and name in BF16_SITES
+
+
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """Rounded to bf16, carried in float32: a bf16 operand of a product
+    taken in float32 (its cotangent is rounded the same way, as the JAX
+    package's cast to bf16 and back)."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _dot(a: torch.Tensor, w: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """a @ w, on bf16 operands with a float32 output when ``bf16``."""
+    return mlp.bf16_dot(a, w) if bf16 else a @ w
+
+
+def _ff(x: torch.Tensor, blk, activation: str,
+        bf16: bool = False) -> torch.Tensor:
     w1, b1 = blk["ff1"]
     w2, b2 = blk["ff2"]
-    return mlp._ACTIVATIONS[activation](x @ w1 + b1) @ w2 + b2
+    return _dot(mlp._ACTIVATIONS[activation](_dot(x, w1, bf16) + b1), w2,
+                bf16) + b2
 
 
-def _embed(attn, x: torch.Tensor) -> torch.Tensor:
+def _embed(attn, x: torch.Tensor, bf16: bool = False) -> torch.Tensor:
     we, be = attn["embed"]
-    return x @ we + be
+    return _dot(x, we, bf16) + be
 
 
-def _qkv(blk, u: torch.Tensor):
+def _qkv(blk, u: torch.Tensor, bf16: bool = False):
     """(q, k, v), each [..., H, hd], from the block input ``u`` [..., d]."""
     w = blk["wqkv"]
-    qkv = (u @ w.reshape(w.shape[0], -1)).reshape(
+    qkv = _dot(u, w.reshape(w.shape[0], -1), bf16).reshape(
         u.shape[:-1] + w.shape[1:]) + blk["bqkv"]
     return qkv[..., 0, :, :], qkv[..., 1, :, :], qkv[..., 2, :, :]
 
@@ -157,13 +195,18 @@ def causal_episode_mask(reset_after: torch.Tensor) -> torch.Tensor:
 
 
 def _mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-         mask: torch.Tensor) -> torch.Tensor:
+         mask: torch.Tensor, bf16_av: bool = False) -> torch.Tensor:
     """Masked multi-head attention on [T, ..., H, hd] tensors with a
-    [T_q, T_k, ...] mask; returns [T_q, ..., H, hd]."""
+    [T_q, T_k, ...] mask; returns [T_q, ..., H, hd].  Scores and softmax
+    are float32; ``bf16_av`` rounds the weights to bf16 for the P.V
+    product (the caller rounds v), as the JAX package's ``w.astype(v.dtype)``
+    on a bf16 v."""
     hd = q.shape[-1]
     scores = torch.einsum("t...hk,s...hk->ts...h", q, k) / math.sqrt(hd)
     scores = torch.where(mask[..., None], scores, NEG_INF)
     w = torch.softmax(scores, dim=1)
+    if bf16_av:
+        w = _round_bf16(w)
     return torch.einsum("ts...h,s...hk->t...hk", w, v)
 
 
@@ -174,8 +217,11 @@ def apply_seq(params: AttnParams, xs: torch.Tensor,
     step in parallel.  ``with_cache=True`` also returns the per-layer keys
     and values (lists of [T, ..., H, hd]) for :func:`decode_next`.
     ``backend="pallas"`` at T >= FLASH_MIN_T runs the attention core
-    through K7."""
-    if backend not in ("jnp", "pallas"):
+    through K7; ``backend="bf16"`` runs the ``BF16_SITES`` products in
+    bf16, and its core through K7's bf16 variant at T >= FLASH_MIN_T when
+    both "scores" and "av" are sites (``ppoc_tpu/models/attn.py:245-288``).
+    """
+    if backend not in ("jnp", "pallas", "bf16"):
         raise NotImplementedError(
             f"attention backend {backend!r} is not ported yet (ROADMAP.md)")
     attn = params["attn"]
@@ -185,70 +231,89 @@ def apply_seq(params: AttnParams, xs: torch.Tensor,
         raise ValueError(
             f"window length {T} exceeds the positional table ({t_max}); "
             f"init the trunk with t_max >= the rollout length")
+    site = _site(backend)
+    bf16_sc, bf16_av = site("scores"), site("av")
     pos = attn["pos"][:T].reshape((T,) + (1,) * (xs.dim() - 2) + (-1,))
-    h = _embed(attn, xs) + pos
-    if backend == "pallas" and T >= FLASH_MIN_T:
+    h = _embed(attn, xs, site("embed")) + pos
+    if (backend == "pallas" or (bf16_sc and bf16_av)) and T >= FLASH_MIN_T:
         from ppoc_tpu_torch.ops import cuda_attn
 
         ep = episode_ids(reset_after)
+        dt = torch.bfloat16 if backend == "bf16" else None
 
         def mha(q, k, v):
-            return cuda_attn.flash_mha(q, k, v, ep)
+            return cuda_attn.flash_mha(q, k, v, ep, dt)
     else:
         mask = causal_episode_mask(reset_after)
 
         def mha(q, k, v):
-            return _mha(q, k, v, mask)
+            if bf16_sc:
+                q, k = _round_bf16(q), _round_bf16(k)
+            if bf16_av:
+                v = _round_bf16(v)
+            return _mha(q, k, v, mask, bf16_av)
     ks, vs = [], []
     for blk in attn["blocks"]:
-        q, k, v = _qkv(blk, _ln(h, blk["ln1"]))
+        q, k, v = _qkv(blk, _ln(h, blk["ln1"]), site("qkv"))
         if with_cache:
             ks.append(k)
             vs.append(v)
         o = mha(q, k, v)
-        h = h + o.reshape(o.shape[:-2] + (-1,)) @ blk["wo"] + blk["bo"]
-        h = h + _ff(_ln(h, blk["ln2"]), blk, activation)
-    out = mlp.apply(params["head"], _ln(h, attn["lnf"]), activation, "jnp")
+        h = h + _dot(o.reshape(o.shape[:-2] + (-1,)), blk["wo"],
+                     site("out")) + blk["bo"]
+        h = h + _ff(_ln(h, blk["ln2"]), blk, activation, site("ff"))
+    out = mlp.apply(params["head"], _ln(h, attn["lnf"]), activation,
+                    "bf16" if site("head") else "jnp")
     return (out, ks, vs) if with_cache else out
 
 
 def decode_next(params: AttnParams, x_next: torch.Tensor,
                 pos_idx: torch.Tensor, ks: List[torch.Tensor],
                 vs: List[torch.Tensor], mask: torch.Tensor,
-                activation: str) -> torch.Tensor:
+                activation: str, backend: str = "jnp") -> torch.Tensor:
     """One-step decode for all T slots at once: next-token t ([T, ..., in]
     at position ``pos_idx[t]``) attends the context keys ``mask[t]`` allows
     (the per-layer ``ks``/``vs`` of ``apply_seq(with_cache=True)``) plus
     itself.  V(s'_t) for the GAE bootstrap in one pass.  A window of more
     than 2 * 128 slots runs 128 queries at a time, so the [T_q, T_k, ...]
-    score planes stay small (the JAX package's ``lax.map`` chunks)."""
+    score planes stay small (the JAX package's ``lax.map`` chunks).
+    ``backend="bf16"`` runs the embed, qkv, out, ff and head products of
+    ``BF16_SITES`` in bf16; the scores and P.V stay float32."""
     T = x_next.shape[0]
     if T <= 2 * _DECODE_CHUNK:
         return _decode_next(params, x_next, pos_idx, ks, vs, mask,
-                            activation)
+                            activation, backend)
     return torch.cat([
         _decode_next(params, x_next[c:c + _DECODE_CHUNK],
                      pos_idx[c:c + _DECODE_CHUNK], ks, vs,
-                     mask[c:c + _DECODE_CHUNK], activation)
+                     mask[c:c + _DECODE_CHUNK], activation, backend)
         for c in range(0, T, _DECODE_CHUNK)])
 
 
-def _decode_next(params, x_next, pos_idx, ks, vs, mask, activation):
+def _decode_next(params, x_next, pos_idx, ks, vs, mask, activation,
+                 backend="jnp"):
+    # each site gated by BF16_SITES, as apply_seq gates it: the JAX
+    # package's _decode_next (models/attn.py:440-461) rounds all five
+    # whenever the backend is "bf16", which parts from its own apply_seq
+    # under a bisected set
+    site = _site(backend)
     attn = params["attn"]
-    h = _embed(attn, x_next) + attn["pos"][pos_idx].reshape(
+    h = _embed(attn, x_next, site("embed")) + attn["pos"][pos_idx].reshape(
         (x_next.shape[0],) + (1,) * (x_next.dim() - 2) + (-1,))
     scale = 1.0 / math.sqrt(attn["blocks"][0]["wqkv"].shape[-1])
     for blk, k_ctx, v_ctx in zip(attn["blocks"], ks, vs):
-        q, k_self, v_self = _qkv(blk, _ln(h, blk["ln1"]))
+        q, k_self, v_self = _qkv(blk, _ln(h, blk["ln1"]), site("qkv"))
         s_ctx = torch.einsum("t...hk,s...hk->ts...h", q, k_ctx) * scale
         s_ctx = torch.where(mask[..., None], s_ctx, NEG_INF)
         s_self = (q * k_self).sum(dim=-1)[:, None] * scale
         w = torch.softmax(torch.cat([s_ctx, s_self], dim=1), dim=1)
         o = (torch.einsum("ts...h,s...hk->t...hk", w[:, :-1], v_ctx)
              + w[:, -1][..., None] * v_self)
-        h = h + o.reshape(o.shape[:-2] + (-1,)) @ blk["wo"] + blk["bo"]
-        h = h + _ff(_ln(h, blk["ln2"]), blk, activation)
-    return mlp.apply(params["head"], _ln(h, attn["lnf"]), activation, "jnp")
+        h = h + _dot(o.reshape(o.shape[:-2] + (-1,)), blk["wo"],
+                     site("out")) + blk["bo"]
+        h = h + _ff(_ln(h, blk["ln2"]), blk, activation, site("ff"))
+    return mlp.apply(params["head"], _ln(h, attn["lnf"]), activation,
+                     "bf16" if site("head") else "jnp")
 
 
 # --------------------------------------------------------------------------

@@ -9,6 +9,11 @@ layout, so the two packages exchange weights without transposes
     layer; std = gain * sqrt(2 / (fan_in + fan_out));
     W ~ U(-sqrt(3) std, +sqrt(3) std) and b ~ U(-1/sqrt(fan_in), +1/sqrt(fan_in)).
   * forward: ``x @ W + b`` then the activation; the last layer is linear.
+
+The "bf16" backend (``ppoc_tpu/models/mlp.py:110-121``) rounds each
+layer's input and weights to bf16 and takes the product with a float32
+output, then adds the float32 bias: :func:`bf16_dot`.  Master weights stay
+float32.
 """
 from __future__ import annotations
 
@@ -66,6 +71,47 @@ def unflatten(flat: torch.Tensor, widths: Sequence[int]) -> Params:
     return out
 
 
+class _Bf16Dot(torch.autograd.Function):
+    """a @ w on bf16 operands with a float32 output, and the JAX package's
+    VJP of ``jnp.dot(a.astype(bf16), w.astype(bf16),
+    preferred_element_type=float32)``: the float32 cotangent times the
+    other operand (bf16-valued) in float32, the result rounded to bf16 (the
+    cotangent of a bf16 operand) and carried back in float32 (the cast's
+    VJP).  On CUDA the forward is one bf16 tensor-core product with float32
+    output; on the CPU, which has no such product, the bf16 values are
+    multiplied in float32 (exact products, float32 sums)."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ab = a.reshape(-1, a.shape[-1]).to(torch.bfloat16)
+        wb = w.to(torch.bfloat16)
+        ctx.save_for_backward(ab, wb)
+        ctx.a_shape = a.shape
+        if ab.is_cuda:
+            out = torch.mm(ab, wb, out_dtype=torch.float32)
+        else:
+            out = ab.float() @ wb.float()
+        return out.reshape(*a.shape[:-1], w.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        ab, wb = ctx.saved_tensors
+        g = g.reshape(-1, g.shape[-1])
+        ga = gw = None
+        if ctx.needs_input_grad[0]:
+            ga = (g @ wb.float().T).to(torch.bfloat16).float().reshape(
+                ctx.a_shape)
+        if ctx.needs_input_grad[1]:
+            gw = (ab.float().T @ g).to(torch.bfloat16).float()
+        return ga, gw
+
+
+def bf16_dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a [..., k] @ w [k, n] with both rounded to bf16 and a float32 result
+    (the "bf16" backend's product; see :class:`_Bf16Dot`)."""
+    return _Bf16Dot.apply(a, w)
+
+
 def apply(params: Params, x: torch.Tensor, activation: str = "relu",
           backend: str = "jnp") -> torch.Tensor:
     """Forward pass on a batch ``x`` of shape [..., fan_in].
@@ -73,16 +119,22 @@ def apply(params: Params, x: torch.Tensor, activation: str = "relu",
     ``backend="pallas"`` runs the whole-MLP kernel K5
     (``ops/cuda_mlp.py``, the port of ``ops/pallas_mlp.py``): on a CUDA
     tensor its forward and backward kernels, on a CPU tensor their plain
-    versions.  ``backend="jnp"`` is the plain PyTorch forward below.
+    versions.  ``backend="bf16"`` takes each layer's product on bf16
+    operands with a float32 output (:func:`bf16_dot`), the bias and the
+    activation in float32, as the JAX package's "bf16" backend; no kernel
+    of the port runs.  ``backend="jnp"`` is the plain PyTorch forward.
     """
     if backend == "pallas":
         from ppoc_tpu_torch.ops import cuda_mlp
 
         return cuda_mlp.mlp_forward(params, x, activation)
+    if backend not in ("jnp", "bf16"):
+        raise NotImplementedError(f"MLP backend {backend!r} is not ported")
+    dot = bf16_dot if backend == "bf16" else torch.matmul
     act = _ACTIVATIONS[activation]
     h = x
     for i, (w, b) in enumerate(params):
-        h = h @ w + b
+        h = dot(h, w) + b
         if i < len(params) - 1:
             h = act(h)
     return h

@@ -1,5 +1,5 @@
 """K7: causal episode-masked flash attention (``csrc/attn.cu``), forward
-and backward, and its plain version.
+and backward, and its plain versions.
 
 Counterpart of ``ppoc_tpu/ops/pallas_attn.py``: query t attends key s iff
 s <= t and both carry the same episode id (``models/attn.episode_ids``);
@@ -14,13 +14,27 @@ Three kernels, each a C entry of the port's library: the forward
 computed here in PyTorch between the forward and the two backward
 launches, as ``pallas_attn._bwd`` does.  :class:`FlashAttention` binds
 them as a ``torch.autograd.Function``.  A CUDA tensor launches the kernels
-or raises; a CPU tensor runs :func:`attention_plain`, whose gradients come
-from autograd through it.
+or raises; a float32 CPU tensor runs :func:`attention_plain`, whose
+gradients come from autograd through it.
 
-Tensors travel folded: q, k, v [B*H, T, hd] (row-major, float32), the
-episode ids [B, T] int32 per side (the head's batch row is bh // H).  The
-kernel takes hd in ``SUPPORTED_HD`` and masks the ragged edge of T itself:
-nothing is padded.
+Each kernel has a bf16 variant (``compute_dtype=torch.bfloat16`` on the
+public entries, as ``pallas_attn.flash_mha(..., compute_dtype=bfloat16)``):
+q, k, v and dout travel as bf16, every score and sum is float32, p is
+rounded to bf16 for the P.V product only, ds and w for the backward's
+products, and dq, dk, dv come back as bf16; out, lse and dsum stay
+float32.  Its plain versions, for a bf16 CPU tensor, are
+:func:`attention_plain_bf16` (an online softmax over key chunks: the
+rounding of p depends on the running max when it is rounded, so on the
+chunking; the kernel rescales every ``CHUNK`` keys, the Pallas kernel every
+key tile) and the explicit backward :func:`flash_dq_plain_bf16` and
+:func:`flash_dkv_plain_bf16`, which :class:`FlashAttention` binds on the
+CPU too: autograd through the plain forward would round at other places
+than the kernels do.  The two variants count their launches apart.
+
+Tensors travel folded: q, k, v [B*H, T, hd] (row-major, float32 or bf16),
+the episode ids [B, T] int32 per side (the head's batch row is bh // H).
+The kernel takes hd in ``SUPPORTED_HD`` and masks the ragged edge of T
+itself: nothing is padded.
 """
 from __future__ import annotations
 
@@ -34,10 +48,21 @@ from ppoc_tpu_torch.ops import _build
 
 NEG = -1e9                      # pallas_attn.NEG
 SUPPORTED_HD = (8, 16, 32, 64)  # csrc/attn.cu PPOC_HD_SWITCH
+CHUNK = 16                      # csrc/attn.cu CHUNK: keys a softmax rescale
 
 fwd_launches = _build.LaunchCount("flash_fwd")
 dq_launches = _build.LaunchCount("flash_bwd_dq")
 dkv_launches = _build.LaunchCount("flash_bwd_dkv")
+fwd_bf16_launches = _build.LaunchCount("flash_fwd_bf16")
+dq_bf16_launches = _build.LaunchCount("flash_bwd_dq_bf16")
+dkv_bf16_launches = _build.LaunchCount("flash_bwd_dkv_bf16")
+
+# element type of q, k, v -> (C entry suffix, forward, dq, dk/dv counters)
+_VARIANT = {
+    torch.float32: ("", fwd_launches, dq_launches, dkv_launches),
+    torch.bfloat16: ("_bf16", fwd_bf16_launches, dq_bf16_launches,
+                     dkv_bf16_launches),
+}
 
 
 # --- layouts ----------------------------------------------------------------
@@ -97,6 +122,85 @@ def attention_plain(q, k, v, ep_q, ep_k, rel: int, H: int
     return (p @ v) / l_safe, (m + torch.log(l_safe))[..., 0]
 
 
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 operand carried in float32: its products are exact there."""
+    return t.to(torch.float32)
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """Rounded to bf16 (nearest even) and carried in float32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def attention_plain_bf16(q, k, v, ep_q, ep_k, rel: int, H: int,
+                         chunk: int = CHUNK
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 variant's forward on bf16 q, k, v: (out [BH, T, hd],
+    lse [BH, T]), both float32.  An online softmax over key chunks of
+    ``chunk`` (vectorised over the rows): per chunk the running max m2,
+    p = exp(s - m2) at the valid pairs, l rescaled plus the unrounded p,
+    the accumulator rescaled plus bf16(p) @ v.  ``chunk`` = CHUNK is the
+    kernel's schedule; the Pallas kernel's key tile (128, 256 or 512 by T)
+    its own; ``chunk`` >= T the materialised bf16 core's
+    (``models/attn._mha``)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    valid = valid_mask(ep_q, ep_k, rel, H)
+    qf, kf, vf = _f32(q), _f32(k), _f32(v)
+    BH, T, hd = q.shape
+    neg = torch.full((), NEG, device=q.device)
+    zero = torch.zeros((), device=q.device)
+    m = torch.full((BH, T, 1), NEG, device=q.device)
+    l = torch.zeros(BH, T, 1, device=q.device)
+    acc = torch.zeros(BH, T, hd, device=q.device)
+    for c0 in range(0, T, chunk):
+        ok = valid[:, :, c0:c0 + chunk]
+        s = torch.where(ok, (qf @ kf[:, c0:c0 + chunk].transpose(1, 2))
+                        * scale, neg)
+        m2 = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.where(ok, torch.exp(s - m2), zero)
+        alpha = torch.exp(m - m2)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + _bf16(p) @ vf[:, c0:c0 + chunk]
+        m = m2
+    l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+    return acc / l_safe, (m + torch.log(l_safe))[..., 0]
+
+
+def _bwd_terms_bf16(q, k, v, ep_q, ep_k, rel: int, H: int, dout, dsum,
+                    lse):
+    """(w, bf16(ds), q, k, dout) of the bf16 backward, float32: the weights
+    w = exp(s - lse) at the valid pairs and ds = w (dout.v - dsum) scale,
+    [BH, T, T], rounded for the products as pallas_attn.py:241-245 and
+    :294-299 round them."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    valid = valid_mask(ep_q, ep_k, rel, H)
+    qf, kf, vf, dof = _f32(q), _f32(k), _f32(v), _f32(dout)
+    s = (qf @ kf.transpose(1, 2)) * scale
+    w = torch.where(valid, torch.exp(s - lse[..., None]),
+                    torch.zeros((), device=q.device))
+    ds = _bf16(w * (dof @ vf.transpose(1, 2) - dsum[..., None]) * scale)
+    return w, ds, qf, kf, dof
+
+
+def flash_dq_plain_bf16(q, k, v, ep_q, ep_k, rel: int, H: int, dout, dsum,
+                        lse) -> torch.Tensor:
+    """The bf16 dq kernel's plain version: dq = bf16(ds) k with float32
+    sums, returned as bf16; arguments as :func:`flash_dq_kernel`."""
+    _, ds, _, kf, _ = _bwd_terms_bf16(q, k, v, ep_q, ep_k, rel, H, dout,
+                                      dsum, lse)
+    return (ds @ kf).to(torch.bfloat16)
+
+
+def flash_dkv_plain_bf16(q, k, v, ep_q, ep_k, rel: int, H: int, dout, dsum,
+                         lse) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 dk/dv kernel's plain version: dk = bf16(ds)^T q and
+    dv = bf16(w)^T dout with float32 sums, returned as bf16."""
+    w, ds, qf, _, dof = _bwd_terms_bf16(q, k, v, ep_q, ep_k, rel, H, dout,
+                                        dsum, lse)
+    return ((ds.transpose(1, 2) @ qf).to(torch.bfloat16),
+            (_bf16(w).transpose(1, 2) @ dof).to(torch.bfloat16))
+
+
 # --- the kernels --------------------------------------------------------------
 
 def _declare() -> ctypes.CDLL:
@@ -104,12 +208,11 @@ def _declare() -> ctypes.CDLL:
     if not getattr(lib, "_attn_declared", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         tail = [i, i, i, i, i, f, p]       # BH, H, T, hd, rel, scale, stream
-        lib.ppoc_flash_fwd.argtypes = [p] * 7 + tail
-        lib.ppoc_flash_bwd_dq.argtypes = [p] * 9 + tail
-        lib.ppoc_flash_bwd_dkv.argtypes = [p] * 10 + tail
-        for fn in (lib.ppoc_flash_fwd, lib.ppoc_flash_bwd_dq,
-                   lib.ppoc_flash_bwd_dkv):
-            fn.restype = ctypes.c_int
+        for suffix, _, _, _ in _VARIANT.values():
+            for name, n_ptr in (("fwd", 7), ("bwd_dq", 9), ("bwd_dkv", 10)):
+                fn = getattr(lib, f"ppoc_flash_{name}{suffix}")
+                fn.argtypes = [p] * n_ptr + tail
+                fn.restype = ctypes.c_int
         lib._attn_declared = True
     return lib
 
@@ -120,6 +223,9 @@ def _check_inputs(q, k, v, ep_q, ep_k, H: int):
     if q.dim() != 3:
         raise ValueError(f"q must be folded [BH, T, hd], got {tuple(q.shape)}")
     BH, T, hd = q.shape
+    if q.dtype not in _VARIANT:
+        raise ValueError(f"K7 takes float32 or bfloat16 q, k, v, got "
+                         f"{q.dtype}")
     if hd not in SUPPORTED_HD:
         raise ValueError(f"K7 takes head dims {SUPPORTED_HD}, got {hd}")
     if H < 1 or BH % H or BH > 65535:
@@ -127,7 +233,7 @@ def _check_inputs(q, k, v, ep_q, ep_k, H: int):
                          f"BH {BH}, H {H}")
     dev = q.device
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _build.require(t, name, (BH, T, hd), device=dev)
+        _build.require(t, name, (BH, T, hd), dtype=q.dtype, device=dev)
     for name, t in (("ep_q", ep_q), ("ep_k", ep_k)):
         _build.require(t, name, (BH // H, T), dtype=torch.int32, device=dev)
     return BH, T, hd
@@ -135,24 +241,27 @@ def _check_inputs(q, k, v, ep_q, ep_k, H: int):
 
 def flash_fwd_kernel(q, k, v, ep_q, ep_k, rel: int, H: int
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the forward; same arguments and results as
-    :func:`attention_plain`."""
+    """Launch the forward (the variant of q's dtype); same arguments and
+    results as :func:`attention_plain` (float32) or
+    :func:`attention_plain_bf16` (bf16; out and lse float32)."""
     BH, T, hd = _check_inputs(q, k, v, ep_q, ep_k, H)
-    out = torch.empty_like(q)
+    suffix, count, _, _ = _VARIANT[q.dtype]
+    out = torch.empty(BH, T, hd, dtype=torch.float32, device=q.device)
     lse = torch.empty(BH, T, dtype=torch.float32, device=q.device)
     lib = _declare()
     p = _build.ptr
-    _build.check(lib, lib.ppoc_flash_fwd(
+    _build.check(lib, getattr(lib, "ppoc_flash_fwd" + suffix)(
         p(q), p(k), p(v), p(ep_q), p(ep_k), p(out), p(lse), BH, H, T, hd,
         int(rel), 1.0 / math.sqrt(hd), _build.stream_of(q.device)),
-        "K7 forward")
-    fwd_launches.n += 1
+        "K7 forward" + suffix)
+    count.n += 1
     return out, lse
 
 
 def _check_grads(q, dout, dsum, lse):
     BH, T, _ = q.shape
-    _build.require(dout, "dout", tuple(q.shape), device=q.device)
+    _build.require(dout, "dout", tuple(q.shape), dtype=q.dtype,
+                   device=q.device)
     for name, t in (("dsum", dsum), ("lse", lse)):
         _build.require(t, name, (BH, T), device=q.device)
 
@@ -160,17 +269,19 @@ def _check_grads(q, dout, dsum, lse):
 def flash_dq_kernel(q, k, v, ep_q, ep_k, rel: int, H: int, dout, dsum, lse
                     ) -> torch.Tensor:
     """Launch the dq kernel: dq [BH, T, hd] from the output cotangent
-    ``dout``, ``dsum`` = rowsum(dout * out) - g_lse and the forward's lse."""
+    ``dout`` (q's dtype), ``dsum`` = rowsum(dout * out) - g_lse and the
+    forward's lse (both float32); dq in q's dtype."""
     BH, T, hd = _check_inputs(q, k, v, ep_q, ep_k, H)
     _check_grads(q, dout, dsum, lse)
+    suffix, _, count, _ = _VARIANT[q.dtype]
     dq = torch.empty_like(q)
     lib = _declare()
     p = _build.ptr
-    _build.check(lib, lib.ppoc_flash_bwd_dq(
+    _build.check(lib, getattr(lib, "ppoc_flash_bwd_dq" + suffix)(
         p(q), p(k), p(v), p(ep_q), p(ep_k), p(dout), p(dsum), p(lse), p(dq),
         BH, H, T, hd, int(rel), 1.0 / math.sqrt(hd),
-        _build.stream_of(q.device)), "K7 dq")
-    dq_launches.n += 1
+        _build.stream_of(q.device)), "K7 dq" + suffix)
+    count.n += 1
     return dq
 
 
@@ -179,14 +290,15 @@ def flash_dkv_kernel(q, k, v, ep_q, ep_k, rel: int, H: int, dout, dsum, lse
     """Launch the dk/dv kernel; arguments as :func:`flash_dq_kernel`."""
     BH, T, hd = _check_inputs(q, k, v, ep_q, ep_k, H)
     _check_grads(q, dout, dsum, lse)
+    suffix, _, _, count = _VARIANT[q.dtype]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = _declare()
     p = _build.ptr
-    _build.check(lib, lib.ppoc_flash_bwd_dkv(
+    _build.check(lib, getattr(lib, "ppoc_flash_bwd_dkv" + suffix)(
         p(q), p(k), p(v), p(ep_q), p(ep_k), p(dout), p(dsum), p(lse), p(dk),
         p(dv), BH, H, T, hd, int(rel), 1.0 / math.sqrt(hd),
-        _build.stream_of(q.device)), "K7 dk/dv")
-    dkv_launches.n += 1
+        _build.stream_of(q.device)), "K7 dk/dv" + suffix)
+    count.n += 1
     return dk, dv
 
 
@@ -199,12 +311,19 @@ def dsum_of(dout: torch.Tensor, out: torch.Tensor,
 
 
 class FlashAttention(torch.autograd.Function):
-    """K7 on CUDA tensors: ``apply(q, k, v, ep_q, ep_k, rel, H)`` ->
-    (out, lse); the backward is the dq and dk/dv kernels."""
+    """K7 as ``apply(q, k, v, ep_q, ep_k, rel, H)`` -> (out, lse): on CUDA
+    tensors the kernels of q's dtype, the backward the dq and dk/dv
+    kernels; on bf16 CPU tensors the bf16 plain forward and its explicit
+    backward.  The output cotangent is float32: ``dsum`` is taken from it,
+    then it is cast to q's dtype for the backward's products."""
 
     @staticmethod
     def forward(ctx, q, k, v, ep_q, ep_k, rel: int, H: int):
-        out, lse = flash_fwd_kernel(q, k, v, ep_q, ep_k, rel, H)
+        if q.is_cuda:
+            out, lse = flash_fwd_kernel(q, k, v, ep_q, ep_k, rel, H)
+        else:   # the kernel's chunking, read at call time
+            out, lse = attention_plain_bf16(q, k, v, ep_q, ep_k, rel, H,
+                                            CHUNK)
         ctx.save_for_backward(q, k, v, ep_q, ep_k, out, lse)
         ctx.rel, ctx.H = rel, H
         ctx.set_materialize_grads(False)
@@ -213,19 +332,24 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, g_lse):
         q, k, v, ep_q, ep_k, out, lse = ctx.saved_tensors
-        g = torch.zeros_like(out) if g is None else g.contiguous()
+        g = torch.zeros_like(out) if g is None else g
         dsum = dsum_of(g, out, g_lse).contiguous()
-        args = (q, k, v, ep_q, ep_k, ctx.rel, ctx.H, g, dsum, lse)
-        dq = flash_dq_kernel(*args)
-        dk, dv = flash_dkv_kernel(*args)
+        args = (q, k, v, ep_q, ep_k, ctx.rel, ctx.H,
+                g.to(q.dtype).contiguous(), dsum, lse)
+        if q.is_cuda:
+            dq, (dk, dv) = flash_dq_kernel(*args), flash_dkv_kernel(*args)
+        else:
+            dq, (dk, dv) = (flash_dq_plain_bf16(*args),
+                            flash_dkv_plain_bf16(*args))
         return dq, dk, dv, None, None, None, None
 
 
 def attention_folded(q, k, v, ep_q, ep_k, rel: int, H: int
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out, lse) on folded tensors: K7 for a CUDA tensor, the plain
-    version for a CPU one."""
-    if q.is_cuda:
+    """(out, lse), both float32, on folded tensors: K7 for a CUDA tensor
+    (the variant of q's dtype), the plain version for a CPU one (the bf16
+    variant's for bf16 q, k, v)."""
+    if q.is_cuda or q.dtype == torch.bfloat16:
         return FlashAttention.apply(q, k, v, ep_q, ep_k, rel, H)
     return attention_plain(q, k, v, ep_q, ep_k, rel, H)
 
@@ -233,21 +357,30 @@ def attention_folded(q, k, v, ep_q, ep_k, rel: int, H: int
 # --- public entries -----------------------------------------------------------
 
 def flash_mha_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    q_ep: torch.Tensor, k_ep: torch.Tensor, rel: int
+                    q_ep: torch.Tensor, k_ep: torch.Tensor, rel: int,
+                    compute_dtype: Optional[torch.dtype] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One block of a ring-attention pass (``pallas_attn.flash_mha_block``):
     q, k, v [T, ..., H, hd], the two sides' episode ids [T, ...] and the
-    key block's relation ``rel``; returns (out [T, ..., H, hd],
-    lse [T, ..., H]), NEG where a query has no valid key."""
+    key block's relation ``rel``; returns (out [T, ..., H, hd] in q's
+    dtype, lse [T, ..., H]), NEG where a query has no valid key.
+    ``compute_dtype=torch.bfloat16`` folds q, k, v to bf16 blocks (the bf16
+    variant)."""
     H = q.shape[-2]
-    out, lse = attention_folded(fold(q), fold(k), fold(v), fold_ep(q_ep),
-                                fold_ep(k_ep), int(rel), H)
-    return unfold(out, q.shape), unfold(lse, q.shape)
+
+    def blocks(x):
+        x = fold(x)
+        return x if compute_dtype is None else x.to(compute_dtype)
+
+    out, lse = attention_folded(blocks(q), blocks(k), blocks(v),
+                                fold_ep(q_ep), fold_ep(k_ep), int(rel), H)
+    return unfold(out, q.shape).to(q.dtype), unfold(lse, q.shape)
 
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              ep: torch.Tensor) -> torch.Tensor:
+              ep: torch.Tensor,
+              compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Causal episode-masked multi-head attention
     (``pallas_attn.flash_mha``): q, k, v [T, ..., H, hd], ep [T, ...];
-    returns [T, ..., H, hd]."""
-    return flash_mha_block(q, k, v, ep, ep, 0)[0]
+    returns [T, ..., H, hd]; ``compute_dtype`` as :func:`flash_mha_block`."""
+    return flash_mha_block(q, k, v, ep, ep, 0, compute_dtype)[0]

@@ -354,9 +354,11 @@ SUPPORTED = frozenset(LANES)
 
 # one launch count per lane and mode for each variant: the kernel is one
 # template, run per lane, with the V planes ("values", the training
-# rollouts) or with the completed-episode sums ("metrics", the evaluation
-# rollouts), with the nets in shared memory (lane_launches) or in global
-# memory (global_launches)
+# rollouts) or without them ("metrics": the kernel sums the completed
+# episodes' returns, which the evaluation rollouts read; the "bf16"
+# backend's training rollouts, which take no value net, count here too),
+# with the nets in shared memory (lane_launches) or in global memory
+# (global_launches)
 MODES = ("values", "metrics")
 lane_launches = {(name, mode): _build.LaunchCount(f"rollout[{name}]/{mode}")
                  for name in LANES for mode in MODES}

@@ -211,13 +211,23 @@ def test_mask_blocks_cross_episode_attention():
 
 
 def test_window_overflow_and_unported_backend_raise():
+    """A window past the positional table and an unported backend raise;
+    "bf16" is ported: float32 out at bf16 rounding scale of the float32
+    forward (tests/test_pallas_attn.py's atol 0.05)."""
     _, p = _params(T=6)
     with pytest.raises(ValueError, match="positional table"):
         attn.apply_seq(p, torch.zeros(8, 2, 4), torch.zeros(8, 2, dtype=bool),
                        "relu")
-    with pytest.raises(NotImplementedError, match="bf16"):
+    with pytest.raises(NotImplementedError, match="tp:x"):
         attn.apply_seq(p, torch.zeros(4, 2, 4), torch.zeros(4, 2, dtype=bool),
-                       "relu", backend="bf16")
+                       "relu", backend="tp:x")
+    xs = torch.tensor(np.random.default_rng(7).standard_normal(
+        (4, 2, 4)).astype(np.float32))
+    done = torch.zeros(4, 2, dtype=bool)
+    out = attn.apply_seq(p, xs, done, "relu", backend="bf16")
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, attn.apply_seq(p, xs, done, "relu"),
+                               rtol=0, atol=0.05)
 
 
 def test_reset_lanes_clamps_past_the_window():

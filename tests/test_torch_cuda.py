@@ -736,6 +736,205 @@ def test_flash_refuses_what_the_kernel_does_not_take(dev):
         _build.check(lib, code, "K7 forward")
 
 
+# --- K7's bf16 variant --------------------------------------------------------
+# Held to its plain versions run on the card (the forward with the kernel's
+# CHUNK): every output within two bf16 roundoffs (2^-7) of the leaf's
+# largest magnitude, and at most 1% of the elements apart by more than
+# 1e-5 of it.  The two sum in another order, so a p, ds or w near a bf16
+# rounding boundary, or a bf16 output, now and then rounds to the
+# neighbouring value; a kernel that skipped a rounding would part on
+# nearly every element.
+
+def _bf16_agree(got, want, max_share=0.01):
+    top = max(1.0, float(want.abs().max()))
+    diff = (got.float() - want.float()).abs()
+    assert float(diff.max()) <= 2.0 ** -7 * top, (float(diff.max()), top)
+    assert float((diff > 1e-5 * top).float().mean()) <= max_share
+
+
+def _bf16_case(dev, T, B, H, hd, p_done, seed=0):
+    from ppoc_tpu_torch.ops import cuda_attn as ca
+
+    q, k, v, ep = _flash_case(dev, T, B, H, hd, p_done, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    dout = torch.randn(q.shape, generator=g).to(dev)
+    g_lse = torch.randn(q.shape[:-1], generator=g).to(dev)
+    fold = [ca.fold(x).to(torch.bfloat16) for x in (q, k, v)]
+    return fold, ca.fold(dout), ca.fold(g_lse[..., None])[..., 0], \
+        ca.fold_ep(ep)
+
+
+@pytest.mark.parametrize("T,B,H,hd,p_done,rel", [
+    (12, 3, 2, 8, 0.25, 0), (130, 2, 2, 16, 0.05, 0),
+    (200, 2, 2, 32, 0.1, -1), (100, 1, 2, 64, 0.1, 0),
+    (1030, 1, 1, 8, 0.02, 0), (70, 2, 2, 8, 0.1, 1),
+    (1024, 4, 4, 8, 0.02, 0)])
+def test_flash_bf16_kernel_matches_plain(dev, T, B, H, hd, p_done, rel):
+    """The bf16 forward (out, lse float32) and backward (dq, dk, dv bf16)
+    against attention_plain_bf16(chunk=CHUNK) and the explicit plain
+    backward on the same bf16 inputs."""
+    from ppoc_tpu_torch.ops import cuda_attn as ca
+
+    (q, k, v), dout, g_lse, ep = _bf16_case(dev, T, B, H, hd, p_done)
+    args = (q, k, v, ep, ep, rel, H)
+    out, lse = ca.flash_fwd_kernel(*args)
+    out_p, lse_p = ca.attention_plain_bf16(*args, chunk=ca.CHUNK)
+    assert out.dtype == lse.dtype == torch.float32
+    _bf16_agree(out, out_p)
+    torch.testing.assert_close(lse, lse_p, rtol=0, atol=1e-5)
+    if rel > 0:
+        assert (out == 0).all() and (lse == ca.NEG).all()
+    dsum = ca.dsum_of(dout, out, g_lse).contiguous()
+    bargs = args + (dout.to(torch.bfloat16), dsum, lse)
+    got = (ca.flash_dq_kernel(*bargs),) + ca.flash_dkv_kernel(*bargs)
+    want = ((ca.flash_dq_plain_bf16(*bargs),)
+            + ca.flash_dkv_plain_bf16(*bargs))
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        _bf16_agree(a, b)
+
+
+def test_flash_bf16_is_deterministic_and_counted_apart(dev):
+    """flash_mha(compute_dtype=bf16) with autograd launches each bf16
+    kernel once and no float32 one; two backward passes agree bit for
+    bit; the public gradients are float32."""
+    from ppoc_tpu_torch.ops import cuda_attn as ca
+
+    q, k, v, ep = _flash_case(dev, 300, 2, 2, 8, 0.02, seed=3)
+    counters = (ca.fwd_bf16_launches, ca.dq_bf16_launches,
+                ca.dkv_bf16_launches, ca.fwd_launches, ca.dq_launches,
+                ca.dkv_launches)
+
+    def grads():
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = ca.flash_mha(*leaves, ep, torch.bfloat16)
+        return torch.autograd.grad(torch.sin(out).sum(), leaves)
+
+    before = [c.n for c in counters]
+    g1 = grads()
+    assert [c.n - b for c, b in zip(counters, before)] == [1, 1, 1, 0, 0, 0]
+    g2 = grads()
+    assert all(a.dtype == torch.float32 and torch.equal(a, b)
+               for a, b in zip(g1, g2))
+
+
+def test_flash_bf16_refuses_mixed_types(dev):
+    from ppoc_tpu_torch.ops import cuda_attn as ca
+
+    (q, k, v), dout, g_lse, ep = _bf16_case(dev, 16, 1, 2, 8, 0.1)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ca.flash_fwd_kernel(q, k.float(), v, ep, ep, 0, 2)
+    out, lse = ca.flash_fwd_kernel(q, k, v, ep, ep, 0, 2)
+    dsum = ca.dsum_of(dout, out, None).contiguous()
+    with pytest.raises(ValueError, match="dout"):
+        ca.flash_dq_kernel(q, k, v, ep, ep, 0, 2, dout, dsum, lse)
+
+
+# --- the bf16 MLP products -----------------------------------------------------
+
+def test_bf16_dot_on_card_matches_the_cpu_form(dev):
+    """mlp.bf16_dot on the card (a bf16 tensor-core product with float32
+    output) against the CPU form run on the card with TF32 off (float32
+    products of the bf16 values): the forward within 1e-5 of the sum of
+    |products| (both exact products, summed in another order); the
+    gradients are the same float32 products rounded to bf16, so equal up
+    to a rounding flip (one bf16 ulp, 2^-7) on at most 1% of elements."""
+    g = torch.Generator().manual_seed(0)
+    a = torch.randn(16384, 256, generator=g).to(dev).requires_grad_()
+    w = (0.06 * torch.randn(256, 256, generator=g)).to(dev).requires_grad_()
+    c = torch.randn(16384, 256, generator=g).to(dev)
+    out = mlp.bf16_dot(a, w)
+    ga, gw = torch.autograd.grad((out * c).sum(), (a, w))
+    ab, wb = (t.detach().to(torch.bfloat16).float().requires_grad_()
+              for t in (a, w))
+    ref = ab @ wb
+    ra, rw = torch.autograd.grad((ref * c).sum(), (ab, wb))
+    ra, rw = ra.to(torch.bfloat16).float(), rw.to(torch.bfloat16).float()
+    bound = 1e-5 * (ab.detach().abs() @ wb.detach().abs())
+    assert out.dtype == torch.float32
+    assert ((out - ref).abs() <= bound + 1e-6).all()
+    for x, y in ((ga, ra), (gw, rw)):
+        diff = (x - y).abs()
+        assert (diff <= 2.0 ** -7 * y.abs() + 1e-30).all()
+        assert float((diff > 0).float().mean()) <= 0.01
+
+
+def test_mlp_bf16_on_card_matches_the_cpu_form(dev):
+    """mlp.apply(..., "bf16") on the card, a [10,256,256,1] net on 16384
+    rows, against the same on the CPU: outputs and parameter gradients
+    within two bf16 roundoffs of the leaf's largest magnitude, at most 1%
+    of elements apart by more than 1e-5 of it."""
+    params = mlp.init((10, 256, 256, 1), torch.Generator().manual_seed(1),
+                      "cpu")
+    x = torch.randn(16384, 10, generator=torch.Generator().manual_seed(2))
+    res = {}
+    for d in ("cpu", dev):
+        leaves = [tuple(t.detach().to(d).requires_grad_() for t in layer)
+                  for layer in params]
+        out = mlp.apply(leaves, x.to(d), "relu", "bf16")
+        res[str(d)] = [out] + list(torch.autograd.grad(
+            out.square().mean(), [t for layer in leaves for t in layer]))
+    for a, b in zip(res[str(dev)], res["cpu"]):
+        _bf16_agree(a.detach().cpu(), b.detach())
+
+
+# --- the bf16 backend through Trainer ------------------------------------------
+
+def test_trainer_on_cuda_bf16_dense_path(dev):
+    """Trainer(kernel_backend="bf16") on the card by default, the reacher
+    regime in small: a fit is one K1 launch without the V planes (counted
+    under "metrics") in the global variant and one K2; no K3, K4, K5 or
+    K6; the mean-policy evaluation launches no kernel."""
+    counters = {"k1": cr.global_launches["reacher", "metrics"],
+                "k1_values": cr.global_launches["reacher", "values"],
+                "k2": cuda_gae.launches}
+    others = [cu.value_launches, cu.policy_launches, cu.categorical_launches,
+              cu.value_global_launches, cu.policy_global_launches,
+              cu.categorical_global_launches, cuda_mlp.fwd_launches,
+              cuda_mlp.bwd_launches, cuda_mlp.fwd_global_launches,
+              cuda_mlp.bwd_global_launches]
+    cfg = PPOConfig(env="reacher", n_envs=64, rollout_len=64,
+                    minibatch_size=4096, shuffle_block=1024,
+                    fits_per_epoch=2, n_epochs_value=2, n_epochs_policy=1,
+                    eval_envs=8, eval_len=150, hidden=(256, 256),
+                    kernel_backend="bf16")
+    tr = Trainer(cfg)
+    assert tr.device == torch.device("cuda", 0)
+    before = {k: c.n for k, c in counters.items()}
+    o0 = [c.n for c in others]
+    fit = tr.train_epoch()
+    assert {k: c.n - before[k] for k, c in counters.items()} == {
+        "k1": 2, "k1_values": 0, "k2": 2}
+    ev = tr.evaluate(deterministic=True)
+    assert [c.n for c in others] == o0
+    assert torch.isfinite(fit.value_loss) and ev.episodes == 8
+    assert tr.state.opt_v.t == 2 * 2 * 1     # fits x epochs x minibatches
+
+
+def test_trainer_on_cuda_bf16_attention_path(dev, monkeypatch):
+    """An attention trunk under bf16 on the card with the flash core
+    engaged (FLASH_MIN_T lowered): every K7 launch is the bf16 variant."""
+    from ppoc_tpu_torch.models import attn
+    from ppoc_tpu_torch.ops import cuda_attn as ca
+
+    monkeypatch.setattr(attn, "FLASH_MIN_T", 8)
+    cfg = PPOConfig(env="recall", n_envs=16, rollout_len=12,
+                    minibatch_size=48, fits_per_epoch=1, n_epochs_value=1,
+                    n_epochs_policy=1, eval_envs=16, eval_len=12,
+                    hidden=(16,), attn_dim=16, attn_layers=1, attn_heads=2,
+                    kernel_backend="bf16")
+    tr = Trainer(cfg)
+    bf = (ca.fwd_bf16_launches, ca.dq_bf16_launches, ca.dkv_bf16_launches)
+    f32 = (ca.fwd_launches, ca.dq_launches, ca.dkv_launches)
+    b0, f0 = [c.n for c in bf], [c.n for c in f32]
+    fit = tr.train_epoch()
+    n_mb = 16 // 4
+    assert [c.n - b for c, b in zip(bf, b0)] == [1 + 2 * n_mb, 2 * n_mb,
+                                                 2 * n_mb]
+    assert [c.n for c in f32] == f0
+    assert torch.isfinite(fit.value_loss) and torch.isfinite(fit.entropy)
+
+
 # --- K3, K4 and K6 for nets past shared memory --------------------------------
 # The global-memory variant sums every output in the shared-memory
 # variant's order, so on a net both take a whole phase is the same bits;

@@ -113,6 +113,6 @@ def test_clipped_surrogate_value_and_grad_match_jax():
 def test_resolve_backend():
     assert resolve_backend("pallas") == "pallas"
     assert resolve_backend("auto") == "pallas"
-    for name in ("jnp", "bf16"):
-        with pytest.raises(NotImplementedError, match=name):
-            resolve_backend(name)
+    assert resolve_backend("bf16") == "bf16"
+    with pytest.raises(NotImplementedError, match="jnp"):
+        resolve_backend("jnp")

@@ -326,7 +326,6 @@ def test_attention_trainer_on_cpu(monkeypatch):
                                    "transplant_patience"),
     (dict(aux_value_coeff=0.5), "aux_value_coeff"),
     (dict(clip_value=0.2), "clip_value"), (dict(target_kl=0.01), "target_kl"),
-    (dict(kernel_backend="bf16"), "bf16"),
     (dict(fit_dispatch="phased"), "fit_dispatch"),
     (dict(rollout_chunk=4), "rollout_chunk"),
     (dict(fits_per_program=1), "fits_per_program")])
@@ -334,3 +333,14 @@ def test_unported_sequence_options_are_refused(kw, match):
     cfg = dataclasses.replace(_port(_jcfg()), **kw)
     with pytest.raises((NotImplementedError, ValueError), match=match):
         Trainer(cfg, "cpu")
+
+
+def test_bf16_sequence_trainer_is_ported():
+    """kernel_backend="bf16" on an attention trunk: Trainer builds it,
+    keeps "bf16" as its backend and trains an epoch (the sequence path's
+    bf16 parity is tests/test_torch_bf16.py)."""
+    cfg = dataclasses.replace(_port(_jcfg()), kernel_backend="bf16")
+    tr = Trainer(cfg, "cpu")
+    assert ppo.backend_of(tr.cfg) == "bf16"
+    hist = tr.train(n_epochs=1, log=False)
+    assert np.isfinite(hist[0]["value_loss"])

@@ -1,6 +1,6 @@
 """Profile one training epoch on the card.
 
-    python3 tools/profile_epoch.py [--config bench|throughput|reacher|reacher_ref]
+    python3 tools/profile_epoch.py [--config bench|throughput|reacher|reacher_ref|reacher_bf16]
 
 Needs a CUDA device.  ``bench`` (the default) is bench.py's bench_config:
 three warm epochs, each with its stochastic evaluation, timed without the
@@ -13,7 +13,9 @@ then one of each under the profiler.  ``reacher`` is the reacher regime
 2x256 nets): one warm epoch, then three training epochs timed alone and
 one under the profiler; ``reacher_ref`` the same for chip_smoke.REACHER_REF
 (the reference schedule at 2x256: 10 fits an epoch through K3 and K4 in
-their global-memory variants).  Each profiled window prints its wall
+their global-memory variants), ``reacher_bf16`` for chip_smoke.REACHER_BF16
+(the reacher regime under kernel_backend "bf16": K1, K2 and bf16 library
+products).  Each profiled window prints its wall
 time, summed device-kernel time, the count of device kernels and each
 kernel's share of device time, and the device's idle share two ways: 1 -
 device time / the mean unprofiled wall of the same window (the path's own
@@ -70,7 +72,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", default="bench",
-                    choices=["bench", "throughput", "reacher", "reacher_ref"])
+                    choices=["bench", "throughput", "reacher", "reacher_ref",
+                             "reacher_bf16"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -87,7 +90,8 @@ def main() -> int:
     tr = Trainer({"bench": cs.bench_config,
                   "throughput": lambda: tpu_preset("pendulum"),
                   "reacher": lambda: PPOConfig(**cs.REACHER),
-                  "reacher_ref": lambda: cs.wide_config("reacher")
+                  "reacher_ref": lambda: cs.wide_config("reacher"),
+                  "reacher_bf16": lambda: PPOConfig(**cs.REACHER_BF16),
                   }[args.config]())
 
     def epoch():
@@ -110,7 +114,7 @@ def main() -> int:
     print(f"{what} wall, no profiler (s):", [round(w, 4) for w in walls],
           flush=True)
     profiled(what, epoch, walls)
-    if args.config in ("reacher", "reacher_ref"):
+    if args.config in ("reacher", "reacher_ref", "reacher_bf16"):
         return 0
     if throughput:
         det_eval()
