@@ -127,6 +127,23 @@
    more than 5, then evaluate(deterministic=True) (no kernel); the bf16
    MLP product (mlp.bf16_dot, bf16 tensor cores) against the CPU form run
    on the card with TF32 off.
+22. K3 bf16 and K4 bf16, the bf16 big-tile phases, on REACHER_BF16's fit
+   buffer at full width (one K1 rollout without the V planes, the bf16
+   value forwards, K2: 614,400 rows; minibatch 16384 in blocks of 4096,
+   [10,256,256,1] for 370 steps and [10,256,256,2] for 148): the main path
+   ppo.value_phase_fused(..., bf16=True) then policy_phase_fused(...,
+   bf16=True), one cooperative launch each (the grid and the product route
+   printed), with every launch counter read around it; then 185 + 185
+   (74 + 74) steps in two launches against one bit for bit, two identical
+   launches bit for bit, two steps against the plain version and the bf16
+   generic phase at tests/test_bigmb.py's tolerances, each kernel's device
+   time beside its plain version's and the generic phase's wall and device
+   time; on each of three streams one step against the plain version
+   summed in the kernel's order, leaf by leaf, with two controls that must
+   fail the same check (the plain version with float32 cotangents, the
+   generic bf16 phase), and the whole phase against the plain version and
+   the generic phase by distance; a second value phase on the same buffer
+   ending at a lower mean loss; a step's device time by grid size.
 
 Each phase's title line gives the seconds since the script started.
 Any failed check raises, so the script exits non-zero.  The last two lines
@@ -214,6 +231,10 @@ KERNELS = {
                           "ppoc_tpu/ops/pallas_attn.py:335"),
     "flash_bwd_dkv_bf16": ("ppoc_tpu_torch/csrc/attn.cu",
                            "ppoc_tpu/ops/pallas_attn.py:352"),
+    "value_phase_bf16": ("ppoc_tpu_torch/csrc/update_bf16.cu",
+                         "ppoc_tpu/ops/pallas_update.py:396"),
+    "policy_phase_bf16": ("ppoc_tpu_torch/csrc/update_bf16.cu",
+                          "ppoc_tpu/ops/pallas_update.py:749"),
 }
 # the loose whole-phase limits of check_phase: a kernel's distance from
 # float64 over a 1% learning-rate error's, about 1.5x the largest reading
@@ -2787,6 +2808,451 @@ def bf16_phases(dev, counters, record):
           f"at the fastest", flush=True)
 
 
+# --- K3 bf16 and K4 bf16: the bf16 big-tile phases --------------------------
+
+# the draws of the phases' row streams (10 value and 4 policy epochs of 37
+# minibatches in blocks of 4096): the main path runs on the first, every
+# distance check on each
+BIGMB_SEEDS = (8, 9, 10)
+# The rounding points, held at one step.  The kernel's state after one step
+# against its plain version summing in the kernel's own order (row tiles of
+# the kernel's rows a block, in block order), leaf by leaf (each W and b of
+# the net, of Adam's m and of v; K4 also log_std and its moments): the
+# largest relative two-norm distance of a leaf at most BIGMB_STEP_REL[kind].
+# Two controls go through the same comparison and must fail it, or the run
+# fails: the plain version with the cotangent left float32
+# (round_cotangent=False: a kernel that skipped that rounding), and the
+# generic bf16 phase (autodiff, float32 cotangents) in the kernel's place.
+# After one step Adam moves every weight by about lr whatever the gradient,
+# so m and v carry the test.  Set from the readings on streams 8-12 (NVIDIA
+# H100 80GB HBM3, 700 W): K3 the kernel 3.07e-7, the float32-cotangent
+# control 2.09e-4 to 2.72e-4, the generic phase 3.27e-3 to 3.43e-3; K4 the
+# kernel 2.91e-5 to 2.93e-5 (its log_std leaf: a float32 sum of terms that
+# cancel), the controls 1.94e-3 to 3.54e-3 and 3.98e-3 to 5.47e-3.  Each
+# limit lies about midway between, on a log scale.
+BIGMB_STEP_REL = {"K3": 1e-5, "K4": 2.5e-4}
+# tests/test_bigmb.py's tolerances (the kernel against the bf16 scan over
+# its two steps): weights rtol 5e-2, atol 2e-4; the mean loss rel 2e-2
+# (plus 1e-4).  They hold the first two steps elementwise.  Over a whole
+# phase (370 or 148 Adam steps) a float32 sum order alone moves some
+# weights past them (the plain version at row tiles of 1024 against 4096),
+# and a kernel without the cotangent rounding lands as near its plain
+# version as the kernel does: a whole phase cannot tell the rounding points
+# apart, the one-step check does.  So a whole phase holds the trajectory,
+# by distance: the kernel's relative two-norm distance from its plain
+# version within BIGMB_NOISE times the plain version's own between those
+# two tiles, and its distance from the generic bf16 phase within
+# BIGMB_GENERIC times the plain version's; the mean loss at test_bigmb's
+# tolerance throughout.  The plain version without the cotangent rounding
+# is read beside them, and not held.  Streams 8-12 read: K3 0.71 to 2.24
+# of the yardstick and 0.82 to 1.23 of the generic distance, K4 0.98 to
+# 1.45 and 0.85 to 1.05; the control 1.46 to 6.39 (K3) and 1.16 to 1.30
+# (K4) of the yardstick.
+BIGMB_TOL = dict(rtol=5e-2, atol=2e-4)
+BIGMB_LOSS_REL = 2e-2
+BIGMB_NOISE = 3.0
+BIGMB_GENERIC = 1.5
+
+
+def bigmb_bound(widths, n_steps: int, mb: int, extra_cols: int):
+    """K3 bf16 / K4 bf16: per step 2 FLOP a row per multiply-add on the
+    bf16 tensor cores for each of the forward, dW and dX (no dX of the
+    input layer), plus ~12 float32 operations an Adam parameter; reads
+    each row once (d0 + extra_cols float32), reads and writes params and
+    both moments once."""
+    flop_row = 6.0 * products(widths) - 2.0 * widths[0] * widths[1]
+    t_mma = n_steps * mb * flop_row / PEAK_BF16
+    t_adam = 12.0 * n_steps * n_params(widths) / PEAK_FP32
+    nbytes = 4.0 * (n_steps * mb * (widths[0] + extra_cols)
+                    + 6 * n_params(widths))
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = t_mma + t_adam
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def bigmb_state(out):
+    """The trained state of a bf16 phase's results as flat tensors (net,
+    moments; K4 also log_std and its moments), and the mean loss."""
+    from ppoc_tpu_torch.models import mlp
+
+    if len(out) == 3:
+        params, opt, loss = out
+        return [mlp.flatten(params), mlp.flatten(opt.m),
+                mlp.flatten(opt.v)], loss
+    params, ls, op, ols, loss, _ = out
+    return [mlp.flatten(params), ls, mlp.flatten(op.m), mlp.flatten(op.v),
+            ols.m, ols.v], loss
+
+
+def bigmb_leaves(out):
+    """[(name, tensor)] of a bf16 phase's trained state, a leaf per W and b
+    of the net, of m and of v (K4: and log_std, its m and v)."""
+    if len(out) == 3:
+        params, opt, _ = out
+        trees = (("", params), ("m ", opt.m), ("v ", opt.v))
+        extra = []
+    else:
+        params, ls, op, ols, _, _ = out
+        trees = (("", params), ("m ", op.m), ("v ", op.v))
+        extra = [("log_std", ls), ("m log_std", ols.m), ("v log_std", ols.v)]
+    return [(f"{pre}{n}{l}", t) for pre, tree in trees
+            for l, wb in enumerate(tree) for n, t in zip("Wb", wb)] + extra
+
+
+def bigmb_leaf_dist(got, want):
+    """(the largest relative two-norm distance of a leaf, its name, the
+    largest |diff|) of ``got``'s leaves from ``want``'s."""
+    top, name, err = -1.0, "", 0.0
+    for (n, x), (_, y) in zip(bigmb_leaves(got), bigmb_leaves(want)):
+        x, y = x.double(), y.double()
+        d = float((x - y).norm()) / max(float(y.norm()), 1e-30)
+        if d > top:
+            top, name = d, n
+        err = max(err, float((x - y).abs().max()))
+    return top, name, err
+
+
+def bigmb_dist(got, want, tol=BIGMB_TOL):
+    """(the largest |diff| over (atol + rtol |want|), the share of elements
+    beyond it, the relative two-norm distance) over the weight leaves."""
+    worst, beyond, n, num, den = 0.0, 0, 0, 0.0, 0.0
+    for x, y in zip(got, want):
+        x, y = x.double(), y.double()
+        r = (x - y).abs() / (tol["atol"] + tol["rtol"] * y.abs())
+        worst = max(worst, float(r.max()))
+        beyond += int((r > 1).sum())
+        n += r.numel()
+        num += float(((x - y) ** 2).sum())
+        den += float((y ** 2).sum())
+    return worst, beyond / n, math.sqrt(num / den)
+
+
+def bigmb_loss(label: str, loss_got, loss_want) -> None:
+    gap = abs(float(loss_got) - float(loss_want))
+    lim = BIGMB_LOSS_REL * abs(float(loss_want)) + 1e-4
+    if not gap <= lim:
+        raise AssertionError(f"{label}: mean loss {float(loss_got)} against "
+                             f"{float(loss_want)}")
+
+
+def bigmb_apart(label: str, got, want, loss_got, loss_want) -> float:
+    """Hold the trained weights (the net, and log_std) to ``want``
+    elementwise at BIGMB_TOL and the mean loss at BIGMB_LOSS_REL; returns
+    the largest |diff| of the weights."""
+    worst, share, rel = bigmb_dist(got, want)
+    print(f"  {label}: weights at most {worst:.3f} of the tolerance (rtol "
+          f"{BIGMB_TOL['rtol']}, atol {BIGMB_TOL['atol']}), relative "
+          f"distance {rel:.3e}; mean loss {float(loss_got):.6g} against "
+          f"{float(loss_want):.6g}", flush=True)
+    if not worst <= 1.0:
+        raise AssertionError(f"{label}: weights {worst} of the tolerance")
+    bigmb_loss(label, loss_got, loss_want)
+    return max(float((x.double() - y.double()).abs().max())
+               for x, y in zip(got, want))
+
+
+def bigmb_near(label: str, got, want, loss_got, loss_want, yard: float,
+               ratio: float) -> float:
+    """Hold the weights' relative two-norm distance from ``want`` within
+    ``ratio`` times the yardstick distance ``yard`` (plus 1e-7), and the
+    mean loss at BIGMB_LOSS_REL; returns the distance."""
+    worst, share, rel = bigmb_dist(got, want)
+    print(f"  {label}: relative distance {rel:.3e}, {rel / max(yard, 1e-30):.3f}"
+          f" of the yardstick {yard:.3e} (at most {ratio}); elementwise at "
+          f"most {worst:.3f} of test_bigmb's tolerance, {share:.4%} of the "
+          f"weights beyond it; mean loss {float(loss_got):.6g} against "
+          f"{float(loss_want):.6g}", flush=True)
+    if not rel <= ratio * yard + 1e-7:
+        raise AssertionError(f"{label}: distance {rel} over {ratio} x {yard}")
+    bigmb_loss(label, loss_got, loss_want)
+    return rel
+
+
+def bigmb_rounding(label: str, lim: float, kernel_out, plain_out,
+                   controls) -> float:
+    """The one-step check of the rounding points: the kernel's leaves
+    within ``lim`` (BIGMB_STEP_REL) of its plain version's, every control's
+    (name, results) beyond it; returns the kernel's largest |diff|."""
+    d, leaf, err = bigmb_leaf_dist(kernel_out, plain_out)
+    ctl = [(name, *bigmb_leaf_dist(out, plain_out)[:2])
+           for name, out in controls]
+    print(f"  {label}: the largest leaf distance from the plain version "
+          f"{d:.3e} ({leaf}; at most {lim:.1e}), max |diff| "
+          f"{err:.3e}; controls, which must exceed it: "
+          + "; ".join(f"{n} {c:.3e} ({cl}, {c / max(d, 1e-30):.0f}x)"
+                      for n, c, cl in ctl), flush=True)
+    if not d <= lim:
+        raise AssertionError(f"{label}: leaf {leaf} at {d}")
+    for n, c, cl in ctl:
+        if not c > lim:
+            raise AssertionError(f"{label}: the control '{n}' passes the "
+                                 f"check ({cl} at {c}): it cannot tell")
+    return err
+
+
+def bigmb_grid_times(dev, steps: int = 37) -> None:
+    """Where K3 bf16's device time goes, by grid size: a step's device time
+    (a launch of ``steps`` steps less one of none, over the steps;
+    queued_ms) with every block on its own 128 rows, so each block does
+    the same work at every grid size and what grows with it is the
+    partials' traffic through L2 and the barriers: the reacher value net
+    at 1, 8, 32 and 128 blocks, and a [10,16,16,1] net, whose products and
+    partials nearly vanish, at 1 and 128."""
+    import torch
+
+    from ppoc_tpu_torch.models import mlp
+    from ppoc_tpu_torch.ops import cuda_update as cu
+    from ppoc_tpu_torch.ops.adam import AdamState
+
+    h = cu.Hyper.of(3e-4, 0.9, 0.999, 1e-8)
+    for widths, grids in (([10, 256, 256, 1], (1, 8, 32, 128)),
+                          ([10, 16, 16, 1], (1, 128))):
+        g = torch.Generator().manual_seed(0)
+        params = mlp.init(widths, g, dev)
+        zeros = [(torch.zeros_like(w), torch.zeros_like(b))
+                 for w, b in params]
+        opt = AdamState(zeros, zeros, 0)
+        for grid in grids:
+            mb = 128 * grid
+            x = torch.randn(steps * mb, widths[0], generator=g).to(dev)
+            tgt = torch.randn(steps * mb, generator=g).to(dev)
+            ms = [queued_ms(lambda n=n: cu.value_phase_bf16_kernel(
+                x[:n * mb], tgt[:n * mb], params, opt, n, mb, "relu", h), 3)
+                for n in (0, steps)]
+            print(f"  K3 bf16 {widths}, grid {grid} (minibatch {mb}): "
+                  f"{steps} steps {ms[1]:.4f} ms, none {ms[0]:.4f} ms, "
+                  f"{1e3 * (ms[1] - ms[0]) / steps:.2f} us a step",
+                  flush=True)
+
+
+def bigmb_phases(dev, counters, record, seeds=BIGMB_SEEDS):
+    """K3 bf16 and K4 bf16 on REACHER_BF16's fit buffer at full width: the
+    main path (ppo.value_phase_fused / policy_phase_fused with bf16, one
+    launch each, every counter read around it) on the first stream, the
+    split and repeated launches, two steps and the timings on it, then on
+    every stream the one-step rounding check with its controls and the
+    whole phase against the plain version and the generic bf16 phase; a
+    second value phase; the step time by grid size; records both rows."""
+    import torch
+
+    from ppoc_tpu_torch import PPOConfig
+    from ppoc_tpu_torch.algo import ppo
+    from ppoc_tpu_torch.algo.trainer import Trainer
+    from ppoc_tpu_torch.data import buffer
+    from ppoc_tpu_torch.models import mlp
+    from ppoc_tpu_torch.ops import cuda_update as cu
+
+    header("[K3 bf16 and K4 bf16: REACHER_BF16's fit buffer, minibatch "
+           "16384, 2x256]")
+    cfg = PPOConfig(**REACHER_BF16)
+    tr = Trainer(cfg)
+    check_on_card(tr)
+    ts, env = tr.state, tr.env
+    draws = ppo.draw_fit(cfg, torch.Generator().manual_seed(seeds[0]), dev)
+    traj, _, vpair = ppo.rollout(cfg, env, ts.policy_params, draws.seed,
+                                 cfg.n_envs, cfg.rollout_len,
+                                 v_params=ts.v_params)
+    adv, tgt = ppo.compute_advantages(cfg, env, traj, vpair, ts.v_params)
+    buf = buffer.from_rollout(traj, adv, tgt)
+    torch.cuda.synchronize()
+    mb, blk = cfg.minibatch_size, cfg.shuffle_block
+    vidx, pidx = draws.value_idx, draws.policy_idx
+    n_v = vidx.shape[0] * vidx.shape[1]
+    n_p = pidx.shape[0] * pidx.shape[1]
+    vw, pw = mlp.dims(ts.v_params), mlp.dims(ts.policy_params["mlp"])
+    tile = cu.bf16_tile(mb)
+    plans = {k: cu.phase_bf16_plan(k, w, mb, dev)
+             for k, w in (("value", vw), ("policy", pw))}
+    for k, pl in plans.items():
+        print(f"  {k} phase: cooperative grid {pl['grid']} blocks x "
+              f"{pl['threads']} threads ({pl['rows']} rows a block, "
+              f"{pl['blocks_per_sm']} block(s) per SM on {pl['sms']} SMs, "
+              f"{pl['smem']} B shared memory, {pl['scratch_bytes']} B "
+              f"scratch); products: {pl['route']} (mma.sync m16n8k16, bf16 "
+              f"operands, float32 accumulators)", flush=True)
+        if pl["grid"] < 2:
+            raise AssertionError(f"the {k} phase launches one block")
+    print(f"  buffer {buf.obs.shape[0]} rows; value {n_v} steps, policy "
+          f"{n_p} steps; the JAX tile {tile}", flush=True)
+
+    # the main path: the two public entries, one launch each
+    for c in counters:
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts_v, loss_v = ppo.value_phase_fused(cfg, ts, buf, vidx, bf16=True)
+    ts_p, loss_p, ent_p = ppo.policy_phase_fused(cfg, ts, buf, pidx,
+                                                 bf16=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in read_counts(counters).items() if v}
+    print(f"  value_phase_fused + policy_phase_fused (bf16): {wall:.3f} s "
+          f"wall, mean losses {float(loss_v):.6g} and {float(loss_p):.6g}, "
+          f"entropy {float(ent_p):.6g}; launches {launches}", flush=True)
+    if launches != {"value_phase_bf16": 1, "policy_phase_bf16": 1}:
+        raise AssertionError(f"the bf16 phases must be one launch of each "
+                             f"kernel: {launches}")
+    for t in (mlp.flatten(ts_v.v_params), mlp.flatten(ts_p.policy_params[
+            "mlp"]), ts_p.policy_params["log_std"], loss_v, loss_p, ent_p):
+        if not torch.isfinite(t).all():
+            raise AssertionError("non-finite result of a bf16 phase")
+
+    h_v, h_p = ppo._hyper(cfg, cfg.lr_v), ppo._hyper(cfg, cfg.lr_policy)
+    pol = ts.policy_params
+
+    def streams(vi, pi):
+        """(args, generic) of each kind on the id streams vi, pi: args(n,
+        s0, state) the arguments of a kernel call of n steps from step s0;
+        generic(idx) the generic bf16 phase's results on ids idx."""
+        vcols = buffer.gather_mb((buf.obs, buf.target), vi, blk)
+        pcols = buffer.gather_mb((buf.obs, buf.action, buf.log_prob,
+                                  buf.advantage), pi, blk)
+
+        def v_args(n, s0=0, state=(ts.v_params, ts.opt_v)):
+            rows = slice(s0 * mb, (s0 + n) * mb)
+            return (*(c[rows] for c in vcols), *state, n, mb,
+                    cfg.activation, h_v)
+
+        def p_args(n, s0=0, state=(pol["mlp"], pol["log_std"],
+                                    ts.opt_policy, ts.opt_log_std)):
+            rows = slice(s0 * mb, (s0 + n) * mb)
+            return (*(c[rows] for c in pcols), *state, n, mb,
+                    cfg.activation, h_p, cfg.clip_eps, cfg.ent_coeff)
+
+        def v_gen(idx):
+            gts, loss = ppo.value_phase(cfg, ts, buf, idx)
+            return gts.v_params, gts.opt_v, loss
+
+        def p_gen(idx):
+            gts, loss, ent = ppo.policy_phase(cfg, ts, buf, idx)
+            return (gts.policy_params["mlp"], gts.policy_params["log_std"],
+                    gts.opt_policy, gts.opt_log_std, loss, ent)
+
+        return {"K3": (v_args, lambda idx=vi: v_gen(idx), vi),
+                "K4": (p_args, lambda idx=pi: p_gen(idx), pi)}
+
+    kinds = {"K3": (cu.value_phase_bf16_kernel, cu.value_phase_bf16_plain,
+                    n_v, plans["value"]["rows"]),
+             "K4": (cu.policy_phase_bf16_kernel, cu.policy_phase_bf16_plain,
+                    n_p, plans["policy"]["rows"])}
+    whole = {"K3": (ts_v.v_params, ts_v.opt_v, loss_v),
+             "K4": (ts_p.policy_params["mlp"], ts_p.policy_params["log_std"],
+                    ts_p.opt_policy, ts_p.opt_log_std, loss_p, ent_p)}
+    on = streams(vidx, pidx)
+    errs, times = {}, {}
+    for kind, (kernel, plain, n, rows) in kinds.items():
+        args, generic, idx = on[kind]
+        header(f"[{kind} bf16 on stream {seeds[0]}: {n // 2} + {n - n // 2} "
+               f"against {n} steps, two identical launches, two steps, "
+               f"the timings]")
+        one, _ = bigmb_state(whole[kind])
+        again, _ = bigmb_state(kernel(*args(n)))
+        first = kernel(*args(n // 2))
+        rest = first[:2] if kind == "K3" else first[:4]
+        split, _ = bigmb_state(kernel(*args(n - n // 2, n // 2, rest)))
+        for label, other in (("two identical launches", again),
+                             (f"{n // 2} + {n - n // 2} steps in two "
+                              f"launches", split)):
+            same = all(torch.equal(x, y) for x, y in zip(one, other))
+            print(f"  {kind} bf16, {label} against one launch of {n}: "
+                  f"{'the same bits' if same else 'DIFFERENT'}", flush=True)
+            if not same:
+                raise AssertionError(f"{kind} bf16: {label} differ")
+        n_w = 1 if kind == "K3" else 2     # the weights: net, log_std
+        # two steps, test_bigmb's own length: elementwise at its tolerances
+        two, loss2 = bigmb_state(kernel(*args(2)))
+        two_p, loss2_p = bigmb_state(plain(*args(2)))
+        errs[kind] = bigmb_apart(f"{kind} bf16, 2 steps, against its plain "
+                                 f"version", two[:n_w], two_p[:n_w], loss2,
+                                 loss2_p)
+        two_g, loss2_g = bigmb_state(generic(idx[:1, :2]))
+        bigmb_apart(f"{kind} bf16, 2 steps, against the generic bf16 phase",
+                    two[:n_w], two_g[:n_w], loss2, loss2_g)
+        ms = queued_ms(lambda: kernel(*args(n)), 3)
+        plain_ms = device_ms(lambda: plain(*args(n)), 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generic()
+        torch.cuda.synchronize()
+        gen_wall = time.perf_counter() - t0
+        gen_ms = device_ms(generic, 1, warm=False)
+        times[kind] = {"ms": ms, "plain_ms": plain_ms,
+                       "generic_wall_ms": 1e3 * gen_wall,
+                       "generic_ms": gen_ms}
+        print(f"  {kind} bf16 device ms {ms:.4f}; plain device ms "
+              f"{plain_ms:.4f}; the generic bf16 phase on the same stream "
+              f"{1e3 * gen_wall:.1f} ms wall, {gen_ms:.4f} ms device",
+              flush=True)
+
+    for seed in seeds:
+        if seed == seeds[0]:
+            vi, pi, results = vidx, pidx, whole
+        else:
+            d = ppo.draw_fit(cfg, torch.Generator().manual_seed(seed), dev)
+            vi, pi, results = d.value_idx, d.policy_idx, None
+        on = streams(vi, pi)
+        for kind, (kernel, plain, n, rows) in kinds.items():
+            args, generic, idx = on[kind]
+            n_w = 1 if kind == "K3" else 2
+            header(f"[{kind} bf16 on stream {seed}: one step against its "
+                   f"plain version and the controls, the whole phase "
+                   f"against its plain version and the generic bf16 "
+                   f"phase]")
+            # one step: the rounding points
+            a1 = args(1)
+            err = bigmb_rounding(
+                f"{kind} bf16, one step", BIGMB_STEP_REL[kind], kernel(*a1),
+                plain(*a1, rows),
+                (("the float32 cotangent", plain(*a1, rows,
+                                                 round_cotangent=False)),
+                 ("the generic bf16 phase", generic(idx[:1, :1]))))
+            errs[kind] = max(errs[kind], err)
+            # the whole phase: the plain version, its own sum-order noise
+            # (tile / 4), the generic bf16 phase, the control
+            out = results[kind] if results else kernel(*args(n))
+            got, loss_k = bigmb_state(out)
+            want, loss_pl = bigmb_state(plain(*args(n)))
+            sub, _ = bigmb_state(plain(*args(n), tile // 4))
+            noise = bigmb_dist(sub[:n_w], want[:n_w])[2]
+            ctl = bigmb_dist(bigmb_state(plain(*args(n),
+                                               round_cotangent=False))[0][:n_w],
+                             want[:n_w])[2]
+            print(f"  {kind} bf16 plain version at row tiles of {tile // 4} "
+                  f"against {tile}: relative distance {noise:.3e} (the "
+                  f"yardstick); without the cotangent rounding "
+                  f"{ctl:.3e} ({ctl / max(noise, 1e-30):.3f} of it; not "
+                  f"held)", flush=True)
+            bigmb_near(f"{kind} bf16 whole phase against its plain version",
+                       got[:n_w], want[:n_w], loss_k, loss_pl, noise,
+                       BIGMB_NOISE)
+            gen_state, gen_loss = bigmb_state(generic())
+            plain_gen = bigmb_dist(want[:n_w], gen_state[:n_w])[2]
+            bigmb_near(f"{kind} bf16 whole phase against the generic bf16 "
+                       f"phase", got[:n_w], gen_state[:n_w], loss_k,
+                       gen_loss, plain_gen, BIGMB_GENERIC)
+
+    header("[K3 bf16: a second value phase on the same buffer]")
+    ts_v2, loss_v2 = ppo.value_phase_fused(cfg, ts_v, buf, vidx, bf16=True)
+    print(f"  mean loss {float(loss_v):.6g}, then {float(loss_v2):.6g}",
+          flush=True)
+    if not float(loss_v2) < float(loss_v):
+        raise AssertionError("the second value phase did not lower the "
+                             "mean loss")
+    header("[K3 bf16: a step's device time by grid size]")
+    bigmb_grid_times(dev)
+    path = (f"REACHER_BF16 fit buffer ({buf.obs.shape[0]} rows), "
+            f"ppo.value_phase_fused / policy_phase_fused with bf16, grid "
+            f"{plans['value']['grid']} x {plans['value']['threads']}, mma")
+    for name, kind, n, w, cols in (("value_phase_bf16", "K3", n_v, vw, 1),
+                                   ("policy_phase_bf16", "K4", n_p, pw, 3)):
+        record(name, path, [n, mb] + w, launches[name], errs[kind],
+               times[kind], bigmb_bound(w, n, mb, cols))
+        print(f"  {name}: generic bf16 phase on the same stream "
+              f"{times[kind]['generic_wall_ms']:.1f} ms wall, "
+              f"{times[kind]['generic_ms']:.4f} ms device", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2829,7 +3295,8 @@ def main() -> int:
                 cuda_mlp.bwd_global_launches, cuda_attn.fwd_launches,
                 cuda_attn.dq_launches, cuda_attn.dkv_launches,
                 cuda_attn.fwd_bf16_launches, cuda_attn.dq_bf16_launches,
-                cuda_attn.dkv_bf16_launches]
+                cuda_attn.dkv_bf16_launches, cuda_update.value_bf16_launches,
+                cuda_update.policy_bf16_launches]
     results = []
 
     def record(name, path, shape, launches, err, times, bound, library=None):
@@ -3063,6 +3530,7 @@ def main() -> int:
     reacher_mcc_phases(dev, counters, record)
     wide_phases(dev, counters, record)
     bf16_phases(dev, counters, record)
+    bigmb_phases(dev, counters, record)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
           f"build included", flush=True)

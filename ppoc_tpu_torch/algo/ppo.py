@@ -524,6 +524,59 @@ def policy_phase(cfg: PPOConfig, ts: TrainState, buf: buffer.RowBuffer,
             torch.stack(mb_losses).mean(), torch.stack(ents).mean())
 
 
+def value_phase_fused(cfg: PPOConfig, ts: TrainState, buf: buffer.RowBuffer,
+                      idx: torch.Tensor, bf16: bool = False):
+    """The whole value phase over the id stream ``idx`` as one kernel,
+    whatever the minibatch size: ``ppoc_tpu/ops/pallas_update.py``
+    ``value_phase_fused``.  Gathers the stream, then runs K3, or with
+    ``bf16`` K3 bf16 (bf16 products, float32 master weights, moments and
+    gradient sums: the kernel's over 128-row partials, its plain version's
+    over row tiles of ``cuda_update.bf16_tile(mb)`` rows).
+    No trainer path calls it, as in the JAX package (its gate,
+    ``ppoc_tpu/algo/ppo.py:609-615``, never routes here).  Returns (ts',
+    mean loss)."""
+    n_steps = idx.shape[0] * idx.shape[1]
+    mb = cfg.minibatch_size
+    obs_seq, tgt_seq = buffer.gather_mb((buf.obs, buf.target), idx,
+                                        cfg.shuffle_block)
+    args = (obs_seq, tgt_seq, ts.v_params, ts.opt_v, n_steps, mb,
+            cfg.activation, _hyper(cfg, cfg.lr_v))
+    if bf16:
+        v2, opt2, loss = cuda_update.value_phase_bf16(*args)
+    else:
+        v2, opt2, loss = cuda_update.value_phase(*args)
+    return ts._replace(v_params=v2, opt_v=opt2), loss
+
+
+def policy_phase_fused(cfg: PPOConfig, ts: TrainState, buf: buffer.RowBuffer,
+                       idx: torch.Tensor, bf16: bool = False):
+    """The whole Gaussian policy phase over ``idx`` as one kernel: K4, or
+    with ``bf16`` K4 bf16 (``pallas_update.policy_phase_fused``; see
+    :func:`value_phase_fused`).  The JAX package's categorical phase has no
+    bf16 argument, so a categorical policy is refused here.  Returns (ts',
+    mean loss, mean entropy)."""
+    pol = ts.policy_params
+    if "log_std" not in pol:
+        raise ValueError("policy_phase_fused is the Gaussian policy phase; a "
+                         "categorical policy takes "
+                         "cuda_update.policy_phase_categorical (K6)")
+    n_steps = idx.shape[0] * idx.shape[1]
+    mb = cfg.minibatch_size
+    o, a, lp, ad = buffer.gather_mb(
+        (buf.obs, buf.action, buf.log_prob, buf.advantage), idx,
+        cfg.shuffle_block)
+    args = (o, a, lp, ad, pol["mlp"], pol["log_std"], ts.opt_policy,
+            ts.opt_log_std, n_steps, mb, cfg.activation,
+            _hyper(cfg, cfg.lr_policy), cfg.clip_eps, cfg.ent_coeff)
+    if bf16:
+        out = cuda_update.policy_phase_bf16(*args)
+    else:
+        out = cuda_update.policy_phase(*args)
+    params2, ls2, opt_p2, opt_ls2, loss, ent = out
+    return ts._replace(policy_params={"mlp": params2, "log_std": ls2},
+                       opt_policy=opt_p2, opt_log_std=opt_ls2), loss, ent
+
+
 # --------------------------------------------------------------------------
 # fit step / epoch / train-until
 # --------------------------------------------------------------------------

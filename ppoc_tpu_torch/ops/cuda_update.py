@@ -23,6 +23,17 @@ log_std with its own timestep, K6 has no log_std.  K6 reads the actions as
 int32 class ids, the buffer's own type, so nothing converts them.  A CUDA
 tensor launches the kernel, a CPU tensor runs the plain version beside it,
 which spells out the same forward, backward and update in PyTorch.
+
+K3 bf16 and K4 bf16 (``csrc/update_bf16.cu``) are the ports of the same
+two Pallas kernels called with ``bf16=True``, the large-minibatch
+(throughput) regime: every product on bf16 operands with float32
+accumulation, float32 master weights, moments and gradient sums, row tiles
+of up to ``MAX_TILE_BF16``.  Their steps are far too large for one block
+(the reacher regime's value phase is ~2.5 TFLOP), so each is one
+cooperative launch over every SM with a grid-wide barrier between the
+gradient and the Adam half of each step.  As in the JAX package no trainer
+path selects them: ``algo/ppo.value_phase_fused`` / ``policy_phase_fused``
+call them directly.
 """
 from __future__ import annotations
 
@@ -35,7 +46,8 @@ import torch
 
 from ppoc_tpu_torch.models import mlp
 from ppoc_tpu_torch.ops import _build
-from ppoc_tpu_torch.ops.cuda_mlp import backward_layers, forward_layers
+from ppoc_tpu_torch.ops.cuda_mlp import (act, act_grad, backward_layers,
+                                        forward_layers)
 from ppoc_tpu_torch.ops.adam import AdamState
 
 value_launches = _build.LaunchCount("value_phase")
@@ -46,10 +58,38 @@ policy_global_launches = _build.LaunchCount("policy_phase_global")
 categorical_global_launches = _build.LaunchCount(
     "policy_phase_categorical_global")
 
+value_bf16_launches = _build.LaunchCount("value_phase_bf16")
+policy_bf16_launches = _build.LaunchCount("policy_phase_bf16")
+
 _SLICE = 32          # csrc/mlp_step.cuh SLICE
 _STATIC_SMEM = 1024  # the kernels' static shared memory, rounded up
 
 _LOG_2PI = math.log(2.0 * math.pi)
+
+# The JAX package's row tiles (ppoc_tpu/ops/pallas_update.py:59-73): the f32
+# kernels' and the bf16 throughput kernels' (half-size activations, so
+# twice the rows).  The port's own copies.
+_MAX_TILE = 2048
+MAX_TILE_BF16 = 4096
+# K3 bf16 / K4 bf16 take 1-8 layers (csrc/common.cuh MAX_LAYERS), each at
+# most this wide (csrc/update_bf16.cu MAX_WIDTH)
+MAX_WIDTH_BF16 = 512
+
+
+def bigmb_ok(mb: int) -> bool:
+    """Can the bf16 throughput kernels tile this minibatch?  Past the f32
+    kernels' tile and with a row tile of >= 1024 aligned rows
+    (``pallas_update.bigmb_ok``; no caller routes by it, as there)."""
+    return mb > _MAX_TILE and any(mb % t == 0 for t in (4096, 2048, 1024))
+
+
+def bf16_tile(mb: int) -> int:
+    """The bf16 kernels' row tile: ``mb`` if it is at most MAX_TILE_BF16,
+    else the largest divisor of ``mb`` that is (``_phase_layout`` with
+    ``allow_unroll=False``)."""
+    if mb <= MAX_TILE_BF16:
+        return mb
+    return max(d for d in range(1, MAX_TILE_BF16 + 1) if mb % d == 0)
 
 
 class Hyper(ctypes.Structure):
@@ -197,6 +237,165 @@ def policy_phase_categorical_plain(obs_seq, act_seq, lp_seq, adv_seq, params,
         grads, _ = backward_layers(x, hs, g, P[0::2], activation)
         _adam_(P, grads, M, V, opt_policy.t + s + 1, hyper)
     return (_pack(P), AdamState(_pack(M), _pack(V), opt_policy.t + n_steps),
+            loss / n_steps, ent_sum / n_steps)
+
+
+# --- plain versions of K3 bf16 and K4 bf16 -----------------------------------
+
+def _bf(t: torch.Tensor) -> torch.Tensor:
+    """Round to bf16 (to nearest even, as ``astype(bfloat16)``) and back."""
+    return t.to(torch.bfloat16).float()
+
+
+def _dot_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b on bf16-rounded operands with float32 products and sums: one
+    bf16 tensor-core product with a float32 output on the card, float32
+    products of the bf16 values on the CPU (a bf16 x bf16 product is exact
+    in float32, so the two differ only in the order of the sums)."""
+    if a.is_cuda:
+        return torch.mm(a.to(torch.bfloat16), b.to(torch.bfloat16),
+                        out_dtype=torch.float32)
+    return _bf(a) @ _bf(b)
+
+
+def _forward_bf16(x, W, B, activation: str) -> List[torch.Tensor]:
+    """``pallas_update._fwd_refs(..., bf16=True)``: each layer's input and W
+    rounded to bf16, float32 products plus the float32 bias; the hidden
+    post-activations stored rounded to bf16, the last layer's output
+    float32."""
+    hs, h = [], x
+    for l, (w, b) in enumerate(zip(W, B)):
+        h = _dot_bf16(h, w) + b
+        if l < len(W) - 1:
+            h = _bf(act(h, activation))
+        hs.append(h)
+    return hs
+
+
+def _backward_bf16(x, hs, g, W, activation: str,
+                   round_cotangent: bool = True) -> List[torch.Tensor]:
+    """The bf16 kernels' backward from the float32 output cotangent ``g``:
+    per layer dW from the bf16-rounded input and cotangent, db summed from
+    the float32 cotangent, and the next cotangent from the bf16-rounded
+    cotangent and W times the activation derivative of the bf16-stored
+    post-activation.  ``round_cotangent=False`` keeps the cotangent float32
+    in both products (a control, not the kernel's arithmetic).  Returns
+    flat [dW0, db0, dW1, ...]."""
+    grads = [None] * (2 * len(W))
+    for l in range(len(W) - 1, -1, -1):
+        a_in = x if l == 0 else hs[l - 1]
+        if round_cotangent:
+            grads[2 * l] = _dot_bf16(a_in.T, g)
+        else:
+            grads[2 * l] = _bf(a_in).T @ g
+        grads[2 * l + 1] = g.sum(dim=0)
+        if l > 0:
+            gw = (_dot_bf16(g, W[l].T) if round_cotangent
+                  else g @ _bf(W[l]).T)
+            g = gw * act_grad(hs[l - 1], activation)
+    return grads
+
+
+def _tiles(mb: int, tile: Optional[int]) -> int:
+    if tile is None:
+        return mb // bf16_tile(mb)
+    if tile < 1 or mb % tile:
+        raise ValueError(f"the row tile {tile} must divide the minibatch "
+                         f"size {mb}")
+    return mb // tile
+
+
+def _tile_grads(acc, grads) -> None:
+    """The kernels' scratch accumulation: zero, then += each tile's."""
+    for a, g in zip(acc, grads):
+        a.add_(g)
+
+
+def value_phase_bf16_plain(obs_seq, tgt_seq, params, opt: AdamState,
+                           n_steps: int, mb: int, activation: str,
+                           hyper: Hyper, tile: Optional[int] = None, *,
+                           round_cotangent: bool = True):
+    """Plain PyTorch version of K3 bf16 (``_value_kernel(..., bf16=True)``):
+    per step, per row tile of ``tile`` rows in order (the JAX rule's,
+    ``bf16_tile(mb)``, by default), the bf16 forward, the MSE gradient
+    2/mb (v - target) and the bf16 backward, the gradients summed tile by
+    tile into float32; then one Adam.  ``round_cotangent=False`` is the
+    control of ``_backward_bf16``.  Returns (params', opt', mean loss)."""
+    n_sub = _tiles(mb, tile)
+    tile = mb // n_sub
+    P, M, V = _unpack(params, opt)
+    tgt_seq = tgt_seq.reshape(-1)
+    loss = torch.zeros((), dtype=torch.float32, device=obs_seq.device)
+    for s in range(n_steps):
+        acc = [torch.zeros_like(p) for p in P]
+        for j in range(n_sub):
+            rows = slice(s * mb + j * tile, s * mb + (j + 1) * tile)
+            x = obs_seq[rows]
+            hs = _forward_bf16(x, P[0::2], P[1::2], activation)
+            diff = hs[-1][:, 0] - tgt_seq[rows]
+            loss = loss + (diff * diff).sum()
+            g = (2.0 / mb) * diff[:, None]
+            _tile_grads(acc, _backward_bf16(x, hs, g, P[0::2], activation,
+                                            round_cotangent))
+        _adam_(P, acc, M, V, opt.t + s + 1, hyper)
+    return (_pack(P), AdamState(_pack(M), _pack(V), opt.t + n_steps),
+            loss / (n_steps * mb))
+
+
+def policy_phase_bf16_plain(obs_seq, act_seq, lp_seq, adv_seq, params,
+                            log_std, opt_policy: AdamState,
+                            opt_log_std: AdamState, n_steps: int, mb: int,
+                            activation: str, hyper: Hyper, clip_eps: float,
+                            ent_coeff: float, tile: Optional[int] = None, *,
+                            round_cotangent: bool = True):
+    """Plain PyTorch version of K4 bf16 (``_policy_kernel(...,
+    bf16=True)``): per step the closed-form entropy once, then per row
+    tile (as in value_phase_bf16_plain) the bf16 mu forward, the
+    clipped-surrogate gradient (float32, only the unclipped branch) and
+    the bf16 backward, summed tile by tile; then the net's Adam and
+    log_std's, each with its own timestep.  Returns (params', log_std',
+    opt_policy', opt_log_std', mean loss, mean entropy)."""
+    n_sub = _tiles(mb, tile)
+    tile = mb // n_sub
+    P, M, V = _unpack(params, opt_policy)
+    ls = log_std.clone()
+    mls, vls = opt_log_std.m.clone(), opt_log_std.v.clone()
+    k = ls.shape[0]
+    lp_seq, adv_seq = lp_seq.reshape(-1), adv_seq.reshape(-1)
+    lp0 = -0.5 * k * _LOG_2PI
+    ent0 = 0.5 * k * (1.0 + _LOG_2PI)
+    loss = torch.zeros((), dtype=torch.float32, device=obs_seq.device)
+    ent_sum = torch.zeros_like(loss)
+    for s in range(n_steps):
+        sum_ls = ls.sum()
+        ent = ent0 + sum_ls
+        ent_sum = ent_sum + ent
+        loss = loss + (-ent_coeff) * ent
+        inv_sigma = torch.exp(-ls)
+        acc = [torch.zeros_like(p) for p in P]
+        gls = torch.zeros_like(ls)
+        for j in range(n_sub):
+            rows = slice(s * mb + j * tile, s * mb + (j + 1) * tile)
+            x, adv = obs_seq[rows], adv_seq[rows]
+            hs = _forward_bf16(x, P[0::2], P[1::2], activation)
+            z = (act_seq[rows] - hs[-1]) * inv_sigma
+            logp = lp0 - sum_ls - 0.5 * (z * z).sum(dim=1)
+            ratio = torch.exp(logp - lp_seq[rows])
+            clipped = torch.clamp(ratio, 1.0 - clip_eps, 1.0 + clip_eps)
+            ra, ca = ratio * adv, clipped * adv
+            loss = loss + (-torch.minimum(ra, ca).sum()) / mb
+            # only the unclipped branch carries gradient
+            dlogp = -(adv * ratio / mb) * (ra <= ca).to(torch.float32)
+            gls = gls + (dlogp[:, None] * (z * z - 1.0)).sum(dim=0)
+            g = dlogp[:, None] * z * inv_sigma
+            _tile_grads(acc, _backward_bf16(x, hs, g, P[0::2], activation,
+                                            round_cotangent))
+        _adam_(P, acc, M, V, opt_policy.t + s + 1, hyper)
+        _adam_([ls], [gls - ent_coeff], [mls], [vls], opt_log_std.t + s + 1,
+               hyper)
+    return (_pack(P), ls,
+            AdamState(_pack(M), _pack(V), opt_policy.t + n_steps),
+            AdamState(mls, vls, opt_log_std.t + n_steps),
             loss / n_steps, ent_sum / n_steps)
 
 
@@ -393,6 +592,183 @@ def policy_phase_categorical_kernel(obs_seq, act_seq, lp_seq, adv_seq, params,
     return new_params, new_opt, stats[0] / n_steps, stats[1] / n_steps
 
 
+class _Bf16PhaseArgs(ctypes.Structure):
+    """Mirror of `struct Bf16PhaseArgs` in csrc/update_bf16.cu."""
+    _fields_ = (
+        [(n, ctypes.c_void_p) for n in (
+            "x", "tgt", "act", "lp_old", "adv", "p_in", "m_in", "v_in",
+            "p_out", "m_out", "v_out", "ls_in", "mls_in", "vls_in", "ls_out",
+            "mls_out", "vls_out", "scratch", "stats")]
+        + [("dims", ctypes.POINTER(ctypes.c_int)),
+           ("scratch_bytes", ctypes.c_long)]
+        + [(n, ctypes.c_int) for n in (
+            "n_layers", "activation", "n_steps", "mb", "t0", "t0_ls",
+            "k_act")]
+        + [(n, ctypes.c_float) for n in (
+            "two_over_mb", "lp0", "ent0", "clip_lo", "clip_hi", "ent_coeff")]
+        + [("hyper", Hyper)]
+    )
+
+
+_BF16_KINDS = {"value": (0, "ppoc_value_phase_bf16", value_bf16_launches),
+               "policy": (1, "ppoc_policy_phase_bf16", policy_bf16_launches)}
+_PLAN_KEYS = ("rows", "grid", "threads", "smem", "scratch_bytes",
+              "blocks_per_sm", "sms")
+
+
+def _declare_bf16() -> ctypes.CDLL:
+    lib = _build.load()
+    if not getattr(lib, "_phase_bf16_declared", False):
+        lib.ppoc_phase_bf16_args_size.restype = ctypes.c_int
+        if lib.ppoc_phase_bf16_args_size() != ctypes.sizeof(_Bf16PhaseArgs):
+            raise RuntimeError("Bf16PhaseArgs layout differs between "
+                               "csrc/update_bf16.cu and cuda_update.py")
+        args = [ctypes.POINTER(_Bf16PhaseArgs)]
+        lib.ppoc_phase_bf16_plan.argtypes = args + [
+            ctypes.c_int, ctypes.POINTER(ctypes.c_long)]
+        lib.ppoc_phase_bf16_plan.restype = ctypes.c_int
+        for fn in (lib.ppoc_value_phase_bf16, lib.ppoc_policy_phase_bf16):
+            fn.argtypes = args + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        lib._phase_bf16_declared = True
+    return lib
+
+
+def _check_widths_bf16(widths: Sequence[int]) -> None:
+    """Raise ValueError unless K3 bf16 / K4 bf16 take the net ``widths``:
+    1-8 layers, each at most MAX_WIDTH_BF16 wide."""
+    n = len(widths) - 1
+    if not 1 <= n <= 8:
+        raise ValueError(f"K3 bf16 / K4 bf16 take 1-8 layers, got {n} "
+                         f"({list(widths)})")
+    if max(widths) > MAX_WIDTH_BF16:
+        raise ValueError(f"K3 bf16 / K4 bf16 take layers at most "
+                         f"{MAX_WIDTH_BF16} wide, got {list(widths)}")
+
+
+def _bf16_plan(lib, args: _Bf16PhaseArgs, kind: str, widths):
+    out = (ctypes.c_long * len(_PLAN_KEYS))()
+    _build.check(lib, lib.ppoc_phase_bf16_plan(
+        ctypes.byref(args), _BF16_KINDS[kind][0], out),
+        f"{kind} phase bf16 plan for the net {list(widths)}")
+    return dict(zip(_PLAN_KEYS, out))
+
+
+def phase_bf16_plan(kind: str, widths: Sequence[int], mb: int,
+                    device=None) -> dict:
+    """How K3 bf16 (``kind`` "value") or K4 bf16 ("policy") launches on the
+    card for the net ``widths`` and minibatch ``mb``: rows per block, the
+    cooperative grid, threads, dynamic shared memory and scratch bytes,
+    blocks per SM and the card's SMs; ``route`` names the products
+    (warp-level mma.sync)."""
+    _check_widths_bf16(widths)
+    dims = (ctypes.c_int * len(widths))(*widths)
+    args = _Bf16PhaseArgs(dims=dims, n_layers=len(widths) - 1, mb=mb)
+    with torch.cuda.device(device if device is not None else 0):
+        plan = _bf16_plan(_declare_bf16(), args, kind, widths)
+    return dict(plan, route="mma")
+
+
+def _bf16_args(x, params, opt: AdamState, n_steps: int, mb: int,
+               activation: str, hyper: Hyper):
+    """Check what both kinds take and fill their shared fields."""
+    widths = mlp.dims(params)
+    _check_widths_bf16(widths)
+    dev = x.device
+    flat = [mlp.flatten(params), mlp.flatten(opt.m), mlp.flatten(opt.v)]
+    _build.require(x, "obs rows", (n_steps * mb, widths[0]), device=dev)
+    for name, t in zip(("params", "adam m", "adam v"), flat):
+        _build.require(t, name, flat[0].shape, device=dev)
+    outs = [torch.empty_like(t) for t in flat]
+    stats = torch.zeros(2, dtype=torch.float32, device=dev)
+    dims = (ctypes.c_int * len(widths))(*widths)
+    p = _build.ptr
+    args = _Bf16PhaseArgs(
+        x=p(x), p_in=p(flat[0]), m_in=p(flat[1]), v_in=p(flat[2]),
+        p_out=p(outs[0]), m_out=p(outs[1]), v_out=p(outs[2]),
+        stats=p(stats), dims=dims, n_layers=len(widths) - 1,
+        activation=_build.ACTIVATIONS[activation], n_steps=n_steps, mb=mb,
+        t0=opt.t, hyper=hyper)
+    new_opt = AdamState(mlp.unflatten(outs[1], widths),
+                        mlp.unflatten(outs[2], widths), opt.t + n_steps)
+    return (args, widths, mlp.unflatten(outs[0], widths), new_opt, stats,
+            (flat, dims))
+
+
+def _launch_bf16(kind: str, args: _Bf16PhaseArgs, widths, dev, keep) -> None:
+    """Plan, allocate the scratch, launch K3 bf16 or K4 bf16 once, count.
+    ``keep`` holds the tensors and host arrays the launch reads until it
+    is enqueued."""
+    lib = _declare_bf16()
+    _, name, counter = _BF16_KINDS[kind]
+    with torch.cuda.device(dev):
+        plan = _bf16_plan(lib, args, kind, widths)
+        scratch = torch.empty(plan["scratch_bytes"], dtype=torch.uint8,
+                              device=dev)
+        args.scratch, args.scratch_bytes = scratch.data_ptr(), scratch.numel()
+        _build.check(lib, getattr(lib, name)(ctypes.byref(args),
+                                             _build.stream_of(dev)),
+                     f"{kind} phase bf16 kernel ({plan['grid']} blocks)")
+    counter.n += 1
+    del keep
+
+
+def value_phase_bf16_kernel(obs_seq, tgt_seq, params, opt: AdamState,
+                            n_steps: int, mb: int, activation: str,
+                            hyper: Hyper):
+    """Launch K3 bf16; the arguments and results of value_phase_bf16_plain
+    but its row tile: the kernel sums its own 128-row partials in block
+    order."""
+    args, widths, new_params, new_opt, stats, keep = _bf16_args(
+        obs_seq, params, opt, n_steps, mb, activation, hyper)
+    tgt_seq = tgt_seq.reshape(-1).contiguous()
+    _build.require(tgt_seq, "targets", (n_steps * mb,), device=obs_seq.device)
+    if widths[-1] != 1:
+        raise ValueError("the value phase takes a net with one output")
+    args.tgt, args.two_over_mb = tgt_seq.data_ptr(), 2.0 / mb
+    _launch_bf16("value", args, widths, obs_seq.device, (keep, tgt_seq))
+    return new_params, new_opt, stats[0] / (n_steps * mb)
+
+
+def policy_phase_bf16_kernel(obs_seq, act_seq, lp_seq, adv_seq, params,
+                             log_std, opt_policy: AdamState,
+                             opt_log_std: AdamState, n_steps: int, mb: int,
+                             activation: str, hyper: Hyper, clip_eps: float,
+                             ent_coeff: float):
+    """Launch K4 bf16; the arguments and results of policy_phase_bf16_plain
+    but its row tile (see value_phase_bf16_kernel)."""
+    args, widths, new_params, new_opt, stats, keep = _bf16_args(
+        obs_seq, params, opt_policy, n_steps, mb, activation, hyper)
+    dev = obs_seq.device
+    k = log_std.shape[0]
+    rows = n_steps * mb
+    lp_seq = lp_seq.reshape(-1).contiguous()
+    adv_seq = adv_seq.reshape(-1).contiguous()
+    _build.require(act_seq, "action rows", (rows, k), device=dev)
+    _build.require(lp_seq, "log-prob rows", (rows,), device=dev)
+    _build.require(adv_seq, "advantage rows", (rows,), device=dev)
+    ls_in = (log_std, opt_log_std.m, opt_log_std.v)
+    for name, t in zip(("log_std", "log_std m", "log_std v"), ls_in):
+        _build.require(t, name, (k,), device=dev)
+    if widths[-1] != k or not 1 <= k <= 8:
+        raise ValueError(f"policy head width {widths[-1]} must equal the "
+                         f"action dim {k} (1-8)")
+    ls_out = [torch.empty_like(t) for t in ls_in]
+    p = _build.ptr
+    args.act, args.lp_old, args.adv = p(act_seq), p(lp_seq), p(adv_seq)
+    args.ls_in, args.mls_in, args.vls_in = (p(t) for t in ls_in)
+    args.ls_out, args.mls_out, args.vls_out = (p(t) for t in ls_out)
+    args.t0_ls, args.k_act = opt_log_std.t, k
+    args.lp0 = -0.5 * k * _LOG_2PI
+    args.ent0 = 0.5 * k * (1.0 + _LOG_2PI)
+    args.clip_lo, args.clip_hi = 1.0 - clip_eps, 1.0 + clip_eps
+    args.ent_coeff = ent_coeff
+    _launch_bf16("policy", args, widths, dev, (keep, lp_seq, adv_seq))
+    return (new_params, ls_out[0], new_opt,
+            AdamState(ls_out[1], ls_out[2], opt_log_std.t + n_steps),
+            stats[0] / n_steps, stats[1] / n_steps)
+
+
 def value_phase(obs_seq, tgt_seq, params, opt: AdamState, n_steps: int,
                 mb: int, activation: str, hyper: Hyper):
     """The whole value phase on pre-gathered rows: kernel on CUDA, plain
@@ -408,6 +784,28 @@ def policy_phase(obs_seq, act_seq, lp_seq, adv_seq, params, log_std,
     """The whole Gaussian policy phase on pre-gathered rows: kernel on CUDA,
     plain version on the CPU."""
     run = policy_phase_kernel if obs_seq.is_cuda else policy_phase_plain
+    return run(obs_seq, act_seq, lp_seq, adv_seq, params, log_std,
+               opt_policy, opt_log_std, n_steps, mb, activation, hyper,
+               clip_eps, ent_coeff)
+
+
+def value_phase_bf16(obs_seq, tgt_seq, params, opt: AdamState, n_steps: int,
+                     mb: int, activation: str, hyper: Hyper):
+    """The whole bf16 value phase on pre-gathered rows: K3 bf16 on CUDA,
+    its plain version (the JAX row tile) on the CPU."""
+    run = (value_phase_bf16_kernel if obs_seq.is_cuda
+           else value_phase_bf16_plain)
+    return run(obs_seq, tgt_seq, params, opt, n_steps, mb, activation, hyper)
+
+
+def policy_phase_bf16(obs_seq, act_seq, lp_seq, adv_seq, params, log_std,
+                      opt_policy: AdamState, opt_log_std: AdamState,
+                      n_steps: int, mb: int, activation: str, hyper: Hyper,
+                      clip_eps: float, ent_coeff: float):
+    """The whole bf16 Gaussian policy phase on pre-gathered rows: K4 bf16
+    on CUDA, its plain version on the CPU."""
+    run = (policy_phase_bf16_kernel if obs_seq.is_cuda
+           else policy_phase_bf16_plain)
     return run(obs_seq, act_seq, lp_seq, adv_seq, params, log_std,
                opt_policy, opt_log_std, n_steps, mb, activation, hyper,
                clip_eps, ent_coeff)

@@ -1127,3 +1127,232 @@ def test_trainer_on_cuda_wide_fused_path(dev):
                                                            0, 0]
     assert tr.state.opt_v.t == 2 * 2 * 8 and tr.state.opt_log_std.t == 2 * 8
     assert torch.isfinite(fit.entropy) and torch.isfinite(fit.value_loss)
+
+
+# --- K3 bf16 and K4 bf16: the bf16 big-tile phases --------------------------
+# The kernel and its plain version round at the same points; they sum in
+# other orders (mma fragments and the blocks' partials against cuBLAS), so
+# one step is held at bf16 leaf scale (two bf16 roundoffs of each leaf's
+# largest magnitude, at least 1) with at most 1% of the elements apart by
+# more than 1e-6 of it, and a whole phase at tests/test_bigmb.py's
+# kernel-against-scan tolerances (weights rtol 5e-2, atol 2e-4; the losses
+# rel 2e-2, atol 1e-4).  The kernel's own sums are in a fixed order: two
+# launches, and a phase split over two launches, give the same bits.
+
+def _bf16_phase_case(dev, kind, hidden, n, mb, seed=0):
+    """(kernel, plain, args) of one whole bf16 phase on seeded rows: K3 bf16
+    on the value net, K4 bf16 on the Gaussian policy (reacher's, two action
+    dims, at 2x256, else pendulum's); the plain version takes the JAX
+    rule's row tile."""
+    h = cu.Hyper.of(3e-4, 0.9, 0.999, 1e-8)
+    env = "reacher" if hidden == (256, 256) else "pendulum"
+    ts = _state(dev, hidden, seed=seed, env=env)
+    spec = envs.make(env).spec
+    x, a, lp, adv = _rows(dev, n * mb, spec.obs_dim, spec.action_dim,
+                          seed=seed)
+    if kind == "K3":
+        return (cu.value_phase_bf16_kernel, cu.value_phase_bf16_plain,
+                (x, adv * 5, ts.v_params, ts.opt_v._replace(t=5), n, mb,
+                 "relu", h))
+    pol = ts.policy_params
+    return (cu.policy_phase_bf16_kernel, cu.policy_phase_bf16_plain,
+            (x, a, lp[:, 0], adv[:, 0], pol["mlp"], pol["log_std"],
+             ts.opt_policy._replace(t=3), ts.opt_log_std._replace(t=7), n,
+             mb, "relu", h, 0.2, 0.01))
+
+
+def _bf16_state_count(kind):
+    """How many of _phase_outputs' leading entries are the trained state:
+    all but the loss (K3) or the loss and the entropy (K4)."""
+    return 4 if kind == "K3" else 8
+
+
+def _bf16_leaf_close(got, want, share=0.01):
+    for x, y in zip(got, want):
+        top = max(1.0, float(y.abs().max()))
+        diff = (x.double() - y.double()).abs()
+        assert float(diff.max()) <= 2 * 2.0 ** -8 * top
+        assert float((diff > 1e-6 * top).double().mean()) <= share
+
+
+@pytest.mark.parametrize("kind", ["K3", "K4"])
+@pytest.mark.parametrize("hidden,mb,n", [
+    ((32, 32), 4096, 1), ((32, 32), 4096, 8), ((32, 32), 3072, 4),
+    ((32, 32), 1000, 4), ((256, 256), 2048, 3)])
+def test_bf16_phase_kernel_matches_plain(dev, kind, hidden, mb, n):
+    """At test_bigmb's widths at minibatch 4096 (one step, then 8), 3072,
+    1000 (not a multiple of 16: the last row tile masked), and the
+    reacher regime's 2x256 (W staged in four slices); one launch each,
+    counted once."""
+    kernel, plain, args = _bf16_phase_case(dev, kind, hidden, n, mb)
+    counter = cu.value_bf16_launches if kind == "K3" else \
+        cu.policy_bf16_launches
+    before = counter.n
+    k = kernel(*args)
+    assert counter.n == before + 1
+    p = plain(*args)
+    n_state = _bf16_state_count(kind)
+    got, want = _phase_outputs(k)[:n_state], _phase_outputs(p)[:n_state]
+    if n == 1:
+        _bf16_leaf_close(got, want)
+    torch.testing.assert_close(_phase_weights(k), _phase_weights(p),
+                               rtol=5e-2, atol=2e-4)
+    for a, b in zip(_phase_stats(k), _phase_stats(p)):
+        assert abs(float(a - b)) <= 2e-2 * abs(float(b)) + 1e-4
+    # Adam's timesteps
+    assert [int(x) for x in got if x.numel() == 1 and x.dtype == torch.int64] \
+        == [int(x) for x in want if x.numel() == 1 and x.dtype == torch.int64]
+
+
+@pytest.mark.parametrize("kind", ["K3", "K4"])
+@pytest.mark.parametrize("widths,activation,mb,n", [
+    ((17, 40, 512, 24), "tanh", 700, 3), ((5, 512, 512, 512), "relu", 96, 2),
+    ((3,), "relu", 300, 2)])
+def test_bf16_phase_takes_any_widths(dev, kind, widths, activation, mb, n):
+    """Widths that are not multiples of 16 (the padding), three 512-wide
+    layers (fewer rows a block: shared memory), no hidden layer at all,
+    tanh; one step and a few, against the plain version."""
+    g = torch.Generator().manual_seed(5)
+    k = 1 if kind == "K3" else 3
+    sizes = list(widths) + [k]
+    params = mlp.init(sizes, g, dev)
+    zeros = [(torch.zeros_like(w), torch.zeros_like(b)) for w, b in params]
+    opt = AdamState(zeros, zeros, 0)
+    h = cu.Hyper.of(3e-4, 0.9, 0.999, 1e-8)
+    x, a, lp, adv = _rows(dev, n * mb, sizes[0], k, seed=6)
+    plan = cu.phase_bf16_plan("value" if kind == "K3" else "policy", sizes,
+                              mb, dev)
+    assert plan["grid"] == -(-mb // plan["rows"])
+    for steps in (1, n):
+        rows = steps * mb
+        if kind == "K3":
+            args = (x[:rows], adv[:rows] * 5, params, opt, steps, mb,
+                    activation, h)
+            kernel, plain = cu.value_phase_bf16_kernel, \
+                cu.value_phase_bf16_plain
+        else:
+            ls = torch.zeros(k, device=dev)
+            ols = AdamState(torch.zeros(k, device=dev),
+                            torch.zeros(k, device=dev), 0)
+            args = (x[:rows], a[:rows], lp[:rows, 0], adv[:rows, 0], params,
+                    ls, opt, ols, steps, mb, activation, h, 0.2, 0.01)
+            kernel, plain = cu.policy_phase_bf16_kernel, \
+                cu.policy_phase_bf16_plain
+        got, want = kernel(*args), plain(*args)
+        n_state = _bf16_state_count(kind)
+        if steps == 1:
+            _bf16_leaf_close(_phase_outputs(got)[:n_state],
+                             _phase_outputs(want)[:n_state])
+        torch.testing.assert_close(_phase_weights(got), _phase_weights(want),
+                                   rtol=5e-2, atol=2e-4)
+
+
+@pytest.mark.parametrize("kind", ["K3", "K4"])
+@pytest.mark.parametrize("mb", [20000, 1])
+def test_bf16_phase_blocks_take_several_tiles(dev, kind, mb):
+    """More row tiles than the card holds blocks at once (20000 rows: 157
+    tiles of 128), so a block sums its partials over two tiles; and a
+    minibatch of one row."""
+    kernel, plain, args = _bf16_phase_case(dev, kind, (32, 32), 2, mb,
+                                           seed=7)
+    plan = cu.phase_bf16_plan("value" if kind == "K3" else "policy",
+                              mlp.dims(args[2] if kind == "K3" else args[4]),
+                              mb, dev)
+    tiles = -(-mb // plan["rows"])
+    assert plan["grid"] == min(tiles, plan["blocks_per_sm"] * plan["sms"])
+    if mb == 20000:
+        assert plan["grid"] < tiles
+    k, p = kernel(*args), plain(*args)
+    torch.testing.assert_close(_phase_weights(k), _phase_weights(p),
+                               rtol=5e-2, atol=2e-4)
+    for a, b in zip(_phase_stats(k), _phase_stats(p)):
+        assert abs(float(a - b)) <= 2e-2 * abs(float(b)) + 1e-4
+
+
+def _bf16_net_leaves(kind, out):
+    """Each W and b of a bf16 phase's trained net, of its m and of its v."""
+    params, opt = out[0], out[1] if kind == "K3" else out[2]
+    return [t for tree in (params, opt.m, opt.v) for wb in tree for t in wb]
+
+
+def _bf16_leaf_dist(kind, got, want):
+    """The largest relative two-norm distance of a net leaf from want's."""
+    return max(float((x.double() - y.double()).norm() / y.double().norm())
+               for x, y in zip(_bf16_net_leaves(kind, got),
+                               _bf16_net_leaves(kind, want)))
+
+
+@pytest.mark.parametrize("kind", ["K3", "K4"])
+def test_bf16_phase_rounds_the_cotangent(dev, kind):
+    """One step at 2x256 against the plain version summing in the kernel's
+    own order (row tiles of its rows a block): every leaf of the net and
+    of its moments at least 10 times nearer than the plain version with
+    the cotangent left float32 is to it, so a kernel that skipped that
+    rounding fails (on REACHER_BF16's rows chip_smoke.py read 700-900x for
+    K3 and, with log_std's leaf, 66-121x for K4)."""
+    kernel, plain, args = _bf16_phase_case(dev, kind, (256, 256), 1, 2048)
+    widths = mlp.dims(args[2] if kind == "K3" else args[4])
+    rows = cu.phase_bf16_plan("value" if kind == "K3" else "policy", widths,
+                              2048, dev)["rows"]
+    want = plain(*args, rows)
+    got = _bf16_leaf_dist(kind, kernel(*args), want)
+    control = _bf16_leaf_dist(kind, plain(*args, rows, round_cotangent=False),
+                              want)
+    assert 10 * got <= control, (got, control)
+
+
+@pytest.mark.parametrize("kind", ["K3", "K4"])
+def test_bf16_phase_is_deterministic_and_splits(dev, kind):
+    """Two launches on the same inputs give the same bits, and so do two
+    launches of half the steps each (Adam's t carried) against one."""
+    n, mb = 8, 1000
+    kernel, _, args = _bf16_phase_case(dev, kind, (32, 32), n, mb, seed=4)
+    one = _phase_outputs(kernel(*args))
+    assert all(torch.equal(x, y) for x, y in zip(
+        one, _phase_outputs(kernel(*args))))
+    half = n // 2 * mb
+    if kind == "K3":
+        x, tgt, params, opt, _, _, act, h = args
+        p1, o1, _ = kernel(x[:half], tgt[:half], params, opt, n // 2, mb,
+                           act, h)
+        split = kernel(x[half:], tgt[half:], p1, o1, n // 2, mb, act, h)
+    else:
+        x, a, lp, adv, params, ls, op, ols, _, _, act, h, ce, ent = args
+        p1, ls1, op1, ols1, _, _ = kernel(
+            x[:half], a[:half], lp[:half], adv[:half], params, ls, op, ols,
+            n // 2, mb, act, h, ce, ent)
+        split = kernel(x[half:], a[half:], lp[half:], adv[half:], p1, ls1,
+                       op1, ols1, n // 2, mb, act, h, ce, ent)
+    n_state = _bf16_state_count(kind)
+    assert all(torch.equal(x, y) for x, y in zip(
+        _phase_outputs(split)[:n_state], one[:n_state]))
+
+
+@pytest.mark.parametrize("kind", ["value", "policy"])
+def test_bf16_phase_grid_spans_the_card(dev, kind):
+    """128 rows a block: minibatch 16384 of the reacher nets launches 128
+    cooperative blocks, one per row tile, all resident at once."""
+    widths = [10, 256, 256, 1 if kind == "value" else 2]
+    plan = cu.phase_bf16_plan(kind, widths, 16384, dev)
+    props = torch.cuda.get_device_properties(dev)
+    assert plan["rows"] == 128 and plan["threads"] == 512
+    assert plan["grid"] == min(128, plan["blocks_per_sm"] * plan["sms"])
+    assert plan["sms"] == props.multi_processor_count and plan["grid"] > 1
+    assert cu.phase_bf16_plan(kind, widths, 1000, dev)["grid"] == 8
+
+
+@pytest.mark.parametrize("widths,what", [
+    ((3, 600, 1), "512 wide"), ((3,) + (16,) * 8 + (1,), "1-8 layers")])
+def test_bf16_phase_refuses_nets_past_its_limits(dev, widths, what):
+    params = [(torch.zeros(a, b, device=dev), torch.zeros(b, device=dev))
+              for a, b in zip(widths[:-1], widths[1:])]
+    zeros = [(torch.zeros_like(w), torch.zeros_like(b)) for w, b in params]
+    opt = AdamState(zeros, zeros, 0)
+    before = cu.value_bf16_launches.n
+    with pytest.raises(ValueError, match=what):
+        cu.value_phase_bf16_kernel(
+            torch.zeros(64, 3, device=dev), torch.zeros(64, device=dev),
+            params, opt, 1, 64, "relu", cu.Hyper.of(1e-3, 0.9, 0.999, 1e-8))
+    with pytest.raises(ValueError, match=what):
+        cu.phase_bf16_plan("value", widths, 64, dev)
+    assert cu.value_bf16_launches.n == before
