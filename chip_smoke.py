@@ -49,7 +49,9 @@
    timed beside the plain version and scaled_dot_product_attention with
    the boolean mask (library_ms; the port never calls it), each backward
    kernel beside the plain and library backward with respect to its own
-   inputs (q for dq, k and v for dk/dv).
+   inputs (q for dq, k and v for dk/dv); at each timed shape the share of
+   the in-range tiles the kernels visit (cuda_attn.visited_tiles: a block
+   skips the tiles whose episode ids do not meet its rows').
 10. apply_seq through K7 against apply_seq through the materialised core
    at recall_xl's widths (d 32, 2 layers, 4 heads, T 1024, E 4): outputs
    and every parameter gradient.
@@ -111,14 +113,23 @@
    against its plain versions (the forward chunked as the kernel) at
    phase 9's shapes and relations, on the same inputs rounded to bf16;
    the backward twice, bit for bit; timed beside the plain versions and
-   scaled_dot_product_attention in bf16 with the mask.  Then apply_seq
+   scaled_dot_product_attention in bf16 with the mask; at each timed shape
+   the share of tiles visited, and a control forward that sums l from
+   bf16(p) (attention_plain_bf16(round_l=True)), which must fail the check
+   the kernel passes; at the value pass and X-ray each output's signed
+   lean against its plain version, pooled over three inputs, within
+   LEAN_TOL, and at the value pass a control whose sums round toward zero
+   (toward_zero=True), which must lean past it; the three bf16 kernels'
+   registers and spills from the build's nvcc.log.  Then apply_seq
    "bf16" through it against the same through its plain versions at
    recall_xl's widths, each output and gradient leaf held by its distance
    against the bf16-vs-float32 distance.
 20. RECALL_XL_BF16 (RECALL_XL with kernel_backend "bf16"): the decode
    against the bf16 replay at the initial weights, 2 epochs by phase with
    every launch held to the config's count (K7's bf16 kernels only: 2, 160
-   and 64 of each a fit), then evaluate(deterministic=True).
+   and 64 of each a fit), then evaluate(deterministic=True); K7 bf16's
+   share of the epochs' wall (its launches times its device ms at the
+   timed shapes).
 21. REACHER_BF16 (the reacher regime with kernel_backend "bf16", the JAX
    package's "bf16 + shuffle_block" recipe): evaluate, 3 epochs by phase
    (a fit is one K1 launch without the V planes, as the JAX package's
@@ -1155,6 +1166,22 @@ def flash_bounds(case, rel: int, H: int):
                      + 2 * row)), pairs
 
 
+def visit_shares(case, rel: int, rows: int) -> str:
+    """The share of the in-range tiles K7 visits on ``case`` with ``rows``
+    own rows a block (:func:`cuda_attn.visited_tiles`): forward and dq,
+    then dk/dv."""
+    from ppoc_tpu_torch.ops import cuda_attn as ca
+
+    ep_q, ep_k = case[5], case[6]
+    shares = []
+    for keys in (False, True):
+        vis, in_range = ca.visited_tiles(ep_q, ep_k, rel, rows, ca.TILE,
+                                         keys)
+        n_vis, n_in = int(vis.sum()), int(in_range.sum())
+        shares.append(f"{n_vis} of {n_in} ({n_vis / max(1, n_in):.4f})")
+    return f"tiles visited: forward and dq {shares[0]}, dk/dv {shares[1]}"
+
+
 def check_flash(label: str, case, rel: int, H: int, dev, time_it=False):
     """K7's forward (out, lse) and its dq and dk/dv kernels against the
     plain version (autograd through it) on ``case``, each held over the
@@ -1247,6 +1274,7 @@ def check_flash(label: str, case, rel: int, H: int, dev, time_it=False):
                + whole["library"]}
     parts = "; ".join(f"{k} {t['ms']:.4f} / {t['plain_ms']:.4f} / "
                       f"{t['library_ms']:.4f}" for k, t in times.items())
+    print(f"  {label}: {visit_shares(case, rel, ca.ROWS)}", flush=True)
     print(f"  {label}: device ms, kernel / plain / SDPA: {parts}; whole "
           f"backward (dq, dk, dv) plain {whole['plain']:.4f}, SDPA "
           f"{whole['library']:.4f}; forward + backward kernel "
@@ -2396,7 +2424,7 @@ REACHER_BF16_EPOCHS = 3
 # bound of K7's bf16 rows, with their bytes at 2 B a bf16 element
 PEAK_BF16 = 989e12
 # K7's bf16 variant against its plain versions (the forward with the
-# kernel's CHUNK) on the same bf16 inputs: every output within two bf16
+# kernel's BF16_CHUNK) on the same bf16 inputs: every output within two bf16
 # roundoffs (2^-7) of the leaf's largest magnitude (at least 1), and at
 # most BF16_SHARE of the elements apart by more than 1e-5 of it: the two
 # sum in another order, so a p, ds or w on a bf16 rounding boundary, or a
@@ -2412,10 +2440,57 @@ BF16_TOL, BF16_SHARE = 2.0 ** -7, 0.01
 # rounding itself moves the leaf (the plain bf16 path against the float32
 # "pallas" path; the first card reading: at most 0.157)
 SEQ_RATIO = 0.25
+# K7 bf16's signed lean against its plain versions: per output, the sum of
+# (kernel - plain) * sign(plain) over the sum of |plain|, pooled over the
+# inputs of LEAN_SEEDS (added to each timed case's seed); below zero is
+# toward zero.  mma.sync rounds its sums toward zero, so a kernel that
+# chains every k-step of a product into its running sum leans every output
+# toward zero: bf16_agree does not see that (the first build of the
+# tensor-core design passed it).  The kernel's largest |lean| must stay
+# within LEAN_TOL at the recall_xl value pass and at X-ray.  Its control,
+# the plain versions with every running sum rounded toward zero 16 keys (or
+# queries) at a time (toward_zero=True), must lean past it at the value
+# pass, where a row sums up to 1024 keys; at X-ray's ~50-step episodes a
+# chain is a few steps long and the control leans little, so there its
+# reading is printed only.  The minibatch (B 4) holds too few elements for
+# a lean of its bf16 outputs: some tens of them round the other way, so a
+# sound kernel's lean there moves by more than LEAN_TOL from input to input
+LEAN_TOL = 2.5e-7
+LEAN_SEEDS = (0, 100, 200)
 # the decode (float32, as the JAX package's rollout) against the bf16
 # replay at the initial weights: bf16-sized by design; a replay over the
 # wrong attention sets parts by order 1
 BF16_GAP_TOL = 0.25
+
+
+def kernel_resources(stem: str):
+    """{"name<hd>": "N registers, S B spill stores, L B spill loads"} of the
+    K7 kernels whose name ends in ``stem``, from the build's nvcc.log (the
+    compiler's -Xptxas -v report)."""
+    import re
+
+    from ppoc_tpu_torch.ops import _build
+
+    res, name = {}, None
+    for line in (_build.BUILD_DIR / "nvcc.log").read_text().splitlines():
+        m = re.search(r"Compiling entry function "
+                      r"'\S*?\d+(flash_\w+?)ILi(\d+)E", line)
+        if m:
+            name = f"{m.group(1)}<{m.group(2)}>" if m.group(1).endswith(
+                stem) else None
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if name and spill:
+            res[name] = f"{spill.group(1)} B spill stores, " \
+                        f"{spill.group(2)} B spill loads"
+        if name and regs:
+            res[name] = f"{regs.group(1)} registers, " + res.get(name, "")
+    if len(res) != 12:
+        raise AssertionError(f"nvcc.log reports {len(res)} K7 kernels "
+                             f"ending in {stem!r}, not 3 x 4 head dims")
+    return res
 
 
 def bf16_bound_ms(ops: float, nbytes: float):
@@ -2463,7 +2538,7 @@ def check_flash_bf16(label: str, case, rel: int, H: int, dev,
                      time_it=False):
     """K7's bf16 forward (out, lse) and its bf16 dq and dk/dv kernels
     against their plain versions (the forward chunked as the kernel,
-    ``CHUNK``) on ``case`` rounded to bf16; rows with no valid key out 0
+    ``BF16_CHUNK``) on ``case`` rounded to bf16; rows with no valid key out 0
     and lse NEG exactly; the backward twice, bit for bit.  Returns
     ({name: max abs error}, {kernel: timings} or None)."""
     import torch
@@ -2478,7 +2553,7 @@ def check_flash_bf16(label: str, case, rel: int, H: int, dev,
     bargs = kargs + (dout.to(bf), dsum, lse)
     got = (ca.flash_dq_kernel(*bargs),) + ca.flash_dkv_kernel(*bargs)
     again = (ca.flash_dq_kernel(*bargs),) + ca.flash_dkv_kernel(*bargs)
-    out_p, lse_p = ca.attention_plain_bf16(*kargs, chunk=ca.CHUNK)
+    out_p, lse_p = ca.attention_plain_bf16(*kargs, chunk=ca.BF16_CHUNK)
     want = ((ca.flash_dq_plain_bf16(*bargs),)
             + ca.flash_dkv_plain_bf16(*bargs))
     torch.cuda.synchronize()
@@ -2506,6 +2581,18 @@ def check_flash_bf16(label: str, case, rel: int, H: int, dev,
           f"with no valid key", flush=True)
     if not time_it:
         return errs, None
+    control, _ = ca.attention_plain_bf16(*kargs, chunk=ca.BF16_CHUNK,
+                                         round_l=True)
+    try:
+        bf16_agree(f"{label}, control: l summed from bf16(p), out", control,
+                   out_p)
+    except AssertionError:
+        print(f"  {label}: the control fails the check, as it must",
+              flush=True)
+    else:
+        raise AssertionError(f"{label}: the check passes a forward that "
+                             f"sums l from bf16(p)")
+    print(f"  {label}: {visit_shares(case, rel, ca.BF16_ROWS)}", flush=True)
     import torch.nn.functional as F
 
     B = ep_q.shape[0]
@@ -2523,7 +2610,8 @@ def check_flash_bf16(label: str, case, rel: int, H: int, dev,
     times = {
         "flash_fwd_bf16": timings(
             lambda: ca.flash_fwd_kernel(*kargs),
-            lambda: ca.attention_plain_bf16(*kargs, chunk=ca.CHUNK), 20, 3),
+            lambda: ca.attention_plain_bf16(*kargs, chunk=ca.BF16_CHUNK),
+            20, 3),
         "flash_bwd_dq_bf16": timings(
             lambda: ca.flash_dq_kernel(*bargs),
             lambda: ca.flash_dq_plain_bf16(*bargs), 20, 3),
@@ -2544,31 +2632,103 @@ def check_flash_bf16(label: str, case, rel: int, H: int, dev,
     return errs, times
 
 
+def lean_bf16(make, seed: int, rel: int, H: int):
+    """K7 bf16's lean and its control's (see LEAN_TOL), each output's
+    pooled over LEAN_SEEDS: ({"kernel" | "control": [out, dq, dk, dv]},
+    [per-seed line])."""
+    import torch
+
+    from ppoc_tpu_torch.ops import cuda_attn as ca
+
+    bf = torch.bfloat16
+    num = {"kernel": [0.0] * 4, "control": [0.0] * 4}
+    den, lines = [0.0] * 4, []
+    for d in LEAN_SEEDS:
+        q, k, v, dout, g_lse, ep_q, ep_k = make(seed + d)
+        kargs = (q.to(bf), k.to(bf), v.to(bf), ep_q, ep_k, rel, H)
+        out, lse = ca.flash_fwd_kernel(*kargs)
+        dsum = ca.dsum_of(dout, out, g_lse).contiguous()
+        bargs = kargs + (dout.to(bf), dsum, lse)
+        runs = {"kernel": (out, ca.flash_dq_kernel(*bargs))
+                + ca.flash_dkv_kernel(*bargs)}
+        for name, tz in (("plain", False), ("control", True)):
+            runs[name] = ((ca.attention_plain_bf16(
+                *kargs, chunk=ca.BF16_CHUNK, toward_zero=tz)[0],
+                ca.flash_dq_plain_bf16(*bargs, toward_zero=tz))
+                + ca.flash_dkv_plain_bf16(*bargs, toward_zero=tz))
+        parts = {}
+        for i, b in enumerate(runs["plain"]):
+            b = b.double()
+            mag = float(b.abs().sum())
+            den[i] += mag
+            for name in num:
+                x = float(((runs[name][i].double() - b) * b.sign()).sum())
+                num[name][i] += x
+                parts.setdefault(name, []).append(x / mag)
+        lines.append(f"seed {seed + d}: " + "; ".join(
+            f"{name} " + ", ".join(f"{o} {x:+.3e}" for o, x in zip(
+                ("out", "dq", "dk", "dv"), xs)) for name, xs in parts.items()))
+    return {name: [n / m for n, m in zip(xs, den)]
+            for name, xs in num.items()}, lines
+
+
+def check_lean_bf16(label: str, make, seed: int, rel: int, H: int,
+                    control_sees: bool):
+    """Hold K7 bf16's pooled lean within LEAN_TOL; where ``control_sees``,
+    its control must lean past it."""
+    leans, lines = lean_bf16(make, seed, rel, H)
+    for line in lines:
+        print(f"  {label}, lean {line}", flush=True)
+    worst = {name: max(abs(x) for x in xs) for name, xs in leans.items()}
+    print(f"  {label}: lean pooled over {len(LEAN_SEEDS)} inputs, kernel "
+          + ", ".join(f"{o} {x:+.3e}" for o, x in zip(
+              ("out", "dq", "dk", "dv"), leans["kernel"]))
+          + f" (|lean| at most {LEAN_TOL:.1e}); control "
+          + ", ".join(f"{o} {x:+.3e}" for o, x in zip(
+              ("out", "dq", "dk", "dv"), leans["control"])), flush=True)
+    if not worst["kernel"] <= LEAN_TOL:
+        raise AssertionError(f"{label}: K7 bf16 leans {leans['kernel']}")
+    if control_sees:
+        if worst["control"] <= LEAN_TOL:
+            raise AssertionError(f"{label}: the lean check passes sums "
+                                 f"rounded toward zero: {leans['control']}")
+        print(f"  {label}: the control fails the lean check, as it must",
+              flush=True)
+
+
 def check_flash_bf16_all(dev):
     """K7's bf16 variant at every shape phase 9 holds the f32 one at, on
-    the same inputs; returns {shape name: (case, rel, H, errors,
-    timings)}."""
+    the same inputs, and its lean (LEAN_TOL) at the value pass and X-ray;
+    returns {shape name: (case, rel, H, errors, timings)}."""
     T, B, H, hd = 1024, 4, 4, 8
     xl = dones_of_rollout("recall_xl", T, 32, dev)
+    xray_dones = random_dones(2048, 16, 0.02, 7, dev)
     runs = {}
-    for name, case, rel, Hn, time_it in (
+    # (name, case of a seed, seed, H, timed, lean held: the kernel's, or
+    # also that its control fails)
+    for name, make, seed, Hn, time_it, lean in (
             ("recall_xl minibatch (T 1024, B 4, H 4, hd 8), rollout "
-             "episodes", flash_case(T, B, H, hd, xl[:, :B], 1, dev), 0, H,
-             True),
+             "episodes", lambda s: flash_case(T, B, H, hd, xl[:, :B], s, dev),
+             1, H, True, None),
             ("recall_xl minibatch, p_done 0.02",
-             flash_case(T, B, H, hd, random_dones(T, B, 0.02, 2, dev), 3,
-                        dev), 0, H, False),
+             lambda s: flash_case(T, B, H, hd, random_dones(T, B, 0.02, 2,
+                                                            dev), s, dev),
+             3, H, False, None),
             ("recall_xl value pass (T 1024, B 32, H 4, hd 8)",
-             flash_case(T, 32, H, hd, xl, 4, dev), 0, H, True),
+             lambda s: flash_case(T, 32, H, hd, xl, s, dev), 4, H, True,
+             "kernel and control"),
             ("ragged T 1030 (B 4, H 4, hd 8), p_done 0.02",
-             flash_case(1030, B, H, hd, random_dones(1030, B, 0.02, 5, dev),
-                        6, dev), 0, H, False),
+             lambda s: flash_case(1030, B, H, hd, random_dones(
+                 1030, B, 0.02, 5, dev), s, dev), 6, H, False, None),
             ("X-ray (T 2048, B 16, H 8, hd 64), p_done 0.02",
-             flash_case(2048, 16, 8, 64, random_dones(2048, 16, 0.02, 7,
-                                                      dev), 8, dev),
-             0, 8, True)):
-        errs, times = check_flash_bf16(name, case, rel, Hn, dev, time_it)
-        runs[name] = (case, rel, Hn, errs, times)
+             lambda s: flash_case(2048, 16, 8, 64, xray_dones, s, dev), 8, 8,
+             True, "kernel")):
+        case = make(seed)
+        errs, times = check_flash_bf16(name, case, 0, Hn, dev, time_it)
+        if lean:
+            check_lean_bf16(name, make, seed, 0, Hn,
+                            lean == "kernel and control")
+        runs[name] = (case, 0, Hn, errs, times)
     q_d = random_dones(T, B, 0.02, 9, dev)
     k_d = random_dones(T, B, 0.02, 10, dev)
     for rel in (-1, 0, 1):
@@ -2592,7 +2752,7 @@ class PlainK7Bf16:
         self.saved = (ca.flash_fwd_kernel, ca.flash_dq_kernel,
                       ca.flash_dkv_kernel)
         ca.flash_fwd_kernel = lambda *a: ca.attention_plain_bf16(
-            *a, chunk=ca.CHUNK)
+            *a, chunk=ca.BF16_CHUNK)
         ca.flash_dq_kernel = ca.flash_dq_plain_bf16
         ca.flash_dkv_kernel = ca.flash_dkv_plain_bf16
         return self
@@ -2755,6 +2915,8 @@ def bf16_phases(dev, counters, record):
     the three K7 bf16 rows."""
     header("[K7 bf16 variant: forward, dq, dk/dv against their plain "
            "versions]")
+    for kernel, res in kernel_resources("_bf16").items():
+        print(f"  {kernel}: {res} (nvcc.log)", flush=True)
     runs = check_flash_bf16_all(dev)
     header("[apply_seq 'bf16' through K7's bf16 variant against its plain "
            "versions, recall_xl widths]")
@@ -2790,6 +2952,18 @@ def bf16_phases(dev, counters, record):
             for i, name in enumerate(K7_BF16_NAMES)}
     print(f"  K7 bf16 at the X-ray shape (T 2048, B 16, H 8, hd 64, {pairs} "
           f"valid pairs; not on the path): {json.dumps(xray)}", flush=True)
+    mb_t = runs["recall_xl minibatch (T 1024, B 4, H 4, hd 8), rollout "
+                "episodes"][4]
+    vp_t = runs["recall_xl value pass (T 1024, B 32, H 4, hd 8)"][4]
+    k7_s = 1e-3 * (by_phase["values + GAE"][K7_BF16_NAMES[0]]
+                   * vp_t[K7_BF16_NAMES[0]]["ms"]
+                   + sum((by_phase["value phase"][n]
+                          + by_phase["policy phase"][n]) * mb_t[n]["ms"]
+                         for n in K7_BF16_NAMES))
+    xl_wall = sum(sum(r["split"].values()) for r in xl_rows)
+    print(f"  RECALL_XL_BF16: K7 bf16 {k7_s:.4f} s of the {xl_wall:.3f} s "
+          f"wall of {RECALL_XL_EPOCHS} epochs ({k7_s / xl_wall:.2%}; its "
+          f"launches times its device ms at the timed shapes)", flush=True)
     print(f"  apply_seq bf16 through K7 against its plain versions, largest "
           f"norm ratio {seq_ratio:.3f}; decode against the bf16 replay, largest "
           f"log-prob gap {gap:.3e}; K7 launches a fit by phase {per_fit}; "

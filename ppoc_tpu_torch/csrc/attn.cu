@@ -17,72 +17,90 @@
 // from the caller: ds = w (dout . v - dsum) scale, dq = sum_s ds k,
 // dk = sum_t ds q, dv = sum_t w dout.
 //
-// What bounds it on the card: at the recall_xl shapes (hd 8, T 1024) the
-// inputs are a few MB, so the bound is the FP32 operations over the valid
-// pairs of the causal triangle (about 4 hd flops a pair forward, 6 hd for
-// dq, 8 hd for dk/dv).  This first kernel runs them as scalar FP32 in
-// registers, not on the tensor cores.
+// Tile skip and order (both variants).  A block owns a tile of rows of one
+// side (queries for the forward and dq, keys for dk/dv) and walks the other
+// side's tiles of TILE rows: key tiles from 0 up to the causal bound, or
+// query tiles from the block's first key on.  Before a tile is loaded, the
+// block compares the tile's [min, max] episode id with its own rows' and
+// skips the tile when the two ranges do not meet: no pair in it can be
+// valid.  It is a range test, not a use of the ids rising with t: with rel
+// -1 the key side comes from another window, and the test holds for any
+// ids.  A skipped tile adds exactly nothing (the forward's m2 = m, alpha =
+// exp(0) = 1 and p = 0; every backward term fmaf(0, x, acc) = acc), so the
+// skip changes no bit of either variant.  The flags are marked a window of
+// WIN tiles at a time into shared memory, each warp reducing a tile's ids
+// with __reduce_min/max_sync, so the whole block takes or skips a tile
+// together.  `cuda_attn.visited_tiles` is the same rule in Python.  Blocks
+// are launched heaviest first: for the forward and dq the last query tiles
+// (they see the most keys), for dk/dv the first key tiles, each tile of
+// every (batch, head) row before the next lighter tile.  No atomics: every
+// output element is written by one thread in a fixed order, so results are
+// the same bit for bit from call to call.
 //
-// What the design does about it: each thread owns one row (or, for hd 32
-// and 64, a group of 2 or 4 neighbouring lanes owns one row, each lane
-// holding every TPR-th dimension, and the dot products are summed with
-// warp shuffles), so the row's q, accumulators and statistics live in
-// registers and nothing of the [T, T] score plane is ever stored.  One
-// block takes 64 rows: the forward and dq one query tile, looping over the
-// key tiles up to the tile's causal bound; dk/dv one key tile, looping
-// over the query tiles from the first that can see it.  The other side's
-// tile is staged in shared memory, where every row reads the same address
-// (a broadcast).  The forward's online softmax rescales once per 16 keys.
-// Every launch writes each output element from one thread, in a fixed
-// order, so results are the same bit for bit from call to call.
+// The f32 variant (`ppoc_flash_*`).  What bounds it on the card: at the
+// recall_xl shapes (hd 8, T 1024) the inputs are a few MB, so the bound is
+// the FP32 operations over the valid pairs of the causal triangle (about
+// 4 hd flops a pair forward, 6 hd for dq, 8 hd for dk/dv).  It runs them as
+// scalar FP32 in registers (TF32 tensor cores would leave its float32
+// parity).  Each thread owns one row (or, for hd 32 and 64, a group of 2
+// or 4 neighbouring lanes owns one row, each lane holding every TPR-th
+// dimension, and the dot products are summed with warp shuffles), so the
+// row's q, accumulators and statistics live in registers and nothing of
+// the [T, T] score plane is ever stored.  One block takes ROWS rows; the
+// other side's tile is staged in shared memory, where every row reads the
+// same address (a broadcast).  The forward's online softmax rescales once
+// per CHUNK keys.
 //
 // The bf16 variant (`ppoc_flash_*_bf16`, pallas_attn.flash_mha with
-// compute_dtype=bfloat16) is the same three bodies on another element type
-// E of q, k, v and dout: they are read, and staged in shared memory, as
-// bf16, half the f32 staging.  Every score and sum stays f32 (a bf16 x bf16
-// product is exact in f32).  The roundings sit where the Pallas kernel's
-// casts do: p to bf16 for the P.V sum only, l summing the unrounded p
-// (pallas_attn.py:151); ds to bf16 for dq = ds.k (:245); dst and wt to bf16
-// for dk = ds.q and dv = w.dout (:296-299); dq, dk and dv written as bf16
-// (:253, :312-313).  dsum comes from the f32 cotangent before it is rounded
-// (:326-330), computed by the caller.  Rounding is to nearest even
-// (__float2bfloat16_rn).  With E = float every rounding is the identity, so
-// the f32 variant's arithmetic is unchanged.  Its bound is the bf16
-// tensor-core peak or the bf16 bytes; this first variant still runs scalar
-// FP32 arithmetic on the loaded values (hd 8 is half of one mma.sync k16
-// step), so it is no faster than the f32 one.
+// compute_dtype=bfloat16).  q, k, v and dout are bf16, every score and sum
+// float32 (a bf16 x bf16 product is exact in f32).  The roundings sit where
+// the Pallas kernel's casts do: p to bf16 for the P.V product only, l
+// summing the unrounded p (pallas_attn.py:151); ds to bf16 for dq = ds.k
+// (:245); ds^T and w^T to bf16 for dk = ds^T.q and dv = w^T.dout
+// (:296-299); dq, dk and dv written as bf16 from float32 sums (:253,
+// :312-313); out, lse and dsum float32 (dsum from the float32 cotangent,
+// :326-330, by the caller).  Every rounding is to nearest even.  What
+// bounds it on this card: at the recall_xl minibatch (T 1024, BH 16, hd 8)
+// the valid pairs are 0.4 us of bf16 tensor-core work and a few hundred KB
+// of bytes, so neither FLOPs nor bytes: it is latency and occupancy (256
+// blocks of 4 warps on 132 SMs, each a chain of dependent products,
+// exponentials and shuffles per key tile).  What the design does about
+// it: a warp owns 16 rows (BF16_WARPS warps a block) and computes a whole
+// 16 x TILE score tile on the tensor cores: mma.sync m16n8k8 at hd 8 (no
+// padding to 16), m16n8k16 k-steps at hd 16-64, operands through ldmatrix
+// (.trans where a tile is read as the other operand; rows padded by 8 bf16
+// past hd 8 so the 8 rows of an ldmatrix fall on distinct banks).  The
+// float32 accumulators of S (or dS, W) are rounded in registers into the A
+// fragments of the next product (the flash-attention-2 reuse), so no score
+// touches shared memory.  The forward rescales once per key tile (TILE
+// keys, tile boundaries fixed in key position from 0: the plain version's
+// chunk, cuda_attn.BF16_CHUNK), row max and row sum taken over the quad of
+// lanes that hold a row.  The other side's tiles are double-buffered with
+// cp.async (zero-filled past T), so the next visited tile loads while this
+// one is computed.  dq stays its own kernel, apart from dk/dv.
 #include <climits>
+#include <stdint.h>
 
 #include <cuda_bf16.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
+using namespace ppoc;
+
 constexpr float NEG = -1e9f;   // pallas_attn.NEG
-constexpr int ROWS = 64;       // query (or key) rows per block
-constexpr int TILE = 64;       // rows of the other side per shared tile
-constexpr int CHUNK = 16;      // keys per online-softmax rescale
+constexpr int ROWS = 64;       // f32: query (or key) rows per block
+constexpr int TILE = 64;       // rows of the other side per tile
+constexpr int CHUNK = 16;      // f32: keys per online-softmax rescale
+constexpr int WIN = 1024;      // tiles whose visit flags a block marks at once
+constexpr unsigned FULL = 0xffffffffu;
+// bf16: warps of 16 rows a block (4 was faster than 1 or 2 at 7 of the 9
+// timed entries, PERF.md); cuda_attn.BF16_ROWS is 16 of them
+constexpr int BF16_WARPS = 4;
 
 using bf16 = __nv_bfloat16;
-
-// loads of the element type, as f32
-__device__ __forceinline__ float ld(float x) { return x; }
-__device__ __forceinline__ float ld(bf16 x) { return __bfloat162float(x); }
-
-// an f32 value as the element type, rounded to nearest even
-template <typename E>
-__device__ __forceinline__ E to_e(float x);
-template <>
-__device__ __forceinline__ float to_e<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 to_e<bf16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// an operand of a P.V or dS.K/Q product: rounded to E, carried in f32
-template <typename E>
-__device__ __forceinline__ float rnd(float x) { return ld(to_e<E>(x)); }
 
 template <int HD>
 struct Shape {
@@ -100,44 +118,104 @@ __device__ __forceinline__ float group_sum(float x) {
 }
 
 // Copies rows [r0, r0 + TILE) of a [T, HD] matrix into `dst`, zeros past T.
-template <int HD, typename E>
-__device__ __forceinline__ void load_tile(E (*dst)[HD],
-                                          const E* __restrict__ src,
+template <int HD>
+__device__ __forceinline__ void load_tile(float (*dst)[HD],
+                                          const float* __restrict__ src,
                                           int r0, int T) {
   for (int i = threadIdx.x; i < TILE * HD; i += blockDim.x) {
     const int r = i / HD, d = i % HD;
-    dst[r][d] = r0 + r < T ? src[(size_t)(r0 + r) * HD + d] : to_e<E>(0.0f);
+    dst[r][d] = r0 + r < T ? src[(size_t)(r0 + r) * HD + d] : 0.0f;
   }
 }
 
-template <int HD, typename E>
+// --- the tile skip -------------------------------------------------------
+
+// [min, max] of e[r0, r1) (at most 64 rows), in every lane of the warp
+__device__ __forceinline__ void id_range(const int* __restrict__ e, int r0,
+                                         int r1, int& lo, int& hi) {
+  const int a = r0 + (threadIdx.x & 31), c = a + 32;
+  const int ea = a < r1 ? e[a] : 0, ec = c < r1 ? e[c] : 0;
+  lo = __reduce_min_sync(FULL, min(a < r1 ? ea : INT_MAX,
+                                   c < r1 ? ec : INT_MAX));
+  hi = __reduce_max_sync(FULL, max(a < r1 ? ea : INT_MIN,
+                                   c < r1 ? ec : INT_MIN));
+}
+
+// Which of the other side's tiles the block visits.  Tile j covers rows
+// [base + j TILE, base + (j + 1) TILE) of e (the other side's ids), cut at
+// T; the block's own rows carry ids in [lo, hi]; n tiles are in the loop.
+// Every thread of the block asks for each j in rising order: at the start
+// of each window of WIN tiles the warps mark the window's tiles in `flag`
+// (shared memory), between two barriers.
+struct Visit {
+  unsigned char* flag;
+  const int* e;
+  int T, base, n, lo, hi;
+
+  __device__ bool operator()(int j) const {
+    if (j % WIN == 0) {
+      __syncthreads();   // the previous window's flags are no longer read
+      const int j1 = min(n, j + WIN);
+      for (int i = j + (int)(threadIdx.x >> 5); i < j1;
+           i += (int)(blockDim.x >> 5)) {
+        const int r0 = base + i * TILE;
+        int tlo, thi;
+        id_range(e, r0, min(T, r0 + TILE), tlo, thi);
+        if ((threadIdx.x & 31) == 0) flag[i - j] = tlo <= hi && thi >= lo;
+      }
+      __syncthreads();
+    }
+    return flag[j % WIN] != 0;
+  }
+
+  // the first visited tile after j, or n
+  __device__ int next(int j) const {
+    while (++j < n && !(*this)(j)) {
+    }
+    return j;
+  }
+};
+
+// --- the f32 variant -----------------------------------------------------
+
+template <int HD>
 __global__ void __launch_bounds__(Shape<HD>::THREADS)
-flash_fwd(const E* __restrict__ q, const E* __restrict__ k,
-          const E* __restrict__ v, const int* __restrict__ ep_q,
+flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, const int* __restrict__ ep_q,
           const int* __restrict__ ep_k, float* __restrict__ out,
-          float* __restrict__ lse, int H, int T, int rel, float scale) {
+          float* __restrict__ lse, int BH, int H, int T, int rel,
+          float scale) {
   constexpr int TPR = Shape<HD>::TPR, DPT = Shape<HD>::DPT;
-  __shared__ E ks[TILE][HD];
-  __shared__ E vs[TILE][HD];
+  __shared__ float ks[TILE][HD];
+  __shared__ float vs[TILE][HD];
   __shared__ int eks[TILE];
-  const int bh = blockIdx.y, b = bh / H;
+  __shared__ unsigned char flag[WIN];
+  // the last query tiles first: they see the most keys
+  const int blk = (T + ROWS - 1) / ROWS - 1 - (int)blockIdx.x / BH;
+  const int bh = blockIdx.x % BH, b = bh / H;
   const int row = threadIdx.x / TPR, g = threadIdx.x % TPR;
-  const int t = blockIdx.x * ROWS + row;
+  const int t = blk * ROWS + row;
   const bool live = t < T;
-  const E* qb = q + (size_t)bh * T * HD;
-  const E* kb = k + (size_t)bh * T * HD;
-  const E* vb = v + (size_t)bh * T * HD;
+  const float* qb = q + (size_t)bh * T * HD;
+  const float* kb = k + (size_t)bh * T * HD;
+  const float* vb = v + (size_t)bh * T * HD;
   float qr[DPT], acc[DPT];
 #pragma unroll
   for (int i = 0; i < DPT; ++i) {
-    qr[i] = live ? ld(qb[(size_t)t * HD + i * TPR + g]) : 0.0f;
+    qr[i] = live ? qb[(size_t)t * HD + i * TPR + g] : 0.0f;
     acc[i] = 0.0f;
   }
   const int eq = live ? ep_q[(size_t)b * T + t] : 0;
   float m = NEG, l = 0.0f;
-  const int n_keys = rel < 0 ? T : rel == 0 ? min(T, (blockIdx.x + 1) * ROWS)
-                                            : 0;
-  for (int k0 = 0; k0 < n_keys; k0 += TILE) {
+  const int n_keys = rel < 0 ? T : rel == 0 ? min(T, (blk + 1) * ROWS) : 0;
+  int lo, hi;
+  id_range(ep_q + (size_t)b * T, blk * ROWS, min(T, (blk + 1) * ROWS), lo,
+           hi);
+  const Visit visit{flag, ep_k + (size_t)b * T, T, 0,
+                    (n_keys + TILE - 1) / TILE, lo, hi};
+  for (int jt = 0; jt < visit.n; ++jt) {
+    if (!visit(jt)) continue;
+    const int k0 = jt * TILE;
     __syncthreads();   // the previous tile is no longer read
     load_tile<HD>(ks, kb, k0, T);
     load_tile<HD>(vs, vb, k0, T);
@@ -154,7 +232,7 @@ flash_fwd(const E* __restrict__ q, const E* __restrict__ k,
         float dot = 0.0f;
 #pragma unroll
         for (int i = 0; i < DPT; ++i)
-          dot = fmaf(qr[i], ld(ks[kk][i * TPR + g]), dot);
+          dot = fmaf(qr[i], ks[kk][i * TPR + g], dot);
         dot = group_sum<TPR>(dot);
         const bool valid = live && s < T && (rel < 0 || s <= t) &&
                            eks[kk] == eq;
@@ -172,11 +250,10 @@ flash_fwd(const E* __restrict__ q, const E* __restrict__ k,
         // invalid lanes add exactly 0: a row with no valid key would
         // otherwise get exp(NEG - NEG) = 1 (pallas_attn.py:143-147)
         const float p = (ok >> j) & 1u ? expf(sc[j] - m2) : 0.0f;
-        const float pv = rnd<E>(p);   // the P.V operand; l takes p itself
         psum += p;
 #pragma unroll
         for (int i = 0; i < DPT; ++i)
-          acc[i] = fmaf(pv, ld(vs[c0 + j][i * TPR + g]), acc[i]);
+          acc[i] = fmaf(p, vs[c0 + j][i * TPR + g], acc[i]);
       }
       l = l * alpha + psum;
       m = m2;
@@ -190,37 +267,46 @@ flash_fwd(const E* __restrict__ q, const E* __restrict__ k,
   if (g == 0) lse[(size_t)bh * T + t] = m + logf(l_safe);
 }
 
-template <int HD, typename E>
+template <int HD>
 __global__ void __launch_bounds__(Shape<HD>::THREADS)
-flash_bwd_dq(const E* __restrict__ q, const E* __restrict__ k,
-             const E* __restrict__ v, const int* __restrict__ ep_q,
-             const int* __restrict__ ep_k, const E* __restrict__ dout,
+flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const int* __restrict__ ep_q,
+             const int* __restrict__ ep_k, const float* __restrict__ dout,
              const float* __restrict__ dsum, const float* __restrict__ lse,
-             E* __restrict__ dq, int H, int T, int rel, float scale) {
+             float* __restrict__ dq, int BH, int H, int T, int rel,
+             float scale) {
   constexpr int TPR = Shape<HD>::TPR, DPT = Shape<HD>::DPT;
-  __shared__ E ks[TILE][HD];
-  __shared__ E vs[TILE][HD];
+  __shared__ float ks[TILE][HD];
+  __shared__ float vs[TILE][HD];
   __shared__ int eks[TILE];
-  const int bh = blockIdx.y, b = bh / H;
+  __shared__ unsigned char flag[WIN];
+  const int blk = (T + ROWS - 1) / ROWS - 1 - (int)blockIdx.x / BH;
+  const int bh = blockIdx.x % BH, b = bh / H;
   const int row = threadIdx.x / TPR, g = threadIdx.x % TPR;
-  const int t = blockIdx.x * ROWS + row;
+  const int t = blk * ROWS + row;
   const bool live = t < T;
   const size_t rows = (size_t)bh * T;
-  const E* kb = k + rows * HD;
-  const E* vb = v + rows * HD;
+  const float* kb = k + rows * HD;
+  const float* vb = v + rows * HD;
   float qr[DPT], dor[DPT], acc[DPT];
 #pragma unroll
   for (int i = 0; i < DPT; ++i) {
-    qr[i] = live ? ld(q[(rows + t) * HD + i * TPR + g]) : 0.0f;
-    dor[i] = live ? ld(dout[(rows + t) * HD + i * TPR + g]) : 0.0f;
+    qr[i] = live ? q[(rows + t) * HD + i * TPR + g] : 0.0f;
+    dor[i] = live ? dout[(rows + t) * HD + i * TPR + g] : 0.0f;
     acc[i] = 0.0f;
   }
   const int eq = live ? ep_q[(size_t)b * T + t] : 0;
   const float lse_t = live ? lse[rows + t] : 0.0f;
   const float dsum_t = live ? dsum[rows + t] : 0.0f;
-  const int n_keys = rel < 0 ? T : rel == 0 ? min(T, (blockIdx.x + 1) * ROWS)
-                                            : 0;
-  for (int k0 = 0; k0 < n_keys; k0 += TILE) {
+  const int n_keys = rel < 0 ? T : rel == 0 ? min(T, (blk + 1) * ROWS) : 0;
+  int lo, hi;
+  id_range(ep_q + (size_t)b * T, blk * ROWS, min(T, (blk + 1) * ROWS), lo,
+           hi);
+  const Visit visit{flag, ep_k + (size_t)b * T, T, 0,
+                    (n_keys + TILE - 1) / TILE, lo, hi};
+  for (int jt = 0; jt < visit.n; ++jt) {
+    if (!visit(jt)) continue;
+    const int k0 = jt * TILE;
     __syncthreads();
     load_tile<HD>(ks, kb, k0, T);
     load_tile<HD>(vs, vb, k0, T);
@@ -233,60 +319,70 @@ flash_bwd_dq(const E* __restrict__ q, const E* __restrict__ k,
       float dot = 0.0f, dp = 0.0f;
 #pragma unroll
       for (int i = 0; i < DPT; ++i) {
-        dot = fmaf(qr[i], ld(ks[kk][i * TPR + g]), dot);
-        dp = fmaf(dor[i], ld(vs[kk][i * TPR + g]), dp);
+        dot = fmaf(qr[i], ks[kk][i * TPR + g], dot);
+        dp = fmaf(dor[i], vs[kk][i * TPR + g], dp);
       }
       dot = group_sum<TPR>(dot);
       dp = group_sum<TPR>(dp);
       const bool valid = live && s < T && (rel < 0 || s <= t) &&
                          eks[kk] == eq;
       const float w = valid ? expf(dot * scale - lse_t) : 0.0f;
-      const float ds = rnd<E>(w * (dp - dsum_t) * scale);
+      const float ds = w * (dp - dsum_t) * scale;
 #pragma unroll
       for (int i = 0; i < DPT; ++i)
-        acc[i] = fmaf(ds, ld(ks[kk][i * TPR + g]), acc[i]);
+        acc[i] = fmaf(ds, ks[kk][i * TPR + g], acc[i]);
     }
   }
   if (!live) return;
 #pragma unroll
   for (int i = 0; i < DPT; ++i)
-    dq[(rows + t) * HD + i * TPR + g] = to_e<E>(acc[i]);
+    dq[(rows + t) * HD + i * TPR + g] = acc[i];
 }
 
-template <int HD, typename E>
+template <int HD>
 __global__ void __launch_bounds__(Shape<HD>::THREADS)
-flash_bwd_dkv(const E* __restrict__ q, const E* __restrict__ k,
-              const E* __restrict__ v, const int* __restrict__ ep_q,
-              const int* __restrict__ ep_k, const E* __restrict__ dout,
+flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const int* __restrict__ ep_q,
+              const int* __restrict__ ep_k, const float* __restrict__ dout,
               const float* __restrict__ dsum, const float* __restrict__ lse,
-              E* __restrict__ dk, E* __restrict__ dv, int H, int T,
-              int rel, float scale) {
+              float* __restrict__ dk, float* __restrict__ dv, int BH, int H,
+              int T, int rel, float scale) {
   constexpr int TPR = Shape<HD>::TPR, DPT = Shape<HD>::DPT;
-  __shared__ E qs[TILE][HD];
-  __shared__ E dos[TILE][HD];
+  __shared__ float qs[TILE][HD];
+  __shared__ float dos[TILE][HD];
   __shared__ float lses[TILE];
   __shared__ float dsums[TILE];
   __shared__ int eqs[TILE];
-  const int bh = blockIdx.y, b = bh / H;
+  __shared__ unsigned char flag[WIN];
+  // the first key tiles first: the most queries see them
+  const int blk = (int)blockIdx.x / BH;
+  const int bh = blockIdx.x % BH, b = bh / H;
   const int row = threadIdx.x / TPR, g = threadIdx.x % TPR;
-  const int s = blockIdx.x * ROWS + row;       // this thread's key
+  const int s = blk * ROWS + row;              // this thread's key
   const bool live = s < T;
   const size_t rows = (size_t)bh * T;
-  const E* qb = q + rows * HD;
-  const E* dob = dout + rows * HD;
+  const float* qb = q + rows * HD;
+  const float* dob = dout + rows * HD;
   float kr[DPT], vr[DPT], dka[DPT], dva[DPT];
 #pragma unroll
   for (int i = 0; i < DPT; ++i) {
-    kr[i] = live ? ld(k[(rows + s) * HD + i * TPR + g]) : 0.0f;
-    vr[i] = live ? ld(v[(rows + s) * HD + i * TPR + g]) : 0.0f;
+    kr[i] = live ? k[(rows + s) * HD + i * TPR + g] : 0.0f;
+    vr[i] = live ? v[(rows + s) * HD + i * TPR + g] : 0.0f;
     dka[i] = 0.0f;
     dva[i] = 0.0f;
   }
   const int ek = live ? ep_k[(size_t)b * T + s] : 0;
   // the first query that can see a key of this tile: every query before
   // the block, the tile's first key itself on the diagonal, none after
-  const int q_start = rel < 0 ? 0 : rel == 0 ? blockIdx.x * ROWS : T;
-  for (int q0 = q_start; q0 < T; q0 += TILE) {
+  const int q_start = rel < 0 ? 0 : rel == 0 ? blk * ROWS : T;
+  int lo, hi;
+  id_range(ep_k + (size_t)b * T, blk * ROWS, min(T, (blk + 1) * ROWS), lo,
+           hi);
+  const Visit visit{flag, ep_q + (size_t)b * T, T, q_start,
+                    (T - q_start + TILE - 1) / TILE, lo, hi};
+  for (int jt = 0; jt < visit.n; ++jt) {
+    if (!visit(jt)) continue;
+    const int q0 = q_start + jt * TILE;
     __syncthreads();
     load_tile<HD>(qs, qb, q0, T);
     load_tile<HD>(dos, dob, q0, T);
@@ -303,106 +399,562 @@ flash_bwd_dkv(const E* __restrict__ q, const E* __restrict__ k,
       float dot = 0.0f, dp = 0.0f;
 #pragma unroll
       for (int i = 0; i < DPT; ++i) {
-        dot = fmaf(kr[i], ld(qs[qq][i * TPR + g]), dot);
-        dp = fmaf(vr[i], ld(dos[qq][i * TPR + g]), dp);
+        dot = fmaf(kr[i], qs[qq][i * TPR + g], dot);
+        dp = fmaf(vr[i], dos[qq][i * TPR + g], dp);
       }
       dot = group_sum<TPR>(dot);
       dp = group_sum<TPR>(dp);
       const bool valid = live && t < T && (rel < 0 || s <= t) &&
                          eqs[qq] == ek;
       const float w = valid ? expf(dot * scale - lses[qq]) : 0.0f;
-      const float ds = rnd<E>(w * (dp - dsums[qq]) * scale);
-      const float wr = rnd<E>(w);
+      const float ds = w * (dp - dsums[qq]) * scale;
 #pragma unroll
       for (int i = 0; i < DPT; ++i) {
-        dka[i] = fmaf(ds, ld(qs[qq][i * TPR + g]), dka[i]);
-        dva[i] = fmaf(wr, ld(dos[qq][i * TPR + g]), dva[i]);
+        dka[i] = fmaf(ds, qs[qq][i * TPR + g], dka[i]);
+        dva[i] = fmaf(w, dos[qq][i * TPR + g], dva[i]);
       }
     }
   }
   if (!live) return;
 #pragma unroll
   for (int i = 0; i < DPT; ++i) {
-    dk[(rows + s) * HD + i * TPR + g] = to_e<E>(dka[i]);
-    dv[(rows + s) * HD + i * TPR + g] = to_e<E>(dva[i]);
+    dk[(rows + s) * HD + i * TPR + g] = dka[i];
+    dv[(rows + s) * HD + i * TPR + g] = dva[i];
   }
 }
 
-template <int HD, typename E>
-int launch_fwd(const E* q, const E* k, const E* v, const int* ep_q,
-               const int* ep_k, float* out, float* lse, int BH, int H, int T,
-               int rel, float scale, cudaStream_t stream) {
-  const dim3 grid((T + ROWS - 1) / ROWS, BH);
-  flash_fwd<HD, E><<<grid, Shape<HD>::THREADS, 0, stream>>>(
-      q, k, v, ep_q, ep_k, out, lse, H, T, rel, scale);
-  return (int)cudaGetLastError();
+// --- the bf16 variant: warp tiles on the tensor cores ---------------------
+
+template <int HD>
+struct Bf {
+  static constexpr int LD = HD == 8 ? 8 : HD + 8;    // a staged row, bf16
+  static constexpr int KD = HD == 8 ? 1 : HD / 16;   // k-steps over hd
+  static constexpr int ND = HD / 8;                  // n-tiles of hd columns
+  static constexpr int ROWS = 16 * BF16_WARPS;       // own rows a block
+  static constexpr int THREADS = 32 * BF16_WARPS;
+};
+
+// cp.async of 16 or 4 bytes into shared memory, zeros where !ok
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// all but this thread's newest group of copies have landed
+__device__ __forceinline__ void cp_wait_all_but_newest() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-template <int HD, typename E>
-int launch_dq(const E* q, const E* k, const E* v, const int* ep_q,
-              const int* ep_k, const E* dout, const float* dsum,
-              const float* lse, E* dq, int BH, int H, int T, int rel,
-              float scale, cudaStream_t stream) {
-  const dim3 grid((T + ROWS - 1) / ROWS, BH);
-  flash_bwd_dq<HD, E><<<grid, Shape<HD>::THREADS, 0, stream>>>(
-      q, k, v, ep_q, ep_k, dout, dsum, lse, dq, H, T, rel, scale);
-  return (int)cudaGetLastError();
+// Starts copying rows [r0, r0 + TILE) of a [T, HD] bf16 matrix into dst
+// ([TILE][LD]), zeros past T.
+template <int HD>
+__device__ __forceinline__ void stage_rows(bf16* dst,
+                                           const bf16* __restrict__ src,
+                                           int r0, int T) {
+  constexpr int CH = HD / 8;   // 16-byte pieces a row
+  for (int i = threadIdx.x; i < TILE * CH; i += blockDim.x) {
+    const int r = i / CH, c = i % CH;
+    const bool ok = r0 + r < T;
+    cp16(dst + r * Bf<HD>::LD + c * 8,
+         src + (size_t)(ok ? r0 + r : 0) * HD + c * 8, ok);
+  }
 }
 
-template <int HD, typename E>
-int launch_dkv(const E* q, const E* k, const E* v, const int* ep_q,
-               const int* ep_k, const E* dout, const float* dsum,
-               const float* lse, E* dk, E* dv, int BH, int H, int T, int rel,
-               float scale, cudaStream_t stream) {
-  const dim3 grid((T + ROWS - 1) / ROWS, BH);
-  flash_bwd_dkv<HD, E><<<grid, Shape<HD>::THREADS, 0, stream>>>(
-      q, k, v, ep_q, ep_k, dout, dsum, lse, dk, dv, H, T, rel, scale);
-  return (int)cudaGetLastError();
+// ... of TILE 4-byte values src[r0 + i], zeros past T
+template <typename V>
+__device__ __forceinline__ void stage_vec(V* dst, const V* __restrict__ src,
+                                          int r0, int T) {
+  for (int i = threadIdx.x; i < TILE; i += blockDim.x) {
+    const bool ok = r0 + i < T;
+    cp4(dst + i, src + (ok ? r0 + i : 0), ok);
+  }
 }
+
+// This lane's A fragments of rows [r, r + 16) of a [T, HD] bf16 matrix
+// (zeros past T): at hd 8 the m16n8k8 shape's two registers, else KD
+// m16n8k16 k-steps.  Lane l holds rows r + l / 4 and r + l / 4 + 8.
+template <int HD>
+__device__ __forceinline__ void load_a(uint32_t (&a)[Bf<HD>::KD][4],
+                                       const bf16* __restrict__ x, int r,
+                                       int T, int lane) {
+  const uint32_t* x32 = reinterpret_cast<const uint32_t*>(x);
+  const int r1 = r + (lane >> 2), r2 = r1 + 8, c = 2 * (lane & 3);
+  const auto at = [&](int row, int col) {
+    return row < T ? x32[((size_t)row * HD + col) / 2] : 0u;
+  };
+#pragma unroll
+  for (int d = 0; d < Bf<HD>::KD; ++d) {
+    a[d][0] = at(r1, 16 * d + c);
+    a[d][1] = at(r2, 16 * d + c);
+    a[d][2] = HD == 8 ? 0u : at(r1, 16 * d + 8 + c);
+    a[d][3] = HD == 8 ? 0u : at(r2, 16 * d + 8 + c);
+  }
+}
+
+// s[j] = A . B^T for NT n-tiles of 8 rows of bs from row n0: bs is a staged
+// [TILE][LD] tile of rows by hd (keys, or queries), read with ldmatrix as
+// the col-major B operand; A is 16 rows by hd in registers.  Past hd 16 the
+// hd k-steps chain in one sum, which mma.sync rounds toward zero at each
+// step: at hd 64 the scores' four steps lean every output a little toward
+// zero (chip_smoke.py holds that lean, LEAN_TOL).  Summing each step from
+// zero costs dq a block of occupancy at hd 64 (more registers).
+template <int HD, int NT>
+__device__ __forceinline__ void dot_rows(float (&s)[NT][4],
+                                         const uint32_t (&a)[Bf<HD>::KD][4],
+                                         const bf16* bs, int n0, int lane) {
+  constexpr int LD = Bf<HD>::LD;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+  if constexpr (HD == 8) {
+#pragma unroll
+    for (int c = 0; c < NT / 4; ++c) {
+      uint32_t b[4];
+      ldsm_x4(b, bs + (n0 + 32 * c + lane) * LD);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        mma_bf16_k8(s[4 * c + i], a[0][0], a[0][1], b[i]);
+    }
+  } else {
+#pragma unroll
+    for (int p = 0; p < NT / 2; ++p)
+#pragma unroll
+      for (int d = 0; d < Bf<HD>::KD; ++d) {
+        uint32_t b[4];
+        ldsm_x4(b, bs + (n0 + 16 * p + (lane & 7) + (lane >> 4) * 8) * LD +
+                       16 * d + ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * p], a[d], b[0], b[1]);
+        mma_bf16(s[2 * p + 1], a[d], b[2], b[3]);
+      }
+  }
+}
+
+// o += A . bs[k0, k0 + 16 KS): bs is a staged tile of rows by hd, read with
+// ldmatrix.trans as the row-major B operand (k along its rows); A is 16
+// rows by 16 KS in registers.  The KS k-steps are summed from zero and the
+// partial is added to o in float32 (round to nearest): mma.sync rounds its
+// sums toward zero, so chaining every k-step into the running sum over up
+// to T keys would shrink it a little each step, and the bf16 roundings
+// downstream would all lean one way.  Within the partial the KS (at most
+// 4) steps still chain.
+template <int HD, int KS>
+__device__ __forceinline__ void acc_rows(float (&o)[Bf<HD>::ND][4],
+                                         const uint32_t (&a)[KS][4],
+                                         const bf16* bs, int k0, int lane) {
+  constexpr int LD = Bf<HD>::LD, ND = Bf<HD>::ND;
+  float part[ND][4] = {};
+  if constexpr (HD == 8) {
+#pragma unroll
+    for (int c = 0; c < KS / 2; ++c) {
+      uint32_t b[4];
+      ldsm_x4_t(b, bs + (k0 + 32 * c + lane) * LD);
+      mma_bf16(part[0], a[2 * c], b[0], b[1]);
+      mma_bf16(part[0], a[2 * c + 1], b[2], b[3]);
+    }
+  } else {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int p = 0; p < ND / 2; ++p) {
+        uint32_t b[4];
+        ldsm_x4_t(b, bs + (k0 + 16 * ks + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                             LD + 16 * p + (lane >> 4) * 8);
+        mma_bf16(part[2 * p], a[ks], b[0], b[1]);
+        mma_bf16(part[2 * p + 1], a[ks], b[2], b[3]);
+      }
+  }
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] += part[n][e];
+}
+
+// The A fragments (16 rows by 4 NT columns) of NT n-tiles of float32
+// accumulators, each rounded to bf16 (nearest even): one product's output
+// becomes the next one's operand in registers.
+template <int NT>
+__device__ __forceinline__ void to_a(uint32_t (&a)[NT / 2][4],
+                                     const float (&x)[NT][4]) {
+#pragma unroll
+  for (int ks = 0; ks < NT / 2; ++ks) {
+    a[ks][0] = pack_bf16(x[2 * ks][0], x[2 * ks][1]);
+    a[ks][1] = pack_bf16(x[2 * ks][2], x[2 * ks][3]);
+    a[ks][2] = pack_bf16(x[2 * ks + 1][0], x[2 * ks + 1][1]);
+    a[ks][3] = pack_bf16(x[2 * ks + 1][2], x[2 * ks + 1][3]);
+  }
+}
+
+// out[r] = op over this lane's 16 elements of row r of 8 n-tiles (elements
+// 2r and 2r + 1 of each), as a tree
+template <typename Op>
+__device__ __forceinline__ void row_reduce(float (&out)[2],
+                                           const float (&x)[8][4], Op op) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float y[8];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) y[n] = op(x[n][2 * r], x[n][2 * r + 1]);
+#pragma unroll
+    for (int w = 4; w > 0; w >>= 1)
+#pragma unroll
+      for (int n = 0; n < w; ++n) y[n] = op(y[n], y[n + w]);
+    out[r] = y[0];
+  }
+}
+
+// Writes this lane's part of a warp's 16 x HD accumulator as bf16: row[r]
+// takes elements 2r and 2r + 1 of each n-tile (rows past T are not written).
+template <int HD>
+__device__ __forceinline__ void store_bf16(bf16* __restrict__ x,
+                                           const float (&o)[Bf<HD>::ND][4],
+                                           const int (&row)[2], int T,
+                                           int lane) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= T) continue;
+    uint32_t* xr = reinterpret_cast<uint32_t*>(x + (size_t)row[r] * HD +
+                                               2 * (lane & 3));
+#pragma unroll
+    for (int n = 0; n < Bf<HD>::ND; ++n)
+      xr[4 * n] = pack_bf16(o[n][2 * r], o[n][2 * r + 1]);
+  }
+}
+
+// Runs body(j, buf) over the visited tiles with the tile copied into
+// buffer buf by stage(j, buf); the next visited tile's copy is in flight
+// while body runs.  Every thread of the block calls it.
+template <typename Stage, typename Body>
+__device__ __forceinline__ void pipeline(const Visit& visit, Stage stage,
+                                         Body body) {
+  int j = visit.next(-1), buf = 0;
+  if (j < visit.n) stage(j, 0);
+  cp_commit();
+  while (j < visit.n) {
+    const int jn = visit.next(j);
+    if (jn < visit.n) stage(jn, buf ^ 1);
+    cp_commit();
+    cp_wait_all_but_newest();
+    __syncthreads();   // tile j has landed for every thread
+    body(j, buf);
+    __syncthreads();   // buf is free for the tile after jn
+    buf ^= 1;
+    j = jn;
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(Bf<HD>::THREADS)
+flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, const int* __restrict__ ep_q,
+               const int* __restrict__ ep_k, float* __restrict__ out,
+               float* __restrict__ lse, int BH, int H, int T, int rel,
+               float scale) {
+  constexpr int LD = Bf<HD>::LD, ND = Bf<HD>::ND, R = Bf<HD>::ROWS;
+  __shared__ __align__(16) bf16 ks[2][TILE * LD];
+  __shared__ __align__(16) bf16 vs[2][TILE * LD];
+  __shared__ __align__(16) int eks[2][TILE];
+  __shared__ unsigned char flag[WIN];
+  // the last query tiles first: they see the most keys
+  const int blk = (T + R - 1) / R - 1 - (int)blockIdx.x / BH;
+  const int bh = blockIdx.x % BH, b = bh / H;
+  const int lane = threadIdx.x & 31, c2 = 2 * (lane & 3);
+  const int r0 = blk * R, w0 = r0 + 16 * (int)(threadIdx.x >> 5);
+  const int t[2] = {w0 + (lane >> 2), w0 + (lane >> 2) + 8};   // my rows
+  const size_t base = (size_t)bh * T;
+  const int* epq = ep_q + (size_t)b * T;
+  const int* epk = ep_k + (size_t)b * T;
+  uint32_t qa[Bf<HD>::KD][4];
+  load_a<HD>(qa, q + base * HD, w0, T, lane);
+  const int eq[2] = {t[0] < T ? epq[t[0]] : 0, t[1] < T ? epq[t[1]] : 0};
+  int lo, hi, w_id, w_hi;
+  id_range(epq, r0, min(T, r0 + R), lo, hi);
+  id_range(epq, w0, min(T, w0 + 16), w_id, w_hi);   // this warp's rows
+  const bool w_one = w_id == w_hi;
+  const int n_keys = rel < 0 ? T : rel == 0 ? min(T, r0 + R) : 0;
+  const Visit visit{flag, epk, T, 0, (n_keys + TILE - 1) / TILE, lo, hi};
+  float o[ND][4] = {}, m[2] = {NEG, NEG}, l[2] = {0.0f, 0.0f};
+  pipeline(
+      visit,
+      [&](int j, int buf) {
+        stage_rows<HD>(ks[buf], k + base * HD, j * TILE, T);
+        stage_rows<HD>(vs[buf], v + base * HD, j * TILE, T);
+        stage_vec(eks[buf], epk, j * TILE, T);
+      },
+      [&](int j, int buf) {
+        const int k0 = j * TILE;
+        float s[8][4];
+        dot_rows<HD, 8>(s, qa, ks[buf], 0, lane);
+        // a tile where every pair of the warp's rows is valid (one episode
+        // over the keys and the rows, every key before every row, none past
+        // T: the path's common case) skips the per-pair test
+        const int e0 = eks[buf][lane], e1 = eks[buf][lane + 32];
+        const int tlo = __reduce_min_sync(FULL, min(e0, e1));
+        const int thi = __reduce_max_sync(FULL, max(e0, e1));
+        const bool full = w_one && tlo == w_id && thi == w_id &&
+                          k0 + TILE <= T && w0 + 16 <= T &&
+                          (rel < 0 || k0 + TILE <= w0 + 1);
+        if (full) {
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[n][e] *= scale;
+        } else {
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            const int kk = 8 * n + c2;
+            const int2 ek = *reinterpret_cast<const int2*>(&eks[buf][kk]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = e >> 1, sk = k0 + kk + (e & 1);
+              const bool valid = t[r] < T && sk < T &&
+                                 (rel < 0 || sk <= t[r]) &&
+                                 ((e & 1) ? ek.y : ek.x) == eq[r];
+              s[n][e] = valid ? s[n][e] * scale : NEG;
+            }
+          }
+        }
+        float cmax[2], alpha[2], psum[2];
+        row_reduce(cmax, s, [](float x, float y) { return fmaxf(x, y); });
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {   // the row's max over its quad
+          cmax[r] = fmaxf(cmax[r], __shfl_xor_sync(FULL, cmax[r], 1));
+          cmax[r] = fmaxf(cmax[r], __shfl_xor_sync(FULL, cmax[r], 2));
+          const float m2 = fmaxf(m[r], cmax[r]);
+          alpha[r] = expf(m[r] - m2);
+          m[r] = m2;
+        }
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            // an invalid pair's NEG gives exp(NEG - m2) = 0 once the row has
+            // a valid key; before that (m2 still NEG) p is set to 0, or a
+            // row with no valid key would get exp(NEG - NEG) = 1
+            // (pallas_attn.py:143-147)
+            const float mr = m[e >> 1];
+            s[n][e] = mr == NEG ? 0.0f : expf(s[n][e] - mr);
+          }
+        row_reduce(psum, s, [](float x, float y) { return x + y; });
+#pragma unroll
+        for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + psum[r];
+#pragma unroll
+        for (int n = 0; n < ND; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+        uint32_t pa[4][4];
+        to_a<8>(pa, s);   // p rounded to bf16 for P.V; l took p itself
+        acc_rows<HD, 4>(o, pa, vs[buf], 0, lane);
+      });
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {   // each lane summed its columns of the row
+    l[r] += __shfl_xor_sync(FULL, l[r], 1);
+    l[r] += __shfl_xor_sync(FULL, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (t[r] >= T) continue;
+    const float l_safe = l[r] == 0.0f ? 1.0f : l[r];
+    float* ob = out + (base + t[r]) * HD + c2;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<float2*>(ob + 8 * n) =
+          make_float2(o[n][2 * r] / l_safe, o[n][2 * r + 1] / l_safe);
+    if (c2 == 0) lse[base + t[r]] = m[r] + logf(l_safe);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(Bf<HD>::THREADS)
+flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const int* __restrict__ ep_q,
+                  const int* __restrict__ ep_k,
+                  const bf16* __restrict__ dout,
+                  const float* __restrict__ dsum,
+                  const float* __restrict__ lse, bf16* __restrict__ dq,
+                  int BH, int H, int T, int rel, float scale) {
+  constexpr int LD = Bf<HD>::LD, ND = Bf<HD>::ND, R = Bf<HD>::ROWS;
+  __shared__ __align__(16) bf16 ks[2][TILE * LD];
+  __shared__ __align__(16) bf16 vs[2][TILE * LD];
+  __shared__ __align__(16) int eks[2][TILE];
+  __shared__ unsigned char flag[WIN];
+  const int blk = (T + R - 1) / R - 1 - (int)blockIdx.x / BH;
+  const int bh = blockIdx.x % BH, b = bh / H;
+  const int lane = threadIdx.x & 31, c2 = 2 * (lane & 3);
+  const int r0 = blk * R, w0 = r0 + 16 * (int)(threadIdx.x >> 5);
+  const int t[2] = {w0 + (lane >> 2), w0 + (lane >> 2) + 8};
+  const size_t base = (size_t)bh * T;
+  const int* epq = ep_q + (size_t)b * T;
+  const int* epk = ep_k + (size_t)b * T;
+  uint32_t qa[Bf<HD>::KD][4], da[Bf<HD>::KD][4];
+  load_a<HD>(qa, q + base * HD, w0, T, lane);
+  load_a<HD>(da, dout + base * HD, w0, T, lane);
+  int eq[2];
+  float lse_r[2], dsum_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool live = t[r] < T;
+    eq[r] = live ? epq[t[r]] : 0;
+    lse_r[r] = live ? lse[base + t[r]] : 0.0f;
+    dsum_r[r] = live ? dsum[base + t[r]] : 0.0f;
+  }
+  int lo, hi;
+  id_range(epq, r0, min(T, r0 + R), lo, hi);
+  const int n_keys = rel < 0 ? T : rel == 0 ? min(T, r0 + R) : 0;
+  const Visit visit{flag, epk, T, 0, (n_keys + TILE - 1) / TILE, lo, hi};
+  float acc[ND][4] = {};
+  pipeline(
+      visit,
+      [&](int j, int buf) {
+        stage_rows<HD>(ks[buf], k + base * HD, j * TILE, T);
+        stage_rows<HD>(vs[buf], v + base * HD, j * TILE, T);
+        stage_vec(eks[buf], epk, j * TILE, T);
+      },
+      [&](int j, int buf) {
+        const int k0 = j * TILE;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {   // 32 keys at a time
+          float s[4][4], dp[4][4];
+          dot_rows<HD, 4>(s, qa, ks[buf], 32 * h, lane);
+          dot_rows<HD, 4>(dp, da, vs[buf], 32 * h, lane);
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            const int kk = 32 * h + 8 * n + c2;
+            const int2 ek = *reinterpret_cast<const int2*>(&eks[buf][kk]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = e >> 1, sk = k0 + kk + (e & 1);
+              const bool valid = t[r] < T && sk < T &&
+                                 (rel < 0 || sk <= t[r]) &&
+                                 ((e & 1) ? ek.y : ek.x) == eq[r];
+              const float w =
+                  valid ? expf(s[n][e] * scale - lse_r[r]) : 0.0f;
+              s[n][e] = w * (dp[n][e] - dsum_r[r]) * scale;   // ds
+            }
+          }
+          uint32_t dsa[2][4];
+          to_a<4>(dsa, s);   // ds rounded to bf16 for dq = ds.k
+          acc_rows<HD, 2>(acc, dsa, ks[buf], 32 * h, lane);
+        }
+      });
+  store_bf16<HD>(dq + base * HD, acc, t, T, lane);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(Bf<HD>::THREADS)
+flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const int* __restrict__ ep_q,
+                   const int* __restrict__ ep_k,
+                   const bf16* __restrict__ dout,
+                   const float* __restrict__ dsum,
+                   const float* __restrict__ lse, bf16* __restrict__ dk,
+                   bf16* __restrict__ dv, int BH, int H, int T, int rel,
+                   float scale) {
+  constexpr int LD = Bf<HD>::LD, ND = Bf<HD>::ND, R = Bf<HD>::ROWS;
+  __shared__ __align__(16) bf16 qs[2][TILE * LD];
+  __shared__ __align__(16) bf16 dos[2][TILE * LD];
+  __shared__ __align__(16) float lses[2][TILE];
+  __shared__ __align__(16) float dsums[2][TILE];
+  __shared__ __align__(16) int eqs[2][TILE];
+  __shared__ unsigned char flag[WIN];
+  // the first key tiles first: the most queries see them
+  const int blk = (int)blockIdx.x / BH;
+  const int bh = blockIdx.x % BH, b = bh / H;
+  const int lane = threadIdx.x & 31, c2 = 2 * (lane & 3);
+  const int r0 = blk * R, w0 = r0 + 16 * (int)(threadIdx.x >> 5);
+  const int s[2] = {w0 + (lane >> 2), w0 + (lane >> 2) + 8};   // my keys
+  const size_t base = (size_t)bh * T;
+  const int* epq = ep_q + (size_t)b * T;
+  const int* epk = ep_k + (size_t)b * T;
+  uint32_t ka[Bf<HD>::KD][4], va[Bf<HD>::KD][4];
+  load_a<HD>(ka, k + base * HD, w0, T, lane);
+  load_a<HD>(va, v + base * HD, w0, T, lane);
+  const int ek[2] = {s[0] < T ? epk[s[0]] : 0, s[1] < T ? epk[s[1]] : 0};
+  int lo, hi;
+  id_range(epk, r0, min(T, r0 + R), lo, hi);
+  // every query before the block, the block's first key on, or none
+  const int q_start = rel < 0 ? 0 : rel == 0 ? r0 : T;
+  const Visit visit{flag, epq, T, q_start, (T - q_start + TILE - 1) / TILE,
+                    lo, hi};
+  float dka[ND][4] = {}, dva[ND][4] = {};
+  pipeline(
+      visit,
+      [&](int j, int buf) {
+        const int q0 = q_start + j * TILE;
+        stage_rows<HD>(qs[buf], q + base * HD, q0, T);
+        stage_rows<HD>(dos[buf], dout + base * HD, q0, T);
+        stage_vec(lses[buf], lse + base, q0, T);
+        stage_vec(dsums[buf], dsum + base, q0, T);
+        stage_vec(eqs[buf], epq, q0, T);
+      },
+      [&](int j, int buf) {
+        const int q0 = q_start + j * TILE;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {   // 32 queries at a time
+          float st[4][4], dpt[4][4], w[4][4];   // keys x queries
+          dot_rows<HD, 4>(st, ka, qs[buf], 32 * h, lane);
+          dot_rows<HD, 4>(dpt, va, dos[buf], 32 * h, lane);
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            const int qq = 32 * h + 8 * n + c2;
+            const int2 eqq = *reinterpret_cast<const int2*>(&eqs[buf][qq]);
+            const float2 lq = *reinterpret_cast<const float2*>(&lses[buf][qq]);
+            const float2 dsq =
+                *reinterpret_cast<const float2*>(&dsums[buf][qq]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = e >> 1, tq = q0 + qq + (e & 1);
+              const bool valid = s[r] < T && tq < T &&
+                                 (rel < 0 || s[r] <= tq) &&
+                                 ((e & 1) ? eqq.y : eqq.x) == ek[r];
+              const float wv =
+                  valid ? expf(st[n][e] * scale - ((e & 1) ? lq.y : lq.x))
+                        : 0.0f;
+              st[n][e] = wv * (dpt[n][e] - ((e & 1) ? dsq.y : dsq.x)) *
+                         scale;   // ds
+              w[n][e] = wv;
+            }
+          }
+          uint32_t dsa[2][4], wa[2][4];
+          to_a<4>(dsa, st);   // ds^T and w^T rounded to bf16
+          to_a<4>(wa, w);
+          acc_rows<HD, 2>(dka, dsa, qs[buf], 32 * h, lane);
+          acc_rows<HD, 2>(dva, wa, dos[buf], 32 * h, lane);
+        }
+      });
+  store_bf16<HD>(dk + base * HD, dka, s, T, lane);
+  store_bf16<HD>(dv + base * HD, dva, s, T, lane);
+}
+
+// --- launches ------------------------------------------------------------
+
+// Blocks of `rows` rows over BH rows of T, or 0 when the grid would not fit
+// an int (the entries refuse it).
+inline unsigned grid_of(int T, int rows, int BH) {
+  const long long n = (long long)((T + rows - 1) / rows) * BH;
+  return n > INT_MAX ? 0u : (unsigned)n;
+}
+
+inline bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
 #define PPOC_HD_SWITCH(hd, CALL)          \
   switch (hd) {                           \
-    case 8: return CALL(8);               \
-    case 16: return CALL(16);             \
-    case 32: return CALL(32);             \
-    case 64: return CALL(64);             \
+    case 8: CALL(8); break;               \
+    case 16: CALL(16); break;             \
+    case 32: CALL(32); break;             \
+    case 64: CALL(64); break;             \
     default: return (int)cudaErrorInvalidValue; \
-  }
+  }                                       \
+  return (int)cudaGetLastError();
 
-template <typename E>
-int flash_fwd_entry(const E* q, const E* k, const E* v, const int* ep_q,
-                    const int* ep_k, float* out, float* lse, int BH, int H,
-                    int T, int hd, int rel, float scale, void* stream) {
-  if (BH < 1 || H < 1 || T < 1 || BH > 65535) return (int)cudaErrorInvalidValue;
-#define CALL(HD) launch_fwd<HD, E>(q, k, v, ep_q, ep_k, out, lse, BH, H, T, \
-                                   rel, scale, (cudaStream_t)stream)
-  PPOC_HD_SWITCH(hd, CALL)
-#undef CALL
-}
-
-template <typename E>
-int flash_dq_entry(const E* q, const E* k, const E* v, const int* ep_q,
-                   const int* ep_k, const E* dout, const float* dsum,
-                   const float* lse, E* dq, int BH, int H, int T, int hd,
-                   int rel, float scale, void* stream) {
-  if (BH < 1 || H < 1 || T < 1 || BH > 65535) return (int)cudaErrorInvalidValue;
-#define CALL(HD) launch_dq<HD, E>(q, k, v, ep_q, ep_k, dout, dsum, lse, dq, \
-                                  BH, H, T, rel, scale, (cudaStream_t)stream)
-  PPOC_HD_SWITCH(hd, CALL)
-#undef CALL
-}
-
-template <typename E>
-int flash_dkv_entry(const E* q, const E* k, const E* v, const int* ep_q,
-                    const int* ep_k, const E* dout, const float* dsum,
-                    const float* lse, E* dk, E* dv, int BH, int H, int T,
-                    int hd, int rel, float scale, void* stream) {
-  if (BH < 1 || H < 1 || T < 1 || BH > 65535) return (int)cudaErrorInvalidValue;
-#define CALL(HD) launch_dkv<HD, E>(q, k, v, ep_q, ep_k, dout, dsum, lse, dk, \
-                                   dv, BH, H, T, rel, scale,                 \
-                                   (cudaStream_t)stream)
-  PPOC_HD_SWITCH(hd, CALL)
-#undef CALL
+inline bool bad_shape(int BH, int H, int T) {
+  return BH < 1 || H < 1 || T < 1 || grid_of(T, 16, BH) == 0u;
 }
 
 }  // namespace
@@ -412,8 +964,14 @@ extern "C" int ppoc_flash_fwd(const float* q, const float* k, const float* v,
                               const int* ep_q, const int* ep_k, float* out,
                               float* lse, int BH, int H, int T, int hd,
                               int rel, float scale, void* stream) {
-  return flash_fwd_entry(q, k, v, ep_q, ep_k, out, lse, BH, H, T, hd, rel,
-                         scale, stream);
+  if (bad_shape(BH, H, T)) return (int)cudaErrorInvalidValue;
+#define CALL(HD)                                                        \
+  flash_fwd<HD>                                                         \
+      <<<grid_of(T, ROWS, BH), Shape<HD>::THREADS, 0,                   \
+         (cudaStream_t)stream>>>(q, k, v, ep_q, ep_k, out, lse, BH, H, T, \
+                                 rel, scale)
+  PPOC_HD_SWITCH(hd, CALL)
+#undef CALL
 }
 
 extern "C" int ppoc_flash_bwd_dq(const float* q, const float* k,
@@ -422,8 +980,14 @@ extern "C" int ppoc_flash_bwd_dq(const float* q, const float* k,
                                  const float* dsum, const float* lse,
                                  float* dq, int BH, int H, int T, int hd,
                                  int rel, float scale, void* stream) {
-  return flash_dq_entry(q, k, v, ep_q, ep_k, dout, dsum, lse, dq, BH, H, T,
-                        hd, rel, scale, stream);
+  if (bad_shape(BH, H, T)) return (int)cudaErrorInvalidValue;
+#define CALL(HD)                                                      \
+  flash_bwd_dq<HD>                                                    \
+      <<<grid_of(T, ROWS, BH), Shape<HD>::THREADS, 0,                 \
+         (cudaStream_t)stream>>>(q, k, v, ep_q, ep_k, dout, dsum, lse, \
+                                 dq, BH, H, T, rel, scale)
+  PPOC_HD_SWITCH(hd, CALL)
+#undef CALL
 }
 
 extern "C" int ppoc_flash_bwd_dkv(const float* q, const float* k,
@@ -433,18 +997,33 @@ extern "C" int ppoc_flash_bwd_dkv(const float* q, const float* k,
                                   float* dk, float* dv, int BH, int H, int T,
                                   int hd, int rel, float scale,
                                   void* stream) {
-  return flash_dkv_entry(q, k, v, ep_q, ep_k, dout, dsum, lse, dk, dv, BH, H,
-                         T, hd, rel, scale, stream);
+  if (bad_shape(BH, H, T)) return (int)cudaErrorInvalidValue;
+#define CALL(HD)                                                      \
+  flash_bwd_dkv<HD>                                                   \
+      <<<grid_of(T, ROWS, BH), Shape<HD>::THREADS, 0,                 \
+         (cudaStream_t)stream>>>(q, k, v, ep_q, ep_k, dout, dsum, lse, \
+                                 dk, dv, BH, H, T, rel, scale)
+  PPOC_HD_SWITCH(hd, CALL)
+#undef CALL
 }
 
-// bf16 q, k, v, dout and gradients (out, lse, dsum stay f32)
+// bf16 q, k, v, dout and gradients (out, lse, dsum stay f32); q, k, v and
+// dout 16-byte aligned (cp.async)
 extern "C" int ppoc_flash_fwd_bf16(const bf16* q, const bf16* k,
                                    const bf16* v, const int* ep_q,
                                    const int* ep_k, float* out, float* lse,
                                    int BH, int H, int T, int hd, int rel,
                                    float scale, void* stream) {
-  return flash_fwd_entry(q, k, v, ep_q, ep_k, out, lse, BH, H, T, hd, rel,
-                         scale, stream);
+  if (bad_shape(BH, H, T)) return (int)cudaErrorInvalidValue;
+  if (!(aligned16(q) && aligned16(k) && aligned16(v)))
+    return (int)cudaErrorMisalignedAddress;
+#define CALL(HD)                                                        \
+  flash_fwd_bf16<HD>                                                    \
+      <<<grid_of(T, Bf<HD>::ROWS, BH), Bf<HD>::THREADS, 0,              \
+         (cudaStream_t)stream>>>(q, k, v, ep_q, ep_k, out, lse, BH, H, T, \
+                                 rel, scale)
+  PPOC_HD_SWITCH(hd, CALL)
+#undef CALL
 }
 
 extern "C" int ppoc_flash_bwd_dq_bf16(const bf16* q, const bf16* k,
@@ -453,8 +1032,16 @@ extern "C" int ppoc_flash_bwd_dq_bf16(const bf16* q, const bf16* k,
                                       const float* dsum, const float* lse,
                                       bf16* dq, int BH, int H, int T, int hd,
                                       int rel, float scale, void* stream) {
-  return flash_dq_entry(q, k, v, ep_q, ep_k, dout, dsum, lse, dq, BH, H, T,
-                        hd, rel, scale, stream);
+  if (bad_shape(BH, H, T)) return (int)cudaErrorInvalidValue;
+  if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout)))
+    return (int)cudaErrorMisalignedAddress;
+#define CALL(HD)                                                      \
+  flash_bwd_dq_bf16<HD>                                               \
+      <<<grid_of(T, Bf<HD>::ROWS, BH), Bf<HD>::THREADS, 0,            \
+         (cudaStream_t)stream>>>(q, k, v, ep_q, ep_k, dout, dsum, lse, \
+                                 dq, BH, H, T, rel, scale)
+  PPOC_HD_SWITCH(hd, CALL)
+#undef CALL
 }
 
 extern "C" int ppoc_flash_bwd_dkv_bf16(const bf16* q, const bf16* k,
@@ -464,6 +1051,14 @@ extern "C" int ppoc_flash_bwd_dkv_bf16(const bf16* q, const bf16* k,
                                        bf16* dk, bf16* dv, int BH, int H,
                                        int T, int hd, int rel, float scale,
                                        void* stream) {
-  return flash_dkv_entry(q, k, v, ep_q, ep_k, dout, dsum, lse, dk, dv, BH, H,
-                         T, hd, rel, scale, stream);
+  if (bad_shape(BH, H, T)) return (int)cudaErrorInvalidValue;
+  if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout)))
+    return (int)cudaErrorMisalignedAddress;
+#define CALL(HD)                                                      \
+  flash_bwd_dkv_bf16<HD>                                              \
+      <<<grid_of(T, Bf<HD>::ROWS, BH), Bf<HD>::THREADS, 0,            \
+         (cudaStream_t)stream>>>(q, k, v, ep_q, ep_k, dout, dsum, lse, \
+                                 dk, dv, BH, H, T, rel, scale)
+  PPOC_HD_SWITCH(hd, CALL)
+#undef CALL
 }

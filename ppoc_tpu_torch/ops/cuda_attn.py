@@ -22,14 +22,23 @@ public entries, as ``pallas_attn.flash_mha(..., compute_dtype=bfloat16)``):
 q, k, v and dout travel as bf16, every score and sum is float32, p is
 rounded to bf16 for the P.V product only, ds and w for the backward's
 products, and dq, dk, dv come back as bf16; out, lse and dsum stay
-float32.  Its plain versions, for a bf16 CPU tensor, are
-:func:`attention_plain_bf16` (an online softmax over key chunks: the
-rounding of p depends on the running max when it is rounded, so on the
-chunking; the kernel rescales every ``CHUNK`` keys, the Pallas kernel every
-key tile) and the explicit backward :func:`flash_dq_plain_bf16` and
+float32.  Its kernels run the products on the tensor cores, a warp's 16
+rows against a tile of ``TILE`` rows of the other side.  Its plain
+versions, for a bf16 CPU tensor, are :func:`attention_plain_bf16` (an
+online softmax over key chunks: the rounding of p depends on the running
+max when it is rounded, so on the chunking; the kernel rescales once per
+key tile, ``BF16_CHUNK`` keys from key 0, the Pallas kernel once per its
+own key tile) and the explicit backward :func:`flash_dq_plain_bf16` and
 :func:`flash_dkv_plain_bf16`, which :class:`FlashAttention` binds on the
 CPU too: autograd through the plain forward would round at other places
-than the kernels do.  The two variants count their launches apart.
+than the kernels do.  The two variants count their launches apart.  The
+f32 kernel's online softmax rescales every 16 keys; its plain version
+materialises the scores, so no chunk of it shows here.
+
+Both variants skip the other side's tiles that share no episode with a
+block's rows (the episode-id ranges do not meet); :func:`visited_tiles` is
+that rule.  A skipped tile holds no valid pair and adds exactly nothing,
+so the plain versions, which visit everything, are the same function.
 
 Tensors travel folded: q, k, v [B*H, T, hd] (row-major, float32 or bf16),
 the episode ids [B, T] int32 per side (the head's batch row is bh // H).
@@ -48,7 +57,10 @@ from ppoc_tpu_torch.ops import _build
 
 NEG = -1e9                      # pallas_attn.NEG
 SUPPORTED_HD = (8, 16, 32, 64)  # csrc/attn.cu PPOC_HD_SWITCH
-CHUNK = 16                      # csrc/attn.cu CHUNK: keys a softmax rescale
+# csrc/attn.cu: a block's own rows in each variant (f32 ROWS, bf16 16 a
+# warp, BF16_WARPS 4 warps) and the other side's rows a tile (TILE)
+ROWS, BF16_ROWS, TILE = 64, 64, 64
+BF16_CHUNK = TILE               # keys a bf16 softmax rescale: its key tile
 
 fwd_launches = _build.LaunchCount("flash_fwd")
 dq_launches = _build.LaunchCount("flash_bwd_dq")
@@ -104,6 +116,59 @@ def valid_mask(ep_q, ep_k, rel: int, H: int) -> torch.Tensor:
     return same.repeat_interleave(H, dim=0)
 
 
+def _window_ranges(ep: torch.Tensor, width: int):
+    """(lo, hi) [B, T]: min and max of ep[:, s:s + width] (cut at T) for
+    every start s."""
+    B = ep.shape[0]
+    info = torch.iinfo(torch.int32)
+
+    def pad(fill):
+        tail = torch.full((B, width - 1), fill, dtype=ep.dtype,
+                          device=ep.device)
+        return torch.cat([ep, tail], dim=1).unfold(1, width, 1)
+
+    return pad(info.max).amin(-1), pad(info.min).amax(-1)
+
+
+def visited_tiles(ep_q, ep_k, rel: int, rows: int = ROWS, span: int = TILE,
+                  keys: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' tile-visit rule (``csrc/attn.cu``, ``Visit``), in
+    Python: (visited, in_range), bool [B, n_blocks, n_slots].
+
+    A block owns ``rows`` rows of one side: queries for the forward and dq
+    (``keys=False``), keys for dk/dv (``keys=True``); block i its rows
+    [i rows, (i + 1) rows) cut at T.  It walks the other side's tiles of
+    ``span`` rows: the forward and dq key tiles m span from 0 while below
+    the causal bound (T for rel -1, the block's end for rel 0, none for
+    +1); dk/dv query tiles q_start + m span below T, q_start 0, the block's
+    first key or T.  ``in_range`` marks the slots m the loop has; a block
+    visits one of them iff the tile's [min, max] episode id meets its own
+    rows' (ids ``ep_q`` and ``ep_k``, [B, T] each side, any values)."""
+    own, other = (ep_k, ep_q) if keys else (ep_q, ep_k)
+    B, T = own.shape
+    dev = own.device
+    i = torch.arange(-(-T // rows), device=dev)[:, None]
+    m = torch.arange(-(-T // span), device=dev)[None, :]
+    r0 = i * rows
+    if keys:
+        start = (torch.zeros_like(r0) if rel < 0 else r0 if rel == 0
+                 else torch.full_like(r0, T)) + m * span
+        in_range = start < T
+    else:
+        n_keys = (torch.full_like(r0, T) if rel < 0
+                  else torch.clamp(r0 + rows, max=T) if rel == 0
+                  else torch.zeros_like(r0))
+        start = m * span + torch.zeros_like(r0)
+        in_range = start < n_keys
+    lo, hi = _window_ranges(own, rows)
+    tlo, thi = _window_ranges(other, span)
+    at = start.clamp(max=T - 1)
+    lo, hi = lo[:, r0[:, 0]][:, :, None], hi[:, r0[:, 0]][:, :, None]
+    meets = (tlo[:, at] <= hi) & (thi[:, at] >= lo)
+    in_range = in_range.expand(B, -1, -1)
+    return in_range & meets, in_range
+
+
 def attention_plain(q, k, v, ep_q, ep_k, rel: int, H: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out [BH, T, hd], lse [BH, T]) with the [T, T] scores materialised,
@@ -132,17 +197,45 @@ def _bf16(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).to(torch.float32)
 
 
+def _sum_toward_zero(a, b, acc, step: int = 16) -> torch.Tensor:
+    """acc + a @ b in float32 (a [..., M, K], b [..., K, N] bf16 values
+    carried in float32), the K axis ``step`` at a time: each step's sum
+    (exact in float64) is added to the running sum, rounded toward zero.
+    That is a kernel that chains every ``mma.sync`` k-step into its
+    accumulator, since the tensor cores round their sums toward zero."""
+    for k0 in range(0, a.shape[-1], step):
+        x = acc.double() + (a[..., k0:k0 + step].double()
+                            @ b[..., k0:k0 + step, :].double())
+        y = x.float()
+        acc = torch.where(y.double().abs() > x.abs(),
+                          torch.nextafter(y, torch.zeros_like(y)), y)
+    return acc
+
+
+def _product(a, b, toward_zero: bool) -> torch.Tensor:
+    """a @ b with float32 sums, or :func:`_sum_toward_zero` from 0."""
+    if not toward_zero:
+        return a @ b
+    return _sum_toward_zero(a, b, torch.zeros(
+        a.shape[:-1] + b.shape[-1:], device=a.device))
+
+
 def attention_plain_bf16(q, k, v, ep_q, ep_k, rel: int, H: int,
-                         chunk: int = CHUNK
+                         chunk: int = BF16_CHUNK, round_l: bool = False,
+                         toward_zero: bool = False
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The bf16 variant's forward on bf16 q, k, v: (out [BH, T, hd],
     lse [BH, T]), both float32.  An online softmax over key chunks of
     ``chunk`` (vectorised over the rows): per chunk the running max m2,
     p = exp(s - m2) at the valid pairs, l rescaled plus the unrounded p,
-    the accumulator rescaled plus bf16(p) @ v.  ``chunk`` = CHUNK is the
-    kernel's schedule; the Pallas kernel's key tile (128, 256 or 512 by T)
-    its own; ``chunk`` >= T the materialised bf16 core's
-    (``models/attn._mha``)."""
+    the accumulator rescaled plus bf16(p) @ v.  ``chunk`` = BF16_CHUNK is
+    the kernel's schedule; the Pallas kernel's key tile (128, 256 or 512 by
+    T) its own; ``chunk`` >= T the materialised bf16 core's
+    (``models/attn._mha``).  ``round_l=True`` is a control, not a version:
+    l sums bf16(p), as a kernel that rounded p before its row sum would,
+    which the checks must tell apart from the kernel.  ``toward_zero=True``
+    is another: P.V summed toward zero 16 keys at a time
+    (:func:`_sum_toward_zero`), every output leaning toward zero."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     valid = valid_mask(ep_q, ep_k, rel, H)
     qf, kf, vf = _f32(q), _f32(k), _f32(v)
@@ -159,8 +252,13 @@ def attention_plain_bf16(q, k, v, ep_q, ep_k, rel: int, H: int,
         m2 = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         p = torch.where(ok, torch.exp(s - m2), zero)
         alpha = torch.exp(m - m2)
-        l = l * alpha + p.sum(dim=-1, keepdim=True)
-        acc = acc * alpha + _bf16(p) @ vf[:, c0:c0 + chunk]
+        l = l * alpha + (_bf16(p) if round_l else p).sum(dim=-1,
+                                                        keepdim=True)
+        if toward_zero:
+            acc = _sum_toward_zero(_bf16(p), vf[:, c0:c0 + chunk],
+                                   acc * alpha)
+        else:
+            acc = acc * alpha + _bf16(p) @ vf[:, c0:c0 + chunk]
         m = m2
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
     return acc / l_safe, (m + torch.log(l_safe))[..., 0]
@@ -183,22 +281,27 @@ def _bwd_terms_bf16(q, k, v, ep_q, ep_k, rel: int, H: int, dout, dsum,
 
 
 def flash_dq_plain_bf16(q, k, v, ep_q, ep_k, rel: int, H: int, dout, dsum,
-                        lse) -> torch.Tensor:
+                        lse, toward_zero: bool = False) -> torch.Tensor:
     """The bf16 dq kernel's plain version: dq = bf16(ds) k with float32
-    sums, returned as bf16; arguments as :func:`flash_dq_kernel`."""
+    sums, returned as bf16; arguments as :func:`flash_dq_kernel`.
+    ``toward_zero=True`` is a control: the sums rounded toward zero 16 keys
+    at a time (:func:`_sum_toward_zero`)."""
     _, ds, _, kf, _ = _bwd_terms_bf16(q, k, v, ep_q, ep_k, rel, H, dout,
                                       dsum, lse)
-    return (ds @ kf).to(torch.bfloat16)
+    return _product(ds, kf, toward_zero).to(torch.bfloat16)
 
 
 def flash_dkv_plain_bf16(q, k, v, ep_q, ep_k, rel: int, H: int, dout, dsum,
-                         lse) -> Tuple[torch.Tensor, torch.Tensor]:
+                         lse, toward_zero: bool = False
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The bf16 dk/dv kernel's plain version: dk = bf16(ds)^T q and
-    dv = bf16(w)^T dout with float32 sums, returned as bf16."""
+    dv = bf16(w)^T dout with float32 sums, returned as bf16;
+    ``toward_zero`` as :func:`flash_dq_plain_bf16` (16 queries a step)."""
     w, ds, qf, _, dof = _bwd_terms_bf16(q, k, v, ep_q, ep_k, rel, H, dout,
                                         dsum, lse)
-    return ((ds.transpose(1, 2) @ qf).to(torch.bfloat16),
-            (_bf16(w).transpose(1, 2) @ dof).to(torch.bfloat16))
+    return (_product(ds.transpose(1, 2), qf, toward_zero).to(torch.bfloat16),
+            _product(_bf16(w).transpose(1, 2), dof, toward_zero).to(
+                torch.bfloat16))
 
 
 # --- the kernels --------------------------------------------------------------
@@ -323,7 +426,7 @@ class FlashAttention(torch.autograd.Function):
             out, lse = flash_fwd_kernel(q, k, v, ep_q, ep_k, rel, H)
         else:   # the kernel's chunking, read at call time
             out, lse = attention_plain_bf16(q, k, v, ep_q, ep_k, rel, H,
-                                            CHUNK)
+                                            BF16_CHUNK)
         ctx.save_for_backward(q, k, v, ep_q, ep_k, out, lse)
         ctx.rel, ctx.H = rel, H
         ctx.set_materialize_grads(False)

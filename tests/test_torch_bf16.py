@@ -252,7 +252,7 @@ def test_bf16_flash_forward_matches_pallas(monkeypatch, T, B, H, hd, p_done):
     kernel's key tile (128 at T 130, 256 at T 1024), against
     flash_mha_block(..., compute_dtype=bfloat16) in interpret mode: float32
     rounding (measured 2.4e-7); both float32."""
-    monkeypatch.setattr(cuda_attn, "CHUNK", pallas_attn._tiles(T)[1])
+    monkeypatch.setattr(cuda_attn, "BF16_CHUNK", pallas_attn._tiles(T)[1])
     q, k, v, ep, _ = _case(T, B, H, hd, p_done)
     want = pallas_attn.flash_mha_block(*map(_j, (q, k, v, ep, ep)), 0,
                                        compute_dtype=jnp.bfloat16)
@@ -272,7 +272,7 @@ def test_bf16_flash_gradients_match_pallas(monkeypatch, T, B, H, hd, p_done):
     at most 0.5% of them apart (measured 0.02%: the two sides' ds differ in
     the last float32 bit and round to neighbouring bf16 values); the
     folded gradients are bf16, the public ones float32."""
-    monkeypatch.setattr(cuda_attn, "CHUNK", pallas_attn._tiles(T)[1])
+    monkeypatch.setattr(cuda_attn, "BF16_CHUNK", pallas_attn._tiles(T)[1])
     q, k, v, ep, _ = _case(T, B, H, hd, p_done, seed=5)
     rng = np.random.default_rng(9)
     c = rng.standard_normal(q.shape).astype(np.float32)
@@ -384,9 +384,9 @@ def test_apply_seq_bf16_matches_jax(monkeypatch, core, sites):
     boundary and the trunk carried it on: measured 0.6% of the outputs
     and 9.8% of the gradient elements on the materialised core with every
     site (q and k rounded ahead of the scores), up to 1.3% elsewhere; held
-    to 5% and 25%, where a float32 computation parts on nearly all.  T 40:
-    the flash chunk (16) and the Pallas key tile (128) then differ, so
-    CHUNK is set to the key tile."""
+    to 5% and 25%, where a float32 computation parts on nearly all.
+    BF16_CHUNK is set to the Pallas key tile, so the two chunk alike
+    whatever their defaults."""
     T, E = 40, 4
     if sites != "default":
         monkeypatch.setattr(jattn, "BF16_SITES", SITE_SETS[sites])
@@ -394,7 +394,7 @@ def test_apply_seq_bf16_matches_jax(monkeypatch, core, sites):
     if core == "flash":
         monkeypatch.setattr(jattn, "FLASH_MIN_T", 8)
         monkeypatch.setattr(attn, "FLASH_MIN_T", 8)
-        monkeypatch.setattr(cuda_attn, "CHUNK", pallas_attn._tiles(T)[1])
+        monkeypatch.setattr(cuda_attn, "BF16_CHUNK", pallas_attn._tiles(T)[1])
     jp, tp = _trunk(T)
     got, want, tg, jg = _apply_seq_pair(jp, tp, *_seq_inputs(T, E))
     assert got.dtype == np.float32

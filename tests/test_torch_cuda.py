@@ -671,10 +671,22 @@ def _plain_block(q, k, v, qe, ke, rel):
     return ca.unfold(o, q.shape), ca.unfold(l, q.shape)
 
 
+# The tile edges of both variants (a warp's 16 rows, a 64-row tile), every
+# head dim under each rel, layouts where the tile skip skips most tiles
+# (p_done 0.25) and none (one episode over the window), B*H 128 and the
+# X-ray shape.
+FLASH_EDGES = [
+    (1, 2, 2, 8, 0.1, 0), (15, 2, 2, 8, 0.1, 0), (17, 2, 2, 8, 0.1, 0),
+    (1030, 2, 2, 8, 0.02, -1),
+    *[(200, 2, 2, hd, 0.1, rel) for hd in (16, 32, 64) for rel in (-1, 0, 1)],
+    (1024, 2, 2, 8, 0.25, 0), (1024, 2, 2, 8, 0.0, 0),
+    (1024, 32, 4, 8, 0.02, 0), (2048, 16, 8, 64, 0.02, 0)]
+
+
 @pytest.mark.parametrize("T,B,H,hd,p_done,rel", [
     (12, 3, 2, 8, 0.25, 0), (130, 2, 2, 16, 0.05, 0),
     (200, 2, 2, 32, 0.1, -1), (100, 1, 2, 64, 0.1, 0),
-    (1030, 1, 1, 8, 0.02, 0), (70, 2, 2, 8, 0.1, 1)])
+    (1030, 1, 1, 8, 0.02, 0), (70, 2, 2, 8, 0.1, 1), *FLASH_EDGES])
 def test_flash_kernel_matches_plain(dev, T, B, H, hd, p_done, rel):
     from ppoc_tpu_torch.ops import cuda_attn as ca
 
@@ -738,7 +750,7 @@ def test_flash_refuses_what_the_kernel_does_not_take(dev):
 
 # --- K7's bf16 variant --------------------------------------------------------
 # Held to its plain versions run on the card (the forward with the kernel's
-# CHUNK): every output within two bf16 roundoffs (2^-7) of the leaf's
+# BF16_CHUNK): every output within two bf16 roundoffs (2^-7) of the leaf's
 # largest magnitude, and at most 1% of the elements apart by more than
 # 1e-5 of it.  The two sum in another order, so a p, ds or w near a bf16
 # rounding boundary, or a bf16 output, now and then rounds to the
@@ -768,17 +780,17 @@ def _bf16_case(dev, T, B, H, hd, p_done, seed=0):
     (12, 3, 2, 8, 0.25, 0), (130, 2, 2, 16, 0.05, 0),
     (200, 2, 2, 32, 0.1, -1), (100, 1, 2, 64, 0.1, 0),
     (1030, 1, 1, 8, 0.02, 0), (70, 2, 2, 8, 0.1, 1),
-    (1024, 4, 4, 8, 0.02, 0)])
+    (1024, 4, 4, 8, 0.02, 0), *FLASH_EDGES])
 def test_flash_bf16_kernel_matches_plain(dev, T, B, H, hd, p_done, rel):
     """The bf16 forward (out, lse float32) and backward (dq, dk, dv bf16)
-    against attention_plain_bf16(chunk=CHUNK) and the explicit plain
+    against attention_plain_bf16(chunk=BF16_CHUNK) and the explicit plain
     backward on the same bf16 inputs."""
     from ppoc_tpu_torch.ops import cuda_attn as ca
 
     (q, k, v), dout, g_lse, ep = _bf16_case(dev, T, B, H, hd, p_done)
     args = (q, k, v, ep, ep, rel, H)
     out, lse = ca.flash_fwd_kernel(*args)
-    out_p, lse_p = ca.attention_plain_bf16(*args, chunk=ca.CHUNK)
+    out_p, lse_p = ca.attention_plain_bf16(*args, chunk=ca.BF16_CHUNK)
     assert out.dtype == lse.dtype == torch.float32
     _bf16_agree(out, out_p)
     torch.testing.assert_close(lse, lse_p, rtol=0, atol=1e-5)
@@ -792,6 +804,24 @@ def test_flash_bf16_kernel_matches_plain(dev, T, B, H, hd, p_done, rel):
     for a, b in zip(got, want):
         assert a.dtype == torch.bfloat16
         _bf16_agree(a, b)
+
+
+@pytest.mark.parametrize("T,B,H,hd", [(1024, 4, 4, 8), (2048, 16, 8, 64)])
+def test_flash_bf16_check_sees_where_l_is_summed(dev, T, B, H, hd):
+    """The rounding control: a forward that summed l from bf16(p)
+    (attention_plain_bf16(round_l=True)) fails the check that the kernel
+    passes against its plain version, so the check sees that rounding
+    point."""
+    from ppoc_tpu_torch.ops import cuda_attn as ca
+
+    (q, k, v), _, _, ep = _bf16_case(dev, T, B, H, hd, 0.02)
+    args = (q, k, v, ep, ep, 0, H)
+    out, _ = ca.flash_fwd_kernel(*args)
+    want, _ = ca.attention_plain_bf16(*args)
+    control, _ = ca.attention_plain_bf16(*args, round_l=True)
+    _bf16_agree(out, want)
+    with pytest.raises(AssertionError):
+        _bf16_agree(control, want)
 
 
 def test_flash_bf16_is_deterministic_and_counted_apart(dev):
@@ -828,6 +858,12 @@ def test_flash_bf16_refuses_mixed_types(dev):
     dsum = ca.dsum_of(dout, out, None).contiguous()
     with pytest.raises(ValueError, match="dout"):
         ca.flash_dq_kernel(q, k, v, ep, ep, 0, 2, dout, dsum, lse)
+    # the bf16 kernels copy rows 16 bytes at a time: a view that starts
+    # off that alignment is refused by the library, not read
+    off = torch.empty(q.numel() + 8, dtype=q.dtype, device=dev)
+    q_off = off[1:q.numel() + 1].view(q.shape).copy_(q)
+    with pytest.raises(RuntimeError, match="K7 forward_bf16 failed"):
+        ca.flash_fwd_kernel(q_off, k, v, ep, ep, 0, 2)
 
 
 # --- the bf16 MLP products -----------------------------------------------------

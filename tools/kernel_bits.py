@@ -1,0 +1,143 @@
+"""Kernel outputs bit for bit against another checkout's build: K1's
+pendulum lane and K7's float32 variant.
+
+    python3 tools/kernel_bits.py --kernel k1|k7 --root OTHER --save FILE
+                                 [--time]
+    python3 tools/kernel_bits.py --kernel k1|k7 --compare FILE [--time]
+
+Launches the kernels of the checkout at ``--root`` (default: this one) on
+one CUDA device at fixed seeds and weights.  ``k1``: the rollout kernel
+(``ops/cuda_rollout.rollout_kernel``, pendulum lane) at 64 envs x 200
+steps with the V planes (the bench shape), 1024 x 200 (the throughput
+shape) and 64 x 40 from a carried state across the horizon.  ``k7``: the
+float32 forward, dq and dk/dv kernels (``ops/cuda_attn.flash_*_kernel``)
+at this checkout's ``chip_smoke.py`` timed shapes (the recall_xl minibatch
+and value pass, the X-ray shape) and a ring block of rel -1, same seeds.
+``--save`` writes every output with torch.save; ``--compare`` checks each
+against the saved one with torch.equal, prints one line per launch and
+exits 1 on any difference.  Use it to show that a change to a kernel's
+source left its arithmetic as it was.  ``--time`` also prints each
+launch's device time, with this checkout's ``chip_smoke.queued_ms`` (CUDA
+events around 20 launches queued behind a spin kernel): run parent,
+change, change, parent in one call to compare two builds on one card.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+
+
+def chip_smoke():
+    """This checkout's chip_smoke.py as a module."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  HERE / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def k1_launches(torch, cs, dev):
+    """name -> a launch of K1's pendulum lane returning its outputs."""
+    from ppoc_tpu_torch.models import mlp
+    from ppoc_tpu_torch.ops import cuda_rollout as cr
+
+    g = torch.Generator().manual_seed(0)
+    pol = mlp.init((3, 128, 128, 1), g, dev)
+    val = mlp.init((3, 128, 128, 1), g, dev)
+    log_std = torch.full((1,), -0.3, device=dev)
+    st0 = (torch.rand(64, 2, generator=g) * 4 - 2).to(dev)
+    steps0 = torch.full((64,), 180.0, device=dev)
+    runs = {
+        "bench 64x200, V planes": (pol, log_std, val, (7, 9), 64, 200),
+        "throughput 1024x200": (pol, log_std, None, (1, 2), 1024, 200),
+        "carried 64x40 across the horizon": (pol, log_std, val, (3, 4), 64,
+                                             40, "relu", st0, steps0),
+    }
+
+    def launch(args):
+        return lambda: {k: v for k, v in cr.rollout_kernel(
+            *args)._asdict().items() if v is not None}
+
+    return {name: launch(args) for name, args in runs.items()}
+
+
+def k7_launches(torch, cs, dev):
+    """name -> a launch of one of K7's float32 kernels returning its
+    outputs, on chip_smoke's cases (the backward from the forward's lse)."""
+    from ppoc_tpu_torch.ops import cuda_attn as ca
+
+    xl = cs.dones_of_rollout("recall_xl", 1024, 32, dev)
+    cases = {
+        "recall_xl minibatch": (cs.flash_case(1024, 4, 4, 8, xl[:, :4], 1,
+                                              dev), 0, 4),
+        "recall_xl value pass": (cs.flash_case(1024, 32, 4, 8, xl, 4, dev),
+                                 0, 4),
+        "X-ray": (cs.flash_case(2048, 16, 8, 64, cs.random_dones(
+            2048, 16, 0.02, 7, dev), 8, dev), 0, 8),
+        "ring block rel -1": (cs.flash_case(
+            1024, 4, 4, 8, cs.random_dones(1024, 4, 0.02, 9, dev), 11, dev,
+            k_dones=cs.random_dones(1024, 4, 0.02, 10, dev)), -1, 4),
+    }
+    runs = {}
+    for name, ((q, k, v, dout, g_lse, ep_q, ep_k), rel, H) in cases.items():
+        kargs = (q, k, v, ep_q, ep_k, rel, H)
+        out, lse = ca.flash_fwd_kernel(*kargs)
+        bargs = kargs + (dout, ca.dsum_of(dout, out, g_lse).contiguous(),
+                         lse)
+        runs[f"{name}, forward"] = lambda a=kargs: dict(
+            zip(("out", "lse"), ca.flash_fwd_kernel(*a)))
+        runs[f"{name}, dq"] = lambda a=bargs: {"dq": ca.flash_dq_kernel(*a)}
+        runs[f"{name}, dk/dv"] = lambda a=bargs: dict(
+            zip(("dk", "dv"), ca.flash_dkv_kernel(*a)))
+    return runs
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", choices=("k1", "k7"), required=True)
+    ap.add_argument("--root", default=str(HERE))
+    mode = ap.add_mutually_exclusive_group(required=True)
+    mode.add_argument("--save")
+    mode.add_argument("--compare")
+    ap.add_argument("--time", action="store_true")
+    args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.root).resolve()))
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    cs = chip_smoke()
+    dev = torch.device("cuda", 0)
+    launches = {"k1": k1_launches, "k7": k7_launches}[args.kernel](
+        torch, cs, dev)
+    got = {}
+    for name, fn in launches.items():
+        outs = fn()
+        torch.cuda.synchronize()
+        got[name] = {k: v.cpu() for k, v in outs.items()}
+    if args.time:
+        print(cs.card_line())
+        for name, fn in launches.items():
+            print(f"{name}: {cs.queued_ms(fn, 20):.4f} ms a launch "
+                  f"({args.root})", flush=True)
+    if args.save:
+        torch.save(got, args.save)
+        print(f"saved {len(got)} launches' outputs of {args.root} to "
+              f"{args.save}")
+        return 0
+    want = torch.load(args.compare)
+    bad = 0
+    for name, outs in want.items():
+        diff = [k for k, v in outs.items() if not torch.equal(got[name][k], v)]
+        bad += bool(diff)
+        print(f"{name}: {'identical' if not diff else 'DIFFER: ' + str(diff)}")
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
