@@ -8,11 +8,17 @@
 3. Bench path, kernels: K1 rollout (with the V planes, and with the
    metrics at the evaluation shape), K2 GAE, K3 value phase and K4 policy
    phase against their plain PyTorch versions on the card, at the bench
-   configuration's shapes, with TF32 off; prints both times.
+   configuration's shapes, with TF32 off; prints both times.  K3 and K4
+   also on the reference schedule's rows (PPOConfig(env="pendulum"): 15
+   envs x 200 steps, minibatch 64).  K3 and K4 run as one thread-block
+   cluster (csrc/update_cluster.cu); each check prints the cluster's
+   blocks, rows a block and shared memory.
 4. Bench path: Trainer(bench config).solve(-200, max_epochs=40) on the card
    (64 envs x 200 steps, minibatch 256, 4 fits per epoch, kernel_backend
-   "pallas"), with each kernel's launch count read around it; then two
-   epochs of the reference schedule PPOConfig(env="pendulum").
+   "pallas"), with each kernel's launch count read around it (one cluster
+   K3 and one cluster K4 a fit, none in global memory) and the wall per
+   epoch; then two epochs of the reference schedule PPOConfig(env=
+   "pendulum"), its K3 and K4 launches held to one a fit.
 5. Throughput path, kernels: K1 at 1024 envs, K2 at 200 x 1024 (past its
    shared-memory size, so the global-memory branch), and K5 (the
    whole-MLP forward and backward) at 8192 and 256 rows, each against its
@@ -155,6 +161,12 @@
    generic bf16 phase), and the whole phase against the plain version and
    the generic phase by distance; a second value phase on the same buffer
    ending at a lower mean loss; a step's device time by grid size.
+23. K3 and K4 as a cluster: the two cluster kernels' registers and spills
+   from nvcc.log; a step's device time of K3 on [3,128,128,1] by cluster
+   size (4, 8, 16) at minibatch 64, 256 and 2048; K3 at the fused gate's
+   edge (20 steps x 2048 rows drawn from the bench's value rows) against
+   its plain version at 1 and 20 steps, timed beside the plain version and
+   the generic phases (ppo.value_phase past the gate) on the same rows.
 
 Each phase's title line gives the seconds since the script started.
 Any failed check raises, so the script exits non-zero.  The last two lines
@@ -210,9 +222,9 @@ KERNELS = {
                     "mountain_car_norm", "acrobot", "reacher")},
     "gae_norm": ("ppoc_tpu_torch/csrc/gae.cu",
                  "ppoc_tpu/ops/pallas_gae.py:134"),
-    "value_phase": ("ppoc_tpu_torch/csrc/update.cu",
+    "value_phase": ("ppoc_tpu_torch/csrc/update_cluster.cu",
                     "ppoc_tpu/ops/pallas_update.py:396"),
-    "policy_phase": ("ppoc_tpu_torch/csrc/update.cu",
+    "policy_phase": ("ppoc_tpu_torch/csrc/update_cluster.cu",
                      "ppoc_tpu/ops/pallas_update.py:749"),
     "policy_phase_categorical": ("ppoc_tpu_torch/csrc/update.cu",
                                  "ppoc_tpu/ops/pallas_update.py:944"),
@@ -663,11 +675,17 @@ def check_phase(label, kernel, plain, state, cols, cfg, lr, extras,
     import torch
 
     from ppoc_tpu_torch.models import mlp
-    from ppoc_tpu_torch.ops import cuda_update as cu
+    from ppoc_tpu_torch.ops import _build, cuda_update as cu
 
     mb = cfg.minibatch_size
     n_p = cols[0].shape[0] // mb
     ns = len(state)
+    kind = {cu.value_phase_kernel: "value",
+            cu.policy_phase_kernel: "policy"}.get(kernel)
+    widths = mlp.dims(state[0])
+    if kind and cu.variant_bytes(widths, kind)[0] <= _build.smem_optin(
+            cols[0].device):
+        cluster_line(label, kind, widths, mb, cols[0].device)
     hp = cu.Hyper.of(lr, cfg.adam_beta1, cfg.adam_beta2, cfg.adam_eps)
     h_lr = cu.Hyper.of(1.01 * lr, cfg.adam_beta1, cfg.adam_beta2,
                        cfg.adam_eps)
@@ -3427,6 +3445,159 @@ def bigmb_phases(dev, counters, record, seeds=BIGMB_SEEDS):
               f"{times[kind]['generic_ms']:.4f} ms device", flush=True)
 
 
+# --- K3 and K4 as one thread-block cluster (slice 10) ------------------------
+
+# cluster_grid_times: the cluster sizes timed at each minibatch size
+CLUSTER_SIZES = (4, 8, 16)
+CLUSTER_MBS = (64, 256, 2048)
+
+
+def cluster_line(label: str, kind: str, widths, mb: int, dev) -> dict:
+    """Print and return how K3 (``kind`` "value") or K4 ("policy") with the
+    weights in shared memory launches on ``widths`` at minibatch ``mb``
+    (cuda_update.phase_cluster_plan)."""
+    from ppoc_tpu_torch.ops import cuda_update as cu
+
+    plan = cu.phase_cluster_plan(kind, widths, mb, device=dev)
+    print(f"  {label}: a cluster of {plan['cluster']} blocks x "
+          f"{plan['rows']} rows ({plan['sub_tiles']} sub-tiles of 32), "
+          f"{plan['threads']} threads and {plan['smem']} B of shared memory "
+          f"a block; the card holds {plan['max_active_clusters']} such "
+          f"clusters", flush=True)
+    return plan
+
+
+def cluster_resources() -> dict:
+    """{"value" | "policy": "N registers, S B spill stores, L B spill
+    loads"} of the two cluster kernels (csrc/update_cluster.cu), from the
+    build's nvcc.log (the compiler's -Xptxas -v report)."""
+    import re
+
+    from ppoc_tpu_torch.ops import _build
+
+    res, name = {}, None
+    for line in (_build.BUILD_DIR / "nvcc.log").read_text().splitlines():
+        m = re.search(r"Compiling entry function "
+                      r"'\S*cluster_phase_kernelILi(\d)E", line)
+        if m:
+            name = ("value", "policy")[int(m.group(1))]
+            continue
+        if re.search(r"Compiling entry function", line):
+            name = None
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if name and spill:
+            res[name] = (f"{spill.group(1)} B spill stores, "
+                         f"{spill.group(2)} B spill loads")
+        if name and regs:
+            res[name] = f"{regs.group(1)} registers, " + res.get(name, "")
+    if sorted(res) != ["policy", "value"]:
+        raise AssertionError(f"nvcc.log reports the cluster kernels {res}")
+    return res
+
+
+def cluster_grid_times(dev, steps: int = 40) -> dict:
+    """A step's device time of K3 on the bench's value net [3,128,128,1]
+    by cluster size (CLUSTER_SIZES, forced) at each of CLUSTER_MBS: a
+    launch of ``steps`` steps less one of none, over the steps
+    (queued_ms); the size the kernels take (cuda_update.CLUSTER) is
+    marked.  Returns {(mb, cluster): us a step}."""
+    import torch
+
+    from ppoc_tpu_torch.models import mlp
+    from ppoc_tpu_torch.ops import cuda_update as cu
+    from ppoc_tpu_torch.ops.adam import AdamState
+
+    h = cu.Hyper.of(3e-4, 0.9, 0.999, 1e-8)
+    widths = (3, 128, 128, 1)
+    g = torch.Generator().manual_seed(0)
+    params = mlp.init(widths, g, dev)
+    zeros = [(torch.zeros_like(w), torch.zeros_like(b)) for w, b in params]
+    opt = AdamState(zeros, zeros, 0)
+    out = {}
+    for mb in CLUSTER_MBS:
+        x = torch.randn(steps * mb, 3, generator=g).to(dev)
+        tgt = (10 * torch.randn(steps * mb, generator=g)).to(dev)
+        row = []
+        for c in CLUSTER_SIZES:
+            ms = [queued_ms(lambda n=n: cu.value_phase_kernel(
+                x[:n * mb], tgt[:n * mb], params, opt, n, mb, "relu", h,
+                cluster=c), 3) for n in (0, steps)]
+            out[mb, c] = 1e3 * (ms[1] - ms[0]) / steps
+            rule = "*" if c == cu.CLUSTER else ""
+            row.append(f"{c}{rule}: {out[mb, c]:.2f}")
+        print(f"  K3 {list(widths)}, minibatch {mb}, us a step by cluster "
+              f"size ({steps} steps less none; * the kernels' own): "
+              f"{', '.join(row)}", flush=True)
+    return out
+
+
+def cluster_gate_edge(cfg, ts, dev):
+    """K3 on the bench's value net at the fused gate's edge: GATE_STEPS
+    steps of GATE_MB rows, drawn with replacement from one fit's value
+    rows, held to the plain version by :func:`check_phase`'s 1- and
+    20-step checks, and the generic phases (ppo.value_phase past the gate:
+    per minibatch K5 forward, autograd through K5's backward, Adam) on the
+    same rows, wall and device time.  A reading for re-deriving
+    ppo.MAX_FUSED_MB; no path runs it.  Returns (max abs error, timings)."""
+    import torch
+
+    from ppoc_tpu_torch.algo import ppo
+    from ppoc_tpu_torch.data import buffer
+    from ppoc_tpu_torch.ops import cuda_update as cu
+
+    raw, tgt, _ = wide_rows(cfg, ts, (0x3C6EF372, 0xA54FF53A), 3, dev)
+    n = GATE_STEPS * GATE_MB
+    idx = torch.randint(0, tgt.numel(), (n,),
+                        generator=torch.Generator().manual_seed(8)).to(dev)
+    obs = raw.obs.reshape(tgt.numel(), -1)[idx].contiguous()
+    tgt = tgt.reshape(-1)[idx].contiguous()
+    edge = cfg.replace(minibatch_size=GATE_MB)
+    err, times = check_phase(
+        f"value phase (mb {GATE_MB})", cu.value_phase_kernel,
+        cu.value_phase_plain, (ts.v_params, ts.opt_v), (obs, tgt), edge,
+        cfg.lr_v, [()], None, against_float64=False)
+    zero = torch.zeros(n, device=dev)
+    buf = buffer.RowBuffer(obs, zero[:, None], zero, zero, tgt)
+    ids = torch.arange(n, device=dev).reshape(1, GATE_STEPS, GATE_MB)
+    fused = ppo.MAX_FUSED_MB
+    ppo.MAX_FUSED_MB = GATE_MB - 1     # the generic phases at these rows
+    try:
+        def generic():
+            return ppo.value_phase(edge, ts, buf, ids)
+        wall = timed_ms(generic, 3)
+        dev_ms = device_ms(generic, 1)
+    finally:
+        ppo.MAX_FUSED_MB = fused
+    print(f"  value phase, {GATE_STEPS} steps x {GATE_MB}: the cluster "
+          f"kernel {times['ms']:.4f} ms device; the generic phases "
+          f"{wall:.4f} ms wall, {dev_ms:.4f} ms device; the plain version "
+          f"{times['plain_ms']:.4f} ms device", flush=True)
+    return err, dict(times, generic_wall_ms=wall, generic_ms=dev_ms)
+
+
+def cluster_phases(dev, record):
+    """The cluster kernels' registers and spills, a step's time by cluster
+    size and minibatch size, and K3 at the fused gate's edge beside the
+    generic phases; records the gate's row."""
+    from ppoc_tpu_torch.algo.trainer import Trainer
+    from ppoc_tpu_torch.models import mlp
+
+    header("[K3 and K4 as a thread-block cluster: registers, a step's time "
+           "by cluster size, the fused gate's edge]")
+    for kind, res in cluster_resources().items():
+        print(f"  nvcc: the {kind} cluster kernel: {res}", flush=True)
+    cluster_grid_times(dev)
+    cfg = bench_config()
+    ts = Trainer(cfg, dev).state
+    vw = mlp.dims(ts.v_params)
+    err, times = cluster_gate_edge(cfg, ts, dev)
+    record("value_phase", "the fused gate's edge (not on a path; the "
+           "bench's rows)", [GATE_STEPS, GATE_MB] + vw, 0, err, times,
+           phase_bound(vw, GATE_STEPS, GATE_MB, 1))
+
+
 def main() -> int:
     import torch
 
@@ -3503,6 +3674,19 @@ def main() -> int:
     header("[K3 value phase, K4 policy phase]", flush=True)
     (k3_err, k3_t), (k4_err, k4_t) = check_phases(cfg, tr.state, raw, adv,
                                                   tgt, dev)
+    rcfg = PPOConfig(env="pendulum")
+    header(f"[K3, K4 on the reference schedule's rows: {rcfg.n_envs} envs x "
+           f"{rcfg.rollout_len} steps, mb {rcfg.minibatch_size}]")
+    rts = Trainer(rcfg, dev).state
+    _, _, (rv, rp) = wide_rows(rcfg, rts, (0x6A09E667, 0xBB67AE85), 4, dev)
+    rpol = rts.policy_params
+    k3r = check_value_phase(rcfg, rts, rv)
+    k4r = check_phase(
+        "policy phase (mb 64)", cuda_update.policy_phase_kernel,
+        cuda_update.policy_phase_plain,
+        (rpol["mlp"], rpol["log_std"], rts.opt_policy, rts.opt_log_std), rp,
+        rcfg, rcfg.lr_policy, [(rcfg.clip_eps, rcfg.ent_coeff),
+                               (rcfg.clip_eps, 0.01)], WHOLE_RATIO["K4"])
 
     header("[bench path: Trainer(bench_config).solve(-200, max_epochs=40)]",
           flush=True)
@@ -3526,6 +3710,15 @@ def main() -> int:
                                  "value_phase", "policy_phase")) < 1:
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
+    fits = res["epochs"] * cfg.fits_per_epoch
+    print(f"  wall per epoch {wall / res['epochs']:.3f} s; K3 (cluster) "
+          f"{launches['value_phase']}, K4 (cluster) "
+          f"{launches['policy_phase']} launches for {fits} fits", flush=True)
+    if (launches["value_phase"], launches["policy_phase"],
+            launches["value_phase_global"],
+            launches["policy_phase_global"]) != (fits, fits, 0, 0):
+        raise AssertionError(f"the bench solve must launch one cluster K3 "
+                             f"and one cluster K4 a fit: {launches}")
     if not all(torch.isfinite(t).all() for t in (
             mlp.flatten(tr.state.v_params),
             mlp.flatten(tr.state.policy_params["mlp"]),
@@ -3549,14 +3742,32 @@ def main() -> int:
 
     header("[reference schedule: PPOConfig(env='pendulum'), 2 epochs]",
           flush=True)
-    ref = Trainer(PPOConfig(env="pendulum"), dev)
+    ref = Trainer(rcfg, dev)
+    for c in counters:
+        c.reset()
     t0 = time.perf_counter()
     hist = ref.train(n_epochs=2, log=False)
     torch.cuda.synchronize()
+    ref_n = read_counts(counters)
     print(f"  R {[round(h['R'], 3) for h in hist]}, wall "
-          f"{time.perf_counter() - t0:.3f} s", flush=True)
+          f"{time.perf_counter() - t0:.3f} s, launches "
+          f"{count_diff({k: 0 for k in ref_n}, ref_n)}", flush=True)
     if not all(math.isfinite(h["R"]) for h in hist):
         raise AssertionError("non-finite eval return on the reference run")
+    ref_fits = 2 * rcfg.fits_per_epoch
+    if (ref_n["value_phase"], ref_n["policy_phase"]) != (ref_fits, ref_fits):
+        raise AssertionError(f"the reference schedule must launch one "
+                             f"cluster K3 and one K4 a fit: {ref_n}")
+    n_v = rcfg.n_epochs_value * rcfg.num_minibatches
+    n_p = rcfg.n_epochs_policy * rcfg.num_minibatches
+    ref_path = (f"reference schedule, {rcfg.n_envs} envs x "
+                f"{rcfg.rollout_len} steps, mb {rcfg.minibatch_size}")
+    record("value_phase", ref_path, [n_v, rcfg.minibatch_size],
+           ref_n["value_phase"], *k3r,
+           phase_bound(widths, n_v, rcfg.minibatch_size, 1))
+    record("policy_phase", ref_path, [n_p, rcfg.minibatch_size],
+           ref_n["policy_phase"], *k4r,
+           phase_bound(widths, n_p, rcfg.minibatch_size, 3))
 
     tcfg = tpu_preset("pendulum")
     T, E, mb = tcfg.rollout_len, tcfg.n_envs, tcfg.minibatch_size
@@ -3705,6 +3916,7 @@ def main() -> int:
     wide_phases(dev, counters, record)
     bf16_phases(dev, counters, record)
     bigmb_phases(dev, counters, record)
+    cluster_phases(dev, record)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
           f"build included", flush=True)

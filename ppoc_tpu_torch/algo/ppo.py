@@ -390,11 +390,14 @@ def kernel_fit(cfg: PPOConfig, optin: int,
                 ("K5 (whole-MLP forward and backward, value net)", (vw,),
                  cuda_mlp.variant_bytes(vw))]
     if _fused(cfg, _stab_value_ok(cfg)):
-        plan.append(("K3 (value phase)", (vw,), cuda_update.variant_bytes(vw)))
+        plan.append(("K3 (value phase)", (vw,),
+                     cuda_update.variant_bytes(vw, "value")))
     if _fused(cfg, _stab_policy_ok(cfg)):
         plan.append(("K6 (categorical policy phase)" if spec.discrete
                      else "K4 (policy phase)", (pw,),
-                     cuda_update.variant_bytes(pw)))
+                     cuda_update.variant_bytes(
+                         pw, "categorical policy" if spec.discrete
+                         else "policy")))
     out = []
     for name, nets, nbytes in plan:
         fits = [0 <= n <= optin for n in nbytes]

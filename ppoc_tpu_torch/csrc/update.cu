@@ -1,5 +1,7 @@
 // K3, K4 and K6: a whole PPO update phase (every epoch x minibatch step) as
-// one kernel launch.
+// one kernel launch of one block.  K6 runs here in both variants; K3 and K4
+// only with the weights in global memory: nets whose weights fit in shared
+// memory run K3 and K4 as a thread-block cluster (update_cluster.cu).
 //
 // Replaces ppoc_tpu/ops/pallas_update.py `value_phase_fused` ->
 // `_run_value_phase` -> `_value_kernel`/`_value_kernel_unrolled` (K3),
@@ -15,23 +17,22 @@
 //
 // What bounds it on the card: the steps are serial through Adam (500 value
 // and 200 policy steps per fit at the bench shape), and one step of a
-// [3,128,128,1] net on 256 rows is ~25 MFLOP in small dependent products,
-// far too little to spread over many SMs without a grid-wide barrier per
-// layer.  So the phase runs on ONE SM and is bound by that SM's FP32 FMA
-// issue rate, plus one __syncthreads per layer.
+// [3,128,128,1] net on 256 rows is ~25 MFLOP in small dependent products.
+// The phase runs on ONE SM and is bound by that SM's FP32 FMA issue rate,
+// plus one __syncthreads per layer.
 //
 // What the design does about it: one persistent block of 1024 threads
 // walks every step with no launch between steps; the weights stay in
 // shared memory for the whole phase (69.6 KB padded at the bench shape);
 // activations, gradients and the Adam moments live in a global scratch the
 // wrapper allocates, which stays in the 50 MB L2; the products are
-// register-tiled block loops (mlp_step.cuh).  Tensor cores and a
-// thread-block cluster (distributed shared memory) are later steps.
+// register-tiled block loops (mlp_step.cuh).
 //
 // Nets larger than one block's shared memory (2x256: [10,256,256,1] is
 // 69,387 padded floats, 277.5 KB, against 227 KB) take a second variant of
 // each kernel, picked by size at the launch (GLOBAL_W, one body per
-// kernel): the weights live in the output params in global memory
+// kernel; K3's and K4's bodies are instantiated only with it): the weights
+// live in the output params in global memory
 // (`load_state` copies p_in there, Adam updates them in place), and each
 // product stages its weight operand SLICE = 32 rows at a time through 33
 // KB of shared memory (`sliced_gemm`): the forward W's rows, the dX
@@ -44,6 +45,7 @@
 // the same bits.  Each round of 32 warp tiles re-stages W: one round at mb
 // 64 x 256 columns, 32 rounds at the 2048-row gate.
 #include "mlp_step.cuh"
+#include "phase_args.cuh"
 
 using namespace ppoc;
 
@@ -297,25 +299,6 @@ categorical_policy_phase_kernel(const PhaseDev a) {
 
 }  // namespace
 
-// Host-side argument block; ppoc_tpu_torch/ops/cuda_update.py mirrors it
-// field for field as a ctypes.Structure.  Value phases leave the policy
-// fields null, policy phases `tgt`; the categorical phase reads its actions
-// from `act_idx` and leaves `act` and the log_std fields null.
-struct PhaseArgs {
-  const float *x, *tgt, *act, *lp_old, *adv;
-  const float *p_in, *m_in, *v_in;
-  float *p_out, *m_out, *v_out;
-  const float *ls_in, *mls_in, *vls_in;
-  float *ls_out, *mls_out, *vls_out;
-  float *scratch, *stats;
-  const int32_t* act_idx;
-  const int* dims;   // host array of n_layers + 1 widths
-  int n_layers, activation, n_steps, mb, t0, t0_ls, k_act;
-  int variant;       // 0: weights in shared memory, 1: in global memory
-  float two_over_mb, lp0, ent0, clip_lo, clip_hi, ent_coeff;
-  AdamHyper hyper;
-};
-
 extern "C" int ppoc_phase_args_size() { return (int)sizeof(PhaseArgs); }
 
 // Dynamic shared memory of `variant`: the padded weights, or one staged
@@ -343,18 +326,21 @@ extern "C" int ppoc_phase_sizes(const PhaseArgs* a, long* sizes) {
 
 enum PhaseKind { VALUE, POLICY, CATEGORICAL };
 
-template <bool GLOBAL_W>
-static void (*phase_kernel(PhaseKind kind))(const PhaseDev) {
-  return kind == VALUE    ? value_phase_kernel<GLOBAL_W>
-         : kind == POLICY ? policy_phase_kernel<GLOBAL_W>
-                          : categorical_policy_phase_kernel<GLOBAL_W>;
+// K3 and K4 launch here only with the weights in global memory: with the
+// weights in shared memory they run as a cluster (update_cluster.cu).
+static void (*phase_kernel(PhaseKind kind, int variant))(const PhaseDev) {
+  if (variant == 0) return categorical_policy_phase_kernel<false>;
+  return kind == VALUE    ? value_phase_kernel<true>
+         : kind == POLICY ? policy_phase_kernel<true>
+                          : categorical_policy_phase_kernel<true>;
 }
 
 static int launch_phase(const PhaseArgs* a, cudaStream_t stream,
                         PhaseKind kind) {
   PhaseDev d{};
   if (!make_padded(&d.pn, a->n_layers, a->dims, a->mb)) return cudaErrorInvalidValue;
-  if (a->variant < 0 || a->variant > 1) return cudaErrorInvalidValue;
+  if (a->variant < 0 || a->variant > 1 || (a->variant == 0 && kind != CATEGORICAL))
+    return cudaErrorInvalidValue;
   if (kind != VALUE && (a->k_act < 1 || a->k_act > MAX_ACT ||
                         d.pn.net.dim[a->n_layers] != a->k_act))
     return cudaErrorInvalidValue;
@@ -371,8 +357,7 @@ static int launch_phase(const PhaseArgs* a, cudaStream_t stream,
   d.clip_lo = a->clip_lo; d.clip_hi = a->clip_hi; d.ent_coeff = a->ent_coeff;
   d.hyper = a->hyper;
   const int smem = (int)phase_smem(d.pn, a->variant);
-  auto kernel = a->variant == 0 ? phase_kernel<false>(kind)
-                                : phase_kernel<true>(kind);
+  auto kernel = phase_kernel(kind, a->variant);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;

@@ -1,5 +1,4 @@
-"""K3, K4 and K6: whole update phases (``csrc/update.cu``) and their plain
-versions.
+"""K3, K4 and K6: whole update phases and their plain versions.
 
 Counterparts of ``ppoc_tpu/ops/pallas_update.py`` ``value_phase_fused``
 (K3), ``policy_phase_fused`` (K4, Gaussian) and
@@ -8,14 +7,23 @@ the rows of every epoch x minibatch step in order beforehand (as the JAX
 wrappers do); one launch then runs every step: forward, the loss gradient
 in closed form, backward and Adam.
 
-Each kernel has two variants (``_build.VARIANTS``): the weights in one
-block's shared memory, or, for nets larger than that (2x256: the
-[10,256,256,1] value net is 277.5 KB padded against the H100's 227 KB), in
-global memory, where Adam updates the output params in place and each
-product stages its weight operand 32 rows at a time.  The launch takes the
-first whose shared memory fits (:func:`variant_bytes` gives the same bytes
-from the widths alone); ``variant=`` forces one for tests.  The two sum every output in the same order, so on a net both
-take they give the same bits.  The launch counts are kept per variant.
+Each kernel has two variants (``_build.VARIANTS``): the weights in shared
+memory, or, for nets larger than that (2x256: the [10,256,256,1] value net
+is 277.5 KB padded against the H100's 227 KB), in global memory, where
+Adam updates the output params in place and each product stages its
+weight operand 32 rows at a time (``csrc/update.cu``, one block).  With
+the weights in shared memory K6 runs as one block (``csrc/update.cu``) and
+K3 and K4 as one thread-block cluster (``csrc/update_cluster.cu``): each
+block of the cluster holds a replica of the weights and its own rows of
+every minibatch (CLUSTER blocks whatever the minibatch size;
+:func:`phase_cluster_plan` gives the whole launch), and the blocks sum
+their weight gradients over distributed shared memory in rank order.  The launch takes the first variant whose shared memory fits
+(:func:`variant_bytes` gives the same bytes from the widths alone);
+``variant=`` forces one, and ``cluster=`` the cluster kernels' block
+count, for tests and measurements.  K6's two variants sum every output in
+the same order, so on a net both take they give the same bits; K3's and
+K4's sum the weight gradients in different orders.  The launch counts are
+kept per variant.
 
 Adam here is the kernels' own: bias corrections 1 - exp(t log b) folded
 into the step size, eps outside the sqrt; K4 runs a second Adam for
@@ -63,6 +71,13 @@ policy_bf16_launches = _build.LaunchCount("policy_phase_bf16")
 
 _SLICE = 32          # csrc/mlp_step.cuh SLICE
 _STATIC_SMEM = 1024  # the kernels' static shared memory, rounded up
+
+# csrc/update_cluster.cu: blocks in K3's and K4's cluster (the most a
+# forced size may take), rows of a sub-tile, a row's extras and stats (row
+# stride), the largest action dim
+CLUSTER, CLUSTER_MAX = 16, 16
+CLUSTER_SUB = 32
+_ES, _RSS, _NS, _MAX_ACT = 12, 12, 9, 8
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -401,16 +416,46 @@ def policy_phase_bf16_plain(obs_seq, act_seq, lp_seq, adv_seq, params,
 
 # --- the kernels ----------------------------------------------------------
 
-def variant_bytes(widths: Sequence[int]) -> List[int]:
-    """Shared memory one launch on the net ``widths`` needs in each variant
-    (``_build.VARIANTS``), in bytes, the kernels' static share included:
-    the padded weights (each W_l row d_{l+1} + 1 floats, plus the biases),
-    or one staged slice of 32 rows of the widest layer + 1.  The same as
-    csrc/update.cu ``phase_smem`` (a card test holds the two together);
-    the minibatch size does not enter."""
-    padded = sum(a * (b + 1) + b for a, b in zip(widths[:-1], widths[1:]))
-    staged = _SLICE * (max(widths) + 1)
-    return [4 * n + _STATIC_SMEM for n in (padded, staged)]
+def _r4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def cluster_bytes(widths: Sequence[int]) -> int:
+    """Dynamic shared memory of one block of K3's or K4's cluster kernel
+    on the net ``widths`` in a cluster of CLUSTER blocks
+    (csrc/update_cluster.cu ``smem_floats``), in bytes: the weights and the
+    gradient partial, each W_l with r4(d_l) rows of 4 * odd floats and
+    each b_l r4(d_{l+1}); the activations of a 32-row sub-tile (+8); two
+    sub-tiles of rows and their extras; the row stats, the block's stats
+    and log_std's state; m and v of the block's Adam slice (a 1/CLUSTER
+    share of the padded layout, in float4s; a smaller forced cluster takes
+    more).  The minibatch size does not enter."""
+    hs = [_r4(d) for d in widths]
+    padded = sum(hs[l] * 4 * (((widths[l + 1] + 3) // 4) | 1) + hs[l + 1]
+                 for l in range(len(widths) - 1))
+    sub = CLUSTER_SUB
+    floats = (2 * padded + sub * sum(hs[1:]) + 8 + 2 * sub * hs[0]
+              + 2 * sub * _ES + sub * _RSS + _r4(_NS) + 4 * _MAX_ACT
+              + 8 * -(-(padded // 4) // CLUSTER))
+    return 4 * floats
+
+
+def variant_bytes(widths: Sequence[int], kind: str = "value") -> List[int]:
+    """Shared memory one launch of the ``kind`` phase ("value", "policy"
+    or "categorical policy") on the net ``widths`` needs in each variant
+    (``_build.VARIANTS``), in bytes, with the kernels' static share: with
+    the weights in shared memory, K3's and K4's cluster block
+    (:func:`cluster_bytes`) or K6's padded weights (each W_l row d_{l+1} + 1
+    floats, plus the biases); in global memory, one staged slice of 32 rows
+    of the widest layer + 1.  The same as the kernels' size functions (a
+    card test holds them together); the minibatch size does not enter."""
+    if kind == "categorical policy":
+        first = 4 * sum(a * (b + 1) + b for a, b in zip(widths[:-1],
+                                                      widths[1:]))
+    else:
+        first = cluster_bytes(widths)
+    staged = 4 * _SLICE * (max(widths) + 1)
+    return [n + _STATIC_SMEM for n in (first, staged)]
 
 
 class _PhaseArgs(ctypes.Structure):
@@ -423,7 +468,7 @@ class _PhaseArgs(ctypes.Structure):
         + [("dims", ctypes.POINTER(ctypes.c_int))]
         + [(n, ctypes.c_int) for n in (
             "n_layers", "activation", "n_steps", "mb", "t0", "t0_ls",
-            "k_act", "variant")]
+            "k_act", "variant", "cluster")]
         + [(n, ctypes.c_float) for n in (
             "two_over_mb", "lp0", "ent0", "clip_lo", "clip_hi", "ent_coeff")]
         + [("hyper", Hyper)]
@@ -436,12 +481,19 @@ def _declare() -> ctypes.CDLL:
         lib.ppoc_phase_args_size.restype = ctypes.c_int
         if lib.ppoc_phase_args_size() != ctypes.sizeof(_PhaseArgs):
             raise RuntimeError("PhaseArgs layout differs between "
-                               "csrc/update.cu and cuda_update.py")
+                               "csrc/phase_args.cuh and cuda_update.py")
         args = [ctypes.POINTER(_PhaseArgs)]
         lib.ppoc_phase_sizes.argtypes = args + [ctypes.POINTER(ctypes.c_long)]
         lib.ppoc_phase_sizes.restype = ctypes.c_int
+        lib.ppoc_phase_cluster_smem.argtypes = args
+        lib.ppoc_phase_cluster_smem.restype = ctypes.c_long
+        lib.ppoc_phase_cluster_plan.argtypes = args + [
+            ctypes.c_int, ctypes.POINTER(ctypes.c_long)]
+        lib.ppoc_phase_cluster_plan.restype = ctypes.c_int
         for fn in (lib.ppoc_value_phase, lib.ppoc_policy_phase,
-                   lib.ppoc_policy_phase_categorical):
+                   lib.ppoc_policy_phase_categorical,
+                   lib.ppoc_value_phase_cluster,
+                   lib.ppoc_policy_phase_cluster):
             fn.argtypes = args + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib._phase_declared = True
@@ -455,26 +507,84 @@ _KINDS = {"value": ("ppoc_value_phase", value_launches,
           "categorical policy": ("ppoc_policy_phase_categorical",
                                  categorical_launches,
                                  categorical_global_launches)}
+# K3's and K4's shared-memory variant: (the plan's kind, the launcher)
+_CLUSTER = {"value": (0, "ppoc_value_phase_cluster"),
+            "policy": (1, "ppoc_policy_phase_cluster")}
+_CLUSTER_KEYS = ("cluster", "rows", "sub_tiles", "threads", "smem",
+                 "max_active_clusters")
+
+
+def _cluster_plan(lib, args: _PhaseArgs, kind: str, widths) -> dict:
+    """The cluster launch of ``args`` (see :func:`phase_cluster_plan`);
+    raises if the card cannot hold one such cluster."""
+    out = (ctypes.c_long * len(_CLUSTER_KEYS))()
+    what = (f"{kind} phase cluster kernel for the net {list(widths)}, mb "
+            f"{args.mb}, cluster {args.cluster or CLUSTER}")
+    _build.check(lib, lib.ppoc_phase_cluster_plan(
+        ctypes.byref(args), _CLUSTER[kind][0], out), what)
+    plan = dict(zip(_CLUSTER_KEYS, out))
+    if plan["max_active_clusters"] < 1:
+        raise ValueError(f"{what}: a cluster of {plan['cluster']} blocks of "
+                         f"{plan['smem']} B shared memory cannot be "
+                         f"scheduled on this card "
+                         f"(cudaOccupancyMaxActiveClusters 0)")
+    return plan
+
+
+def phase_cluster_plan(kind: str, widths: Sequence[int], mb: int,
+                       cluster: Optional[int] = None, device=None) -> dict:
+    """How K3 (``kind`` "value") or K4 ("policy") launches with the weights
+    in shared memory, on the net ``widths`` and minibatch ``mb``: blocks in
+    the cluster (``cluster``, or CLUSTER), rows a block,
+    32-row sub-tiles a block, threads a block, dynamic shared-memory bytes
+    and how many such clusters the card holds at once.  Raises if the card
+    holds none."""
+    lib = _declare()
+    dims = (ctypes.c_int * len(widths))(*widths)
+    args = _PhaseArgs(dims=dims, n_layers=len(widths) - 1, mb=mb,
+                      cluster=cluster or 0)
+    with torch.cuda.device(device if device is not None else 0):
+        return _cluster_plan(lib, args, kind, widths)
 
 
 def _launch(kind: str, args: _PhaseArgs, widths, dev, keep,
-            variant: Optional[str]) -> None:
-    """Size the scratch, pick the variant by shared memory (or take
-    ``variant``), launch, count.  ``keep`` holds the tensors and host arrays
-    the launch reads until it is enqueued."""
+            variant: Optional[str], cluster: Optional[int] = None) -> None:
+    """Pick the variant by shared memory (or take ``variant``), launch,
+    count: K3 and K4 with the weights in shared memory as a cluster of
+    ``cluster`` blocks (None: CLUSTER; a size forces that variant), the
+    rest as one block with the scratch sized here.  ``keep`` holds the
+    tensors and host arrays the launch reads until it is enqueued."""
     lib = _declare()
+    if cluster is not None:
+        if kind not in _CLUSTER or variant == "global":
+            raise ValueError(f"cluster= sizes K3's and K4's cluster kernels; "
+                             f"this {kind} phase launches one block")
+        if not 1 <= cluster <= CLUSTER_MAX:
+            raise ValueError(f"cluster {cluster}: the cluster kernels take "
+                             f"1-{CLUSTER_MAX} blocks")
+        args.cluster, variant = cluster, "smem"
     sizes = (ctypes.c_long * 3)()
     if not lib.ppoc_phase_sizes(ctypes.byref(args), sizes):
         raise ValueError("update kernels take 1-8 layers and mb >= 1")
+    first = (lib.ppoc_phase_cluster_smem(ctypes.byref(args))
+             if kind in _CLUSTER else sizes[1])
     args.variant = _build.pick_variant(
-        [n + _STATIC_SMEM for n in sizes[1:]], _build.smem_optin(dev),
-        variant, f"{kind} phase kernel for the net {list(widths)}")
-    scratch = torch.empty(sizes[0], dtype=torch.float32, device=dev)
-    args.scratch = scratch.data_ptr()
+        [n + _STATIC_SMEM for n in (first, sizes[2])],
+        _build.smem_optin(dev), variant,
+        f"{kind} phase kernel for the net {list(widths)}")
     name, smem_count, global_count = _KINDS[kind]
-    _build.check(lib, getattr(lib, name)(ctypes.byref(args),
-                                         _build.stream_of(dev)),
-                 f"{kind} phase kernel")
+    if args.variant == 0 and kind in _CLUSTER:
+        with torch.cuda.device(dev):
+            plan = _cluster_plan(lib, args, kind, widths)
+            _build.check(lib, getattr(lib, _CLUSTER[kind][1])(
+                ctypes.byref(args), _build.stream_of(dev)),
+                f"{kind} phase cluster kernel ({plan['cluster']} blocks)")
+    else:
+        scratch = torch.empty(sizes[0], dtype=torch.float32, device=dev)
+        args.scratch = scratch.data_ptr()
+        _build.check(lib, getattr(lib, name)(ctypes.byref(args),
+                                             _build.stream_of(dev)),
+                     f"{kind} phase kernel")
     (global_count if args.variant else smem_count).n += 1
     del keep
 
@@ -502,10 +612,12 @@ def _common_args(x, params, opt: AdamState, n_steps: int, mb: int,
 
 def value_phase_kernel(obs_seq, tgt_seq, params, opt: AdamState,
                        n_steps: int, mb: int, activation: str, hyper: Hyper,
-                       variant: Optional[str] = None):
+                       variant: Optional[str] = None,
+                       cluster: Optional[int] = None):
     """Launch K3; same arguments and results as value_phase_plain.  The
     variant is the first whose shared memory fits, unless ``variant``
-    (``"smem"`` or ``"global"``) names one."""
+    (``"smem"`` or ``"global"``) names one; ``cluster`` sets the block
+    count of the shared-memory variant's cluster (default CLUSTER)."""
     dev = obs_seq.device
     tgt_seq = tgt_seq.reshape(-1).contiguous()
     _build.require(tgt_seq, "targets", (n_steps * mb,), device=dev)
@@ -514,7 +626,7 @@ def value_phase_kernel(obs_seq, tgt_seq, params, opt: AdamState,
     stats = torch.empty(1, dtype=torch.float32, device=dev)
     args.tgt, args.stats = tgt_seq.data_ptr(), stats.data_ptr()
     args.two_over_mb = 2.0 / mb
-    _launch("value", args, widths, dev, keep, variant)
+    _launch("value", args, widths, dev, keep, variant, cluster)
     return new_params, new_opt, stats[0] / (n_steps * mb)
 
 
@@ -522,9 +634,10 @@ def policy_phase_kernel(obs_seq, act_seq, lp_seq, adv_seq, params, log_std,
                         opt_policy: AdamState, opt_log_std: AdamState,
                         n_steps: int, mb: int, activation: str, hyper: Hyper,
                         clip_eps: float, ent_coeff: float,
-                        variant: Optional[str] = None):
+                        variant: Optional[str] = None,
+                        cluster: Optional[int] = None):
     """Launch K4; same arguments and results as policy_phase_plain
-    (``variant``: see :func:`value_phase_kernel`)."""
+    (``variant``, ``cluster``: see :func:`value_phase_kernel`)."""
     dev = obs_seq.device
     k = log_std.shape[0]
     rows = n_steps * mb
@@ -553,7 +666,7 @@ def policy_phase_kernel(obs_seq, act_seq, lp_seq, adv_seq, params, log_std,
     args.ent0 = 0.5 * k * (1.0 + _LOG_2PI)
     args.clip_lo, args.clip_hi = 1.0 - clip_eps, 1.0 + clip_eps
     args.ent_coeff = ent_coeff
-    _launch("policy", args, widths, dev, keep, variant)
+    _launch("policy", args, widths, dev, keep, variant, cluster)
     return (new_params, ls_out[0], new_opt,
             AdamState(ls_out[1], ls_out[2], opt_log_std.t + n_steps),
             stats[0] / n_steps, stats[1] / n_steps)

@@ -157,10 +157,12 @@ def test_kernel_fit_refuses_512_and_names_k1(env):
 
 
 def test_kernel_fit_k3_boundary_on_3_h_h_1():
-    """K3 keeps [3,h,h,1] in shared memory up to h 236 (57,588 padded
-    floats and the 1 KB static share: 231,376 B) and takes the global
-    variant at 237 (58,069 floats: 233,300 B)."""
-    for h, floats, variant in ((236, 57588, "smem"), (237, 58069, "global")):
+    """K3's cluster block (cuda_update.cluster_bytes: the weights and their
+    gradient partial, a 32-row activation tile, the rows, its Adam slice)
+    keeps [3,h,h,1] in shared memory up to h 140 (55,188 floats and the 1
+    KB static share: 221,776 B) and takes the global variant at 141
+    (59,196 floats: 237,808 B)."""
+    for h, floats, variant in ((140, 55188, "smem"), (141, 59196, "global")):
         k3 = ppo.kernel_fit(PPOConfig(env="pendulum", hidden=(h, h)),
                             H100_OPTIN)[3]
         assert k3.kernel.startswith("K3") and k3.widths == ((3, h, h, 1),)
@@ -170,13 +172,23 @@ def test_kernel_fit_k3_boundary_on_3_h_h_1():
 
 def test_variant_bytes_follow_the_layouts():
     """The padded weights of the 2x256 nets (the H100 lets a block opt in
-    to 232,448 B): the value net [10,256,256,1] is 69,387 floats, the
-    policy net [10,256,256,2] 69,644; the global variant stages 32 rows of
-    the widest layer + 1.  K1 and K5 as their card tests' boundary
-    formulas (tests/test_torch_cuda.py test_variant_is_chosen_by_size)."""
-    assert cuda_update.variant_bytes((10, 256, 256, 1)) == [
-        4 * 69387 + 1024, 4 * 32 * 257 + 1024]
-    assert cuda_update.variant_bytes((10, 256, 256, 2))[0] == 4 * 69644 + 1024
+    to 232,448 B), K6's one-block layout: the value net [10,256,256,1] is
+    69,387 floats, the policy net [10,256,256,2] 69,644; K3's and K4's
+    cluster block holds the weights and their gradient partial in a
+    float4-padded layout (71,220 floats each) besides its tiles and Adam
+    slice, 169,828 floats; the global variant stages 32 rows of the widest
+    layer + 1.  K1 and K5 as their card tests' boundary formulas
+    (tests/test_torch_cuda.py test_variant_is_chosen_by_size)."""
+    staged = 4 * 32 * 257 + 1024
+    assert cuda_update.variant_bytes((10, 256, 256, 1),
+                                     "categorical policy") == [
+        4 * 69387 + 1024, staged]
+    assert cuda_update.variant_bytes((10, 256, 256, 2),
+                                     "categorical policy")[0] == (
+        4 * 69644 + 1024)
+    for kind in ("value", "policy"):
+        assert cuda_update.variant_bytes((10, 256, 256, 1), kind) == [
+            4 * 169828 + 1024, staged]
     for h in (159, 160):
         w = (3, h, h, 1)
         assert cuda_rollout.variant_bytes(w, w)[0] == (

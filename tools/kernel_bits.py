@@ -1,9 +1,10 @@
 """Kernel outputs bit for bit against another checkout's build: K1's
-pendulum lane and K7's float32 variant.
+pendulum lane, K7's float32 variant, and the one-block update phases.
 
-    python3 tools/kernel_bits.py --kernel k1|k7 --root OTHER --save FILE
+    python3 tools/kernel_bits.py --kernel k1|k7|phases --root OTHER
+                                 --save FILE [--time]
+    python3 tools/kernel_bits.py --kernel k1|k7|phases --compare FILE
                                  [--time]
-    python3 tools/kernel_bits.py --kernel k1|k7 --compare FILE [--time]
 
 Launches the kernels of the checkout at ``--root`` (default: this one) on
 one CUDA device at fixed seeds and weights.  ``k1``: the rollout kernel
@@ -13,6 +14,10 @@ shape) and 64 x 40 from a carried state across the horizon.  ``k7``: the
 float32 forward, dq and dk/dv kernels (``ops/cuda_attn.flash_*_kernel``)
 at this checkout's ``chip_smoke.py`` timed shapes (the recall_xl minibatch
 and value pass, the X-ray shape) and a ring block of rel -1, same seeds.
+``phases``: the update phases that run as one block
+(``ops/cuda_update``): K3 and K4 with the nets in global memory, and K6
+in both variants, on the bench nets (20 steps of 256 rows) and at 2x256
+(10 steps of 64), on seeded rows and weights.
 ``--save`` writes every output with torch.save; ``--compare`` checks each
 against the saved one with torch.equal, prints one line per launch and
 exits 1 on any difference.  Use it to show that a change to a kernel's
@@ -96,9 +101,71 @@ def k7_launches(torch, cs, dev):
     return runs
 
 
+def phase_launches(torch, cs, dev):
+    """name -> a launch of a one-block update phase returning its outputs
+    (the trained tensors, Adam's moments and the stats)."""
+    from ppoc_tpu_torch.models import mlp
+    from ppoc_tpu_torch.ops import cuda_update as cu
+    from ppoc_tpu_torch.ops.adam import AdamState
+
+    h = cu.Hyper.of(3e-4, 0.9, 0.999, 1e-8)
+
+    def state(widths, g):
+        params = mlp.init(widths, g, dev)
+        m = [(0.01 * torch.randn(w.shape, generator=g).to(dev),
+              0.01 * torch.randn(b.shape, generator=g).to(dev))
+             for w, b in params]
+        v = [(x * x, y * y) for x, y in m]
+        return params, AdamState(m, v, 5)
+
+    def outputs(out):
+        """Every output as a flat tensor, an Adam state as its m and v."""
+        flat = {}
+        for i, x in enumerate(out):
+            parts = ({"m": x.m, "v": x.v} if isinstance(x, AdamState)
+                     else {"": x})
+            for k, t in parts.items():
+                flat[f"{i}{k}"] = (mlp.flatten(t) if isinstance(t, list)
+                                   else t.reshape(-1))
+        return flat
+
+    runs = {}
+    for hidden, n, mb in (((128, 128), 20, 256), ((256, 256), 10, 64)):
+        g = torch.Generator().manual_seed(hidden[0])
+        rows = n * mb
+        x = torch.randn(rows, 3, generator=g).to(dev)
+        tgt = (10 * torch.randn(rows, generator=g)).to(dev)
+        act = torch.randn(rows, 1, generator=g).to(dev)
+        cls = torch.randint(0, 2, (rows, 1), generator=g,
+                            dtype=torch.int32).to(dev)
+        lp = (0.3 * torch.randn(rows, generator=g)).to(dev)
+        adv = torch.randn(rows, generator=g).to(dev)
+        vp, vo = state((3, *hidden, 1), g)
+        pp, po = state((3, *hidden, 1), g)
+        cp, co = state((3, *hidden, 2), g)
+        ls = torch.full((1,), -0.5, device=dev)
+        lso = AdamState(torch.full((1,), 0.01, device=dev),
+                        torch.full((1,), 1e-4, device=dev), 7)
+        tag = f"{hidden[0]}x2, {n} x {mb}"
+        runs[f"K3 global, {tag}"] = lambda a=(x, tgt, vp, vo, n, mb): outputs(
+            cu.value_phase_kernel(*a, "relu", h, variant="global"))
+        runs[f"K4 global, {tag}"] = lambda a=(x, act, lp, adv, pp, ls, po,
+                                              lso, n, mb): outputs(
+            cu.policy_phase_kernel(*a, "relu", h, 0.2, 0.01,
+                                   variant="global"))
+        for variant in ("smem", "global") if hidden == (128, 128) else (
+                "global",):
+            runs[f"K6 {variant}, {tag}"] = lambda a=(
+                x, cls, lp, adv, cp, co, n, mb), v=variant: outputs(
+                cu.policy_phase_categorical_kernel(*a, "relu", h, 0.2, 0.01,
+                                                   variant=v))
+    return runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("k1", "k7"), required=True)
+    ap.add_argument("--kernel", choices=("k1", "k7", "phases"),
+                    required=True)
     ap.add_argument("--root", default=str(HERE))
     mode = ap.add_mutually_exclusive_group(required=True)
     mode.add_argument("--save")
@@ -113,8 +180,8 @@ def main() -> int:
         raise SystemExit("needs a CUDA device")
     cs = chip_smoke()
     dev = torch.device("cuda", 0)
-    launches = {"k1": k1_launches, "k7": k7_launches}[args.kernel](
-        torch, cs, dev)
+    launches = {"k1": k1_launches, "k7": k7_launches,
+                "phases": phase_launches}[args.kernel](torch, cs, dev)
     got = {}
     for name, fn in launches.items():
         outs = fn()
