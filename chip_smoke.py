@@ -6,9 +6,12 @@
    a CUDA device.
 2. Build: compiles ppoc_tpu_torch/csrc/*.cu with nvcc (sm_90a).
 3. Bench path, kernels: K1 rollout (with the V planes, and with the
-   metrics at the evaluation shape), K2 GAE, K3 value phase and K4 policy
-   phase against their plain PyTorch versions on the card, at the bench
-   configuration's shapes, with TF32 off; prints both times.  K3 and K4
+   metrics at the evaluation shape; every K1 row prints the tile, envs a
+   block, its launch took), then a step's device time of K1 at 64 x 200
+   by forced tile (1, 2, 4, 8: rollout_grid_times), K2 GAE, K3 value
+   phase and K4 policy phase against their plain PyTorch versions on the
+   card, at the bench configuration's shapes, with TF32 off; prints both
+   times.  K3 and K4
    also on the reference schedule's rows (PPOConfig(env="pendulum"): 15
    envs x 200 steps, minibatch 64).  K3 and K4 run as one thread-block
    cluster (csrc/update_cluster.cu); each check prints the cluster's
@@ -106,8 +109,11 @@
    (each step from the kernel's state against float64, chained launches
    against one launch bit for bit, the whole phase within its
    WHOLE_RATIO row) and launched in its global-memory variant; K3 for 20
-   steps at minibatch 2048, the fused gate's edge, against the plain
-   version; each timed beside its plain version.
+   steps at minibatch 2048, the fused gate's edge, held the same way (its
+   whole phase's distance printed only); each timed beside its plain
+   version.  K3 and K4 here, and K6 here and in phase 7: the signed lean
+   of one step's gradient against the plain version's (LEAN_TOL), with a
+   control (the plain gradient 8 ulps toward zero) that must fail.
 18. The two 2x256 paths under the fused gate: REACHER_REF for 3 epochs
    by phase (eval R up by more than 5) and CARTPOLE_WIDE's
    solve(475, max_epochs=10), which must solve; each phase's launches
@@ -164,9 +170,10 @@
 23. K3 and K4 as a cluster: the two cluster kernels' registers and spills
    from nvcc.log; a step's device time of K3 on [3,128,128,1] by cluster
    size (4, 8, 16) at minibatch 64, 256 and 2048; K3 at the fused gate's
-   edge (20 steps x 2048 rows drawn from the bench's value rows) against
-   its plain version at 1 and 20 steps, timed beside the plain version and
-   the generic phases (ppo.value_phase past the gate) on the same rows.
+   edge (20 steps x 2048 rows drawn from the bench's value rows) as the
+   bench's phases are held (its whole phase's distance printed only),
+   timed beside the plain version and the generic phases
+   (ppo.value_phase past the gate) on the same rows.
 
 Each phase's title line gives the seconds since the script started.
 Any failed check raises, so the script exits non-zero.  The last two lines
@@ -267,8 +274,23 @@ KERNELS = {
 WHOLE_RATIO = {"K3": 0.5, "K4": 0.5, "K6": 0.75,
                "K3 2x256": 0.16, "K4 2x256": 0.83, "K6 2x256": 0.23}
 # check_phase's step-by-step limit: one kernel step against one float64
-# step from the same state, beyond twice the plain float32 step's distance
+# step from the same state, beyond twice the plain float32 step's
+# distance.  In K3 and K4 on ReLU nets a step this flags is held again,
+# against the float64 steps with every decision that float32 rounding
+# could flip taken either way (:func:`gate_band`): a ReLU gate or clip
+# branch within GATE_SLACK times the float32 forward's largest error of
+# its edge; at most MAX_ROW_FLIPS of them in one row (2**k evaluations of
+# the row)
 STEP_TOL = 2e-7
+GATE_SLACK = 4
+MAX_ROW_FLIPS = 10
+# the phases' signed lean (see LEAN_TOL): each layer's gradient (the first
+# Adam moment of one step from zero moments) against the plain version's,
+# pooled over the first LEAN_STEPS minibatches; the control moves the plain
+# gradient LEAN_ULPS float32 ulps toward zero (a lean of ~6.6e-7), which
+# the check must flag
+LEAN_STEPS = 3
+LEAN_ULPS = 8
 # H100 SXM peaks (NVIDIA data sheet, 700 W): FP32 outside the tensor cores,
 # HBM3 bandwidth.  Every kernel of the port computes in plain FP32.
 PEAK_FP32 = 67e12
@@ -448,6 +470,17 @@ def timings(kernel, plain, reps: int, plain_reps: int, warm: bool = True):
             "plain_ms": device_ms(plain, plain_reps, warm)}
 
 
+def rollout_timings(kernel, plain, reps: int, plain_reps: int,
+                    warm: bool = True):
+    """:func:`timings` of a K1 launch, with the envs a block ("tile") and
+    the grid ("blocks") its timed launches took."""
+    from ppoc_tpu_torch.ops import cuda_rollout
+
+    out = timings(kernel, plain, reps, plain_reps, warm)
+    launch = cuda_rollout.last_launch       # the kernel's last timed launch
+    return dict(out, tile=launch["tile"], blocks=launch["blocks"])
+
+
 def max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
@@ -539,7 +572,7 @@ def check_rollout(cfg, ts, env, dev):
     if abs(float(eps.mean())) > 0.03 or abs(float(eps.std()) - 1) > 0.03:
         raise AssertionError(f"sampling noise not N(0,1): {eps.mean()}, "
                              f"{eps.std()}")
-    times = timings(
+    times = rollout_timings(
         lambda: cr.rollout_kernel(pp["mlp"], pp["log_std"], vp, seed, E, T),
         lambda: cr.rollout_plain(pp["mlp"], pp["log_std"], vp, seed, E, T),
         20, 1, warm=False)
@@ -559,9 +592,34 @@ def check_rollout(cfg, ts, env, dev):
                       abs(float(sum_r / n_eps - want.R)) / abs(float(want.R)),
                       abs(float(sum_j / n_eps - want.J)) / abs(float(want.J))),
                   1e-4)
-    m_times = timings(lambda: cr.rollout_kernel(*margs),
-                      lambda: cr.rollout_plain(*margs), 20, 1, warm=False)
+    m_times = rollout_timings(lambda: cr.rollout_kernel(*margs),
+                              lambda: cr.rollout_plain(*margs), 20, 1,
+                              warm=False)
     return (raw, max(errs.values()), times), (raw_m, m_err, m_times)
+
+
+def rollout_grid_times(ts, dev, E: int = 64, T: int = 200) -> dict:
+    """A step's device time of K1's pendulum lane with the V planes on the
+    bench nets at E x T, by forced tile (cuda_rollout.TILES): a launch of
+    T steps less one of none, over the steps (queued_ms); the tile the
+    launch takes by itself (cuda_rollout.tile_for) is marked.  Returns
+    {tile: us a step}."""
+    from ppoc_tpu_torch.ops import cuda_rollout as cr
+
+    pp, vp = ts.policy_params, ts.v_params
+    out, row = {}, []
+    cr.rollout_kernel(pp["mlp"], pp["log_std"], vp, (3, 4), E, 0)
+    own = cr.last_launch["tile"]
+    for tile in cr.TILES:
+        ms = [queued_ms(lambda n=n: cr.rollout_kernel(
+            pp["mlp"], pp["log_std"], vp, (3, 4), E, n, tile=tile), 5)
+            for n in (0, T)]
+        out[tile] = 1e3 * (ms[1] - ms[0]) / T
+        row.append(f"{tile}{'*' if tile == own else ''} "
+                   f"({-(-E // tile)} blocks): {out[tile]:.3f}")
+    print(f"  K1 pendulum, V planes, {E} envs: us a step by tile ({T} steps "
+          f"less none; * the launch's own): {', '.join(row)}", flush=True)
+    return out
 
 
 def check_gae(cfg, raw, dev):
@@ -643,7 +701,7 @@ def check_value_phase(cfg, ts, vcols, **whole):
 
 def check_phase(label, kernel, plain, state, cols, cfg, lr, extras,
                 whole_ratio, whole_tol=None, whole_stats_tol=1e-4,
-                against_float64=True):
+                lean=False):
     """A whole update phase kernel against its plain version on one fit's
     pre-gathered rows ``cols``; returns (max abs error, timings).  K3:
     ``state`` = (params, Adam) and ``extras`` [()]; K4: (params, log_std,
@@ -663,15 +721,19 @@ def check_phase(label, kernel, plain, state, cols, cfg, lr, extras,
     float32 step from that state (on a step where a row lies within
     rounding of a ReLU gate, any float32 step parts from float64, by up to
     1.3e-5), and the chained launches must equal the single launch bit for
-    bit.  Loosely, as a whole: the kernel's distance
-    from float64 (L2) must stay under ``whole_ratio`` times the distance
-    of the 1% learning-rate run (WHOLE_RATIO), its loss (and entropy)
-    within ``whole_stats_tol`` of the plain version's and, with
-    ``whole_tol``, its weights within that of the plain version's.  The
-    whole-phase verdict comes last, after the step-by-step one.  With
-    ``against_float64`` false only the 1- and 20-step checks against the
-    plain version run (``whole_ratio`` unused): rows beside the path's own
-    (PERF.md, PR 6)."""
+    bit.  In K3 and K4 on ReLU nets a step this flags, and step 0, are
+    held again, against the float64 steps with the gates and clip
+    branches within rounding taken either way (:func:`gate_band`), and
+    there the float64 step with the learning rate 1% high must fail that
+    hold.  Loosely, as a whole: the kernel's distance from float64 (L2)
+    must stay under ``whole_ratio`` times the distance of the 1%
+    learning-rate run
+    (WHOLE_RATIO; ``None``: printed only, for rows that have no reading to
+    set it from), its loss (and entropy) within ``whole_stats_tol`` of the
+    plain version's and, with ``whole_tol``, its weights within that of
+    the plain version's.  The whole-phase verdict comes last, after the
+    step-by-step one.  ``lean``: also the signed lean of one step's
+    gradient (:func:`phase_lean`)."""
     import torch
 
     from ppoc_tpu_torch.models import mlp
@@ -715,9 +777,8 @@ def check_phase(label, kernel, plain, state, cols, cfg, lr, extras,
             p_err = max(p_err, check(f"{what}: weights",
                                      max_err(weights(k), weights(pl)), tol))
             check(f"{what}: {stats}", stats_err(k, pl), tol)
-    if not against_float64:
-        return p_err, timings(lambda: run(kernel, n_p),
-                              lambda: run(plain, n_p), 5, 1)
+    if lean:
+        phase_lean(label, run, kernel, plain, state)
     k, pl = run(kernel, n_p), run(plain, n_p)
     if whole_tol is not None:
         check(f"{label}, {n_p} steps: weights", max_err(weights(k),
@@ -746,34 +807,290 @@ def check_phase(label, kernel, plain, state, cols, cfg, lr, extras,
                        run(plain, 1, cast=to_double, hyper=h_lr))
     print(f"  {label}, step 0: a 1% learning-rate error moves the weights "
           f"by {lr_step:.3e}", flush=True)
-    local, st = [], state      # (kernel step, plain float32 step) errors
+
+    banded = (plain in (cu.value_phase_plain, cu.policy_phase_plain)
+              and cfg.activation == "relu")
+
+    def held_at_gates(st, s, k1, own):
+        """The kernel step's and the lr +1% float64 step's distance
+        outside :func:`gate_band` at step ``s``, each beyond twice the
+        plain float32 step's ``own``, and the decisions within rounding."""
+        band, n_near = gate_band(
+            st, [c[s * mb:(s + 1) * mb] for c in cols], hp, extras[0])
+        own = outside(weights(own), band)
+        fault = run(plain, 1, cast=to_double, hyper=h_lr, st=st, s=s)
+        return (outside(weights(k1), band) - 2 * own,
+                outside(weights(fault), band) - 2 * own, n_near)
+
+    local, held, st = [], [], state   # (kernel, plain step errors, excess)
     for s in range(n_p):
         k1 = run(kernel, 1, st=st, s=s)[:ns]
         x1 = run(plain, 1, cast=to_double, st=st, s=s)
-        local.append((step_err(k1, x1), step_err(run(plain, 1, st=st, s=s),
-                                                 x1)))
+        p1 = run(plain, 1, st=st, s=s)
+        err, own = step_err(k1, x1), step_err(p1, x1)
+        excess = err - 2 * own
+        if banded and (s == 0 or excess > STEP_TOL):
+            at_gates, fault, n_near = held_at_gates(st, s, k1, p1)
+            held.append((s, n_near, excess, at_gates, fault))
+            excess = min(excess, at_gates)
+        local.append((err, own, excess))
         st = k1
-    errs = sorted(e for e, _ in local)
-    over = [(e, p) for e, p in local if e > STEP_TOL]
+    errs = sorted(e for e, _, _ in local)
+    over = [(e, p) for e, p, _ in local if e > STEP_TOL]
     print(f"  {label}: one step from the kernel's state vs float64: median "
           f"{errs[n_p // 2]:.3e}, max {errs[-1]:.3e}; {len(over)} of {n_p} "
           f"steps over {STEP_TOL:.0e}, where the plain float32 step is off "
           f"by {[f'{p:.3e}' for _, p in over]}", flush=True)
+    for s, n_near, excess, at_gates, fault in held:
+        print(f"  {label}, step {s}: {n_near} decisions within rounding; "
+              f"beyond twice the plain float32 step's, the kernel step's "
+              f"distance from float64 {excess:.3e}, from the float64 steps "
+              f"with those either way {at_gates:.3e}; the float64 "
+              f"step with lr +1%'s from them {fault:.3e} (must exceed "
+              f"{STEP_TOL:.0e})", flush=True)
+        if not fault > STEP_TOL:
+            raise AssertionError(
+                f"{label}, step {s}: the float64 step with lr +1% lies "
+                f"within {STEP_TOL} of the float64 steps with the "
+                f"decisions within rounding either way ({fault}): no "
+                f"yardstick")
     p_err = max(p_err, errs[-1])
     check(f"{label}, each of {n_p} steps from the kernel's state vs one "
-          f"float64 step, beyond twice the plain float32 step's distance",
-          max(e - 2 * p for e, p in local), STEP_TOL, what="max excess")
+          f"float64 step, beyond twice the plain float32 step's distance"
+          + (" (or from the float64 steps with the decisions within "
+             "rounding either way)" if banded else ""),
+          max(x for _, _, x in local), STEP_TOL, what="max excess")
     if not torch.equal(weights(st), weights(k)):
         raise AssertionError(f"{label}: {n_p} chained one-step launches "
                              f"differ from one {n_p}-step launch")
     print(f"  {label}: {n_p} chained one-step launches equal one "
           f"{n_p}-step launch bit for bit", flush=True)
-    check(f"{label}, {n_p} steps: kernel's distance from float64 over "
-          f"the lr +1% run's", d_k / d_lr, whole_ratio, what="ratio")
+    if whole_ratio is not None:
+        check(f"{label}, {n_p} steps: kernel's distance from float64 over "
+              f"the lr +1% run's", d_k / d_lr, whole_ratio, what="ratio")
     check(f"{label}, {n_p} steps: {stats}", stats_err(k, pl),
           whole_stats_tol)
     return p_err, timings(lambda: run(kernel, n_p), lambda: run(plain, n_p),
                           5, 1)
+
+
+def gate_band(state, rows, hyper, extra=()):
+    """The float64 step of one K3 or K4 minibatch from ``state``, with
+    every decision within float32 rounding taken either way: ((lowest,
+    highest) of each weight over those steps, flattened as
+    ``check_phase``'s weights, in float64; the number of such decisions).
+    K3: ``state`` (ReLU net, Adam), ``rows`` (obs, targets); K4: ``state``
+    (net, log_std, Adam, log_std's Adam), ``rows`` (obs, actions, old
+    log-probs, advantages), ``extra`` (clip_eps, ent_coeff), as the plain
+    versions take them.
+
+    A decision is a ReLU gate whose float64 pre-activation lies within
+    GATE_SLACK times the largest error of the float32 forward in its
+    layer, and in K4 a row's clip branch whose float64 ratio lies within
+    GATE_SLACK times the float32 ratios' largest error of a clip edge.  A
+    row's decisions are taken every way together (2**k evaluations of its
+    gradient); rows add to the gradient independently, so each gradient
+    element ranges over its base value plus the sum of the rows' ranges.
+    Each weight's step is a function of its own gradient element alone
+    with one turning point, so its range is that of the step at both
+    ends, at the base and at the turning point where it lies between
+    them."""
+    import itertools
+
+    import torch
+
+    from ppoc_tpu_torch.ops import cuda_update as cu
+
+    policy = len(state) == 4
+    params, opts = state[0], state[2:] if policy else state[1:]
+    W = [w.double() for w, _ in params]
+    B = [b.double() for _, b in params]
+    L, mb = len(params), rows[0].shape[0]
+    cols = [c.double() for c in rows]
+    x = cols[0]
+
+    def forward(ws, bs, h):
+        """The hidden layers' pre-activations, and the output."""
+        zs = []
+        for w, b in zip(ws[:-1], bs[:-1]):
+            zs.append(h @ w + b)
+            h = torch.relu(zs[-1])
+        return zs, h @ ws[-1] + bs[-1]
+
+    def apart(a, b):
+        return float((a - b.double()).abs().max())
+
+    z64, y64 = forward(W, B, x)
+    z32, y32 = forward([w for w, _ in params], [b for _, b in params],
+                       rows[0])
+    near = [z.abs() <= GATE_SLACK * apart(z, y) for z, y in zip(z64, z32)]
+    if policy:
+        ls = state[1].double()
+        clip_eps, ent_coeff = extra
+        lp0 = -0.5 * ls.shape[0] * math.log(2 * math.pi)
+
+        def ratio(mu, log_std, act, lp):
+            z = (act - mu) * torch.exp(-log_std)
+            return torch.exp(lp0 - log_std.sum() - 0.5 * (z * z).sum(dim=1)
+                             - lp), z
+
+        r64 = ratio(y64, ls, cols[1], cols[2])[0]
+        r32 = ratio(y32, state[1], rows[1], rows[2])[0]
+        to_edge = torch.minimum((r64 - (1 - clip_eps)).abs(),
+                                (r64 - (1 + clip_eps)).abs())
+        near_clip = to_edge <= GATE_SLACK * apart(r64, r32)
+        clip = (r64 * cols[3]
+                <= torch.clamp(r64, 1 - clip_eps, 1 + clip_eps) * cols[3])
+    else:
+        near_clip = torch.zeros(mb, dtype=torch.bool, device=x.device)
+        clip = None
+
+    def grad(i, masks, unclipped):
+        """The flat float64 gradient of the rows ``i`` with the hidden
+        gates ``masks`` and (K4) the unclipped branches ``unclipped``, as
+        the plain version's loss over ``mb`` rows gives it."""
+        hs, h = [], x[i]
+        for l in range(L - 1):
+            h = torch.where(masks[l], h @ W[l] + B[l], 0.0)
+            hs.append(h)
+        y = h @ W[-1] + B[-1]
+        if policy:
+            r, z = ratio(y, ls, cols[1][i], cols[2][i])
+            dlogp = -(cols[3][i] * r / mb) * unclipped
+            g = dlogp[:, None] * z * torch.exp(-ls)
+            tail = [(dlogp[:, None] * (z * z - 1.0)).sum(dim=0)]
+        else:
+            g = (2.0 / mb) * (y[:, 0] - cols[1][i])[:, None]
+            tail = []
+        out = [None] * (2 * L)
+        for l in range(L - 1, -1, -1):
+            out[2 * l] = (x[i] if l == 0 else hs[l - 1]).T @ g
+            out[2 * l + 1] = g.sum(dim=0)
+            if l > 0:
+                g = (g @ W[l].T) * masks[l - 1]
+        return torch.cat([o.reshape(-1) for o in out + tail])
+
+    base = [z > 0 for z in z64]
+    g0 = grad(slice(None), base, clip)
+    if policy:
+        g0[-ls.shape[0]:] -= ent_coeff
+    lo, hi = torch.zeros_like(g0), torch.zeros_like(g0)
+    n_near = 0
+    for r in torch.cat([m.any(dim=1).nonzero()[:, 0] for m in near]
+                       + [near_clip.nonzero()[:, 0]]).unique().tolist():
+        flips = [(l, u) for l in range(L - 1)
+                 for u in near[l][r].nonzero()[:, 0].tolist()]
+        flips += [None] if bool(near_clip[r]) else []    # the clip branch
+        if len(flips) > MAX_ROW_FLIPS:
+            raise AssertionError(f"row {r}: {len(flips)} decisions within "
+                                 f"rounding (at most {MAX_ROW_FLIPS})")
+        n_near += len(flips)
+        own = [m[r:r + 1] for m in base]
+        own_clip = clip[r:r + 1] if policy else None
+        g_r = grad(slice(r, r + 1), own, own_clip)
+        r_lo, r_hi = torch.zeros_like(g0), torch.zeros_like(g0)
+        for which in itertools.product((False, True), repeat=len(flips)):
+            masks, unclipped = [m.clone() for m in own], own_clip
+            for at, f in zip(flips, which):
+                if f and at is None:
+                    unclipped = ~own_clip
+                elif f:
+                    masks[at[0]][0, at[1]] = ~masks[at[0]][0, at[1]]
+            d = grad(slice(r, r + 1), masks, unclipped) - g_r
+            r_lo, r_hi = torch.minimum(r_lo, d), torch.maximum(r_hi, d)
+        lo, hi = lo + r_lo, hi + r_hi
+
+    def flat(trees):
+        return [t.double().clone() for tree in trees for t in
+                (tree if isinstance(tree, torch.Tensor) else
+                 [x for pair in tree for x in pair])]
+
+    P = flat([params] + ([state[1]] if policy else []))
+    M, V = flat([o.m for o in opts]), flat([o.v for o in opts])
+    split = len(P) - policy     # the net's tensors, then log_std's
+
+    def step(g):
+        p, m, v = ([t.clone() for t in ts] for ts in (P, M, V))
+        gs = [d.view_as(t) for d, t in zip(g.split([t.numel() for t in p]),
+                                           p)]
+        for o, part in zip(opts, (slice(None, split), slice(split, None))):
+            cu._adam_(p[part], gs[part], m[part], v[part], o.t + 1, hyper)
+        return torch.cat([t.reshape(-1) for t in p])
+
+    # Adam's step m'/sqrt(v') (eps aside) turns where the gradient is
+    # (1 - b1) b2 v / (b1 (1 - b2) m)
+    m = torch.cat([t.reshape(-1) for t in M])
+    v = torch.cat([t.reshape(-1) for t in V])
+    turn = torch.nan_to_num(hyper.omb1 * hyper.b2 * v
+                            / (hyper.b1 * hyper.omb2 * m))
+    turn = torch.minimum(torch.maximum(turn, g0 + lo), g0 + hi)
+    steps = torch.stack([step(g0 + lo), step(g0 + hi), step(g0),
+                         step(turn)])
+    return (steps.min(dim=0).values, steps.max(dim=0).values), n_near
+
+
+def outside(w, band) -> float:
+    """How far the weights ``w`` lie outside ``band`` (lowest, highest),
+    at most over the elements."""
+    import torch
+
+    lo, hi = band
+    w = w.double()
+    return float(torch.maximum(lo - w, w - hi).clamp_min(0).max())
+
+
+def phase_lean(label, run, kernel, plain, state):
+    """The signed lean (see LEAN_TOL) of one phase step's gradient against
+    the plain version's: from zero Adam moments the step's first moment is
+    (1 - beta1) times the gradient, so per layer (W and b together)
+    sum((m_kernel - m_plain) * sign(m_plain)) / sum(|m_plain|), pooled over
+    the first LEAN_STEPS minibatches of the rows; below zero is toward
+    zero.  The kernel's largest |lean| must stay within LEAN_TOL; the
+    control, the plain gradient moved LEAN_ULPS ulps toward zero, must
+    lean past it.  ``run``: check_phase's launcher."""
+    import torch
+
+    from ppoc_tpu_torch.ops import adam
+    from ppoc_tpu_torch.ops.adam import AdamState
+
+    fresh = tuple(adam.init(x.m) if isinstance(x, AdamState) else x
+                  for x in state)
+    i = next(j for j, x in enumerate(state)
+             if isinstance(x, AdamState) and isinstance(x.m, list))
+    L = len(state[0])
+    num = {"kernel": [0.0] * L, "control": [0.0] * L}
+    den = [0.0] * L
+    for s in range(LEAN_STEPS):
+        mk = run(kernel, 1, st=fresh, s=s)[i].m
+        mp = run(plain, 1, st=fresh, s=s)[i].m
+        for l in range(L):
+            b = torch.cat([x.reshape(-1) for x in mp[l]])
+            a = torch.cat([x.reshape(-1) for x in mk[l]])
+            c = b.clone()
+            for _ in range(LEAN_ULPS):
+                c = torch.nextafter(c, torch.zeros_like(c))
+            sign = b.double().sign()
+            den[l] += float(b.double().abs().sum())
+            num["kernel"][l] += float(((a.double() - b.double()) * sign)
+                                      .sum())
+            num["control"][l] += float(((c.double() - b.double()) * sign)
+                                       .sum())
+    leans = {k: [n / d for n, d in zip(v, den)] for k, v in num.items()}
+    print(f"  {label}: one step's gradient, lean by layer pooled over "
+          f"{LEAN_STEPS} minibatches: kernel "
+          + ", ".join(f"{x:+.3e}" for x in leans["kernel"])
+          + f" (|lean| at most {LEAN_TOL:.1e}); control ({LEAN_ULPS} ulps "
+          f"toward zero) " + ", ".join(f"{x:+.3e}" for x in leans["control"]),
+          flush=True)
+    if not max(abs(x) for x in leans["kernel"]) <= LEAN_TOL:
+        raise AssertionError(f"{label}: the kernel's gradient leans "
+                             f"{leans['kernel']}")
+    if not min(abs(x) for x in leans["control"]) > LEAN_TOL:
+        raise AssertionError(f"{label}: the lean check passes a gradient "
+                             f"{LEAN_ULPS} ulps toward zero: "
+                             f"{leans['control']}")
+    print(f"  {label}: the control fails the lean check, as it must",
+          flush=True)
 
 
 def check_mlp(params, x, activation: str, dev):
@@ -1046,8 +1363,9 @@ def check_discrete_rollout(lane: str, ts, E: int, T: int, with_v: bool,
         check("R, J sums vs the trajectory (relative)", max(
             abs(float(sum_r / n_eps - want.R)) / abs(float(want.R)),
             abs(float(sum_j / n_eps - want.J)) / abs(float(want.J))), 1e-4)
-    times = timings(lambda: cr.rollout_kernel(*args),
-                    lambda: cr.rollout_plain(*args), 20, 1, warm=False)
+    times = rollout_timings(lambda: cr.rollout_kernel(*args),
+                            lambda: cr.rollout_plain(*args), 20, 1,
+                            warm=False)
     return raw, max(errs.values()), times
 
 
@@ -1779,8 +2097,9 @@ def check_lane(lane: str, ts, E: int, T: int, with_v: bool, seed, dev,
                   / max(1.0, abs(float(want.R))),
                   abs(float(sum_j / n_eps - want.J))
                   / max(1.0, abs(float(want.J)))), 1e-4)
-    times = timings(lambda: cr.rollout_kernel(*args),
-                    lambda: cr.rollout_plain(*args), 10, 1, warm=False)
+    times = rollout_timings(lambda: cr.rollout_kernel(*args),
+                            lambda: cr.rollout_plain(*args), 10, 1,
+                            warm=False)
     return raw, max(errs.values()), times, variant
 
 
@@ -2269,9 +2588,10 @@ def wide_rows(cfg, ts, seed, draw_seed: int, dev):
 def check_gate_edge(cfg, ts, raw, tgt, dev):
     """K3 with the 2x256 value net at the fused gate's edge: GATE_STEPS
     steps of GATE_MB rows (drawn from one fit's rows with replacement; 32
-    rounds of warp tiles a product, each re-staging W), held to the plain
-    version by :func:`check_phase`'s 1- and 20-step checks; returns (max
-    abs error, timings)."""
+    rounds of warp tiles a product, each re-staging W), held as
+    :func:`check_phase` holds a phase (the whole phase's distance from
+    float64 printed only: no reading sets a limit at this shape); returns
+    (max abs error, timings)."""
     import torch
 
     from ppoc_tpu_torch.ops import cuda_update as cu
@@ -2284,8 +2604,7 @@ def check_gate_edge(cfg, ts, raw, tgt, dev):
         cu.value_global_launches, cu.value_launches,
         f"value phase (2x256, mb {GATE_MB})", cu.value_phase_kernel,
         cu.value_phase_plain, (ts.v_params, ts.opt_v), cols,
-        cfg.replace(minibatch_size=GATE_MB), cfg.lr_v, [()], None,
-        against_float64=False)
+        cfg.replace(minibatch_size=GATE_MB), cfg.lr_v, [()], None)
 
 
 def reacher_ref_path(counters):
@@ -2371,14 +2690,15 @@ def wide_phases(dev, counters, record):
     k3 = check_global_phase(
         cu.value_global_launches, cu.value_launches, "value phase (2x256)",
         cu.value_phase_kernel, cu.value_phase_plain, (rts.v_params, rts.opt_v),
-        vcols, rcfg, rcfg.lr_v, [()], WHOLE_RATIO["K3 2x256"])
+        vcols, rcfg, rcfg.lr_v, [()], WHOLE_RATIO["K3 2x256"], lean=True)
     k4 = check_global_phase(
         cu.policy_global_launches, cu.policy_launches,
         "policy phase (2x256, 2 action dims)", cu.policy_phase_kernel,
         cu.policy_phase_plain,
         (pol["mlp"], pol["log_std"], rts.opt_policy, rts.opt_log_std), pcols,
         rcfg, rcfg.lr_policy, [(rcfg.clip_eps, rcfg.ent_coeff),
-                               (rcfg.clip_eps, 0.01)], WHOLE_RATIO["K4 2x256"])
+                               (rcfg.clip_eps, 0.01)], WHOLE_RATIO["K4 2x256"],
+        lean=True)
     header(f"[K3 at the fused gate's edge: {GATE_STEPS} steps x {GATE_MB}, "
            f"{vw}]")
     edge = check_gate_edge(rcfg, rts, raw, tgt, dev)
@@ -2386,23 +2706,22 @@ def wide_phases(dev, counters, record):
            f"on {cvw}, K6 on {cpw}]")
     _, _, (cvcols, cpcols) = wide_rows(ccfg, cts, (0x2545F491, 0x9E3779B9),
                                        2, dev)
-    # against the plain version only: on these rows one kernel step (of
-    # 460) parts from float64 by 1.35e-6 where cuBLAS's parts by 2.8e-8, a
-    # ReLU gate within rounding; the mirror case (cuBLAS's step off, the
-    # kernel's not) is as common at 2x256 (tools/policy_phase_drift.py,
-    # PERF.md), so the float64 walk holds the path's own K3 rows above
+    # on these rows one kernel step (of 460) parts from float64 by 1.35e-6
+    # where cuBLAS's parts by 2.8e-8, a ReLU gate within rounding: the walk
+    # holds such a step to the float64 steps with those gates either way
     k3c = check_global_phase(
         cu.value_global_launches, cu.value_launches,
         "value phase (2x256, cartpole rows)", cu.value_phase_kernel,
         cu.value_phase_plain, (cts.v_params, cts.opt_v), cvcols, ccfg,
-        ccfg.lr_v, [()], None, against_float64=False)
+        ccfg.lr_v, [()], WHOLE_RATIO["K3 2x256"])
     k6 = check_global_phase(
         cu.categorical_global_launches, cu.categorical_launches,
         "categorical policy phase (2x256)", cu.policy_phase_categorical_kernel,
         cu.policy_phase_categorical_plain,
         (cts.policy_params["mlp"], cts.opt_policy), cpcols, ccfg,
         ccfg.lr_policy, [(ccfg.clip_eps, ccfg.ent_coeff),
-                         (ccfg.clip_eps, 0.01)], WHOLE_RATIO["K6 2x256"])
+                         (ccfg.clip_eps, 0.01)], WHOLE_RATIO["K6 2x256"],
+        lean=True)
 
     header(f"[REACHER_REF: Trainer(reacher, 2x256, the reference schedule), "
            f"evaluate, {REACHER_REF_EPOCHS} epochs]")
@@ -3536,11 +3855,12 @@ def cluster_grid_times(dev, steps: int = 40) -> dict:
 def cluster_gate_edge(cfg, ts, dev):
     """K3 on the bench's value net at the fused gate's edge: GATE_STEPS
     steps of GATE_MB rows, drawn with replacement from one fit's value
-    rows, held to the plain version by :func:`check_phase`'s 1- and
-    20-step checks, and the generic phases (ppo.value_phase past the gate:
-    per minibatch K5 forward, autograd through K5's backward, Adam) on the
-    same rows, wall and device time.  A reading for re-deriving
-    ppo.MAX_FUSED_MB; no path runs it.  Returns (max abs error, timings)."""
+    rows, held as :func:`check_phase` holds a phase (the whole phase's
+    distance from float64 printed only), and the generic phases
+    (ppo.value_phase past the gate: per minibatch K5 forward, autograd
+    through K5's backward, Adam) on the same rows, wall and device time.
+    A reading for re-deriving ppo.MAX_FUSED_MB; no path runs it.  Returns
+    (max abs error, timings)."""
     import torch
 
     from ppoc_tpu_torch.algo import ppo
@@ -3557,7 +3877,7 @@ def cluster_gate_edge(cfg, ts, dev):
     err, times = check_phase(
         f"value phase (mb {GATE_MB})", cu.value_phase_kernel,
         cu.value_phase_plain, (ts.v_params, ts.opt_v), (obs, tgt), edge,
-        cfg.lr_v, [()], None, against_float64=False)
+        cfg.lr_v, [()], None)
     zero = torch.zeros(n, device=dev)
     buf = buffer.RowBuffer(obs, zero[:, None], zero, zero, tgt)
     ids = torch.arange(n, device=dev).reshape(1, GATE_STEPS, GATE_MB)
@@ -3655,8 +3975,12 @@ def main() -> int:
             "plain_ms": times["plain_ms"], "bound_ms": bound[0],
             "bound_by": bound[1], "library_ms": library, "path": path,
             "shape": shape})
+        tile = ""
+        if "tile" in times:
+            results[-1].update(tile=times["tile"], blocks=times["blocks"])
+            tile = f", tile {times['tile']} ({times['blocks']} blocks)"
         lib = "" if library is None else f", library {library:.4f} ms"
-        print(f"  {name} ({path}, {shape}): device time kernel "
+        print(f"  {name} ({path}, {shape}{tile}): device time kernel "
               f"{times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms"
               f"{lib}; bound {bound[0]:.4f} ms ({bound[1]}); launches "
               f"{launches}", flush=True)
@@ -3669,6 +3993,8 @@ def main() -> int:
         cfg, tr.state, tr.env, dev)
     k1_bound = rollout_bound(widths, widths, raw)
     k1m_bound = rollout_bound(widths, None, raw_m)
+    header(f"[K1 by tile: {cfg.n_envs} envs x {cfg.rollout_len} steps]")
+    rollout_grid_times(tr.state, dev, cfg.n_envs, cfg.rollout_len)
     header("[K2 gae]", flush=True)
     adv, tgt, k2_err, k2_t = check_gae(cfg, raw, dev)
     header("[K3 value phase, K4 policy phase]", flush=True)
@@ -3841,7 +4167,7 @@ def main() -> int:
             cuda_update.policy_phase_categorical_plain,
             (ds.policy_params["mlp"], ds.opt_policy), pcols, dcfg,
             dcfg.lr_policy, [(dcfg.clip_eps, ent), (dcfg.clip_eps, 0.01)],
-            WHOLE_RATIO["K6"])
+            WHOLE_RATIO["K6"], lean=True)
         discrete[lane] = dict(
             cfg=dcfg, pw=pw, vw=vw,
             rollout=(r_err, r_t, rollout_bound(pw, vw, raw)),

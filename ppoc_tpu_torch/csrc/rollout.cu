@@ -17,27 +17,40 @@
 // [3,128,128,1] nets: about 2 MFLOP per net per step).  So the kernel is
 // latency-bound there: bytes and FLOPs are far below the card's rates.  At
 // reacher's throughput shape (4096 envs through [10,256,256,2] and
-// [10,256,256,1] nets, V(s) and V(s') each step) a step is ~410 KFLOP per
-// env, 252 GFLOP in all over 150 steps: FP32 operations bound it (~3.8 ms).
+// [10,256,256,1] nets) a step is ~270 KFLOP per env, 167 GFLOP in all over
+// 150 steps: FP32 operations bound it (~2.5 ms).
 //
 // What the design does about it: the T loop runs inside the kernel (one
 // launch per rollout, as on the TPU) and each block owns a tile of ET envs
-// whose state lives in registers.  A layer is one pass of the block: one
-// thread per (net, output unit), ET accumulators each, so the policy
-// forward and V(s) run side by side.  Blocks are independent (one per env
-// tile).  Two variants of one template, picked by size at the launch:
+// whose state lives in registers.  Blocks are independent, and each runs
+// all T steps, so the launch picks the smallest ET in {1, 2, 4, 8} whose
+// grid the card holds at once (cuda_rollout.tile_for): 64 envs take 64
+// one-env blocks, not 8 eight-env ones, and a step's chain is as short as
+// the products allow.  A layer pass is split-K: unit j's input sum is cut
+// into S parts (layer_split, from the layer's widths alone), held by S
+// neighbouring lanes of one warp, part p summing inputs p, p + S, ... in
+// order with fused multiply-adds (four weights loaded ahead of their
+// products), the S partials added in a butterfly of
+// shuffles (lane xor 1, 2, ..., S / 2).  Hidden layers take S <= 4; an
+// output layer of 1 or 2 units spreads over a whole warp each, where one
+// thread summed 128 inputs while the block waited.  Each env's sums are
+// thus the same bits at any tile and in either variant.  V(s') is the next
+// step's V(s) wherever step t is not done (the same net on the same obs
+// bits), so the value net's third pass runs only at a step where an env
+// of the tile is done, and at the last step.  512 threads a block.  Two
+// variants of one template, picked by size at the launch:
 //   * small nets (the bench's 2 x 17,153 floats, 137 KB) sit in dynamic
-//     shared memory for the whole rollout; ET = 8 envs a block, 256
-//     threads;
+//     shared memory for the whole rollout, sized for the largest tile; a
+//     layer's weights are stored with each row's columns rotated by
+//     (k mod S) * 32 / S, so the S lanes of a unit, reading S rows of one
+//     column, hit 32 distinct banks;
 //   * nets larger than one block's shared memory (reacher's two 2x256 nets,
 //     ~137 K floats, 550 KB) stay in global memory, where they remain
-//     resident in the 50 MB L2, and are read with __ldg, four input rows
-//     in flight per thread; ET = 32 envs a block, so each weight read
-//     serves 32 envs (read from shared memory as float4s), and 512
-//     threads, one per (net, unit) of a 2x256 layer.  Only the
-//     activations of the tile sit in shared memory.
-// Both sum each unit's products in input order, so for the same nets the
-// two variants give the same bits.
+//     resident in the 50 MB L2, and are read with __ldg; ET = 32 envs a
+//     block, so each weight read serves 32 envs, read from shared memory
+//     as float4s from rows whose 4-env
+//     chunks are rotated by the row (conflict-free across the S rows a
+//     warp reads).  Only the activations of the tile sit in shared memory.
 //
 // A lane is a struct (`PendulumLane`, `SimpleLane`, `CartPoleLane`,
 // `MountainCarLane<norm>`, `AcrobotLane`, `ReacherLane`) with its state and
@@ -54,11 +67,9 @@ using namespace ppoc;
 
 namespace {
 
-// the two variants: envs per block and threads per block
-constexpr int ET = 8;            // nets in shared memory
-constexpr int THREADS = 256;     // >= 2 x the widest hidden layer works best
+constexpr int THREADS = 512;     // both variants: 16 warps
+constexpr int ET_MAX = 8;        // nets in shared memory: tiles 1, 2, 4, 8
 constexpr int ET_L = 32;         // nets in global memory (a multiple of 4)
-constexpr int THREADS_L = 512;
 
 constexpr float PI_F = 3.14159265358979323846f;
 constexpr float TWO_PI_F = 6.28318530717958647692f;
@@ -385,6 +396,7 @@ struct DevArgs {
   const float* st0;           // [E, D] carried lane state
   const float* steps0;        // [E]
   int fresh, with_v, act_dim, activation, T, E, hmax;
+  int vnext_all;              // 1: the V(s') pass at every step (tests)
   uint32_t s0, s1;
   float gamma, lp0;
   float *obs, *next_obs, *action, *log_prob, *reward, *value, *next_value;
@@ -393,87 +405,162 @@ struct DevArgs {
   float *st_final, *steps_final, *metrics;
 };
 
-// Forward nets [first, first+count) over the block's env tile of ET_
-// envs: `in` is smem [d0][ET_]; net n reads its weights from P[n] (shared
-// memory, or global memory with GLOBAL_W), ping-pongs its hidden layers
-// through bufs[n] and writes its output to outs[n] (smem [d_L][ET_]).  The
-// nets have equal depth.  Each unit sums its products in input order.
-// Ends with __syncthreads.
-template <int ET_, bool GLOBAL_W>
-__device__ void tile_forward(const Net* nets, const float* const* P,
-                             int first, int count, const float* in,
-                             float* const* bufs, float* const* outs, int hmax,
-                             int act) {
-  const int L = nets[first].n_layers;
-  for (int l = 0; l < L; ++l) {
-    int total = 0;
-    for (int n = first; n < first + count; ++n) total += nets[n].dim[l + 1];
-    for (int item = threadIdx.x; item < total; item += blockDim.x) {
-      int n = first, j = item;
-      while (j >= nets[n].dim[l + 1]) { j -= nets[n].dim[l + 1]; ++n; }
-      const Net& net = nets[n];
-      const int din = net.dim[l], dout = net.dim[l + 1];
-      const float* W = P[n] + net.w_off[l];
-      const float* src = l == 0 ? in : bufs[n] + ((l - 1) & 1) * hmax * ET_;
-      float acc[ET_];
+// How many parts S a unit's input sum is split into, for a layer of din
+// inputs and dout units: a power of two, from the widths alone, so an env's
+// sums are the same bits at any tile, block size and variant.  Wide layers
+// (dout >= 32) take at most 4 parts of at least 32 inputs (the units fill
+// the warps already); narrow ones, the output layers, up to 32 parts of at
+// least 4 inputs, so a unit spreads over a warp.  ppoc_rollout_layer_split
+// exposes it to the tests.
+__host__ __device__ __forceinline__ int layer_split(int din, int dout) {
+  const int per = dout < 32 ? 4 : 32;
+  const int cap = dout < 32 ? 32 : 4;
+  int s = 1;
+  while (2 * s <= cap && 2 * s * per <= din) s *= 2;
+  return s;
+}
+
+// Where env e of activation row r sits in a tile of ET_ envs a row: rows of
+// ET_ floats; past 8 envs the row's 4-env chunks are rotated by the row, so
+// the S consecutive rows that one warp's lanes read land in distinct banks.
+template <int ET_>
+__device__ __forceinline__ int at(int r, int e) {
+  if constexpr (ET_ > ET_MAX)
+    return r * ET_ + ((((e >> 2) + r) & (ET_ / 4 - 1)) << 2) + (e & 3);
+  else
+    return r * ET_ + e;
+}
+
+// acc[e] += x[row k][e] * w for the tile's ET_ envs, as fused multiply-adds.
+template <int ET_>
+__device__ __forceinline__ void fma_row(float* acc, const float* x, int k,
+                                        float w) {
+  if constexpr (ET_ >= 4) {
 #pragma unroll
-      for (int e = 0; e < ET_; ++e) acc[e] = 0.0f;
-      float b;
-      if constexpr (GLOBAL_W) {
-        // four weight loads in flight before their FMAs; the tile's inputs
-        // read as float4 (each row of ET_ floats is 16-byte aligned)
-        int k = 0;
-        for (; k + 4 <= din; k += 4) {
-          float w[4];
-#pragma unroll
-          for (int u = 0; u < 4; ++u) w[u] = __ldg(W + (k + u) * dout + j);
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const float4* s4 =
-                reinterpret_cast<const float4*>(src + (k + u) * ET_);
-#pragma unroll
-            for (int e = 0; e < ET_ / 4; ++e) {
-              const float4 v = s4[e];
-              acc[4 * e] += v.x * w[u];
-              acc[4 * e + 1] += v.y * w[u];
-              acc[4 * e + 2] += v.z * w[u];
-              acc[4 * e + 3] += v.w * w[u];
-            }
-          }
-        }
-        for (; k < din; ++k) {
-          const float w = __ldg(W + k * dout + j);
-#pragma unroll
-          for (int e = 0; e < ET_; ++e) acc[e] += src[k * ET_ + e] * w;
-        }
-        b = __ldg(P[n] + net.b_off[l] + j);
-      } else {
-        for (int k = 0; k < din; ++k) {
-          const float w = W[k * dout + j];
-#pragma unroll
-          for (int e = 0; e < ET_; ++e) acc[e] += src[k * ET_ + e] * w;
-        }
-        b = P[n][net.b_off[l] + j];
-      }
-      float* dst = l == L - 1 ? outs[n] : bufs[n] + (l & 1) * hmax * ET_;
-#pragma unroll
-      for (int e = 0; e < ET_; ++e) {
-        float h = acc[e] + b;
-        if (l < L - 1) h = act_fwd(h, act);
-        dst[j * ET_ + e] = h;
-      }
+    for (int c = 0; c < ET_ / 4; ++c) {
+      const float4 v = *reinterpret_cast<const float4*>(x + at<ET_>(k, 4 * c));
+      acc[4 * c] = __fmaf_rn(v.x, w, acc[4 * c]);
+      acc[4 * c + 1] = __fmaf_rn(v.y, w, acc[4 * c + 1]);
+      acc[4 * c + 2] = __fmaf_rn(v.z, w, acc[4 * c + 2]);
+      acc[4 * c + 3] = __fmaf_rn(v.w, w, acc[4 * c + 3]);
     }
-    __syncthreads();
+  } else if constexpr (ET_ == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(x + 2 * k);
+    acc[0] = __fmaf_rn(v.x, w, acc[0]);
+    acc[1] = __fmaf_rn(v.y, w, acc[1]);
+  } else {
+    acc[0] = __fmaf_rn(x[k], w, acc[0]);
   }
 }
 
+// Float offsets into the dynamic shared memory `smem`, sized for a tile of
+// EC envs a row (ET_MAX, or ET_L in the global-memory variant): the obs
+// tile, per net two ping-pong hidden tiles and the output tile, then
+// (nets in shared memory) each net's parameters.
+struct Layout {
+  int x, buf[2], out[2], par[2], pitch;   // pitch: hmax * EC
+};
+
+extern __shared__ __align__(16) float smem[];
+
+// One layer l of nets [first, first + count) over the block's tile of ET_
+// envs, into the next hidden tile or the output tile.  The units' slots
+// (dout x S parts per net, each net's padded to whole warps) are dealt to
+// the warps 32 at a time; lane (u, p) of a slot group sums part p of unit
+// u.  Ends with __syncthreads.
+template <int ET_, bool GLOBAL_W>
+__device__ __forceinline__ void layer_pass(const Net* nets, const float* gp0,
+                                        const float* gp1, const Layout L,
+                                        int first, int count, int l,
+                                        int act) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int last = nets[first].n_layers - 1;
+  int chunks0 = 0, total = 0;
+  for (int n = first; n < first + count; ++n) {
+    const int s = layer_split(nets[n].dim[l], nets[n].dim[l + 1]);
+    const int c = (nets[n].dim[l + 1] * s + 31) >> 5;
+    if (n == first) chunks0 = c;
+    total += c;
+  }
+  for (int c = warp; c < total; c += n_warps) {
+    const int n = c < chunks0 ? first : first + 1;
+    const Net& net = nets[n];
+    const int din = net.dim[l], dout = net.dim[l + 1];
+    const int S = layer_split(din, dout), sh = __ffs(S) - 1;
+    const int slot = ((c < chunks0 ? c : c - chunks0) << 5) + lane;
+    const int unit = slot >> sh, part = slot & (S - 1);
+    const bool valid = unit < dout;
+    const float* x =
+        smem + (l == 0 ? L.x : L.buf[n] + ((l - 1) & 1) * L.pitch);
+    float acc[ET_];
+#pragma unroll
+    for (int e = 0; e < ET_; ++e) acc[e] = 0.0f;
+    float b = 0.0f;
+    if (valid) {
+      // four weights in flight, then their products in input order
+      const float* W;
+      if constexpr (GLOBAL_W) {
+        const float* P = n == 0 ? gp0 : gp1;
+        W = P + net.w_off[l] + unit;
+        b = __ldg(P + net.b_off[l] + unit);
+      } else {
+        // the rotated column of this unit in the rows k = part (mod S)
+        const float* P = smem + L.par[n];
+        W = P + net.w_off[l] + (unit + (part << (5 - sh))) % dout;
+        b = P[net.b_off[l] + unit];
+      }
+      auto weight = [&](int k) {
+        if constexpr (GLOBAL_W) return __ldg(W + (size_t)k * dout);
+        else return W[k * dout];
+      };
+      int k = part;
+      for (; k + 3 * S < din; k += 4 * S) {
+        float w[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) w[u] = weight(k + u * S);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) fma_row<ET_>(acc, x, k + u * S, w[u]);
+      }
+      for (; k < din; k += S) fma_row<ET_>(acc, x, k, weight(k));
+    }
+    for (int o = 1; o < S; o <<= 1) {
+#pragma unroll
+      for (int e = 0; e < ET_; ++e)
+        acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
+    }
+    if (valid && part == 0) {
+      float* dst =
+          smem + (l == last ? L.out[n] : L.buf[n] + (l & 1) * L.pitch);
+#pragma unroll
+      for (int e = 0; e < ET_; ++e) {
+        float h = acc[e] + b;
+        if (l < last) h = act_fwd(h, act);
+        dst[at<ET_>(unit, e)] = h;
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// Forward nets [first, first + count) (equal depth) over the tile in the
+// obs tile; the outputs land in the nets' output tiles.
+template <int ET_, bool GLOBAL_W>
+__device__ __forceinline__ void tile_forward(const Net* nets, const DevArgs& a,
+                                             const Layout& L, int first,
+                                             int count) {
+  for (int l = 0; l < nets[first].n_layers; ++l)
+    layer_pass<ET_, GLOBAL_W>(nets, a.params[0], a.params[1], L, first, count,
+                              l, a.activation);
+}
+
 // One block runs ET_ envs for all T steps.  GLOBAL_W: the nets stay in
-// global memory; else they are copied into dynamic shared memory first.
+// global memory; else they are copied into dynamic shared memory first,
+// each layer's rows rotated as layer_pass reads them.
 template <class Lane, int ET_, bool GLOBAL_W>
-__global__ void __launch_bounds__(GLOBAL_W ? THREADS_L : THREADS)
-    rollout_kernel(const DevArgs a) {
+__global__ void __launch_bounds__(THREADS) rollout_kernel(const DevArgs a) {
   constexpr int D = Lane::D, O = Lane::O;
-  extern __shared__ __align__(16) float smem[];
+  constexpr int EC = GLOBAL_W ? ET_L : ET_MAX;   // the pitch smem is sized for
   __shared__ Net nets[2];
   __shared__ float log_std[MAX_ACT];
 
@@ -482,35 +569,50 @@ __global__ void __launch_bounds__(GLOBAL_W ? THREADS_L : THREADS)
   if (tid < 2) nets[tid] = a.net[tid];
   if (Lane::K == 0 && tid < a.act_dim) log_std[tid] = a.log_std[tid];
 
-  // shared memory: params of each net (unless GLOBAL_W), input tile,
-  // per-net ping-pong hidden buffers, per-net output tile
-  const float* P[2] = {a.params[0], a.params[1]};
-  float* bufs[2];
-  float* outs[2];
-  float* p = smem;
+  Layout L;
+  int p = 0;
+  L.x = p;
+  p += a.net[0].dim[0] * EC;
+  L.pitch = a.hmax * EC;
+  for (int n = 0; n < n_nets; ++n) { L.buf[n] = p; p += 2 * L.pitch; }
+  for (int n = 0; n < n_nets; ++n) {
+    L.out[n] = p;
+    p += a.net[n].dim[a.net[n].n_layers] * EC;
+  }
   if (!GLOBAL_W) {
     for (int n = 0; n < n_nets; ++n) {
-      for (int i = tid; i < a.net[n].n_params; i += blockDim.x)
-        p[i] = a.params[n][i];
-      P[n] = p;
-      p += a.net[n].n_params;
+      const Net& net = a.net[n];
+      const float* src = a.params[n];
+      float* dst = smem + p;
+      L.par[n] = p;
+      for (int l = 0; l < net.n_layers; ++l) {
+        const int din = net.dim[l], dout = net.dim[l + 1];
+        const int S = layer_split(din, dout), rot = 32 / S;
+        for (int i = tid; i < din * dout; i += blockDim.x) {
+          const int k = i / dout, j = i - k * dout;
+          dst[net.w_off[l] + k * dout + (j + (k & (S - 1)) * rot) % dout] =
+              src[net.w_off[l] + i];
+        }
+        for (int i = tid; i < dout; i += blockDim.x)
+          dst[net.b_off[l] + i] = src[net.b_off[l] + i];
+      }
+      p += net.n_params;
     }
   }
-  float* x = p;                          p += a.net[0].dim[0] * ET_;
-  for (int n = 0; n < n_nets; ++n) { bufs[n] = p; p += 2 * a.hmax * ET_; }
-  for (int n = 0; n < n_nets; ++n) {
-    outs[n] = p;
-    p += a.net[n].dim[a.net[n].n_layers] * ET_;
-  }
+  float* x = smem + L.x;
+  const float* pout = smem + L.out[0];
+  const float* vout = smem + L.out[a.with_v ? 1 : 0];
 
   // env state: thread tid < ET_ owns env e of this block's tile
   const int e = blockIdx.x * ET_ + tid;
   const bool owner = tid < ET_;
   const bool live = owner && e < a.E;
   const uint32_t lane = (uint32_t)e;
-  float s[D];
+  float s[D], o[O];
 #pragma unroll
   for (int d = 0; d < D; ++d) s[d] = 0.0f;
+#pragma unroll
+  for (int d = 0; d < O; ++d) o[d] = 0.0f;
   float steps = 0.0f;
   float racc = 0.0f, jacc = 0.0f, gpow = 1.0f, mR = 0.0f, mJ = 0.0f, mN = 0.0f;
   if (live) {
@@ -522,30 +624,37 @@ __global__ void __launch_bounds__(GLOBAL_W ? THREADS_L : THREADS)
       steps = a.steps0[e];
     }
   }
+  if (owner) Lane::obs(s, o);
+  // next_value of the previous step waits for this step's V(s): the obs of
+  // a step that did not end is the previous step's next obs, the same bits
+  bool pending = false;
   __syncthreads();
 
   for (int t = 0; t < a.T; ++t) {
     const size_t row = (size_t)t * a.E + e;
     if (owner) {
-      float o[O];
-      Lane::obs(s, o);
 #pragma unroll
       for (int d = 0; d < O; ++d) {
-        x[d * ET_ + tid] = o[d];
+        x[at<ET_>(d, tid)] = o[d];
         if (live) a.obs[row * O + d] = o[d];
       }
     }
     __syncthreads();
-    tile_forward<ET_, GLOBAL_W>(nets, P, 0, n_nets, x, bufs, outs, a.hmax,
-                                 a.activation);
+    tile_forward<ET_, GLOBAL_W>(nets, a, L, 0, n_nets);
 
+    bool done_t = false;
     if (owner) {
+      if (a.with_v && live) {
+        const float v = vout[at<ET_>(0, tid)];
+        a.value[row] = v;
+        if (pending) a.next_value[row - a.E] = v;
+      }
       float act[MAX_ACT];
       float lp;
       if constexpr (Lane::K > 0) {
         float h[Lane::K];
 #pragma unroll
-        for (int k = 0; k < Lane::K; ++k) h[k] = outs[0][k * ET_ + tid];
+        for (int k = 0; k < Lane::K; ++k) h[k] = pout[at<ET_>(k, tid)];
         const int idx = gumbel_max(h, Lane::K, a.s0, a.s1, (uint32_t)t, lane,
                                    &lp);
         act[0] = (float)idx;
@@ -559,7 +668,7 @@ __global__ void __launch_bounds__(GLOBAL_W ? THREADS_L : THREADS)
           const float u1 = fmaxf(uniform01(a.s0, a.s1, t, 2 * j, lane), 1e-12f);
           const float u2 = uniform01(a.s0, a.s1, t, 2 * j + 1, lane);
           const float eps = sqrtf(-2.0f * logf(u1)) * cosf(TWO_PI_F * u2);
-          const float mu = outs[0][j * ET_ + tid];
+          const float mu = pout[at<ET_>(j, tid)];
           const float ac = mu + eps * sigma;
           const float z = (ac - mu) / sigma;
           lp = lp - ls - 0.5f * z * z;
@@ -573,10 +682,11 @@ __global__ void __launch_bounds__(GLOBAL_W ? THREADS_L : THREADS)
       const float trunc =
           fmaxf((steps2 >= Lane::HORIZON ? 1.0f : 0.0f) - term, 0.0f);
       const float done = fmaxf(term, trunc);
+      done_t = done > 0.0f;
       float no[O];
       Lane::obs(s2, no);
 #pragma unroll
-      for (int d = 0; d < O; ++d) x[d * ET_ + tid] = no[d];
+      for (int d = 0; d < O; ++d) x[at<ET_>(d, tid)] = no[d];
       if (live) {
         a.log_prob[row] = lp;
         a.reward[row] = reward;
@@ -584,7 +694,6 @@ __global__ void __launch_bounds__(GLOBAL_W ? THREADS_L : THREADS)
         a.truncated[row] = trunc > 0.0f;
 #pragma unroll
         for (int d = 0; d < O; ++d) a.next_obs[row * O + d] = no[d];
-        if (a.with_v) a.value[row] = outs[1][tid];
       }
       // completed-episode metrics
       const float racc2 = racc + reward;
@@ -599,15 +708,25 @@ __global__ void __launch_bounds__(GLOBAL_W ? THREADS_L : THREADS)
       float fresh[D];
       Lane::reset(fresh, ResetDraws{a.s0, a.s1, (uint32_t)t, lane});
 #pragma unroll
-      for (int d = 0; d < D; ++d) s[d] = done > 0.0f ? fresh[d] : s2[d];
-      steps = done > 0.0f ? 0.0f : steps2;
+      for (int d = 0; d < D; ++d) s[d] = done_t ? fresh[d] : s2[d];
+      steps = done_t ? 0.0f : steps2;
+      if (done_t) {
+        Lane::obs(s, o);
+      } else {
+#pragma unroll
+        for (int d = 0; d < O; ++d) o[d] = no[d];
+      }
     }
-    __syncthreads();
-    if (a.with_v) {
-      tile_forward<ET_, GLOBAL_W>(nets, P, 1, 1, x, bufs, outs, a.hmax,
-                                   a.activation);
-      if (live) a.next_value[row] = outs[1][tid];
+    // V(s') from the value net where the next step's V(s) cannot stand in:
+    // an env of the tile is done, or this is the last step
+    const bool last = t == a.T - 1;
+    const bool any_done = __syncthreads_or(live && done_t);
+    if (a.with_v && (any_done || last || a.vnext_all)) {
+      tile_forward<ET_, GLOBAL_W>(nets, a, L, 1, 1);
+      if (live && (done_t || last || a.vnext_all))
+        a.next_value[row] = vout[at<ET_>(0, tid)];
     }
+    pending = a.with_v && !(done_t || last || a.vnext_all);
   }
   if (live) {
 #pragma unroll
@@ -637,15 +756,23 @@ __global__ void gumbel_max_kernel(const float* logits, int n, int K,
   idx[i] = gumbel_max(h, K, s0, s1, t, (uint32_t)i, &log_prob[i]);
 }
 
-template <class Lane, int ET_, bool GLOBAL_W>
-cudaError_t launch(const DevArgs& d, long smem, cudaStream_t stream) {
-  auto kernel = rollout_kernel<Lane, ET_, GLOBAL_W>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<(d.E + ET_ - 1) / ET_, GLOBAL_W ? THREADS_L : THREADS, smem,
-           stream>>>(d);
-  return cudaGetLastError();
+using Kernel = void (*)(const DevArgs);
+
+// Calls f(kernel) with the rollout kernel of a lane, variant (0: nets in
+// shared memory, 1: in global memory) and tile (envs a block);
+// cudaErrorInvalidValue for a tile the variant does not take.
+template <class Lane, class F>
+cudaError_t with_kernel(int variant, int tile, F f) {
+  if (variant == 1)
+    return tile == ET_L ? f(rollout_kernel<Lane, ET_L, true>)
+                        : cudaErrorInvalidValue;
+  switch (tile) {
+    case 1: return f(rollout_kernel<Lane, 1, false>);
+    case 2: return f(rollout_kernel<Lane, 2, false>);
+    case 4: return f(rollout_kernel<Lane, 4, false>);
+    case 8: return f(rollout_kernel<Lane, 8, false>);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // Calls f(Lane{}) for the lane with code `lane` (RolloutArgs::lane);
@@ -679,6 +806,7 @@ struct RolloutArgs {
   int lane;     // 0 pendulum, 1 cartpole, 2 acrobot, 3 simple,
                 // 4 mountain_car, 5 mountain_car_norm, 6 reacher
   int variant;  // 0: nets in shared memory, 1: nets in global memory
+  int tile;     // envs a block: 1, 2, 4 or 8 (variant 0), 32 (variant 1)
   int n_layers, act_dim, activation, T, E;
   uint32_t s0, s1;
   float gamma, lp0;
@@ -690,9 +818,13 @@ struct RolloutArgs {
 
 extern "C" int ppoc_rollout_args_size() { return (int)sizeof(RolloutArgs); }
 
+extern "C" int ppoc_rollout_layer_split(int din, int dout) {
+  return layer_split(din, dout);
+}
+
 // Dynamic shared memory the rollout kernel needs in `variant`, in bytes.
 static long rollout_smem(const DevArgs& d, int variant) {
-  const long et = variant == 0 ? ET : ET_L;
+  const long et = variant == 0 ? ET_MAX : ET_L;   // the largest tile
   const int n_nets = d.with_v ? 2 : 1;
   long floats = (long)d.net[0].dim[0] * et;
   for (int n = 0; n < n_nets; ++n) {
@@ -724,8 +856,10 @@ extern "C" long ppoc_rollout_smem_bytes(const RolloutArgs* a, int variant) {
   return rollout_smem(d, variant);
 }
 
-extern "C" int ppoc_rollout(const RolloutArgs* a, cudaStream_t stream) {
-  DevArgs d{};
+// Fills `d` from `a` for a launch; cudaErrorInvalidValue for nets, a lane,
+// variant or tile the kernel refuses.
+static cudaError_t fill(DevArgs* dp, const RolloutArgs* a) {
+  DevArgs& d = *dp;
   if (!make_nets(&d, a) || a->variant < 0 || a->variant > 1)
     return cudaErrorInvalidValue;
   const int n_out = d.net[0].dim[a->n_layers];
@@ -735,7 +869,9 @@ extern "C" int ppoc_rollout(const RolloutArgs* a, cudaStream_t stream) {
     const bool ok = d.net[0].dim[0] == Lane::O && a->act_dim >= 1 &&
                     a->act_dim <= MAX_ACT && out == a->act_dim &&
                     n_out == out;
-    return ok ? cudaSuccess : cudaErrorInvalidValue;
+    return ok ? with_kernel<Lane>(a->variant, a->tile,
+                                  [](Kernel) { return cudaSuccess; })
+              : cudaErrorInvalidValue;
   });
   if (shape != cudaSuccess) return shape;
   d.params[0] = a->policy_params;
@@ -765,13 +901,64 @@ extern "C" int ppoc_rollout(const RolloutArgs* a, cudaStream_t stream) {
   d.st_final = a->st_final;
   d.steps_final = a->steps_final;
   d.metrics = a->metrics;
+  return cudaSuccess;
+}
 
+static int launch(const RolloutArgs* a, int vnext_all, cudaStream_t stream) {
+  DevArgs d{};
+  const cudaError_t ok = fill(&d, a);
+  if (ok != cudaSuccess) return ok;
+  d.vnext_all = vnext_all;
   const long smem = rollout_smem(d, a->variant);
   return with_lane(a->lane, [&](auto lane) {
-    using Lane = decltype(lane);
-    return a->variant == 0 ? launch<Lane, ET, false>(d, smem, stream)
-                           : launch<Lane, ET_L, true>(d, smem, stream);
+    return with_kernel<decltype(lane)>(a->variant, a->tile, [&](Kernel k) {
+      cudaError_t err = cudaFuncSetAttribute(
+          k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return err;
+      void* args[] = {&d};
+      err = cudaLaunchKernel(reinterpret_cast<const void*>(k),
+                             dim3((d.E + a->tile - 1) / a->tile),
+                             dim3(THREADS), args, (size_t)smem, stream);
+      return err != cudaSuccess ? err : cudaGetLastError();
+    });
   });
+}
+
+extern "C" int ppoc_rollout(const RolloutArgs* a, cudaStream_t stream) {
+  return launch(a, 0, stream);
+}
+
+// The same launch with the value net's V(s') pass at every step, where
+// ppoc_rollout takes V(s') from the next step's V(s) wherever a step did
+// not end: the two must give the same bits (a card test holds them).
+extern "C" int ppoc_rollout_vnext_every_step(const RolloutArgs* a,
+                                             cudaStream_t stream) {
+  return launch(a, 1, stream);
+}
+
+// How many blocks of the launch `a` (its lane, variant, tile and shared
+// memory) the current device holds at once: its SMs times the blocks an SM
+// holds (the occupancy query); a negative cudaError_t on failure.
+extern "C" int ppoc_rollout_resident(const RolloutArgs* a) {
+  DevArgs d{};
+  const cudaError_t ok = fill(&d, a);
+  if (ok != cudaSuccess) return -(int)ok;
+  const long smem = rollout_smem(d, a->variant);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = with_lane(a->lane, [&](auto lane) {
+      return with_kernel<decltype(lane)>(a->variant, a->tile, [&](Kernel k) {
+        cudaError_t e = cudaFuncSetAttribute(
+            k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return e;
+        return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k,
+                                                             THREADS, smem);
+      });
+    });
+  return err == cudaSuccess ? sms * per_sm : -(int)err;
 }
 
 extern "C" int ppoc_rng_bits(int32_t* out, int n, uint32_t s0, uint32_t s1,

@@ -24,7 +24,14 @@ arithmetic done in int64 with masks, products split so none overflows).
 The kernel has two variants: nets that fit in one block's shared memory
 stay there, larger ones (reacher's 2x256) are read from global memory
 over a wider env tile; the launch picks by size
-(``_build.pick_variant``).
+(``_build.pick_variant``).  In shared memory a block runs 1, 2, 4 or 8
+envs, the fewest whose grid the card holds at once (:func:`tile_for`);
+in global memory 32.  Each layer's input sums are split into
+:func:`layer_split` parts from the widths alone, so an env's outputs are
+the same bits at any env count, tile and variant.  The kernel takes V(s')
+from the next step's V(s) wherever a step did not end;
+:func:`rollout_kernel_vnext_every_step` runs the value net's V(s') pass
+at every step instead, for the card tests that hold the two equal.
 :func:`replay_plain` steps a lane's plain physics on recorded actions,
 the trajectory the kernel must have produced from them.
 """
@@ -367,8 +374,23 @@ global_launches = {
     for name in LANES for mode in MODES}
 
 
-_ET, _ET_L = 8, 32      # csrc/rollout.cu ET, ET_L: envs a block, per variant
+# envs a block: the shared-memory variant's tiles (csrc/rollout.cu ET_MAX is
+# the largest, which sizes its shared memory) and the global-memory
+# variant's ET_L
+TILES = (1, 2, 4, 8)
+_ET, _ET_L = TILES[-1], 32
 _STATIC_SMEM = 1024     # the kernel's static shared memory (the nets' shapes)
+
+
+def tile_for(n_envs: int, resident: int) -> int:
+    """The shared-memory variant's envs a block for ``n_envs`` envs on a
+    card that holds ``resident`` of its blocks at once: the smallest tile
+    of :data:`TILES` whose grid fits in one wave (each block runs all T
+    steps, so a second wave would double the rollout), else the largest."""
+    for et in TILES:
+        if -(-n_envs // et) <= resident:
+            return et
+    return TILES[-1]
 
 
 def variant_bytes(pwidths: Sequence[int],
@@ -568,7 +590,8 @@ class _RolloutArgs(ctypes.Structure):
         ("policy_dims", ctypes.POINTER(ctypes.c_int)),
         ("value_dims", ctypes.POINTER(ctypes.c_int)),
         ("lane", ctypes.c_int), ("variant", ctypes.c_int),
-        ("n_layers", ctypes.c_int), ("act_dim", ctypes.c_int),
+        ("tile", ctypes.c_int), ("n_layers", ctypes.c_int),
+        ("act_dim", ctypes.c_int),
         ("activation", ctypes.c_int), ("T", ctypes.c_int), ("E", ctypes.c_int),
         ("s0", ctypes.c_uint32), ("s1", ctypes.c_uint32),
         ("gamma", ctypes.c_float), ("lp0", ctypes.c_float),
@@ -592,8 +615,13 @@ def _declare() -> ctypes.CDLL:
         args = [ctypes.POINTER(_RolloutArgs)]
         lib.ppoc_rollout_smem_bytes.argtypes = args + [ctypes.c_int]
         lib.ppoc_rollout_smem_bytes.restype = ctypes.c_long
-        lib.ppoc_rollout.argtypes = args + [ctypes.c_void_p]
-        lib.ppoc_rollout.restype = ctypes.c_int
+        for entry in (lib.ppoc_rollout, lib.ppoc_rollout_vnext_every_step):
+            entry.argtypes = args + [ctypes.c_void_p]
+            entry.restype = ctypes.c_int
+        lib.ppoc_rollout_resident.argtypes = args
+        lib.ppoc_rollout_resident.restype = ctypes.c_int
+        lib.ppoc_rollout_layer_split.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.ppoc_rollout_layer_split.restype = ctypes.c_int
         u32 = ctypes.c_uint32
         lib.ppoc_rng_bits.argtypes = [ctypes.c_void_p, ctypes.c_int, u32, u32,
                                       u32, u32, ctypes.c_void_p]
@@ -604,6 +632,14 @@ def _declare() -> ctypes.CDLL:
         lib.ppoc_gumbel_max.restype = ctypes.c_int
         lib._rollout_declared = True
     return lib
+
+
+def layer_split(din: int, dout: int) -> int:
+    """How many parts the built kernel splits each unit's input sum into,
+    for a layer of ``din`` inputs and ``dout`` units (csrc/rollout.cu
+    ``layer_split``, whose arguments are the widths alone); for the card
+    tests."""
+    return _declare().ppoc_rollout_layer_split(din, dout)
 
 
 def rng_bits_cuda(s0: int, s1: int, t: int, draw: int, n: int,
@@ -635,16 +671,38 @@ def gumbel_max_cuda(logits: torch.Tensor, s0: int, s1: int, t: int):
     return idx.to(torch.int64), lp
 
 
-def rollout_kernel(params, log_std: Optional[torch.Tensor], v_params, seed,
-                   n_envs: int, length: int, activation: str = "relu",
-                   st0: Optional[torch.Tensor] = None,
-                   steps0: Optional[torch.Tensor] = None,
-                   gamma: float = 0.99, lane: str = "pendulum",
-                   variant: Optional[str] = None) -> RawRollout:
-    """Launch the kernel; same arguments and results as rollout_plain.
-    The variant (``_build.VARIANTS``: the nets in shared memory, or in
-    global memory) is the first whose shared memory fits, unless
-    ``variant`` names one."""
+# the last launch's variant index, tile (envs a block), blocks and (shared
+# memory variant) the blocks the card holds at once, for the callers that
+# report them
+last_launch: Dict[str, int] = {}
+_resident: Dict[Tuple, int] = {}    # (device, lane, smem bytes) -> blocks
+
+
+def _resident_blocks(lib, args, dev) -> int:
+    """How many blocks of the shared-memory variant ``args`` launches the
+    card holds at once, the least over :data:`TILES` (their register
+    counts differ), from the occupancy query; cached per device, lane and
+    shared memory."""
+    key = (dev.index, args.lane,
+           lib.ppoc_rollout_smem_bytes(ctypes.byref(args), 0))
+    if key not in _resident:
+        counts = []
+        for et in TILES:
+            args.tile = et
+            n = lib.ppoc_rollout_resident(ctypes.byref(args))
+            _build.check(lib, max(-n, 0), "rollout kernel's occupancy query")
+            if n == 0:
+                raise RuntimeError(f"no {et}-env block of the rollout "
+                                   f"kernel fits an SM")
+            counts.append(n)
+        _resident[key] = min(counts)
+    return _resident[key]
+
+
+def _launch(entry: str, params, log_std, v_params, seed, n_envs: int,
+            length: int, activation: str, st0, steps0, gamma: float,
+            lane: str, variant: Optional[str],
+            tile: Optional[int]) -> RawRollout:
     ln = LANES[lane]
     E, T = n_envs, length
     widths = mlp.dims(params)
@@ -680,7 +738,7 @@ def rollout_kernel(params, log_std: Optional[torch.Tensor], v_params, seed,
     discrete = ln.n_actions > 0
     args = _RolloutArgs(
         p(flat), p(vflat), None if discrete else p(log_std), p(st0),
-        p(steps0), pdims, vdims, ln.code, 0, len(widths) - 1, A,
+        p(steps0), pdims, vdims, ln.code, 0, _ET, len(widths) - 1, A,
         _build.ACTIVATIONS[activation], T, E, seed[0] & _M32, seed[1] & _M32,
         gamma, -0.5 * A * math.log(_TWO_PI),
         p(out.obs), p(out.next_obs), None if discrete else p(out.action),
@@ -695,13 +753,61 @@ def rollout_kernel(params, log_std: Optional[torch.Tensor], v_params, seed,
     args.variant = _build.pick_variant(
         sizes, _build.smem_optin(dev), variant,
         f"rollout kernel for nets {widths}/{vwidths}")
-    _build.check(lib, lib.ppoc_rollout(ctypes.byref(args),
-                                       _build.stream_of(dev)),
+    allowed = TILES if args.variant == 0 else (_ET_L,)
+    if tile is not None and tile not in allowed:
+        raise ValueError(f"the {_build.VARIANTS[args.variant]!r} variant "
+                         f"runs {allowed} envs a block, not {tile}")
+    resident = None
+    if args.variant == 1:
+        tile = _ET_L
+    else:
+        resident = _resident_blocks(lib, args, dev)
+        tile = tile_for(E, resident) if tile is None else tile
+    args.tile = tile
+    _build.check(lib, getattr(lib, entry)(ctypes.byref(args),
+                                          _build.stream_of(dev)),
                  "rollout kernel")
     mode = "values" if v_params is not None else "metrics"
     counts = global_launches if args.variant else lane_launches
     counts[lane, mode].n += 1
+    last_launch.update(variant=args.variant, tile=tile,
+                       blocks=-(-E // tile), resident=resident)
     return out
+
+
+def rollout_kernel(params, log_std: Optional[torch.Tensor], v_params, seed,
+                   n_envs: int, length: int, activation: str = "relu",
+                   st0: Optional[torch.Tensor] = None,
+                   steps0: Optional[torch.Tensor] = None,
+                   gamma: float = 0.99, lane: str = "pendulum",
+                   variant: Optional[str] = None,
+                   tile: Optional[int] = None) -> RawRollout:
+    """Launch the kernel; same arguments and results as rollout_plain.
+    The variant (``_build.VARIANTS``: the nets in shared memory, or in
+    global memory) is the first whose shared memory fits, unless
+    ``variant`` names one.  ``tile`` forces the envs a block (one of
+    :data:`TILES` in shared memory, 32 in global memory), for tests and
+    timing; by default :func:`tile_for` picks it from the card's resident
+    blocks.  An env's outputs do not depend on either."""
+    return _launch("ppoc_rollout", params, log_std, v_params, seed, n_envs,
+                   length, activation, st0, steps0, gamma, lane, variant,
+                   tile)
+
+
+def rollout_kernel_vnext_every_step(
+        params, log_std: Optional[torch.Tensor], v_params, seed,
+        n_envs: int, length: int, activation: str = "relu",
+        st0: Optional[torch.Tensor] = None,
+        steps0: Optional[torch.Tensor] = None, gamma: float = 0.99,
+        lane: str = "pendulum", variant: Optional[str] = None,
+        tile: Optional[int] = None) -> RawRollout:
+    """:func:`rollout_kernel` with the value net's V(s') pass at every
+    step, where the kernel takes V(s') from the next step's V(s) wherever
+    a step did not end.  Not on any path: the card tests hold the two
+    launches equal bit for bit."""
+    return _launch("ppoc_rollout_vnext_every_step", params, log_std,
+                   v_params, seed, n_envs, length, activation, st0, steps0,
+                   gamma, lane, variant, tile)
 
 
 def rollout_fused(env_name: str, policy_params, seed, n_envs: int,

@@ -1563,3 +1563,133 @@ def test_bf16_phase_refuses_nets_past_its_limits(dev, widths, what):
     with pytest.raises(ValueError, match=what):
         cu.phase_bf16_plan("value", widths, 64, dev)
     assert cu.value_bf16_launches.n == before
+
+
+# --- K1's tiles, split-K layer passes and V(s') from the next V(s) ----------
+# An env's sums are split by the layer widths alone and its draws keyed by
+# its index, so its outputs are the same bits at any env count and tile, and
+# the V(s') taken from the next step's V(s) is the bits the value net's own
+# pass gives on the same obs.
+
+def _env_rows(raw, n):
+    """The outputs of envs 0..n-1 of a launch, by field."""
+    per_env = ("st_final", "steps_final")   # [E, ...]; the rest [T|3, E]
+    return {key: x[:n] if key in per_env else x[:, :n]
+            for key, x in raw._asdict().items() if x is not None}
+
+
+def _carried(lane, E, dev, seed=1):
+    """A carried state of E envs whose step counters run close to the
+    horizon, so a 60-step window truncates (pendulum) or whose episodes end
+    (cartpole); reacher truncates at 150."""
+    g = torch.Generator().manual_seed(seed)
+    ln = cr.LANES[lane]
+    if lane == "pendulum":
+        st = torch.rand(E, 2, generator=g) * 4 - 2
+    elif lane == "cartpole":
+        st = (torch.rand(E, 4, generator=g) - 0.5) * 0.1
+    else:
+        st = (torch.rand(E, ln.state_dim, generator=g) - 0.5) * 1.6
+    steps = torch.randint(ln.horizon - 50, ln.horizon, (E,), generator=g)
+    return st.to(dev), steps.to(torch.float32).to(dev)
+
+
+@pytest.mark.parametrize("lane,hidden", [
+    ("pendulum", (128, 128)), ("cartpole", (64, 64)), ("reacher", (256, 256))])
+def test_rollout_env_bits_do_not_depend_on_env_count_or_tile(dev, lane,
+                                                             hidden):
+    """Envs 0..63 of a 64-env and a 1024-env launch, and of the 64-env
+    launch at every tile the variant takes, equal bit for bit, with the V
+    planes and with the metrics; each equal to the launch that runs the
+    value net's V(s') pass at every step.  Reacher's 2x256 nets take the
+    global-memory variant."""
+    ts = _state(dev, hidden, env=lane)
+    pp = ts.policy_params
+    st0, steps0 = _carried(lane, 1024, dev)
+    tiles = cr.TILES if lane != "reacher" else (32,)
+    for vp in (ts.v_params, None):
+        def run(E, fn=cr.rollout_kernel, **kw):
+            return fn(pp["mlp"], pp.get("log_std"), vp, (5, 0x9E3779B9), E,
+                      60, "relu", st0[:E].contiguous(), steps0[:E].clone(),
+                      0.99, lane, **kw)
+        want = _env_rows(run(64), 64)
+        assert bool(want["truncated"].any() or want["terminated"].any())
+        if lane == "reacher":
+            assert cr.last_launch["variant"] == 1
+        runs = {"1024 envs": run(1024)}
+        for tile in tiles:
+            runs[f"tile {tile}"] = run(64, tile=tile)
+            if vp is not None:
+                runs[f"tile {tile}, V(s') every step"] = run(
+                    64, cr.rollout_kernel_vnext_every_step, tile=tile)
+        for name, raw in runs.items():
+            got = _env_rows(raw, 64)
+            for key, x in want.items():
+                assert torch.equal(got[key], x), (name, key)
+
+
+@pytest.mark.parametrize("E", [1, 3, 64, 129, 1024])
+def test_rollout_kernel_matches_plain_at_any_env_count(dev, E):
+    """The bench nets from a carried state that crosses the horizon: the
+    first steps against the plain version, the trajectory against the plain
+    physics, and the V planes (V(s') from the next step's V(s) where a step
+    did not end) against the plain forward on the recorded obs."""
+    ts = _state(dev, (128, 128))
+    pp, vp = ts.policy_params, ts.v_params
+    st0, steps0 = _carried("pendulum", E, dev, seed=E)
+    T = 60
+    args = (pp["mlp"], pp["log_std"], vp, (7, 9), E, T, "relu", st0, steps0)
+    raw, ref = cr.rollout_kernel(*args), cr.rollout_plain(*args)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    resident = cr.last_launch["resident"]
+    assert resident >= sms and resident % sms == 0
+    assert cr.last_launch["tile"] == cr.tile_for(E, resident)
+    torch.testing.assert_close(raw.obs[0], ref.obs[0], **TOL)
+    torch.testing.assert_close(raw.action[:4], ref.action[:4], rtol=1e-4,
+                               atol=1e-5)
+    assert torch.equal(raw.truncated, ref.truncated)
+    assert raw.truncated.any()
+    assert torch.equal(raw.steps_final, ref.steps_final)
+    th = torch.atan2(raw.obs[..., 1], raw.obs[..., 0]).reshape(-1)
+    st = PendulumState(th, raw.obs[..., 2].reshape(-1),
+                       torch.zeros_like(th, dtype=torch.int32))
+    _, nobs, _, _, _ = ENV.step(st, raw.action.reshape(-1, 1))
+    torch.testing.assert_close(nobs.reshape(T, E, 3), raw.next_obs,
+                               rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(mlp.apply(vp, raw.obs, "relu")[..., 0],
+                               raw.value, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(mlp.apply(vp, raw.next_obs, "relu")[..., 0],
+                               raw.next_value, rtol=1e-4, atol=1e-5)
+
+
+def test_rollout_tile_refuses_what_the_variant_does_not_run(dev):
+    ts = _state(dev, (16, 16))
+    args = (ts.policy_params["mlp"], ts.policy_params["log_std"],
+            ts.v_params, (1, 2), 8, 4)
+    before = cr.lane_launches["pendulum", "values"].n
+    for tile in (3, 16, 32):
+        with pytest.raises(ValueError, match="envs a block"):
+            cr.rollout_kernel(*args, tile=tile)
+    with pytest.raises(ValueError, match="envs a block"):
+        cr.rollout_kernel(*args, variant="global", tile=8)
+    assert cr.lane_launches["pendulum", "values"].n == before
+
+
+def test_rollout_split_is_a_function_of_the_widths_alone(dev):
+    """The built kernel's S parts per unit (csrc/rollout.cu layer_split,
+    queried through ppoc_rollout_layer_split, whose arguments are the
+    widths alone): a power of two; the output layers of 1-2 units at 128
+    and 256 inputs spread over a whole warp, the hidden layers over at most
+    4 lanes, the input layers not at all, and every part sums at least 4
+    (narrow) or 32 (wide) inputs."""
+    for din in (128, 256):
+        for dout in (1, 2):
+            assert cr.layer_split(din, dout) == 32
+        assert cr.layer_split(din, din) == 4
+    for din, dout in [(3, 128), (10, 256), (4, 64), (31, 64)]:
+        assert cr.layer_split(din, dout) == 1
+    for din in range(1, 600):
+        for dout in (1, 2, 3, 16, 31, 32, 64, 128, 256, 300):
+            s = cr.layer_split(din, dout)
+            assert s & (s - 1) == 0 and 1 <= s <= (32 if dout < 32 else 4)
+            assert s == 1 or s * (4 if dout < 32 else 32) <= din

@@ -19,8 +19,10 @@ and value pass, the X-ray shape) and a ring block of rel -1, same seeds.
 in both variants, on the bench nets (20 steps of 256 rows) and at 2x256
 (10 steps of 64), on seeded rows and weights.
 ``--save`` writes every output with torch.save; ``--compare`` checks each
-against the saved one with torch.equal, prints one line per launch and
-exits 1 on any difference.  Use it to show that a change to a kernel's
+against the saved one with torch.equal, prints one line per launch (for
+each output that differs, the largest |difference|, or the count of
+unequal elements of an integer or boolean output) and exits 1 on any
+difference.  Use it to show that a change to a kernel's
 source left its arithmetic as it was.  ``--time`` also prints each
 launch's device time, with this checkout's ``chip_smoke.queued_ms`` (CUDA
 events around 20 launches queued behind a spin kernel): run parent,
@@ -200,10 +202,24 @@ def main() -> int:
     want = torch.load(args.compare)
     bad = 0
     for name, outs in want.items():
-        diff = [k for k, v in outs.items() if not torch.equal(got[name][k], v)]
+        diff = {k: distance(got[name][k], v) for k, v in outs.items()
+                if not torch.equal(got[name][k], v)}
         bad += bool(diff)
-        print(f"{name}: {'identical' if not diff else 'DIFFER: ' + str(diff)}")
+        apart = ", ".join(f"{k} {d}" for k, d in diff.items())
+        print(f"{name}: {'DIFFER: ' + apart if diff else 'identical'}")
     return 1 if bad else 0
+
+
+def distance(a, b) -> str:
+    """How far two outputs of one launch are apart: the largest |a - b| of
+    float outputs, the count of unequal elements of the others."""
+    import torch
+
+    if a.shape != b.shape:
+        return f"shape {tuple(a.shape)} vs {tuple(b.shape)}"
+    if a.is_floating_point():
+        return f"max |diff| {float((a.double() - b.double()).abs().max()):.3e}"
+    return f"{int((a != b).sum())} of {a.numel()} elements"
 
 
 if __name__ == "__main__":
