@@ -101,19 +101,26 @@
    must solve; by the rule declared before any run, if it misses seeds 1
    and 2 run and must both solve; R per epoch, the solve epoch, the wall
    and the launches against the config's.
-17. K3, K4 and K6 with the nets in global memory (past one block's shared
-   memory): K3 and K4 on REACHER_REF's rows (the reference schedule at
-   2x256: [10,256,256,1] for 460 steps and [10,256,256,2], two action
-   dims, for 184, minibatch 64), K3 and K6 on CARTPOLE_WIDE's rows
-   ([4,256,256,1], [4,256,256,2]), each as the bench's phases are held
-   (each step from the kernel's state against float64, chained launches
-   against one launch bit for bit, the whole phase within its
-   WHOLE_RATIO row) and launched in its global-memory variant; K3 for 20
-   steps at minibatch 2048, the fused gate's edge, held the same way (its
-   whole phase's distance printed only); each timed beside its plain
-   version.  K3 and K4 here, and K6 here and in phase 7: the signed lean
-   of one step's gradient against the plain version's (LEAN_TOL), with a
-   control (the plain gradient 8 ulps toward zero) that must fail.
+17. K3, K4 and K6 past one block's shared memory (K3 and K4 sharded over
+   a thread-block cluster, K6 one block with the nets in global memory):
+   K3 and K4 on REACHER_REF's rows (the reference schedule at 2x256:
+   [10,256,256,1] for 460 steps and [10,256,256,2], two action dims, for
+   184, minibatch 64), K3 and K6 on CARTPOLE_WIDE's rows ([4,256,256,1],
+   [4,256,256,2]), each as the bench's phases are held (each step from
+   the kernel's state against float64, chained launches against one
+   launch bit for bit, the whole phase within its WHOLE_RATIO row) and
+   launched in its second variant, K3's and K4's with the sharded
+   cluster's plan printed; K3 for 20 steps at minibatch 2048, the fused
+   gate's edge, held the same way (its whole phase's distance printed
+   only); each timed beside its plain version.  Then the sharded
+   cluster's registers and spills from nvcc.log, a step's device time of
+   K3 on [10,256,256,1] by cluster size (4, 8, 16) at minibatch 64 and
+   2048, and K3 on [3,192,192,1] (pendulum at the reference schedule,
+   between the replicated cluster's boundary and 2x256) held and timed
+   the same way.  K3 and K4 here, K4 in phases 3 and 13, and K6 here and
+   in phase 7: the signed lean of one step's gradient against the plain
+   version's (LEAN_TOL), with a control (the plain gradient 8 ulps toward
+   zero) that must fail.
 18. The two 2x256 paths under the fused gate: REACHER_REF for 3 epochs
    by phase (eval R up by more than 5) and CARTPOLE_WIDE's
    solve(475, max_epochs=10), which must solve; each phase's launches
@@ -167,12 +174,12 @@
    generic bf16 phase), and the whole phase against the plain version and
    the generic phase by distance; a second value phase on the same buffer
    ending at a lower mean loss; a step's device time by grid size.
-23. K3 and K4 as a cluster: the two cluster kernels' registers and spills
-   from nvcc.log; a step's device time of K3 on [3,128,128,1] by cluster
-   size (4, 8, 16) at minibatch 64, 256 and 2048; K3 at the fused gate's
-   edge (20 steps x 2048 rows drawn from the bench's value rows) as the
-   bench's phases are held (its whole phase's distance printed only),
-   timed beside the plain version and the generic phases
+23. K3 and K4 as a replicated cluster: the two cluster kernels' registers
+   and spills from nvcc.log; a step's device time of K3 on [3,128,128,1]
+   by cluster size (4, 8, 16) at minibatch 64, 256 and 2048; K3 at the
+   fused gate's edge (20 steps x 2048 rows drawn from the bench's value
+   rows) as the bench's phases are held (its whole phase's distance
+   printed only), timed beside the plain version and the generic phases
    (ppo.value_phase past the gate) on the same rows.
 
 Each phase's title line gives the seconds since the script started.
@@ -206,6 +213,7 @@ functions.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -235,9 +243,9 @@ KERNELS = {
                      "ppoc_tpu/ops/pallas_update.py:749"),
     "policy_phase_categorical": ("ppoc_tpu_torch/csrc/update.cu",
                                  "ppoc_tpu/ops/pallas_update.py:944"),
-    "value_phase_global": ("ppoc_tpu_torch/csrc/update.cu",
+    "value_phase_global": ("ppoc_tpu_torch/csrc/update_shard.cu",
                            "ppoc_tpu/ops/pallas_update.py:396"),
-    "policy_phase_global": ("ppoc_tpu_torch/csrc/update.cu",
+    "policy_phase_global": ("ppoc_tpu_torch/csrc/update_shard.cu",
                             "ppoc_tpu/ops/pallas_update.py:749"),
     "policy_phase_categorical_global": ("ppoc_tpu_torch/csrc/update.cu",
                                         "ppoc_tpu/ops/pallas_update.py:944"),
@@ -284,6 +292,20 @@ WHOLE_RATIO = {"K3": 0.5, "K4": 0.5, "K6": 0.75,
 STEP_TOL = 2e-7
 GATE_SLACK = 4
 MAX_ROW_FLIPS = 10
+# For the sharded K3/K4 cluster alone (the "global" slot, whose sums run in
+# another order than any other kernel's), gate_band(near_eps=True) also
+# lets each gradient element near Adam's eps range over ROUND_SLACK times
+# its float32 rounding bound (a first-order error analysis of its sums: a
+# sum of n terms within n ulps of the sum of their magnitudes, in any
+# order).  Near eps means Adam's sqrt(v_hat) at the float64 gradient within
+# ROUND_NEAR times eps (at a first step, |g| within ROUND_NEAR eps; eps at
+# least 3% of the step's denominator): there Adam turns a rounding of a
+# gradient that cancels into a visible change of the step; elsewhere the
+# band is the replicated kernels' own.  It has been needed on REACHER_REF's
+# K4 rows at 1.16 eps, and in a card test of [3,160,160,160,1] past 4 eps
+# (tests/test_torch_step_walk.py)
+ROUND_SLACK = 2
+ROUND_NEAR = 32
 # the phases' signed lean (see LEAN_TOL): each layer's gradient (the first
 # Adam moment of one step from zero moments) against the plain version's,
 # pooled over the first LEAN_STEPS minibatches; the control moves the plain
@@ -676,7 +698,8 @@ def to_double(tree):
 def check_phases(cfg, ts, raw, adv, tgt, dev):
     """K3 and K4 against their plain versions, as :func:`check_phase`
     holds them; K3's whole phase also within 2e-4 of the plain version's
-    (no ReLU gate flips on these rows)."""
+    (no ReLU gate flips on these rows); K4's signed lean
+    (:func:`phase_lean`)."""
     from ppoc_tpu_torch.ops import cuda_update as cu
 
     vcols, pcols = phase_rows(cfg, raw, adv, tgt, dev)
@@ -686,7 +709,8 @@ def check_phases(cfg, ts, raw, adv, tgt, dev):
         "policy phase", cu.policy_phase_kernel, cu.policy_phase_plain,
         (pol["mlp"], pol["log_std"], ts.opt_policy, ts.opt_log_std), pcols,
         cfg, cfg.lr_policy, [(cfg.clip_eps, cfg.ent_coeff),
-                             (cfg.clip_eps, 0.01)], WHOLE_RATIO["K4"])
+                             (cfg.clip_eps, 0.01)], WHOLE_RATIO["K4"],
+        lean=True)
 
 
 def check_value_phase(cfg, ts, vcols, **whole):
@@ -709,7 +733,15 @@ def check_phase(label, kernel, plain, state, cols, cfg, lr, extras,
     [(clip_eps, the path's ent_coeff), (clip_eps, 0.01)].
 
     One step is held at 1e-6 and 20 steps at 1e-4, with each of
-    ``extras``, the loss (and entropy) alike, relative where above 1.  A
+    ``extras``, the loss (and entropy) alike, relative where above 1.  The
+    sharded K3/K4 cluster alone (the net past the replicated cluster's
+    shared memory) sums in an order of its own, and one step of it past
+    1e-6 is held again, to STEP_TOL, as the walk below holds a flagged
+    step, with the float64 steps also taking each gradient element near
+    Adam's eps over its float32 rounding either way (:func:`gate_band`,
+    ``near_eps``; the element that fails the 1e-6 check is printed with
+    its gradient and its band); the float64 step with lr +1% must fail
+    that hold.  A
     whole phase cannot be held tightly: float32 rounding alone, in the
     plain version or in one rounding of the starting weights under
     float64, flips ReLU gates and clip branches and moves its end by up to
@@ -725,9 +757,9 @@ def check_phase(label, kernel, plain, state, cols, cfg, lr, extras,
     held again, against the float64 steps with the gates and clip
     branches within rounding taken either way (:func:`gate_band`), and
     there the float64 step with the learning rate 1% high must fail that
-    hold.  Loosely, as a whole: the kernel's distance from float64 (L2)
-    must stay under ``whole_ratio`` times the distance of the 1%
-    learning-rate run
+    hold (the sharded cluster's band with ``near_eps``).  Loosely, as a
+    whole: the kernel's distance from float64 (L2) must stay under
+    ``whole_ratio`` times the distance of the 1% learning-rate run
     (WHOLE_RATIO; ``None``: printed only, for rows that have no reading to
     set it from), its loss (and entropy) within ``whole_stats_tol`` of the
     plain version's and, with ``whole_tol``, its weights within that of
@@ -745,9 +777,10 @@ def check_phase(label, kernel, plain, state, cols, cfg, lr, extras,
     kind = {cu.value_phase_kernel: "value",
             cu.policy_phase_kernel: "policy"}.get(kernel)
     widths = mlp.dims(state[0])
-    if kind and cu.variant_bytes(widths, kind)[0] <= _build.smem_optin(
-            cols[0].device):
-        cluster_line(label, kind, widths, mb, cols[0].device)
+    sharded = bool(kind) and (cu.variant_bytes(widths, kind)[0]
+                              > _build.smem_optin(cols[0].device))
+    if kind:
+        cluster_line(label, kind, widths, mb, cols[0].device, sharded)
     hp = cu.Hyper.of(lr, cfg.adam_beta1, cfg.adam_beta2, cfg.adam_eps)
     h_lr = cu.Hyper.of(1.01 * lr, cfg.adam_beta1, cfg.adam_beta2,
                        cfg.adam_eps)
@@ -768,14 +801,78 @@ def check_phase(label, kernel, plain, state, cols, cfg, lr, extras,
                    for x, y in zip(a[ns:], b[ns:]))
 
     stats = "loss, entropy" if extras[0] else "loss"
+    banded = (plain in (cu.value_phase_plain, cu.policy_phase_plain)
+              and cfg.activation == "relu")
+
+    def held_at_gates(st, s, k1, own, extra=extras[0]):
+        """The kernel step's and the lr +1% float64 step's distance
+        outside :func:`gate_band` at step ``s``, each beyond twice the
+        plain float32 step's ``own``, and the decisions within rounding."""
+        band, n_near = gate_band(
+            st, [c[s * mb:(s + 1) * mb] for c in cols], hp, extra, sharded)
+        own = outside(weights(own), band)
+        fault = run(plain, 1, extra, cast=to_double, hyper=h_lr, st=st, s=s)
+        return (outside(weights(k1), band) - 2 * own,
+                outside(weights(fault), band) - 2 * own, n_near)
+
+    def held_near_eps(what, tol, k, pl, extra):
+        """The sharded cluster's one step ``k`` past ``tol`` from the plain
+        step ``pl``: printed at the element farthest outside the band
+        without rounding (its float64 gradient from Adam's first moment,
+        Adam's sqrt(v_hat) in eps, both bands there), then held to
+        STEP_TOL beyond twice the plain step's distance outside the band
+        with ``near_eps``, where the lr +1% float64 step must not be
+        held."""
+        x1 = run(plain, 1, extra, cast=to_double)
+        band, _ = gate_band(state, [c[:mb] for c in cols], hp, extra)
+        wide, _ = gate_band(state, [c[:mb] for c in cols], hp, extra, True)
+        wk = weights(k).double()
+        i = int(torch.maximum(band[0] - wk, wk - band[1]).argmax())
+
+        def moment(out, which):
+            return torch.cat([
+                getattr(o, which).reshape(-1)
+                if isinstance(getattr(o, which), torch.Tensor)
+                else mlp.flatten(getattr(o, which))
+                for o in out[ns // 2:ns]]).double()
+
+        g = (moment(x1, "m") - hp.b1 * moment(state, "m")) / hp.omb1
+        n_net = mlp.flatten(state[0]).numel()
+        t = state[ns // 2].t if i < n_net else state[ns - 1].t
+        v_hat = moment(x1, "v")[i] / cu._bias_corrections(t + 1, hp)[1]
+        excess, fault, n_near = held_at_gates(state, 0, k, pl, extra)
+        print(f"  {what}: {max_err(weights(k), weights(pl)):.3e} from the "
+              f"plain step; at element {i}, farthest outside the float64 "
+              f"band: float64 gradient {float(g[i]):.4e}, Adam's sqrt(v_hat) "
+              f"{math.sqrt(float(v_hat)) / hp.eps:.2f} eps (rounding taken "
+              f"within {ROUND_NEAR}); weight kernel {float(wk[i]):.9e}, "
+              f"plain {float(weights(pl)[i]):.9e}, float64 "
+              f"{float(weights(x1)[i]):.9e}, band [{float(band[0][i]):.9e}, "
+              f"{float(band[1][i]):.9e}], with the gradient's rounding "
+              f"[{float(wide[0][i]):.9e}, {float(wide[1][i]):.9e}]; "
+              f"{n_near} decisions within rounding; beyond twice the plain "
+              f"step's, the kernel {excess:.3e} outside that band, the "
+              f"float64 step with lr +1% {fault:.3e} (must exceed "
+              f"{STEP_TOL:.0e})", flush=True)
+        if not fault > STEP_TOL:
+            raise AssertionError(f"{what}: the float64 step with lr +1% "
+                                 f"lies within {STEP_TOL} of the band "
+                                 f"({fault}): no yardstick")
+        return check(f"{what}: weights beyond twice the plain step's "
+                     f"distance outside the float64 band with the rounding "
+                     f"near eps", excess, STEP_TOL, what="max excess")
+
     p_err = 0.0
     for n, tol in ((1, 1e-6), (20, 1e-4)):
         for extra in extras:
             k, pl = run(kernel, n, extra), run(plain, n, extra)
             what = f"{label}, {n} steps" + (
                 f", ent_coeff {extra[1]}" if extra else "")
-            p_err = max(p_err, check(f"{what}: weights",
-                                     max_err(weights(k), weights(pl)), tol))
+            err = max_err(weights(k), weights(pl))
+            if n == 1 and sharded and banded and err > tol:
+                p_err = max(p_err, held_near_eps(what, tol, k, pl, extra))
+            else:
+                p_err = max(p_err, check(f"{what}: weights", err, tol))
             check(f"{what}: {stats}", stats_err(k, pl), tol)
     if lean:
         phase_lean(label, run, kernel, plain, state)
@@ -807,20 +904,6 @@ def check_phase(label, kernel, plain, state, cols, cfg, lr, extras,
                        run(plain, 1, cast=to_double, hyper=h_lr))
     print(f"  {label}, step 0: a 1% learning-rate error moves the weights "
           f"by {lr_step:.3e}", flush=True)
-
-    banded = (plain in (cu.value_phase_plain, cu.policy_phase_plain)
-              and cfg.activation == "relu")
-
-    def held_at_gates(st, s, k1, own):
-        """The kernel step's and the lr +1% float64 step's distance
-        outside :func:`gate_band` at step ``s``, each beyond twice the
-        plain float32 step's ``own``, and the decisions within rounding."""
-        band, n_near = gate_band(
-            st, [c[s * mb:(s + 1) * mb] for c in cols], hp, extras[0])
-        own = outside(weights(own), band)
-        fault = run(plain, 1, cast=to_double, hyper=h_lr, st=st, s=s)
-        return (outside(weights(k1), band) - 2 * own,
-                outside(weights(fault), band) - 2 * own, n_near)
 
     local, held, st = [], [], state   # (kernel, plain step errors, excess)
     for s in range(n_p):
@@ -858,7 +941,9 @@ def check_phase(label, kernel, plain, state, cols, cfg, lr, extras,
     check(f"{label}, each of {n_p} steps from the kernel's state vs one "
           f"float64 step, beyond twice the plain float32 step's distance"
           + (" (or from the float64 steps with the decisions within "
-             "rounding either way)" if banded else ""),
+             "rounding" + (" and the gradient's rounding near eps"
+                           if sharded else "") + " either way)"
+             if banded else ""),
           max(x for _, _, x in local), STEP_TOL, what="max excess")
     if not torch.equal(weights(st), weights(k)):
         raise AssertionError(f"{label}: {n_p} chained one-step launches "
@@ -874,7 +959,7 @@ def check_phase(label, kernel, plain, state, cols, cfg, lr, extras,
                           5, 1)
 
 
-def gate_band(state, rows, hyper, extra=()):
+def gate_band(state, rows, hyper, extra=(), near_eps=False):
     """The float64 step of one K3 or K4 minibatch from ``state``, with
     every decision within float32 rounding taken either way: ((lowest,
     highest) of each weight over those steps, flattened as
@@ -891,10 +976,13 @@ def gate_band(state, rows, hyper, extra=()):
     row's decisions are taken every way together (2**k evaluations of its
     gradient); rows add to the gradient independently, so each gradient
     element ranges over its base value plus the sum of the rows' ranges.
-    Each weight's step is a function of its own gradient element alone
-    with one turning point, so its range is that of the step at both
-    ends, at the base and at the turning point where it lies between
-    them."""
+    With ``near_eps`` (the sharded K3/K4 cluster's checks alone), each
+    gradient element at which Adam's sqrt(v_hat) lies within ROUND_NEAR
+    times eps also ranges over ROUND_SLACK times its float32 rounding
+    bound (:func:`rounding`): any order of its sums lies inside.  Each
+    weight's step is a function of its own gradient element alone with one
+    turning point, so its range is that of the step at both ends, at the
+    base and at the turning point where it lies between them."""
     import itertools
 
     import torch
@@ -1017,16 +1105,91 @@ def gate_band(state, rows, hyper, extra=()):
             cu._adam_(p[part], gs[part], m[part], v[part], o.t + 1, hyper)
         return torch.cat([t.reshape(-1) for t in p])
 
-    # Adam's step m'/sqrt(v') (eps aside) turns where the gradient is
-    # (1 - b1) b2 v / (b1 (1 - b2) m)
     m = torch.cat([t.reshape(-1) for t in M])
     v = torch.cat([t.reshape(-1) for t in V])
+    if near_eps:
+        bc2 = torch.cat([torch.full((sum(t.numel() for t in P[part]),),
+                                    cu._bias_corrections(o.t + 1, hyper)[1],
+                                    dtype=g0.dtype, device=g0.device)
+                         for o, part in zip(opts, (slice(None, split),
+                                                   slice(split, None)))])
+        v_hat = (hyper.b2 * v + hyper.omb2 * g0 * g0) / bc2
+        bound = ROUND_SLACK * (rounding(
+            W, B, x, cols, z64, y64, base, clip, mb,
+            (ls, lp0, ratio) if policy else None) + 2 * ULP * g0.abs())
+        bound = torch.where(v_hat.sqrt() <= ROUND_NEAR * hyper.eps, bound,
+                            0.0)
+        lo, hi = lo - bound, hi + bound
+    # Adam's step m'/sqrt(v') (eps aside) turns where the gradient is
+    # (1 - b1) b2 v / (b1 (1 - b2) m)
     turn = torch.nan_to_num(hyper.omb1 * hyper.b2 * v
                             / (hyper.b1 * hyper.omb2 * m))
     turn = torch.minimum(torch.maximum(turn, g0 + lo), g0 + hi)
     steps = torch.stack([step(g0 + lo), step(g0 + hi), step(g0),
                          step(turn)])
     return (steps.min(dim=0).values, steps.max(dim=0).values), n_near
+
+
+ULP = 2.0 ** -24   # float32's unit roundoff
+
+
+def rounding(W, B, x, cols, z64, y64, masks, unclipped, mb, policy=None):
+    """A first-order bound, in float64, on how far a float32 computation of
+    one K3 or K4 step's gradient can lie from the exact one, flattened as
+    gate_band's gradient, for the float64 net ``W``, ``B`` on the rows
+    ``cols`` (x first) with its pre-activations ``z64``, output ``y64``,
+    ReLU gates ``masks`` and (K4) unclipped rows ``unclipped``; ``policy``
+    (K4): (log_std, the log-prob's constant, gate_band's ratio).  Every sum
+    of n terms in any order lies within n ulps of the sum of their
+    magnitudes; errors carried from the inputs of a product add through
+    its magnitudes."""
+    import torch
+
+    def gam(n):
+        return n * ULP
+
+    L = len(W)
+    acts = [x] + [torch.relu(z) for z in z64]        # each layer's input
+    err = [torch.zeros_like(x)]
+    for l in range(L - 1):
+        wa = W[l].abs()
+        ez = err[l] @ wa + gam(wa.shape[0] + 1) * (acts[l].abs() @ wa
+                                                   + B[l].abs())
+        err.append(ez * masks[l])
+    wa = W[-1].abs()
+    ey = err[-1] @ wa + gam(wa.shape[0] + 1) * (acts[-1].abs() @ wa
+                                                + B[-1].abs())
+    if policy:
+        ls, lp0, ratio = policy
+        r, z = ratio(y64, ls, cols[1], cols[2])
+        s = torch.exp(-ls)
+        ez = ey * s + 2 * ULP * z.abs()
+        elogp = (z.abs() * ez).sum(dim=1) + gam(z.shape[1] + 3) * (
+            abs(lp0) + ls.abs().sum() + (z * z).sum(dim=1))
+        dlogp = -(cols[3] * r / mb) * unclipped
+        edl = dlogp.abs() * (elogp + 4 * ULP)
+        g = dlogp[:, None] * z * s
+        eg = (edl[:, None] * z.abs() + dlogp.abs()[:, None] * ez) * s + (
+            3 * ULP * g.abs())
+        zz = (z * z - 1.0).abs()
+        tail = [(edl[:, None] * zz + dlogp.abs()[:, None] * 2 * z.abs() * ez
+                 ).sum(dim=0) + gam(mb) * (dlogp.abs()[:, None] * zz)
+                .sum(dim=0)]
+    else:
+        g = (2.0 / mb) * (y64[:, 0] - cols[1])[:, None]
+        eg = (2.0 / mb) * ey + 2 * ULP * g.abs()
+        tail = []
+    out = [None] * (2 * L)
+    ga = g.abs()
+    for l in range(L - 1, -1, -1):
+        a = acts[l].abs()
+        out[2 * l] = a.T @ eg + err[l].T @ ga + gam(mb) * (a.T @ ga)
+        out[2 * l + 1] = eg.sum(dim=0) + gam(mb) * ga.sum(dim=0)
+        if l > 0:
+            wa = W[l].abs()
+            eg = (eg @ wa.T + gam(wa.shape[1]) * (ga @ wa.T)) * masks[l - 1]
+            ga = (ga @ wa.T) * masks[l - 1]
+    return torch.cat([o.reshape(-1) for o in out + tail])
 
 
 def outside(w, band) -> float:
@@ -1047,7 +1210,11 @@ def phase_lean(label, run, kernel, plain, state):
     the first LEAN_STEPS minibatches of the rows; below zero is toward
     zero.  The kernel's largest |lean| must stay within LEAN_TOL; the
     control, the plain gradient moved LEAN_ULPS ulps toward zero, must
-    lean past it.  ``run``: check_phase's launcher."""
+    lean past it.  Printed beside: the kernel's and the plain version's
+    lean against the float64 step's gradient, which shows which side a
+    reading comes from (the plain version's float32 forward leans K4's
+    2x256 cotangent by ~1.5e-7, PERF.md).  ``run``: check_phase's
+    launcher."""
     import torch
 
     from ppoc_tpu_torch.ops import adam
@@ -1058,30 +1225,41 @@ def phase_lean(label, run, kernel, plain, state):
     i = next(j for j, x in enumerate(state)
              if isinstance(x, AdamState) and isinstance(x.m, list))
     L = len(state[0])
-    num = {"kernel": [0.0] * L, "control": [0.0] * L}
-    den = [0.0] * L
+    num = {k: [0.0] * L for k in ("kernel", "control", "kernel, float64",
+                                   "plain, float64")}
+    den = {k: [0.0] * L for k in ("plain", "float64")}
     for s in range(LEAN_STEPS):
         mk = run(kernel, 1, st=fresh, s=s)[i].m
         mp = run(plain, 1, st=fresh, s=s)[i].m
+        mx = run(plain, 1, cast=to_double, st=fresh, s=s)[i].m
         for l in range(L):
             b = torch.cat([x.reshape(-1) for x in mp[l]])
             a = torch.cat([x.reshape(-1) for x in mk[l]])
+            x = torch.cat([t.reshape(-1) for t in mx[l]])
             c = b.clone()
             for _ in range(LEAN_ULPS):
                 c = torch.nextafter(c, torch.zeros_like(c))
-            sign = b.double().sign()
-            den[l] += float(b.double().abs().sum())
-            num["kernel"][l] += float(((a.double() - b.double()) * sign)
-                                      .sum())
-            num["control"][l] += float(((c.double() - b.double()) * sign)
-                                       .sum())
-    leans = {k: [n / d for n, d in zip(v, den)] for k, v in num.items()}
+            sign, sign_x = b.double().sign(), x.sign()
+            den["plain"][l] += float(b.double().abs().sum())
+            den["float64"][l] += float(x.abs().sum())
+            for key, got, want, sg in (
+                    ("kernel", a, b, sign), ("control", c, b, sign),
+                    ("kernel, float64", a, x, sign_x),
+                    ("plain, float64", b, x, sign_x)):
+                num[key][l] += float(((got.double() - want.double()) * sg)
+                                     .sum())
+    leans = {k: [n / d for n, d in zip(v, den["float64" if "float64" in k
+                                                else "plain"])]
+             for k, v in num.items()}
     print(f"  {label}: one step's gradient, lean by layer pooled over "
           f"{LEAN_STEPS} minibatches: kernel "
           + ", ".join(f"{x:+.3e}" for x in leans["kernel"])
           + f" (|lean| at most {LEAN_TOL:.1e}); control ({LEAN_ULPS} ulps "
-          f"toward zero) " + ", ".join(f"{x:+.3e}" for x in leans["control"]),
-          flush=True)
+          f"toward zero) " + ", ".join(f"{x:+.3e}" for x in leans["control"])
+          + "; against float64: kernel " + ", ".join(
+              f"{x:+.3e}" for x in leans["kernel, float64"])
+          + ", plain " + ", ".join(
+              f"{x:+.3e}" for x in leans["plain, float64"]), flush=True)
     if not max(abs(x) for x in leans["kernel"]) <= LEAN_TOL:
         raise AssertionError(f"{label}: the kernel's gradient leans "
                              f"{leans['kernel']}")
@@ -1720,14 +1898,20 @@ class PhaseClock:
     functions ``ppo.train_epoch`` calls (module attributes, looked up at
     call time; ``targets``: (module, function, phase), SEQUENCE for an
     attention trunk, MLP for the MLP fit, its row draws included) with a
-    synchronise on each side and reads the launch counters around each
-    call.  It is entered around ``Trainer.train_epoch`` alone, so the
-    evaluation's own rollout is not counted, or (MLP_SOLVE) around
-    ``Trainer.solve``, whose evaluations are a phase.  :meth:`split` fails if a phase was never called or the phases
-    leave more than UNTIMED_SHARE of the epoch's wall untimed: a call the
-    wrappers miss fails the run.  The path is unchanged; the
-    synchronisation only ends each phase where the host would wait anyway
-    at the next one's first read."""
+    synchronise after each call (and before it, where the stream is busy)
+    and reads the launch counters around each call.  It is entered
+    around ``Trainer.train_epoch`` alone, so the evaluation's own rollout
+    is not counted, or (MLP_SOLVE) around ``Trainer.solve``, whose
+    evaluations are a phase.  :meth:`split` fails
+    if a phase was never called or the phases and the clock's own
+    bookkeeping (asking whether the stream is idle before each call,
+    reading and adding the launch counters around it, wrapping and
+    unwrapping the functions; timed apart as "clock") leave more than
+    UNTIMED_SHARE of the epoch's wall untimed: a call the wrappers miss
+    fails the run, its device work too (a call that finds the stream busy
+    first waits for it, and that wait stays untimed).  The path is
+    unchanged; the synchronisation only ends each phase where the host
+    would wait anyway at the next one's first read."""
 
     SEQUENCE = (("recurrent", "rollout_rnn", "rollout"),
                 ("recurrent", "compute_values_rnn", "values + GAE"),
@@ -1736,6 +1920,7 @@ class PhaseClock:
                 ("recurrent", "policy_phase_rnn", "policy phase"))
     MLP = (("ppo", "rollout", "rollout"),
            ("ppo", "compute_advantages", "GAE"),
+           ("buffer", "from_rollout", "GAE"),      # the fit's row buffer
            ("ppo", "value_phase", "value phase"),
            ("ppo", "policy_phase", "policy phase"),
            ("ppo", "draw_fit", "draws"))
@@ -1744,7 +1929,15 @@ class PhaseClock:
                        ("ppo", "draw_eval", "draws"))
     # the untimed rest of a recall_xl epoch read 6-8 ms of 7-10 s (0.1%);
     # of a REACHER_REF epoch (10 fits) 0.63% with the row draws untimed,
-    # about half of it the draws, which MLP times as a phase of their own
+    # about half of it the draws, which MLP times as a phase of their own;
+    # with K3 and K4 sharded over a cluster that epoch fell to 0.51-0.53 s
+    # and its untimed 6-9 ms passed 1%: MLP also times the fit's row buffer
+    # (under "GAE"), the clock's bookkeeping (~60 calls an epoch, each a
+    # stream query and ~50 counters read and added) is timed apart, and
+    # the callers build the clock, collect garbage and read the epoch's
+    # metrics outside the window; the rest, 2-5 ms an epoch between its
+    # phases (0.4-0.9% by host speed), is the host's own, and no call
+    # found the stream busy (a run with each call logged)
     UNTIMED_SHARE = 0.01
 
     def __init__(self, counters, targets=SEQUENCE):
@@ -1755,6 +1948,8 @@ class PhaseClock:
         self.calls = dict.fromkeys(self.phases, 0)
         self.launches = {ph: {c.kernel: 0 for c in counters}
                          for ph in self.phases}
+        self.own = 0.0      # the bookkeeping's seconds
+        self.busy = 0       # calls that found the stream busy
         self.saved = []
 
     def wrap(self, mod, name, phase):
@@ -1766,45 +1961,61 @@ class PhaseClock:
 
         @functools.wraps(fn)
         def timed(*a, **kw):
-            torch.cuda.synchronize()
-            n0 = {c.kernel: c.n for c in self.counters}
+            c0 = time.perf_counter()
+            if not torch.cuda.current_stream().query():
+                # device work queued by code the wrappers miss: the wait
+                # for it stays untimed
+                self.busy += 1
+                torch.cuda.synchronize()
+                c0 = time.perf_counter()
+            n0 = [c.n for c in self.counters]
             t0 = time.perf_counter()
             try:
                 return fn(*a, **kw)
             finally:
                 torch.cuda.synchronize()
-                self.t[phase] += time.perf_counter() - t0
+                t1 = time.perf_counter()
+                self.t[phase] += t1 - t0
                 self.calls[phase] += 1
-                for c in self.counters:
-                    self.launches[phase][c.kernel] += c.n - n0[c.kernel]
+                launches = self.launches[phase]
+                for c, n in zip(self.counters, n0):
+                    launches[c.kernel] += c.n - n
+                self.own += (t0 - c0) + (time.perf_counter() - t1)
 
         self.saved.append((mod, name, fn))
         setattr(mod, name, timed)
 
     def __enter__(self):
         from ppoc_tpu_torch.algo import ppo, recurrent
+        from ppoc_tpu_torch.data import buffer
 
-        mods = {"ppo": ppo, "recurrent": recurrent}
+        t0 = time.perf_counter()
+        mods = {"ppo": ppo, "recurrent": recurrent, "buffer": buffer}
         for mod, name, phase in self.targets:
             self.wrap(mods[mod], name, phase)
+        self.own += time.perf_counter() - t0
         return self
 
     def __exit__(self, *exc):
+        t0 = time.perf_counter()
         for mod, name, fn in reversed(self.saved):
             setattr(mod, name, fn)
+        self.own += time.perf_counter() - t0
 
     def split(self, wall: float):
-        """{phase: seconds} plus "untimed", checked against the epoch's
-        ``wall``."""
+        """{phase: seconds} plus "clock" (the bookkeeping) and "untimed",
+        checked against the epoch's ``wall``."""
         if not all(self.calls.values()):
             raise AssertionError(f"a phase of the epoch was never timed: "
                                  f"calls {self.calls}")
-        untimed = wall - sum(self.t.values())
+        untimed = wall - sum(self.t.values()) - self.own
         if not 0.0 <= untimed <= self.UNTIMED_SHARE * wall:
             raise AssertionError(
-                f"the phases {self.t} leave {untimed:.3f} s of the epoch's "
-                f"{wall:.3f} s untimed (limit {self.UNTIMED_SHARE:.0%})")
-        return dict(self.t, untimed=untimed)
+                f"the phases {self.t} and the clock's {self.own:.3f} s leave "
+                f"{untimed:.3f} s of the epoch's {wall:.3f} s untimed (limit "
+                f"{self.UNTIMED_SHARE:.0%}; {self.busy} calls found the "
+                f"stream busy)")
+        return dict(self.t, clock=self.own, untimed=untimed)
 
 
 def recall_xl_path(dev, counters, config=None, names=K7_NAMES,
@@ -1868,11 +2079,13 @@ def recall_xl_path(dev, counters, config=None, names=K7_NAMES,
     t0 = time.perf_counter()
     for i in range(RECALL_XL_EPOCHS):
         # Trainer.train(1, initial_eval=False), one phase at a time
+        clock = PhaseClock(counters)
         t_fit = time.perf_counter()
-        with PhaseClock(counters) as clock:
-            fit = ppo.FitMetrics(*(float(x) for x in tr.train_epoch()))
+        with clock:
+            fit = tr.train_epoch()
             torch.cuda.synchronize()
         split = clock.split(time.perf_counter() - t_fit)
+        fit = ppo.FitMetrics(*(float(x) for x in fit))
         n0 = {c.kernel: c.n for c in counters}
         t_ev = time.perf_counter()
         ev = tr.evaluate()
@@ -2141,12 +2354,15 @@ def epochs_by_phase(tr, n_epochs: int, per_epoch, counters, label: str):
                 for ph, v in per_epoch.items()}
     rows, train_s = [], 0.0
     for i in range(n_epochs):
+        clock = PhaseClock(counters, PhaseClock.MLP)
+        gc.collect()        # earlier runs' garbage, collected outside
         t_fit = time.perf_counter()
-        with PhaseClock(counters, PhaseClock.MLP) as clock:
-            fit = ppo.FitMetrics(*(float(x) for x in tr.train_epoch()))
+        with clock:
+            fit = tr.train_epoch()
             torch.cuda.synchronize()
         wall = time.perf_counter() - t_fit
         split = clock.split(wall)
+        fit = ppo.FitMetrics(*(float(x) for x in fit))
         train_s += wall
         n0 = read_counts(counters)
         t_ev = time.perf_counter()
@@ -2165,8 +2381,8 @@ def epochs_by_phase(tr, n_epochs: int, per_epoch, counters, label: str):
         rows.append(dict(R=ev.R, wall=wall, split=split))
         print(f"  epoch {i}: R {ev.R:.4f}, value loss {fit.value_loss:.5f}, "
               f"policy loss {fit.policy_loss:.5f}; fit {wall:.3f} s, split "
-              f"(s) " + ", ".join(f"{k} {v:.4f}" for k, v in split.items()),
-              flush=True)
+              f"(s) " + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+              + f"; {clock.busy} calls found the stream busy", flush=True)
         if not all(math.isfinite(x) for x in (*fit, ev.R)):
             raise AssertionError(f"non-finite loss on {label}: {fit}, R "
                                  f"{ev.R}")
@@ -2440,7 +2656,8 @@ def reacher_mcc_phases(dev, counters, record):
         cuda_update.policy_phase_plain,
         (pol["mlp"], pol["log_std"], kts.opt_policy, kts.opt_log_std), pcols,
         kcfg, kcfg.lr_policy, [(kcfg.clip_eps, kcfg.ent_coeff),
-                               (kcfg.clip_eps, 0.01)], WHOLE_RATIO["K4"])
+                               (kcfg.clip_eps, 0.01)], WHOLE_RATIO["K4"],
+        lean=True)
     n_k4 = kcfg.n_epochs_policy * kcfg.num_minibatches
     k4_b = phase_bound(mlp.dims(pol["mlp"]), n_k4, 256, 4)
     print(f"  K4 at two action dims ({n_k4} steps x 256; not on a main "
@@ -2529,6 +2746,9 @@ CARTPOLE_WIDE = dict(env="cartpole", hidden=(256, 256), eval_len=500,
 WIDE_SOLVE_EPOCHS = 10
 # K3 at the fused gate's edge (ppo.MAX_FUSED_MB rows a minibatch)
 GATE_MB, GATE_STEPS = 2048, 20
+# a width between the replicated cluster's boundary ([3,h,h,1]: h 140) and
+# 2x256, which the sharded cluster takes
+MID_HIDDEN = (192, 192)
 
 
 def wide_config(env: str, hidden=(256, 256), seed: int = 0):
@@ -2558,13 +2778,15 @@ def wide_launches(cfg, epochs: int):
 
 
 def check_global_phase(counter_g, counter_s, *args, **kw):
-    """:func:`check_phase`, and every launch it made took the global-memory
-    variant (``counter_g``), none the shared-memory one (``counter_s``)."""
+    """:func:`check_phase`, and every launch it made took the second
+    variant (``counter_g``: K3 and K4 sharded over the cluster, K6 with the
+    weights in global memory), none the shared-memory one
+    (``counter_s``)."""
     g0, s0 = counter_g.n, counter_s.n
     out = check_phase(*args, **kw)
     if counter_s.n != s0 or counter_g.n == g0:
-        raise AssertionError(f"{args[0]}: the 2x256 nets must take the "
-                             f"global-memory variant ({counter_g.kernel} "
+        raise AssertionError(f"{args[0]}: the net must take the second "
+                             f"variant ({counter_g.kernel} "
                              f"{counter_g.n - g0}, {counter_s.kernel} "
                              f"{counter_s.n - s0} launches)")
     return out
@@ -2640,8 +2862,10 @@ def cartpole_wide_path(counters):
     for c in counters:
         c.reset()
     torch.cuda.synchronize()
+    clock = PhaseClock(counters, PhaseClock.MLP_SOLVE)
+    gc.collect()            # earlier runs' garbage, collected outside
     t0 = time.perf_counter()
-    with PhaseClock(counters, PhaseClock.MLP_SOLVE) as clock:
+    with clock:
         res = tr.solve(target, max_epochs=WIDE_SOLVE_EPOCHS)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2652,7 +2876,8 @@ def cartpole_wide_path(counters):
     print(f"  epochs {res['epochs']}, final R {res['R']:.3f}, wall "
           f"{wall:.3f} s, split (s) "
           + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
-          + f"; launches by phase {got}", flush=True)
+          + f"; {clock.busy} calls found the stream busy; launches by phase "
+          f"{got}", flush=True)
     if got != want:
         raise AssertionError(f"CARTPOLE_WIDE launches {got} differ from the "
                              f"config's {want}")
@@ -2668,9 +2893,11 @@ def cartpole_wide_path(counters):
 
 def wide_phases(dev, counters, record):
     """K3 and K4 on REACHER_REF's rows and K3 and K6 on CARTPOLE_WIDE's,
-    each as :func:`check_phase` holds a phase and in its global-memory
-    variant; K3 at the gate's edge; then the two paths, with their
-    launches; records every kernel row."""
+    each as :func:`check_phase` holds a phase and in its second variant
+    (K3 and K4 the sharded cluster, K6 one block with the weights in global
+    memory); K3 at the gate's edge; the sharded cluster's registers, a
+    step's time by cluster size and K3 at MID_HIDDEN; then the two paths,
+    with their launches; records every kernel row."""
     from ppoc_tpu_torch.algo.trainer import Trainer
     from ppoc_tpu_torch.models import mlp
     from ppoc_tpu_torch.ops import cuda_update as cu
@@ -2682,7 +2909,7 @@ def wide_phases(dev, counters, record):
     mb = rcfg.minibatch_size
     n_v = rcfg.n_epochs_value * rcfg.num_minibatches
     n_p = rcfg.n_epochs_policy * rcfg.num_minibatches
-    header(f"[fused phases, nets in global memory: REACHER_REF's rows, K3 on "
+    header(f"[fused phases past shared memory: REACHER_REF's rows, K3 on "
            f"{vw} ({n_v} steps x {mb}), K4 on {pw} ({n_p} steps)]")
     raw, tgt, (vcols, pcols) = wide_rows(rcfg, rts, (0x01234567, 0x89ABCDEF),
                                          1, dev)
@@ -2702,13 +2929,27 @@ def wide_phases(dev, counters, record):
     header(f"[K3 at the fused gate's edge: {GATE_STEPS} steps x {GATE_MB}, "
            f"{vw}]")
     edge = check_gate_edge(rcfg, rts, raw, tgt, dev)
-    header(f"[fused phases, nets in global memory: CARTPOLE_WIDE's rows, K3 "
+    header("[the sharded cluster: registers, a step's time by cluster size, "
+           "K3 past the replicated cluster's boundary]")
+    for kind, res in cluster_resources("shard").items():
+        print(f"  nvcc: the {kind} sharded cluster kernel: {res}", flush=True)
+    cluster_grid_times(dev, 20, tuple(vw), (mb, GATE_MB), "global")
+    hcfg = wide_config("pendulum", MID_HIDDEN)
+    hts = Trainer(hcfg, dev).state
+    hw = mlp.dims(hts.v_params)
+    _, _, (hcols, _) = wide_rows(hcfg, hts, (0x510E527F, 0x9B05688C), 7, dev)
+    k3h = check_global_phase(
+        cu.value_global_launches, cu.value_launches,
+        f"value phase ({hw})", cu.value_phase_kernel, cu.value_phase_plain,
+        (hts.v_params, hts.opt_v), hcols, hcfg, hcfg.lr_v, [()], None)
+    header(f"[fused phases past shared memory: CARTPOLE_WIDE's rows, K3 "
            f"on {cvw}, K6 on {cpw}]")
     _, _, (cvcols, cpcols) = wide_rows(ccfg, cts, (0x2545F491, 0x9E3779B9),
                                        2, dev)
-    # on these rows one kernel step (of 460) parts from float64 by 1.35e-6
-    # where cuBLAS's parts by 2.8e-8, a ReLU gate within rounding: the walk
-    # holds such a step to the float64 steps with those gates either way
+    # on these rows one step of the one-block kernel this slot had (of 460)
+    # parted from float64 by 1.35e-6 where cuBLAS's parts by 2.8e-8, a ReLU
+    # gate within rounding: the walk holds such a step to the float64 steps
+    # with those gates either way
     k3c = check_global_phase(
         cu.value_global_launches, cu.value_launches,
         "value phase (2x256, cartpole rows)", cu.value_phase_kernel,
@@ -2741,6 +2982,9 @@ def wide_phases(dev, counters, record):
     record("value_phase_global", f"the fused gate's edge (not on a path; "
            f"REACHER_REF's rows)", [GATE_STEPS, GATE_MB] + vw, 0, *edge,
            phase_bound(vw, GATE_STEPS, GATE_MB, 1))
+    record("value_phase_global", f"pendulum at {list(MID_HIDDEN)}, the "
+           f"reference schedule's rows (not run by a path here)",
+           [n_v, mb] + hw, 0, *k3h, phase_bound(hw, n_v, mb, 1))
     path = (f"CARTPOLE_WIDE solve, {ccfg.n_envs} envs x {ccfg.rollout_len} "
             f"steps, mb {mb}")
     record("value_phase_global", path, [n_v, mb] + cvw,
@@ -3771,35 +4015,50 @@ CLUSTER_SIZES = (4, 8, 16)
 CLUSTER_MBS = (64, 256, 2048)
 
 
-def cluster_line(label: str, kind: str, widths, mb: int, dev) -> dict:
-    """Print and return how K3 (``kind`` "value") or K4 ("policy") with the
-    weights in shared memory launches on ``widths`` at minibatch ``mb``
-    (cuda_update.phase_cluster_plan)."""
+def cluster_line(label: str, kind: str, widths, mb: int, dev,
+                 sharded: bool = False, cluster=None) -> dict:
+    """Print and return how K3 (``kind`` "value") or K4 ("policy") launches
+    on ``widths`` at minibatch ``mb``: with the weights in shared memory
+    (cuda_update.phase_cluster_plan), or ``sharded`` over the cluster
+    (phase_shard_plan, each layer's kind from shard_layout)."""
     from ppoc_tpu_torch.ops import cuda_update as cu
 
-    plan = cu.phase_cluster_plan(kind, widths, mb, device=dev)
-    print(f"  {label}: a cluster of {plan['cluster']} blocks x "
-          f"{plan['rows']} rows ({plan['sub_tiles']} sub-tiles of 32), "
-          f"{plan['threads']} threads and {plan['smem']} B of shared memory "
-          f"a block; the card holds {plan['max_active_clusters']} such "
-          f"clusters", flush=True)
+    if not sharded:
+        plan = cu.phase_cluster_plan(kind, widths, mb, cluster, device=dev)
+        print(f"  {label}: a cluster of {plan['cluster']} blocks x "
+              f"{plan['rows']} rows ({plan['sub_tiles']} sub-tiles of 32), "
+              f"{plan['threads']} threads and {plan['smem']} B of shared "
+              f"memory a block; the card holds "
+              f"{plan['max_active_clusters']} such clusters", flush=True)
+        return plan
+    plan = cu.phase_shard_plan(kind, widths, mb, cluster, device=dev)
+    lay = cu.shard_layout(widths, cluster)
+    print(f"  {label}: a sharded cluster of {plan['cluster']} blocks "
+          f"(layers {'/'.join(lay.kinds)}{', spilled' * lay.spill}), each "
+          f"walking all {mb} rows in {plan['sub_tiles']} sub-tiles of "
+          f"{plan['sub_rows']}, {plan['threads']} threads and "
+          f"{plan['smem']} B of shared memory a block; the card holds "
+          f"{plan['max_active_clusters']} such clusters", flush=True)
     return plan
 
 
-def cluster_resources() -> dict:
+def cluster_resources(kernel: str = "cluster") -> dict:
     """{"value" | "policy": "N registers, S B spill stores, L B spill
-    loads"} of the two cluster kernels (csrc/update_cluster.cu), from the
-    build's nvcc.log (the compiler's -Xptxas -v report)."""
+    loads"} of the two cluster kernels (csrc/update_cluster.cu), or with
+    ``kernel`` "shard" of the sharded ones (csrc/update_shard.cu; "value
+    spilled", ... for the instances with the weights in global memory),
+    from the build's nvcc.log (the compiler's -Xptxas -v report)."""
     import re
 
     from ppoc_tpu_torch.ops import _build
 
     res, name = {}, None
     for line in (_build.BUILD_DIR / "nvcc.log").read_text().splitlines():
-        m = re.search(r"Compiling entry function "
-                      r"'\S*cluster_phase_kernelILi(\d)E", line)
+        m = re.search(rf"Compiling entry function '\S*{kernel}_phase_kernel"
+                      r"ILi(\d)E(?:Lb(\d)E)?", line)
         if m:
-            name = ("value", "policy")[int(m.group(1))]
+            name = ("value", "policy")[int(m.group(1))] + (
+                " spilled" if m.group(2) == "1" else "")
             continue
         if re.search(r"Compiling entry function", line):
             name = None
@@ -3811,17 +4070,21 @@ def cluster_resources() -> dict:
                          f"{spill.group(2)} B spill loads")
         if name and regs:
             res[name] = f"{regs.group(1)} registers, " + res.get(name, "")
-    if sorted(res) != ["policy", "value"]:
-        raise AssertionError(f"nvcc.log reports the cluster kernels {res}")
+    want = ["policy", "value"] + (["policy spilled", "value spilled"]
+                                  if kernel == "shard" else [])
+    if sorted(res) != sorted(want):
+        raise AssertionError(f"nvcc.log reports the {kernel} kernels {res}")
     return res
 
 
-def cluster_grid_times(dev, steps: int = 40) -> dict:
-    """A step's device time of K3 on the bench's value net [3,128,128,1]
-    by cluster size (CLUSTER_SIZES, forced) at each of CLUSTER_MBS: a
-    launch of ``steps`` steps less one of none, over the steps
-    (queued_ms); the size the kernels take (cuda_update.CLUSTER) is
-    marked.  Returns {(mb, cluster): us a step}."""
+def cluster_grid_times(dev, steps: int = 40, widths=(3, 128, 128, 1),
+                       mbs=CLUSTER_MBS, variant: str = "smem") -> dict:
+    """A step's device time of K3 on ``widths`` (the bench's value net) by
+    cluster size (CLUSTER_SIZES, forced) at each of ``mbs``, in
+    ``variant`` ("smem": the replicated cluster, "global": the sharded
+    one): a launch of ``steps`` steps less one of none, over the steps
+    (queued_ms); the size the kernels take (cuda_update.CLUSTER or
+    SHARDS) is marked.  Returns {(mb, cluster): us a step}."""
     import torch
 
     from ppoc_tpu_torch.models import mlp
@@ -3829,26 +4092,26 @@ def cluster_grid_times(dev, steps: int = 40) -> dict:
     from ppoc_tpu_torch.ops.adam import AdamState
 
     h = cu.Hyper.of(3e-4, 0.9, 0.999, 1e-8)
-    widths = (3, 128, 128, 1)
+    own = cu.CLUSTER if variant == "smem" else cu.SHARDS
     g = torch.Generator().manual_seed(0)
     params = mlp.init(widths, g, dev)
     zeros = [(torch.zeros_like(w), torch.zeros_like(b)) for w, b in params]
     opt = AdamState(zeros, zeros, 0)
     out = {}
-    for mb in CLUSTER_MBS:
-        x = torch.randn(steps * mb, 3, generator=g).to(dev)
+    for mb in mbs:
+        x = torch.randn(steps * mb, widths[0], generator=g).to(dev)
         tgt = (10 * torch.randn(steps * mb, generator=g)).to(dev)
         row = []
         for c in CLUSTER_SIZES:
             ms = [queued_ms(lambda n=n: cu.value_phase_kernel(
                 x[:n * mb], tgt[:n * mb], params, opt, n, mb, "relu", h,
-                cluster=c), 3) for n in (0, steps)]
+                variant=variant, cluster=c), 3) for n in (0, steps)]
             out[mb, c] = 1e3 * (ms[1] - ms[0]) / steps
-            rule = "*" if c == cu.CLUSTER else ""
+            rule = "*" if c == own else ""
             row.append(f"{c}{rule}: {out[mb, c]:.2f}")
-        print(f"  K3 {list(widths)}, minibatch {mb}, us a step by cluster "
-              f"size ({steps} steps less none; * the kernels' own): "
-              f"{', '.join(row)}", flush=True)
+        print(f"  K3 {list(widths)} ({variant} variant), minibatch {mb}, us "
+              f"a step by cluster size ({steps} steps less none; * the "
+              f"kernels' own): {', '.join(row)}", flush=True)
     return out
 
 

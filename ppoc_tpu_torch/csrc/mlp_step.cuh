@@ -1,8 +1,7 @@
-// The forward, backward and Adam code that the fused update phases (K3, K4
-// and K6 in update.cu) share: one minibatch step of an MLP, run by ONE
-// block.  K5 (mlp.cu) uses its padded weight layout, `block_gemm` and
-// `sliced_gemm`; the functions are inline because both sources include
-// this header.
+// The forward, backward and Adam code of K6's one-block update phase
+// (update.cu): one minibatch step of an MLP, run by ONE block.  K5
+// (mlp.cu) uses its padded weight layout, `block_gemm` and `sliced_gemm`;
+// the functions are inline because both sources include this header.
 //
 // Layout during a phase:
 //   * the weights: in shared memory, each W_l row padded to d_{l+1} + 1

@@ -1,23 +1,17 @@
-// K3, K4 and K6: a whole PPO update phase (every epoch x minibatch step) as
-// one kernel launch of one block.  K6 runs here in both variants; K3 and K4
-// only with the weights in global memory: nets whose weights fit in shared
-// memory run K3 and K4 as a thread-block cluster (update_cluster.cu).
+// K6: a whole categorical PPO policy phase (every epoch x minibatch step)
+// as one kernel launch of one block, in both variants.  K3 and K4 run as
+// thread-block clusters: update_cluster.cu with the nets in shared memory,
+// update_shard.cu with them sharded over the cluster.
 //
-// Replaces ppoc_tpu/ops/pallas_update.py `value_phase_fused` ->
-// `_run_value_phase` -> `_value_kernel`/`_value_kernel_unrolled` (K3),
-// `policy_phase_fused` -> `_policy_kernel`/`_policy_kernel_unrolled` (K4,
-// Gaussian) and `policy_phase_fused_categorical` -> `_policy_kernel_cat`/
-// `_policy_kernel_cat_unrolled` (K6, categorical).  Each step: MLP forward
-// on the pre-gathered minibatch, the loss gradient in closed form (K3: MSE,
-// 2/mb (v - target); K4: clipped surrogate, gradient only through the
-// unclipped branch, plus the entropy term on log_std; K6: the same
-// surrogate through a log-softmax over the class logits plus the entropy
-// bonus, as one gradient on the logits), backward, and Adam (K4: two
-// Adams, the net's and log_std's, each with its own timestep; K3, K6: one).
+// Replaces ppoc_tpu/ops/pallas_update.py `policy_phase_fused_categorical`
+// -> `_policy_kernel_cat`/`_policy_kernel_cat_unrolled`.  Each step: MLP
+// forward on the pre-gathered minibatch, the loss gradient in closed form
+// (the clipped surrogate through a log-softmax over the class logits plus
+// the entropy bonus, as one gradient on the logits), backward, and Adam.
 //
-// What bounds it on the card: the steps are serial through Adam (500 value
-// and 200 policy steps per fit at the bench shape), and one step of a
-// [3,128,128,1] net on 256 rows is ~25 MFLOP in small dependent products.
+// What bounds it on the card: the steps are serial through Adam (200
+// policy steps per fit at the bench shape), and one step of a
+// [4,128,128,2] net on 256 rows is ~25 MFLOP in small dependent products.
 // The phase runs on ONE SM and is bound by that SM's FP32 FMA issue rate,
 // plus one __syncthreads per layer.
 //
@@ -28,11 +22,10 @@
 // wrapper allocates, which stays in the 50 MB L2; the products are
 // register-tiled block loops (mlp_step.cuh).
 //
-// Nets larger than one block's shared memory (2x256: [10,256,256,1] is
-// 69,387 padded floats, 277.5 KB, against 227 KB) take a second variant of
-// each kernel, picked by size at the launch (GLOBAL_W, one body per
-// kernel; K3's and K4's bodies are instantiated only with it): the weights
-// live in the output params in global memory
+// Nets larger than one block's shared memory (2x256: [4,256,256,2] is
+// 68,102 padded floats, 272 KB, against 227 KB) take a second variant,
+// picked by size at the launch (GLOBAL_W): the weights live in the output
+// params in global memory
 // (`load_state` copies p_in there, Adam updates them in place), and each
 // product stages its weight operand SLICE = 32 rows at a time through 33
 // KB of shared memory (`sliced_gemm`): the forward W's rows, the dX
@@ -55,15 +48,13 @@ constexpr int THREADS = 1024;
 
 struct PhaseDev {
   PaddedNet pn;
-  const float *x, *tgt, *act, *lp_old, *adv;
+  const float *x, *lp_old, *adv;
   const float *p_in, *m_in, *v_in;
   float *p_out, *m_out, *v_out;
-  const float *ls_in, *mls_in, *vls_in;
-  float *ls_out, *mls_out, *vls_out;
   float *scratch, *stats;
   const int32_t* act_idx;
-  int activation, n_steps, mb, t0, t0_ls, k_act;
-  float two_over_mb, lp0, ent0, clip_lo, clip_hi, ent_coeff;
+  int activation, n_steps, mb, t0, k_act;
+  float clip_lo, clip_hi, ent_coeff;
   AdamHyper hyper;
 };
 
@@ -100,123 +91,6 @@ __device__ void store_params(const PhaseDev& a, const StepCtx& c) {
   if constexpr (!GLOBAL_W)
     for (int i = threadIdx.x; i < a.pn.net.n_params; i += blockDim.x)
       a.p_out[i] = c.W[padded_index(a.pn, i)];
-}
-
-template <bool GLOBAL_W>
-__global__ void __launch_bounds__(THREADS, 1) value_phase_kernel(
-    const PhaseDev a) {
-  extern __shared__ float smem[];
-  __shared__ float red[33];
-  const StepCtx c = make_ctx<GLOBAL_W>(a, smem);
-  load_state<GLOBAL_W>(a, c);
-  const int d0 = a.pn.net.dim[0];
-  const float* out = c.H + a.pn.h_off[a.pn.net.n_layers - 1];   // [mb, 1]
-  float loss = 0.0f;
-  for (int s = 0; s < a.n_steps; ++s) {
-    const float* x = a.x + (size_t)s * a.mb * d0;
-    const float* tgt = a.tgt + (size_t)s * a.mb;
-    mlp_forward<GLOBAL_W>(c, x);
-    float sq = 0.0f;
-    for (int r = threadIdx.x; r < a.mb; r += blockDim.x) {
-      const float diff = out[r] - tgt[r];
-      sq += diff * diff;
-      c.G[0][r] = a.two_over_mb * diff;
-    }
-    loss += block_sum(sq, red);
-    mlp_backward<GLOBAL_W>(c, x);
-    adam_step<GLOBAL_W>(c, a.m_out, a.v_out, a.t0 + s + 1, a.hyper);
-  }
-  store_params<GLOBAL_W>(a, c);
-  if (threadIdx.x == 0) a.stats[0] = loss;
-}
-
-template <bool GLOBAL_W>
-__global__ void __launch_bounds__(THREADS, 1) policy_phase_kernel(
-    const PhaseDev a) {
-  extern __shared__ float smem[];
-  __shared__ float red[33];
-  __shared__ float ls[MAX_ACT], mls[MAX_ACT], vls[MAX_ACT];
-  const StepCtx c = make_ctx<GLOBAL_W>(a, smem);
-  const int k = a.k_act;
-  if (threadIdx.x < k) {
-    ls[threadIdx.x] = a.ls_in[threadIdx.x];
-    mls[threadIdx.x] = a.mls_in[threadIdx.x];
-    vls[threadIdx.x] = a.vls_in[threadIdx.x];
-  }
-  load_state<GLOBAL_W>(a, c);
-  const int d0 = a.pn.net.dim[0];
-  const float* mu = c.H + a.pn.h_off[a.pn.net.n_layers - 1];   // [mb, k]
-  const float mbf = (float)a.mb;
-  float loss = 0.0f, ent_sum = 0.0f;
-  for (int s = 0; s < a.n_steps; ++s) {
-    const size_t row0 = (size_t)s * a.mb;
-    const float* x = a.x + row0 * d0;
-    float sum_ls = 0.0f, inv_sigma[MAX_ACT];
-    for (int j = 0; j < k; ++j) {
-      sum_ls += ls[j];
-      inv_sigma[j] = expf(-ls[j]);
-    }
-    // closed-form Gaussian entropy, once per minibatch step
-    const float ent = a.ent0 + sum_ls;
-    ent_sum += ent;
-    loss += -a.ent_coeff * ent;
-
-    mlp_forward<GLOBAL_W>(c, x);
-    float surr_part = 0.0f, gls_part[MAX_ACT];
-    for (int j = 0; j < k; ++j) gls_part[j] = 0.0f;
-    for (int r = threadIdx.x; r < a.mb; r += blockDim.x) {
-      const size_t row = row0 + r;
-      float z[MAX_ACT], sumz2 = 0.0f;
-      for (int j = 0; j < k; ++j) {
-        z[j] = (a.act[row * k + j] - mu[r * k + j]) * inv_sigma[j];
-        sumz2 += z[j] * z[j];
-      }
-      const float logp = a.lp0 - sum_ls - 0.5f * sumz2;
-      const float adv = a.adv[row];
-      const float ratio = expf(logp - a.lp_old[row]);
-      const float clipped = fminf(fmaxf(ratio, a.clip_lo), a.clip_hi);
-      const float ra = ratio * adv, ca = clipped * adv;
-      surr_part += fminf(ra, ca);
-      // only the unclipped branch carries gradient
-      const float dlogp = ra <= ca ? -(adv * ratio / mbf) : 0.0f;
-      for (int j = 0; j < k; ++j) {
-        gls_part[j] += dlogp * (z[j] * z[j] - 1.0f);
-        c.G[0][r * k + j] = dlogp * z[j] * inv_sigma[j];
-      }
-    }
-    const float surr = block_sum(surr_part, red);
-    loss += -surr / mbf;
-    float gls[MAX_ACT];
-    for (int j = 0; j < k; ++j) gls[j] = block_sum(gls_part[j], red);
-
-    mlp_backward<GLOBAL_W>(c, x);
-    adam_step<GLOBAL_W>(c, a.m_out, a.v_out, a.t0 + s + 1, a.hyper);
-    // log_std Adam (its own timestep); the entropy bonus adds -ent_coeff
-    if (threadIdx.x < k) {
-      const int j = threadIdx.x;
-      const AdamHyper& h = a.hyper;
-      const float tl = (float)(a.t0_ls + s + 1);
-      const float bc1 = 1.0f - expf(tl * h.logb1);
-      const float bc2 = 1.0f - expf(tl * h.logb2);
-      const float g = gls[j] - a.ent_coeff;
-      const float m2 = h.b1 * mls[j] + h.omb1 * g;
-      const float v2 = h.b2 * vls[j] + h.omb2 * (g * g);
-      mls[j] = m2;
-      vls[j] = v2;
-      ls[j] = ls[j] - (h.lr / bc1) * m2 / (sqrtf(v2 / bc2) + h.eps);
-    }
-    __syncthreads();
-  }
-  store_params<GLOBAL_W>(a, c);
-  if (threadIdx.x < k) {
-    a.ls_out[threadIdx.x] = ls[threadIdx.x];
-    a.mls_out[threadIdx.x] = mls[threadIdx.x];
-    a.vls_out[threadIdx.x] = vls[threadIdx.x];
-  }
-  if (threadIdx.x == 0) {
-    a.stats[0] = loss;
-    a.stats[1] = ent_sum;
-  }
 }
 
 // K6, per step and row r of the minibatch (pallas_update.py:824-883):
@@ -324,56 +198,32 @@ extern "C" int ppoc_phase_sizes(const PhaseArgs* a, long* sizes) {
   return 1;
 }
 
-enum PhaseKind { VALUE, POLICY, CATEGORICAL };
-
-// K3 and K4 launch here only with the weights in global memory: with the
-// weights in shared memory they run as a cluster (update_cluster.cu).
-static void (*phase_kernel(PhaseKind kind, int variant))(const PhaseDev) {
-  if (variant == 0) return categorical_policy_phase_kernel<false>;
-  return kind == VALUE    ? value_phase_kernel<true>
-         : kind == POLICY ? policy_phase_kernel<true>
-                          : categorical_policy_phase_kernel<true>;
+static void (*phase_kernel(int variant))(const PhaseDev) {
+  return variant == 0 ? categorical_policy_phase_kernel<false>
+                      : categorical_policy_phase_kernel<true>;
 }
 
-static int launch_phase(const PhaseArgs* a, cudaStream_t stream,
-                        PhaseKind kind) {
+extern "C" int ppoc_policy_phase_categorical(const PhaseArgs* a,
+                                             cudaStream_t stream) {
   PhaseDev d{};
   if (!make_padded(&d.pn, a->n_layers, a->dims, a->mb)) return cudaErrorInvalidValue;
-  if (a->variant < 0 || a->variant > 1 || (a->variant == 0 && kind != CATEGORICAL))
+  if (a->variant < 0 || a->variant > 1) return cudaErrorInvalidValue;
+  if (a->k_act < 1 || a->k_act > MAX_ACT ||
+      d.pn.net.dim[a->n_layers] != a->k_act)
     return cudaErrorInvalidValue;
-  if (kind != VALUE && (a->k_act < 1 || a->k_act > MAX_ACT ||
-                        d.pn.net.dim[a->n_layers] != a->k_act))
-    return cudaErrorInvalidValue;
-  if (kind == VALUE && d.pn.net.dim[a->n_layers] != 1) return cudaErrorInvalidValue;
-  d.x = a->x; d.tgt = a->tgt; d.act = a->act; d.lp_old = a->lp_old; d.adv = a->adv;
+  d.x = a->x; d.lp_old = a->lp_old; d.adv = a->adv;
   d.p_in = a->p_in; d.m_in = a->m_in; d.v_in = a->v_in;
   d.p_out = a->p_out; d.m_out = a->m_out; d.v_out = a->v_out;
-  d.ls_in = a->ls_in; d.mls_in = a->mls_in; d.vls_in = a->vls_in;
-  d.ls_out = a->ls_out; d.mls_out = a->mls_out; d.vls_out = a->vls_out;
   d.scratch = a->scratch; d.stats = a->stats; d.act_idx = a->act_idx;
   d.activation = a->activation; d.n_steps = a->n_steps; d.mb = a->mb;
-  d.t0 = a->t0; d.t0_ls = a->t0_ls; d.k_act = a->k_act;
-  d.two_over_mb = a->two_over_mb; d.lp0 = a->lp0; d.ent0 = a->ent0;
+  d.t0 = a->t0; d.k_act = a->k_act;
   d.clip_lo = a->clip_lo; d.clip_hi = a->clip_hi; d.ent_coeff = a->ent_coeff;
   d.hyper = a->hyper;
   const int smem = (int)phase_smem(d.pn, a->variant);
-  auto kernel = phase_kernel(kind, a->variant);
+  auto kernel = phase_kernel(a->variant);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   kernel<<<1, THREADS, smem, stream>>>(d);
   return cudaGetLastError();
-}
-
-extern "C" int ppoc_value_phase(const PhaseArgs* a, cudaStream_t stream) {
-  return launch_phase(a, stream, VALUE);
-}
-
-extern "C" int ppoc_policy_phase(const PhaseArgs* a, cudaStream_t stream) {
-  return launch_phase(a, stream, POLICY);
-}
-
-extern "C" int ppoc_policy_phase_categorical(const PhaseArgs* a,
-                                             cudaStream_t stream) {
-  return launch_phase(a, stream, CATEGORICAL);
 }

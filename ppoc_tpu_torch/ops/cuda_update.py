@@ -7,23 +7,28 @@ the rows of every epoch x minibatch step in order beforehand (as the JAX
 wrappers do); one launch then runs every step: forward, the loss gradient
 in closed form, backward and Adam.
 
-Each kernel has two variants (``_build.VARIANTS``): the weights in shared
-memory, or, for nets larger than that (2x256: the [10,256,256,1] value net
-is 277.5 KB padded against the H100's 227 KB), in global memory, where
-Adam updates the output params in place and each product stages its
-weight operand 32 rows at a time (``csrc/update.cu``, one block).  With
-the weights in shared memory K6 runs as one block (``csrc/update.cu``) and
-K3 and K4 as one thread-block cluster (``csrc/update_cluster.cu``): each
-block of the cluster holds a replica of the weights and its own rows of
-every minibatch (CLUSTER blocks whatever the minibatch size;
-:func:`phase_cluster_plan` gives the whole launch), and the blocks sum
-their weight gradients over distributed shared memory in rank order.  The launch takes the first variant whose shared memory fits
-(:func:`variant_bytes` gives the same bytes from the widths alone);
-``variant=`` forces one, and ``cluster=`` the cluster kernels' block
-count, for tests and measurements.  K6's two variants sum every output in
-the same order, so on a net both take they give the same bits; K3's and
-K4's sum the weight gradients in different orders.  The launch counts are
-kept per variant.
+Each kernel has two variants (``_build.VARIANTS``), for the nets that fit
+one block's shared memory and for larger ones (2x256: the [10,256,256,1]
+value net is 277.5 KB padded against the H100's 227 KB).  K6 runs as one
+block in both (``csrc/update.cu``): the weights in shared memory, or in
+global memory, where Adam updates the output params in place and each
+product stages its weight operand 32 rows at a time.  K3 and K4 run as one
+thread-block cluster in both.  With the nets in shared memory
+(``csrc/update_cluster.cu``) each block of the cluster holds a replica of
+the weights and its own rows of every minibatch (CLUSTER blocks whatever
+the minibatch size; :func:`phase_cluster_plan` gives the whole launch),
+and the blocks sum their weight gradients over distributed shared memory
+in rank order.  Past that (``csrc/update_shard.cu``, the "global" slot)
+the weights are sharded over SHARDS blocks (:func:`shard_layout`): layer
+0 replicated, the next layer split by output column, the head by input
+row, the head's partial outputs summed over the cluster, every block
+walking every row; :func:`phase_shard_plan` gives the launch.  The launch
+takes the first variant whose shared memory fits (:func:`variant_bytes`
+gives the same bytes from the widths alone); ``variant=`` forces one, and
+``cluster=`` the cluster kernels' block count, for tests and
+measurements.  K6's two variants sum every output in the same order, so
+on a net both take they give the same bits; K3's and K4's sum in
+different orders.  The launch counts are kept per variant.
 
 Adam here is the kernels' own: bias corrections 1 - exp(t log b) folded
 into the step size, eps outside the sqrt; K4 runs a second Adam for
@@ -47,7 +52,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -78,6 +83,12 @@ _STATIC_SMEM = 1024  # the kernels' static shared memory, rounded up
 CLUSTER, CLUSTER_MAX = 16, 16
 CLUSTER_SUB = 32
 _ES, _RSS, _NS, _MAX_ACT = 12, 12, 9, 8
+# csrc/update_shard.cu: blocks in the sharded cluster and threads a block,
+# the sub-tile rows it tries (largest first; with the weights in shared
+# memory down to the third), and the dynamic shared memory a block may take
+SHARDS, SHARD_THREADS = 16, 512
+SHARD_SUBS = (64, 32, 16, 8, 4, 2, 1)
+_SHARD_BUDGET = 232448 - 1024
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -440,22 +451,101 @@ def cluster_bytes(widths: Sequence[int]) -> int:
     return 4 * floats
 
 
+def _w_ld(n: int) -> int:
+    """csrc/cluster.cuh w_ld: 4 floats times an odd number, at least n."""
+    return 4 * (((n + 3) // 4) | 1)
+
+
+class ShardLayout(NamedTuple):
+    kinds: List[str]   # each layer's: "REP", "COL" or "ROW"
+    sub: int           # rows of a sub-tile
+    spill: bool        # COL and ROW weights in a global scratch
+    moments: bool      # the block's own Adam moments in shared memory
+    nbytes: int        # a block's dynamic shared memory
+
+
+def shard_layout(widths: Sequence[int],
+                 cluster: Optional[int] = None) -> ShardLayout:
+    """How K3's and K4's sharded cluster kernel (csrc/update_shard.cu
+    ``shard_layout``) lays out the net ``widths`` over ``cluster`` blocks
+    (None: SHARDS).  The kinds, set from the head down: the head "ROW" (a
+    block holds its share of W's rows), the layer below "COL" (its share
+    of the columns), alternating, with layer 0 "REP" (replicated) where it
+    would be a ROW below a COL.  A shard is ceil(width / cluster) units
+    rounded up to 4.  A block holds its W_l (r4 or shard rows x 4 * odd
+    floats, zero past its units) and b_l, and their gradient; the output
+    tile of every layer (sub rows x 4 * odd); two exchange tiles (sub x
+    the widest ROW's stride) and a zero bias of that stride; two sub-tiles
+    of x and of the row extras; the row stats; log_std's state; m and v of
+    the ROW biases; where they fit, m and v of the block's own elements
+    (its shards, and its quarter-float4-aligned 1/cluster slice of a REP
+    layer) in shared memory, else in the output moments.  The sub-tile is
+    the largest of SHARD_SUBS down to 16 whose block fits 227 KB (with the
+    own moments if they fit at that sub-tile); else, with every COL and
+    ROW weight and its gradient spilled to global memory, the largest that
+    fits; else the spilled 1-row block (which the launch refuses).  The
+    minibatch size does not enter."""
+    c = cluster or SHARDS
+    n = len(widths) - 1
+    kinds = ["ROW"] * n
+    for l in range(n - 2, -1, -1):
+        kinds[l] = "COL" if kinds[l + 1] == "ROW" else "ROW"
+    if n >= 2 and kinds[0] == "ROW":
+        kinds[0] = "REP"
+
+    def shard(width):
+        return _r4(-(-width // c))
+
+    params, spilled, strides, bias_moments, own, xw = 0, 0, 0, 0, 0, 4
+    for kind, din, dout in zip(kinds, widths[:-1], widths[1:]):
+        rows = shard(din) if kind == "ROW" else _r4(din)
+        cols = shard(dout) if kind == "COL" else dout
+        floats = rows * _w_ld(cols) + _r4(cols)
+        params += floats
+        spilled += floats if kind != "REP" else 0
+        strides += _w_ld(cols)
+        own += {"REP": 4 * -(-(floats // 4) // c),
+                "COL": (rows + 1) * cols, "ROW": rows * dout}[kind]
+        if kind == "ROW":
+            bias_moments += _r4(dout)
+            xw = max(xw, _w_ld(cols))
+    for spill in (False, True):
+        for sub in SHARD_SUBS[:None if spill else SHARD_SUBS.index(16) + 1]:
+            for moments in (True, False)[spill:]:
+                floats = (2 * (params - spill * spilled) + sub * strides + 8
+                          + 2 * sub * xw + xw + 2 * sub * _w_ld(widths[0])
+                          + 2 * sub * _ES + sub * _RSS + 4 * _MAX_ACT
+                          + 2 * bias_moments + moments * 2 * _r4(own))
+                if 4 * floats <= _SHARD_BUDGET:
+                    return ShardLayout(kinds, sub, spill, moments,
+                                       4 * floats)
+    return ShardLayout(kinds, sub, spill, moments, 4 * floats)
+
+
+def shard_bytes(widths: Sequence[int]) -> int:
+    """Dynamic shared memory of one block of K3's or K4's sharded cluster
+    kernel on the net ``widths`` (:func:`shard_layout`, SHARDS blocks), in
+    bytes; the same as csrc/update_shard.cu ``ppoc_phase_shard_smem``."""
+    return shard_layout(widths).nbytes
+
+
 def variant_bytes(widths: Sequence[int], kind: str = "value") -> List[int]:
     """Shared memory one launch of the ``kind`` phase ("value", "policy"
     or "categorical policy") on the net ``widths`` needs in each variant
-    (``_build.VARIANTS``), in bytes, with the kernels' static share: with
-    the weights in shared memory, K3's and K4's cluster block
-    (:func:`cluster_bytes`) or K6's padded weights (each W_l row d_{l+1} + 1
-    floats, plus the biases); in global memory, one staged slice of 32 rows
-    of the widest layer + 1.  The same as the kernels' size functions (a
-    card test holds them together); the minibatch size does not enter."""
+    (``_build.VARIANTS``), in bytes, with the kernels' static share.  K3
+    and K4: the replicated cluster's block (:func:`cluster_bytes`), then
+    the sharded cluster's (:func:`shard_bytes`).  K6: its padded weights
+    (each W_l row d_{l+1} + 1 floats, plus the biases), then one staged
+    slice of 32 rows of the widest layer + 1.  The same as the kernels'
+    size functions (a card test holds them together); the minibatch size
+    does not enter."""
     if kind == "categorical policy":
-        first = 4 * sum(a * (b + 1) + b for a, b in zip(widths[:-1],
-                                                      widths[1:]))
+        sizes = (4 * sum(a * (b + 1) + b for a, b in zip(widths[:-1],
+                                                        widths[1:])),
+                 4 * _SLICE * (max(widths) + 1))
     else:
-        first = cluster_bytes(widths)
-    staged = 4 * _SLICE * (max(widths) + 1)
-    return [n + _STATIC_SMEM for n in (first, staged)]
+        sizes = (cluster_bytes(widths), shard_bytes(widths))
+    return [n + _STATIC_SMEM for n in sizes]
 
 
 class _PhaseArgs(ctypes.Structure):
@@ -487,42 +577,57 @@ def _declare() -> ctypes.CDLL:
         lib.ppoc_phase_sizes.restype = ctypes.c_int
         lib.ppoc_phase_cluster_smem.argtypes = args
         lib.ppoc_phase_cluster_smem.restype = ctypes.c_long
-        lib.ppoc_phase_cluster_plan.argtypes = args + [
-            ctypes.c_int, ctypes.POINTER(ctypes.c_long)]
-        lib.ppoc_phase_cluster_plan.restype = ctypes.c_int
-        for fn in (lib.ppoc_value_phase, lib.ppoc_policy_phase,
-                   lib.ppoc_policy_phase_categorical,
+        for fn in (lib.ppoc_phase_cluster_plan, lib.ppoc_phase_shard_plan):
+            fn.argtypes = args + [ctypes.c_int,
+                                  ctypes.POINTER(ctypes.c_long)]
+            fn.restype = ctypes.c_int
+        lib.ppoc_phase_shard_smem.argtypes = args
+        lib.ppoc_phase_shard_smem.restype = ctypes.c_long
+        for fn in (lib.ppoc_policy_phase_categorical,
                    lib.ppoc_value_phase_cluster,
-                   lib.ppoc_policy_phase_cluster):
+                   lib.ppoc_policy_phase_cluster,
+                   lib.ppoc_value_phase_shard,
+                   lib.ppoc_policy_phase_shard):
             fn.argtypes = args + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib._phase_declared = True
     return lib
 
 
-_KINDS = {"value": ("ppoc_value_phase", value_launches,
-                     value_global_launches),
-          "policy": ("ppoc_policy_phase", policy_launches,
-                     policy_global_launches),
-          "categorical policy": ("ppoc_policy_phase_categorical",
+# per kind: (the launcher, the shared-memory variant's launch count, the
+# other's); K3's and K4's launchers by variant
+_KINDS = {"value": (("ppoc_value_phase_cluster", "ppoc_value_phase_shard"),
+                    value_launches, value_global_launches),
+          "policy": (("ppoc_policy_phase_cluster", "ppoc_policy_phase_shard"),
+                     policy_launches, policy_global_launches),
+          "categorical policy": (("ppoc_policy_phase_categorical",) * 2,
                                  categorical_launches,
                                  categorical_global_launches)}
-# K3's and K4's shared-memory variant: (the plan's kind, the launcher)
-_CLUSTER = {"value": (0, "ppoc_value_phase_cluster"),
-            "policy": (1, "ppoc_policy_phase_cluster")}
-_CLUSTER_KEYS = ("cluster", "rows", "sub_tiles", "threads", "smem",
-                 "max_active_clusters")
+_CLUSTER = {"value": 0, "policy": 1}   # K3 and K4: the plans' kind
+# the plans of K3's and K4's two cluster kernels (by variant): the replicated
+# cluster gives rows a block, the sharded one rows a sub-tile (every block
+# walks every row)
+_PLAN_OF = ("ppoc_phase_cluster_plan", "ppoc_phase_shard_plan")
+_CLUSTER_KEYS = (("cluster", "rows", "sub_tiles", "threads", "smem",
+                  "max_active_clusters"),
+                 ("cluster", "sub_rows", "sub_tiles", "threads", "smem",
+                  "max_active_clusters", "scratch"))
+_CLUSTER_NAMES = ("cluster", "sharded cluster")
 
 
-def _cluster_plan(lib, args: _PhaseArgs, kind: str, widths) -> dict:
-    """The cluster launch of ``args`` (see :func:`phase_cluster_plan`);
-    raises if the card cannot hold one such cluster."""
-    out = (ctypes.c_long * len(_CLUSTER_KEYS))()
-    what = (f"{kind} phase cluster kernel for the net {list(widths)}, mb "
-            f"{args.mb}, cluster {args.cluster or CLUSTER}")
-    _build.check(lib, lib.ppoc_phase_cluster_plan(
-        ctypes.byref(args), _CLUSTER[kind][0], out), what)
-    plan = dict(zip(_CLUSTER_KEYS, out))
+def _cluster_plan(lib, args: _PhaseArgs, kind: str, widths,
+                  variant: int) -> dict:
+    """The cluster launch of ``args`` in ``variant`` (see
+    :func:`phase_cluster_plan`, :func:`phase_shard_plan`); raises if the
+    card cannot hold one such cluster."""
+    keys = _CLUSTER_KEYS[variant]
+    out = (ctypes.c_long * len(keys))()
+    what = (f"{kind} phase {_CLUSTER_NAMES[variant]} kernel for the net "
+            f"{list(widths)}, mb {args.mb}, cluster "
+            f"{args.cluster or (CLUSTER, SHARDS)[variant]}")
+    _build.check(lib, getattr(lib, _PLAN_OF[variant])(
+        ctypes.byref(args), _CLUSTER[kind], out), what)
+    plan = dict(zip(keys, out))
     if plan["max_active_clusters"] < 1:
         raise ValueError(f"{what}: a cluster of {plan['cluster']} blocks of "
                          f"{plan['smem']} B shared memory cannot be "
@@ -539,52 +644,73 @@ def phase_cluster_plan(kind: str, widths: Sequence[int], mb: int,
     32-row sub-tiles a block, threads a block, dynamic shared-memory bytes
     and how many such clusters the card holds at once.  Raises if the card
     holds none."""
+    return _plan(kind, widths, mb, cluster, device, 0)
+
+
+def phase_shard_plan(kind: str, widths: Sequence[int], mb: int,
+                     cluster: Optional[int] = None, device=None) -> dict:
+    """How K3 (``kind`` "value") or K4 ("policy") launches with the weights
+    sharded over the cluster (the "global" slot), on the net ``widths``
+    and minibatch ``mb``: blocks in the cluster (``cluster``, or SHARDS),
+    rows of a sub-tile, sub-tiles a minibatch (each block walks every
+    row), threads a block, dynamic shared-memory bytes, how many such
+    clusters the card holds at once and the floats of global scratch the
+    launch allocates (0 unless the weights spill: :func:`shard_layout`).
+    Raises if the card holds none."""
+    return _plan(kind, widths, mb, cluster, device, 1)
+
+
+def _plan(kind, widths, mb, cluster, device, variant: int) -> dict:
     lib = _declare()
     dims = (ctypes.c_int * len(widths))(*widths)
     args = _PhaseArgs(dims=dims, n_layers=len(widths) - 1, mb=mb,
                       cluster=cluster or 0)
     with torch.cuda.device(device if device is not None else 0):
-        return _cluster_plan(lib, args, kind, widths)
+        return _cluster_plan(lib, args, kind, widths, variant)
 
 
 def _launch(kind: str, args: _PhaseArgs, widths, dev, keep,
             variant: Optional[str], cluster: Optional[int] = None) -> None:
     """Pick the variant by shared memory (or take ``variant``), launch,
-    count: K3 and K4 with the weights in shared memory as a cluster of
-    ``cluster`` blocks (None: CLUSTER; a size forces that variant), the
-    rest as one block with the scratch sized here.  ``keep`` holds the
-    tensors and host arrays the launch reads until it is enqueued."""
+    count: K3 and K4 as a cluster of ``cluster`` blocks (None: CLUSTER or
+    SHARDS; a size without ``variant`` forces the shared-memory one), K6
+    as one block with the scratch sized here.  ``keep`` holds the tensors
+    and host arrays the launch reads until it is enqueued."""
     lib = _declare()
     if cluster is not None:
-        if kind not in _CLUSTER or variant == "global":
+        if kind not in _CLUSTER:
             raise ValueError(f"cluster= sizes K3's and K4's cluster kernels; "
                              f"this {kind} phase launches one block")
         if not 1 <= cluster <= CLUSTER_MAX:
             raise ValueError(f"cluster {cluster}: the cluster kernels take "
                              f"1-{CLUSTER_MAX} blocks")
-        args.cluster, variant = cluster, "smem"
+        args.cluster, variant = cluster, variant or "smem"
     sizes = (ctypes.c_long * 3)()
     if not lib.ppoc_phase_sizes(ctypes.byref(args), sizes):
         raise ValueError("update kernels take 1-8 layers and mb >= 1")
-    first = (lib.ppoc_phase_cluster_smem(ctypes.byref(args))
-             if kind in _CLUSTER else sizes[1])
+    both = ((lib.ppoc_phase_cluster_smem(ctypes.byref(args)),
+             lib.ppoc_phase_shard_smem(ctypes.byref(args)))
+            if kind in _CLUSTER else sizes[1:])
     args.variant = _build.pick_variant(
-        [n + _STATIC_SMEM for n in (first, sizes[2])],
-        _build.smem_optin(dev), variant,
+        [n + _STATIC_SMEM for n in both], _build.smem_optin(dev), variant,
         f"{kind} phase kernel for the net {list(widths)}")
-    name, smem_count, global_count = _KINDS[kind]
-    if args.variant == 0 and kind in _CLUSTER:
+    names, smem_count, global_count = _KINDS[kind]
+    if kind in _CLUSTER:
         with torch.cuda.device(dev):
-            plan = _cluster_plan(lib, args, kind, widths)
-            _build.check(lib, getattr(lib, _CLUSTER[kind][1])(
+            plan = _cluster_plan(lib, args, kind, widths, args.variant)
+            if plan.get("scratch"):
+                scratch = torch.empty(plan["scratch"], dtype=torch.float32,
+                                      device=dev)
+                args.scratch = scratch.data_ptr()
+            _build.check(lib, getattr(lib, names[args.variant])(
                 ctypes.byref(args), _build.stream_of(dev)),
-                f"{kind} phase cluster kernel ({plan['cluster']} blocks)")
+                f"{kind} phase {_CLUSTER_NAMES[args.variant]} kernel "
+                f"({plan['cluster']} blocks)")
     else:
         scratch = torch.empty(sizes[0], dtype=torch.float32, device=dev)
         args.scratch = scratch.data_ptr()
-        _build.check(lib, getattr(lib, name)(ctypes.byref(args),
-                                             _build.stream_of(dev)),
-                     f"{kind} phase kernel")
+        _build.check(lib, getattr(lib, names[args.variant])(
+            ctypes.byref(args), _build.stream_of(dev)), f"{kind} phase kernel")
     (global_count if args.variant else smem_count).n += 1
     del keep
 
@@ -616,8 +742,9 @@ def value_phase_kernel(obs_seq, tgt_seq, params, opt: AdamState,
                        cluster: Optional[int] = None):
     """Launch K3; same arguments and results as value_phase_plain.  The
     variant is the first whose shared memory fits, unless ``variant``
-    (``"smem"`` or ``"global"``) names one; ``cluster`` sets the block
-    count of the shared-memory variant's cluster (default CLUSTER)."""
+    (``"smem"``: the replicated cluster, or ``"global"``: the sharded one)
+    names one; ``cluster`` sets the block count of the variant's cluster
+    (default CLUSTER or SHARDS; alone, it forces ``"smem"``)."""
     dev = obs_seq.device
     tgt_seq = tgt_seq.reshape(-1).contiguous()
     _build.require(tgt_seq, "targets", (n_steps * mb,), device=dev)

@@ -74,8 +74,8 @@ def test_kernel_fit_keeps_the_trainer_paths_in_shared_memory(path):
                                                ("cartpole", "K6")])
 def test_kernel_fit_keeps_2x256_in_global_memory(env, policy_kernel):
     """At 2x256 the cluster block needs ~680 KB (twice the weights, and
-    they alone pass 227 KB): K3 and K4 take the global-memory variant, as
-    K6 does."""
+    they alone pass 227 KB): K3 and K4 take the second variant (the
+    sharded cluster), as K6 takes its global-memory one."""
     cfg = PPOConfig(env=env, hidden=(256, 256))
     fits = {k.kernel[:2]: k for k in ppo.kernel_fit(cfg, H100_OPTIN)}
     assert fits["K3"].variant == fits[policy_kernel].variant == "global"
@@ -102,15 +102,15 @@ def test_cluster_bytes_follow_the_layout():
 
 
 def test_variant_bytes_take_the_kind():
-    """K3 and K4 size their shared-memory variant by the cluster block,
-    K6 by its one block's padded weights; the global variant is the same
-    staged slice for all three."""
+    """K3 and K4 size their shared-memory variant by the replicated
+    cluster's block and the other by the sharded cluster's, K6 by its one
+    block's padded weights and its staged slice."""
     w = (4, 128, 128, 2)
     value, policy = (cuda_update.variant_bytes(w, k) for k in ("value",
                                                                 "policy"))
     cat = cuda_update.variant_bytes(w, "categorical policy")
     assert value == policy == [cuda_update.cluster_bytes(w) + 1024,
-                               4 * 32 * 129 + 1024]
+                               cuda_update.shard_bytes(w) + 1024]
     assert cat == [4 * (4 * 129 + 128 + 128 * 129 + 128 + 128 * 3 + 2)
                    + 1024, 4 * 32 * 129 + 1024]
 

@@ -1037,8 +1037,9 @@ def _phase_outputs(out):
 def test_phase_global_variant_matches_plain_at_2x256(dev, kind, n, tol):
     """K3 on [10,256,256,1] and K4 on [10,256,256,2] (the reference
     schedule at reacher's width, minibatch 64), K6 on [4,256,256,2]: past
-    one block's shared memory, so the launch takes the global-memory
-    variant by size and counts it there."""
+    one block's shared memory, so the launch takes the second variant by
+    size (K3 and K4: the sharded cluster; K6: one block with the weights in
+    global memory) and counts it there."""
     kernel, plain, args, count_g, count_s = _phase_case(dev, kind,
                                                         (256, 256), n, 64)
     g0, s0 = count_g.n, count_s.n
@@ -1069,10 +1070,10 @@ def test_phase_variants_give_the_same_bits(dev, kind, n):
 @pytest.mark.parametrize("kind", ["K3", "K4"])
 @pytest.mark.parametrize("n,tol", [(1, 1e-6), (20, 1e-4)])
 def test_phase_variants_agree(dev, kind, n, tol):
-    """K3 and K4 on the bench nets, minibatch 256: the cluster kernel (the
-    shared-memory variant) and the one-block global-memory variant sum dW
-    in different orders, so they agree at the plain version's tolerances
-    (weights, and the loss and entropy relative where above 1)."""
+    """K3 and K4 on the bench nets, minibatch 256: the replicated cluster
+    (the shared-memory variant) and the sharded one sum in different
+    orders, so they agree at the plain version's tolerances (weights, and
+    the loss and entropy relative where above 1)."""
     kernel, _, args, count_g, count_s = _phase_case(dev, kind, (128, 128),
                                                     n, 256, seed=3)
     g0, s0 = count_g.n, count_s.n
@@ -1125,7 +1126,8 @@ def test_phase_smem_variant_refused_at_2x256(dev, kind, nbytes):
 
 @pytest.mark.parametrize("widths", [(10, 256, 256, 1), (4, 256, 256, 2),
                                     (3, 237, 237, 1), (3, 64, 64, 1),
-                                    (6, 100, 300, 70, 3)])
+                                    (6, 100, 300, 70, 3), (10, 448, 448, 2),
+                                    (3, 448, 448, 448, 1)])
 def test_kernel_fit_bytes_equal_the_kernels(dev, widths):
     """ppo.kernel_fit sizes each kernel from the widths alone (the ops
     modules' variant_bytes): the same bytes as the kernels' own size
@@ -1144,9 +1146,11 @@ def test_kernel_fit_bytes_equal_the_kernels(dev, widths):
         n + 1024 for n in sizes[1:]]
     cluster = lib.ppoc_phase_cluster_smem(ctypes.byref(pa))
     assert cluster == cu.cluster_bytes(widths)
+    shard = lib.ppoc_phase_shard_smem(ctypes.byref(pa))
+    assert shard == cu.shard_bytes(widths)
     for kind in ("value", "policy"):
         assert cu.variant_bytes(widths, kind) == [cluster + 1024,
-                                                  sizes[2] + 1024]
+                                                  shard + 1024]
     cuda_mlp._declare()
     ma = cuda_mlp._MlpArgs(dims=dims, n_layers=len(widths) - 1, B=300)
     want = []
@@ -1220,6 +1224,28 @@ def test_cluster_phase_matches_plain(dev, kind, mb, n, tol):
         torch.testing.assert_close(_phase_weights(k), _phase_weights(p),
                                    rtol=0, atol=tol)
         return
+    _walk(kind, kernel, plain, args, mb, n, k)
+
+
+def _walk(kind, kernel, plain, args, mb, n, whole, near_eps=False):
+    """chip_smoke.check_phase's step walk of the ``n``-step case ``args``:
+    one launch a step from the kernel's own state, each step within
+    STEP_TOL of one float64 step from that state beyond twice the plain
+    float32 step's distance; the chained launches equal ``whole``, the
+    ``n``-step launch, bit for bit.  ``near_eps`` (the sharded cluster's
+    cases alone, as chip_smoke holds that kernel): a step past that is
+    held again, within STEP_TOL of the float64 steps with the ReLU gates
+    and clip branches within rounding, and each gradient element near
+    Adam's eps over its float32 rounding, taken either way
+    (chip_smoke.gate_band with near_eps), beyond twice the plain step's
+    distance."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
     rows, state, tail = _split_case(kind, args)
     ns = len(state)
 
@@ -1235,9 +1261,18 @@ def test_cluster_phase_matches_plain(dev, kind, mb, n, tol):
         k1 = step(kernel, state, s)[:ns]
         x1 = step(plain, state, s, _double)
         p1 = step(plain, state, s)
-        assert apart(k1, x1) - 2 * apart(p1, x1) <= STEP_TOL, s
+        excess = apart(k1, x1) - 2 * apart(p1, x1)
+        if near_eps and excess > STEP_TOL:
+            cols = [c[s * mb:(s + 1) * mb] for c in rows]
+            if kind == "K3":
+                cols[1] = cols[1].reshape(-1)     # the targets, as a vector
+            band, _ = chip_smoke.gate_band(state, cols, tail[2], tail[3:],
+                                           near_eps=True)
+            excess = (chip_smoke.outside(_phase_weights(k1), band)
+                      - 2 * chip_smoke.outside(_phase_weights(p1), band))
+        assert excess <= STEP_TOL, (s, excess)
         state = k1
-    assert torch.equal(_phase_weights(state), _phase_weights(k))
+    assert torch.equal(_phase_weights(state), _phase_weights(whole))
 
 
 @pytest.mark.parametrize("kind", ["K3", "K4"])
@@ -1293,9 +1328,9 @@ def test_cluster_sizes_agree_with_plain(dev, kind, cluster):
 
 
 def test_cluster_refuses_what_it_cannot_launch(dev):
-    """A cluster past 16 blocks, one whose Adam slices pass shared memory
-    (2 blocks of the bench net), and cluster= on a one-block launch all
-    raise before a launch, and none counts one."""
+    """A cluster past 16 blocks (either variant) and one whose Adam slices
+    pass shared memory (2 blocks of the bench net) raise before a launch,
+    and none counts one."""
     kernel, _, args, count_g, count_s = _phase_case(dev, "K3", (128, 128),
                                                     1, 256)
     n0 = (count_g.n, count_s.n)
@@ -1303,9 +1338,120 @@ def test_cluster_refuses_what_it_cannot_launch(dev):
         kernel(*args, cluster=32)
     with pytest.raises(ValueError, match="B of shared memory"):
         kernel(*args, cluster=2)
-    with pytest.raises(ValueError, match="cluster="):
-        kernel(*args, variant="global", cluster=8)
+    with pytest.raises(ValueError, match="1-16 blocks"):
+        kernel(*args, variant="global", cluster=17)
     assert (count_g.n, count_s.n) == n0
+
+
+# --- K3 and K4 sharded over a cluster (nets past one block) -------------------
+# The "global" slot: the weights sharded by column over cu.SHARDS blocks
+# (csrc/update_shard.cu).  Held to the plain version as the replicated
+# cluster is: one step within 1e-6, twenty walked step by step.
+
+@pytest.mark.parametrize("kind", ["K3", "K4"])
+@pytest.mark.parametrize("hidden", [(141, 141), (192, 192), (448, 448),
+                                    (160, 160, 160), (448, 448, 448)])
+@pytest.mark.parametrize("n,tol", [(1, 1e-6), (20, 1e-4)])
+def test_shard_phase_matches_plain(dev, kind, hidden, n, tol):
+    """[3,141,141,1] (one unit past the replicated cluster's boundary),
+    [3,192,192,1], [3,448,448,1] (the widest K1 takes, a 32-row sub-tile),
+    [3,160,160,160,1] (three hidden layers: COL, ROW, COL, ROW, two
+    exchanges a sub-tile each way) and [3,448,448,448,1] (its weights
+    spilled to global memory), minibatch 64: the launch takes the sharded
+    variant by size.  (On seed 0's rows the 3-hidden-layer K3 walk's step
+    0 needs gate_band's rounding: one weight's gradient, 6.6e-7, is a
+    64-row sum that cancels, which Adam's eps turns into 0.4% of its
+    step.)"""
+    kernel, plain, args, count_g, count_s = _phase_case(dev, kind, hidden,
+                                                        n, 64)
+    g0, s0 = count_g.n, count_s.n
+    k = kernel(*args)
+    assert (count_g.n - g0, count_s.n - s0) == (1, 0)
+    p = plain(*args)
+    for a, b in zip(_phase_stats(k), _phase_stats(p)):
+        assert abs(float(a - b)) <= tol * max(1.0, abs(float(b)))
+    if n == 1:
+        torch.testing.assert_close(_phase_weights(k), _phase_weights(p),
+                                   rtol=0, atol=tol)
+    else:
+        _walk(kind, kernel, plain, args, 64, n, k, near_eps=True)
+
+
+@pytest.mark.parametrize("kind", ["K3", "K4"])
+@pytest.mark.parametrize("hidden,mb", [((256, 256), 64), ((256, 256), 100),
+                                       ((448, 448, 448), 64)])
+def test_shard_phase_repeats_and_chains_bit_for_bit(dev, kind, hidden, mb):
+    """Two identical launches give the same bits in every output, and 6
+    chained one-step launches the bits of one 6-step launch (at mb 100 a
+    sub-tile of 64 rows and one of 36)."""
+    n = 6
+    kernel, _, args, _, _ = _phase_case(dev, kind, hidden, n, mb, seed=5)
+    a, b = _phase_outputs(kernel(*args)), _phase_outputs(kernel(*args))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    rows, state, tail = _split_case(kind, args)
+    for s in range(n):
+        step = kernel(*(c[s * mb:(s + 1) * mb] for c in rows), *state, 1,
+                      *tail)
+        state = step[:len(state)]
+    assert torch.equal(_phase_weights(step), _phase_weights(
+        kernel(*args)))
+
+
+@pytest.mark.parametrize("widths", [(10, 256, 256, 1), (3, 448, 448, 1),
+                                    (3, 448, 448, 448, 1)])
+@pytest.mark.parametrize("mb", [1, 64, 100, 2048])
+def test_shard_plan_follows_the_layout(dev, widths, mb):
+    """The launch plan: cu.SHARDS blocks, the layout's sub-tile rows
+    (cu.shard_layout), ceil(mb / rows) sub-tiles, cu.SHARD_THREADS
+    threads, the layout's shared memory, a card that holds such a cluster,
+    and global scratch only where the weights spill."""
+    import math
+
+    lay = cu.shard_layout(widths)
+    for kind in ("value", "policy"):
+        plan = cu.phase_shard_plan(kind, widths, mb, device=dev)
+        assert plan["cluster"] == cu.SHARDS
+        assert plan["sub_rows"] == lay.sub
+        assert plan["sub_tiles"] == math.ceil(mb / lay.sub)
+        assert plan["threads"] == cu.SHARD_THREADS
+        assert plan["smem"] == lay.nbytes == cu.shard_bytes(widths)
+        assert plan["max_active_clusters"] >= 1
+        assert (plan["scratch"] > 0) == lay.spill
+
+
+@pytest.mark.parametrize("kind", ["K3", "K4"])
+@pytest.mark.parametrize("cluster", [4, 8, 16])
+@pytest.mark.parametrize("mb", [64, 2048])
+def test_shard_cluster_sizes_agree_with_plain(dev, kind, cluster, mb):
+    """A forced cluster size (the measurement's knob) gives 2x256 steps
+    held as the step walk holds them: within STEP_TOL of float64 beyond
+    twice the plain float32 step's distance (on seed 7's rows one weight's
+    gradient is near zero, where Adam turns any rounding into a step of
+    ~lr, so elementwise against the plain step it parts by 4e-5)."""
+    import functools
+
+    kernel, plain, args, count_g, _ = _phase_case(dev, kind, (256, 256), 2,
+                                                  mb, seed=7)
+    g0 = count_g.n
+    sized = functools.partial(kernel, variant="global", cluster=cluster)
+    _walk(kind, sized, plain, args, mb, 2, sized(*args), near_eps=True)
+    assert count_g.n == g0 + 3
+
+
+def test_shard_refuses_what_it_cannot_launch(dev):
+    """A net whose replicated layer 0 alone passes shared memory
+    ([600,600,600,1]: W0 and its partial are 2 x 600 x 604 floats) raises
+    before a launch, naming the bytes it needs, and counts none."""
+    g = torch.Generator().manual_seed(0)
+    params = mlp.init((600, 600, 600, 1), g, dev)
+    zeros = [(torch.zeros_like(w), torch.zeros_like(b)) for w, b in params]
+    x = torch.randn(64, 600, generator=g).to(dev)
+    h = cu.Hyper.of(3e-4, 0.9, 0.999, 1e-8)
+    n0 = (cu.value_global_launches.n, cu.value_launches.n)
+    with pytest.raises(ValueError, match="B of shared memory"):
+        cu.value_phase_kernel(x, x[:, 0].contiguous(), params,
+                              AdamState(zeros, zeros, 0), 1, 64, "relu", h)
+    assert (cu.value_global_launches.n, cu.value_launches.n) == n0
 
 
 def test_trainer_refuses_512_at_construction(dev):

@@ -9,7 +9,12 @@ way.  Here small nets are built with four gates exactly at zero (two
 units, two rows) and, for K4, one row's ratio at the upper clip edge; the
 band must hold the plain version's float64 step and the float64 steps
 whose inputs were moved just across each edge, and must not hold the
-float64 step with the learning rate 1% high (the walk's control).
+float64 step with the learning rate 1% high (the walk's control).  For
+the sharded K3/K4 cluster alone the band also lets each gradient element
+near Adam's eps range over its float32 rounding bound (``near_eps``,
+``rounding``), which must hold the float32 gradient summed in any order,
+stay tight on nearly every element, and widen the band at a few elements
+alone.
 """
 import importlib.util
 import math
@@ -191,3 +196,165 @@ def test_gate_band_does_not_hold_a_learning_rate_fault(kind, seed):
     band, _ = cs.gate_band(state, rows, _hyper(), extra)
     fault = _step64(state, rows, extra, lr=1.01 * LR)
     assert cs.outside(fault, band) > cs.STEP_TOL
+
+
+@pytest.mark.parametrize("kind", ["K3", "K4"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_rounding_bounds_any_summation_order(kind, seed):
+    """``chip_smoke.rounding``, gate_band's float32 rounding bound of each
+    gradient element: the float32 gradient of the plain version's backward
+    on the rows in eight orders (each order sums every element in another
+    order) lies within the bound of the float64 gradient in every element,
+    while the bound stays far below nearly every nonzero element (under 1%
+    of |g| on 19 in 20 of them, from the worst case of 128-term sums), so
+    only an element that cancels is left loose."""
+    cs = _chip_smoke()
+    from ppoc_tpu_torch.ops.cuda_mlp import backward_layers, forward_layers
+
+    rng = np.random.default_rng(100 + seed)
+    params = _net(rng)
+    W = [w.double() for w, _ in params]
+    B = [b.double() for _, b in params]
+    obs = _t(rng, 4 * MB, 4)
+    mb = obs.shape[0]
+    k = 2 if kind == "K4" else 1
+    if kind == "K4":
+        params[-1] = (_t(rng, 16, 2, scale=0.25), _t(rng, 2, scale=0.1))
+        W[-1], B[-1] = params[-1][0].double(), params[-1][1].double()
+        ls = torch.tensor([-0.3, 0.2])
+        act, lp, adv = _t(rng, mb, 2), _t(rng, mb, scale=0.3), _t(rng, mb)
+        cols = [obs, act, lp, adv]
+    else:
+        cols = [obs, _t(rng, mb, scale=3.0)]
+    x = obs.double()
+    z64, h = [], x
+    for w, b in zip(W[:-1], B[:-1]):
+        z64.append(h @ w + b)
+        h = torch.relu(z64[-1])
+    y64 = h @ W[-1] + B[-1]
+    masks = [z > 0 for z in z64]
+
+    def cotangent(y, dt):
+        c = [t.to(dt) for t in cols]
+        if kind == "K3":
+            return (2.0 / mb) * (y[:, 0] - c[1])[:, None], None
+        s = torch.exp(-ls.to(dt))
+        z = (c[1] - y) * s
+        logp = (-0.5 * k * math.log(2 * math.pi) - ls.to(dt).sum()
+                - 0.5 * (z * z).sum(dim=1))
+        r = torch.exp(logp - c[2])
+        keep = (r * c[3] <= torch.clamp(r, 1 - CLIP, 1 + CLIP) * c[3])
+        dlogp = -(c[3] * r / mb) * keep.to(dt)
+        return dlogp[:, None] * z * s, (dlogp[:, None] * (z * z - 1.0)
+                                        ).sum(dim=0)
+
+    def gradient(order, dt):
+        xs = [t[order] for t in cols]
+        ws = [w.to(dt) for w in W]
+        hs = forward_layers(xs[0].to(dt), ws, [b.to(dt) for b in B], "relu")
+        saved, cols[:] = list(cols), xs
+        try:
+            g, tail = cotangent(hs[-1], dt)
+        finally:
+            cols[:] = saved
+        grads, _ = backward_layers(xs[0].to(dt), hs, g, ws, "relu")
+        out = [t.reshape(-1) for t in grads] + ([tail] if tail is not None
+                                                else [])
+        return torch.cat(out).double()
+
+    policy = None
+    if kind == "K4":
+        lp0 = -0.5 * k * math.log(2 * math.pi)
+
+        def ratio(mu, log_std, a, lpo):
+            z = (a - mu) * torch.exp(-log_std)
+            return torch.exp(lp0 - log_std.sum() - 0.5 * (z * z).sum(dim=1)
+                             - lpo), z
+
+        policy = (ls.double(), lp0, ratio)
+        r64 = ratio(y64, ls.double(), cols[1].double(), cols[2].double())[0]
+        unclipped = (r64 * cols[3].double()
+                     <= torch.clamp(r64, 1 - CLIP, 1 + CLIP)
+                     * cols[3].double())
+    else:
+        unclipped = None
+    bound = cs.rounding(W, B, x, [c.double() for c in cols], z64, y64,
+                        masks, unclipped, mb, policy)
+    g64 = gradient(torch.arange(mb), torch.float64)
+    for i in range(8):
+        order = torch.from_numpy(np.random.default_rng(i).permutation(mb))
+        g32 = gradient(order, torch.float32)
+        assert bool(((g32 - g64).abs() <= bound).all()), i
+    nz = g64 != 0
+    assert float((bound[nz] < 1e-2 * g64[nz].abs()).double().mean()) > 0.95
+
+
+def _relabel(tree, perms):
+    """A net (or a moment tree like it) with hidden layer l's units in the
+    order ``perms[l]``: the same function, summed in another order."""
+    out, prev = [], None
+    for l, (w, b) in enumerate(tree):
+        if prev is not None:
+            w = w[prev]
+        if l < len(tree) - 1:
+            w, b, prev = w[:, perms[l]], b[perms[l]], perms[l]
+        out.append((w.contiguous(), b.contiguous()))
+    return out
+
+
+def test_rounding_near_eps_is_confined_and_holds_any_order():
+    """gate_band(near_eps=True), the band chip_smoke holds the sharded
+    K3/K4 cluster to: on the rows where a card test of that kernel needed
+    it (K3 on [3,160,160,160,1], seed 0, the first minibatch of 64, Adam
+    at t 5 from zero moments) the gradient's rounding widens the band at
+    a few elements alone, each within ROUND_NEAR eps, and nowhere else
+    (one of them past 4 eps, so "a few eps" would not reach it); there
+    the plain version's float32 step in eight summation orders
+    (rows and hidden units relabelled) lies inside the band in every
+    order, while some order lies more than STEP_TOL outside the band
+    without the rounding: float32 arithmetic itself parts from the
+    replicated kernels' yardstick at those elements."""
+    from ppoc_tpu_torch import PPOConfig, envs
+    from ppoc_tpu_torch.algo import ppo
+
+    cs = _chip_smoke()
+    cfg = PPOConfig(env="pendulum", hidden=(160, 160, 160))
+    ts = ppo.init_train_state(cfg, envs.make("pendulum"),
+                              torch.Generator().manual_seed(0), "cpu")
+    g = torch.Generator().manual_seed(0)
+    cols = [torch.randn(20 * 64, d, generator=g) * s
+            for d, s in ((3, 1.0), (1, 1.0), (1, 0.3), (1, 1.0))]
+    x, tgt = cols[0][:64], cols[3][:64, 0] * 50
+    hyper = cu.Hyper.of(3e-4, 0.9, 0.999, 1e-8)
+    params, opt = ts.v_params, ts.opt_v._replace(t=5)
+    band0, _ = cs.gate_band((params, opt), [x, tgt], hyper)
+    band, _ = cs.gate_band((params, opt), [x, tgt], hyper, near_eps=True)
+    wider = (band[1] - band[0]) > (band0[1] - band0[0])
+    assert 1 <= int(wider.sum()) <= 8
+    assert torch.equal(band[0][~wider], band0[0][~wider])
+    assert torch.equal(band[1][~wider], band0[1][~wider])
+    def f64(tree):
+        return [(w.double(), b.double()) for w, b in tree]
+
+    exact = cu.value_phase_plain(
+        x.double(), tgt.double(), f64(params),
+        AdamState(f64(opt.m), f64(opt.v), opt.t), 1, 64, "relu", hyper)
+    v_hat = mlp.flatten(exact[1].v) / cu._bias_corrections(opt.t + 1,
+                                                           hyper)[1]
+    knee = v_hat[wider].sqrt() / hyper.eps
+    assert bool((knee <= cs.ROUND_NEAR).all()) and float(knee.max()) > 4
+    worst = 0.0
+    for seed in range(8):
+        rng = torch.Generator().manual_seed(seed)
+        rows = torch.randperm(64, generator=rng)
+        perms = [torch.randperm(160, generator=rng) for _ in range(3)]
+        inv = [torch.argsort(p) for p in perms]
+        out = cu.value_phase_plain(
+            x[rows], tgt[rows], _relabel(params, perms),
+            AdamState(_relabel(opt.m, perms), _relabel(opt.v, perms), opt.t),
+            1, 64, "relu", hyper)
+        w = mlp.flatten(_relabel(out[0], inv)).double()[wider]
+        assert bool(((band[0][wider] <= w) & (w <= band[1][wider])).all())
+        worst = max(worst, float(torch.maximum(band0[0][wider] - w,
+                                               w - band0[1][wider]).max()))
+    assert worst > cs.STEP_TOL

@@ -1,5 +1,5 @@
 """Kernel outputs bit for bit against another checkout's build: K1's
-pendulum lane, K7's float32 variant, and the one-block update phases.
+pendulum lane, K7's float32 variant, and the fused update phases.
 
     python3 tools/kernel_bits.py --kernel k1|k7|phases --root OTHER
                                  --save FILE [--time]
@@ -14,10 +14,12 @@ shape) and 64 x 40 from a carried state across the horizon.  ``k7``: the
 float32 forward, dq and dk/dv kernels (``ops/cuda_attn.flash_*_kernel``)
 at this checkout's ``chip_smoke.py`` timed shapes (the recall_xl minibatch
 and value pass, the X-ray shape) and a ring block of rel -1, same seeds.
-``phases``: the update phases that run as one block
-(``ops/cuda_update``): K3 and K4 with the nets in global memory, and K6
-in both variants, on the bench nets (20 steps of 256 rows) and at 2x256
-(10 steps of 64), on seeded rows and weights.
+``phases``: the fused update phases (``ops/cuda_update``): K3 and K4 in
+both variants (the replicated cluster, where the net fits it, and the
+"global" slot: the sharded cluster, or in an older checkout one block
+staging the weights from global memory) and K6 in both variants (one
+block each), on the bench nets (20 steps of 256 rows), at [3,192,192,1]
+and at 2x256 (10 steps of 64), on seeded rows and weights.
 ``--save`` writes every output with torch.save; ``--compare`` checks each
 against the saved one with torch.equal, prints one line per launch (for
 each output that differs, the largest |difference|, or the count of
@@ -132,7 +134,8 @@ def phase_launches(torch, cs, dev):
         return flat
 
     runs = {}
-    for hidden, n, mb in (((128, 128), 20, 256), ((256, 256), 10, 64)):
+    for hidden, n, mb in (((128, 128), 20, 256), ((192, 192), 10, 64),
+                          ((256, 256), 10, 64)):
         g = torch.Generator().manual_seed(hidden[0])
         rows = n * mb
         x = torch.randn(rows, 3, generator=g).to(dev)
@@ -149,14 +152,16 @@ def phase_launches(torch, cs, dev):
         lso = AdamState(torch.full((1,), 0.01, device=dev),
                         torch.full((1,), 1e-4, device=dev), 7)
         tag = f"{hidden[0]}x2, {n} x {mb}"
-        runs[f"K3 global, {tag}"] = lambda a=(x, tgt, vp, vo, n, mb): outputs(
-            cu.value_phase_kernel(*a, "relu", h, variant="global"))
-        runs[f"K4 global, {tag}"] = lambda a=(x, act, lp, adv, pp, ls, po,
-                                              lso, n, mb): outputs(
-            cu.policy_phase_kernel(*a, "relu", h, 0.2, 0.01,
-                                   variant="global"))
         for variant in ("smem", "global") if hidden == (128, 128) else (
                 "global",):
+            runs[f"K3 {variant}, {tag}"] = lambda a=(
+                x, tgt, vp, vo, n, mb), v=variant: outputs(
+                cu.value_phase_kernel(*a, "relu", h, variant=v))
+            runs[f"K4 {variant}, {tag}"] = lambda a=(
+                x, act, lp, adv, pp, ls, po, lso, n, mb), v=variant: outputs(
+                cu.policy_phase_kernel(*a, "relu", h, 0.2, 0.01, variant=v))
+        for variant in ("global",) if hidden == (256, 256) else (
+                "smem", "global"):
             runs[f"K6 {variant}, {tag}"] = lambda a=(
                 x, cls, lp, adv, cp, co, n, mb), v=variant: outputs(
                 cu.policy_phase_categorical_kernel(*a, "relu", h, 0.2, 0.01,
