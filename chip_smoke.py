@@ -40,9 +40,13 @@
    planes (real terminations), K3 on the lane's value rows ([4|6,128,128,1],
    one step and the whole phase), and K6, the categorical policy phase, at
    minibatch 256 x 200 steps ([4,128,128,2] with ent_coeff 0, then
-   [6,128,128,3] with ent_coeff 0.01): each step from the kernel's state
-   against one float64 step, chained one-step launches against one long
-   launch bit for bit, and the whole phase loosely.
+   [6,128,128,3] with ent_coeff 0.01), a kind of K3's and K4's replicated
+   cluster (its plan printed): each step from the kernel's state against
+   one float64 step (held again, at step 0 and at a step past that,
+   against the float64 steps with the ReLU gates and clip branches within
+   rounding taken either way, where the lr +1% step must fail), chained
+   one-step launches against one long launch bit for bit, the whole phase
+   loosely, and one step's signed lean.
 8. Discrete path: Trainer(bench config with env "cartpole", eval_len 500)
    .solve(475, max_epochs=40), then the same for "acrobot" with
    .solve(-100, max_epochs=40), with the launch counts read around each
@@ -101,32 +105,35 @@
    must solve; by the rule declared before any run, if it misses seeds 1
    and 2 run and must both solve; R per epoch, the solve epoch, the wall
    and the launches against the config's.
-17. K3, K4 and K6 past one block's shared memory (K3 and K4 sharded over
-   a thread-block cluster, K6 one block with the nets in global memory):
+17. K3, K4 and K6 past one block's shared memory (sharded over a
+   thread-block cluster):
    K3 and K4 on REACHER_REF's rows (the reference schedule at 2x256:
    [10,256,256,1] for 460 steps and [10,256,256,2], two action dims, for
    184, minibatch 64), K3 and K6 on CARTPOLE_WIDE's rows ([4,256,256,1],
    [4,256,256,2]), each as the bench's phases are held (each step from
    the kernel's state against float64, chained launches against one
    launch bit for bit, the whole phase within its WHOLE_RATIO row) and
-   launched in its second variant, K3's and K4's with the sharded
-   cluster's plan printed; K3 for 20 steps at minibatch 2048, the fused
-   gate's edge, held the same way (its whole phase's distance printed
-   only); each timed beside its plain version.  Then the sharded
-   cluster's registers and spills from nvcc.log, a step's device time of
-   K3 on [10,256,256,1] by cluster size (4, 8, 16) at minibatch 64 and
-   2048, and K3 on [3,192,192,1] (pendulum at the reference schedule,
-   between the replicated cluster's boundary and 2x256) held and timed
-   the same way.  K3 and K4 here, K4 in phases 3 and 13, and K6 here and
-   in phase 7: the signed lean of one step's gradient against the plain
-   version's (LEAN_TOL), with a control (the plain gradient 8 ulps toward
-   zero) that must fail.
+   launched in its second variant with the sharded cluster's plan
+   printed; K3 and K6 for 20 steps at minibatch 2048, the fused gate's
+   edge, held the same way (their whole phase's distance printed only),
+   beside the generic phases (the path past the gate) on the same rows,
+   wall and device time; each timed beside its plain version.  Then the
+   sharded cluster's registers and spills from nvcc.log, a step's device
+   time of K3 on [10,256,256,1] by cluster size (4, 8, 16) at minibatch 64
+   and 2048 and of K6 on [4,256,256,2] at minibatch 64, and K3 on
+   [3,192,192,1] (pendulum at the reference schedule, between the
+   replicated cluster's boundary and 2x256) held and timed the same way.
+   K3 and K4 here, K4 in phases 3 and 13, and K6 here and in phase 7: the
+   signed lean of one step's gradient against the plain version's
+   (LEAN_TOL), with a control (the plain gradient 8 ulps toward zero)
+   that must fail.
 18. The two 2x256 paths under the fused gate: REACHER_REF for 3 epochs
    by phase (eval R up by more than 5) and CARTPOLE_WIDE's
    solve(475, max_epochs=10), which must solve; each phase's launches
    held to the config's (a fit: one K1 rollout with the V planes and one
-   K3 and one K4 or K6, all in global memory, one K2; an evaluation one
-   K1 rollout with the metrics; no shared-memory phase kernel).
+   K3 and one K4 or K6, all in their second variant, one K2; an
+   evaluation one K1 rollout with the metrics; no shared-memory phase
+   kernel).
 19. K7's bf16 variant (kernel_backend "bf16": q, k, v, dout as bf16, p, ds
    and w rounded to bf16 for their products, dq, dk, dv written as bf16)
    against its plain versions (the forward chunked as the kernel) at
@@ -174,9 +181,10 @@
    generic bf16 phase), and the whole phase against the plain version and
    the generic phase by distance; a second value phase on the same buffer
    ending at a lower mean loss; a step's device time by grid size.
-23. K3 and K4 as a replicated cluster: the two cluster kernels' registers
+23. K3, K4 and K6 as a replicated cluster: the three kinds' registers
    and spills from nvcc.log; a step's device time of K3 on [3,128,128,1]
-   by cluster size (4, 8, 16) at minibatch 64, 256 and 2048; K3 at the
+   by cluster size (4, 8, 16) at minibatch 64, 256 and 2048 and of K6 on
+   [4,128,128,2] at minibatch 256; K3 at the
    fused gate's edge (20 steps x 2048 rows drawn from the bench's value
    rows) as the bench's phases are held (its whole phase's distance
    printed only), timed beside the plain version and the generic phases
@@ -241,13 +249,13 @@ KERNELS = {
                     "ppoc_tpu/ops/pallas_update.py:396"),
     "policy_phase": ("ppoc_tpu_torch/csrc/update_cluster.cu",
                      "ppoc_tpu/ops/pallas_update.py:749"),
-    "policy_phase_categorical": ("ppoc_tpu_torch/csrc/update.cu",
+    "policy_phase_categorical": ("ppoc_tpu_torch/csrc/update_cluster.cu",
                                  "ppoc_tpu/ops/pallas_update.py:944"),
     "value_phase_global": ("ppoc_tpu_torch/csrc/update_shard.cu",
                            "ppoc_tpu/ops/pallas_update.py:396"),
     "policy_phase_global": ("ppoc_tpu_torch/csrc/update_shard.cu",
                             "ppoc_tpu/ops/pallas_update.py:749"),
-    "policy_phase_categorical_global": ("ppoc_tpu_torch/csrc/update.cu",
+    "policy_phase_categorical_global": ("ppoc_tpu_torch/csrc/update_shard.cu",
                                         "ppoc_tpu/ops/pallas_update.py:944"),
     "mlp_forward": ("ppoc_tpu_torch/csrc/mlp.cu",
                     "ppoc_tpu/ops/pallas_mlp.py:139"),
@@ -283,7 +291,7 @@ WHOLE_RATIO = {"K3": 0.5, "K4": 0.5, "K6": 0.75,
                "K3 2x256": 0.16, "K4 2x256": 0.83, "K6 2x256": 0.23}
 # check_phase's step-by-step limit: one kernel step against one float64
 # step from the same state, beyond twice the plain float32 step's
-# distance.  In K3 and K4 on ReLU nets a step this flags is held again,
+# distance.  On ReLU nets a step this flags (K3, K4, K6) is held again,
 # against the float64 steps with every decision that float32 rounding
 # could flip taken either way (:func:`gate_band`): a ReLU gate or clip
 # branch within GATE_SLACK times the float32 forward's largest error of
@@ -292,18 +300,20 @@ WHOLE_RATIO = {"K3": 0.5, "K4": 0.5, "K6": 0.75,
 STEP_TOL = 2e-7
 GATE_SLACK = 4
 MAX_ROW_FLIPS = 10
-# For the sharded K3/K4 cluster alone (the "global" slot, whose sums run in
-# another order than any other kernel's), gate_band(near_eps=True) also
-# lets each gradient element near Adam's eps range over ROUND_SLACK times
-# its float32 rounding bound (a first-order error analysis of its sums: a
-# sum of n terms within n ulps of the sum of their magnitudes, in any
-# order).  Near eps means Adam's sqrt(v_hat) at the float64 gradient within
-# ROUND_NEAR times eps (at a first step, |g| within ROUND_NEAR eps; eps at
-# least 3% of the step's denominator): there Adam turns a rounding of a
-# gradient that cancels into a visible change of the step; elsewhere the
-# band is the replicated kernels' own.  It has been needed on REACHER_REF's
-# K4 rows at 1.16 eps, and in a card test of [3,160,160,160,1] past 4 eps
-# (tests/test_torch_step_walk.py)
+# For the sharded cluster (K3, K4 and K6 in the "global" slot, whose sums
+# run in another order than any other kernel's), gate_band(near_eps=True)
+# also lets each gradient element near
+# Adam's eps range over ROUND_SLACK times its float32 rounding bound (a
+# first-order error analysis of its sums: a sum of n terms within n ulps
+# of the sum of their magnitudes, in any order).  Near eps means Adam's
+# sqrt(v_hat) at the float64 gradient within ROUND_NEAR times eps (at a
+# first step, |g| within ROUND_NEAR eps; eps at least 3% of the step's
+# denominator): there Adam turns a rounding of a gradient that cancels
+# into a visible change of the step; elsewhere the band is the replicated
+# K3/K4's own.  It has been needed on REACHER_REF's K4 rows at 1.16 eps,
+# in a card test of [3,160,160,160,1] past 4 eps
+# (tests/test_torch_step_walk.py), and in card tests of the sharded K6
+# (tests/test_torch_cuda.py).  The replicated clusters are held without it
 ROUND_SLACK = 2
 ROUND_NEAR = 32
 # the phases' signed lean (see LEAN_TOL): each layer's gradient (the first
@@ -732,11 +742,13 @@ def check_phase(label, kernel, plain, state, cols, cfg, lr, extras,
     Adam, log_std Adam) and K6: (params, Adam), each with ``extras``
     [(clip_eps, the path's ent_coeff), (clip_eps, 0.01)].
 
-    One step is held at 1e-6 and 20 steps at 1e-4, with each of
-    ``extras``, the loss (and entropy) alike, relative where above 1.  The
-    sharded K3/K4 cluster alone (the net past the replicated cluster's
-    shared memory) sums in an order of its own, and one step of it past
-    1e-6 is held again, to STEP_TOL, as the walk below holds a flagged
+    The launch plan of the kernel's cluster is printed
+    (:func:`cluster_line`).  One step is held at 1e-6 and 20 steps at
+    1e-4, with each of ``extras``, the loss (and entropy) alike, relative
+    where above 1.  The sharded cluster (the net past the replicated
+    cluster's shared memory) sums in an order of its own, and one step of
+    it past 1e-6 is held again, to
+    STEP_TOL, as the walk below holds a flagged
     step, with the float64 steps also taking each gradient element near
     Adam's eps over its float32 rounding either way (:func:`gate_band`,
     ``near_eps``; the element that fails the 1e-6 check is printed with
@@ -753,11 +765,14 @@ def check_phase(label, kernel, plain, state, cols, cfg, lr, extras,
     float32 step from that state (on a step where a row lies within
     rounding of a ReLU gate, any float32 step parts from float64, by up to
     1.3e-5), and the chained launches must equal the single launch bit for
-    bit.  In K3 and K4 on ReLU nets a step this flags, and step 0, are
-    held again, against the float64 steps with the gates and clip
-    branches within rounding taken either way (:func:`gate_band`), and
+    bit.  On ReLU nets a step this flags, and step 0, are held again,
+    against the float64 steps with the gates and clip branches (K4, K6)
+    within rounding taken either way (:func:`gate_band`), and
     there the float64 step with the learning rate 1% high must fail that
-    hold (the sharded cluster's band with ``near_eps``).  Loosely, as a
+    hold (the sharded cluster's band with ``near_eps``).  A flagged step
+    is printed at the weight farthest outside the band
+    (:func:`band_reading`).
+    Loosely, as a
     whole: the kernel's distance from float64 (L2) must stay under
     ``whole_ratio`` times the distance of the 1% learning-rate run
     (WHOLE_RATIO; ``None``: printed only, for rows that have no reading to
@@ -775,20 +790,19 @@ def check_phase(label, kernel, plain, state, cols, cfg, lr, extras,
     n_p = cols[0].shape[0] // mb
     ns = len(state)
     kind = {cu.value_phase_kernel: "value",
-            cu.policy_phase_kernel: "policy"}.get(kernel)
+            cu.policy_phase_kernel: "policy",
+            cu.policy_phase_categorical_kernel: "categorical policy"}[kernel]
     widths = mlp.dims(state[0])
-    sharded = bool(kind) and (cu.variant_bytes(widths, kind)[0]
-                              > _build.smem_optin(cols[0].device))
-    if kind:
-        cluster_line(label, kind, widths, mb, cols[0].device, sharded)
+    sharded = (cu.variant_bytes(widths)[0]
+               > _build.smem_optin(cols[0].device))
+    cluster_line(label, kind, widths, mb, cols[0].device, sharded)
+    near = sharded   # gate_band's near_eps
     hp = cu.Hyper.of(lr, cfg.adam_beta1, cfg.adam_beta2, cfg.adam_eps)
     h_lr = cu.Hyper.of(1.01 * lr, cfg.adam_beta1, cfg.adam_beta2,
                        cfg.adam_eps)
 
     def weights(out):
-        """The trained tensors of a run's state: the net, and log_std."""
-        return torch.cat([mlp.flatten(out[0])] + [
-            x.reshape(-1) for x in out[1:ns] if isinstance(x, torch.Tensor)])
+        return trained(out, ns)
 
     def run(fn, n, extra=extras[0], hyper=hp, cast=lambda x: x, st=state,
             s=0):
@@ -801,15 +815,14 @@ def check_phase(label, kernel, plain, state, cols, cfg, lr, extras,
                    for x, y in zip(a[ns:], b[ns:]))
 
     stats = "loss, entropy" if extras[0] else "loss"
-    banded = (plain in (cu.value_phase_plain, cu.policy_phase_plain)
-              and cfg.activation == "relu")
+    banded = cfg.activation == "relu"
 
     def held_at_gates(st, s, k1, own, extra=extras[0]):
         """The kernel step's and the lr +1% float64 step's distance
         outside :func:`gate_band` at step ``s``, each beyond twice the
         plain float32 step's ``own``, and the decisions within rounding."""
         band, n_near = gate_band(
-            st, [c[s * mb:(s + 1) * mb] for c in cols], hp, extra, sharded)
+            st, [c[s * mb:(s + 1) * mb] for c in cols], hp, extra, near)
         own = outside(weights(own), band)
         fault = run(plain, 1, extra, cast=to_double, hyper=h_lr, st=st, s=s)
         return (outside(weights(k1), band) - 2 * own,
@@ -817,43 +830,18 @@ def check_phase(label, kernel, plain, state, cols, cfg, lr, extras,
 
     def held_near_eps(what, tol, k, pl, extra):
         """The sharded cluster's one step ``k`` past ``tol`` from the plain
-        step ``pl``: printed at the element farthest outside the band
-        without rounding (its float64 gradient from Adam's first moment,
-        Adam's sqrt(v_hat) in eps, both bands there), then held to
-        STEP_TOL beyond twice the plain step's distance outside the band
-        with ``near_eps``, where the lr +1% float64 step must not be
-        held."""
-        x1 = run(plain, 1, extra, cast=to_double)
-        band, _ = gate_band(state, [c[:mb] for c in cols], hp, extra)
-        wide, _ = gate_band(state, [c[:mb] for c in cols], hp, extra, True)
-        wk = weights(k).double()
-        i = int(torch.maximum(band[0] - wk, wk - band[1]).argmax())
-
-        def moment(out, which):
-            return torch.cat([
-                getattr(o, which).reshape(-1)
-                if isinstance(getattr(o, which), torch.Tensor)
-                else mlp.flatten(getattr(o, which))
-                for o in out[ns // 2:ns]]).double()
-
-        g = (moment(x1, "m") - hp.b1 * moment(state, "m")) / hp.omb1
-        n_net = mlp.flatten(state[0]).numel()
-        t = state[ns // 2].t if i < n_net else state[ns - 1].t
-        v_hat = moment(x1, "v")[i] / cu._bias_corrections(t + 1, hp)[1]
+        step ``pl``: printed at the weight farthest outside the band
+        (:func:`band_reading`), then held to STEP_TOL beyond twice the
+        plain step's distance outside the band with ``near_eps``, where the
+        lr +1% float64 step must not be held."""
+        reading = band_reading(state, [c[:mb] for c in cols], hp, extra, k,
+                               pl, run(plain, 1, extra, cast=to_double))
         excess, fault, n_near = held_at_gates(state, 0, k, pl, extra)
         print(f"  {what}: {max_err(weights(k), weights(pl)):.3e} from the "
-              f"plain step; at element {i}, farthest outside the float64 "
-              f"band: float64 gradient {float(g[i]):.4e}, Adam's sqrt(v_hat) "
-              f"{math.sqrt(float(v_hat)) / hp.eps:.2f} eps (rounding taken "
-              f"within {ROUND_NEAR}); weight kernel {float(wk[i]):.9e}, "
-              f"plain {float(weights(pl)[i]):.9e}, float64 "
-              f"{float(weights(x1)[i]):.9e}, band [{float(band[0][i]):.9e}, "
-              f"{float(band[1][i]):.9e}], with the gradient's rounding "
-              f"[{float(wide[0][i]):.9e}, {float(wide[1][i]):.9e}]; "
-              f"{n_near} decisions within rounding; beyond twice the plain "
-              f"step's, the kernel {excess:.3e} outside that band, the "
-              f"float64 step with lr +1% {fault:.3e} (must exceed "
-              f"{STEP_TOL:.0e})", flush=True)
+              f"plain step; {reading}; {n_near} decisions within rounding; "
+              f"beyond twice the plain step's, the kernel {excess:.3e} "
+              f"outside that band, the float64 step with lr +1% "
+              f"{fault:.3e} (must exceed {STEP_TOL:.0e})", flush=True)
         if not fault > STEP_TOL:
             raise AssertionError(f"{what}: the float64 step with lr +1% "
                                  f"lies within {STEP_TOL} of the band "
@@ -869,7 +857,7 @@ def check_phase(label, kernel, plain, state, cols, cfg, lr, extras,
             what = f"{label}, {n} steps" + (
                 f", ent_coeff {extra[1]}" if extra else "")
             err = max_err(weights(k), weights(pl))
-            if n == 1 and sharded and banded and err > tol:
+            if n == 1 and near and banded and err > tol:
                 p_err = max(p_err, held_near_eps(what, tol, k, pl, extra))
             else:
                 p_err = max(p_err, check(f"{what}: weights", err, tol))
@@ -915,6 +903,10 @@ def check_phase(label, kernel, plain, state, cols, cfg, lr, extras,
         if banded and (s == 0 or excess > STEP_TOL):
             at_gates, fault, n_near = held_at_gates(st, s, k1, p1)
             held.append((s, n_near, excess, at_gates, fault))
+            if excess > STEP_TOL:
+                print(f"  {label}, step {s}: " + band_reading(
+                    st, [c[s * mb:(s + 1) * mb] for c in cols], hp,
+                    extras[0], k1, p1, x1), flush=True)
             excess = min(excess, at_gates)
         local.append((err, own, excess))
         st = k1
@@ -942,7 +934,7 @@ def check_phase(label, kernel, plain, state, cols, cfg, lr, extras,
           f"float64 step, beyond twice the plain float32 step's distance"
           + (" (or from the float64 steps with the decisions within "
              "rounding" + (" and the gradient's rounding near eps"
-                           if sharded else "") + " either way)"
+                           if near else "") + " either way)"
              if banded else ""),
           max(x for _, _, x in local), STEP_TOL, what="max excess")
     if not torch.equal(weights(st), weights(k)):
@@ -959,24 +951,80 @@ def check_phase(label, kernel, plain, state, cols, cfg, lr, extras,
                           5, 1)
 
 
+def trained(out, ns):
+    """The trained tensors of a phase's first ``ns`` outputs (its state)
+    as one float tensor: the net, flattened, and log_std."""
+    import torch
+
+    from ppoc_tpu_torch.models import mlp
+
+    return torch.cat([mlp.flatten(out[0])] + [
+        x.reshape(-1) for x in out[1:ns] if isinstance(x, torch.Tensor)])
+
+
+def band_reading(state, rows, hyper, extra, k, pl, x1) -> str:
+    """Where the step ``k`` of one K3, K4 or K6 minibatch ``rows`` from
+    ``state`` lies farthest outside the float64 band without the rounding
+    near eps (:func:`gate_band`), as a line of text: the weight's index,
+    its float64 gradient (from the first Adam moment of ``x1``, the
+    float64 step), Adam's sqrt(v_hat) there in eps, the kernel's, the
+    plain step ``pl``'s and float64's weight, and the band there without
+    and with the gradient's rounding near eps."""
+    import torch
+
+    from ppoc_tpu_torch.models import mlp
+    from ppoc_tpu_torch.ops import cuda_update as cu
+
+    ns = len(state)
+    band, _ = gate_band(state, rows, hyper, extra)
+    wide, _ = gate_band(state, rows, hyper, extra, True)
+    wk = trained(k, ns).double()
+    i = int(torch.maximum(band[0] - wk, wk - band[1]).argmax())
+
+    def moment(out, which):
+        return torch.cat([
+            getattr(o, which).reshape(-1)
+            if isinstance(getattr(o, which), torch.Tensor)
+            else mlp.flatten(getattr(o, which))
+            for o in out[ns // 2:ns]]).double()
+
+    g = (moment(x1, "m") - hyper.b1 * moment(state, "m")) / hyper.omb1
+    t = (state[ns // 2].t if i < mlp.flatten(state[0]).numel()
+         else state[ns - 1].t)
+    v_hat = float(moment(x1, "v")[i]) / cu._bias_corrections(t + 1,
+                                                              hyper)[1]
+    return (f"at element {i}, farthest outside the float64 band: float64 "
+            f"gradient {float(g[i]):.4e}, Adam's sqrt(v_hat) "
+            f"{math.sqrt(v_hat) / hyper.eps:.2f} eps (rounding taken within "
+            f"{ROUND_NEAR}); weight kernel {float(wk[i]):.9e}, plain "
+            f"{float(trained(pl, ns)[i]):.9e}, float64 "
+            f"{float(trained(x1, ns)[i]):.9e}, band "
+            f"[{float(band[0][i]):.9e}, {float(band[1][i]):.9e}], with the "
+            f"gradient's rounding [{float(wide[0][i]):.9e}, "
+            f"{float(wide[1][i]):.9e}]")
+
+
 def gate_band(state, rows, hyper, extra=(), near_eps=False):
-    """The float64 step of one K3 or K4 minibatch from ``state``, with
+    """The float64 step of one K3, K4 or K6 minibatch from ``state``, with
     every decision within float32 rounding taken either way: ((lowest,
     highest) of each weight over those steps, flattened as
     ``check_phase``'s weights, in float64; the number of such decisions).
     K3: ``state`` (ReLU net, Adam), ``rows`` (obs, targets); K4: ``state``
     (net, log_std, Adam, log_std's Adam), ``rows`` (obs, actions, old
-    log-probs, advantages), ``extra`` (clip_eps, ent_coeff), as the plain
-    versions take them.
+    log-probs, advantages), ``extra`` (clip_eps, ent_coeff); K6: ``state``
+    (net, Adam), ``rows`` (obs, int32 class ids, old log-probs,
+    advantages), ``extra`` (clip_eps, ent_coeff); as the plain versions
+    take them.
 
     A decision is a ReLU gate whose float64 pre-activation lies within
     GATE_SLACK times the largest error of the float32 forward in its
-    layer, and in K4 a row's clip branch whose float64 ratio lies within
-    GATE_SLACK times the float32 ratios' largest error of a clip edge.  A
+    layer, and in K4 and K6 a row's clip branch (ra <= ca) whose float64
+    ratio lies within GATE_SLACK times the float32 ratios' largest error
+    of a clip edge.  A
     row's decisions are taken every way together (2**k evaluations of its
     gradient); rows add to the gradient independently, so each gradient
     element ranges over its base value plus the sum of the rows' ranges.
-    With ``near_eps`` (the sharded K3/K4 cluster's checks alone), each
+    With ``near_eps`` (the checks of the sharded cluster), each
     gradient element at which Adam's sqrt(v_hat) lies within ROUND_NEAR
     times eps also ranges over ROUND_SLACK times its float32 rounding
     bound (:func:`rounding`): any order of its sums lies inside.  Each
@@ -990,6 +1038,7 @@ def gate_band(state, rows, hyper, extra=(), near_eps=False):
     from ppoc_tpu_torch.ops import cuda_update as cu
 
     policy = len(state) == 4
+    categorical = not policy and len(rows) == 4
     params, opts = state[0], state[2:] if policy else state[1:]
     W = [w.double() for w, _ in params]
     B = [b.double() for _, b in params]
@@ -1029,14 +1078,31 @@ def gate_band(state, rows, hyper, extra=(), near_eps=False):
         near_clip = to_edge <= GATE_SLACK * apart(r64, r32)
         clip = (r64 * cols[3]
                 <= torch.clamp(r64, 1 - clip_eps, 1 + clip_eps) * cols[3])
+    elif categorical:
+        clip_eps, ent_coeff = extra
+        cls = rows[1].reshape(-1).long()
+
+        def cat_ratio(y, c, lp):
+            """The ratio of the classes ``c``, and the log-softmax of
+            ``y``."""
+            lpa = torch.log_softmax(y, dim=1)
+            return torch.exp(lpa.gather(1, c[:, None])[:, 0] - lp), lpa
+
+        r64 = cat_ratio(y64, cls, cols[2])[0]
+        r32 = cat_ratio(y32, cls, rows[2])[0]
+        to_edge = torch.minimum((r64 - (1 - clip_eps)).abs(),
+                                (r64 - (1 + clip_eps)).abs())
+        near_clip = to_edge <= GATE_SLACK * apart(r64, r32)
+        clip = (r64 * cols[3]
+                <= torch.clamp(r64, 1 - clip_eps, 1 + clip_eps) * cols[3])
     else:
         near_clip = torch.zeros(mb, dtype=torch.bool, device=x.device)
         clip = None
 
     def grad(i, masks, unclipped):
         """The flat float64 gradient of the rows ``i`` with the hidden
-        gates ``masks`` and (K4) the unclipped branches ``unclipped``, as
-        the plain version's loss over ``mb`` rows gives it."""
+        gates ``masks`` and (K4, K6) the unclipped branches ``unclipped``,
+        as the plain version's loss over ``mb`` rows gives it."""
         hs, h = [], x[i]
         for l in range(L - 1):
             h = torch.where(masks[l], h @ W[l] + B[l], 0.0)
@@ -1047,6 +1113,16 @@ def gate_band(state, rows, hyper, extra=(), near_eps=False):
             dlogp = -(cols[3][i] * r / mb) * unclipped
             g = dlogp[:, None] * z * torch.exp(-ls)
             tail = [(dlogp[:, None] * (z * z - 1.0)).sum(dim=0)]
+        elif categorical:
+            r, lpa = cat_ratio(y, cls[i], cols[2][i])
+            p = torch.exp(lpa)
+            H = -(p * lpa).sum(dim=1, keepdim=True)
+            onehot = torch.nn.functional.one_hot(cls[i], y.shape[1]).to(
+                y.dtype)
+            dlogp = -(cols[3][i] * r / mb) * unclipped
+            g = (dlogp[:, None] * (onehot - p)
+                 + (ent_coeff / mb) * p * (lpa + H))
+            tail = []
         else:
             g = (2.0 / mb) * (y[:, 0] - cols[1][i])[:, None]
             tail = []
@@ -1074,7 +1150,7 @@ def gate_band(state, rows, hyper, extra=(), near_eps=False):
                                  f"rounding (at most {MAX_ROW_FLIPS})")
         n_near += len(flips)
         own = [m[r:r + 1] for m in base]
-        own_clip = clip[r:r + 1] if policy else None
+        own_clip = clip[r:r + 1] if clip is not None else None
         g_r = grad(slice(r, r + 1), own, own_clip)
         r_lo, r_hi = torch.zeros_like(g0), torch.zeros_like(g0)
         for which in itertools.product((False, True), repeat=len(flips)):
@@ -1089,8 +1165,10 @@ def gate_band(state, rows, hyper, extra=(), near_eps=False):
         lo, hi = lo + r_lo, hi + r_hi
 
     def flat(trees):
+        """Each tree's tensors: a tensor (log_std, its moments) whole, a
+        net's (W, b) pairs in order."""
         return [t.double().clone() for tree in trees for t in
-                (tree if isinstance(tree, torch.Tensor) else
+                ([tree] if isinstance(tree, torch.Tensor) else
                  [x for pair in tree for x in pair])]
 
     P = flat([params] + ([state[1]] if policy else []))
@@ -1116,7 +1194,8 @@ def gate_band(state, rows, hyper, extra=(), near_eps=False):
         v_hat = (hyper.b2 * v + hyper.omb2 * g0 * g0) / bc2
         bound = ROUND_SLACK * (rounding(
             W, B, x, cols, z64, y64, base, clip, mb,
-            (ls, lp0, ratio) if policy else None) + 2 * ULP * g0.abs())
+            (ls, lp0, ratio) if policy else None,
+            ent_coeff if categorical else None) + 2 * ULP * g0.abs())
         bound = torch.where(v_hat.sqrt() <= ROUND_NEAR * hyper.eps, bound,
                             0.0)
         lo, hi = lo - bound, hi + bound
@@ -1133,16 +1212,18 @@ def gate_band(state, rows, hyper, extra=(), near_eps=False):
 ULP = 2.0 ** -24   # float32's unit roundoff
 
 
-def rounding(W, B, x, cols, z64, y64, masks, unclipped, mb, policy=None):
+def rounding(W, B, x, cols, z64, y64, masks, unclipped, mb, policy=None,
+             categorical=None):
     """A first-order bound, in float64, on how far a float32 computation of
-    one K3 or K4 step's gradient can lie from the exact one, flattened as
-    gate_band's gradient, for the float64 net ``W``, ``B`` on the rows
+    one K3, K4 or K6 step's gradient can lie from the exact one, flattened
+    as gate_band's gradient, for the float64 net ``W``, ``B`` on the rows
     ``cols`` (x first) with its pre-activations ``z64``, output ``y64``,
-    ReLU gates ``masks`` and (K4) unclipped rows ``unclipped``; ``policy``
-    (K4): (log_std, the log-prob's constant, gate_band's ratio).  Every sum
-    of n terms in any order lies within n ulps of the sum of their
-    magnitudes; errors carried from the inputs of a product add through
-    its magnitudes."""
+    ReLU gates ``masks`` and (K4, K6) unclipped rows ``unclipped``;
+    ``policy`` (K4): (log_std, the log-prob's constant, gate_band's ratio);
+    ``categorical`` (K6): the entropy coefficient.  Every sum of n terms in
+    any order lies within n ulps of the sum of their magnitudes; errors
+    carried from the inputs of a product add through its magnitudes; an
+    exp or a log adds 2 ulps of its result."""
     import torch
 
     def gam(n):
@@ -1175,6 +1256,36 @@ def rounding(W, B, x, cols, z64, y64, masks, unclipped, mb, policy=None):
         tail = [(edl[:, None] * zz + dlogp.abs()[:, None] * 2 * z.abs() * ez
                  ).sum(dim=0) + gam(mb) * (dlogp.abs()[:, None] * zz)
                 .sum(dim=0)]
+    elif categorical is not None:
+        K = y64.shape[1]
+        lpa = torch.log_softmax(y64, dim=1)
+        p = torch.exp(lpa)
+        zmax = y64.max(dim=1, keepdim=True).values
+        lse = y64[:, :1] - lpa[:, :1]
+        # the log-sum-exp moves by at most its inputs' largest move; its K
+        # exps, their sum, the log and the add round
+        e_lse = (ey.max(dim=1, keepdim=True).values + gam(K + 4)
+                 + gam(2) * (zmax.abs() + lse.abs()))
+        elpa = ey + e_lse + ULP * lpa.abs()
+        ep = p * (elpa + gam(2))
+        onehot = torch.nn.functional.one_hot(
+            cols[1].reshape(-1).long(), K).to(y64.dtype)
+        logp, elogp = (onehot * lpa).sum(dim=1), (onehot * elpa).sum(dim=1)
+        H = -(p * lpa).sum(dim=1, keepdim=True)
+        eH = ((ep * lpa.abs() + p * elpa).sum(dim=1, keepdim=True)
+              + gam(K + 1) * (p * lpa).abs().sum(dim=1, keepdim=True))
+        r = torch.exp(logp - cols[2])
+        dlogp = -(cols[3] * r / mb) * unclipped
+        edl = dlogp.abs() * (elogp + gam(2) * (logp.abs() + cols[2].abs())
+                             + gam(5))
+        c = categorical / mb
+        t1 = dlogp[:, None] * (onehot - p)
+        t2 = c * p * (lpa + H)
+        g = t1 + t2
+        eg = (edl[:, None] * (onehot - p).abs() + dlogp.abs()[:, None] * ep
+              + c * (ep * (lpa + H).abs() + p * (elpa + eH))
+              + gam(6) * (t1.abs() + t2.abs()))
+        tail = []
     else:
         g = (2.0 / mb) * (y64[:, 0] - cols[1])[:, None]
         eg = (2.0 / mb) * ey + 2 * ULP * g.abs()
@@ -2733,7 +2844,7 @@ def reacher_mcc_phases(dev, counters, record):
            n["mlp_backward"], k5c[0], k5c[2], bb)
 
 
-# --- K3, K4 and K6 with the nets in global memory (slice 6) -----------------
+# --- K3, K4 and K6 past one block's shared memory (slice 6) -----------------
 
 # the reference schedule (15 envs x 200 steps, minibatch 64: 46
 # minibatches, 10 value and 4 policy epochs, 10 fits an epoch) at the
@@ -2764,7 +2875,7 @@ def wide_config(env: str, hidden=(256, 256), seed: int = 0):
 def wide_launches(cfg, epochs: int):
     """The launches ``epochs`` epochs of a 2x256 fused path make, by phase:
     per fit one K1 rollout with the V planes, one K2, one K3 and one K4
-    (K6 for a discrete env), all but K2 with the nets in global memory;
+    (K6 for a discrete env), all but K2 in their second variant;
     per evaluation one K1 rollout with the metrics; the host's row draws
     none."""
     lane, f = cfg.env, cfg.fits_per_epoch * epochs
@@ -2779,9 +2890,8 @@ def wide_launches(cfg, epochs: int):
 
 def check_global_phase(counter_g, counter_s, *args, **kw):
     """:func:`check_phase`, and every launch it made took the second
-    variant (``counter_g``: K3 and K4 sharded over the cluster, K6 with the
-    weights in global memory), none the shared-memory one
-    (``counter_s``)."""
+    variant (``counter_g``: the sharded cluster), none the shared-memory
+    one (``counter_s``)."""
     g0, s0 = counter_g.n, counter_s.n
     out = check_phase(*args, **kw)
     if counter_s.n != s0 or counter_g.n == g0:
@@ -2807,26 +2917,98 @@ def wide_rows(cfg, ts, seed, draw_seed: int, dev):
     return raw, tgt, phase_rows(cfg, raw, adv, tgt, dev, draw_seed=draw_seed)
 
 
-def check_gate_edge(cfg, ts, raw, tgt, dev):
-    """K3 with the 2x256 value net at the fused gate's edge: GATE_STEPS
-    steps of GATE_MB rows (drawn from one fit's rows with replacement; 32
-    rounds of warp tiles a product, each re-staging W), held as
-    :func:`check_phase` holds a phase (the whole phase's distance from
-    float64 printed only: no reading sets a limit at this shape); returns
-    (max abs error, timings)."""
+def generic_times(fn):
+    """(wall ms, device ms) of ``fn``, a generic phase (ppo.value_phase or
+    ppo.policy_phase past the fused gate: per minibatch a K5 forward, the
+    loss, autograd through K5's backward, Adam) at GATE_MB rows a
+    minibatch, with ppo.MAX_FUSED_MB lowered below GATE_MB for the call
+    alone."""
+    from ppoc_tpu_torch.algo import ppo
+
+    fused = ppo.MAX_FUSED_MB
+    ppo.MAX_FUSED_MB = GATE_MB - 1
+    try:
+        return timed_ms(fn, 3), device_ms(fn, 1)
+    finally:
+        ppo.MAX_FUSED_MB = fused
+
+
+def gate_edge_line(label: str, times: dict, wall: float, dev_ms: float):
+    """Print a phase at the gate's edge beside the generic phases; returns
+    ``times`` with theirs."""
+    print(f"  {label}, {GATE_STEPS} steps x {GATE_MB}: the cluster kernel "
+          f"{times['ms']:.4f} ms device; the generic phases {wall:.4f} ms "
+          f"wall, {dev_ms:.4f} ms device; the plain version "
+          f"{times['plain_ms']:.4f} ms device", flush=True)
+    return dict(times, generic_wall_ms=wall, generic_ms=dev_ms)
+
+
+def gate_edge_ids(dev):
+    """The row ids of one epoch of GATE_STEPS minibatches of GATE_MB rows,
+    in order."""
     import torch
 
+    return torch.arange(GATE_STEPS * GATE_MB, device=dev).reshape(
+        1, GATE_STEPS, GATE_MB)
+
+
+def check_gate_edge(cfg, ts, raw, tgt, dev):
+    """K3 with the 2x256 value net at the fused gate's edge: GATE_STEPS
+    steps of GATE_MB rows (drawn from one fit's rows with replacement),
+    held as :func:`check_phase` holds a phase (the whole phase's distance
+    from float64 printed only: no reading sets a limit at this shape), and
+    the generic phases on the same rows, wall and device time
+    (:func:`generic_times`), the path a minibatch past the gate takes;
+    returns (max abs error, timings)."""
+    import torch
+
+    from ppoc_tpu_torch.algo import ppo
+    from ppoc_tpu_torch.data import buffer
     from ppoc_tpu_torch.ops import cuda_update as cu
 
     idx = torch.randint(0, tgt.numel(), (GATE_STEPS * GATE_MB,),
                         generator=torch.Generator().manual_seed(6)).to(dev)
     cols = (raw.obs.reshape(tgt.numel(), -1)[idx].contiguous(),
             tgt.reshape(-1)[idx].contiguous())
-    return check_global_phase(
+    edge = cfg.replace(minibatch_size=GATE_MB)
+    err, times = check_global_phase(
         cu.value_global_launches, cu.value_launches,
         f"value phase (2x256, mb {GATE_MB})", cu.value_phase_kernel,
-        cu.value_phase_plain, (ts.v_params, ts.opt_v), cols,
-        cfg.replace(minibatch_size=GATE_MB), cfg.lr_v, [()], None)
+        cu.value_phase_plain, (ts.v_params, ts.opt_v), cols, edge,
+        cfg.lr_v, [()], None)
+    zero = torch.zeros(idx.numel(), device=dev)
+    buf = buffer.RowBuffer(cols[0], zero[:, None], zero, zero, cols[1])
+    ids = gate_edge_ids(dev)
+    return err, gate_edge_line("value phase (2x256)", times, *generic_times(
+        lambda: ppo.value_phase(edge, ts, buf, ids)))
+
+
+def check_categorical_gate_edge(cfg, ts, pcols, dev):
+    """K6 with CARTPOLE_WIDE's 2x256 policy net at the fused gate's edge:
+    GATE_STEPS steps of GATE_MB rows drawn with replacement from one fit's
+    policy rows ``pcols``, held and timed beside the generic phases as
+    :func:`check_gate_edge` holds K3; returns (max abs error, timings)."""
+    import torch
+
+    from ppoc_tpu_torch.algo import ppo
+    from ppoc_tpu_torch.data import buffer
+    from ppoc_tpu_torch.ops import cuda_update as cu
+
+    idx = torch.randint(0, pcols[0].shape[0], (GATE_STEPS * GATE_MB,),
+                        generator=torch.Generator().manual_seed(9)).to(dev)
+    cols = tuple(c[idx].contiguous() for c in pcols)
+    edge = cfg.replace(minibatch_size=GATE_MB)
+    err, times = check_global_phase(
+        cu.categorical_global_launches, cu.categorical_launches,
+        f"categorical policy phase (2x256, mb {GATE_MB})",
+        cu.policy_phase_categorical_kernel, cu.policy_phase_categorical_plain,
+        (ts.policy_params["mlp"], ts.opt_policy), cols, edge, cfg.lr_policy,
+        [(cfg.clip_eps, cfg.ent_coeff), (cfg.clip_eps, 0.01)], None)
+    buf = buffer.RowBuffer(*cols, torch.zeros(idx.numel(), device=dev))
+    ids = gate_edge_ids(dev)
+    return err, gate_edge_line(
+        "categorical policy phase (2x256)", times, *generic_times(
+            lambda: ppo.policy_phase(edge, ts, buf, ids, discrete=True)))
 
 
 def reacher_ref_path(counters):
@@ -2894,10 +3076,10 @@ def cartpole_wide_path(counters):
 def wide_phases(dev, counters, record):
     """K3 and K4 on REACHER_REF's rows and K3 and K6 on CARTPOLE_WIDE's,
     each as :func:`check_phase` holds a phase and in its second variant
-    (K3 and K4 the sharded cluster, K6 one block with the weights in global
-    memory); K3 at the gate's edge; the sharded cluster's registers, a
-    step's time by cluster size and K3 at MID_HIDDEN; then the two paths,
-    with their launches; records every kernel row."""
+    (the sharded cluster); K3 and K6 at the gate's edge beside the generic
+    phases; the sharded cluster's registers, a step's time of K3 and K6 by
+    cluster size and K3 at MID_HIDDEN; then the two paths, with their
+    launches; records every kernel row."""
     from ppoc_tpu_torch.algo.trainer import Trainer
     from ppoc_tpu_torch.models import mlp
     from ppoc_tpu_torch.ops import cuda_update as cu
@@ -2929,11 +3111,13 @@ def wide_phases(dev, counters, record):
     header(f"[K3 at the fused gate's edge: {GATE_STEPS} steps x {GATE_MB}, "
            f"{vw}]")
     edge = check_gate_edge(rcfg, rts, raw, tgt, dev)
-    header("[the sharded cluster: registers, a step's time by cluster size, "
-           "K3 past the replicated cluster's boundary]")
+    header("[the sharded cluster: registers, a step's time of K3 and K6 by "
+           "cluster size, K3 past the replicated cluster's boundary]")
     for kind, res in cluster_resources("shard").items():
         print(f"  nvcc: the {kind} sharded cluster kernel: {res}", flush=True)
     cluster_grid_times(dev, 20, tuple(vw), (mb, GATE_MB), "global")
+    cluster_grid_times(dev, 20, (4, 256, 256, 2), (mb,), "global",
+                       "categorical policy")
     hcfg = wide_config("pendulum", MID_HIDDEN)
     hts = Trainer(hcfg, dev).state
     hw = mlp.dims(hts.v_params)
@@ -2963,6 +3147,9 @@ def wide_phases(dev, counters, record):
         ccfg.lr_policy, [(ccfg.clip_eps, ccfg.ent_coeff),
                          (ccfg.clip_eps, 0.01)], WHOLE_RATIO["K6 2x256"],
         lean=True)
+    header(f"[K6 at the fused gate's edge: {GATE_STEPS} steps x {GATE_MB}, "
+           f"{cpw}]")
+    k6e = check_categorical_gate_edge(ccfg, cts, cpcols, dev)
 
     header(f"[REACHER_REF: Trainer(reacher, 2x256, the reference schedule), "
            f"evaluate, {REACHER_REF_EPOCHS} epochs]")
@@ -2993,6 +3180,9 @@ def wide_phases(dev, counters, record):
     record("policy_phase_categorical_global", path, [n_p, mb] + cpw,
            cn["policy phase"]["policy_phase_categorical_global"], *k6,
            phase_bound(cpw, n_p, mb, 3))
+    record("policy_phase_categorical_global", "the fused gate's edge (not "
+           "on a path; CARTPOLE_WIDE's rows)", [GATE_STEPS, GATE_MB] + cpw,
+           0, *k6e, phase_bound(cpw, GATE_STEPS, GATE_MB, 3))
 
 
 # --- the bf16 backend: K7's bf16 variant, RECALL_XL_BF16, REACHER_BF16 -----
@@ -4017,10 +4207,11 @@ CLUSTER_MBS = (64, 256, 2048)
 
 def cluster_line(label: str, kind: str, widths, mb: int, dev,
                  sharded: bool = False, cluster=None) -> dict:
-    """Print and return how K3 (``kind`` "value") or K4 ("policy") launches
-    on ``widths`` at minibatch ``mb``: with the weights in shared memory
-    (cuda_update.phase_cluster_plan), or ``sharded`` over the cluster
-    (phase_shard_plan, each layer's kind from shard_layout)."""
+    """Print and return how K3 (``kind`` "value"), K4 ("policy") or K6
+    ("categorical policy") launches on ``widths`` at minibatch ``mb``:
+    with the weights in shared memory (cuda_update.phase_cluster_plan), or
+    ``sharded`` over the cluster (phase_shard_plan, each layer's kind from
+    shard_layout)."""
     from ppoc_tpu_torch.ops import cuda_update as cu
 
     if not sharded:
@@ -4043,11 +4234,12 @@ def cluster_line(label: str, kind: str, widths, mb: int, dev,
 
 
 def cluster_resources(kernel: str = "cluster") -> dict:
-    """{"value" | "policy": "N registers, S B spill stores, L B spill
-    loads"} of the two cluster kernels (csrc/update_cluster.cu), or with
-    ``kernel`` "shard" of the sharded ones (csrc/update_shard.cu; "value
-    spilled", ... for the instances with the weights in global memory),
-    from the build's nvcc.log (the compiler's -Xptxas -v report)."""
+    """{"value" | "policy" | "categorical": "N registers, S B spill
+    stores, L B spill loads"} of the three kinds of the cluster kernel
+    (csrc/update_cluster.cu), or with ``kernel`` "shard" of the sharded
+    one (csrc/update_shard.cu; "value spilled", ... for the instances with
+    the weights in global memory), from the build's nvcc.log (the
+    compiler's -Xptxas -v report)."""
     import re
 
     from ppoc_tpu_torch.ops import _build
@@ -4057,7 +4249,7 @@ def cluster_resources(kernel: str = "cluster") -> dict:
         m = re.search(rf"Compiling entry function '\S*{kernel}_phase_kernel"
                       r"ILi(\d)E(?:Lb(\d)E)?", line)
         if m:
-            name = ("value", "policy")[int(m.group(1))] + (
+            name = ("value", "policy", "categorical")[int(m.group(1))] + (
                 " spilled" if m.group(2) == "1" else "")
             continue
         if re.search(r"Compiling entry function", line):
@@ -4070,18 +4262,21 @@ def cluster_resources(kernel: str = "cluster") -> dict:
                          f"{spill.group(2)} B spill loads")
         if name and regs:
             res[name] = f"{regs.group(1)} registers, " + res.get(name, "")
-    want = ["policy", "value"] + (["policy spilled", "value spilled"]
-                                  if kernel == "shard" else [])
+    kinds = ["categorical", "policy", "value"]
+    want = kinds + ([f"{k} spilled" for k in kinds] if kernel == "shard"
+                    else [])
     if sorted(res) != sorted(want):
         raise AssertionError(f"nvcc.log reports the {kernel} kernels {res}")
     return res
 
 
 def cluster_grid_times(dev, steps: int = 40, widths=(3, 128, 128, 1),
-                       mbs=CLUSTER_MBS, variant: str = "smem") -> dict:
-    """A step's device time of K3 on ``widths`` (the bench's value net) by
-    cluster size (CLUSTER_SIZES, forced) at each of ``mbs``, in
-    ``variant`` ("smem": the replicated cluster, "global": the sharded
+                       mbs=CLUSTER_MBS, variant: str = "smem",
+                       kind: str = "value") -> dict:
+    """A step's device time of K3 (``kind`` "value", on ``widths``, by
+    default the bench's value net) or K6 ("categorical policy", on seeded
+    class ids) by cluster size (CLUSTER_SIZES, forced) at each of ``mbs``,
+    in ``variant`` ("smem": the replicated cluster, "global": the sharded
     one): a launch of ``steps`` steps less one of none, over the steps
     (queued_ms); the size the kernels take (cuda_update.CLUSTER or
     SHARDS) is marked.  Returns {(mb, cluster): us a step}."""
@@ -4099,19 +4294,37 @@ def cluster_grid_times(dev, steps: int = 40, widths=(3, 128, 128, 1),
     opt = AdamState(zeros, zeros, 0)
     out = {}
     for mb in mbs:
-        x = torch.randn(steps * mb, widths[0], generator=g).to(dev)
-        tgt = (10 * torch.randn(steps * mb, generator=g)).to(dev)
+        rows = steps * mb
+        x = torch.randn(rows, widths[0], generator=g).to(dev)
+        if kind == "value":
+            cols = (x, (10 * torch.randn(rows, generator=g)).to(dev))
+
+            def launch(n, c):
+                return cu.value_phase_kernel(
+                    *(t[:n * mb] for t in cols), params, opt, n, mb, "relu",
+                    h, variant=variant, cluster=c)
+        else:
+            K = widths[-1]
+            cols = (x, torch.randint(0, K, (rows, 1), generator=g,
+                                     dtype=torch.int32).to(dev),
+                    (0.3 * torch.randn(rows, generator=g)
+                     - math.log(K)).to(dev),
+                    torch.randn(rows, generator=g).to(dev))
+
+            def launch(n, c):
+                return cu.policy_phase_categorical_kernel(
+                    *(t[:n * mb] for t in cols), params, opt, n, mb, "relu",
+                    h, 0.2, 0.01, variant=variant, cluster=c)
         row = []
         for c in CLUSTER_SIZES:
-            ms = [queued_ms(lambda n=n: cu.value_phase_kernel(
-                x[:n * mb], tgt[:n * mb], params, opt, n, mb, "relu", h,
-                variant=variant, cluster=c), 3) for n in (0, steps)]
+            ms = [queued_ms(lambda n=n: launch(n, c), 3) for n in (0, steps)]
             out[mb, c] = 1e3 * (ms[1] - ms[0]) / steps
             rule = "*" if c == own else ""
             row.append(f"{c}{rule}: {out[mb, c]:.2f}")
-        print(f"  K3 {list(widths)} ({variant} variant), minibatch {mb}, us "
-              f"a step by cluster size ({steps} steps less none; * the "
-              f"kernels' own): {', '.join(row)}", flush=True)
+        print(f"  {'K3' if kind == 'value' else 'K6'} {list(widths)} "
+              f"({variant} variant), minibatch {mb}, us a step by cluster "
+              f"size ({steps} steps less none; * the kernels' own): "
+              f"{', '.join(row)}", flush=True)
     return out
 
 
@@ -4143,21 +4356,9 @@ def cluster_gate_edge(cfg, ts, dev):
         cfg.lr_v, [()], None)
     zero = torch.zeros(n, device=dev)
     buf = buffer.RowBuffer(obs, zero[:, None], zero, zero, tgt)
-    ids = torch.arange(n, device=dev).reshape(1, GATE_STEPS, GATE_MB)
-    fused = ppo.MAX_FUSED_MB
-    ppo.MAX_FUSED_MB = GATE_MB - 1     # the generic phases at these rows
-    try:
-        def generic():
-            return ppo.value_phase(edge, ts, buf, ids)
-        wall = timed_ms(generic, 3)
-        dev_ms = device_ms(generic, 1)
-    finally:
-        ppo.MAX_FUSED_MB = fused
-    print(f"  value phase, {GATE_STEPS} steps x {GATE_MB}: the cluster "
-          f"kernel {times['ms']:.4f} ms device; the generic phases "
-          f"{wall:.4f} ms wall, {dev_ms:.4f} ms device; the plain version "
-          f"{times['plain_ms']:.4f} ms device", flush=True)
-    return err, dict(times, generic_wall_ms=wall, generic_ms=dev_ms)
+    ids = gate_edge_ids(dev)
+    return err, gate_edge_line("value phase", times, *generic_times(
+        lambda: ppo.value_phase(edge, ts, buf, ids)))
 
 
 def cluster_phases(dev, record):
@@ -4167,11 +4368,13 @@ def cluster_phases(dev, record):
     from ppoc_tpu_torch.algo.trainer import Trainer
     from ppoc_tpu_torch.models import mlp
 
-    header("[K3 and K4 as a thread-block cluster: registers, a step's time "
-           "by cluster size, the fused gate's edge]")
+    header("[K3, K4 and K6 as a thread-block cluster: registers, a step's "
+           "time by cluster size, the fused gate's edge]")
     for kind, res in cluster_resources().items():
         print(f"  nvcc: the {kind} cluster kernel: {res}", flush=True)
     cluster_grid_times(dev)
+    cluster_grid_times(dev, 40, (4, 128, 128, 2), (256,),
+                       kind="categorical policy")
     cfg = bench_config()
     ts = Trainer(cfg, dev).state
     vw = mlp.dims(ts.v_params)

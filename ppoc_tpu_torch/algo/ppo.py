@@ -353,8 +353,9 @@ def _fused(cfg: PPOConfig, stab_ok: bool) -> bool:
 class KernelFit(NamedTuple):
     """One kernel of a config's path on the card: the nets it takes, the
     shared memory it needs in each variant (``_build.VARIANTS``: the
-    weights in shared memory, or in global memory), and the first variant
-    that fits (None: none does)."""
+    weights in shared memory, or past that in global memory; for K3, K4
+    and K6 replicated in each block of a cluster, or sharded over it), and
+    the first variant that fits (None: none does)."""
     kernel: str
     widths: Tuple[Tuple[int, ...], ...]
     nbytes: Tuple[int, ...]
@@ -370,7 +371,8 @@ def kernel_fit(cfg: PPOConfig, optin: int,
     evaluation's, with the metrics, needs less), K5 on the policy and the
     value net (the mean-policy evaluation, and the generic phases above the
     fused gate), then under the gate K3 and K4, or K6 for a categorical
-    policy.  Under the "bf16" backend only K1, without the V planes: the
+    policy (the three kinds of one pair of cluster kernels, so the same
+    bytes).  Under the "bf16" backend only K1, without the V planes: the
     MLP products are library calls and no whole-phase kernel runs.  K2
     and K7 take no width-dependent shared memory, so an attention trunk's
     list is empty.  Needs no card."""
@@ -391,13 +393,11 @@ def kernel_fit(cfg: PPOConfig, optin: int,
                  cuda_mlp.variant_bytes(vw))]
     if _fused(cfg, _stab_value_ok(cfg)):
         plan.append(("K3 (value phase)", (vw,),
-                     cuda_update.variant_bytes(vw, "value")))
+                     cuda_update.variant_bytes(vw)))
     if _fused(cfg, _stab_policy_ok(cfg)):
         plan.append(("K6 (categorical policy phase)" if spec.discrete
                      else "K4 (policy phase)", (pw,),
-                     cuda_update.variant_bytes(
-                         pw, "categorical policy" if spec.discrete
-                         else "policy")))
+                     cuda_update.variant_bytes(pw)))
     out = []
     for name, nets, nbytes in plan:
         fits = [0 <= n <= optin for n in nbytes]

@@ -1,9 +1,10 @@
-// What the fused update phases that run as a thread-block cluster share
-// (K3 and K4: update_cluster.cu with the weights replicated in each block,
-// update_shard.cu with them sharded by column): the launch's constants,
-// padded strides, cp.async, distributed shared memory and the cluster
-// barrier, and the register-tiled products over a sub-tile of rows.  The
-// functions are inline because both sources include this header.
+// What the fused update phases share (K3, K4 and K6, each a kind of the
+// two thread-block cluster kernels: update_cluster.cu with the weights
+// replicated in each block, update_shard.cu with them sharded by column):
+// the launch's constants, padded strides, cp.async, distributed shared
+// memory and the cluster barrier, the register-tiled products over a
+// sub-tile of rows, and K6's per-row loss head.  The functions are inline
+// because both sources include this header.
 #pragma once
 
 #include "phase_args.cuh"
@@ -15,13 +16,16 @@ using namespace ppoc;
 constexpr int CT = 256;           // threads a block (the products' NT)
 constexpr int THIN = MAX_ACT;     // outputs this few take the thin products
 constexpr int THIN_K = 16;        // inputs this few: the column-wise dW
-constexpr int ES = 12;            // row extras: tgt or act[0..7], lp, adv
-constexpr int NS = 1 + MAX_ACT;   // row stats: the loss, log_std's terms
+constexpr int ES = 12;            // row extras: tgt, act[0..7] or the
+                                  // class id's bits; then lp at 8, adv at 9
+constexpr int NS = 1 + MAX_ACT;   // row stats: the loss, then log_std's
+                                  // terms (K4) or the entropy (K6)
 constexpr int RSS = 12;           // row stride of the row stats
 constexpr int C_MAX = 16;         // the most a forced cluster size may take
 constexpr int PORTABLE_C = 8;     // larger: the non-portable opt-in
 
-enum Kind { VALUE = 0, POLICY = 1 };
+// K3, K4 (Gaussian) and K6 (categorical); the plans' `kind` argument
+enum Kind { VALUE = 0, POLICY = 1, CATEGORICAL = 2 };
 
 __host__ __device__ inline int r4(int n) { return (n + 3) & ~3; }
 // W_l's row stride: 4 floats times an odd number, so the 8 lanes of a
@@ -406,6 +410,59 @@ __device__ __forceinline__ void dw_thin_in(
     for (int k = 0; k < THIN_K; ++k)
       if (k < K) P[k * ld + j] = first ? s[k] : P[k * ld + j] + s[k];
     Pb[j] = first ? s[THIN_K] : Pb[j] + s[THIN_K];
+  }
+}
+
+// K6's loss head on one row (ppoc_tpu/ops/pallas_update.py:824-866): the
+// log-softmax of the K logits o[0..K) (the head's padding columns never
+// enter), logp of the row's class (the int32 bits in e[0]), ratio =
+// exp(logp - lp_old), the clipped surrogate min(ratio adv, clip(ratio)
+// adv) into st[0] and the entropy H = -sum_k p_k logp_k into st[1]; then
+// the logit gradient dlogp (onehot - p) + (ent_coeff / mb) p (logp + H) in
+// place of o[0..K), zero in o[K..r4(K)), with dlogp = -(adv ratio / mb) on
+// the unclipped branch and 0 on the clipped one.
+//
+// It runs in double from the float logits and rounds each result once.
+// In float, 1 - p and logp + H cancel, and each class's gradient rounds on
+// its own: with two classes the two gradients should be equal and
+// opposite, and the next layer's gradient sum_k dz_k W[j][k] turns their
+// unequal rounding into an error |W[j][1]| / |W[j][0] - W[j][1]| times
+// larger, which Adam's eps turns into a visible step where a weight's
+// gradient cancels over the minibatch.  Rounded from double, the two are
+// exact negatives.  Its cost is a few double exps a row, once a step.
+__device__ __forceinline__ void categorical_head(const float* e, float* o,
+                                                 float* st, int K,
+                                                 float clip_lo, float clip_hi,
+                                                 float ent_coeff, float mbf) {
+  double zmax = o[0];
+  for (int k = 1; k < K; ++k) zmax = fmax(zmax, (double)o[k]);
+  double sum = 0.0;
+  for (int k = 0; k < K; ++k) sum += exp((double)o[k] - zmax);
+  const double lse = zmax + log(sum);
+  const int cls = __float_as_int(e[0]);
+  double logp = 0.0, H = 0.0;
+  for (int k = 0; k < K; ++k) {
+    const double lpa = (double)o[k] - lse;
+    if (k == cls) logp = lpa;
+    H -= exp(lpa) * lpa;
+  }
+  const double adv = e[9];
+  const double ratio = exp(logp - (double)e[8]);
+  const double clipped = fmin(fmax(ratio, (double)clip_lo), (double)clip_hi);
+  const double ra = ratio * adv, ca = clipped * adv;
+  st[0] = (float)fmin(ra, ca);
+  st[1] = (float)H;
+  // only the unclipped branch carries the surrogate's gradient
+  const double dlogp = ra <= ca ? -(adv * ratio / mbf) : 0.0;
+  const double ent_mb = (double)ent_coeff / mbf;
+  for (int k = 0; k < r4(K); ++k) {
+    if (k < K) {
+      const double lpa = (double)o[k] - lse, p = exp(lpa);
+      o[k] = (float)(dlogp * ((k == cls ? 1.0 : 0.0) - p)
+                     + ent_mb * p * (lpa + H));
+    } else {
+      o[k] = 0.0f;
+    }
   }
 }
 

@@ -33,8 +33,8 @@
 // 64x256 tiles add 196 KB) take a second variant, picked by size at the
 // launch: the weights stay in global memory (L2-resident) and each product
 // stages its weight operand SLICE = 32 rows at a time (`sliced_gemm`,
-// mlp_step.cuh, shared with the update phases' global variant): the
-// forward W[k0:k0+32, :], the dX product W[:, j0:j0+32] transposed.  The
+// mlp_step.cuh): the forward W[k0:k0+32, :], the dX product
+// W[:, j0:j0+32] transposed.  The
 // tile is TILE_L = 32 rows, so three tiles and a slice fit; each warp keeps
 // its 4x4 sums per lane in registers across the slices.  dW/db reads no
 // weights.  Each output is summed in the same order as in the first
@@ -320,7 +320,7 @@ extern "C" int ppoc_mlp_args_size() { return (int)sizeof(MlpArgs); }
 
 static bool make_dev(const MlpArgs* a, MlpDev* d, int variant) {
   if (a->B < 1 || variant < 0 || variant > 1 ||
-      !make_padded(&d->pn, a->n_layers, a->dims, TILE))
+      !make_padded(&d->pn, a->n_layers, a->dims))
     return false;
   d->variant = variant;
   d->params = a->params;

@@ -1,18 +1,22 @@
-// K3 and K4 (Gaussian) with the weights in shared memory: a whole PPO value
-// or policy phase (every epoch x minibatch step) as ONE thread-block
-// cluster of CLUSTER blocks, one block per SM.
+// K3, K4 (Gaussian) and K6 (categorical) with the weights in shared
+// memory: a whole PPO value or policy phase (every epoch x minibatch step)
+// as ONE thread-block cluster of CLUSTER blocks, one block per SM.
 //
 // Replaces ppoc_tpu/ops/pallas_update.py `value_phase_fused` ->
-// `_run_value_phase` -> `_value_kernel`/`_value_kernel_unrolled` (K3) and
+// `_run_value_phase` -> `_value_kernel`/`_value_kernel_unrolled` (K3),
 // `policy_phase_fused` -> `_policy_kernel`/`_policy_kernel_unrolled` (K4,
-// Gaussian), for every net whose weights, one weight-gradient partial and
-// a 32-row tile of activations fit in one block's shared memory (the
-// bench's [3,128,128,1], cartpole's and acrobot's value nets, reacher's
-// policy at [10,64,64,2]).  Larger nets take update.cu's global-memory
-// bodies.  Each step computes what update.cu's does: forward, the loss
-// gradient in closed form (K3: 2/mb (v - target); K4: the clipped
-// surrogate through the unclipped branch, and the log_std gradient with
-// the entropy term), backward, Adam (K4: and log_std's Adam).
+// Gaussian) and `policy_phase_fused_categorical` -> `_policy_kernel_cat`/
+// `_policy_kernel_cat_unrolled` (K6), for every net whose weights, one
+// weight-gradient partial and a 32-row tile of activations fit in one
+// block's shared memory (the bench's [3,128,128,1], cartpole's and
+// acrobot's nets, [4,128,128,2] and [6,128,128,3] for K6, reacher's policy
+// at [10,64,64,2]).  Larger nets take update_shard.cu's sharded cluster.
+// Each step: forward, the loss gradient in closed form (K3: 2/mb (v -
+// target); K4: the clipped surrogate through the unclipped branch, and the
+// log_std gradient with the entropy term; K6: the surrogate through a
+// log-softmax over the K class logits plus the entropy bonus, as one
+// gradient on the logits, cluster.cuh's categorical_head), backward, Adam
+// (K4: and log_std's Adam; K6 has no log_std).
 //
 // What bounds it on the card: not FLOPs.  A step of the bench's
 // [3,128,128,1] net on 256 rows is ~26 MFLOP, ~3 us of sixteen SMs' FP32
@@ -51,7 +55,8 @@
 //    runs Adam on it, and writes the new weights into every block's
 //    replica; a second cluster barrier.  K4's surrogate and log_std sums
 //    are reduced the same way, and every block runs the same log_std Adam
-//    on the same sums.
+//    on the same sums; K6's surrogate and entropy sums likewise, into
+//    rank 0's loss.
 //  * Deterministic: no atomics; every sum in a fixed order (within a block
 //    in row order or a fixed tree, across blocks in rank order).
 #include <cooperative_groups.h>
@@ -125,6 +130,7 @@ struct ClusterDev {
   int activation, n_steps, mb, t0, t0_ls, k_act;
   float two_over_mb, lp0, ent0, clip_lo, clip_hi, ent_coeff;
   AdamHyper hyper;
+  const int32_t* act_idx;   // K6: the rows' class ids
 };
 
 // Flat (the params' own) index -> padded index.
@@ -232,10 +238,16 @@ __device__ __forceinline__ void fetch_rows(const ClusterDev& a, size_t row0,
     for (int r = threadIdx.x; r < R; r += CT)
       cp_async4(E + r * ES, a.tgt + row0 + r);
   } else {
-    const int k = a.k_act;
-    for (int e = threadIdx.x; e < R * k; e += CT) {
-      const int r = e / k;
-      cp_async4(E + r * ES + (e - r * k), a.act + row0 * k + e);
+    if (KIND == POLICY) {
+      const int k = a.k_act;
+      for (int e = threadIdx.x; e < R * k; e += CT) {
+        const int r = e / k;
+        cp_async4(E + r * ES + (e - r * k), a.act + row0 * k + e);
+      }
+    } else {   // the class id's bits, never converted
+      for (int r = threadIdx.x; r < R; r += CT)
+        cp_async4(E + r * ES,
+                  reinterpret_cast<const float*>(a.act_idx + row0 + r));
     }
     for (int r = threadIdx.x; r < R; r += CT) {
       cp_async4(E + r * ES + 8, a.lp_old + row0 + r);
@@ -288,7 +300,7 @@ __global__ void __launch_bounds__(CT, 1) cluster_phase_kernel(
   const int my0 = min(a.mb, rank * rpb);
   const int nrows = min(a.mb, my0 + rpb) - my0;
   const int nsub = (nrows + SUB - 1) / SUB;
-  const int n_stat = KIND == POLICY ? 1 + k : 1;
+  const int n_stat = KIND == POLICY ? 1 + k : KIND == CATEGORICAL ? 2 : 1;
   float* head = H + cn.h_off[net.n_layers - 1];
   const int hsL = cn.hs[net.n_layers];
   const float mbf = (float)a.mb;
@@ -335,6 +347,9 @@ __global__ void __launch_bounds__(CT, 1) cluster_phase_kernel(
           const float diff = o[0] - e[0];
           st[0] = diff * diff;
           o[0] = a.two_over_mb * diff;
+        } else if (KIND == CATEGORICAL) {
+          categorical_head(e, o, st, a.k_act, a.clip_lo, a.clip_hi,
+                           a.ent_coeff, mbf);
         } else {
           float z[MAX_ACT], sumz2 = 0.0f;
 #pragma unroll
@@ -408,8 +423,28 @@ __global__ void __launch_bounds__(CT, 1) cluster_phase_kernel(
     }
     // The block stats summed in rank order: the loss (rank 0 keeps it),
     // and K4's log_std gradient, on which every block runs the same
-    // log_std Adam (its own timestep; the entropy bonus adds -ent_coeff).
-    if (tid < n_stat) {
+    // log_std Adam (its own timestep; the entropy bonus adds -ent_coeff);
+    // K6's surrogate and entropy, both into rank 0's loss.
+    if (KIND == CATEGORICAL) {
+      if (tid == 0 && rank == 0) {
+        float part[2][C_MAX];
+#pragma unroll
+        for (int c = 0; c < C_MAX; ++c)
+          if (c < C) {
+            part[0][c] = ld_cluster(cluster_addr(STAT, c));
+            part[1][c] = ld_cluster(cluster_addr(STAT + 1, c));
+          }
+        float surr = part[0][0], hsum = part[1][0];
+#pragma unroll
+        for (int c = 1; c < C_MAX; ++c)
+          if (c < C) {
+            surr += part[0][c];
+            hsum += part[1][c];
+          }
+        loss += (-surr - a.ent_coeff * hsum) / mbf;
+        ent_sum += hsum / mbf;
+      }
+    } else if (tid < n_stat) {
       float part[C_MAX];
 #pragma unroll
       for (int c = 0; c < C_MAX; ++c)
@@ -454,7 +489,7 @@ __global__ void __launch_bounds__(CT, 1) cluster_phase_kernel(
     }
     if (tid == 0) {
       a.stats[0] = loss;
-      if (KIND == POLICY) a.stats[1] = ent_sum;
+      if (KIND != VALUE) a.stats[1] = ent_sum;
     }
   }
 }
@@ -468,8 +503,9 @@ int cluster_of(const PhaseArgs* a, ClusterNet* cn) {
 }
 
 void (*cluster_kernel(int kind))(const ClusterDev) {
-  return kind == VALUE ? cluster_phase_kernel<VALUE>
-                       : cluster_phase_kernel<POLICY>;
+  return kind == VALUE    ? cluster_phase_kernel<VALUE>
+         : kind == POLICY ? cluster_phase_kernel<POLICY>
+                          : cluster_phase_kernel<CATEGORICAL>;
 }
 
 }  // namespace
@@ -483,7 +519,8 @@ extern "C" long ppoc_phase_cluster_smem(const PhaseArgs* a) {
   return C ? smem_floats(cn, C) * (long)sizeof(float) : -1;
 }
 
-// How the cluster kernel of `kind` (0 value, 1 policy) launches for `a`:
+// How the cluster kernel of `kind` (0 value, 1 policy, 2 categorical)
+// launches for `a`:
 // out = {blocks in the cluster, rows a block, sub-tiles a block, threads a
 // block, dynamic shared-memory bytes, clusters of that shape the card can
 // hold at once (cudaOccupancyMaxActiveClusters)}.
@@ -491,7 +528,7 @@ extern "C" int ppoc_phase_cluster_plan(const PhaseArgs* a, int kind,
                                        long* out) {
   ClusterNet cn;
   const int C = cluster_of(a, &cn);
-  if (C == 0 || a->mb < 1 || kind < VALUE || kind > POLICY)
+  if (C == 0 || a->mb < 1 || kind < VALUE || kind > CATEGORICAL)
     return cudaErrorInvalidValue;
   const int rpb = (a->mb + C - 1) / C;
   const long smem = smem_floats(cn, C) * (long)sizeof(float);
@@ -516,11 +553,11 @@ static int launch_cluster(const PhaseArgs* a, cudaStream_t stream, int kind) {
   const int C = cluster_of(a, &d.cn);
   if (C == 0 || a->mb < 1) return cudaErrorInvalidValue;
   const int L = a->n_layers;
-  if (kind == POLICY && (a->k_act < 1 || a->k_act > MAX_ACT ||
-                         d.cn.net.dim[L] != a->k_act))
+  if (kind != VALUE && (a->k_act < 1 || a->k_act > MAX_ACT ||
+                        d.cn.net.dim[L] != a->k_act))
     return cudaErrorInvalidValue;
   if (kind == VALUE && d.cn.net.dim[L] != 1) return cudaErrorInvalidValue;
-  d.x = a->x; d.tgt = a->tgt; d.act = a->act;
+  d.x = a->x; d.tgt = a->tgt; d.act = a->act; d.act_idx = a->act_idx;
   d.lp_old = a->lp_old; d.adv = a->adv;
   d.p_in = a->p_in; d.m_in = a->m_in; d.v_in = a->v_in;
   d.p_out = a->p_out; d.m_out = a->m_out; d.v_out = a->v_out;
@@ -556,4 +593,9 @@ extern "C" int ppoc_value_phase_cluster(const PhaseArgs* a,
 extern "C" int ppoc_policy_phase_cluster(const PhaseArgs* a,
                                          cudaStream_t stream) {
   return launch_cluster(a, stream, POLICY);
+}
+
+extern "C" int ppoc_policy_phase_categorical_cluster(const PhaseArgs* a,
+                                                     cudaStream_t stream) {
+  return launch_cluster(a, stream, CATEGORICAL);
 }

@@ -1,17 +1,21 @@
-// K3 and K4 (Gaussian) for nets past one block's shared memory: a whole
-// PPO value or policy phase (every epoch x minibatch step) as ONE
-// thread-block cluster of SHARDS blocks that shard the weights by column.
+// K3, K4 (Gaussian) and K6 (categorical) for nets past one block's shared
+// memory: a whole PPO value or policy phase (every epoch x minibatch step)
+// as ONE thread-block cluster of SHARDS blocks that shard the weights by
+// column.
 //
 // Replaces ppoc_tpu/ops/pallas_update.py `value_phase_fused` ->
-// `_run_value_phase` -> `_value_kernel`/`_value_kernel_unrolled` (K3) and
+// `_run_value_phase` -> `_value_kernel`/`_value_kernel_unrolled` (K3),
 // `policy_phase_fused` -> `_policy_kernel`/`_policy_kernel_unrolled` (K4,
-// Gaussian) for the nets whose weights, one gradient partial and a tile of
-// activations do not fit one block (update_cluster.cu's limit: 2x256, the
-// [10,256,256,1] value net, is 277.5 KB padded against 227 KB).  Each step
-// computes what update_cluster.cu's does: forward, the loss gradient in
-// closed form (K3: 2/mb (v - target); K4: the clipped surrogate through the
-// unclipped branch, and the log_std gradient with the entropy term),
-// backward, Adam (K4: and log_std's Adam).
+// Gaussian) and `policy_phase_fused_categorical` -> `_policy_kernel_cat`/
+// `_policy_kernel_cat_unrolled` (K6) for the nets whose weights, one
+// gradient partial and a tile of activations do not fit one block
+// (update_cluster.cu's limit: 2x256, the [10,256,256,1] value net, is
+// 277.5 KB padded against 227 KB; CARTPOLE_WIDE's [4,256,256,2] policy).
+// Each step computes what update_cluster.cu's does: forward, the loss
+// gradient in closed form (K3: 2/mb (v - target); K4: the clipped
+// surrogate through the unclipped branch, and the log_std gradient with
+// the entropy term; K6: cluster.cuh's categorical_head), backward, Adam
+// (K4: and log_std's Adam).
 //
 // What bounds it on the card: not FLOPs.  A step of REACHER_REF's value
 // net on 64 rows is ~17 MFLOP, 0.26 us of the card's FP32 rate.  The steps
@@ -40,7 +44,10 @@
 // Every block walks every row of the minibatch in sub-tiles of S rows
 // (S the most of 64, 32, ... that fits; the next sub-tile prefetched with
 // cp.async), so the loss gradient, its sums and K4's log_std gradient are
-// the same bits in every block and cross no block.  After the minibatch's
+// the same bits in every block and cross no block (K6's head is a ROW
+// layer: after its exchange every block holds all K logits of every row,
+// so its softmax, logit gradient, surrogate and entropy sums too).  After
+// the minibatch's
 // last sub-tile a cluster barrier; then block c sums its 1/C slice of the
 // REP partials in rank order, runs Adam on it and writes the new weights
 // into every block's replica, and runs Adam on its own shards (their m and
@@ -200,6 +207,7 @@ struct ShardDev {
   int activation, n_steps, mb, t0, t0_ls, k_act;
   float two_over_mb, lp0, ent0, clip_lo, clip_hi, ent_coeff;
   AdamHyper hyper;
+  const int32_t* act_idx;   // K6: the rows' class ids
 };
 
 // Where a block's weights and their gradient live: shared memory; with
@@ -502,10 +510,16 @@ __device__ __forceinline__ void fetch_rows(const ShardDev& a, size_t row0,
     for (int r = threadIdx.x; r < R; r += ST)
       cp_async4(E + r * ES, a.tgt + row0 + r);
   } else {
-    const int k = a.k_act;
-    for (int e = threadIdx.x; e < R * k; e += ST) {
-      const int r = e / k;
-      cp_async4(E + r * ES + (e - r * k), a.act + row0 * k + e);
+    if (KIND == POLICY) {
+      const int k = a.k_act;
+      for (int e = threadIdx.x; e < R * k; e += ST) {
+        const int r = e / k;
+        cp_async4(E + r * ES + (e - r * k), a.act + row0 * k + e);
+      }
+    } else {   // the class id's bits, never converted
+      for (int r = threadIdx.x; r < R; r += ST)
+        cp_async4(E + r * ES,
+                  reinterpret_cast<const float*>(a.act_idx + row0 + r));
     }
     for (int r = threadIdx.x; r < R; r += ST) {
       cp_async4(E + r * ES + 8, a.lp_old + row0 + r);
@@ -652,6 +666,7 @@ __global__ void __launch_bounds__(ST, 1) shard_phase_kernel(
       loss += -a.ent_coeff * ent;
     }
     float sacc = 0.0f;   // thread j < n_stat: stat j of this step
+    float hacc = 0.0f;   // K6, thread 0: the entropy sum of this step
     for (int u = 0; u < nsub; ++u, ++tile) {
       const int R = min(S, a.mb - u * S);
       float* X = Xb + (tile & 1) * S * sn.ts[0];
@@ -676,6 +691,9 @@ __global__ void __launch_bounds__(ST, 1) shard_phase_kernel(
           const float diff = o[0] - e[0];
           st[0] = diff * diff;
           o[0] = a.two_over_mb * diff;
+        } else if (KIND == CATEGORICAL) {
+          categorical_head(e, o, st, a.k_act, a.clip_lo, a.clip_hi,
+                           a.ent_coeff, mbf);
         } else {
           float z[MAX_ACT], sumz2 = 0.0f;
 #pragma unroll
@@ -701,7 +719,15 @@ __global__ void __launch_bounds__(ST, 1) shard_phase_kernel(
         }
       }
       __syncthreads();
-      if (tid < n_stat) {   // the stats, in row order
+      if (KIND == CATEGORICAL && tid == 0) {   // both stats, in row order
+        float t = 0.0f, th = 0.0f;
+        for (int r = 0; r < R; ++r) {
+          t += RS[r * RSS];
+          th += RS[r * RSS + 1];
+        }
+        sacc += t;
+        hacc += th;
+      } else if (KIND != CATEGORICAL && tid < n_stat) {   // in row order
         float t = 0.0f;
         for (int r = 0; r < R; ++r) t += RS[r * RSS + tid];
         sacc += t;
@@ -756,8 +782,15 @@ __global__ void __launch_bounds__(ST, 1) shard_phase_kernel(
                 ps.b(sn, l)[j], step, bc2, h);
     // The loss (every block the same; rank 0 stores it) and K4's log_std
     // Adam (its own timestep; the entropy bonus adds -ent_coeff), the same
-    // in every block.
-    if (tid == 0) loss += KIND == VALUE ? sacc : -sacc / mbf;
+    // in every block; K6's loss takes its entropy sum too.
+    if (KIND == CATEGORICAL) {
+      if (tid == 0) {
+        loss += (-sacc - a.ent_coeff * hacc) / mbf;
+        ent_sum += hacc / mbf;
+      }
+    } else if (tid == 0) {
+      loss += KIND == VALUE ? sacc : -sacc / mbf;
+    }
     if (KIND == POLICY && tid >= 1 && tid < n_stat) {
       const int j = tid - 1;
       const float tl = (float)(a.t0_ls + s + 1);
@@ -804,7 +837,7 @@ __global__ void __launch_bounds__(ST, 1) shard_phase_kernel(
     }
     if (tid == 0) {
       a.stats[0] = loss;
-      if (KIND == POLICY) a.stats[1] = ent_sum;
+      if (KIND != VALUE) a.stats[1] = ent_sum;
     }
   }
 }
@@ -819,10 +852,12 @@ int shard_of(const PhaseArgs* a, ShardNet* sn) {
 
 void (*shard_kernel(int kind, int spill))(const ShardDev) {
   if (spill)
-    return kind == VALUE ? shard_phase_kernel<VALUE, true>
-                         : shard_phase_kernel<POLICY, true>;
-  return kind == VALUE ? shard_phase_kernel<VALUE, false>
-                       : shard_phase_kernel<POLICY, false>;
+    return kind == VALUE    ? shard_phase_kernel<VALUE, true>
+           : kind == POLICY ? shard_phase_kernel<POLICY, true>
+                            : shard_phase_kernel<CATEGORICAL, true>;
+  return kind == VALUE    ? shard_phase_kernel<VALUE, false>
+         : kind == POLICY ? shard_phase_kernel<POLICY, false>
+                          : shard_phase_kernel<CATEGORICAL, false>;
 }
 
 }  // namespace
@@ -836,7 +871,8 @@ extern "C" long ppoc_phase_shard_smem(const PhaseArgs* a) {
   return shard_of(a, &sn) ? 4L * sn.total : -1;
 }
 
-// How the sharded kernel of `kind` (0 value, 1 policy) launches for `a`:
+// How the sharded kernel of `kind` (0 value, 1 policy, 2 categorical)
+// launches for `a`:
 // out = {blocks in the cluster, rows of a sub-tile, sub-tiles a minibatch,
 // threads a block, dynamic shared-memory bytes, clusters of that shape the
 // card can hold at once (cudaOccupancyMaxActiveClusters), floats of global
@@ -845,7 +881,7 @@ extern "C" int ppoc_phase_shard_plan(const PhaseArgs* a, int kind,
                                      long* out) {
   ShardNet sn;
   const int C = shard_of(a, &sn);
-  if (C == 0 || a->mb < 1 || kind < VALUE || kind > POLICY)
+  if (C == 0 || a->mb < 1 || kind < VALUE || kind > CATEGORICAL)
     return cudaErrorInvalidValue;
   const long smem = 4L * sn.total;
   out[0] = C;
@@ -874,11 +910,11 @@ static int launch_shard(const PhaseArgs* a, cudaStream_t stream, int kind) {
       (d.sn.spill && !a->scratch))
     return cudaErrorInvalidValue;
   const int L = a->n_layers;
-  if (kind == POLICY && (a->k_act < 1 || a->k_act > MAX_ACT ||
-                         d.sn.net.dim[L] != a->k_act))
+  if (kind != VALUE && (a->k_act < 1 || a->k_act > MAX_ACT ||
+                        d.sn.net.dim[L] != a->k_act))
     return cudaErrorInvalidValue;
   if (kind == VALUE && d.sn.net.dim[L] != 1) return cudaErrorInvalidValue;
-  d.x = a->x; d.tgt = a->tgt; d.act = a->act;
+  d.x = a->x; d.tgt = a->tgt; d.act = a->act; d.act_idx = a->act_idx;
   d.lp_old = a->lp_old; d.adv = a->adv;
   d.p_in = a->p_in; d.m_in = a->m_in; d.v_in = a->v_in;
   d.p_out = a->p_out; d.m_out = a->m_out; d.v_out = a->v_out;
@@ -912,4 +948,9 @@ extern "C" int ppoc_value_phase_shard(const PhaseArgs* a,
 extern "C" int ppoc_policy_phase_shard(const PhaseArgs* a,
                                        cudaStream_t stream) {
   return launch_shard(a, stream, POLICY);
+}
+
+extern "C" int ppoc_policy_phase_categorical_shard(const PhaseArgs* a,
+                                                   cudaStream_t stream) {
+  return launch_shard(a, stream, CATEGORICAL);
 }

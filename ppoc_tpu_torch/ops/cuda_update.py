@@ -9,26 +9,25 @@ in closed form, backward and Adam.
 
 Each kernel has two variants (``_build.VARIANTS``), for the nets that fit
 one block's shared memory and for larger ones (2x256: the [10,256,256,1]
-value net is 277.5 KB padded against the H100's 227 KB).  K6 runs as one
-block in both (``csrc/update.cu``): the weights in shared memory, or in
-global memory, where Adam updates the output params in place and each
-product stages its weight operand 32 rows at a time.  K3 and K4 run as one
-thread-block cluster in both.  With the nets in shared memory
+value net is 277.5 KB padded against the H100's 227 KB), and the three
+phases are three kinds of the same two thread-block cluster kernels,
+which differ only in the loss head.  With the nets in shared memory
 (``csrc/update_cluster.cu``) each block of the cluster holds a replica of
 the weights and its own rows of every minibatch (CLUSTER blocks whatever
 the minibatch size; :func:`phase_cluster_plan` gives the whole launch),
-and the blocks sum their weight gradients over distributed shared memory
-in rank order.  Past that (``csrc/update_shard.cu``, the "global" slot)
-the weights are sharded over SHARDS blocks (:func:`shard_layout`): layer
-0 replicated, the next layer split by output column, the head by input
-row, the head's partial outputs summed over the cluster, every block
-walking every row; :func:`phase_shard_plan` gives the launch.  The launch
-takes the first variant whose shared memory fits (:func:`variant_bytes`
-gives the same bytes from the widths alone); ``variant=`` forces one, and
-``cluster=`` the cluster kernels' block count, for tests and
-measurements.  K6's two variants sum every output in the same order, so
-on a net both take they give the same bits; K3's and K4's sum in
-different orders.  The launch counts are kept per variant.
+and the blocks sum their weight gradients and the loss head's row sums
+over distributed shared memory in rank order.  Past that
+(``csrc/update_shard.cu``, the "global" slot) the weights are sharded
+over SHARDS blocks (:func:`shard_layout`): layer 0 replicated, the next
+layer split by output column, the head by input row, the head's partial
+outputs summed over the cluster, every block walking every row (so K6's
+softmax and its sums are the same bits in every block);
+:func:`phase_shard_plan` gives the launch.  The launch takes the first
+variant whose shared memory fits (:func:`variant_bytes` gives the same
+bytes from the widths alone); ``variant=`` forces one, and ``cluster=``
+the block count, for tests and measurements.  The two variants sum in
+different orders, so they agree to rounding, not bit for bit.  The
+launch counts are kept per kind and variant.
 
 Adam here is the kernels' own: bias corrections 1 - exp(t log b) folded
 into the step size, eps outside the sqrt; K4 runs a second Adam for
@@ -74,12 +73,11 @@ categorical_global_launches = _build.LaunchCount(
 value_bf16_launches = _build.LaunchCount("value_phase_bf16")
 policy_bf16_launches = _build.LaunchCount("policy_phase_bf16")
 
-_SLICE = 32          # csrc/mlp_step.cuh SLICE
 _STATIC_SMEM = 1024  # the kernels' static shared memory, rounded up
 
-# csrc/update_cluster.cu: blocks in K3's and K4's cluster (the most a
-# forced size may take), rows of a sub-tile, a row's extras and stats (row
-# stride), the largest action dim
+# csrc/update_cluster.cu: blocks in the phases' cluster (the most a forced
+# size may take), rows of a sub-tile, a row's extras and stats (row
+# stride), the largest action dim or class count
 CLUSTER, CLUSTER_MAX = 16, 16
 CLUSTER_SUB = 32
 _ES, _RSS, _NS, _MAX_ACT = 12, 12, 9, 8
@@ -432,8 +430,8 @@ def _r4(n: int) -> int:
 
 
 def cluster_bytes(widths: Sequence[int]) -> int:
-    """Dynamic shared memory of one block of K3's or K4's cluster kernel
-    on the net ``widths`` in a cluster of CLUSTER blocks
+    """Dynamic shared memory of one block of the phases' cluster kernel (K3,
+    K4 or K6) on the net ``widths`` in a cluster of CLUSTER blocks
     (csrc/update_cluster.cu ``smem_floats``), in bytes: the weights and the
     gradient partial, each W_l with r4(d_l) rows of 4 * odd floats and
     each b_l r4(d_{l+1}); the activations of a 32-row sub-tile (+8); two
@@ -466,7 +464,7 @@ class ShardLayout(NamedTuple):
 
 def shard_layout(widths: Sequence[int],
                  cluster: Optional[int] = None) -> ShardLayout:
-    """How K3's and K4's sharded cluster kernel (csrc/update_shard.cu
+    """How the phases' sharded cluster kernel (csrc/update_shard.cu
     ``shard_layout``) lays out the net ``widths`` over ``cluster`` blocks
     (None: SHARDS).  The kinds, set from the head down: the head "ROW" (a
     block holds its share of W's rows), the layer below "COL" (its share
@@ -523,33 +521,28 @@ def shard_layout(widths: Sequence[int],
 
 
 def shard_bytes(widths: Sequence[int]) -> int:
-    """Dynamic shared memory of one block of K3's or K4's sharded cluster
-    kernel on the net ``widths`` (:func:`shard_layout`, SHARDS blocks), in
-    bytes; the same as csrc/update_shard.cu ``ppoc_phase_shard_smem``."""
+    """Dynamic shared memory of one block of the phases' sharded cluster
+    kernel (K3, K4 or K6) on the net ``widths`` (:func:`shard_layout`,
+    SHARDS blocks), in bytes; the same as csrc/update_shard.cu
+    ``ppoc_phase_shard_smem``."""
     return shard_layout(widths).nbytes
 
 
-def variant_bytes(widths: Sequence[int], kind: str = "value") -> List[int]:
-    """Shared memory one launch of the ``kind`` phase ("value", "policy"
-    or "categorical policy") on the net ``widths`` needs in each variant
-    (``_build.VARIANTS``), in bytes, with the kernels' static share.  K3
-    and K4: the replicated cluster's block (:func:`cluster_bytes`), then
-    the sharded cluster's (:func:`shard_bytes`).  K6: its padded weights
-    (each W_l row d_{l+1} + 1 floats, plus the biases), then one staged
-    slice of 32 rows of the widest layer + 1.  The same as the kernels'
-    size functions (a card test holds them together); the minibatch size
-    does not enter."""
-    if kind == "categorical policy":
-        sizes = (4 * sum(a * (b + 1) + b for a, b in zip(widths[:-1],
-                                                        widths[1:])),
-                 4 * _SLICE * (max(widths) + 1))
-    else:
-        sizes = (cluster_bytes(widths), shard_bytes(widths))
-    return [n + _STATIC_SMEM for n in sizes]
+def variant_bytes(widths: Sequence[int]) -> List[int]:
+    """Shared memory one launch of K3, K4 or K6 on the net ``widths``
+    needs in each variant (``_build.VARIANTS``), in bytes, with the
+    kernels' static share: the replicated cluster's block
+    (:func:`cluster_bytes`), then the sharded cluster's
+    (:func:`shard_bytes`).  The three kinds share both maps (a row's
+    extras hold K4's actions or K6's class id, its stats K4's log_std
+    terms or K6's entropy).  The same as the kernels' size functions (a
+    card test holds them together); the minibatch size does not enter."""
+    return [n + _STATIC_SMEM for n in (cluster_bytes(widths),
+                                      shard_bytes(widths))]
 
 
 class _PhaseArgs(ctypes.Structure):
-    """Mirror of `struct PhaseArgs` in csrc/update.cu."""
+    """Mirror of `struct PhaseArgs` in csrc/phase_args.cuh."""
     _fields_ = (
         [(n, ctypes.c_void_p) for n in (
             "x", "tgt", "act", "lp_old", "adv", "p_in", "m_in", "v_in",
@@ -558,7 +551,7 @@ class _PhaseArgs(ctypes.Structure):
         + [("dims", ctypes.POINTER(ctypes.c_int))]
         + [(n, ctypes.c_int) for n in (
             "n_layers", "activation", "n_steps", "mb", "t0", "t0_ls",
-            "k_act", "variant", "cluster")]
+            "k_act", "cluster")]
         + [(n, ctypes.c_float) for n in (
             "two_over_mb", "lp0", "ent0", "clip_lo", "clip_hi", "ent_coeff")]
         + [("hyper", Hyper)]
@@ -573,8 +566,6 @@ def _declare() -> ctypes.CDLL:
             raise RuntimeError("PhaseArgs layout differs between "
                                "csrc/phase_args.cuh and cuda_update.py")
         args = [ctypes.POINTER(_PhaseArgs)]
-        lib.ppoc_phase_sizes.argtypes = args + [ctypes.POINTER(ctypes.c_long)]
-        lib.ppoc_phase_sizes.restype = ctypes.c_int
         lib.ppoc_phase_cluster_smem.argtypes = args
         lib.ppoc_phase_cluster_smem.restype = ctypes.c_long
         for fn in (lib.ppoc_phase_cluster_plan, lib.ppoc_phase_shard_plan):
@@ -583,30 +574,30 @@ def _declare() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.ppoc_phase_shard_smem.argtypes = args
         lib.ppoc_phase_shard_smem.restype = ctypes.c_long
-        for fn in (lib.ppoc_policy_phase_categorical,
-                   lib.ppoc_value_phase_cluster,
-                   lib.ppoc_policy_phase_cluster,
-                   lib.ppoc_value_phase_shard,
-                   lib.ppoc_policy_phase_shard):
-            fn.argtypes = args + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+        for names, _, _ in _KINDS.values():
+            for name in names:
+                fn = getattr(lib, name)
+                fn.argtypes = args + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
         lib._phase_declared = True
     return lib
 
 
-# per kind: (the launcher, the shared-memory variant's launch count, the
-# other's); K3's and K4's launchers by variant
+# per kind: (the launchers by variant, the shared-memory variant's launch
+# count, the other's)
 _KINDS = {"value": (("ppoc_value_phase_cluster", "ppoc_value_phase_shard"),
                     value_launches, value_global_launches),
           "policy": (("ppoc_policy_phase_cluster", "ppoc_policy_phase_shard"),
                      policy_launches, policy_global_launches),
-          "categorical policy": (("ppoc_policy_phase_categorical",) * 2,
+          "categorical policy": (("ppoc_policy_phase_categorical_cluster",
+                                  "ppoc_policy_phase_categorical_shard"),
                                  categorical_launches,
                                  categorical_global_launches)}
-_CLUSTER = {"value": 0, "policy": 1}   # K3 and K4: the plans' kind
-# the plans of K3's and K4's two cluster kernels (by variant): the replicated
-# cluster gives rows a block, the sharded one rows a sub-tile (every block
-# walks every row)
+# the plans' kind (csrc/cluster.cuh Kind)
+_CLUSTER = {"value": 0, "policy": 1, "categorical policy": 2}
+# the plans of the two cluster kernels (by variant): the replicated cluster
+# gives rows a block, the sharded one rows a sub-tile (every block walks
+# every row)
 _PLAN_OF = ("ppoc_phase_cluster_plan", "ppoc_phase_shard_plan")
 _CLUSTER_KEYS = (("cluster", "rows", "sub_tiles", "threads", "smem",
                   "max_active_clusters"),
@@ -638,8 +629,9 @@ def _cluster_plan(lib, args: _PhaseArgs, kind: str, widths,
 
 def phase_cluster_plan(kind: str, widths: Sequence[int], mb: int,
                        cluster: Optional[int] = None, device=None) -> dict:
-    """How K3 (``kind`` "value") or K4 ("policy") launches with the weights
-    in shared memory, on the net ``widths`` and minibatch ``mb``: blocks in
+    """How K3 (``kind`` "value"), K4 ("policy") or K6 ("categorical
+    policy") launches with the weights in shared memory, on the net
+    ``widths`` and minibatch ``mb``: blocks in
     the cluster (``cluster``, or CLUSTER), rows a block,
     32-row sub-tiles a block, threads a block, dynamic shared-memory bytes
     and how many such clusters the card holds at once.  Raises if the card
@@ -649,8 +641,9 @@ def phase_cluster_plan(kind: str, widths: Sequence[int], mb: int,
 
 def phase_shard_plan(kind: str, widths: Sequence[int], mb: int,
                      cluster: Optional[int] = None, device=None) -> dict:
-    """How K3 (``kind`` "value") or K4 ("policy") launches with the weights
-    sharded over the cluster (the "global" slot), on the net ``widths``
+    """How K3 (``kind`` "value"), K4 ("policy") or K6 ("categorical
+    policy") launches with the weights sharded over the cluster (the
+    "global" slot), on the net ``widths``
     and minibatch ``mb``: blocks in the cluster (``cluster``, or SHARDS),
     rows of a sub-tile, sub-tiles a minibatch (each block walks every
     row), threads a block, dynamic shared-memory bytes, how many such
@@ -661,6 +654,8 @@ def phase_shard_plan(kind: str, widths: Sequence[int], mb: int,
 
 
 def _plan(kind, widths, mb, cluster, device, variant: int) -> dict:
+    if kind not in _KINDS:
+        raise ValueError(f"no {kind!r} phase: the kinds are {list(_KINDS)}")
     lib = _declare()
     dims = (ctypes.c_int * len(widths))(*widths)
     args = _PhaseArgs(dims=dims, n_layers=len(widths) - 1, mb=mb,
@@ -671,47 +666,35 @@ def _plan(kind, widths, mb, cluster, device, variant: int) -> dict:
 
 def _launch(kind: str, args: _PhaseArgs, widths, dev, keep,
             variant: Optional[str], cluster: Optional[int] = None) -> None:
-    """Pick the variant by shared memory (or take ``variant``), launch,
-    count: K3 and K4 as a cluster of ``cluster`` blocks (None: CLUSTER or
-    SHARDS; a size without ``variant`` forces the shared-memory one), K6
-    as one block with the scratch sized here.  ``keep`` holds the tensors
-    and host arrays the launch reads until it is enqueued."""
+    """Pick the variant by shared memory (or take ``variant``), launch as a
+    cluster of ``cluster`` blocks (None: CLUSTER or SHARDS; a size without
+    ``variant`` forces the shared-memory one), count.  ``keep`` holds the
+    tensors and host arrays the launch reads until it is enqueued."""
     lib = _declare()
     if cluster is not None:
-        if kind not in _CLUSTER:
-            raise ValueError(f"cluster= sizes K3's and K4's cluster kernels; "
-                             f"this {kind} phase launches one block")
         if not 1 <= cluster <= CLUSTER_MAX:
             raise ValueError(f"cluster {cluster}: the cluster kernels take "
                              f"1-{CLUSTER_MAX} blocks")
         args.cluster, variant = cluster, variant or "smem"
-    sizes = (ctypes.c_long * 3)()
-    if not lib.ppoc_phase_sizes(ctypes.byref(args), sizes):
+    if args.mb < 1 or not 1 <= args.n_layers <= 8:
         raise ValueError("update kernels take 1-8 layers and mb >= 1")
-    both = ((lib.ppoc_phase_cluster_smem(ctypes.byref(args)),
-             lib.ppoc_phase_shard_smem(ctypes.byref(args)))
-            if kind in _CLUSTER else sizes[1:])
-    args.variant = _build.pick_variant(
+    both = (lib.ppoc_phase_cluster_smem(ctypes.byref(args)),
+            lib.ppoc_phase_shard_smem(ctypes.byref(args)))
+    v = _build.pick_variant(
         [n + _STATIC_SMEM for n in both], _build.smem_optin(dev), variant,
         f"{kind} phase kernel for the net {list(widths)}")
     names, smem_count, global_count = _KINDS[kind]
-    if kind in _CLUSTER:
-        with torch.cuda.device(dev):
-            plan = _cluster_plan(lib, args, kind, widths, args.variant)
-            if plan.get("scratch"):
-                scratch = torch.empty(plan["scratch"], dtype=torch.float32,
-                                      device=dev)
-                args.scratch = scratch.data_ptr()
-            _build.check(lib, getattr(lib, names[args.variant])(
-                ctypes.byref(args), _build.stream_of(dev)),
-                f"{kind} phase {_CLUSTER_NAMES[args.variant]} kernel "
-                f"({plan['cluster']} blocks)")
-    else:
-        scratch = torch.empty(sizes[0], dtype=torch.float32, device=dev)
-        args.scratch = scratch.data_ptr()
-        _build.check(lib, getattr(lib, names[args.variant])(
-            ctypes.byref(args), _build.stream_of(dev)), f"{kind} phase kernel")
-    (global_count if args.variant else smem_count).n += 1
+    with torch.cuda.device(dev):
+        plan = _cluster_plan(lib, args, kind, widths, v)
+        if plan.get("scratch"):
+            scratch = torch.empty(plan["scratch"], dtype=torch.float32,
+                                  device=dev)
+            args.scratch = scratch.data_ptr()
+        _build.check(lib, getattr(lib, names[v])(
+            ctypes.byref(args), _build.stream_of(dev)),
+            f"{kind} phase {_CLUSTER_NAMES[v]} kernel "
+            f"({plan['cluster']} blocks)")
+    (global_count if v else smem_count).n += 1
     del keep
 
 
@@ -803,9 +786,10 @@ def policy_phase_categorical_kernel(obs_seq, act_seq, lp_seq, adv_seq, params,
                                     opt_policy: AdamState, n_steps: int,
                                     mb: int, activation: str, hyper: Hyper,
                                     clip_eps: float, ent_coeff: float,
-                                    variant: Optional[str] = None):
+                                    variant: Optional[str] = None,
+                                    cluster: Optional[int] = None):
     """Launch K6; same arguments and results as
-    policy_phase_categorical_plain (``variant``: see
+    policy_phase_categorical_plain (``variant``, ``cluster``: see
     :func:`value_phase_kernel`).  The kernel reads the int32 class ids as
     they are."""
     dev = obs_seq.device
@@ -828,7 +812,7 @@ def policy_phase_categorical_kernel(obs_seq, act_seq, lp_seq, adv_seq, params,
     args.stats, args.k_act = p(stats), k
     args.clip_lo, args.clip_hi = 1.0 - clip_eps, 1.0 + clip_eps
     args.ent_coeff = ent_coeff
-    _launch("categorical policy", args, widths, dev, keep, variant)
+    _launch("categorical policy", args, widths, dev, keep, variant, cluster)
     return new_params, new_opt, stats[0] / n_steps, stats[1] / n_steps
 
 

@@ -5,8 +5,10 @@ launch takes from Python: the cluster block's shared memory
 tests/test_torch_cuda.py holds on the card), the variant ppo.kernel_fit
 gives every trainer path at the H100's 232,448 B, and the plain versions
 the card checks hold the cluster kernels to, at the bench's width and the
-reference schedule's minibatch, against the JAX package's Pallas kernels
-in interpret mode (tolerances as tests/test_torch_update.py).
+reference schedule's minibatch, and K6's at the discrete solves' and
+CARTPOLE_WIDE's shapes, against the JAX package's Pallas kernels in
+interpret mode (tolerances as tests/test_torch_update.py and
+tests/test_torch_categorical_update.py).
 """
 import math
 
@@ -22,6 +24,7 @@ from ppoc_tpu_torch.algo import ppo
 from ppoc_tpu_torch.ops import cuda_update
 from ppoc_tpu_torch.utils import params as conv
 
+import test_torch_categorical_update as tcat
 from test_torch_update import W_TOL, _close_adam, _close_tree, _setup, _stream
 
 torch.set_num_threads(1)
@@ -55,18 +58,16 @@ TRAINER_PATHS = {
 @pytest.mark.parametrize("path", sorted(TRAINER_PATHS))
 def test_kernel_fit_keeps_the_trainer_paths_in_shared_memory(path):
     """Every net that ran its fused phases with the weights in shared
-    memory before the cluster kernels still does: K3 and K4 as the
-    cluster (its block's bytes), K6 as one block (its padded weights)."""
+    memory before the cluster kernels still does: K3, K4 and K6 as the
+    replicated cluster (its block's bytes)."""
     cfg, policy_kernel, vw, pw = TRAINER_PATHS[path]
     fits = {k.kernel[:2]: k for k in ppo.kernel_fit(cfg, H100_OPTIN)}
     k3, kp = fits["K3"], fits[policy_kernel]
     assert (k3.widths, kp.widths) == ((vw,), (pw,))
     assert k3.variant == kp.variant == "smem"
     assert k3.nbytes[0] == cuda_update.cluster_bytes(vw) + 1024
-    kind = "policy" if policy_kernel == "K4" else "categorical policy"
-    assert kp.nbytes == tuple(cuda_update.variant_bytes(pw, kind))
-    if policy_kernel == "K4":
-        assert kp.nbytes[0] == cuda_update.cluster_bytes(pw) + 1024
+    assert kp.nbytes == tuple(cuda_update.variant_bytes(pw))
+    assert kp.nbytes[0] == cuda_update.cluster_bytes(pw) + 1024
 
 
 @pytest.mark.parametrize("env,policy_kernel", [("pendulum", "K4"),
@@ -74,8 +75,8 @@ def test_kernel_fit_keeps_the_trainer_paths_in_shared_memory(path):
                                                ("cartpole", "K6")])
 def test_kernel_fit_keeps_2x256_in_global_memory(env, policy_kernel):
     """At 2x256 the cluster block needs ~680 KB (twice the weights, and
-    they alone pass 227 KB): K3 and K4 take the second variant (the
-    sharded cluster), as K6 takes its global-memory one."""
+    they alone pass 227 KB): K3, K4 and K6 take the second variant (the
+    sharded cluster)."""
     cfg = PPOConfig(env=env, hidden=(256, 256))
     fits = {k.kernel[:2]: k for k in ppo.kernel_fit(cfg, H100_OPTIN)}
     assert fits["K3"].variant == fits[policy_kernel].variant == "global"
@@ -102,17 +103,29 @@ def test_cluster_bytes_follow_the_layout():
 
 
 def test_variant_bytes_take_the_kind():
-    """K3 and K4 size their shared-memory variant by the replicated
-    cluster's block and the other by the sharded cluster's, K6 by its one
-    block's padded weights and its staged slice."""
+    """K3, K4 and K6 size their shared-memory variant by the replicated
+    cluster's block and the other by the sharded cluster's: the three
+    kinds share both maps, so kernel_fit gives a value net, a Gaussian and
+    a categorical policy of one width the same bytes.  The plans refuse a
+    kind no kernel has before they reach the card."""
     w = (4, 128, 128, 2)
-    value, policy = (cuda_update.variant_bytes(w, k) for k in ("value",
-                                                                "policy"))
-    cat = cuda_update.variant_bytes(w, "categorical policy")
-    assert value == policy == [cuda_update.cluster_bytes(w) + 1024,
-                               cuda_update.shard_bytes(w) + 1024]
-    assert cat == [4 * (4 * 129 + 128 + 128 * 129 + 128 + 128 * 3 + 2)
-                   + 1024, 4 * 32 * 129 + 1024]
+    both = [cuda_update.cluster_bytes(w) + 1024,
+            cuda_update.shard_bytes(w) + 1024]
+    assert cuda_update.variant_bytes(w) == both
+    got = {}
+    for env, hidden in (("cartpole", (128, 128)), ("pendulum", (128, 128))):
+        for k in ppo.kernel_fit(PPOConfig(env=env, hidden=hidden),
+                                H100_OPTIN):
+            if k.kernel[:2] in ("K3", "K4", "K6"):
+                got[k.kernel[:2]] = (k.widths[0], k.nbytes)
+    assert set(got) == {"K3", "K4", "K6"}
+    for widths, nbytes in got.values():
+        assert nbytes == tuple(cuda_update.variant_bytes(widths))
+    assert got["K6"][1] == tuple(both)
+    for plan in (cuda_update.phase_cluster_plan,
+                 cuda_update.phase_shard_plan):
+        with pytest.raises(ValueError, match="no 'gaussian' phase"):
+            plan("gaussian", w, 64)
 
 
 def _jcfg(**kw):
@@ -162,3 +175,35 @@ def test_policy_phase_at_the_cluster_shape_matches_jax(ent_coeff):
             np.asarray(jts.policy_params["log_std"]), **W_TOL)
         _close_adam(ts.opt_policy, jts.opt_policy)
         _close_adam(ts.opt_log_std, jts.opt_log_std)
+
+
+@pytest.mark.parametrize("ent_coeff", [0.0, 0.01])
+@pytest.mark.parametrize("hidden,n_envs,mb,n_epochs", [
+    ((128, 128), 16, 256, 2), ((256, 256), 8, 64, 1)])
+def test_categorical_phase_at_the_cluster_shapes_matches_jax(
+        hidden, n_envs, mb, n_epochs, ent_coeff):
+    """The plain K6 the card holds both cluster bodies to: cartpole's
+    [4,128,128,2] at the discrete solves' minibatch (256, the replicated
+    cluster) and CARTPOLE_WIDE's [4,256,256,2] at minibatch 64 (the
+    sharded cluster), two phases of two steps, with and without the
+    entropy bonus."""
+    cfg = tcat._cfg("cartpole", hidden=hidden, n_envs=n_envs,
+                    minibatch_size=mb, n_epochs_policy=n_epochs,
+                    ent_coeff=ent_coeff)
+    jts, jbuf, buf = tcat._setup(cfg, seed=3)
+    ts = conv.train_state_from_numpy(jax.device_get(jts), "cpu")
+    fused = jax.jit(lambda pp, op, key: jpu.policy_phase_fused_categorical(
+        cfg, pp, op, jbuf, key))
+    for k in (jax.random.PRNGKey(15), jax.random.PRNGKey(16)):
+        idx = tcat._stream(cfg, k)
+        assert idx.shape[0] * idx.shape[1] == 2
+        pol, op, jloss, jent = fused(jts.policy_params, jts.opt_policy, k)
+        jts = jts._replace(policy_params=pol, opt_policy=op)
+        ts, loss, ent = ppo.policy_phase(cfg, ts, buf, idx, discrete=True)
+        assert float(loss) == pytest.approx(float(jloss), abs=1e-5)
+        assert float(ent) == pytest.approx(float(jent), rel=1e-4)
+        tcat._close_tree(ts.policy_params["mlp"], jts.policy_params["mlp"],
+                         tcat.W_TOL)
+        assert ts.opt_policy.t == int(jts.opt_policy.t)
+        tcat._close_tree(ts.opt_policy.m, jts.opt_policy.m, tcat.W_TOL)
+        tcat._close_tree(ts.opt_policy.v, jts.opt_policy.v, tcat.V_TOL)

@@ -4,9 +4,9 @@ thread-block cluster that shards the weights by column
 from Python: the sharded block's layout and shared memory
 (cuda_update.shard_layout, the same as the C side's size function, which
 tests/test_torch_cuda.py holds on the card), and that ppo.kernel_fit at
-the H100's 232,448 B admits every net whose K3 or K4 it admitted when the
-slot was a one-block kernel staging 32 weight rows at a time, with K6's
-verdicts as they were.
+the H100's 232,448 B admits every net whose K3, K4 or K6 it admitted when
+the slot was a one-block kernel staging 32 weight rows at a time, K6 now
+sized by the same two cluster maps as K3 and K4.
 """
 import pytest
 
@@ -119,15 +119,55 @@ def test_kernel_fit_admits_deep_nets(hidden):
 
 @pytest.mark.parametrize("env,K", [("cartpole", 2), ("acrobot", 3)])
 def test_k6_verdicts_are_unchanged(env, K):
-    """K6 keeps its one-block layouts: the padded weights, then the staged
-    slice; its variant follows them at every width."""
+    """K6 is a kind of K3's and K4's two cluster kernels: its bytes are the
+    replicated cluster's block, then the sharded cluster's (the same maps
+    as K3's and K4's: a row's extras hold the class id, its stats the
+    entropy), and its variant follows them at every width."""
     obs = {"cartpole": 4, "acrobot": 6}[env]
     for h in range(100, 453, 7):
         fits = {k.kernel[:2]: k for k in ppo.kernel_fit(
             PPOConfig(env=env, hidden=(h, h)), H100_OPTIN)}
         w = (obs, h, h, K)
-        padded = 4 * sum(a * (b + 1) + b for a, b in zip(w[:-1], w[1:]))
-        want = (padded + 1024, _staged_bytes(w))
+        want = (cuda_update.cluster_bytes(w) + 1024,
+                cuda_update.shard_bytes(w) + 1024)
+        assert fits["K6"].widths == (w,)
         assert fits["K6"].nbytes == want
         assert fits["K6"].variant == ("smem" if want[0] <= H100_OPTIN
                                       else "global")
+
+
+def _one_block_bytes(widths):
+    """K6's bytes when its slot was one block: its padded weights (each W_l
+    row d_{l+1} + 1 floats, plus the biases), then one staged slice of 32
+    rows of the widest layer + 1; each with the 1 KB static share."""
+    padded = 4 * sum(a * (b + 1) + b for a, b in zip(widths[:-1],
+                                                    widths[1:]))
+    return padded + 1024, _staged_bytes(widths)
+
+
+@pytest.mark.parametrize("env", ["cartpole", "acrobot"])
+def test_kernel_fit_admits_every_k6_width_it_did(env):
+    """Cartpole and acrobot at hidden (h, h) for h 100-452: K6 takes a
+    variant wherever its one-block slot took one (all of them), the
+    replicated cluster up to its boundary and the sharded one past it."""
+    smem = []
+    for h in range(100, 453):
+        k6 = {k.kernel[:2]: k for k in ppo.kernel_fit(
+            PPOConfig(env=env, hidden=(h, h)), H100_OPTIN)}["K6"]
+        before = _one_block_bytes(k6.widths[0])
+        assert min(before) <= H100_OPTIN, h
+        assert k6.variant is not None, h
+        smem.append(k6.variant == "smem")
+    # the replicated cluster to a boundary, the sharded cluster past it
+    n = smem.index(False)
+    assert 100 + n - 1 >= 128 and not any(smem[n:])
+
+
+@pytest.mark.parametrize("env", ["cartpole", "acrobot"])
+def test_kernel_fit_admits_deep_k6_nets(env):
+    """Three hidden layers of 448: K6 takes the sharded cluster with its
+    COL and ROW weights spilled to global memory, as K3 does."""
+    cfg = PPOConfig(env=env, hidden=(448, 448, 448))
+    fits = {k.kernel[:2]: k for k in ppo.kernel_fit(cfg, H100_OPTIN)}
+    assert fits["K6"].variant == fits["K3"].variant == "global"
+    assert cuda_update.shard_layout(fits["K6"].widths[0]).spill

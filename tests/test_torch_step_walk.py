@@ -1,16 +1,17 @@
 """chip_smoke.py's step walk at the ReLU gates and clip branches, on the CPU.
 
 Where a row's pre-activation lies within float32 rounding of a ReLU gate,
-or (K4) its probability ratio within rounding of a clip edge, any float32
+or (K4, K6) its probability ratio within rounding of a clip edge, any float32
 step of the update phase may take that decision either way and part from
 the float64 step by far more than rounding.  The walk then holds a step to
 ``gate_band``: the float64 steps with every such decision taken either
 way.  Here small nets are built with four gates exactly at zero (two
-units, two rows) and, for K4, one row's ratio at the upper clip edge; the
+units, two rows) and, for K4 and K6 (a 3-class categorical head), one
+row's ratio at the upper clip edge; the
 band must hold the plain version's float64 step and the float64 steps
 whose inputs were moved just across each edge, and must not hold the
 float64 step with the learning rate 1% high (the walk's control).  For
-the sharded K3/K4 cluster alone the band also lets each gradient element
+the sharded cluster alone the band also lets each gradient element
 near Adam's eps range over its float32 rounding bound (``near_eps``,
 ``rounding``), which must hold the float32 gradient summed in any order,
 stay tight on nearly every element, and widen the band at a few elements
@@ -47,6 +48,11 @@ def _hyper(lr=LR):
 def _t(rng, *shape, scale=1.0):
     return torch.from_numpy((scale * rng.normal(0, 1, shape))
                             .astype(np.float32))
+
+
+def _dbl(rows):
+    """The rows in float64, the class ids as they are."""
+    return [r.double() if r.is_floating_point() else r.clone() for r in rows]
 
 
 def _adam0(tree):
@@ -132,6 +138,45 @@ def _policy_case(seed):
     return (params, log_std, opt, opt_ls), rows, (CLIP, ENT)
 
 
+def _cat_log_prob(params, obs, cls):
+    """The float64 log-prob of the classes ``cls`` under the net at
+    ``obs``."""
+    y = mlp.apply([(w.double(), b.double()) for w, b in params], obs, "relu")
+    return torch.log_softmax(y, dim=1).gather(1, cls.long())[:, 0]
+
+
+def _categorical_rows(rng, params):
+    """(obs, class ids, old log-probs, advantages) of a 3-class policy:
+    ratios exp(N(0, 0.2)), but 1 at rows 0 and 1 (unclipped: their gates
+    carry gradient, with advantage 2 so that moving a gate moves the step
+    visibly); row 2's old log-prob set so its ratio sits at the upper clip
+    edge, with a positive advantage."""
+    obs = _t(rng, MB, 4)
+    obs[:2] = torch.tensor([1.0, 0.0, 0.0, 0.0])
+    cls = torch.from_numpy(rng.integers(0, 3, (MB, 1)).astype(np.int32))
+    lp = _cat_log_prob(params, obs.double(), cls)
+    old = lp + torch.from_numpy(rng.normal(0, 0.2, MB))
+    old[:2] = lp[:2]
+    old[2] = lp[2] - math.log(1 + CLIP)
+    adv = _t(rng, MB)
+    adv[:2], adv[2] = 2.0, 1.0
+    return [obs, cls, old.float(), adv]
+
+
+def _categorical_case(seed):
+    """(state, rows, extra): K6 on a [4, 16, 16, 3] net with moments from
+    three plain steps, rows 0 and 1 at the gates, row 2 at the clip
+    edge."""
+    rng = np.random.default_rng(seed)
+    params = _net(rng)
+    params[-1] = (_t(rng, 16, 3, scale=0.25), _t(rng, 3, scale=0.1))
+    warm = [torch.cat([c] * 3) for c in _categorical_rows(rng, params)]
+    params, opt, _, _ = cu.policy_phase_categorical_plain(
+        *warm, params, _adam0(params), 3, MB, "relu", _hyper(), CLIP, ENT)
+    _at_gates(params)
+    return (params, opt), _categorical_rows(rng, params), (CLIP, ENT)
+
+
 def _step64(state, rows, extra, lr=LR):
     """The plain version's float64 step, flattened as check_phase's
     weights (the net, then log_std)."""
@@ -142,14 +187,16 @@ def _step64(state, rows, extra, lr=LR):
             return AdamState(d(x.m), d(x.v), x.t)
         return [(w.double(), b.double()) for w, b in x]
 
-    plain = cu.policy_phase_plain if extra else cu.value_phase_plain
-    out = plain(*(r.double() for r in rows), *(d(x) for x in state), 1, MB,
-                "relu", _hyper(lr), *extra)
+    plain = (cu.value_phase_plain if not extra
+             else cu.policy_phase_plain if len(state) == 4
+             else cu.policy_phase_categorical_plain)
+    out = plain(*_dbl(rows), *(d(x) for x in state), 1, MB, "relu",
+                _hyper(lr), *extra)
     return torch.cat([mlp.flatten(out[0])]
-                     + ([out[1].reshape(-1)] if extra else []))
+                     + ([out[1].reshape(-1)] if len(state) == 4 else []))
 
 
-CASES = {"K3": _value_case, "K4": _policy_case}
+CASES = {"K3": _value_case, "K4": _policy_case, "K6": _categorical_case}
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -158,24 +205,28 @@ def test_gate_band_holds_every_setting_of_the_gates(kind, seed):
     cs = _chip_smoke()
     state, rows, extra = CASES[kind](seed)
     band, n_near = cs.gate_band(state, rows, _hyper(), extra)
-    assert n_near == 4 + (kind == "K4")
+    assert n_near == 4 + (kind != "K3")
     base = _step64(state, rows, extra)
     assert cs.outside(base, band) <= 1e-12
     moved = []
     for row in ([0], [1], [0, 1]):
         # feature 0 up: both units on; feature 1 up: unit 0; down: unit 1
         for feature, move in ((0, EPS), (1, EPS), (1, -EPS)):
-            m = [r.double() for r in rows]
+            m = _dbl(rows)
             m[0][row, feature] += move
             moved.append(m)
-    if kind == "K4":
+    if kind != "K3":
         # row 2's old log-prob to either side of the upper clip edge
-        params, log_std = state[:2]
-        lp = _log_prob(params, log_std, rows[0][2:3].double(),
-                       rows[1][2:3].double())[0]
+        if kind == "K4":
+            params, log_std = state[:2]
+            lp = _log_prob(params, log_std, rows[0][2:3].double(),
+                           rows[1][2:3].double())[0]
+        else:
+            lp = _cat_log_prob(state[0], rows[0][2:3].double(),
+                               rows[1][2:3])[0]
         sides = []
         for side in (1e-12, -1e-12):
-            m = [r.double() for r in rows]
+            m = _dbl(rows)
             m[2][2] = lp - math.log(1 + CLIP) + side
             moved.append(m)
             sides.append(_step64(state, m, extra))
@@ -198,7 +249,7 @@ def test_gate_band_does_not_hold_a_learning_rate_fault(kind, seed):
     assert cs.outside(fault, band) > cs.STEP_TOL
 
 
-@pytest.mark.parametrize("kind", ["K3", "K4"])
+@pytest.mark.parametrize("kind", ["K3", "K4", "K6"])
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_rounding_bounds_any_summation_order(kind, seed):
     """``chip_smoke.rounding``, gate_band's float32 rounding bound of each
@@ -217,13 +268,19 @@ def test_rounding_bounds_any_summation_order(kind, seed):
     B = [b.double() for _, b in params]
     obs = _t(rng, 4 * MB, 4)
     mb = obs.shape[0]
-    k = 2 if kind == "K4" else 1
+    k = {"K3": 1, "K4": 2, "K6": 3}[kind]
     if kind == "K4":
         params[-1] = (_t(rng, 16, 2, scale=0.25), _t(rng, 2, scale=0.1))
         W[-1], B[-1] = params[-1][0].double(), params[-1][1].double()
         ls = torch.tensor([-0.3, 0.2])
         act, lp, adv = _t(rng, mb, 2), _t(rng, mb, scale=0.3), _t(rng, mb)
         cols = [obs, act, lp, adv]
+    elif kind == "K6":
+        params[-1] = (_t(rng, 16, 3, scale=0.25), _t(rng, 3, scale=0.1))
+        W[-1], B[-1] = params[-1][0].double(), params[-1][1].double()
+        cls = torch.from_numpy(rng.integers(0, 3, (mb, 1)).astype(np.int32))
+        lp = _t(rng, mb, scale=0.3) - math.log(3)
+        cols = [obs, cls, lp, _t(rng, mb)]
     else:
         cols = [obs, _t(rng, mb, scale=3.0)]
     x = obs.double()
@@ -238,6 +295,16 @@ def test_rounding_bounds_any_summation_order(kind, seed):
         c = [t.to(dt) for t in cols]
         if kind == "K3":
             return (2.0 / mb) * (y[:, 0] - c[1])[:, None], None
+        if kind == "K6":
+            lpa = torch.log_softmax(y, dim=1)
+            p = torch.exp(lpa)
+            H = -(p * lpa).sum(dim=1, keepdim=True)
+            onehot = torch.nn.functional.one_hot(c[1][:, 0].long(), k).to(dt)
+            r = torch.exp(lpa.gather(1, c[1].long())[:, 0] - c[2])
+            keep = (r * c[3] <= torch.clamp(r, 1 - CLIP, 1 + CLIP) * c[3])
+            dlogp = -(c[3] * r / mb) * keep.to(dt)
+            return (dlogp[:, None] * (onehot - p)
+                    + (ENT / mb) * p * (lpa + H)), None
         s = torch.exp(-ls.to(dt))
         z = (c[1] - y) * s
         logp = (-0.5 * k * math.log(2 * math.pi) - ls.to(dt).sum()
@@ -263,7 +330,13 @@ def test_rounding_bounds_any_summation_order(kind, seed):
         return torch.cat(out).double()
 
     policy = None
-    if kind == "K4":
+    if kind == "K6":
+        r64 = torch.exp(torch.log_softmax(y64, dim=1).gather(
+            1, cls.long())[:, 0] - lp.double())
+        unclipped = (r64 * cols[3].double()
+                     <= torch.clamp(r64, 1 - CLIP, 1 + CLIP)
+                     * cols[3].double())
+    elif kind == "K4":
         lp0 = -0.5 * k * math.log(2 * math.pi)
 
         def ratio(mu, log_std, a, lpo):
@@ -279,7 +352,8 @@ def test_rounding_bounds_any_summation_order(kind, seed):
     else:
         unclipped = None
     bound = cs.rounding(W, B, x, [c.double() for c in cols], z64, y64,
-                        masks, unclipped, mb, policy)
+                        masks, unclipped, mb, policy,
+                        ENT if kind == "K6" else None)
     g64 = gradient(torch.arange(mb), torch.float64)
     for i in range(8):
         order = torch.from_numpy(np.random.default_rng(i).permutation(mb))
@@ -358,3 +432,25 @@ def test_rounding_near_eps_is_confined_and_holds_any_order():
         worst = max(worst, float(torch.maximum(band0[0][wider] - w,
                                                w - band0[1][wider]).max()))
     assert worst > cs.STEP_TOL
+
+
+@pytest.mark.parametrize("near_eps", [False, True])
+def test_gate_band_steps_log_std_at_its_own_timestep(near_eps):
+    """K4 with two action dims, the net's Adam at t 3 and log_std's at t 7:
+    the band holds the plain version's float64 step in every element, each
+    log_std element stepped with its own Adam's bias corrections (a band
+    that split log_std by element stepped its first element with the net's
+    timestep, 2.6e-5 away at 2x256)."""
+    cs = _chip_smoke()
+    rng = np.random.default_rng(7)
+    params = _net(rng)
+    params[-1] = (_t(rng, 16, 2, scale=0.25), _t(rng, 2, scale=0.1))
+    log_std = torch.tensor([-0.3, 0.2])
+    rows = [_t(rng, MB, 4), _t(rng, MB, 2), _t(rng, MB, scale=0.3) - 2.0,
+            _t(rng, MB)]
+    state = (params, log_std, _adam0(params)._replace(t=3),
+             _adam0(log_std)._replace(t=7))
+    band, _ = cs.gate_band(state, rows, _hyper(), (CLIP, ENT), near_eps)
+    step = _step64(state, rows, (CLIP, ENT))
+    assert cs.outside(step, band) <= 1e-12
+    assert float((band[1] - band[0])[-2:].abs().max()) <= 1e-12

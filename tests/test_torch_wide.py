@@ -171,25 +171,19 @@ def test_kernel_fit_k3_boundary_on_3_h_h_1():
 
 
 def test_variant_bytes_follow_the_layouts():
-    """The padded weights of the 2x256 nets (the H100 lets a block opt in
-    to 232,448 B), K6's one-block layout: the value net [10,256,256,1] is
-    69,387 floats, the policy net [10,256,256,2] 69,644; K6's global
-    variant stages 32 rows of the widest layer + 1.  K3's and K4's
-    replicated cluster block holds the weights and their gradient partial
-    in a float4-padded layout (71,220 floats each) besides its tiles and
-    Adam slice, 169,828 floats; their sharded cluster's block 48,420
-    (tests/test_torch_shard.py).  K1 and K5 as their card tests' boundary
-    formulas (tests/test_torch_cuda.py test_variant_is_chosen_by_size)."""
-    staged = 4 * 32 * 257 + 1024
-    assert cuda_update.variant_bytes((10, 256, 256, 1),
-                                     "categorical policy") == [
-        4 * 69387 + 1024, staged]
-    assert cuda_update.variant_bytes((10, 256, 256, 2),
-                                     "categorical policy")[0] == (
-        4 * 69644 + 1024)
-    for kind in ("value", "policy"):
-        assert cuda_update.variant_bytes((10, 256, 256, 1), kind) == [
-            4 * 169828 + 1024, 4 * 48420 + 1024]
+    """The 2x256 nets (the H100 lets a block opt in to 232,448 B): the
+    replicated cluster block of K3, K4 and K6 holds the weights and their
+    gradient partial in a float4-padded layout (71,220 floats each) besides
+    its tiles and Adam slice, 169,828 floats; their sharded cluster's block
+    48,420 (tests/test_torch_shard.py); the head's width is padded to 4,
+    so a 2-class head takes the replicated block of the value net, and
+    the sharded block 32 floats more (the head's own m and v, 16 x 2).  K1
+    and K5 as their card tests' boundary formulas
+    (tests/test_torch_cuda.py test_variant_is_chosen_by_size)."""
+    assert cuda_update.variant_bytes((10, 256, 256, 1)) == [
+        4 * 169828 + 1024, 4 * 48420 + 1024]
+    assert cuda_update.variant_bytes((10, 256, 256, 2)) == [
+        4 * 169828 + 1024, 4 * (48420 + 32) + 1024]
     for h in (159, 160):
         w = (3, h, h, 1)
         assert cuda_rollout.variant_bytes(w, w)[0] == (

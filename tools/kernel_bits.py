@@ -1,25 +1,28 @@
 """Kernel outputs bit for bit against another checkout's build: K1's
-pendulum lane, K7's float32 variant, and the fused update phases.
+pendulum lane, K5, K7's float32 variant, and the fused update phases.
 
-    python3 tools/kernel_bits.py --kernel k1|k7|phases --root OTHER
+    python3 tools/kernel_bits.py --kernel k1|k5|k7|phases --root OTHER
                                  --save FILE [--time]
-    python3 tools/kernel_bits.py --kernel k1|k7|phases --compare FILE
+    python3 tools/kernel_bits.py --kernel k1|k5|k7|phases --compare FILE
                                  [--time]
 
 Launches the kernels of the checkout at ``--root`` (default: this one) on
 one CUDA device at fixed seeds and weights.  ``k1``: the rollout kernel
 (``ops/cuda_rollout.rollout_kernel``, pendulum lane) at 64 envs x 200
 steps with the V planes (the bench shape), 1024 x 200 (the throughput
-shape) and 64 x 40 from a carried state across the horizon.  ``k7``: the
+shape) and 64 x 40 from a carried state across the horizon.  ``k5``: the
+whole-MLP forward and backward (``ops/cuda_mlp.mlp_forward_kernel``,
+``mlp_backward_kernel``) in both variants at 8192 rows of [3,128,128,1]
+and 256 rows of [10,256,256,2].  ``k7``: the
 float32 forward, dq and dk/dv kernels (``ops/cuda_attn.flash_*_kernel``)
 at this checkout's ``chip_smoke.py`` timed shapes (the recall_xl minibatch
 and value pass, the X-ray shape) and a ring block of rel -1, same seeds.
-``phases``: the fused update phases (``ops/cuda_update``): K3 and K4 in
-both variants (the replicated cluster, where the net fits it, and the
-"global" slot: the sharded cluster, or in an older checkout one block
-staging the weights from global memory) and K6 in both variants (one
-block each), on the bench nets (20 steps of 256 rows), at [3,192,192,1]
-and at 2x256 (10 steps of 64), on seeded rows and weights.
+``phases``: the fused update phases (``ops/cuda_update``): K3, K4 and
+K6 in both variants (the replicated cluster, where the net fits it, and
+the "global" slot: the sharded cluster, or in an older checkout one block
+staging the weights from global memory; K6 in an older checkout one block
+in both), on the bench nets (20 steps of 256 rows), at [3,192,192,1] and
+at 2x256 (10 steps of 64), on seeded rows and weights.
 ``--save`` writes every output with torch.save; ``--compare`` checks each
 against the saved one with torch.equal, prints one line per launch (for
 each output that differs, the largest |difference|, or the count of
@@ -72,6 +75,39 @@ def k1_launches(torch, cs, dev):
             *args)._asdict().items() if v is not None}
 
     return {name: launch(args) for name, args in runs.items()}
+
+
+def k5_launches(torch, cs, dev):
+    """name -> a launch of K5's forward or backward returning its
+    outputs."""
+    from ppoc_tpu_torch.models import mlp
+    from ppoc_tpu_torch.ops import cuda_mlp as cm
+
+    runs = {}
+    for widths, rows, variants in (((3, 128, 128, 1), 8192,
+                                    ("smem", "global")),
+                                   ((10, 256, 256, 2), 256, ("global",))):
+        g = torch.Generator().manual_seed(widths[-1])
+        params = mlp.init(widths, g, dev)
+        x = torch.randn(rows, widths[0], generator=g).to(dev)
+        cot = torch.randn(rows, widths[-1], generator=g).to(dev)
+        for v in variants:
+            tag = f"{list(widths)} x {rows}, {v}"
+
+            def fwd(v=v, params=params, x=x):
+                out, hid = cm.mlp_forward_kernel(params, x, "relu", v)
+                return {"out": out, **{f"h{i}": h for i, h in
+                                       enumerate(hid)}}
+
+            def bwd(v=v, params=params, x=x, cot=cot):
+                _, hid = cm.mlp_forward_kernel(params, x, "relu", v)
+                grads, dx = cm.mlp_backward_kernel(params, x, hid, cot,
+                                                   "relu", True, v)
+                return {"grads": mlp.flatten(grads), "dx": dx}
+
+            runs[f"K5 forward, {tag}"] = fwd
+            runs[f"K5 backward, {tag}"] = bwd
+    return runs
 
 
 def k7_launches(torch, cs, dev):
@@ -160,8 +196,8 @@ def phase_launches(torch, cs, dev):
             runs[f"K4 {variant}, {tag}"] = lambda a=(
                 x, act, lp, adv, pp, ls, po, lso, n, mb), v=variant: outputs(
                 cu.policy_phase_kernel(*a, "relu", h, 0.2, 0.01, variant=v))
-        for variant in ("global",) if hidden == (256, 256) else (
-                "smem", "global"):
+        for variant in ("smem", "global") if hidden == (128, 128) else (
+                "global",):
             runs[f"K6 {variant}, {tag}"] = lambda a=(
                 x, cls, lp, adv, cp, co, n, mb), v=variant: outputs(
                 cu.policy_phase_categorical_kernel(*a, "relu", h, 0.2, 0.01,
@@ -171,7 +207,7 @@ def phase_launches(torch, cs, dev):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("k1", "k7", "phases"),
+    ap.add_argument("--kernel", choices=("k1", "k5", "k7", "phases"),
                     required=True)
     ap.add_argument("--root", default=str(HERE))
     mode = ap.add_mutually_exclusive_group(required=True)
@@ -187,7 +223,7 @@ def main() -> int:
         raise SystemExit("needs a CUDA device")
     cs = chip_smoke()
     dev = torch.device("cuda", 0)
-    launches = {"k1": k1_launches, "k7": k7_launches,
+    launches = {"k1": k1_launches, "k5": k5_launches, "k7": k7_launches,
                 "phases": phase_launches}[args.kernel](torch, cs, dev)
     got = {}
     for name, fn in launches.items():
