@@ -24,8 +24,16 @@
    "pendulum"), its K3 and K4 launches held to one a fit.
 5. Throughput path, kernels: K1 at 1024 envs, K2 at 200 x 1024 (past its
    shared-memory size, so the global-memory branch), and K5 (the
-   whole-MLP forward and backward) at 8192 and 256 rows, each against its
-   plain version; K5's backward twice, bit for bit.
+   whole-MLP forward and backward, 3xTF32 products on the tensor cores) at
+   8192 and 256 rows, each against its plain version; K5's backward twice,
+   bit for bit; every K5 row prints the row tile and grid its timed
+   launches took, and the backward its clusters and partial rows.  Then
+   K5's registers and spills from nvcc.log, and its rounding at 8192 rows
+   against a float64 forward and backward beside the plain version's (RMS
+   error and signed lean per layer and for dX, check_mlp_lean): the
+   kernel's RMS within MLP_RMS_FACTOR of the plain version's and its lean
+   within MLP_LEAN_FACTOR of the plain's RMS, where a control, the plain
+   version with one-term TF32 products (allow_tf32), must fail.
 6. Throughput path: Trainer(tpu_preset("pendulum")) on the card by default,
    10 epochs (minibatch 8192: the generic phases, K5 forward and backward
    per minibatch, no K3/K4), then Trainer.evaluate(deterministic=True),
@@ -88,7 +96,8 @@
    mountain_car_norm at 512 x 999 and 256 x 999, simple and mountain_car
    at the bench shape (64 x 200; mountain_car's evaluation 64 x 999); K2
    on the reacher and MountainCar planes; K5 at 16384 rows of the 2x256
-   nets and at 256 rows (the global-memory variant), and at 8192 rows of
+   nets and at 256 rows (the global-memory variant), with phase 5's
+   rounding check at 16384 rows of [10,256,256,1], and at 8192 rows of
    [2,128,128,1]; K4 at two action dims on reacher rows (hidden 64,
    minibatch 256), as the bench's K4 is held.
 14. The simple lane's path (the bench shape, solve(0.5, 10)) and raw
@@ -323,10 +332,29 @@ ROUND_NEAR = 32
 # the check must flag
 LEAN_STEPS = 3
 LEAN_ULPS = 8
+# K5's lean check (check_mlp_lean), fixed before its first chip run.  RMS:
+# 3xTF32 keeps 22 of a product's 24 bits (it drops a_small b_small and what
+# each split rounds away, ~1.2 unit roundoffs of RMS a product on the CPU
+# emulation, tests/test_torch_tf32.py), beside float32's own ~1-5 roundoffs
+# of a sum of 8-16384 terms, so the kernel lands at 1-1.5x the plain
+# version's RMS; 3 leaves room for cuBLAS summing some products (the long
+# dW sums) in a more accurate order.  Lean: the tensor cores truncate each
+# mma's sum toward zero; a k-step's three mmas start from zero, so that is
+# under one ulp of an 8-term partial a step, about one float32 rounding of
+# the result, at most the plain version's RMS; 2 x that RMS is the limit.
+# Truncating into the running sum instead (the k-step's mma taking the
+# accumulator) would lean by ~3 K/16 ulps of the sum, past the limit by 10x
+# or more at K >= 128.  One-term TF32 drops ~13 bits: RMS ~5000 unit
+# roundoffs (tests/test_torch_tf32.py), past 3x by far.
+MLP_RMS_FACTOR = 3.0
+MLP_LEAN_FACTOR = 2.0
 # H100 SXM peaks (NVIDIA data sheet, 700 W): FP32 outside the tensor cores,
-# HBM3 bandwidth.  Every kernel of the port computes in plain FP32.
+# HBM3 bandwidth, dense TF32 on the tensor cores.  bound_ms keeps FP32 for
+# every kernel, so the column compares across PRs; K5's rows (3xTF32
+# products since PR 14) also print 3 x operations / PEAK_TF32.
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+PEAK_TF32 = 495e12
 
 
 T_START = time.perf_counter()
@@ -1444,7 +1472,134 @@ def check_mlp(params, x, activation: str, dev):
     bwd = timings(
         lambda: cm.mlp_backward_kernel(params, x, hid, ct, activation),
         lambda: cm.mlp_backward_plain(params, x, hid, ct, activation), 50, 20)
+    # the row tile and grid the timed launches took (cuda_mlp.tile_for)
+    for t, way in ((fwd, "forward"), (bwd, "backward")):
+        plan = cm.last_launch[way]
+        t.update(tile=plan["tile"], blocks=plan["blocks"])
+    plan = cm.last_launch["backward"]
+    print(f"  K5 backward, {rows} rows: clusters of {plan['cluster']} "
+          f"blocks, {plan['blocks'] // plan['cluster']} partial rows",
+          flush=True)
     return err, fwd, bwd
+
+
+def mlp_resources() -> dict:
+    """{"forward" | "backward", with " global" for variant 1: "N
+    registers, S B spill stores, L B spill loads"} of K5's kernels
+    (csrc/mlp.cu), from the build's nvcc.log (the compiler's -Xptxas -v
+    report)."""
+    import re
+
+    from ppoc_tpu_torch.ops import _build
+
+    res, name = {}, None
+    for line in (_build.BUILD_DIR / "nvcc.log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '\S*mlp_(fwd|bwd)_kernel"
+                      r"ILi(\d)E", line)
+        if m:
+            name = {"fwd": "forward", "bwd": "backward"}[m.group(1)] + (
+                " global" if m.group(2) == "1" else "")
+            continue
+        if re.search(r"Compiling entry function", line):
+            name = None
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if name and spill:
+            res[name] = (f"{spill.group(1)} B spill stores, "
+                         f"{spill.group(2)} B spill loads")
+        if name and regs:
+            res[name] = f"{regs.group(1)} registers, " + res.get(name, "")
+    want = ["backward", "backward global", "forward", "forward global"]
+    if sorted(res) != want:
+        raise AssertionError(f"nvcc.log reports the K5 kernels {res}")
+    return res
+
+
+def mlp_lean_stats(got, want):
+    """(RMS error, lean) of ``got`` against the float64 ``want``: the RMS
+    of the difference over the RMS of ``want``, and the signed mean
+    sum((got - want) * sign(want)) / sum(|want|) (below zero: toward
+    zero)."""
+    e = got.double() - want
+    rms = float(e.square().sum().sqrt() / want.square().sum().sqrt())
+    lean = float((e * want.sign()).sum() / want.abs().sum())
+    return rms, lean
+
+
+def check_mlp_lean(label: str, params, x, activation: str, dev):
+    """K5's rounding against float64, beside the plain version's (cuBLAS
+    FP32): per layer the forward's output and dW/db (W and b together),
+    and dX, each as RMS error and lean (mlp_lean_stats) against a float64
+    forward and backward of the same float32 inputs (the backward's: the
+    plain forward's hiddens and a seeded cotangent, for all three).  The
+    kernel's RMS must stay within MLP_RMS_FACTOR of the plain version's
+    and its |lean| within MLP_LEAN_FACTOR of the plain version's larger
+    of |lean| and RMS; the control, the plain version with
+    torch.backends.cuda.matmul.allow_tf32 (one-term TF32 products), must
+    fail the RMS part on some item."""
+    import torch
+
+    from ppoc_tpu_torch.models import mlp
+    from ppoc_tpu_torch.ops import cuda_mlp as cm
+
+    rows = x.shape[0]
+    ct = torch.randn(rows, mlp.dims(params)[-1],
+                     generator=torch.Generator().manual_seed(rows + 1)
+                     ).to(dev)
+    _, hid = cm.mlp_forward_plain(params, x, activation)
+    p64 = [(w.double(), b.double()) for w, b in params]
+
+    def items(out, hs, grads, dx):
+        d = {f"forward {l}": h for l, h in enumerate(list(hs) + [out])}
+        d.update({f"dW/db {l}": torch.cat([w.reshape(-1), b.reshape(-1)])
+                  for l, (w, b) in enumerate(grads)})
+        d["dX"] = dx
+        return d
+
+    ref = items(*cm.mlp_forward_plain(p64, x.double(), activation),
+                *cm.mlp_backward_plain(p64, x.double(),
+                                       [h.double() for h in hid],
+                                       ct.double(), activation))
+
+    def run(fwd, bwd):
+        return items(*fwd(params, x, activation),
+                     *bwd(params, x, hid, ct, activation))
+
+    got = {"kernel": run(cm.mlp_forward_kernel, cm.mlp_backward_kernel),
+           "plain": run(cm.mlp_forward_plain, cm.mlp_backward_plain)}
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got["control"] = run(cm.mlp_forward_plain, cm.mlp_backward_plain)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    torch.cuda.synchronize()
+    failed, control_fails = [], []
+    for name, want in ref.items():
+        (rk, lk), (rp, lp), (rc, lc) = (mlp_lean_stats(got[k][name], want)
+                                        for k in ("kernel", "plain",
+                                                  "control"))
+        print(f"  {label}, {name}: RMS error / lean against float64: kernel "
+              f"{rk:.3e} / {lk:+.3e}, plain {rp:.3e} / {lp:+.3e}, "
+              f"one-term TF32 control {rc:.3e} / {lc:+.3e}", flush=True)
+        if not (rk <= MLP_RMS_FACTOR * rp
+                and abs(lk) <= MLP_LEAN_FACTOR * max(abs(lp), rp)):
+            failed.append(name)
+        if not rc <= MLP_RMS_FACTOR * rp:
+            control_fails.append(name)
+    print(f"  {label}: the kernel's RMS within {MLP_RMS_FACTOR} x the "
+          f"plain version's and its |lean| within {MLP_LEAN_FACTOR} x the "
+          f"plain's larger of |lean| and RMS on every item: "
+          f"{'no, ' + ', '.join(failed) if failed else 'yes'}; the control "
+          f"fails the RMS part on {', '.join(control_fails) or 'nothing'}",
+          flush=True)
+    if failed:
+        raise AssertionError(f"{label}: K5 leaves float32 rounding on "
+                             f"{failed}")
+    if not control_fails:
+        raise AssertionError(f"{label}: the one-term TF32 control passes "
+                             f"the lean check")
 
 
 def throughput_path(cfg, dev, counters):
@@ -2712,6 +2867,8 @@ def reacher_mcc_phases(dev, counters, record):
     if {v_var, p_var, e_var} != {"global"}:
         raise AssertionError("K5 at 2x256 must take the global-memory "
                              "variant")
+    check_mlp_lean(f"K5 at {rcfg.minibatch_size} rows, widths {vw}",
+                   ts.v_params, x_mb, rcfg.activation, dev)
 
     mcfg = PPOConfig(**MCC)
     tsm = Trainer(mcfg, dev).state
@@ -4446,6 +4603,13 @@ def main() -> int:
             results[-1].update(tile=times["tile"], blocks=times["blocks"])
             tile = f", tile {times['tile']} ({times['blocks']} blocks)"
         lib = "" if library is None else f", library {library:.4f} ms"
+        if name.startswith("mlp_"):
+            # K5's products run on the tensor cores as 3xTF32
+            ops = (2 if "forward" in name else 4) * shape[0] * products(
+                shape[1:])
+            results[-1]["tf32x3_bound_ms"] = 1e3 * 3 * ops / PEAK_TF32
+            lib += (f"; 3xTF32 bound "
+                    f"{results[-1]['tf32x3_bound_ms']:.4f} ms")
         print(f"  {name} ({path}, {shape}{tile}): device time kernel "
               f"{times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms"
               f"{lib}; bound {bound[0]:.4f} ms ({bound[1]}); launches "
@@ -4578,6 +4742,10 @@ def main() -> int:
                              tcfg.shuffle_block)
     k5_err, k5_fwd, k5_bwd = check_mlp(tr.state.v_params, x_mb,
                                        tcfg.activation, dev)
+    for name, res in mlp_resources().items():
+        print(f"  K5 {name} kernel (nvcc): {res}", flush=True)
+    check_mlp_lean(f"K5 at {mb} rows, widths {widths}", tr.state.v_params,
+                   x_mb, tcfg.activation, dev)
     x_ev = raw.obs[0, : tcfg.eval_envs].contiguous()
     k5e_err, k5e_fwd, _ = check_mlp(tr.state.policy_params["mlp"], x_ev,
                                     tcfg.activation, dev)

@@ -373,9 +373,10 @@ def test_mlp_pallas_backend_on_cuda_launches_k5(dev):
 
 
 def test_mlp_kernel_refuses_a_net_over_shared_memory(dev):
-    """Past both variants: at width 512 even the global-memory variant's
-    activation tiles and weight slice exceed one block's shared memory."""
-    params, x, _ = _mlp_case(dev, (3, 512, 512, 1), 4)
+    """Past both variants: at width 640 even the global-memory variant's
+    two 16-row activation tiles and its dX slices exceed one block's
+    shared memory (width 512 takes 230,400 B of the H100's 232,448)."""
+    params, x, _ = _mlp_case(dev, (3, 640, 640, 1), 4)
     with pytest.raises(ValueError, match="shared memory"):
         cuda_mlp.mlp_forward_kernel(params, x, "relu")
 
@@ -491,7 +492,8 @@ def test_variant_is_chosen_by_size(dev):
     largest nets that fit one block's shared memory take it, one unit
     wider take the global-memory variant.  At the H100's 232,448 B: K1's
     shared-memory variant needs 4 (2h^2 + 44h + 42) + 1024 B (h 159 fits,
-    160 does not), K5's backward 4 (h^2 + 200h + 4) B (160 fits, 161 not)."""
+    160 does not), K5's backward at its 16-row tile
+    (cuda_mlp.smem_bytes) 225,280 B at h 192 and 234,016 B at 193."""
     from ppoc_tpu_torch.ops import _build
 
     if _build.smem_optin(dev) != H100_OPTIN:
@@ -503,8 +505,8 @@ def test_variant_is_chosen_by_size(dev):
                           ts.policy_params["log_std"], ts.v_params, (1, 1),
                           8, 2)
         assert counts["pendulum", "values"].n == before + 1, h
-    for h, fwd, bwd in ((160, cuda_mlp.fwd_launches, cuda_mlp.bwd_launches),
-                        (161, cuda_mlp.fwd_global_launches,
+    for h, fwd, bwd in ((192, cuda_mlp.fwd_launches, cuda_mlp.bwd_launches),
+                        (193, cuda_mlp.fwd_global_launches,
                          cuda_mlp.bwd_global_launches)):
         params, x, ct = _mlp_case(dev, (3, h, h, 1), 100)
         f0, b0 = fwd.n, bwd.n
@@ -542,8 +544,8 @@ def test_mlp_global_variant_matches_plain(dev, sizes, batch, activation):
 
 def test_mlp_variants_agree(dev):
     """On a net both variants take: the forward and dX are the same bits
-    (each output summed in the same order); dW/db group rows by 32-row
-    tiles instead of 64, so they agree to rounding."""
+    (each output summed over the same k-steps in the same order); dW/db
+    agree to rounding (the variants' tiles may differ)."""
     params, x, ct = _mlp_case(dev, (10, 64, 64, 2), 300, seed=3)
     out_s, hid_s = cuda_mlp.mlp_forward_kernel(params, x, "relu", "smem")
     out_g, hid_g = cuda_mlp.mlp_forward_kernel(params, x, "relu", "global")
@@ -555,6 +557,133 @@ def test_mlp_variants_agree(dev):
                                            variant="global")
     assert torch.equal(dxs, dxg)
     _close_grads([t for pr in gg for t in pr], [t for pr in gs for t in pr])
+
+
+# K5's row tiles: every tile the picker can choose, in both variants, the
+# rows at each tile's edges (a ragged last tile, one row, a full grid)
+K5_TILE_NETS = {"smem": (3, 128, 128, 1), "global": (10, 256, 256, 2)}
+
+
+def _k5_tiles(dev, variant):
+    """The tiles K5 takes on ``variant``'s net (both directions fit)."""
+    w = K5_TILE_NETS[variant]
+    fwd = cuda_mlp.launch_plan(w, 1, False, variant, device=dev)["variant"]
+    assert cuda_mlp._build.VARIANTS[fwd] == variant
+    return [t for t in cuda_mlp.TILES
+            if max(cuda_mlp.smem_bytes(w, fwd, b, t) for b in (False, True))
+            <= cuda_mlp._build.smem_optin(dev)]
+
+
+@pytest.mark.parametrize("variant", ["smem", "global"])
+@pytest.mark.parametrize("tile", cuda_mlp.TILES)
+def test_mlp_every_tile_matches_plain(dev, variant, tile):
+    """K5 at each forced row tile, at rows 1, tile - 1, tile, tile + 1 and
+    a grid past one wave of resident blocks: forward and backward against
+    the plain versions; the backward again bit for bit, without dX the same
+    dW/db bits; the two variants' forward and dX the same bits at this
+    tile where both take it."""
+    if tile not in _k5_tiles(dev, variant):
+        pytest.skip(f"{variant} takes no {tile}-row tile on this card")
+    w = K5_TILE_NETS[variant]
+    plan = cuda_mlp.launch_plan(w, tile, True, variant, tile, device=dev)
+    for rows, act in ((1, "relu"), (tile - 1, "tanh"), (tile, "none"),
+                      (tile + 1, "relu"),
+                      (tile * (plan["resident"] + 3) + 5, "tanh")):
+        if rows < 1:
+            continue
+        params, x, ct = _mlp_case(dev, w, rows, seed=rows)
+        out, hid = cuda_mlp.mlp_forward_kernel(params, x, act, variant, tile)
+        out_p, hid_p = cuda_mlp.mlp_forward_plain(params, x, act)
+        torch.testing.assert_close(out, out_p, **TOL)
+        for a, b in zip(hid, hid_p):
+            torch.testing.assert_close(a, b, **TOL)
+        grads, dx = cuda_mlp.mlp_backward_kernel(params, x, hid_p, ct, act,
+                                                 True, variant, tile)
+        again, dx2 = cuda_mlp.mlp_backward_kernel(params, x, hid_p, ct, act,
+                                                  True, variant, tile)
+        no_dx, none = cuda_mlp.mlp_backward_kernel(params, x, hid_p, ct, act,
+                                                   False, variant, tile)
+        grads_p, dx_p = cuda_mlp.mlp_backward_plain(params, x, hid_p, ct,
+                                                    act)
+        _close_grads([t for pr in grads for t in pr] + [dx],
+                     [t for pr in grads_p for t in pr] + [dx_p])
+        assert torch.equal(mlp.flatten(grads), mlp.flatten(again)), rows
+        assert torch.equal(dx, dx2) and none is None, rows
+        assert torch.equal(mlp.flatten(grads), mlp.flatten(no_dx)), rows
+        if variant == "smem":
+            out_g, hid_g = cuda_mlp.mlp_forward_kernel(params, x, act,
+                                                       "global", tile)
+            _, dx_g = cuda_mlp.mlp_backward_kernel(params, x, hid_p, ct, act,
+                                                   True, "global", tile)
+            assert torch.equal(out, out_g), rows
+            assert all(torch.equal(a, b) for a, b in zip(hid, hid_g)), rows
+            assert torch.equal(dx, dx_g), rows
+
+
+@pytest.mark.parametrize("variant", ["smem", "global"])
+@pytest.mark.parametrize("backward", [False, True])
+def test_mlp_tile_picker_edges_match_plain(dev, variant, backward):
+    """Where the picker moves from one tile to the next (the last row count
+    a tile's grid holds in one wave of resident blocks, and one more), and
+    at rows 15, 16, 17, 255, 256, 257: the launch takes tile_for's tile
+    and matches the plain version."""
+    w = K5_TILE_NETS[variant]
+    rows_list = [15, 16, 17, 255, 256, 257]
+    for t in _k5_tiles(dev, variant)[:-1]:
+        # resident blocks at tile t (the backward's in clusters of 16, as
+        # a grid of 16 tiles or more takes them)
+        edge = t * cuda_mlp.launch_plan(w, 16 * t, backward, variant, t,
+                                        device=dev)["resident"]
+        rows_list += [edge, edge + 1]
+    for rows in rows_list:
+        params, x, ct = _mlp_case(dev, w, rows, seed=7)
+        plan = cuda_mlp.launch_plan(w, rows, backward, variant, device=dev)
+        out, hid = cuda_mlp.mlp_forward_kernel(params, x, "relu", variant)
+        if not backward:
+            assert cuda_mlp.last_launch["forward"] == plan
+            torch.testing.assert_close(
+                out, cuda_mlp.mlp_forward_plain(params, x, "relu")[0], **TOL)
+            continue
+        grads, dx = cuda_mlp.mlp_backward_kernel(params, x, hid, ct, "relu",
+                                                 True, variant)
+        assert cuda_mlp.last_launch["backward"] == plan
+        assert plan["blocks"] % plan["cluster"] == 0
+        grads_p, dx_p = cuda_mlp.mlp_backward_plain(params, x, hid, ct,
+                                                    "relu")
+        _close_grads([t for pr in grads for t in pr] + [dx],
+                     [t for pr in grads_p for t in pr] + [dx_p])
+
+
+@pytest.mark.parametrize("widths", [(3, 128, 128, 1), (10, 256, 256, 2),
+                                    (17, 32, 5), (3, 192, 192, 1),
+                                    (3, 200, 300, 70, 1)])
+def test_mlp_smem_bytes_equal_the_kernels(dev, widths):
+    """cuda_mlp.smem_bytes, from the widths alone, is csrc/mlp.cu's
+    smem_bytes at every tile, in both variants and directions."""
+    import ctypes
+
+    lib = cuda_mlp._declare()
+    dims = (ctypes.c_int * len(widths))(*widths)
+    ma = cuda_mlp._MlpArgs(dims=dims, n_layers=len(widths) - 1, B=300)
+    out = (ctypes.c_long * 4)()
+    for tile in cuda_mlp.TILES:
+        ma.tile = tile
+        for v in range(2):
+            assert lib.ppoc_mlp_sizes(ctypes.byref(ma), v, out)
+            assert out[2] == tile
+            assert [out[0], out[1]] == [cuda_mlp.smem_bytes(widths, v, b,
+                                                            tile)
+                                        for b in (False, True)], (tile, v)
+
+
+def test_mlp_backward_partials_take_one_row_a_cluster(dev):
+    """The throughput and reacher backwards: blocks in clusters of 16 (one
+    row of the partial scratch each), at most 8 rows where the first
+    design had 128 (a row a block)."""
+    for w, rows in (((3, 128, 128, 1), 8192), ((10, 256, 256, 1), 16384)):
+        plan = cuda_mlp.launch_plan(w, rows, True, device=dev)
+        assert plan["cluster"] == cuda_mlp.CLUSTER
+        assert plan["blocks"] // plan["cluster"] <= 8, plan
 
 
 def test_trainer_on_cuda_reacher_regime_in_small(dev):

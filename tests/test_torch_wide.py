@@ -178,8 +178,11 @@ def test_variant_bytes_follow_the_layouts():
     48,420 (tests/test_torch_shard.py); the head's width is padded to 4,
     so a 2-class head takes the replicated block of the value net, and
     the sharded block 32 floats more (the head's own m and v, 16 x 2).  K1
-    and K5 as their card tests' boundary formulas
-    (tests/test_torch_cuda.py test_variant_is_chosen_by_size)."""
+    as its card test's boundary formula, K5 at its card test's boundary
+    widths, 192 in shared memory and 193 past it (tests/test_torch_cuda.py
+    test_variant_is_chosen_by_size): its backward at the 16-row tile
+    holds the weights (rows padded to 8, 8 mod 16 floats), two tiles, the
+    8,192-float dW stage and the db column sums."""
     assert cuda_update.variant_bytes((10, 256, 256, 1)) == [
         4 * 169828 + 1024, 4 * 48420 + 1024]
     assert cuda_update.variant_bytes((10, 256, 256, 2)) == [
@@ -188,7 +191,8 @@ def test_variant_bytes_follow_the_layouts():
         w = (3, h, h, 1)
         assert cuda_rollout.variant_bytes(w, w)[0] == (
             4 * (2 * h * h + 44 * h + 42) + 1024)
-        assert cuda_mlp.variant_bytes(w)[0] == 4 * (h * h + 200 * h + 4)
+    for h, floats in ((192, 56320), (193, 58504)):
+        assert cuda_mlp.variant_bytes((3, h, h, 1))[0] == 4 * floats
     assert cuda_rollout.variant_bytes((3, 64, 64, 1))[0] < (
         cuda_rollout.variant_bytes((3, 64, 64, 1), (3, 64, 64, 1))[0])
 

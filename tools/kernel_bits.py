@@ -12,8 +12,10 @@ one CUDA device at fixed seeds and weights.  ``k1``: the rollout kernel
 steps with the V planes (the bench shape), 1024 x 200 (the throughput
 shape) and 64 x 40 from a carried state across the horizon.  ``k5``: the
 whole-MLP forward and backward (``ops/cuda_mlp.mlp_forward_kernel``,
-``mlp_backward_kernel``) in both variants at 8192 rows of [3,128,128,1]
-and 256 rows of [10,256,256,2].  ``k7``: the
+``mlp_backward_kernel``) in both variants at 8192 rows of [3,128,128,1],
+in shared memory at 256 rows of it, and in global memory at 16384 rows of
+[10,256,256,1] and 256 rows of [10,256,256,2] (the backward on the plain
+forward's hiddens).  ``k7``: the
 float32 forward, dq and dk/dv kernels (``ops/cuda_attn.flash_*_kernel``)
 at this checkout's ``chip_smoke.py`` timed shapes (the recall_xl minibatch
 and value pass, the X-ray shape) and a ring block of rel -1, same seeds.
@@ -79,18 +81,22 @@ def k1_launches(torch, cs, dev):
 
 def k5_launches(torch, cs, dev):
     """name -> a launch of K5's forward or backward returning its
-    outputs."""
+    outputs.  The backward takes the plain forward's hiddens, so it is
+    timed alone and both builds see the same inputs."""
     from ppoc_tpu_torch.models import mlp
     from ppoc_tpu_torch.ops import cuda_mlp as cm
 
     runs = {}
     for widths, rows, variants in (((3, 128, 128, 1), 8192,
                                     ("smem", "global")),
+                                   ((3, 128, 128, 1), 256, ("smem",)),
+                                   ((10, 256, 256, 1), 16384, ("global",)),
                                    ((10, 256, 256, 2), 256, ("global",))):
         g = torch.Generator().manual_seed(widths[-1])
         params = mlp.init(widths, g, dev)
         x = torch.randn(rows, widths[0], generator=g).to(dev)
         cot = torch.randn(rows, widths[-1], generator=g).to(dev)
+        _, hid = cm.mlp_forward_plain(params, x, "relu")
         for v in variants:
             tag = f"{list(widths)} x {rows}, {v}"
 
@@ -99,8 +105,7 @@ def k5_launches(torch, cs, dev):
                 return {"out": out, **{f"h{i}": h for i, h in
                                        enumerate(hid)}}
 
-            def bwd(v=v, params=params, x=x, cot=cot):
-                _, hid = cm.mlp_forward_kernel(params, x, "relu", v)
+            def bwd(v=v, params=params, x=x, cot=cot, hid=hid):
                 grads, dx = cm.mlp_backward_kernel(params, x, hid, cot,
                                                    "relu", True, v)
                 return {"grads": mlp.flatten(grads), "dx": dx}
