@@ -22,8 +22,8 @@
    K3 and one cluster K4 a fit, none in global memory) and the wall per
    epoch; then two epochs of the reference schedule PPOConfig(env=
    "pendulum"), its K3 and K4 launches held to one a fit.
-5. Throughput path, kernels: K1 at 1024 envs, K2 at 200 x 1024 (past its
-   shared-memory size, so the global-memory branch), and K5 (the
+5. Throughput path, kernels: K1 at 1024 envs, K2 at 200 x 1024 (past one
+   block's shared memory, so a cluster of 16 blocks), and K5 (the
    whole-MLP forward and backward, 3xTF32 products on the tensor cores) at
    8192 and 256 rows, each against its plain version; K5's backward twice,
    bit for bit; every K5 row prints the row tile and grid its timed
@@ -35,7 +35,7 @@
    within MLP_LEAN_FACTOR of the plain's RMS, where a control, the plain
    version with one-term TF32 products (allow_tf32), must fail.
 6. Throughput path: Trainer(tpu_preset("pendulum")) on the card by default,
-   10 epochs (minibatch 8192: the generic phases, K5 forward and backward
+   4 epochs (minibatch 8192: the generic phases, K5 forward and backward
    per minibatch, no K3/K4), then Trainer.evaluate(deterministic=True),
    with the launch counts read around each, and the mean policy's actions
    held to the plain forward on the recorded obs.
@@ -72,16 +72,22 @@
    kernel beside the plain and library backward with respect to its own
    inputs (q for dq, k and v for dk/dv); at each timed shape the share of
    the in-range tiles the kernels visit (cuda_attn.visited_tiles: a block
-   skips the tiles whose episode ids do not meet its rows').
+   skips the tiles whose episode ids do not meet its rows').  Then the
+   f32 kernels' rounding at the recall_xl minibatch and the X-ray shape
+   against float64 beside the plain version's (out, lse, dq, dk, dv: RMS
+   error and signed lean, check_flash_lean), held as K5 is, where the
+   plain version with one-term TF32 products must fail.  Every K2 check
+   prints the plan its launch took (cuda_gae.plan, held to the C side's).
 10. apply_seq through K7 against apply_seq through the materialised core
    at recall_xl's widths (d 32, 2 layers, 4 heads, T 1024, E 4): outputs
    and every parameter gradient.
-11. The attention learning check: Trainer(recall, attn_dim 16).train(5)
-   on the card must reach R > 0.9 (T 6: the materialised path).
+11. The attention learning check: Trainer(recall, attn_dim 16) on the
+   card must reach R > 0.9 within 5 epochs (T 6: the materialised path;
+   training stops at the first epoch that does).
 12. The attention path: Trainer(recall_xl at the width of
    examples/recall_xl_curriculum.py, rollout_len = eval_len = 1024), the
-   decode-against-replay log-prob gap at the initial weights, then 2
-   epochs (Trainer.train_epoch, then Trainer.evaluate), each epoch's R
+   decode-against-replay log-prob gap at the initial weights, then one
+   epoch (Trainer.train_epoch, then Trainer.evaluate), each epoch's R
    and its wall time split by phase, with the launches read around each
    phase and held to the count the config gives (the split must cover
    the epoch's wall); then Trainer.evaluate(deterministic=True), which
@@ -103,7 +109,7 @@
 14. The simple lane's path (the bench shape, solve(0.5, 10)) and raw
    mountain_car's (2 epochs), with their launches.
 15. The reacher regime at full width (4096 envs x 150, minibatch 16384 in
-   blocks of 4096, hidden 2x256): evaluate, 5 epochs, each split by
+   blocks of 4096, hidden 2x256): evaluate, 3 epochs, each split by
    phase and evaluated, every launch held to the config's count (a fit:
    one K1 rollout with the V planes, one K2, 370 + 148 K5 forwards and
    backwards; an evaluation one K1 rollout with the metrics), eval R up
@@ -160,7 +166,7 @@
    recall_xl's widths, each output and gradient leaf held by its distance
    against the bf16-vs-float32 distance.
 20. RECALL_XL_BF16 (RECALL_XL with kernel_backend "bf16"): the decode
-   against the bf16 replay at the initial weights, 2 epochs by phase with
+   against the bf16 replay at the initial weights, 1 epoch by phase with
    every launch held to the config's count (K7's bf16 kernels only: 2, 160
    and 64 of each a fit), then evaluate(deterministic=True); K7 bf16's
    share of the epochs' wall (its launches times its device ms at the
@@ -184,7 +190,7 @@
    launches bit for bit, two steps against the plain version and the bf16
    generic phase at tests/test_bigmb.py's tolerances, each kernel's device
    time beside its plain version's and the generic phase's wall and device
-   time; on each of three streams one step against the plain version
+   time; on each stream of BIGMB_SEEDS one step against the plain version
    summed in the kernel's order, leaf by leaf, with two controls that must
    fail the same check (the plain version with float32 cotangents, the
    generic bf16 phase), and the whole phase against the plain version and
@@ -238,7 +244,7 @@ import sys
 import time
 
 SOLVE_R = -200.0
-THROUGHPUT_EPOCHS = 10
+THROUGHPUT_EPOCHS = 4
 # the discrete path's solve targets: Gymnasium's CartPole-v1 threshold, and
 # the usual Acrobot-v1 one
 DISCRETE_SOLVE_R = {"cartpole": 475.0, "acrobot": -100.0}
@@ -262,10 +268,11 @@ KERNELS = {
                                  "ppoc_tpu/ops/pallas_update.py:944"),
     "value_phase_global": ("ppoc_tpu_torch/csrc/update_shard.cu",
                            "ppoc_tpu/ops/pallas_update.py:396"),
-    "policy_phase_global": ("ppoc_tpu_torch/csrc/update_shard.cu",
+    "policy_phase_global": ("ppoc_tpu_torch/csrc/update_shard_policy.cu",
                             "ppoc_tpu/ops/pallas_update.py:749"),
-    "policy_phase_categorical_global": ("ppoc_tpu_torch/csrc/update_shard.cu",
-                                        "ppoc_tpu/ops/pallas_update.py:944"),
+    "policy_phase_categorical_global": (
+        "ppoc_tpu_torch/csrc/update_shard_categorical.cu",
+        "ppoc_tpu/ops/pallas_update.py:944"),
     "mlp_forward": ("ppoc_tpu_torch/csrc/mlp.cu",
                     "ppoc_tpu/ops/pallas_mlp.py:139"),
     "mlp_backward": ("ppoc_tpu_torch/csrc/mlp.cu",
@@ -695,9 +702,16 @@ def check_gae(cfg, raw, dev):
     err = check("advantages", max_err(adv, adv_p), 1e-5)
     check("targets (relative)",
           max_err(tgt, tgt_p) / float(tgt_p.abs().max()), 1e-5)
+    plan = cuda_gae.kernel_plan(*raw.reward.shape)
+    if plan != cuda_gae.plan(*raw.reward.shape):
+        raise AssertionError(f"K2's plan {plan} is not cuda_gae.plan's")
+    print(f"  K2's plan: {plan.blocks} blocks of {plan.cols} env columns, "
+          f"{plan.rows} steps a chunk, {plan.smem} B of shared memory a "
+          f"block", flush=True)
     times = timings(lambda: cuda_gae.gae_norm_kernel(*args),
                     lambda: cuda_gae.gae_norm_plain(*args), 50, 3)
-    return adv, tgt, err, times
+    # record() prints a "tile (blocks)": here the columns a block
+    return adv, tgt, err, dict(times, tile=plan.cols, blocks=plan.blocks)
 
 
 def phase_rows(cfg, raw, adv, tgt, dev, draw_seed: int = 1):
@@ -1527,6 +1541,53 @@ def mlp_lean_stats(got, want):
     return rms, lean
 
 
+def lean_verdicts(ref, got, rms_factor: float, lean_factor: float):
+    """Each item of ``ref`` (name -> float64 tensor) against the float32
+    results ``got`` ({"kernel" | "plain" | "control": {name: tensor}}), by
+    :func:`mlp_lean_stats`: returns (rows, failed, control_fails), rows
+    (name, kernel (RMS, lean), plain (RMS, lean), control (RMS, lean)).
+    An item fails where the kernel's RMS passes rms_factor times the plain
+    version's or its |lean| lean_factor times the plain's larger of |lean|
+    and RMS; the control fails where its RMS passes rms_factor times the
+    plain version's."""
+    rows, failed, control_fails = [], [], []
+    for name, want in ref.items():
+        (rk, lk), (rp, lp), (rc, lc) = (mlp_lean_stats(got[k][name], want)
+                                        for k in ("kernel", "plain",
+                                                  "control"))
+        rows.append((name, (rk, lk), (rp, lp), (rc, lc)))
+        if not (rk <= rms_factor * rp
+                and abs(lk) <= lean_factor * max(abs(lp), rp)):
+            failed.append(name)
+        if not rc <= rms_factor * rp:
+            control_fails.append(name)
+    return rows, failed, control_fails
+
+
+def report_lean(label: str, what: str, ref, got, rms_factor: float,
+                lean_factor: float) -> None:
+    """Prints :func:`lean_verdicts` of ``got`` against ``ref`` and raises
+    where the kernel fails an item or the control fails none."""
+    rows, failed, control_fails = lean_verdicts(ref, got, rms_factor,
+                                                lean_factor)
+    for name, (rk, lk), (rp, lp), (rc, lc) in rows:
+        print(f"  {label}, {name}: RMS error / lean against float64: kernel "
+              f"{rk:.3e} / {lk:+.3e}, plain {rp:.3e} / {lp:+.3e}, "
+              f"one-term TF32 control {rc:.3e} / {lc:+.3e}", flush=True)
+    print(f"  {label}: the kernel's RMS within {rms_factor} x the "
+          f"plain version's and its |lean| within {lean_factor} x the "
+          f"plain's larger of |lean| and RMS on every item: "
+          f"{'no, ' + ', '.join(failed) if failed else 'yes'}; the control "
+          f"fails the RMS part on {', '.join(control_fails) or 'nothing'}",
+          flush=True)
+    if failed:
+        raise AssertionError(f"{label}: {what} leaves float32 rounding on "
+                             f"{failed}")
+    if not control_fails:
+        raise AssertionError(f"{label}: the one-term TF32 control passes "
+                             f"the lean check")
+
+
 def check_mlp_lean(label: str, params, x, activation: str, dev):
     """K5's rounding against float64, beside the plain version's (cuBLAS
     FP32): per layer the forward's output and dW/db (W and b together),
@@ -1575,31 +1636,7 @@ def check_mlp_lean(label: str, params, x, activation: str, dev):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
     torch.cuda.synchronize()
-    failed, control_fails = [], []
-    for name, want in ref.items():
-        (rk, lk), (rp, lp), (rc, lc) = (mlp_lean_stats(got[k][name], want)
-                                        for k in ("kernel", "plain",
-                                                  "control"))
-        print(f"  {label}, {name}: RMS error / lean against float64: kernel "
-              f"{rk:.3e} / {lk:+.3e}, plain {rp:.3e} / {lp:+.3e}, "
-              f"one-term TF32 control {rc:.3e} / {lc:+.3e}", flush=True)
-        if not (rk <= MLP_RMS_FACTOR * rp
-                and abs(lk) <= MLP_LEAN_FACTOR * max(abs(lp), rp)):
-            failed.append(name)
-        if not rc <= MLP_RMS_FACTOR * rp:
-            control_fails.append(name)
-    print(f"  {label}: the kernel's RMS within {MLP_RMS_FACTOR} x the "
-          f"plain version's and its |lean| within {MLP_LEAN_FACTOR} x the "
-          f"plain's larger of |lean| and RMS on every item: "
-          f"{'no, ' + ', '.join(failed) if failed else 'yes'}; the control "
-          f"fails the RMS part on {', '.join(control_fails) or 'nothing'}",
-          flush=True)
-    if failed:
-        raise AssertionError(f"{label}: K5 leaves float32 rounding on "
-                             f"{failed}")
-    if not control_fails:
-        raise AssertionError(f"{label}: the one-term TF32 control passes "
-                             f"the lean check")
+    report_lean(label, "K5", ref, got, MLP_RMS_FACTOR, MLP_LEAN_FACTOR)
 
 
 def throughput_path(cfg, dev, counters):
@@ -1867,17 +1904,29 @@ RECALL_XL = dict(env="recall_xl", n_envs=32, rollout_len=1024,
                  eval_envs=64, hidden=(32,), seed=0, lr_policy=1e-3,
                  lr_v=1e-3, attn_dim=32, attn_layers=2, attn_heads=4,
                  kernel_backend="pallas")
-RECALL_XL_EPOCHS = 2
+RECALL_XL_EPOCHS = 1
 # the JAX package's own attention learning check (tests/test_pallas_attn.py)
 RECALL = dict(env="recall", n_envs=128, rollout_len=6, minibatch_size=192,
               fits_per_epoch=8, eval_envs=256, eval_len=6, hidden=(32,),
               seed=1, lr_policy=1e-3, lr_v=1e-3, attn_dim=16, attn_layers=1,
               attn_heads=2, kernel_backend="pallas")
+# the recall learning check's mark (an eval R over 256 episodes of 0 or 1
+# cannot equal it)
+RECALL_LEARNED = 0.9
 # K7 against its plain version: out and lse to 1e-5, the gradients to 1e-4,
 # each over the largest magnitude of the plain result (at least 1): the
 # kernel's online softmax and its sums over up to 2048 keys run in another
 # order than the plain version's matmuls
 FLASH_OUT_TOL, FLASH_GRAD_TOL = 1e-5, 1e-4
+# K7 f32's lean check (check_flash_lean), fixed before its first chip run:
+# K5's factors, for K5's reasons.  Its products are 3xTF32 as K5's (22 of a
+# product's 24 bits; each k-step's three mmas formed from zero, then added
+# in float32 with round to nearest, so the truncating tensor cores lean by
+# under an ulp of an 8-term partial a step), beside float32 roundings of
+# its own (expf, logf, the online softmax's rescales) that the plain
+# version also makes; the one-term TF32 control drops ~13 bits of every
+# score and product.
+FLASH_RMS_FACTOR, FLASH_LEAN_FACTOR = MLP_RMS_FACTOR, MLP_LEAN_FACTOR
 # K7's three kernels (forward, dq, dk/dv) in each variant
 K7_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 K7_BF16_NAMES = tuple(n + "_bf16" for n in K7_NAMES)
@@ -1944,6 +1993,59 @@ def flash_bounds(case, rel: int, H: int):
             bound_ms(pairs * (6 * hd + 4), 4 * row + ids + 2 * vec + row),
             bound_ms(pairs * (8 * hd + 4), 4 * row + ids + 2 * vec
                      + 2 * row)), pairs
+
+
+def flash_tf32_bounds(pairs: int, hd: int):
+    """K7 f32's products as 3xTF32 on the tensor cores: three times their
+    operations (forward 4 hd a valid pair, dq 6 hd, dk/dv 8 hd) over the
+    TF32 peak, ms."""
+    return tuple(1e3 * 3 * pairs * c * hd / PEAK_TF32 for c in (4, 6, 8))
+
+
+def check_flash_lean(label: str, case, rel: int, H: int):
+    """K7 f32's rounding against float64, beside the plain version's: out,
+    lse (the rows with a valid key), dq, dk and dv, each as RMS error and
+    lean (mlp_lean_stats) against attention_plain in float64 on the same
+    float32 inputs and cotangents, with autograd; the kernel's backward
+    takes its own forward's out and lse.  Held as K5 is (report_lean:
+    FLASH_RMS_FACTOR, FLASH_LEAN_FACTOR), where the control, the plain
+    version with torch.backends.cuda.matmul.allow_tf32 (one-term TF32
+    products), must fail."""
+    import torch
+
+    from ppoc_tpu_torch.ops import cuda_attn as ca
+
+    q, k, v, dout, g_lse, ep_q, ep_k = case
+    kargs = (q, k, v, ep_q, ep_k, rel, H)
+    out, lse = ca.flash_fwd_kernel(*kargs)
+    bargs = kargs + (dout, ca.dsum_of(dout, out, g_lse).contiguous(), lse)
+    dq = ca.flash_dq_kernel(*bargs)
+    dk, dv = ca.flash_dkv_kernel(*bargs)
+
+    def plain(dtype):
+        leaves = [t.detach().to(dtype).requires_grad_() for t in (q, k, v)]
+        o, l = ca.attention_plain(*leaves, ep_q, ep_k, rel, H)
+        grads = torch.autograd.grad((o, l), leaves,
+                                    (dout.to(dtype), g_lse.to(dtype)))
+        return (o.detach(), l.detach(), *grads)
+
+    ref = plain(torch.float64)
+    valid = ref[1] > ca.NEG / 2
+
+    def items(o, l, gq, gk, gv):
+        return {"out": o, "lse": l[valid], "dq": gq, "dk": gk, "dv": gv}
+
+    got = {"kernel": items(out, lse, dq, dk, dv),
+           "plain": items(*plain(torch.float32))}
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got["control"] = items(*plain(torch.float32))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    torch.cuda.synchronize()
+    report_lean(label, "K7 f32", items(*ref), got, FLASH_RMS_FACTOR,
+                FLASH_LEAN_FACTOR)
 
 
 def visit_shares(case, rel: int, rows: int) -> str:
@@ -2134,9 +2236,9 @@ def check_apply_seq(dev):
 
 
 def recall_learning(counters):
-    """The JAX package's attention learning check on the card: 5 epochs of
-    recall (T 6: the materialised path, no K7 launch) must reach
-    R > 0.9."""
+    """The JAX package's attention learning check on the card: recall (T
+    6: the materialised path, no K7 launch) must reach R > 0.9 within 5
+    epochs (training stops at the first epoch that does)."""
     import torch
 
     from ppoc_tpu_torch import PPOConfig
@@ -2146,12 +2248,12 @@ def recall_learning(counters):
     for c in counters:
         c.reset()
     t0 = time.perf_counter()
-    hist = tr.train(5, log=False)
+    hist = tr.train(5, log=False, stop_at_R=RECALL_LEARNED)
     torch.cuda.synchronize()
     n = {c.kernel: c.n for c in counters}
     print(f"  R {[round(h['R'], 4) for h in hist]}, "
           f"{time.perf_counter() - t0:.3f} s; launches {n}", flush=True)
-    if not hist[-1]["R"] > 0.9:
+    if not hist[-1]["R"] > RECALL_LEARNED:
         raise AssertionError(f"recall not learned in 5 epochs: "
                              f"R {hist[-1]['R']}")
     if any(n.values()):
@@ -2168,16 +2270,18 @@ class PhaseClock:
     and reads the launch counters around each call.  It is entered
     around ``Trainer.train_epoch`` alone, so the evaluation's own rollout
     is not counted, or (MLP_SOLVE) around ``Trainer.solve``, whose
-    evaluations are a phase.  :meth:`split` fails
-    if a phase was never called or the phases and the clock's own
-    bookkeeping (asking whether the stream is idle before each call,
-    reading and adding the launch counters around it, wrapping and
-    unwrapping the functions; timed apart as "clock") leave more than
-    UNTIMED_SHARE of the epoch's wall untimed: a call the wrappers miss
-    fails the run, its device work too (a call that finds the stream busy
-    first waits for it, and that wait stays untimed).  The path is
-    unchanged; the synchronisation only ends each phase where the host
-    would wait anyway at the next one's first read."""
+    evaluations are a phase.  The host's own code between the wrapped
+    calls (the fit loop, its returns and the fit metrics' small
+    reductions) is timed as "host", and the clock's bookkeeping (asking
+    whether the stream is idle before each call, reading and adding the
+    launch counters around it, wrapping and unwrapping the functions) as
+    "clock".  :meth:`split` fails if a phase was never called, if a
+    counted kernel launched between the wrapped calls (a call the
+    wrappers miss), or if more than UNTIMED_SHARE of the epoch's wall is
+    left untimed: the window's edges and the waits of calls that found
+    the stream busy (device work queued by code the wrappers miss).  The
+    path is unchanged; the synchronisation only ends each phase where the
+    host would wait anyway at the next one's first read."""
 
     SEQUENCE = (("recurrent", "rollout_rnn", "rollout"),
                 ("recurrent", "compute_values_rnn", "values + GAE"),
@@ -2193,17 +2297,11 @@ class PhaseClock:
     # a solve: the fits, then each epoch's evaluation and its draws
     MLP_SOLVE = MLP + (("ppo", "evaluate", "evaluation"),
                        ("ppo", "draw_eval", "draws"))
-    # the untimed rest of a recall_xl epoch read 6-8 ms of 7-10 s (0.1%);
-    # of a REACHER_REF epoch (10 fits) 0.63% with the row draws untimed,
-    # about half of it the draws, which MLP times as a phase of their own;
-    # with K3 and K4 sharded over a cluster that epoch fell to 0.51-0.53 s
-    # and its untimed 6-9 ms passed 1%: MLP also times the fit's row buffer
-    # (under "GAE"), the clock's bookkeeping (~60 calls an epoch, each a
-    # stream query and ~50 counters read and added) is timed apart, and
-    # the callers build the clock, collect garbage and read the epoch's
-    # metrics outside the window; the rest, 2-5 ms an epoch between its
-    # phases (0.4-0.9% by host speed), is the host's own, and no call
-    # found the stream busy (a run with each call logged)
+    # the host's code between the phases was once left untimed and held to
+    # this share: a REACHER_REF epoch (10 fits, 0.51-0.54 s) read 2-6 ms of
+    # it by host speed, past 1% on slow hosts with no call finding the
+    # stream busy; it is timed now, and a call the wrappers miss shows by
+    # its launches or by its wait
     UNTIMED_SHARE = 0.01
 
     def __init__(self, counters, targets=SEQUENCE):
@@ -2215,8 +2313,20 @@ class PhaseClock:
         self.launches = {ph: {c.kernel: 0 for c in counters}
                          for ph in self.phases}
         self.own = 0.0      # the bookkeeping's seconds
+        self.host = 0.0     # the seconds between the wrapped calls
+        self.stray = {}     # {kernel: launches between the wrapped calls}
         self.busy = 0       # calls that found the stream busy
+        self.mark = None    # (time, counts) where the last call ended
         self.saved = []
+
+    def gap(self, t, counts):
+        """Time the host's code since the last mark and hold its launches
+        to none."""
+        t_mark, n_mark = self.mark
+        self.host += t - t_mark
+        for c, n, m in zip(self.counters, counts, n_mark):
+            if n != m:
+                self.stray[c.kernel] = self.stray.get(c.kernel, 0) + n - m
 
     def wrap(self, mod, name, phase):
         import functools
@@ -2228,13 +2338,14 @@ class PhaseClock:
         @functools.wraps(fn)
         def timed(*a, **kw):
             c0 = time.perf_counter()
+            n0 = [c.n for c in self.counters]
+            self.gap(c0, n0)
             if not torch.cuda.current_stream().query():
                 # device work queued by code the wrappers miss: the wait
                 # for it stays untimed
                 self.busy += 1
                 torch.cuda.synchronize()
                 c0 = time.perf_counter()
-            n0 = [c.n for c in self.counters]
             t0 = time.perf_counter()
             try:
                 return fn(*a, **kw)
@@ -2244,44 +2355,55 @@ class PhaseClock:
                 self.t[phase] += t1 - t0
                 self.calls[phase] += 1
                 launches = self.launches[phase]
-                for c, n in zip(self.counters, n0):
-                    launches[c.kernel] += c.n - n
-                self.own += (t0 - c0) + (time.perf_counter() - t1)
+                n1 = [c.n for c in self.counters]
+                for c, n, m in zip(self.counters, n0, n1):
+                    launches[c.kernel] += m - n
+                t2 = time.perf_counter()
+                self.own += (t0 - c0) + (t2 - t1)
+                self.mark = (t2, n1)
 
         self.saved.append((mod, name, fn))
         setattr(mod, name, timed)
 
     def __enter__(self):
+        t0 = time.perf_counter()
         from ppoc_tpu_torch.algo import ppo, recurrent
         from ppoc_tpu_torch.data import buffer
 
-        t0 = time.perf_counter()
         mods = {"ppo": ppo, "recurrent": recurrent, "buffer": buffer}
         for mod, name, phase in self.targets:
             self.wrap(mods[mod], name, phase)
-        self.own += time.perf_counter() - t0
+        n = [c.n for c in self.counters]
+        t1 = time.perf_counter()
+        self.own += t1 - t0
+        self.mark = (t1, n)
         return self
 
     def __exit__(self, *exc):
         t0 = time.perf_counter()
+        self.gap(t0, [c.n for c in self.counters])
         for mod, name, fn in reversed(self.saved):
             setattr(mod, name, fn)
         self.own += time.perf_counter() - t0
 
     def split(self, wall: float):
-        """{phase: seconds} plus "clock" (the bookkeeping) and "untimed",
-        checked against the epoch's ``wall``."""
+        """{phase: seconds} plus "host" (between the calls), "clock" (the
+        bookkeeping) and "untimed", checked against the epoch's ``wall``."""
         if not all(self.calls.values()):
             raise AssertionError(f"a phase of the epoch was never timed: "
                                  f"calls {self.calls}")
-        untimed = wall - sum(self.t.values()) - self.own
+        if self.stray:
+            raise AssertionError(f"kernels launched between the wrapped "
+                                 f"calls: {self.stray}")
+        untimed = wall - sum(self.t.values()) - self.host - self.own
         if not 0.0 <= untimed <= self.UNTIMED_SHARE * wall:
             raise AssertionError(
-                f"the phases {self.t} and the clock's {self.own:.3f} s leave "
-                f"{untimed:.3f} s of the epoch's {wall:.3f} s untimed (limit "
+                f"the phases {self.t}, the host's {self.host:.4f} s between "
+                f"them and the clock's {self.own:.4f} s leave {untimed:.4f} s "
+                f"of the epoch's {wall:.4f} s untimed (limit "
                 f"{self.UNTIMED_SHARE:.0%}; {self.busy} calls found the "
                 f"stream busy)")
-        return dict(self.t, clock=self.own, untimed=untimed)
+        return dict(self.t, host=self.host, clock=self.own, untimed=untimed)
 
 
 def recall_xl_path(dev, counters, config=None, names=K7_NAMES,
@@ -2414,6 +2536,12 @@ def attention_phases(dev, counters, record):
     header("[K7 flash attention: forward, dq, dk/dv against the plain "
           "version]", flush=True)
     runs = check_flash_all(dev)
+    header("[K7 f32's rounding against float64, beside the plain version's "
+           "and a one-term TF32 control]")
+    for key in ("recall_xl minibatch (T 1024, B 4, H 4, hd 8), rollout "
+                "episodes", "X-ray (T 2048, B 16, H 8, hd 64), p_done 0.02"):
+        case, rel, H, _, _ = runs[key]
+        check_flash_lean(key, case, rel, H)
     header("[apply_seq through K7 against the materialised core, recall_xl "
           "widths]", flush=True)
     seq_err = check_apply_seq(dev)
@@ -2432,6 +2560,8 @@ def attention_phases(dev, counters, record):
     for key, path, shape in shapes:
         case, rel, H, errs, times = runs[key]
         bounds, pairs = flash_bounds(case, rel, H)
+        for name, tf32 in zip(K7_NAMES, flash_tf32_bounds(pairs, shape[3])):
+            times[name]["tf32x3_bound_ms"] = tf32
         value_pass = "value pass" in key
         for i, name in enumerate(("flash_fwd", "flash_bwd_dq",
                                   "flash_bwd_dkv")):
@@ -2447,10 +2577,10 @@ def attention_phases(dev, counters, record):
     case, rel, H, errs, times = runs[
         "X-ray (T 2048, B 16, H 8, hd 64), p_done 0.02"]
     bounds, pairs = flash_bounds(case, rel, H)
+    tf32 = flash_tf32_bounds(pairs, case[0].shape[2])
     xray = {name: dict(times[name], bound_ms=bounds[i][0],
-                       bound_by=bounds[i][1])
-            for i, name in enumerate(("flash_fwd", "flash_bwd_dq",
-                                      "flash_bwd_dkv"))}
+                       bound_by=bounds[i][1], tf32x3_bound_ms=tf32[i])
+            for i, name in enumerate(K7_NAMES)}
     print(f"  K7 at the X-ray shape (T 2048, B 16, H 8, hd 64, {pairs} valid "
           f"pairs; not on the path): {json.dumps(xray)}", flush=True)
     print(f"  apply_seq through K7 against the plain core, max |diff| "
@@ -2468,7 +2598,7 @@ REACHER = dict(env="reacher", n_envs=4096, rollout_len=150,
                minibatch_size=16384, fits_per_epoch=1, hidden=(256, 256),
                eval_envs=256, eval_len=150, shuffle_block=4096,
                kernel_backend="pallas")
-REACHER_EPOCHS = 5
+REACHER_EPOCHS = 3
 # eval R must rise by more than this: the JAX package's bar
 # (tests/test_envs.py:209-223)
 REACHER_GAIN = 5.0
@@ -3838,7 +3968,7 @@ def reacher_bf16_path(dev, counters):
 def bf16_phases(dev, counters, record):
     """The bf16 backend: K7's bf16 variant against its plain versions at
     every shape, apply_seq "bf16" through it against the plain bf16 core,
-    RECALL_XL_BF16 (2 epochs by phase, every K7 launch the bf16 variant),
+    RECALL_XL_BF16 (1 epoch by phase, every K7 launch the bf16 variant),
     the bf16 product check and REACHER_BF16 (3 epochs by phase); records
     the three K7 bf16 rows."""
     header("[K7 bf16 variant: forward, dq, dk/dv against their plain "
@@ -3914,8 +4044,8 @@ def bf16_phases(dev, counters, record):
 
 # the draws of the phases' row streams (10 value and 4 policy epochs of 37
 # minibatches in blocks of 4096): the main path runs on the first, every
-# distance check on each
-BIGMB_SEEDS = (8, 9, 10)
+# distance check on each (the readings on streams 8-12 set the limits below)
+BIGMB_SEEDS = (8, 9)
 # The rounding points, held at one step.  The kernel's state after one step
 # against its plain version summing in the kernel's own order (row tiles of
 # the kernel's rows a block, in block order), leaf by leaf (each W and b of
@@ -4394,7 +4524,7 @@ def cluster_resources(kernel: str = "cluster") -> dict:
     """{"value" | "policy" | "categorical": "N registers, S B spill
     stores, L B spill loads"} of the three kinds of the cluster kernel
     (csrc/update_cluster.cu), or with ``kernel`` "shard" of the sharded
-    one (csrc/update_shard.cu; "value spilled", ... for the instances with
+    one (csrc/update_shard.cuh; "value spilled", ... for the instances with
     the weights in global memory), from the build's nvcc.log (the
     compiler's -Xptxas -v report)."""
     import re
@@ -4603,13 +4733,15 @@ def main() -> int:
             results[-1].update(tile=times["tile"], blocks=times["blocks"])
             tile = f", tile {times['tile']} ({times['blocks']} blocks)"
         lib = "" if library is None else f", library {library:.4f} ms"
+        # K5's and K7 f32's products run on the tensor cores as 3xTF32
+        tf32 = times.get("tf32x3_bound_ms")
         if name.startswith("mlp_"):
-            # K5's products run on the tensor cores as 3xTF32
             ops = (2 if "forward" in name else 4) * shape[0] * products(
                 shape[1:])
-            results[-1]["tf32x3_bound_ms"] = 1e3 * 3 * ops / PEAK_TF32
-            lib += (f"; 3xTF32 bound "
-                    f"{results[-1]['tf32x3_bound_ms']:.4f} ms")
+            tf32 = 1e3 * 3 * ops / PEAK_TF32
+        if tf32 is not None:
+            results[-1]["tf32x3_bound_ms"] = tf32
+            lib += f"; 3xTF32 bound {tf32:.4f} ms"
         print(f"  {name} ({path}, {shape}{tile}): device time kernel "
               f"{times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms"
               f"{lib}; bound {bound[0]:.4f} ms ({bound[1]}); launches "
@@ -4733,7 +4865,7 @@ def main() -> int:
         tcfg, tr.state, tr.env, dev)
     t1_bound = rollout_bound(widths, widths, raw)
     t1m_bound = rollout_bound(widths, None, raw_m)
-    header(f"[K2 at {T} x {E}: the global-memory branch]", flush=True)
+    header(f"[K2 at {T} x {E}: past one block, a cluster]", flush=True)
     adv, tgt, t2_err, t2_t = check_gae(tcfg, raw, dev)
     header(f"[K5 mlp_forward at {mb} and {tcfg.eval_envs} rows, widths "
           f"{widths}]", flush=True)

@@ -26,30 +26,42 @@
 // valid.  It is a range test, not a use of the ids rising with t: with rel
 // -1 the key side comes from another window, and the test holds for any
 // ids.  A skipped tile adds exactly nothing (the forward's m2 = m, alpha =
-// exp(0) = 1 and p = 0; every backward term fmaf(0, x, acc) = acc), so the
-// skip changes no bit of either variant.  The flags are marked a window of
-// WIN tiles at a time into shared memory, each warp reducing a tile's ids
-// with __reduce_min/max_sync, so the whole block takes or skips a tile
-// together.  `cuda_attn.visited_tiles` is the same rule in Python.  Blocks
-// are launched heaviest first: for the forward and dq the last query tiles
-// (they see the most keys), for dk/dv the first key tiles, each tile of
-// every (batch, head) row before the next lighter tile.  No atomics: every
-// output element is written by one thread in a fixed order, so results are
-// the same bit for bit from call to call.
+// exp(0) = 1 and p = 0; every backward term adds 0), so the plain
+// versions, which visit every tile, compute the same function.  The flags
+// are marked a window of tiles at a time into shared memory, each warp
+// reducing a tile's ids with __reduce_min/max_sync, so the whole block
+// takes or skips a tile together.  `cuda_attn.visited_tiles` is the same
+// rule in Python.  Blocks are launched heaviest first: for the forward and
+// dq the last query tiles (they see the most keys), for dk/dv the first key
+// tiles, each tile of every (batch, head) row before the next lighter tile.
+// No atomics: every output element is written by one thread from sums in a
+// fixed order, so results are the same bit for bit from call to call.
 //
 // The f32 variant (`ppoc_flash_*`).  What bounds it on the card: at the
 // recall_xl shapes (hd 8, T 1024) the inputs are a few MB, so the bound is
 // the FP32 operations over the valid pairs of the causal triangle (about
-// 4 hd flops a pair forward, 6 hd for dq, 8 hd for dk/dv).  It runs them as
-// scalar FP32 in registers (TF32 tensor cores would leave its float32
-// parity).  Each thread owns one row (or, for hd 32 and 64, a group of 2
-// or 4 neighbouring lanes owns one row, each lane holding every TPR-th
-// dimension, and the dot products are summed with warp shuffles), so the
-// row's q, accumulators and statistics live in registers and nothing of
-// the [T, T] score plane is ever stored.  One block takes ROWS rows; the
-// other side's tile is staged in shared memory, where every row reads the
-// same address (a broadcast).  The forward's online softmax rescales once
-// per CHUNK keys.
+// 4 hd flops a pair forward, 6 hd for dq, 8 hd for dk/dv); under that,
+// latency: a block's walk over the other side's tiles is a chain of loads,
+// products and exponentials.  What the design does about it: every product
+// runs on the tensor cores as 3xTF32 mma.sync m16n8k8 (mma.cuh: each
+// operand split into two tf32 values, a k-step's three mmas formed from
+// zero and added in float32), so the products keep float32 accuracy (f32
+// means f32; one-term TF32 would not).  A warp owns 16 rows (F32_RG = 2
+// row groups: ROWS = 32 own rows a block) and holds S, P and its
+// accumulators in registers; the accumulators of one product are the A
+// operand of the next without a shuffle: an m16n8k8 accumulator holds
+// columns (2t, 2t + 1) where the A operand wants (t, t + 4), so each
+// k-step takes its 8 columns in the order 0, 2, 4, 6, 1, 3, 5, 7 and reads
+// B's rows in that order too (the sum over k is the same sum).  Staged
+// rows are hd + 4 floats apart, so both the score product's B reads (8
+// rows, 4 columns) and the reordered reads (rows 2t and 2t + 1) meet 32
+// distinct banks.  The key walk (the query walk for dk/dv) is split over
+// F32<HD>::KS warp groups: the visited tiles are dealt to them in turn,
+// each group double-buffers its own tiles with cp.async (zero-filled past
+// T; one buffer at hd 64) behind a named barrier of its own, so the
+// heaviest block's walk is KS times shorter; the groups' partial (m, l,
+// acc) (the forward) or sums (dq, dk, dv) are merged through shared memory
+// in group order.  The forward rescales once per key tile.
 //
 // The bf16 variant (`ppoc_flash_*_bf16`, pallas_attn.flash_mha with
 // compute_dtype=bfloat16).  q, k, v and dout are bf16, every score and sum
@@ -91,42 +103,17 @@ namespace {
 using namespace ppoc;
 
 constexpr float NEG = -1e9f;   // pallas_attn.NEG
-constexpr int ROWS = 64;       // f32: query (or key) rows per block
 constexpr int TILE = 64;       // rows of the other side per tile
-constexpr int CHUNK = 16;      // f32: keys per online-softmax rescale
-constexpr int WIN = 1024;      // tiles whose visit flags a block marks at once
+constexpr int WIN = 256;       // tiles a block lists at once (list_visits)
 constexpr unsigned FULL = 0xffffffffu;
+// f32: row groups of 16 a block (cuda_attn.ROWS = 16 F32_RG own rows)
+constexpr int F32_RG = 2;
+constexpr int ROWS = 16 * F32_RG;
 // bf16: warps of 16 rows a block (4 was faster than 1 or 2 at 7 of the 9
 // timed entries, PERF.md); cuda_attn.BF16_ROWS is 16 of them
 constexpr int BF16_WARPS = 4;
 
 using bf16 = __nv_bfloat16;
-
-template <int HD>
-struct Shape {
-  static constexpr int TPR = HD <= 16 ? 1 : HD / 16;   // lanes per row
-  static constexpr int DPT = HD / TPR;                  // dims per lane
-  static constexpr int THREADS = ROWS * TPR;
-};
-
-template <int TPR>
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int o = TPR / 2; o > 0; o >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Copies rows [r0, r0 + TILE) of a [T, HD] matrix into `dst`, zeros past T.
-template <int HD>
-__device__ __forceinline__ void load_tile(float (*dst)[HD],
-                                          const float* __restrict__ src,
-                                          int r0, int T) {
-  for (int i = threadIdx.x; i < TILE * HD; i += blockDim.x) {
-    const int r = i / HD, d = i % HD;
-    dst[r][d] = r0 + r < T ? src[(size_t)(r0 + r) * HD + d] : 0.0f;
-  }
-}
 
 // --- the tile skip -------------------------------------------------------
 
@@ -141,298 +128,61 @@ __device__ __forceinline__ void id_range(const int* __restrict__ e, int r0,
                                    c < r1 ? ec : INT_MIN));
 }
 
-// Which of the other side's tiles the block visits.  Tile j covers rows
-// [base + j TILE, base + (j + 1) TILE) of e (the other side's ids), cut at
-// T; the block's own rows carry ids in [lo, hi]; n tiles are in the loop.
-// Every thread of the block asks for each j in rising order: at the start
-// of each window of WIN tiles the warps mark the window's tiles in `flag`
-// (shared memory), between two barriers.
-struct Visit {
-  unsigned char* flag;
-  const int* e;
-  int T, base, n, lo, hi;
-
-  __device__ bool operator()(int j) const {
-    if (j % WIN == 0) {
-      __syncthreads();   // the previous window's flags are no longer read
-      const int j1 = min(n, j + WIN);
-      for (int i = j + (int)(threadIdx.x >> 5); i < j1;
-           i += (int)(blockDim.x >> 5)) {
-        const int r0 = base + i * TILE;
-        int tlo, thi;
-        id_range(e, r0, min(T, r0 + TILE), tlo, thi);
-        if ((threadIdx.x & 31) == 0) flag[i - j] = tlo <= hi && thi >= lo;
-      }
-      __syncthreads();
+// Which of the other side's tiles the block visits, a window of them at
+// a time.  Tile j covers rows [base + j TILE, base + (j + 1) TILE) of e
+// (the other side's ids), cut at T; the block's own rows carry ids in
+// [lo, hi].  The visited tiles of the window [j0, j1) are listed in
+// rising order into `list` (their count into *count) by every thread of
+// the block, between three barriers.  A warp marks every nw-th tile, the
+// ids of LB tiles loaded together before their reductions.
+__device__ __forceinline__ void list_visits(int* list, unsigned char* flag,
+                                            int* count, const int* e, int T,
+                                            int base, int j0, int j1, int lo,
+                                            int hi) {
+  constexpr int LB = 4;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = (int)(blockDim.x >> 5);
+  __syncthreads();   // the last window's list is no longer read
+  for (int i0 = j0 + warp; i0 < j1; i0 += LB * nw) {
+    int id[LB][2];
+    bool ok[LB][2];
+#pragma unroll
+    for (int u = 0; u < LB; ++u) {
+      const int r0 = base + (i0 + u * nw) * TILE, r1 = min(T, r0 + TILE);
+      const int a = r0 + lane, c = a + 32;
+      const bool in = i0 + u * nw < j1;
+      ok[u][0] = in && a < r1;
+      ok[u][1] = in && c < r1;
+      id[u][0] = ok[u][0] ? e[a] : 0;
+      id[u][1] = ok[u][1] ? e[c] : 0;
     }
-    return flag[j % WIN] != 0;
-  }
-
-  // the first visited tile after j, or n
-  __device__ int next(int j) const {
-    while (++j < n && !(*this)(j)) {
-    }
-    return j;
-  }
-};
-
-// --- the f32 variant -----------------------------------------------------
-
-template <int HD>
-__global__ void __launch_bounds__(Shape<HD>::THREADS)
-flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, const int* __restrict__ ep_q,
-          const int* __restrict__ ep_k, float* __restrict__ out,
-          float* __restrict__ lse, int BH, int H, int T, int rel,
-          float scale) {
-  constexpr int TPR = Shape<HD>::TPR, DPT = Shape<HD>::DPT;
-  __shared__ float ks[TILE][HD];
-  __shared__ float vs[TILE][HD];
-  __shared__ int eks[TILE];
-  __shared__ unsigned char flag[WIN];
-  // the last query tiles first: they see the most keys
-  const int blk = (T + ROWS - 1) / ROWS - 1 - (int)blockIdx.x / BH;
-  const int bh = blockIdx.x % BH, b = bh / H;
-  const int row = threadIdx.x / TPR, g = threadIdx.x % TPR;
-  const int t = blk * ROWS + row;
-  const bool live = t < T;
-  const float* qb = q + (size_t)bh * T * HD;
-  const float* kb = k + (size_t)bh * T * HD;
-  const float* vb = v + (size_t)bh * T * HD;
-  float qr[DPT], acc[DPT];
 #pragma unroll
-  for (int i = 0; i < DPT; ++i) {
-    qr[i] = live ? qb[(size_t)t * HD + i * TPR + g] : 0.0f;
-    acc[i] = 0.0f;
-  }
-  const int eq = live ? ep_q[(size_t)b * T + t] : 0;
-  float m = NEG, l = 0.0f;
-  const int n_keys = rel < 0 ? T : rel == 0 ? min(T, (blk + 1) * ROWS) : 0;
-  int lo, hi;
-  id_range(ep_q + (size_t)b * T, blk * ROWS, min(T, (blk + 1) * ROWS), lo,
-           hi);
-  const Visit visit{flag, ep_k + (size_t)b * T, T, 0,
-                    (n_keys + TILE - 1) / TILE, lo, hi};
-  for (int jt = 0; jt < visit.n; ++jt) {
-    if (!visit(jt)) continue;
-    const int k0 = jt * TILE;
-    __syncthreads();   // the previous tile is no longer read
-    load_tile<HD>(ks, kb, k0, T);
-    load_tile<HD>(vs, vb, k0, T);
-    for (int i = threadIdx.x; i < TILE; i += blockDim.x)
-      eks[i] = k0 + i < T ? ep_k[(size_t)b * T + k0 + i] : INT_MIN;
-    __syncthreads();
-    for (int c0 = 0; c0 < TILE; c0 += CHUNK) {
-      float sc[CHUNK];
-      unsigned ok = 0u;
-      float cmax = NEG;
-#pragma unroll
-      for (int j = 0; j < CHUNK; ++j) {
-        const int kk = c0 + j, s = k0 + kk;
-        float dot = 0.0f;
-#pragma unroll
-        for (int i = 0; i < DPT; ++i)
-          dot = fmaf(qr[i], ks[kk][i * TPR + g], dot);
-        dot = group_sum<TPR>(dot);
-        const bool valid = live && s < T && (rel < 0 || s <= t) &&
-                           eks[kk] == eq;
-        sc[j] = valid ? dot * scale : NEG;
-        ok |= (valid ? 1u : 0u) << j;
-        cmax = fmaxf(cmax, sc[j]);
-      }
-      const float m2 = fmaxf(m, cmax);
-      const float alpha = expf(m - m2);
-      float psum = 0.0f;
-#pragma unroll
-      for (int i = 0; i < DPT; ++i) acc[i] *= alpha;
-#pragma unroll
-      for (int j = 0; j < CHUNK; ++j) {
-        // invalid lanes add exactly 0: a row with no valid key would
-        // otherwise get exp(NEG - NEG) = 1 (pallas_attn.py:143-147)
-        const float p = (ok >> j) & 1u ? expf(sc[j] - m2) : 0.0f;
-        psum += p;
-#pragma unroll
-        for (int i = 0; i < DPT; ++i)
-          acc[i] = fmaf(p, vs[c0 + j][i * TPR + g], acc[i]);
-      }
-      l = l * alpha + psum;
-      m = m2;
+    for (int u = 0; u < LB; ++u) {
+      const int tlo = __reduce_min_sync(
+          FULL, min(ok[u][0] ? id[u][0] : INT_MAX,
+                    ok[u][1] ? id[u][1] : INT_MAX));
+      const int thi = __reduce_max_sync(
+          FULL, max(ok[u][0] ? id[u][0] : INT_MIN,
+                    ok[u][1] ? id[u][1] : INT_MIN));
+      if (lane == 0 && i0 + u * nw < j1)
+        flag[i0 + u * nw - j0] = tlo <= hi && thi >= lo;
     }
   }
-  if (!live) return;
-  const float l_safe = l == 0.0f ? 1.0f : l;
-  float* ob = out + ((size_t)bh * T + t) * HD;
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) ob[i * TPR + g] = acc[i] / l_safe;
-  if (g == 0) lse[(size_t)bh * T + t] = m + logf(l_safe);
+  __syncthreads();
+  if (warp == 0) {
+    int n = 0;
+    for (int b = 0; b < j1 - j0; b += 32) {
+      const bool f = b + lane < j1 - j0 && flag[b + lane];
+      const unsigned m = __ballot_sync(FULL, f);
+      if (f) list[n + __popc(m & ((1u << lane) - 1u))] = j0 + b + lane;
+      n += __popc(m);
+    }
+    if (lane == 0) *count = n;
+  }
+  __syncthreads();
 }
 
-template <int HD>
-__global__ void __launch_bounds__(Shape<HD>::THREADS)
-flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, const int* __restrict__ ep_q,
-             const int* __restrict__ ep_k, const float* __restrict__ dout,
-             const float* __restrict__ dsum, const float* __restrict__ lse,
-             float* __restrict__ dq, int BH, int H, int T, int rel,
-             float scale) {
-  constexpr int TPR = Shape<HD>::TPR, DPT = Shape<HD>::DPT;
-  __shared__ float ks[TILE][HD];
-  __shared__ float vs[TILE][HD];
-  __shared__ int eks[TILE];
-  __shared__ unsigned char flag[WIN];
-  const int blk = (T + ROWS - 1) / ROWS - 1 - (int)blockIdx.x / BH;
-  const int bh = blockIdx.x % BH, b = bh / H;
-  const int row = threadIdx.x / TPR, g = threadIdx.x % TPR;
-  const int t = blk * ROWS + row;
-  const bool live = t < T;
-  const size_t rows = (size_t)bh * T;
-  const float* kb = k + rows * HD;
-  const float* vb = v + rows * HD;
-  float qr[DPT], dor[DPT], acc[DPT];
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) {
-    qr[i] = live ? q[(rows + t) * HD + i * TPR + g] : 0.0f;
-    dor[i] = live ? dout[(rows + t) * HD + i * TPR + g] : 0.0f;
-    acc[i] = 0.0f;
-  }
-  const int eq = live ? ep_q[(size_t)b * T + t] : 0;
-  const float lse_t = live ? lse[rows + t] : 0.0f;
-  const float dsum_t = live ? dsum[rows + t] : 0.0f;
-  const int n_keys = rel < 0 ? T : rel == 0 ? min(T, (blk + 1) * ROWS) : 0;
-  int lo, hi;
-  id_range(ep_q + (size_t)b * T, blk * ROWS, min(T, (blk + 1) * ROWS), lo,
-           hi);
-  const Visit visit{flag, ep_k + (size_t)b * T, T, 0,
-                    (n_keys + TILE - 1) / TILE, lo, hi};
-  for (int jt = 0; jt < visit.n; ++jt) {
-    if (!visit(jt)) continue;
-    const int k0 = jt * TILE;
-    __syncthreads();
-    load_tile<HD>(ks, kb, k0, T);
-    load_tile<HD>(vs, vb, k0, T);
-    for (int i = threadIdx.x; i < TILE; i += blockDim.x)
-      eks[i] = k0 + i < T ? ep_k[(size_t)b * T + k0 + i] : INT_MIN;
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < TILE; ++kk) {
-      const int s = k0 + kk;
-      float dot = 0.0f, dp = 0.0f;
-#pragma unroll
-      for (int i = 0; i < DPT; ++i) {
-        dot = fmaf(qr[i], ks[kk][i * TPR + g], dot);
-        dp = fmaf(dor[i], vs[kk][i * TPR + g], dp);
-      }
-      dot = group_sum<TPR>(dot);
-      dp = group_sum<TPR>(dp);
-      const bool valid = live && s < T && (rel < 0 || s <= t) &&
-                         eks[kk] == eq;
-      const float w = valid ? expf(dot * scale - lse_t) : 0.0f;
-      const float ds = w * (dp - dsum_t) * scale;
-#pragma unroll
-      for (int i = 0; i < DPT; ++i)
-        acc[i] = fmaf(ds, ks[kk][i * TPR + g], acc[i]);
-    }
-  }
-  if (!live) return;
-#pragma unroll
-  for (int i = 0; i < DPT; ++i)
-    dq[(rows + t) * HD + i * TPR + g] = acc[i];
-}
-
-template <int HD>
-__global__ void __launch_bounds__(Shape<HD>::THREADS)
-flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const int* __restrict__ ep_q,
-              const int* __restrict__ ep_k, const float* __restrict__ dout,
-              const float* __restrict__ dsum, const float* __restrict__ lse,
-              float* __restrict__ dk, float* __restrict__ dv, int BH, int H,
-              int T, int rel, float scale) {
-  constexpr int TPR = Shape<HD>::TPR, DPT = Shape<HD>::DPT;
-  __shared__ float qs[TILE][HD];
-  __shared__ float dos[TILE][HD];
-  __shared__ float lses[TILE];
-  __shared__ float dsums[TILE];
-  __shared__ int eqs[TILE];
-  __shared__ unsigned char flag[WIN];
-  // the first key tiles first: the most queries see them
-  const int blk = (int)blockIdx.x / BH;
-  const int bh = blockIdx.x % BH, b = bh / H;
-  const int row = threadIdx.x / TPR, g = threadIdx.x % TPR;
-  const int s = blk * ROWS + row;              // this thread's key
-  const bool live = s < T;
-  const size_t rows = (size_t)bh * T;
-  const float* qb = q + rows * HD;
-  const float* dob = dout + rows * HD;
-  float kr[DPT], vr[DPT], dka[DPT], dva[DPT];
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) {
-    kr[i] = live ? k[(rows + s) * HD + i * TPR + g] : 0.0f;
-    vr[i] = live ? v[(rows + s) * HD + i * TPR + g] : 0.0f;
-    dka[i] = 0.0f;
-    dva[i] = 0.0f;
-  }
-  const int ek = live ? ep_k[(size_t)b * T + s] : 0;
-  // the first query that can see a key of this tile: every query before
-  // the block, the tile's first key itself on the diagonal, none after
-  const int q_start = rel < 0 ? 0 : rel == 0 ? blk * ROWS : T;
-  int lo, hi;
-  id_range(ep_k + (size_t)b * T, blk * ROWS, min(T, (blk + 1) * ROWS), lo,
-           hi);
-  const Visit visit{flag, ep_q + (size_t)b * T, T, q_start,
-                    (T - q_start + TILE - 1) / TILE, lo, hi};
-  for (int jt = 0; jt < visit.n; ++jt) {
-    if (!visit(jt)) continue;
-    const int q0 = q_start + jt * TILE;
-    __syncthreads();
-    load_tile<HD>(qs, qb, q0, T);
-    load_tile<HD>(dos, dob, q0, T);
-    for (int i = threadIdx.x; i < TILE; i += blockDim.x) {
-      const bool in = q0 + i < T;
-      lses[i] = in ? lse[rows + q0 + i] : 0.0f;
-      dsums[i] = in ? dsum[rows + q0 + i] : 0.0f;
-      eqs[i] = in ? ep_q[(size_t)b * T + q0 + i] : INT_MIN;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int qq = 0; qq < TILE; ++qq) {
-      const int t = q0 + qq;
-      float dot = 0.0f, dp = 0.0f;
-#pragma unroll
-      for (int i = 0; i < DPT; ++i) {
-        dot = fmaf(kr[i], qs[qq][i * TPR + g], dot);
-        dp = fmaf(vr[i], dos[qq][i * TPR + g], dp);
-      }
-      dot = group_sum<TPR>(dot);
-      dp = group_sum<TPR>(dp);
-      const bool valid = live && t < T && (rel < 0 || s <= t) &&
-                         eqs[qq] == ek;
-      const float w = valid ? expf(dot * scale - lses[qq]) : 0.0f;
-      const float ds = w * (dp - dsums[qq]) * scale;
-#pragma unroll
-      for (int i = 0; i < DPT; ++i) {
-        dka[i] = fmaf(ds, qs[qq][i * TPR + g], dka[i]);
-        dva[i] = fmaf(w, dos[qq][i * TPR + g], dva[i]);
-      }
-    }
-  }
-  if (!live) return;
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) {
-    dk[(rows + s) * HD + i * TPR + g] = dka[i];
-    dv[(rows + s) * HD + i * TPR + g] = dva[i];
-  }
-}
-
-// --- the bf16 variant: warp tiles on the tensor cores ---------------------
-
-template <int HD>
-struct Bf {
-  static constexpr int LD = HD == 8 ? 8 : HD + 8;    // a staged row, bf16
-  static constexpr int KD = HD == 8 ? 1 : HD / 16;   // k-steps over hd
-  static constexpr int ND = HD / 8;                  // n-tiles of hd columns
-  static constexpr int ROWS = 16 * BF16_WARPS;       // own rows a block
-  static constexpr int THREADS = 32 * BF16_WARPS;
-};
+// --- cp.async ------------------------------------------------------------
 
 // cp.async of 16 or 4 bytes into shared memory, zeros where !ok
 __device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
@@ -452,6 +202,633 @@ __device__ __forceinline__ void cp_commit() {
 __device__ __forceinline__ void cp_wait_all_but_newest() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// --- the f32 variant: 3xTF32 warp tiles on the tensor cores ---------------
+
+// The launch at head dim HD (mirrored by ops/cuda_attn.py `f32_plan`).
+template <int HD>
+struct F32 {
+  static constexpr int LD = HD + 4;                // a staged row, floats
+  static constexpr int KD = HD / 8;                // k-steps, n-tiles over hd
+  static constexpr int KS = HD <= 16 ? 4 : 2;      // warp groups: key splits
+  static constexpr int NSTAGE = HD == 64 ? 1 : 2;  // tile buffers a group
+  static constexpr int GT = 32 * F32_RG;           // threads a group
+  static constexpr int THREADS = GT * KS;
+  // a buffer: two [TILE][LD] tiles, then three TILE-long vectors
+  static constexpr int STAGE = 2 * TILE * LD + 3 * TILE;   // floats
+  static constexpr int SMEM = 4 * KS * NSTAGE * STAGE;     // dynamic bytes
+  // n-tiles of the other side's rows a sub-step of the backward, fewer at
+  // hd 64 for registers
+  static constexpr int SUB = HD == 64 ? 2 : 4;
+};
+
+// The named barrier of warp group `id` (1 + its index) of `n` threads.
+__device__ __forceinline__ void group_bar(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Starts copying rows [r0, r0 + TILE) of a [T, HD] float matrix into dst
+// ([TILE][LD]), zeros past T: thread `gt` of a group of `n`.
+template <int HD>
+__device__ __forceinline__ void stage_f32(float* dst,
+                                          const float* __restrict__ src,
+                                          int r0, int T, int gt, int n) {
+  constexpr int CH = HD / 4;   // 16-byte pieces a row
+  for (int i = gt; i < TILE * CH; i += n) {
+    const int r = i / CH, c = i % CH;
+    const bool ok = r0 + r < T;
+    cp16(dst + r * F32<HD>::LD + 4 * c,
+         src + (size_t)(ok ? r0 + r : 0) * HD + 4 * c, ok);
+  }
+}
+
+// Starts copying TILE 4-byte values src[r0 + i] into dst, zeros past T:
+// thread `gt` of `n` (the block's, or a warp group's)
+template <typename V>
+__device__ __forceinline__ void stage_vec(V* dst, const V* __restrict__ src,
+                                          int r0, int T, int gt, int n) {
+  for (int i = gt; i < TILE; i += n) {
+    const bool ok = r0 + i < T;
+    cp4(dst + i, src + (ok ? r0 + i : 0), ok);
+  }
+}
+
+// Runs body(j, buf) over the tiles list[ks], list[ks + KS], ... (n listed)
+// with tile j copied into buffer buf by stage(j, buf): warp group ks alone,
+// behind its own barrier; with two buffers the next tile's copy is in
+// flight while body runs.
+template <int NSTAGE, int KS, typename Stage, typename Body>
+__device__ __forceinline__ void group_walk(const int* list, int n, int ks,
+                                           int gthreads, Stage stage,
+                                           Body body) {
+  if constexpr (NSTAGE == 2) {
+    int r = ks, buf = 0;
+    if (r < n) stage(list[r], 0);
+    cp_commit();
+    while (r < n) {
+      const int rn = r + KS;
+      if (rn < n) stage(list[rn], buf ^ 1);
+      cp_commit();
+      cp_wait_all_but_newest();
+      group_bar(1 + ks, gthreads);   // tile r has landed for the group
+      body(list[r], buf);
+      group_bar(1 + ks, gthreads);   // buf is free for the tile after rn
+      buf ^= 1;
+      r = rn;
+    }
+  } else {
+    for (int r = ks; r < n; r += KS) {
+      stage(list[r], 0);
+      cp_commit();
+      cp_wait_all();
+      group_bar(1 + ks, gthreads);
+      body(list[r], 0);
+      group_bar(1 + ks, gthreads);
+    }
+  }
+}
+
+// Runs body(j, buf) over the other side's tiles the block visits
+// (list_visits, WIN at a time, the block's rows' ids in [lo, hi]), warp
+// group ks of KS (gthreads threads) taking every KS-th as group_walk does.
+// Every thread of the block calls it.
+template <int NSTAGE, int KS, typename Stage, typename Body>
+__device__ __forceinline__ void walk_tiles(int* list, unsigned char* flag,
+                                           int* count, const int* e, int T,
+                                           int base, int n_tiles, int lo,
+                                           int hi, int ks, int gthreads,
+                                           Stage stage, Body body) {
+  for (int j0 = 0; j0 < n_tiles; j0 += WIN) {
+    list_visits(list, flag, count, e, T, base, j0, min(n_tiles, j0 + WIN),
+                lo, hi);
+    group_walk<NSTAGE, KS>(list, *count, ks, gthreads, stage, body);
+  }
+}
+
+// This lane's A fragments (float) of rows [r, r + 16) of a [T, HD] matrix,
+// zeros past T: k-step d holds (g, 8d + t), (g + 8, 8d + t), (g, 8d + t +
+// 4), (g + 8, 8d + t + 4), g = lane / 4, t = lane % 4.
+template <int HD>
+__device__ __forceinline__ void load_frag(float (&a)[HD / 8][4],
+                                          const float* __restrict__ x, int r,
+                                          int T, int lane) {
+  const int r1 = r + (lane >> 2), r2 = r1 + 8, c = lane & 3;
+#pragma unroll
+  for (int d = 0; d < HD / 8; ++d) {
+    a[d][0] = r1 < T ? x[(size_t)r1 * HD + 8 * d + c] : 0.0f;
+    a[d][1] = r2 < T ? x[(size_t)r2 * HD + 8 * d + c] : 0.0f;
+    a[d][2] = r1 < T ? x[(size_t)r1 * HD + 8 * d + c + 4] : 0.0f;
+    a[d][3] = r2 < T ? x[(size_t)r2 * HD + 8 * d + c + 4] : 0.0f;
+  }
+}
+
+// s[n] = A . B^T for NT n-tiles of 8 staged rows from row n0, 3xTF32: A is
+// 16 rows by hd in registers (load_frag's layout), B a staged [TILE][LD]
+// tile of rows by hd (keys, or queries), read as the col-major B operand:
+// lane (g, t) reads row n0 + 8n + g, columns 8d + t and 8d + t + 4.
+template <int HD, int NT>
+__device__ __forceinline__ void scores_f32(float (&s)[NT][4],
+                                           const float (&a)[HD / 8][4],
+                                           const float* bs, int n0,
+                                           int lane) {
+  constexpr int LD = F32<HD>::LD;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+#pragma unroll
+  for (int d = 0; d < HD / 8; ++d) {
+    uint32_t ab[4], as[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(a[d][i], ab[i], as[i]);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float* p = bs + (n0 + 8 * n + g) * LD + 8 * d + t;
+      uint32_t bb[2], bsm[2];
+      split_tf32(p[0], bb[0], bsm[0]);
+      split_tf32(p[4], bb[1], bsm[1]);
+      mma_3xtf32(s[n], ab, as, bb, bsm);
+    }
+  }
+}
+
+// o[nd] += P . bs[k0, k0 + 8 NT) over the hd / 8 n-tiles of hd columns,
+// 3xTF32: P is NT n-tiles of accumulators (16 rows by 8 NT columns), the A
+// operand as it lies: an accumulator holds columns (2t, 2t + 1) of its
+// n-tile where A's fragment takes (t, t + 4), so k-step c sums its columns
+// in the order 0, 2, 4, 6, 1, 3, 5, 7, and lane (g, t) reads B's rows
+// k0 + 8c + 2t and + 1 (column 8 nd + g): the same sum over k.
+template <int HD, int NT>
+__device__ __forceinline__ void accumulate_f32(float (&o)[HD / 8][4],
+                                               const float (&p)[NT][4],
+                                               const float* bs, int k0,
+                                               int lane) {
+  constexpr int LD = F32<HD>::LD;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int c = 0; c < NT; ++c) {
+    uint32_t ab[4], as[4];
+    split_tf32(p[c][0], ab[0], as[0]);   // (g, 2t)          as (g, t)
+    split_tf32(p[c][2], ab[1], as[1]);   // (g + 8, 2t)      as (g + 8, t)
+    split_tf32(p[c][1], ab[2], as[2]);   // (g, 2t + 1)      as (g, t + 4)
+    split_tf32(p[c][3], ab[3], as[3]);   // (g + 8, 2t + 1)  as (g + 8, t + 4)
+    const float* r = bs + (k0 + 8 * c + 2 * t) * LD + g;
+#pragma unroll
+    for (int nd = 0; nd < HD / 8; ++nd) {
+      uint32_t bb[2], bsm[2];
+      split_tf32(r[8 * nd], bb[0], bsm[0]);
+      split_tf32(r[LD + 8 * nd], bb[1], bsm[1]);
+      mma_3xtf32(o[nd], ab, as, bb, bsm);
+    }
+  }
+}
+
+// out[r] = op over this lane's 16 elements of row r of 8 n-tiles (elements
+// 2r and 2r + 1 of each), as a tree
+template <typename Op>
+__device__ __forceinline__ void row_reduce(float (&out)[2],
+                                           const float (&x)[8][4], Op op) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float y[8];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) y[n] = op(x[n][2 * r], x[n][2 * r + 1]);
+#pragma unroll
+    for (int w = 4; w > 0; w >>= 1)
+#pragma unroll
+      for (int n = 0; n < w; ++n) y[n] = op(y[n], y[n + w]);
+    out[r] = y[0];
+  }
+}
+
+// Writes this lane's part of a warp's 16 x HD float accumulator: row[r]
+// takes elements 2r and 2r + 1 of each n-tile (rows past T are not
+// written).
+template <int HD>
+__device__ __forceinline__ void store_f32(float* __restrict__ x,
+                                          const float (&o)[HD / 8][4],
+                                          const int (&row)[2], int T,
+                                          int lane) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= T) continue;
+    float* xr = x + (size_t)row[r] * HD + 2 * (lane & 3);
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<float2*>(xr + 8 * n) =
+          make_float2(o[n][2 * r], o[n][2 * r + 1]);
+  }
+}
+
+// The groups' partial sums merged into group 0's, in group order: every
+// warp of the block calls it once the walk is done; groups past 0 write
+// their NV floats a lane into the stage buffers, group 0 adds them.
+template <int KS, int NV>
+__device__ __forceinline__ void merge_sums(float* scratch, float (&x)[NV],
+                                           int ks, int rg, int lane) {
+  if constexpr (KS > 1) {
+    __syncthreads();   // every group is done with its buffers
+    if (ks > 0) {
+      float* p = scratch + ((ks - 1) * F32_RG + rg) * 32 * NV + lane;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) p[32 * i] = x[i];
+    }
+    __syncthreads();
+    if (ks == 0) {
+#pragma unroll 1
+      for (int k = 1; k < KS; ++k) {
+        const float* p = scratch + ((k - 1) * F32_RG + rg) * 32 * NV + lane;
+#pragma unroll
+        for (int i = 0; i < NV; ++i) x[i] += p[32 * i];
+      }
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(F32<HD>::THREADS)
+flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, const int* __restrict__ ep_q,
+          const int* __restrict__ ep_k, float* __restrict__ out,
+          float* __restrict__ lse, int BH, int H, int T, int rel,
+          float scale) {
+  using S = F32<HD>;
+  constexpr int LD = S::LD, KD = S::KD, KS = S::KS;
+  extern __shared__ __align__(16) float fsm[];
+  __shared__ int list[WIN];
+  __shared__ unsigned char flag[WIN];
+  __shared__ int n_list;
+  // the last query tiles first: they see the most keys
+  const int blk = (T + ROWS - 1) / ROWS - 1 - (int)blockIdx.x / BH;
+  const int bh = blockIdx.x % BH, b = bh / H;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rg = warp % F32_RG, ks = warp / F32_RG, c2 = 2 * (lane & 3);
+  const int gt = threadIdx.x - ks * S::GT;
+  const int r0 = blk * ROWS, w0 = r0 + 16 * rg;
+  const int t[2] = {w0 + (lane >> 2), w0 + (lane >> 2) + 8};   // my rows
+  const size_t base = (size_t)bh * T;
+  const int* epq = ep_q + (size_t)b * T;
+  const int* epk = ep_k + (size_t)b * T;
+  float qf[KD][4];
+  load_frag<HD>(qf, q + base * HD, w0, T, lane);
+  const int eq[2] = {t[0] < T ? epq[t[0]] : 0, t[1] < T ? epq[t[1]] : 0};
+  int lo, hi, w_id, w_hi;
+  id_range(epq, r0, min(T, r0 + ROWS), lo, hi);
+  id_range(epq, w0, min(T, w0 + 16), w_id, w_hi);   // this warp's rows
+  const bool w_one = w_id == w_hi;
+  const int n_keys = rel < 0 ? T : rel == 0 ? min(T, r0 + ROWS) : 0;
+  const int n_tiles = (n_keys + TILE - 1) / TILE;
+  float* gs = fsm + ks * S::NSTAGE * S::STAGE;   // this group's buffers
+  float o[KD][4] = {}, m[2] = {NEG, NEG}, l[2] = {0.0f, 0.0f};
+  walk_tiles<S::NSTAGE, KS>(
+      list, flag, &n_list, epk, T, 0, n_tiles, lo, hi, ks,
+      S::GT,
+      [&](int j, int buf) {
+        float* st = gs + buf * S::STAGE;
+        stage_f32<HD>(st, k + base * HD, j * TILE, T, gt, S::GT);
+        stage_f32<HD>(st + TILE * LD, v + base * HD, j * TILE, T, gt,
+                      S::GT);
+        stage_vec(reinterpret_cast<int*>(st + 2 * TILE * LD), epk,
+                      j * TILE, T, gt, S::GT);
+      },
+      [&](int j, int buf) {
+        const float* st = gs + buf * S::STAGE;
+        const int* eks = reinterpret_cast<const int*>(st + 2 * TILE * LD);
+        const int k0 = j * TILE;
+        // a tile where every pair of the warp's rows is valid (one
+        // episode over the keys and the rows, every key before every
+        // row, none past T: the path's common case) skips the per-pair
+        // test
+        const int e0 = eks[lane], e1 = eks[lane + 32];
+        const int tlo = __reduce_min_sync(FULL, min(e0, e1));
+        const int thi = __reduce_max_sync(FULL, max(e0, e1));
+        const bool full = w_one && tlo == w_id && thi == w_id &&
+                          k0 + TILE <= T && w0 + 16 <= T &&
+                          (rel < 0 || k0 + TILE <= w0 + 1);
+        float s[8][4];
+        scores_f32<HD, 8>(s, qf, st, 0, lane);
+        if (full) {
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[n][e] *= scale;
+        } else {
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            const int kk = 8 * n + c2;
+            const int2 ek = *reinterpret_cast<const int2*>(&eks[kk]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = e >> 1, sk = k0 + kk + (e & 1);
+              const bool valid = t[r] < T && sk < T &&
+                                 (rel < 0 || sk <= t[r]) &&
+                                 ((e & 1) ? ek.y : ek.x) == eq[r];
+              s[n][e] = valid ? s[n][e] * scale : NEG;
+            }
+          }
+        }
+        float cmax[2], alpha[2], psum[2];
+        row_reduce(cmax, s, [](float x, float y) { return fmaxf(x, y); });
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {   // the row's max over its quad
+          cmax[r] = fmaxf(cmax[r], __shfl_xor_sync(FULL, cmax[r], 1));
+          cmax[r] = fmaxf(cmax[r], __shfl_xor_sync(FULL, cmax[r], 2));
+          const float m2 = fmaxf(m[r], cmax[r]);
+          alpha[r] = expf(m[r] - m2);
+          m[r] = m2;
+        }
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            // an invalid pair's NEG gives exp(NEG - m2) = 0 once the
+            // row has a valid key; before that (m2 still NEG) p is set
+            // to 0, or a row with no valid key would get
+            // exp(NEG - NEG) = 1 (pallas_attn.py:143-147)
+            const float mr = m[e >> 1];
+            s[n][e] = mr == NEG ? 0.0f : expf(s[n][e] - mr);
+          }
+        row_reduce(psum, s, [](float x, float y) { return x + y; });
+#pragma unroll
+        for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + psum[r];
+#pragma unroll
+        for (int n = 0; n < KD; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+        accumulate_f32<HD, 8>(o, s, st + TILE * LD, 0, lane);
+      });
+  if constexpr (KS > 1) {
+    // the groups' (m, l, o) merged in group order: m the largest, each
+    // partial rescaled to it (exp(NEG - NEG) = 1 where no group has a
+    // valid key: then every l and o is 0)
+    constexpr int NV = 4 + 4 * KD;
+    __syncthreads();   // every group is done with its buffers
+    if (ks > 0) {
+      float* p = fsm + ((ks - 1) * F32_RG + rg) * 32 * NV + lane;
+      p[0] = m[0];
+      p[32] = m[1];
+      p[64] = l[0];
+      p[96] = l[1];
+#pragma unroll
+      for (int n = 0; n < KD; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[32 * (4 + 4 * n + e)] = o[n][e];
+    }
+    __syncthreads();
+    if (ks > 0) return;
+    float mt[2] = {m[0], m[1]};
+#pragma unroll 1
+    for (int g = 1; g < KS; ++g) {
+      const float* p = fsm + ((g - 1) * F32_RG + rg) * 32 * NV + lane;
+      mt[0] = fmaxf(mt[0], p[0]);
+      mt[1] = fmaxf(mt[1], p[32]);
+    }
+    float f[2] = {expf(m[0] - mt[0]), expf(m[1] - mt[1])};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] *= f[r];
+#pragma unroll
+    for (int n = 0; n < KD; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= f[e >> 1];
+#pragma unroll 1
+    for (int g = 1; g < KS; ++g) {
+      const float* p = fsm + ((g - 1) * F32_RG + rg) * 32 * NV + lane;
+      f[0] = expf(p[0] - mt[0]);
+      f[1] = expf(p[32] - mt[1]);
+      l[0] += p[64] * f[0];
+      l[1] += p[96] * f[1];
+#pragma unroll
+      for (int n = 0; n < KD; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          o[n][e] += p[32 * (4 + 4 * n + e)] * f[e >> 1];
+    }
+    m[0] = mt[0];
+    m[1] = mt[1];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {   // each lane summed its columns of the row
+    l[r] += __shfl_xor_sync(FULL, l[r], 1);
+    l[r] += __shfl_xor_sync(FULL, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (t[r] >= T) continue;
+    const float l_safe = l[r] == 0.0f ? 1.0f : l[r];
+    float* ob = out + (base + t[r]) * HD + c2;
+#pragma unroll
+    for (int n = 0; n < KD; ++n)
+      *reinterpret_cast<float2*>(ob + 8 * n) =
+          make_float2(o[n][2 * r] / l_safe, o[n][2 * r + 1] / l_safe);
+    if (c2 == 0) lse[base + t[r]] = m[r] + logf(l_safe);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(F32<HD>::THREADS)
+flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const int* __restrict__ ep_q,
+             const int* __restrict__ ep_k, const float* __restrict__ dout,
+             const float* __restrict__ dsum, const float* __restrict__ lse,
+             float* __restrict__ dq, int BH, int H, int T, int rel,
+             float scale) {
+  using S = F32<HD>;
+  constexpr int LD = S::LD, KD = S::KD, KS = S::KS, SUB = S::SUB;
+  extern __shared__ __align__(16) float fsm[];
+  __shared__ int list[WIN];
+  __shared__ unsigned char flag[WIN];
+  __shared__ int n_list;
+  const int blk = (T + ROWS - 1) / ROWS - 1 - (int)blockIdx.x / BH;
+  const int bh = blockIdx.x % BH, b = bh / H;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rg = warp % F32_RG, ks = warp / F32_RG, c2 = 2 * (lane & 3);
+  const int gt = threadIdx.x - ks * S::GT;
+  const int r0 = blk * ROWS, w0 = r0 + 16 * rg;
+  const int t[2] = {w0 + (lane >> 2), w0 + (lane >> 2) + 8};
+  const size_t base = (size_t)bh * T;
+  const int* epq = ep_q + (size_t)b * T;
+  const int* epk = ep_k + (size_t)b * T;
+  float qf[KD][4], df[KD][4];
+  load_frag<HD>(qf, q + base * HD, w0, T, lane);
+  load_frag<HD>(df, dout + base * HD, w0, T, lane);
+  int eq[2];
+  float lse_r[2], dsum_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool live = t[r] < T;
+    eq[r] = live ? epq[t[r]] : 0;
+    lse_r[r] = live ? lse[base + t[r]] : 0.0f;
+    dsum_r[r] = live ? dsum[base + t[r]] : 0.0f;
+  }
+  int lo, hi;
+  id_range(epq, r0, min(T, r0 + ROWS), lo, hi);
+  const int n_keys = rel < 0 ? T : rel == 0 ? min(T, r0 + ROWS) : 0;
+  const int n_tiles = (n_keys + TILE - 1) / TILE;
+  float* gs = fsm + ks * S::NSTAGE * S::STAGE;
+  float acc[KD][4] = {};
+  walk_tiles<S::NSTAGE, KS>(
+      list, flag, &n_list, epk, T, 0, n_tiles, lo, hi, ks,
+      S::GT,
+      [&](int j, int buf) {
+        float* st = gs + buf * S::STAGE;
+        stage_f32<HD>(st, k + base * HD, j * TILE, T, gt, S::GT);
+        stage_f32<HD>(st + TILE * LD, v + base * HD, j * TILE, T, gt,
+                      S::GT);
+        stage_vec(reinterpret_cast<int*>(st + 2 * TILE * LD), epk,
+                      j * TILE, T, gt, S::GT);
+      },
+      [&](int j, int buf) {
+        const float* st = gs + buf * S::STAGE;
+        const int* eks = reinterpret_cast<const int*>(st + 2 * TILE * LD);
+        const int k0 = j * TILE;
+#pragma unroll 1
+        for (int h = 0; h < 8 / SUB; ++h) {   // 8 SUB keys at a time
+          float s[SUB][4], dp[SUB][4];
+          scores_f32<HD, SUB>(s, qf, st, 8 * SUB * h, lane);
+          scores_f32<HD, SUB>(dp, df, st + TILE * LD, 8 * SUB * h, lane);
+#pragma unroll
+          for (int n = 0; n < SUB; ++n) {
+            const int kk = 8 * SUB * h + 8 * n + c2;
+            const int2 ek = *reinterpret_cast<const int2*>(&eks[kk]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = e >> 1, sk = k0 + kk + (e & 1);
+              const bool valid = t[r] < T && sk < T &&
+                                 (rel < 0 || sk <= t[r]) &&
+                                 ((e & 1) ? ek.y : ek.x) == eq[r];
+              const float w =
+                  valid ? expf(s[n][e] * scale - lse_r[r]) : 0.0f;
+              s[n][e] = w * (dp[n][e] - dsum_r[r]) * scale;   // ds
+            }
+          }
+          accumulate_f32<HD, SUB>(acc, s, st, 8 * SUB * h, lane);
+        }
+      });
+  float x[4 * KD];
+#pragma unroll
+  for (int i = 0; i < 4 * KD; ++i) x[i] = acc[i / 4][i % 4];
+  merge_sums<KS, 4 * KD>(fsm, x, ks, rg, lane);
+  if (ks > 0) return;
+#pragma unroll
+  for (int i = 0; i < 4 * KD; ++i) acc[i / 4][i % 4] = x[i];
+  store_f32<HD>(dq + base * HD, acc, t, T, lane);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(F32<HD>::THREADS)
+flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const int* __restrict__ ep_q,
+              const int* __restrict__ ep_k, const float* __restrict__ dout,
+              const float* __restrict__ dsum, const float* __restrict__ lse,
+              float* __restrict__ dk, float* __restrict__ dv, int BH, int H,
+              int T, int rel, float scale) {
+  using S = F32<HD>;
+  constexpr int LD = S::LD, KD = S::KD, KS = S::KS, SUB = S::SUB;
+  extern __shared__ __align__(16) float fsm[];
+  __shared__ int list[WIN];
+  __shared__ unsigned char flag[WIN];
+  __shared__ int n_list;
+  // the first key tiles first: the most queries see them
+  const int blk = (int)blockIdx.x / BH;
+  const int bh = blockIdx.x % BH, b = bh / H;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rg = warp % F32_RG, ks = warp / F32_RG, c2 = 2 * (lane & 3);
+  const int gt = threadIdx.x - ks * S::GT;
+  const int r0 = blk * ROWS, w0 = r0 + 16 * rg;
+  const int s[2] = {w0 + (lane >> 2), w0 + (lane >> 2) + 8};   // my keys
+  const size_t base = (size_t)bh * T;
+  const int* epq = ep_q + (size_t)b * T;
+  const int* epk = ep_k + (size_t)b * T;
+  float kf[KD][4], vf[KD][4];
+  load_frag<HD>(kf, k + base * HD, w0, T, lane);
+  load_frag<HD>(vf, v + base * HD, w0, T, lane);
+  const int ek[2] = {s[0] < T ? epk[s[0]] : 0, s[1] < T ? epk[s[1]] : 0};
+  int lo, hi;
+  id_range(epk, r0, min(T, r0 + ROWS), lo, hi);
+  // every query before the block, the block's first key on, or none
+  const int q_start = rel < 0 ? 0 : rel == 0 ? r0 : T;
+  const int n_tiles = (T - q_start + TILE - 1) / TILE;
+  float* gs = fsm + ks * S::NSTAGE * S::STAGE;
+  float dka[KD][4] = {}, dva[KD][4] = {};
+  walk_tiles<S::NSTAGE, KS>(
+      list, flag, &n_list, epq, T, q_start, n_tiles, lo, hi, ks,
+      S::GT,
+      [&](int j, int buf) {
+        const int q0 = q_start + j * TILE;
+        float* st = gs + buf * S::STAGE;
+        float* vec = st + 2 * TILE * LD;
+        stage_f32<HD>(st, q + base * HD, q0, T, gt, S::GT);
+        stage_f32<HD>(st + TILE * LD, dout + base * HD, q0, T, gt, S::GT);
+        stage_vec(vec, lse + base, q0, T, gt, S::GT);
+        stage_vec(vec + TILE, dsum + base, q0, T, gt, S::GT);
+        stage_vec(reinterpret_cast<int*>(vec + 2 * TILE), epq, q0, T,
+                      gt, S::GT);
+      },
+      [&](int j, int buf) {
+        const int q0 = q_start + j * TILE;
+        const float* st = gs + buf * S::STAGE;
+        const float* vec = st + 2 * TILE * LD;
+        const int* eqs = reinterpret_cast<const int*>(vec + 2 * TILE);
+#pragma unroll 1
+        for (int h = 0; h < 8 / SUB; ++h) {   // 8 SUB queries at a time
+          float st_[SUB][4], dpt[SUB][4];   // keys x queries
+          scores_f32<HD, SUB>(st_, kf, st, 8 * SUB * h, lane);
+          scores_f32<HD, SUB>(dpt, vf, st + TILE * LD, 8 * SUB * h, lane);
+#pragma unroll
+          for (int n = 0; n < SUB; ++n) {
+            const int qq = 8 * SUB * h + 8 * n + c2;
+            const int2 eqq = *reinterpret_cast<const int2*>(&eqs[qq]);
+            const float2 lq = *reinterpret_cast<const float2*>(&vec[qq]);
+            const float2 dsq =
+                *reinterpret_cast<const float2*>(&vec[TILE + qq]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = e >> 1, tq = q0 + qq + (e & 1);
+              const bool valid = s[r] < T && tq < T &&
+                                 (rel < 0 || s[r] <= tq) &&
+                                 ((e & 1) ? eqq.y : eqq.x) == ek[r];
+              const float w =
+                  valid ? expf(st_[n][e] * scale - ((e & 1) ? lq.y : lq.x))
+                        : 0.0f;
+              st_[n][e] = w * (dpt[n][e] - ((e & 1) ? dsq.y : dsq.x)) *
+                          scale;   // ds
+              dpt[n][e] = w;
+            }
+          }
+          accumulate_f32<HD, SUB>(dka, st_, st, 8 * SUB * h, lane);
+          accumulate_f32<HD, SUB>(dva, dpt, st + TILE * LD, 8 * SUB * h,
+                                  lane);
+        }
+      });
+  float x[8 * KD];
+#pragma unroll
+  for (int i = 0; i < 4 * KD; ++i) {
+    x[i] = dka[i / 4][i % 4];
+    x[4 * KD + i] = dva[i / 4][i % 4];
+  }
+  merge_sums<KS, 8 * KD>(fsm, x, ks, rg, lane);
+  if (ks > 0) return;
+#pragma unroll
+  for (int i = 0; i < 4 * KD; ++i) {
+    dka[i / 4][i % 4] = x[i];
+    dva[i / 4][i % 4] = x[4 * KD + i];
+  }
+  store_f32<HD>(dk + base * HD, dka, s, T, lane);
+  store_f32<HD>(dv + base * HD, dva, s, T, lane);
+}
+
+// --- the bf16 variant: warp tiles on the tensor cores ---------------------
+
+template <int HD>
+struct Bf {
+  static constexpr int LD = HD == 8 ? 8 : HD + 8;    // a staged row, bf16
+  static constexpr int KD = HD == 8 ? 1 : HD / 16;   // k-steps over hd
+  static constexpr int ND = HD / 8;                  // n-tiles of hd columns
+  static constexpr int ROWS = 16 * BF16_WARPS;       // own rows a block
+  static constexpr int THREADS = 32 * BF16_WARPS;
+};
 
 // Starts copying rows [r0, r0 + TILE) of a [T, HD] bf16 matrix into dst
 // ([TILE][LD]), zeros past T.
@@ -465,16 +842,6 @@ __device__ __forceinline__ void stage_rows(bf16* dst,
     const bool ok = r0 + r < T;
     cp16(dst + r * Bf<HD>::LD + c * 8,
          src + (size_t)(ok ? r0 + r : 0) * HD + c * 8, ok);
-  }
-}
-
-// ... of TILE 4-byte values src[r0 + i], zeros past T
-template <typename V>
-__device__ __forceinline__ void stage_vec(V* dst, const V* __restrict__ src,
-                                          int r0, int T) {
-  for (int i = threadIdx.x; i < TILE; i += blockDim.x) {
-    const bool ok = r0 + i < T;
-    cp4(dst + i, src + (ok ? r0 + i : 0), ok);
   }
 }
 
@@ -591,24 +958,6 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[NT / 2][4],
   }
 }
 
-// out[r] = op over this lane's 16 elements of row r of 8 n-tiles (elements
-// 2r and 2r + 1 of each), as a tree
-template <typename Op>
-__device__ __forceinline__ void row_reduce(float (&out)[2],
-                                           const float (&x)[8][4], Op op) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float y[8];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) y[n] = op(x[n][2 * r], x[n][2 * r + 1]);
-#pragma unroll
-    for (int w = 4; w > 0; w >>= 1)
-#pragma unroll
-      for (int n = 0; n < w; ++n) y[n] = op(y[n], y[n + w]);
-    out[r] = y[0];
-  }
-}
-
 // Writes this lane's part of a warp's 16 x HD accumulator as bf16: row[r]
 // takes elements 2r and 2r + 1 of each n-tile (rows past T are not written).
 template <int HD>
@@ -627,28 +976,6 @@ __device__ __forceinline__ void store_bf16(bf16* __restrict__ x,
   }
 }
 
-// Runs body(j, buf) over the visited tiles with the tile copied into
-// buffer buf by stage(j, buf); the next visited tile's copy is in flight
-// while body runs.  Every thread of the block calls it.
-template <typename Stage, typename Body>
-__device__ __forceinline__ void pipeline(const Visit& visit, Stage stage,
-                                         Body body) {
-  int j = visit.next(-1), buf = 0;
-  if (j < visit.n) stage(j, 0);
-  cp_commit();
-  while (j < visit.n) {
-    const int jn = visit.next(j);
-    if (jn < visit.n) stage(jn, buf ^ 1);
-    cp_commit();
-    cp_wait_all_but_newest();
-    __syncthreads();   // tile j has landed for every thread
-    body(j, buf);
-    __syncthreads();   // buf is free for the tile after jn
-    buf ^= 1;
-    j = jn;
-  }
-}
-
 template <int HD>
 __global__ void __launch_bounds__(Bf<HD>::THREADS)
 flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -660,7 +987,9 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __shared__ __align__(16) bf16 ks[2][TILE * LD];
   __shared__ __align__(16) bf16 vs[2][TILE * LD];
   __shared__ __align__(16) int eks[2][TILE];
+  __shared__ int list[WIN];
   __shared__ unsigned char flag[WIN];
+  __shared__ int n_list;
   // the last query tiles first: they see the most keys
   const int blk = (T + R - 1) / R - 1 - (int)blockIdx.x / BH;
   const int bh = blockIdx.x % BH, b = bh / H;
@@ -678,14 +1007,14 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   id_range(epq, w0, min(T, w0 + 16), w_id, w_hi);   // this warp's rows
   const bool w_one = w_id == w_hi;
   const int n_keys = rel < 0 ? T : rel == 0 ? min(T, r0 + R) : 0;
-  const Visit visit{flag, epk, T, 0, (n_keys + TILE - 1) / TILE, lo, hi};
+  const int n_tiles = (n_keys + TILE - 1) / TILE;
   float o[ND][4] = {}, m[2] = {NEG, NEG}, l[2] = {0.0f, 0.0f};
-  pipeline(
-      visit,
+  walk_tiles<2, 1>(
+      list, flag, &n_list, epk, T, 0, n_tiles, lo, hi, 0, blockDim.x,
       [&](int j, int buf) {
         stage_rows<HD>(ks[buf], k + base * HD, j * TILE, T);
         stage_rows<HD>(vs[buf], v + base * HD, j * TILE, T);
-        stage_vec(eks[buf], epk, j * TILE, T);
+        stage_vec(eks[buf], epk, j * TILE, T, threadIdx.x, blockDim.x);
       },
       [&](int j, int buf) {
         const int k0 = j * TILE;
@@ -783,7 +1112,9 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __shared__ __align__(16) bf16 ks[2][TILE * LD];
   __shared__ __align__(16) bf16 vs[2][TILE * LD];
   __shared__ __align__(16) int eks[2][TILE];
+  __shared__ int list[WIN];
   __shared__ unsigned char flag[WIN];
+  __shared__ int n_list;
   const int blk = (T + R - 1) / R - 1 - (int)blockIdx.x / BH;
   const int bh = blockIdx.x % BH, b = bh / H;
   const int lane = threadIdx.x & 31, c2 = 2 * (lane & 3);
@@ -807,14 +1138,14 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   int lo, hi;
   id_range(epq, r0, min(T, r0 + R), lo, hi);
   const int n_keys = rel < 0 ? T : rel == 0 ? min(T, r0 + R) : 0;
-  const Visit visit{flag, epk, T, 0, (n_keys + TILE - 1) / TILE, lo, hi};
+  const int n_tiles = (n_keys + TILE - 1) / TILE;
   float acc[ND][4] = {};
-  pipeline(
-      visit,
+  walk_tiles<2, 1>(
+      list, flag, &n_list, epk, T, 0, n_tiles, lo, hi, 0, blockDim.x,
       [&](int j, int buf) {
         stage_rows<HD>(ks[buf], k + base * HD, j * TILE, T);
         stage_rows<HD>(vs[buf], v + base * HD, j * TILE, T);
-        stage_vec(eks[buf], epk, j * TILE, T);
+        stage_vec(eks[buf], epk, j * TILE, T, threadIdx.x, blockDim.x);
       },
       [&](int j, int buf) {
         const int k0 = j * TILE;
@@ -862,7 +1193,9 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __shared__ __align__(16) float lses[2][TILE];
   __shared__ __align__(16) float dsums[2][TILE];
   __shared__ __align__(16) int eqs[2][TILE];
+  __shared__ int list[WIN];
   __shared__ unsigned char flag[WIN];
+  __shared__ int n_list;
   // the first key tiles first: the most queries see them
   const int blk = (int)blockIdx.x / BH;
   const int bh = blockIdx.x % BH, b = bh / H;
@@ -880,18 +1213,17 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   id_range(epk, r0, min(T, r0 + R), lo, hi);
   // every query before the block, the block's first key on, or none
   const int q_start = rel < 0 ? 0 : rel == 0 ? r0 : T;
-  const Visit visit{flag, epq, T, q_start, (T - q_start + TILE - 1) / TILE,
-                    lo, hi};
+  const int n_tiles = (T - q_start + TILE - 1) / TILE;
   float dka[ND][4] = {}, dva[ND][4] = {};
-  pipeline(
-      visit,
+  walk_tiles<2, 1>(
+      list, flag, &n_list, epq, T, q_start, n_tiles, lo, hi, 0, blockDim.x,
       [&](int j, int buf) {
         const int q0 = q_start + j * TILE;
         stage_rows<HD>(qs[buf], q + base * HD, q0, T);
         stage_rows<HD>(dos[buf], dout + base * HD, q0, T);
-        stage_vec(lses[buf], lse + base, q0, T);
-        stage_vec(dsums[buf], dsum + base, q0, T);
-        stage_vec(eqs[buf], epq, q0, T);
+        stage_vec(lses[buf], lse + base, q0, T, threadIdx.x, blockDim.x);
+        stage_vec(dsums[buf], dsum + base, q0, T, threadIdx.x, blockDim.x);
+        stage_vec(eqs[buf], epq, q0, T, threadIdx.x, blockDim.x);
       },
       [&](int j, int buf) {
         const int q0 = q_start + j * TILE;
@@ -959,17 +1291,29 @@ inline bool bad_shape(int BH, int H, int T) {
 
 }  // namespace
 
-// f32 q, k, v, dout and gradients
+// f32 q, k, v, dout and gradients; q, k, v and dout 16-byte aligned
+// (cp.async).  The launch: ROWS own rows a block, F32<HD>::THREADS threads,
+// F32<HD>::SMEM bytes of dynamic shared memory.
+#define PPOC_F32_LAUNCH(KERNEL, HD, ...)                                  \
+  {                                                                       \
+    const cudaError_t err = cudaFuncSetAttribute(                         \
+        KERNEL<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,          \
+        F32<HD>::SMEM);                                                   \
+    if (err != cudaSuccess) return (int)err;                              \
+    KERNEL<HD><<<grid_of(T, ROWS, BH), F32<HD>::THREADS, F32<HD>::SMEM,   \
+                 (cudaStream_t)stream>>>(__VA_ARGS__);                    \
+  }
+
 extern "C" int ppoc_flash_fwd(const float* q, const float* k, const float* v,
                               const int* ep_q, const int* ep_k, float* out,
                               float* lse, int BH, int H, int T, int hd,
                               int rel, float scale, void* stream) {
   if (bad_shape(BH, H, T)) return (int)cudaErrorInvalidValue;
+  if (!(aligned16(q) && aligned16(k) && aligned16(v)))
+    return (int)cudaErrorMisalignedAddress;
 #define CALL(HD)                                                        \
-  flash_fwd<HD>                                                         \
-      <<<grid_of(T, ROWS, BH), Shape<HD>::THREADS, 0,                   \
-         (cudaStream_t)stream>>>(q, k, v, ep_q, ep_k, out, lse, BH, H, T, \
-                                 rel, scale)
+  PPOC_F32_LAUNCH(flash_fwd, HD, q, k, v, ep_q, ep_k, out, lse, BH, H, T, \
+                  rel, scale)
   PPOC_HD_SWITCH(hd, CALL)
 #undef CALL
 }
@@ -981,11 +1325,11 @@ extern "C" int ppoc_flash_bwd_dq(const float* q, const float* k,
                                  float* dq, int BH, int H, int T, int hd,
                                  int rel, float scale, void* stream) {
   if (bad_shape(BH, H, T)) return (int)cudaErrorInvalidValue;
-#define CALL(HD)                                                      \
-  flash_bwd_dq<HD>                                                    \
-      <<<grid_of(T, ROWS, BH), Shape<HD>::THREADS, 0,                 \
-         (cudaStream_t)stream>>>(q, k, v, ep_q, ep_k, dout, dsum, lse, \
-                                 dq, BH, H, T, rel, scale)
+  if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout)))
+    return (int)cudaErrorMisalignedAddress;
+#define CALL(HD)                                                           \
+  PPOC_F32_LAUNCH(flash_bwd_dq, HD, q, k, v, ep_q, ep_k, dout, dsum, lse, \
+                  dq, BH, H, T, rel, scale)
   PPOC_HD_SWITCH(hd, CALL)
 #undef CALL
 }
@@ -998,11 +1342,11 @@ extern "C" int ppoc_flash_bwd_dkv(const float* q, const float* k,
                                   int hd, int rel, float scale,
                                   void* stream) {
   if (bad_shape(BH, H, T)) return (int)cudaErrorInvalidValue;
-#define CALL(HD)                                                      \
-  flash_bwd_dkv<HD>                                                   \
-      <<<grid_of(T, ROWS, BH), Shape<HD>::THREADS, 0,                 \
-         (cudaStream_t)stream>>>(q, k, v, ep_q, ep_k, dout, dsum, lse, \
-                                 dk, dv, BH, H, T, rel, scale)
+  if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout)))
+    return (int)cudaErrorMisalignedAddress;
+#define CALL(HD)                                                            \
+  PPOC_F32_LAUNCH(flash_bwd_dkv, HD, q, k, v, ep_q, ep_k, dout, dsum, lse, \
+                  dk, dv, BH, H, T, rel, scale)
   PPOC_HD_SWITCH(hd, CALL)
 #undef CALL
 }

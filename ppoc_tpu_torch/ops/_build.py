@@ -84,20 +84,28 @@ def build() -> Dict[str, object]:
         jobs = []
         for src in sorted(CSRC.glob("*.cu")):
             obj = BUILD_DIR / f"{src.stem}.o"
+            out = BUILD_DIR / f"{src.stem}.log"
             cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-            jobs.append((cmd, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
+            with open(out, "w") as f:
+                jobs.append((cmd, obj, out, subprocess.Popen(
+                    cmd, stdout=f, stderr=subprocess.STDOUT)))
+        took = {}   # each source's seconds, for the log
+        while len(took) < len(jobs):
+            for cmd, _, _, proc in jobs:
+                if cmd[-3] not in took and proc.poll() is not None:
+                    took[cmd[-3]] = time.perf_counter() - t0
+            time.sleep(0.05)
         log, failed = [], []
-        for cmd, _, proc in jobs:
-            out = proc.communicate()[0]
-            log.append(" ".join(cmd) + "\n" + out)
+        for cmd, _, out, proc in jobs:
+            text = out.read_text()
+            log.append(" ".join(cmd) + "\n" + text + f"# {Path(cmd[-3]).name}:"
+                       f" {took[cmd[-3]]:.1f} s\n")
             if proc.returncode != 0:
                 failed.append(f"{cmd[-3]} (exit {proc.returncode}):\n"
-                              f"{out[-4000:]}")
+                              f"{text[-4000:]}")
         if not failed:
             cmd = [nvcc, "-shared", "-o", str(tmp),
-                   *[str(obj) for _, obj, _ in jobs]]
+                   *[str(obj) for _, obj, _, _ in jobs]]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
             if proc.returncode != 0:

@@ -32,8 +32,13 @@ own key tile) and the explicit backward :func:`flash_dq_plain_bf16` and
 :func:`flash_dkv_plain_bf16`, which :class:`FlashAttention` binds on the
 CPU too: autograd through the plain forward would round at other places
 than the kernels do.  The two variants count their launches apart.  The
-f32 kernel's online softmax rescales every 16 keys; its plain version
-materialises the scores, so no chunk of it shows here.
+f32 kernels run their products on the tensor cores too, as 3xTF32 (each
+float32 operand split into two tf32 values, float32-accurate), a warp's 16
+rows against a tile; a block's walk over the other side's tiles is dealt
+to ``f32_plan(hd).splits`` warp groups in turn (:func:`deal`), whose
+partial results are merged in group order.  The f32 forward rescales once
+per key tile of a group; its plain version materialises the scores, so no
+chunk of it shows here.
 
 Both variants skip the other side's tiles that share no episode with a
 block's rows (the episode-id ranges do not meet); :func:`visited_tiles` is
@@ -49,7 +54,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -57,10 +62,42 @@ from ppoc_tpu_torch.ops import _build
 
 NEG = -1e9                      # pallas_attn.NEG
 SUPPORTED_HD = (8, 16, 32, 64)  # csrc/attn.cu PPOC_HD_SWITCH
-# csrc/attn.cu: a block's own rows in each variant (f32 ROWS, bf16 16 a
-# warp, BF16_WARPS 4 warps) and the other side's rows a tile (TILE)
-ROWS, BF16_ROWS, TILE = 64, 64, 64
+# csrc/attn.cu: a block's own rows in each variant (f32 ROWS, 16 a warp and
+# F32_RG 2 row groups; bf16 16 a warp, BF16_WARPS 4 warps) and the other
+# side's rows a tile (TILE)
+ROWS, BF16_ROWS, TILE = 32, 64, 64
 BF16_CHUNK = TILE               # keys a bf16 softmax rescale: its key tile
+
+
+class F32Plan(NamedTuple):
+    """The f32 kernels' launch at one head dim (csrc/attn.cu ``F32``)."""
+    rows: int      # own rows a block (ROWS)
+    tile: int      # the other side's rows a tile (TILE)
+    splits: int    # warp groups the walk is dealt to
+    stages: int    # tile buffers a group (2: the next tile loads ahead)
+    threads: int   # threads a block
+    smem: int      # dynamic shared-memory bytes a block
+
+
+def f32_plan(hd: int) -> F32Plan:
+    """The f32 kernels' plan at head dim ``hd`` (csrc/attn.cu ``F32<HD>``):
+    2 row groups of 16 rows, 4 warp groups to hd 16 and 2 past it, one
+    tile buffer a group at hd 64 (shared memory), a buffer two
+    [TILE, hd + 4] float tiles and three TILE-long vectors."""
+    if hd not in SUPPORTED_HD:
+        raise ValueError(f"K7 takes head dims {SUPPORTED_HD}, got {hd}")
+    splits = 4 if hd <= 16 else 2
+    stages = 1 if hd == 64 else 2
+    buffer = 2 * TILE * (hd + 4) + 3 * TILE
+    return F32Plan(ROWS, TILE, splits, stages, 32 * 2 * splits,
+                   4 * splits * stages * buffer)
+
+
+def deal(visited: Sequence[int], splits: int) -> List[List[int]]:
+    """The f32 kernels' key split: a block's visited tiles, in rising
+    order, dealt to ``splits`` warp groups in turn (group g takes the g-th,
+    the (g + splits)-th, ...)."""
+    return [list(visited[g::splits]) for g in range(splits)]
 
 fwd_launches = _build.LaunchCount("flash_fwd")
 dq_launches = _build.LaunchCount("flash_bwd_dq")
@@ -132,7 +169,7 @@ def _window_ranges(ep: torch.Tensor, width: int):
 
 def visited_tiles(ep_q, ep_k, rel: int, rows: int = ROWS, span: int = TILE,
                   keys: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernels' tile-visit rule (``csrc/attn.cu``, ``Visit``), in
+    """The kernels' tile-visit rule (``csrc/attn.cu``, ``list_visits``), in
     Python: (visited, in_range), bool [B, n_blocks, n_slots].
 
     A block owns ``rows`` rows of one side: queries for the forward and dq

@@ -17,7 +17,7 @@ the weights and its own rows of every minibatch (CLUSTER blocks whatever
 the minibatch size; :func:`phase_cluster_plan` gives the whole launch),
 and the blocks sum their weight gradients and the loss head's row sums
 over distributed shared memory in rank order.  Past that
-(``csrc/update_shard.cu``, the "global" slot) the weights are sharded
+(``csrc/update_shard.cuh``, the "global" slot) the weights are sharded
 over SHARDS blocks (:func:`shard_layout`): layer 0 replicated, the next
 layer split by output column, the head by input row, the head's partial
 outputs summed over the cluster, every block walking every row (so K6's
@@ -81,7 +81,7 @@ _STATIC_SMEM = 1024  # the kernels' static shared memory, rounded up
 CLUSTER, CLUSTER_MAX = 16, 16
 CLUSTER_SUB = 32
 _ES, _RSS, _NS, _MAX_ACT = 12, 12, 9, 8
-# csrc/update_shard.cu: blocks in the sharded cluster and threads a block,
+# csrc/update_shard.cuh: blocks in the sharded cluster and threads a block,
 # the sub-tile rows it tries (largest first; with the weights in shared
 # memory down to the third), and the dynamic shared memory a block may take
 SHARDS, SHARD_THREADS = 16, 512
@@ -464,7 +464,7 @@ class ShardLayout(NamedTuple):
 
 def shard_layout(widths: Sequence[int],
                  cluster: Optional[int] = None) -> ShardLayout:
-    """How the phases' sharded cluster kernel (csrc/update_shard.cu
+    """How the phases' sharded cluster kernel (csrc/update_shard.cuh
     ``shard_layout``) lays out the net ``widths`` over ``cluster`` blocks
     (None: SHARDS).  The kinds, set from the head down: the head "ROW" (a
     block holds its share of W's rows), the layer below "COL" (its share
@@ -523,7 +523,7 @@ def shard_layout(widths: Sequence[int],
 def shard_bytes(widths: Sequence[int]) -> int:
     """Dynamic shared memory of one block of the phases' sharded cluster
     kernel (K3, K4 or K6) on the net ``widths`` (:func:`shard_layout`,
-    SHARDS blocks), in bytes; the same as csrc/update_shard.cu
+    SHARDS blocks), in bytes; the same as csrc/update_shard.cuh
     ``ppoc_phase_shard_smem``."""
     return shard_layout(widths).nbytes
 

@@ -101,20 +101,74 @@ def test_rollout_kernel_metrics_match_its_trajectory(dev):
     torch.testing.assert_close(sum_j / n, want.J, rtol=1e-5, atol=0)
 
 
-@pytest.mark.parametrize("T,E", [(200, 64), (200, 512), (7, 3)])
-@pytest.mark.parametrize("normalize", [True, False])
-def test_gae_kernel_matches_plain(dev, T, E, normalize):
-    """(200, 512) keeps the advantages in global memory (past the
-    shared-memory size), the others in shared memory."""
+def _gae_args(dev, T, E, normalize):
     g = torch.Generator().manual_seed(T * E)
     r, v, nv = (torch.randn(T, E, generator=g).to(dev) for _ in range(3))
     term = (torch.rand(T, E, generator=g) < 0.05).to(dev)
     trunc = (torch.rand(T, E, generator=g) < 0.05).to(dev) & ~term
-    args = (r, v, nv, term, trunc, 0.99, 0.95, normalize)
+    return (r, v, nv, term, trunc, 0.99, 0.95, normalize)
+
+
+@pytest.mark.parametrize("T,E", [(200, 64), (200, 512), (7, 3)])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_gae_kernel_matches_plain(dev, T, E, normalize):
+    """(200, 512) takes a cluster of 16 blocks of 32 env columns (past one
+    block's shared memory), the others one block."""
+    args = _gae_args(dev, T, E, normalize)
     adv, tgt = cuda_gae.gae_norm_kernel(*args)
     adv_p, tgt_p = cuda_gae.gae_norm_plain(*args)
     torch.testing.assert_close(adv, adv_p, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(tgt, tgt_p, rtol=1e-5, atol=1e-5)
+
+
+# K2 on both sides of the one-block / cluster edge (200 x 229 elements fit
+# one block's shared memory, 200 x 230 do not), at E no multiple of a
+# block's columns (1000: 16 blocks of 64, the last 40; 100: 4 of 32), at
+# T = 1, at 999 x 512 and 150 x 4096 (the MountainCar and reacher paths),
+# and past a cluster's shared memory (5000 x 64: two blocks of 32 columns,
+# 1432 steps a chunk)
+GAE_EDGES = [(200, 229), (200, 230), (200, 1000), (37, 100), (1, 64),
+             (1, 4096), (999, 512), (150, 4096), (5000, 64)]
+
+
+@pytest.mark.parametrize("T,E", GAE_EDGES)
+@pytest.mark.parametrize("normalize", [True, False])
+def test_gae_kernel_at_the_grid_edges_matches_plain(dev, T, E, normalize):
+    args = _gae_args(dev, T, E, normalize)
+    adv, tgt = cuda_gae.gae_norm_kernel(*args)
+    adv_p, tgt_p = cuda_gae.gae_norm_plain(*args)
+    torch.testing.assert_close(adv, adv_p, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(tgt, tgt_p, rtol=1e-5, atol=1e-5)
+    adv2, tgt2 = cuda_gae.gae_norm_kernel(*args)
+    assert torch.equal(adv, adv2) and torch.equal(tgt, tgt2)
+
+
+@pytest.mark.parametrize("T,E", GAE_EDGES + [(7, 3)])
+def test_gae_plan_is_the_kernels(dev, T, E):
+    want = cuda_gae.plan(T, E)
+    assert cuda_gae.kernel_plan(T, E) == want
+    assert (want.blocks == 1) == (5 * T * E <= cuda_gae.SMEM)
+
+
+@pytest.mark.parametrize("E", [230, 1024])
+def test_gae_bits_do_not_depend_on_the_plan(dev, E):
+    """The same 64 seeded env columns, alone (one block) and first in a
+    [200, E] buffer (8 blocks of 32 columns, or 16 of 64): their
+    unnormalised advantages and their targets are the same bits in both
+    plans."""
+    T = 200
+    assert cuda_gae.plan(T, 64).blocks == 1
+    assert cuda_gae.plan(T, E).blocks > 1
+    small = _gae_args(dev, T, 64, False)
+    wide = _gae_args(dev, T, E, False)
+    wide = tuple(torch.cat([a, w[:, 64:]], dim=1) for a, w
+                 in zip(small[:5], wide[:5])) + small[5:]
+    for normalize in (False, True):
+        adv, tgt = cuda_gae.gae_norm_kernel(*small[:7], normalize)
+        adv_w, tgt_w = cuda_gae.gae_norm_kernel(*wide[:7], normalize)
+        assert torch.equal(tgt, tgt_w[:, :64])
+        if not normalize:
+            assert torch.equal(adv, adv_w[:, :64])
 
 
 def _rows(dev, n_rows, d0, k, seed=0):
@@ -839,6 +893,87 @@ def test_flash_kernel_matches_plain(dev, T, B, H, hd, p_done, rel):
                                    atol=1e-4 * max(1.0, float(b.abs().max())))
 
 
+@pytest.mark.parametrize("rel", [-1, 0, 1])
+@pytest.mark.parametrize("hd", [8, 16, 32, 64])
+@pytest.mark.parametrize("T", [1, 15, 17, 1030])
+def test_flash_f32_edges_match_plain(dev, T, hd, rel):
+    """The f32 kernels at the tile edges (a warp's 16 rows, a block's 32,
+    a 64-row tile; T 1030 ragged), every head dim and ring relation: at T
+    1, 15 and 17 a block visits one key tile, so every warp group but the
+    first walks nothing."""
+    from ppoc_tpu_torch.ops import cuda_attn as ca
+
+    q, k, v, ep = _flash_case(dev, T, 1, 2, hd, 0.05)
+    (out, lse), grads = _flash_grads(ca.flash_mha_block, q, k, v, ep, rel)
+    (out_p, lse_p), grads_p = _flash_grads(_plain_block, q, k, v, ep, rel)
+    torch.testing.assert_close(out, out_p, rtol=0, atol=1e-5)
+    torch.testing.assert_close(lse, lse_p, rtol=0, atol=1e-5)
+    if rel > 0:
+        assert (out == 0).all() and (lse == ca.NEG).all()
+    for a, b in zip(grads, grads_p):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * max(1.0, float(b.abs().max())))
+
+
+@pytest.mark.parametrize("hd", [8, 64])
+def test_flash_f32_rows_without_a_valid_key(dev, hd):
+    """rel -1 against a key window whose episode ids start 3 later: the
+    query rows of the first three episodes have no valid key and come back
+    out 0 and lse NEG exactly, with zero gradients; the others match the
+    plain version."""
+    from ppoc_tpu_torch.ops import cuda_attn as ca
+
+    q, k, v, ep = _flash_case(dev, 300, 2, 2, hd, 0.05)
+    ke = ep + 3
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out, lse = ca.flash_mha_block(*leaves, ep, ke, -1)
+    out_p, lse_p = _plain_block(q, k, v, ep, ke, -1)
+    empty = lse_p <= ca.NEG / 2
+    assert empty.any() and (~empty).any()
+    assert (out[empty] == 0).all() and (lse[empty] == ca.NEG).all()
+    torch.testing.assert_close(out, out_p, rtol=0, atol=1e-5)
+    torch.testing.assert_close(lse[~empty], lse_p[~empty], rtol=0, atol=1e-5)
+    gq, = torch.autograd.grad(torch.sin(out).sum(), leaves[:1])
+    assert (gq[empty] == 0).all()
+
+
+@pytest.mark.parametrize("hd,T", [(8, 100), (8, 300), (16, 300), (32, 130),
+                                  (64, 60), (64, 150)])
+def test_flash_f32_key_split_with_an_empty_group(dev, hd, T):
+    """One episode over the window: the last query block visits ceil(T /
+    64) key tiles, fewer than its warp groups (hd 8 at T 100, hd 64 at T
+    60), or a count they do not divide (5 tiles to 4 groups at T 300), so a
+    group's share is empty or short; the results match the plain version
+    and repeat bit for bit."""
+    from ppoc_tpu_torch.ops import cuda_attn as ca
+
+    splits = ca.f32_plan(hd).splits
+    n = -(-T // ca.TILE)
+    shares = [len(x) for x in ca.deal(list(range(n)), splits)]
+    assert min(shares) == 0 or max(shares) > min(shares)
+    q, k, v, ep = _flash_case(dev, T, 2, 2, hd, 0.0)
+    (out, lse), grads = _flash_grads(ca.flash_mha_block, q, k, v, ep, 0)
+    (out_p, lse_p), grads_p = _flash_grads(_plain_block, q, k, v, ep, 0)
+    torch.testing.assert_close(out, out_p, rtol=0, atol=1e-5)
+    torch.testing.assert_close(lse, lse_p, rtol=0, atol=1e-5)
+    for a, b in zip(grads, grads_p):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * max(1.0, float(b.abs().max())))
+    _, again = _flash_grads(ca.flash_mha_block, q, k, v, ep, 0)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.parametrize("hd,T,rel", [(8, 1030, 0), (8, 1030, -1),
+                                      (64, 1030, 0), (32, 500, -1)])
+def test_flash_f32_backward_repeats_bit_for_bit(dev, hd, T, rel):
+    from ppoc_tpu_torch.ops import cuda_attn as ca
+
+    q, k, v, ep = _flash_case(dev, T, 2, 2, hd, 0.02, seed=7)
+    _, g1 = _flash_grads(ca.flash_mha_block, q, k, v, ep, rel)
+    _, g2 = _flash_grads(ca.flash_mha_block, q, k, v, ep, rel)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
 def test_flash_backward_is_deterministic_and_counted(dev):
     """One forward and one backward launch each of K7's three kernels;
     two backward passes agree bit for bit."""
@@ -1540,7 +1675,7 @@ def test_cluster_refuses_what_it_cannot_launch(dev):
 
 # --- K3 and K4 sharded over a cluster (nets past one block) -------------------
 # The "global" slot: the weights sharded by column over cu.SHARDS blocks
-# (csrc/update_shard.cu).  Held to the plain version as the replicated
+# (csrc/update_shard.cuh).  Held to the plain version as the replicated
 # cluster is: one step within 1e-6, twenty walked step by step.
 
 @pytest.mark.parametrize("kind", ["K3", "K4", "K6", "K6/3", "K6/5",

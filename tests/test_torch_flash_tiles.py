@@ -1,4 +1,4 @@
-"""K7's tile skip (``csrc/attn.cu`` ``Visit``, in Python
+"""K7's tile skip (``csrc/attn.cu`` ``list_visits``, in Python
 ``cuda_attn.visited_tiles``), and the bf16 variant's rounding controls.
 
 A block of the forward or dq owns a tile of query rows and walks the key
@@ -115,9 +115,11 @@ def test_visited_tiles_is_the_range_test(rel, keys):
 
 @pytest.mark.parametrize("keys", [False, True], ids=["fwd-dq", "dkv"])
 def test_the_xray_layout_skips_most_tiles(keys):
-    """T 2048, B 16, p_done 0.02 (episodes of ~50 steps): a 64-row block
-    meets two or three of the other side's tiles, so under a quarter of
-    the in-range tiles are visited; over one episode every one is."""
+    """T 2048, B 16, p_done 0.02 (episodes of ~50 steps): an f32 block
+    (ca.ROWS rows) meets two or three of the other side's tiles, so under
+    a quarter of the in-range tiles are visited; over one episode every
+    one is: block i's key tiles up to its last row (fwd, dq), or its query
+    tiles from its first row on (dk/dv)."""
     rng = np.random.default_rng(3)
     ep = _ids(rng.random((2048, 16)) < 0.02)
     visited, in_range = ca.visited_tiles(ep, ep, 0, ca.ROWS, ca.TILE, keys)
@@ -125,7 +127,11 @@ def test_the_xray_layout_skips_most_tiles(keys):
     assert share < 0.25, share
     one = _ids(np.zeros((2048, 2), dtype=bool))
     visited, in_range = ca.visited_tiles(one, one, 0, ca.ROWS, ca.TILE, keys)
-    assert torch.equal(visited, in_range) and int(in_range.sum()) == 2 * 528
+    blocks = range(2048 // ca.ROWS)
+    per_row = sum(-(-(2048 - i * ca.ROWS) // ca.TILE) if keys
+                  else -(-(i + 1) * ca.ROWS // ca.TILE) for i in blocks)
+    assert torch.equal(visited, in_range)
+    assert int(in_range.sum()) == 2 * per_row == 2 * 1056
 
 
 def test_rel_plus_one_visits_nothing():

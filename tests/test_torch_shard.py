@@ -1,6 +1,6 @@
 """K3 and K4 for nets past one block's shared memory run as one
 thread-block cluster that shards the weights by column
-(csrc/update_shard.cu).  Without a card this holds what the launch takes
+(csrc/update_shard.cuh).  Without a card this holds what the launch takes
 from Python: the sharded block's layout and shared memory
 (cuda_update.shard_layout, the same as the C side's size function, which
 tests/test_torch_cuda.py holds on the card), and that ppo.kernel_fit at

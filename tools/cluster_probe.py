@@ -16,7 +16,7 @@ __syncthreads, the next rows' prefetch, the forward, the loss gradient
 and its __syncthreads, the fold of the block's stats, the backward, the
 first cluster barrier, Adam over distributed shared memory, the stats'
 reduction (and K4's log_std Adam), the second cluster barrier.  ``shard``
-(csrc/update_shard.cu, the weights sharded over the cluster; on
+(csrc/update_shard.cuh, the weights sharded over the cluster; on
 REACHER_REF's value net [10,256,256,1]): the loop, the wait and its
 __syncthreads, the prefetch, the forward's products up to the head's
 partial, the head's exchange barrier, its sum over the cluster and the
@@ -74,9 +74,10 @@ SHARD_POINTS = (
      "                 false, act);\n{3}      cluster_sync();\n{4}"),
     ("      forward(sn, rank, R, X, ps, H, XCH, ZERO, act, xc);\n",
      "      forward(sn, rank, R, X, ps, H, XCH, ZERO, act, xc);\n{5}"),
-    ("      __syncthreads();\n      if (tid < n_stat) {",
-     "      __syncthreads();\n{6}      if (tid < n_stat) {"),
-    ("        sacc += t;\n      }\n", "        sacc += t;\n      }\n{7}"),
+    ("      __syncthreads();\n      if (KIND == CATEGORICAL && tid == 0) {",
+     "      __syncthreads();\n{6}      if (KIND == CATEGORICAL && tid == 0) {"),
+    ("        sacc += t;\n      }\n      backward(",
+     "        sacc += t;\n      }\n{7}      backward("),
     ("      backward(sn, rank, R, X, ps, H, XCH, u == 0, act, xc);\n",
      "      backward(sn, rank, R, X, ps, H, XCH, u == 0, act, xc);\n{8}"),
     ("    cluster_sync();\n\n    // Adam:",
@@ -122,10 +123,12 @@ extern "C" int ppoc_probe_read(unsigned long long* out) {
 
 
 def probed_shard(dst: Path) -> None:
-    """csrc with the probes in update_shard.cu, into ``dst``."""
-    path = dst / "update_shard.cu"
+    """csrc with the probes in update_shard.cuh (the sharded kernel, each
+    kind's source a copy of its own: the value kind's, update_shard.cu,
+    reads them), into ``dst``."""
+    path = dst / "update_shard.cuh"
     s = path.read_text()
-    s = s.replace("namespace {\n", PROBE_DEF + "namespace {\n", 1)
+    s = s.replace("namespace {\n", "namespace {\n" + PROBE_DEF, 1)
     s = s.replace("  int tile = 0, xc = 0;\n  __syncthreads();\n",
                   "  int tile = 0, xc = 0;\n  __syncthreads();\n"
                   "  if (rank == 0 && tid == 0) g_probe_last = clock64();\n",
@@ -133,11 +136,13 @@ def probed_shard(dst: Path) -> None:
     for i, (old, new) in enumerate(SHARD_POINTS):
         if s.count(old) != 1:
             raise SystemExit(f"probe point {i} not found once in "
-                             f"update_shard.cu: {old!r}")
+                             f"update_shard.cuh: {old!r}")
         for j in range(14):
             new = new.replace(f"{{{j}}}", f"    PROBE({j});\n")
         s = s.replace(old, new)
-    path.write_text(s + PROBE_READ)
+    path.write_text(s)
+    value = dst / "update_shard.cu"
+    value.write_text(value.read_text() + PROBE_READ)
 
 
 def probed_sources(dst: Path, kernel: str = "cluster") -> None:

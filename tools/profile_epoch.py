@@ -1,6 +1,7 @@
 """Profile one training epoch on the card.
 
-    python3 tools/profile_epoch.py [--config bench|throughput|reacher|reacher_ref|reacher_bf16]
+    python3 tools/profile_epoch.py [--config bench|throughput|reacher|reacher_ref|reacher_bf16|recall_xl]
+                                   [--root OTHER]
 
 Needs a CUDA device.  ``bench`` (the default) is bench.py's bench_config:
 three warm epochs, each with its stochastic evaluation, timed without the
@@ -15,7 +16,11 @@ one under the profiler; ``reacher_ref`` the same for chip_smoke.REACHER_REF
 (the reference schedule at 2x256: 10 fits an epoch through K3 and K4 in
 their global-memory variants), ``reacher_bf16`` for chip_smoke.REACHER_BF16
 (the reacher regime under kernel_backend "bf16": K1, K2 and bf16 library
-products).  Each profiled window prints its wall
+products).  ``recall_xl`` is chip_smoke.RECALL_XL (K7 in every pass): one
+warm epoch, then two epochs split by phase (chip_smoke.PhaseClock) with
+K7's launches, without the profiler.  ``--root`` runs the package of
+another checkout (a parent's ``git archive``) with this checkout's
+harness, to compare two builds in one call.  Each profiled window prints its wall
 time, summed device-kernel time, the count of device kernels and each
 kernel's share of device time, and the device's idle share two ways: 1 -
 device time / the mean unprofiled wall of the same window (the path's own
@@ -26,14 +31,29 @@ under the checkout.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
 
-import chip_smoke as cs  # noqa: E402
+
+def _harness():
+    """This checkout's chip_smoke.py as a module, whatever ``--root``
+    puts first on sys.path."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+cs = _harness()
+sys.path.insert(0, str(ROOT))
+if "--root" in sys.argv:   # the package of another checkout, first
+    sys.path.insert(0, str(Path(sys.argv[sys.argv.index("--root") + 1])
+                           .resolve()))
 
 
 def profiled(name: str, fn, walls) -> None:
@@ -67,13 +87,42 @@ def profiled(name: str, fn, walls) -> None:
         str(out / f"{name.replace(' ', '_')}_trace.json.gz"))
 
 
+def recall_xl_phases(root: str) -> int:
+    """chip_smoke.RECALL_XL: a warm epoch, then two epochs timed by phase
+    with K7's launches read around each."""
+    import torch
+
+    from ppoc_tpu_torch import PPOConfig
+    from ppoc_tpu_torch.algo.trainer import Trainer
+    from ppoc_tpu_torch.ops import cuda_attn
+
+    counters = [cuda_attn.fwd_launches, cuda_attn.dq_launches,
+                cuda_attn.dkv_launches]
+    tr = Trainer(PPOConfig(**cs.RECALL_XL))
+    tr.train_epoch()
+    torch.cuda.synchronize()
+    for i in range(2):
+        clock = cs.PhaseClock(counters)
+        t = time.perf_counter()
+        with clock:
+            tr.train_epoch()
+            torch.cuda.synchronize()
+        split = clock.split(time.perf_counter() - t)
+        k7 = {ph: n for ph, n in clock.launches.items() if any(n.values())}
+        print(f"recall_xl epoch {i} ({root}): wall split (s) "
+              + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+              + f"; K7 launches {k7}", flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", default="bench",
                     choices=["bench", "throughput", "reacher", "reacher_ref",
-                             "reacher_bf16"])
+                             "reacher_bf16", "recall_xl"])
+    ap.add_argument("--root", default=str(ROOT))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -85,6 +134,8 @@ def main() -> int:
     from ppoc_tpu_torch.ops.adam import init as adam_init
 
     print(cs.card_line(), flush=True)
+    if args.config == "recall_xl":
+        return recall_xl_phases(args.root)
     dev = torch.device("cuda", 0)
     throughput = args.config != "bench"
     tr = Trainer({"bench": cs.bench_config,
