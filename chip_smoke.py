@@ -4072,10 +4072,11 @@ BIGMB_STEP_REL = {"K3": 1e-5, "K4": 2.5e-4}
 # version as the kernel does: a whole phase cannot tell the rounding points
 # apart, the one-step check does.  So a whole phase holds the trajectory,
 # by distance: the kernel's relative two-norm distance from its plain
-# version within BIGMB_NOISE times the plain version's own between those
-# two tiles, and its distance from the generic bf16 phase within
-# BIGMB_GENERIC times the plain version's; the mean loss at test_bigmb's
-# tolerance throughout.  The plain version without the cotangent rounding
+# version summing in the kernel's order within BIGMB_NOISE times the plain
+# version's own between that order and the JAX package's (row tiles of
+# 4096), and its distance from the generic bf16 phase within BIGMB_GENERIC
+# times the plain version's; the mean loss at test_bigmb's tolerance
+# throughout.  The plain version without the cotangent rounding
 # is read beside them, and not held.  Streams 8-12 read: K3 0.71 to 2.24
 # of the yardstick and 0.82 to 1.23 of the generic distance, K4 0.98 to
 # 1.45 and 0.85 to 1.05; the control 1.46 to 6.39 (K3) and 1.16 to 1.30
@@ -4224,13 +4225,15 @@ def bigmb_rounding(label: str, lim: float, kernel_out, plain_out,
 
 
 def bigmb_grid_times(dev, steps: int = 37) -> None:
-    """Where K3 bf16's device time goes, by grid size: a step's device time
-    (a launch of ``steps`` steps less one of none, over the steps;
-    queued_ms) with every block on its own 128 rows, so each block does
-    the same work at every grid size and what grows with it is the
+    """Where K3 bf16's device time goes, by grid and cluster size: a step's
+    device time (a launch of ``steps`` steps less one of none, over the
+    steps; queued_ms) with every block on its own 128 rows, so each block
+    does the same work at every grid size and what grows with it is the
     partials' traffic through L2 and the barriers: the reacher value net
-    at 1, 8, 32 and 128 blocks, and a [10,16,16,1] net, whose products and
-    partials nearly vanish, at 1 and 128."""
+    at 1, 8, 32 and 128 blocks in the plan's clusters, then at 16 and 128
+    blocks in each cluster size that runs them in one round; a
+    [10,16,16,1] net, whose products and partials nearly vanish, at 1 and
+    128."""
     import torch
 
     from ppoc_tpu_torch.models import mlp
@@ -4238,8 +4241,10 @@ def bigmb_grid_times(dev, steps: int = 37) -> None:
     from ppoc_tpu_torch.ops.adam import AdamState
 
     h = cu.Hyper.of(3e-4, 0.9, 0.999, 1e-8)
-    for widths, grids in (([10, 256, 256, 1], (1, 8, 32, 128)),
-                          ([10, 16, 16, 1], (1, 128))):
+    wide = [10, 256, 256, 1]
+    for widths, grids, clusters in (
+            (wide, (1, 8, 32, 128), (None,)), (wide, (16,), (1, 2, 4, 8, 16)),
+            (wide, (128,), (1, 2)), ([10, 16, 16, 1], (1, 128), (None,))):
         g = torch.Generator().manual_seed(0)
         params = mlp.init(widths, g, dev)
         zeros = [(torch.zeros_like(w), torch.zeros_like(b))
@@ -4249,13 +4254,17 @@ def bigmb_grid_times(dev, steps: int = 37) -> None:
             mb = 128 * grid
             x = torch.randn(steps * mb, widths[0], generator=g).to(dev)
             tgt = torch.randn(steps * mb, generator=g).to(dev)
-            ms = [queued_ms(lambda n=n: cu.value_phase_bf16_kernel(
-                x[:n * mb], tgt[:n * mb], params, opt, n, mb, "relu", h), 3)
-                for n in (0, steps)]
-            print(f"  K3 bf16 {widths}, grid {grid} (minibatch {mb}): "
-                  f"{steps} steps {ms[1]:.4f} ms, none {ms[0]:.4f} ms, "
-                  f"{1e3 * (ms[1] - ms[0]) / steps:.2f} us a step",
-                  flush=True)
+            for c in clusters:
+                plan = cu.phase_bf16_plan("value", widths, mb, dev, c)
+                ms = [queued_ms(lambda n=n: cu.value_phase_bf16_kernel(
+                    x[:n * mb], tgt[:n * mb], params, opt, n, mb, "relu", h,
+                    c), 3) for n in (0, steps)]
+                print(f"  K3 bf16 {widths}, grid {plan['grid']} in "
+                      f"clusters of {plan['cluster']} (minibatch {mb}, "
+                      f"{plan['rounds']} round(s)): {steps} steps "
+                      f"{ms[1]:.4f} ms, none {ms[0]:.4f} ms, "
+                      f"{1e3 * (ms[1] - ms[0]) / steps:.2f} us a step",
+                      flush=True)
 
 
 def bigmb_phases(dev, counters, record, seeds=BIGMB_SEEDS):
@@ -4299,10 +4308,15 @@ def bigmb_phases(dev, counters, record, seeds=BIGMB_SEEDS):
     for k, pl in plans.items():
         print(f"  {k} phase: cooperative grid {pl['grid']} blocks x "
               f"{pl['threads']} threads ({pl['rows']} rows a block, "
-              f"{pl['blocks_per_sm']} block(s) per SM on {pl['sms']} SMs, "
-              f"{pl['smem']} B shared memory, {pl['scratch_bytes']} B "
-              f"scratch); products: {pl['route']} (mma.sync m16n8k16, bf16 "
-              f"operands, float32 accumulators)", flush=True)
+              f"{pl['rounds']} tile(s) a block, thread-block clusters of "
+              f"{pl['cluster']}, {pl['blocks_per_sm']} block(s) per SM on "
+              f"{pl['sms']} SMs, {pl['smem']} B shared memory, "
+              f"{pl['scratch_bytes']} B scratch); products: {pl['route']} "
+              f"(wgmma.mma_async m64nNk16 from shared memory, bf16 operands, "
+              f"float32 accumulators), W by bulk copies multicast to the "
+              f"cluster through a ring of {pl['stages']} x "
+              f"{pl['stage_bytes']} B; the partials summed in groups of "
+              f"{pl['group']}", flush=True)
         if pl["grid"] < 2:
             raise AssertionError(f"the {k} phase launches one block")
     print(f"  buffer {buf.obs.shape[0]} rows; value {n_v} steps, policy "
@@ -4365,15 +4379,15 @@ def bigmb_phases(dev, counters, record, seeds=BIGMB_SEEDS):
                 "K4": (p_args, lambda idx=pi: p_gen(idx), pi)}
 
     kinds = {"K3": (cu.value_phase_bf16_kernel, cu.value_phase_bf16_plain,
-                    n_v, plans["value"]["rows"]),
+                    n_v, plans["value"]),
              "K4": (cu.policy_phase_bf16_kernel, cu.policy_phase_bf16_plain,
-                    n_p, plans["policy"]["rows"])}
+                    n_p, plans["policy"])}
     whole = {"K3": (ts_v.v_params, ts_v.opt_v, loss_v),
              "K4": (ts_p.policy_params["mlp"], ts_p.policy_params["log_std"],
                     ts_p.opt_policy, ts_p.opt_log_std, loss_p, ent_p)}
     on = streams(vidx, pidx)
     errs, times = {}, {}
-    for kind, (kernel, plain, n, rows) in kinds.items():
+    for kind, (kernel, plain, n, _) in kinds.items():
         args, generic, idx = on[kind]
         header(f"[{kind} bf16 on stream {seeds[0]}: {n // 2} + {n - n // 2} "
                f"against {n} steps, two identical launches, two steps, "
@@ -4424,9 +4438,10 @@ def bigmb_phases(dev, counters, record, seeds=BIGMB_SEEDS):
             d = ppo.draw_fit(cfg, torch.Generator().manual_seed(seed), dev)
             vi, pi, results = d.value_idx, d.policy_idx, None
         on = streams(vi, pi)
-        for kind, (kernel, plain, n, rows) in kinds.items():
+        for kind, (kernel, plain, n, plan) in kinds.items():
             args, generic, idx = on[kind]
             n_w = 1 if kind == "K3" else 2
+            rows, group = plan["rows"], plan["group"]
             header(f"[{kind} bf16 on stream {seed}: one step against its "
                    f"plain version and the controls, the whole phase "
                    f"against its plain version and the generic bf16 "
@@ -4435,26 +4450,28 @@ def bigmb_phases(dev, counters, record, seeds=BIGMB_SEEDS):
             a1 = args(1)
             err = bigmb_rounding(
                 f"{kind} bf16, one step", BIGMB_STEP_REL[kind], kernel(*a1),
-                plain(*a1, rows),
-                (("the float32 cotangent", plain(*a1, rows,
+                plain(*a1, rows, group=group),
+                (("the float32 cotangent", plain(*a1, rows, group=group,
                                                  round_cotangent=False)),
                  ("the generic bf16 phase", generic(idx[:1, :1]))))
             errs[kind] = max(errs[kind], err)
-            # the whole phase: the plain version, its own sum-order noise
-            # (tile / 4), the generic bf16 phase, the control
+            # the whole phase: the plain version in the kernel's order, its
+            # own sum-order noise (against the JAX package's order), the
+            # generic bf16 phase, the control
             out = results[kind] if results else kernel(*args(n))
             got, loss_k = bigmb_state(out)
-            want, loss_pl = bigmb_state(plain(*args(n)))
-            sub, _ = bigmb_state(plain(*args(n), tile // 4))
-            noise = bigmb_dist(sub[:n_w], want[:n_w])[2]
-            ctl = bigmb_dist(bigmb_state(plain(*args(n),
-                                               round_cotangent=False))[0][:n_w],
-                             want[:n_w])[2]
-            print(f"  {kind} bf16 plain version at row tiles of {tile // 4} "
-                  f"against {tile}: relative distance {noise:.3e} (the "
-                  f"yardstick); without the cotangent rounding "
-                  f"{ctl:.3e} ({ctl / max(noise, 1e-30):.3f} of it; not "
-                  f"held)", flush=True)
+            want, loss_pl = bigmb_state(plain(*args(n), rows, group=group))
+            jax_order, _ = bigmb_state(plain(*args(n)))
+            noise = bigmb_dist(jax_order[:n_w], want[:n_w])[2]
+            ctl = bigmb_dist(bigmb_state(plain(
+                *args(n), rows, group=group, round_cotangent=False))[0][:n_w],
+                want[:n_w])[2]
+            print(f"  {kind} bf16 plain version in the JAX package's order "
+                  f"(row tiles of {tile}) against the kernel's ({rows}-row "
+                  f"tiles in groups of {group}): relative distance "
+                  f"{noise:.3e} (the yardstick); without the cotangent "
+                  f"rounding {ctl:.3e} ({ctl / max(noise, 1e-30):.3f} of it;"
+                  f" not held)", flush=True)
             bigmb_near(f"{kind} bf16 whole phase against its plain version",
                        got[:n_w], want[:n_w], loss_k, loss_pl, noise,
                        BIGMB_NOISE)
@@ -4475,7 +4492,7 @@ def bigmb_phases(dev, counters, record, seeds=BIGMB_SEEDS):
     bigmb_grid_times(dev)
     path = (f"REACHER_BF16 fit buffer ({buf.obs.shape[0]} rows), "
             f"ppo.value_phase_fused / policy_phase_fused with bf16, grid "
-            f"{plans['value']['grid']} x {plans['value']['threads']}, mma")
+            f"{plans['value']['grid']} x {plans['value']['threads']}, wgmma")
     for name, kind, n, w, cols in (("value_phase_bf16", "K3", n_v, vw, 1),
                                    ("policy_phase_bf16", "K4", n_p, pw, 3)):
         record(name, path, [n, mb] + w, launches[name], errs[kind],

@@ -43,7 +43,9 @@ accumulation, float32 master weights, moments and gradient sums, row tiles
 of up to ``MAX_TILE_BF16``.  Their steps are far too large for one block
 (the reacher regime's value phase is ~2.5 TFLOP), so each is one
 cooperative launch over every SM with a grid-wide barrier between the
-gradient and the Adam half of each step.  As in the JAX package no trainer
+gradient and the Adam half of each step; their hidden layers' products
+are Hopper's warpgroup products (``wgmma``) with W staged by bulk copies
+(:func:`wgmma_product` runs one on its own).  As in the JAX package no trainer
 path selects them: ``algo/ppo.value_phase_fused`` / ``policy_phase_fused``
 call them directly.
 """
@@ -275,10 +277,12 @@ def _dot_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b on bf16-rounded operands with float32 products and sums: one
     bf16 tensor-core product with a float32 output on the card, float32
     products of the bf16 values on the CPU (a bf16 x bf16 product is exact
-    in float32, so the two differ only in the order of the sums)."""
+    in float32, so the two differ only in the order of the sums).  3-D
+    operands multiply batch by batch."""
     if a.is_cuda:
-        return torch.mm(a.to(torch.bfloat16), b.to(torch.bfloat16),
-                        out_dtype=torch.float32)
+        mm = torch.mm if a.dim() == 2 else torch.bmm
+        return mm(a.to(torch.bfloat16), b.to(torch.bfloat16),
+                  out_dtype=torch.float32)
     return _bf(a) @ _bf(b)
 
 
@@ -296,23 +300,48 @@ def _forward_bf16(x, W, B, activation: str) -> List[torch.Tensor]:
     return hs
 
 
+def _tile_sum(parts: torch.Tensor, group: int) -> torch.Tensor:
+    """The kernels' sum of per-tile partials parts[T, ...]: the tiles in
+    groups of ``group`` in order, each group summed from zero, then the
+    groups in order (``group`` 1: every tile added in turn)."""
+    n_groups = -(-parts.shape[0] // group)
+    pad = n_groups * group - parts.shape[0]   # zero tiles add nothing
+    if pad:
+        parts = torch.cat([parts, parts.new_zeros((pad,) + parts.shape[1:])])
+    parts = parts.reshape(n_groups, group, *parts.shape[1:])
+    part = torch.zeros_like(parts[:, 0])
+    for t in range(group):
+        part = part + parts[:, t]
+    total = torch.zeros_like(part[0])
+    for j in range(n_groups):
+        total = total + part[j]
+    return total
+
+
 def _backward_bf16(x, hs, g, W, activation: str,
-                   round_cotangent: bool = True) -> List[torch.Tensor]:
+                   round_cotangent: bool = True, tiles: int = 1,
+                   group: int = 1) -> List[torch.Tensor]:
     """The bf16 kernels' backward from the float32 output cotangent ``g``:
     per layer dW from the bf16-rounded input and cotangent, db summed from
     the float32 cotangent, and the next cotangent from the bf16-rounded
     cotangent and W times the activation derivative of the bf16-stored
-    post-activation.  ``round_cotangent=False`` keeps the cotangent float32
-    in both products (a control, not the kernel's arithmetic).  Returns
-    flat [dW0, db0, dW1, ...]."""
+    post-activation.  Over ``tiles`` equal row tiles dW and db are each
+    tile's sum, summed as :func:`_tile_sum` sums them.
+    ``round_cotangent=False`` keeps the cotangent float32 in both products
+    (a control, not the kernel's arithmetic).  Returns flat [dW0, db0,
+    dW1, ...]."""
     grads = [None] * (2 * len(W))
     for l in range(len(W) - 1, -1, -1):
         a_in = x if l == 0 else hs[l - 1]
-        if round_cotangent:
-            grads[2 * l] = _dot_bf16(a_in.T, g)
+        if tiles > 1:
+            a_t = a_in.reshape(tiles, -1, a_in.shape[1]).transpose(1, 2)
+            g_t = g.reshape(tiles, -1, g.shape[1])
         else:
-            grads[2 * l] = _bf(a_in).T @ g
-        grads[2 * l + 1] = g.sum(dim=0)
+            a_t, g_t = a_in.T, g
+        dw = _dot_bf16(a_t, g_t) if round_cotangent else _bf(a_t) @ g_t
+        db = g_t.sum(dim=-2)
+        grads[2 * l] = _tile_sum(dw, group) if tiles > 1 else dw
+        grads[2 * l + 1] = _tile_sum(db, group) if tiles > 1 else db
         if l > 0:
             gw = (_dot_bf16(g, W[l].T) if round_cotangent
                   else g @ _bf(W[l]).T)
@@ -320,7 +349,9 @@ def _backward_bf16(x, hs, g, W, activation: str,
     return grads
 
 
-def _tiles(mb: int, tile: Optional[int]) -> int:
+def _tiles(mb: int, tile: Optional[int], group: int) -> int:
+    if group < 1:
+        raise ValueError(f"the partial sum's group {group} must be >= 1")
     if tile is None:
         return mb // bf16_tile(mb)
     if tile < 1 or mb % tile:
@@ -329,39 +360,32 @@ def _tiles(mb: int, tile: Optional[int]) -> int:
     return mb // tile
 
 
-def _tile_grads(acc, grads) -> None:
-    """The kernels' scratch accumulation: zero, then += each tile's."""
-    for a, g in zip(acc, grads):
-        a.add_(g)
-
-
 def value_phase_bf16_plain(obs_seq, tgt_seq, params, opt: AdamState,
                            n_steps: int, mb: int, activation: str,
                            hyper: Hyper, tile: Optional[int] = None, *,
-                           round_cotangent: bool = True):
+                           group: int = 1, round_cotangent: bool = True):
     """Plain PyTorch version of K3 bf16 (``_value_kernel(..., bf16=True)``):
-    per step, per row tile of ``tile`` rows in order (the JAX rule's,
-    ``bf16_tile(mb)``, by default), the bf16 forward, the MSE gradient
-    2/mb (v - target) and the bf16 backward, the gradients summed tile by
-    tile into float32; then one Adam.  ``round_cotangent=False`` is the
-    control of ``_backward_bf16``.  Returns (params', opt', mean loss)."""
-    n_sub = _tiles(mb, tile)
-    tile = mb // n_sub
+    per step the bf16 forward, the MSE gradient 2/mb (v - target) and the
+    bf16 backward over the minibatch, dW and db summed in float32 per row
+    tile of ``tile`` rows (the JAX rule's, ``bf16_tile(mb)``, by default),
+    the tiles in groups of ``group`` and then the groups (the kernel's
+    order: ``phase_bf16_plan``'s rows and group); then one Adam.
+    ``round_cotangent=False`` is the control of ``_backward_bf16``.
+    Returns (params', opt', mean loss)."""
+    n_sub = _tiles(mb, tile, group)
     P, M, V = _unpack(params, opt)
     tgt_seq = tgt_seq.reshape(-1)
     loss = torch.zeros((), dtype=torch.float32, device=obs_seq.device)
     for s in range(n_steps):
-        acc = [torch.zeros_like(p) for p in P]
-        for j in range(n_sub):
-            rows = slice(s * mb + j * tile, s * mb + (j + 1) * tile)
-            x = obs_seq[rows]
-            hs = _forward_bf16(x, P[0::2], P[1::2], activation)
-            diff = hs[-1][:, 0] - tgt_seq[rows]
-            loss = loss + (diff * diff).sum()
-            g = (2.0 / mb) * diff[:, None]
-            _tile_grads(acc, _backward_bf16(x, hs, g, P[0::2], activation,
-                                            round_cotangent))
-        _adam_(P, acc, M, V, opt.t + s + 1, hyper)
+        rows = slice(s * mb, (s + 1) * mb)
+        x = obs_seq[rows]
+        hs = _forward_bf16(x, P[0::2], P[1::2], activation)
+        diff = hs[-1][:, 0] - tgt_seq[rows]
+        loss = loss + (diff * diff).sum()
+        g = (2.0 / mb) * diff[:, None]
+        grads = _backward_bf16(x, hs, g, P[0::2], activation, round_cotangent,
+                               n_sub, group)
+        _adam_(P, grads, M, V, opt.t + s + 1, hyper)
     return (_pack(P), AdamState(_pack(M), _pack(V), opt.t + n_steps),
             loss / (n_steps * mb))
 
@@ -371,16 +395,15 @@ def policy_phase_bf16_plain(obs_seq, act_seq, lp_seq, adv_seq, params,
                             opt_log_std: AdamState, n_steps: int, mb: int,
                             activation: str, hyper: Hyper, clip_eps: float,
                             ent_coeff: float, tile: Optional[int] = None, *,
-                            round_cotangent: bool = True):
+                            group: int = 1, round_cotangent: bool = True):
     """Plain PyTorch version of K4 bf16 (``_policy_kernel(...,
-    bf16=True)``): per step the closed-form entropy once, then per row
-    tile (as in value_phase_bf16_plain) the bf16 mu forward, the
-    clipped-surrogate gradient (float32, only the unclipped branch) and
-    the bf16 backward, summed tile by tile; then the net's Adam and
-    log_std's, each with its own timestep.  Returns (params', log_std',
-    opt_policy', opt_log_std', mean loss, mean entropy)."""
-    n_sub = _tiles(mb, tile)
-    tile = mb // n_sub
+    bf16=True)``): per step the closed-form entropy once, then over the
+    minibatch the bf16 mu forward, the clipped-surrogate gradient (float32,
+    only the unclipped branch) and the bf16 backward, summed as
+    value_phase_bf16_plain sums them; then the net's Adam and log_std's,
+    each with its own timestep.  Returns (params', log_std', opt_policy',
+    opt_log_std', mean loss, mean entropy)."""
+    n_sub = _tiles(mb, tile, group)
     P, M, V = _unpack(params, opt_policy)
     ls = log_std.clone()
     mls, vls = opt_log_std.m.clone(), opt_log_std.v.clone()
@@ -396,25 +419,22 @@ def policy_phase_bf16_plain(obs_seq, act_seq, lp_seq, adv_seq, params,
         ent_sum = ent_sum + ent
         loss = loss + (-ent_coeff) * ent
         inv_sigma = torch.exp(-ls)
-        acc = [torch.zeros_like(p) for p in P]
-        gls = torch.zeros_like(ls)
-        for j in range(n_sub):
-            rows = slice(s * mb + j * tile, s * mb + (j + 1) * tile)
-            x, adv = obs_seq[rows], adv_seq[rows]
-            hs = _forward_bf16(x, P[0::2], P[1::2], activation)
-            z = (act_seq[rows] - hs[-1]) * inv_sigma
-            logp = lp0 - sum_ls - 0.5 * (z * z).sum(dim=1)
-            ratio = torch.exp(logp - lp_seq[rows])
-            clipped = torch.clamp(ratio, 1.0 - clip_eps, 1.0 + clip_eps)
-            ra, ca = ratio * adv, clipped * adv
-            loss = loss + (-torch.minimum(ra, ca).sum()) / mb
-            # only the unclipped branch carries gradient
-            dlogp = -(adv * ratio / mb) * (ra <= ca).to(torch.float32)
-            gls = gls + (dlogp[:, None] * (z * z - 1.0)).sum(dim=0)
-            g = dlogp[:, None] * z * inv_sigma
-            _tile_grads(acc, _backward_bf16(x, hs, g, P[0::2], activation,
-                                            round_cotangent))
-        _adam_(P, acc, M, V, opt_policy.t + s + 1, hyper)
+        rows = slice(s * mb, (s + 1) * mb)
+        x, adv = obs_seq[rows], adv_seq[rows]
+        hs = _forward_bf16(x, P[0::2], P[1::2], activation)
+        z = (act_seq[rows] - hs[-1]) * inv_sigma
+        logp = lp0 - sum_ls - 0.5 * (z * z).sum(dim=1)
+        ratio = torch.exp(logp - lp_seq[rows])
+        clipped = torch.clamp(ratio, 1.0 - clip_eps, 1.0 + clip_eps)
+        ra, ca = ratio * adv, clipped * adv
+        loss = loss + (-torch.minimum(ra, ca).sum()) / mb
+        # only the unclipped branch carries gradient
+        dlogp = -(adv * ratio / mb) * (ra <= ca).to(torch.float32)
+        gls = (dlogp[:, None] * (z * z - 1.0)).sum(dim=0)
+        g = dlogp[:, None] * z * inv_sigma
+        grads = _backward_bf16(x, hs, g, P[0::2], activation, round_cotangent,
+                               n_sub, group)
+        _adam_(P, grads, M, V, opt_policy.t + s + 1, hyper)
         _adam_([ls], [gls - ent_coeff], [mls], [vls], opt_log_std.t + s + 1,
                hyper)
     return (_pack(P), ls,
@@ -827,7 +847,7 @@ class _Bf16PhaseArgs(ctypes.Structure):
            ("scratch_bytes", ctypes.c_long)]
         + [(n, ctypes.c_int) for n in (
             "n_layers", "activation", "n_steps", "mb", "t0", "t0_ls",
-            "k_act")]
+            "k_act", "cluster")]
         + [(n, ctypes.c_float) for n in (
             "two_over_mb", "lp0", "ent0", "clip_lo", "clip_hi", "ent_coeff")]
         + [("hyper", Hyper)]
@@ -837,7 +857,8 @@ class _Bf16PhaseArgs(ctypes.Structure):
 _BF16_KINDS = {"value": (0, "ppoc_value_phase_bf16", value_bf16_launches),
                "policy": (1, "ppoc_policy_phase_bf16", policy_bf16_launches)}
 _PLAN_KEYS = ("rows", "grid", "threads", "smem", "scratch_bytes",
-              "blocks_per_sm", "sms")
+              "blocks_per_sm", "sms", "rounds", "group", "stages",
+              "stage_bytes", "cluster")
 
 
 def _declare_bf16() -> ctypes.CDLL:
@@ -854,6 +875,9 @@ def _declare_bf16() -> ctypes.CDLL:
         for fn in (lib.ppoc_value_phase_bf16, lib.ppoc_policy_phase_bf16):
             fn.argtypes = args + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        lib.ppoc_wgmma_test.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 \
+            + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.ppoc_wgmma_test.restype = ctypes.c_int
         lib._phase_bf16_declared = True
     return lib
 
@@ -879,22 +903,62 @@ def _bf16_plan(lib, args: _Bf16PhaseArgs, kind: str, widths):
 
 
 def phase_bf16_plan(kind: str, widths: Sequence[int], mb: int,
-                    device=None) -> dict:
+                    device=None, cluster: Optional[int] = None) -> dict:
     """How K3 bf16 (``kind`` "value") or K4 bf16 ("policy") launches on the
     card for the net ``widths`` and minibatch ``mb``: rows per block, the
     cooperative grid, threads, dynamic shared memory and scratch bytes,
-    blocks per SM and the card's SMs; ``route`` names the products
-    (warp-level mma.sync)."""
+    blocks per SM and the card's SMs, row tiles a block takes, the group
+    of the partial sum (the plain versions' ``group``), the W ring's stages
+    and a stage's bytes, and the thread-block cluster's blocks, among which
+    each W stage is multicast (csrc/update_bf16.cu ``make_plan``, the one
+    place the rule is written); ``route`` names the products.
+    ``cluster`` forces a cluster size (1, 2, 4, 8 or 16; the grid then as
+    the rule sizes it for that one)."""
     _check_widths_bf16(widths)
     dims = (ctypes.c_int * len(widths))(*widths)
-    args = _Bf16PhaseArgs(dims=dims, n_layers=len(widths) - 1, mb=mb)
+    args = _Bf16PhaseArgs(dims=dims, n_layers=len(widths) - 1, mb=mb,
+                          cluster=cluster or 0)
     with torch.cuda.device(device if device is not None else 0):
         plan = _bf16_plan(_declare_bf16(), args, kind, widths)
-    return dict(plan, route="mma")
+    return dict(plan, route="wgmma")
+
+
+# ppoc_wgmma_test's modes: the hidden layers' products (the 128-byte
+# swizzle) and the head's (W_L and g_L 16 columns wide, the 32-byte one)
+WGMMA_MODES = {"forward": 0, "dx": 1, "dw": 2, "head_forward": 3,
+               "head_dx": 4, "head_dw": 5}
+
+
+def wgmma_product(mode: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One product of csrc/wgmma.cuh as K3 bf16 / K4 bf16 run it, on bf16
+    roundings of float32 operands with float32 sums: "forward" a [64, K] @
+    b [K, N] (K <= 64), "dx" a [64, K] @ b.T with b [64, K] (K <= 256),
+    "dw" a.T @ b with a [K, 64], b [K, N] (K <= 128, a multiple of 16); N
+    64, 128, 192 or 256.  The head's: "head_forward" a [64, K] @ b [K, 16]
+    (K <= 64), "head_dx" a [64, 16] @ b.T with b [N, 16], "head_dw" a.T @
+    b with a [K, 64], b [K, 16] (K as "dw").  On a CPU tensor the same
+    products of the rounded operands in float32."""
+    at = a.T if mode in ("dw", "head_dw") else a
+    bt = b.T if mode in ("dx", "head_dx") else b
+    if not a.is_cuda:
+        return _bf(at) @ _bf(bt)
+    lib = _declare_bf16()
+    a, b = a.contiguous(), b.contiguous()
+    for t, name in ((a, "A"), (b, "B")):
+        _build.require(t, name, device=a.device)
+    out = torch.empty(at.shape[0], bt.shape[1], dtype=torch.float32,
+                      device=a.device)
+    k = a.shape[0] if mode in ("dw", "head_dw") else a.shape[1]
+    with torch.cuda.device(a.device):
+        _build.check(lib, lib.ppoc_wgmma_test(
+            WGMMA_MODES[mode], a.data_ptr(), b.data_ptr(), out.data_ptr(), k,
+            out.shape[1], _build.stream_of(a.device)),
+            f"wgmma {mode} product {tuple(a.shape)} x {tuple(b.shape)}")
+    return out
 
 
 def _bf16_args(x, params, opt: AdamState, n_steps: int, mb: int,
-               activation: str, hyper: Hyper):
+               activation: str, hyper: Hyper, cluster: Optional[int]):
     """Check what both kinds take and fill their shared fields."""
     widths = mlp.dims(params)
     _check_widths_bf16(widths)
@@ -912,7 +976,7 @@ def _bf16_args(x, params, opt: AdamState, n_steps: int, mb: int,
         p_out=p(outs[0]), m_out=p(outs[1]), v_out=p(outs[2]),
         stats=p(stats), dims=dims, n_layers=len(widths) - 1,
         activation=_build.ACTIVATIONS[activation], n_steps=n_steps, mb=mb,
-        t0=opt.t, hyper=hyper)
+        t0=opt.t, cluster=cluster or 0, hyper=hyper)
     new_opt = AdamState(mlp.unflatten(outs[1], widths),
                         mlp.unflatten(outs[2], widths), opt.t + n_steps)
     return (args, widths, mlp.unflatten(outs[0], widths), new_opt, stats,
@@ -939,12 +1003,13 @@ def _launch_bf16(kind: str, args: _Bf16PhaseArgs, widths, dev, keep) -> None:
 
 def value_phase_bf16_kernel(obs_seq, tgt_seq, params, opt: AdamState,
                             n_steps: int, mb: int, activation: str,
-                            hyper: Hyper):
+                            hyper: Hyper, cluster: Optional[int] = None):
     """Launch K3 bf16; the arguments and results of value_phase_bf16_plain
-    but its row tile: the kernel sums its own 128-row partials in block
-    order."""
+    but its row tile and group: the kernel sums its own row tiles'
+    partials in its plan's order (``phase_bf16_plan``'s rows and group).
+    ``cluster`` forces a cluster size (tests and measurements)."""
     args, widths, new_params, new_opt, stats, keep = _bf16_args(
-        obs_seq, params, opt, n_steps, mb, activation, hyper)
+        obs_seq, params, opt, n_steps, mb, activation, hyper, cluster)
     tgt_seq = tgt_seq.reshape(-1).contiguous()
     _build.require(tgt_seq, "targets", (n_steps * mb,), device=obs_seq.device)
     if widths[-1] != 1:
@@ -958,11 +1023,12 @@ def policy_phase_bf16_kernel(obs_seq, act_seq, lp_seq, adv_seq, params,
                              log_std, opt_policy: AdamState,
                              opt_log_std: AdamState, n_steps: int, mb: int,
                              activation: str, hyper: Hyper, clip_eps: float,
-                             ent_coeff: float):
+                             ent_coeff: float, cluster: Optional[int] = None):
     """Launch K4 bf16; the arguments and results of policy_phase_bf16_plain
-    but its row tile (see value_phase_bf16_kernel)."""
+    but its row tile and group (see value_phase_bf16_kernel)."""
     args, widths, new_params, new_opt, stats, keep = _bf16_args(
-        obs_seq, params, opt_policy, n_steps, mb, activation, hyper)
+        obs_seq, params, opt_policy, n_steps, mb, activation, hyper,
+        cluster)
     dev = obs_seq.device
     k = log_std.shape[0]
     rows = n_steps * mb

@@ -232,6 +232,97 @@ def test_one_step_check_sees_the_cotangent_rounding(kind):
     assert _leaf_dist(leaves(control), want) > 10 * STEP_REL
 
 
+# --- the kernels' sum order: tiles in groups, then the groups ----------------
+
+def _one_step(kind, cfg, ts, buf, idx):
+    """(plain, args) of one step of ``kind`` on the stream ``idx``."""
+    if kind == "value":
+        cols = buffer.gather_mb((buf.obs, buf.target), idx)
+        return cu.value_phase_bf16_plain, (
+            *cols, ts.v_params, ts.opt_v, 1, cfg.minibatch_size,
+            cfg.activation, ppo._hyper(cfg, cfg.lr_v))
+    cols = buffer.gather_mb((buf.obs, buf.action, buf.log_prob,
+                             buf.advantage), idx)
+    p = ts.policy_params
+    return cu.policy_phase_bf16_plain, (
+        *cols, p["mlp"], p["log_std"], ts.opt_policy, ts.opt_log_std, 1,
+        cfg.minibatch_size, cfg.activation, ppo._hyper(cfg, cfg.lr_policy),
+        cfg.clip_eps, cfg.ent_coeff)
+
+
+@pytest.mark.parametrize("group", [1, 3])
+@pytest.mark.parametrize("kind", ["value", "policy"])
+def test_plain_sums_tiles_in_groups(monkeypatch, kind, group):
+    """At 8 row tiles of 512 each dW and db a plain version hands Adam is,
+    bit for bit, the explicit float32 sum of its tiles' partials in groups
+    of ``group`` (each from zero; the last group short at 3), then the
+    groups in order; at group 1 every tile added in turn."""
+    cfg = _bigmb_cfg(n_epochs_value=1, n_epochs_policy=1)
+    _, _, ts, buf = _port_setup(cfg, seed=1)
+    plain, args = _one_step(kind, cfg, ts, buf,
+                            _stream(cfg, jax.random.PRNGKey(13), 1))
+    calls = []
+    tile_sum = cu._tile_sum
+
+    def record(parts, g):
+        out = tile_sum(parts, g)
+        calls.append((parts.clone(), g, out.clone()))
+        return out
+
+    monkeypatch.setattr(cu, "_tile_sum", record)
+    plain(*args, 512, group=group)
+    assert len(calls) == 6   # dW and db of each of the 3 layers
+    for parts, g, out in calls:
+        assert g == group and parts.shape[0] == 8
+        want = torch.zeros_like(parts[0])
+        for g0 in range(0, 8, group):
+            part = torch.zeros_like(parts[0])
+            for tile in parts[g0:g0 + group]:
+                part = part + tile
+            want = want + part
+        assert torch.equal(out, want)
+        if group == 1:
+            flat = torch.zeros_like(parts[0])
+            for tile in parts:
+                flat = flat + tile
+            assert torch.equal(out, flat)
+
+
+@pytest.mark.parametrize("group", [2, 8])
+@pytest.mark.parametrize("kind", ["value", "policy"])
+def test_plain_in_groups_holds_to_jax(kind, group):
+    """The one-step leaf check against the JAX kernel holds in any sum
+    order the kernel may take: row tiles of 128 summed in groups of
+    ``group``."""
+    cfg = _bigmb_cfg(n_epochs_value=1, n_epochs_policy=1)
+    jts, jbuf, ts, buf = _port_setup(cfg, seed=1)
+    k = jax.random.PRNGKey(13)
+    plain, args = _one_step(kind, cfg, ts, buf, _stream(cfg, k, 1))
+    out = plain(*args, 128, group=group)
+    if kind == "value":
+        jp, jo, _ = jax.jit(lambda vp, ov, key: jpu.value_phase_fused(
+            cfg, vp, ov, jbuf, key, bf16=True))(jts.v_params, jts.opt_v, k)
+        want = _jleaves((jp, jo.m, jo.v))
+        got = _leaves((out[0], out[1].m, out[1].v))
+    else:
+        pol, op, ols, _, _ = jax.jit(lambda t, key: jpu.policy_phase_fused(
+            cfg, t.policy_params, t.opt_policy, t.opt_log_std, jbuf, key,
+            bf16=True))(jts, k)
+        want = _jleaves((pol, op.m, op.v, ols.m, ols.v))
+        got = _leaves(({"mlp": out[0], "log_std": out[1]}, out[2].m,
+                       out[2].v, out[3].m, out[3].v))
+    assert _leaf_dist(got, want) <= STEP_REL
+
+
+def test_plain_refuses_a_group_below_one():
+    cfg = _bigmb_cfg(n_epochs_value=1)
+    _, _, ts, buf = _port_setup(cfg)
+    with pytest.raises(ValueError, match="group"):
+        cu.value_phase_bf16_plain(buf.obs[:4096], buf.target[:4096],
+                                  ts.v_params, ts.opt_v, 1, 4096, "relu",
+                                  ppo._hyper(cfg, cfg.lr_v), group=0)
+
+
 def test_value_phase_bf16_two_minibatches_match_jax(monkeypatch):
     """Minibatch 3072 in row tiles of 1024 (three sub-tiles; the JAX
     package's tile cap lowered to 1024 as test_bigmb_value_subtiling_exact

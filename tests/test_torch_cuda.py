@@ -1908,7 +1908,9 @@ def test_bf16_phase_takes_any_widths(dev, kind, widths, activation, mb, n):
     x, a, lp, adv = _rows(dev, n * mb, sizes[0], k, seed=6)
     plan = cu.phase_bf16_plan("value" if kind == "K3" else "policy", sizes,
                               mb, dev)
-    assert plan["grid"] == -(-mb // plan["rows"])
+    tiles = -(-mb // plan["rows"])
+    assert plan["rounds"] == 1 and plan["grid"] % plan["cluster"] == 0
+    assert tiles <= plan["grid"] < tiles + plan["cluster"]
     for steps in (1, n):
         rows = steps * mb
         if kind == "K3":
@@ -1937,17 +1939,20 @@ def test_bf16_phase_takes_any_widths(dev, kind, widths, activation, mb, n):
 @pytest.mark.parametrize("mb", [20000, 1])
 def test_bf16_phase_blocks_take_several_tiles(dev, kind, mb):
     """More row tiles than the card holds blocks at once (20000 rows: 157
-    tiles of 128), so a block sums its partials over two tiles; and a
-    minibatch of one row."""
+    tiles of 128), so a block sums its partials over two tiles (the grid
+    whole clusters, the fewest for two rounds); and a minibatch of one
+    row."""
     kernel, plain, args = _bf16_phase_case(dev, kind, (32, 32), 2, mb,
                                            seed=7)
     plan = cu.phase_bf16_plan("value" if kind == "K3" else "policy",
                               mlp.dims(args[2] if kind == "K3" else args[4]),
                               mb, dev)
     tiles = -(-mb // plan["rows"])
-    assert plan["grid"] == min(tiles, plan["blocks_per_sm"] * plan["sms"])
+    assert plan["grid"] % plan["cluster"] == 0
+    assert plan["rounds"] == -(-tiles // plan["grid"])
+    assert plan["grid"] <= plan["blocks_per_sm"] * plan["sms"]
     if mb == 20000:
-        assert plan["grid"] < tiles
+        assert plan["rounds"] == 2 and plan["grid"] == 79
     k, p = kernel(*args), plain(*args)
     torch.testing.assert_close(_phase_weights(k), _phase_weights(p),
                                rtol=5e-2, atol=2e-4)
@@ -1978,12 +1983,13 @@ def test_bf16_phase_rounds_the_cotangent(dev, kind):
     K3 and, with log_std's leaf, 66-121x for K4)."""
     kernel, plain, args = _bf16_phase_case(dev, kind, (256, 256), 1, 2048)
     widths = mlp.dims(args[2] if kind == "K3" else args[4])
-    rows = cu.phase_bf16_plan("value" if kind == "K3" else "policy", widths,
-                              2048, dev)["rows"]
-    want = plain(*args, rows)
+    plan = cu.phase_bf16_plan("value" if kind == "K3" else "policy", widths,
+                              2048, dev)
+    want = plain(*args, plan["rows"], group=plan["group"])
     got = _bf16_leaf_dist(kind, kernel(*args), want)
-    control = _bf16_leaf_dist(kind, plain(*args, rows, round_cotangent=False),
-                              want)
+    control = _bf16_leaf_dist(kind, plain(*args, plan["rows"],
+                                          group=plan["group"],
+                                          round_cotangent=False), want)
     assert 10 * got <= control, (got, control)
 
 
@@ -2017,14 +2023,98 @@ def test_bf16_phase_is_deterministic_and_splits(dev, kind):
 @pytest.mark.parametrize("kind", ["value", "policy"])
 def test_bf16_phase_grid_spans_the_card(dev, kind):
     """128 rows a block: minibatch 16384 of the reacher nets launches 128
-    cooperative blocks, one per row tile, all resident at once."""
+    cooperative blocks, one per row tile, all resident at once (two
+    consumer warpgroups and the producer warp a block, W's ring two stages
+    of 64 x 256), in clusters of 2 (of 4 or more the card holds 120 or
+    fewer blocks at this shared memory), and sums the partials in 16 groups
+    of 8; 1000 rows take one round too."""
     widths = [10, 256, 256, 1 if kind == "value" else 2]
     plan = cu.phase_bf16_plan(kind, widths, 16384, dev)
     props = torch.cuda.get_device_properties(dev)
-    assert plan["rows"] == 128 and plan["threads"] == 512
-    assert plan["grid"] == min(128, plan["blocks_per_sm"] * plan["sms"])
-    assert plan["sms"] == props.multi_processor_count and plan["grid"] > 1
-    assert cu.phase_bf16_plan(kind, widths, 1000, dev)["grid"] == 8
+    assert plan["rows"] == 128 and plan["threads"] == 288
+    assert plan["stages"] == 2 and plan["stage_bytes"] == 64 * 256 * 2
+    assert plan["rounds"] == 1 and plan["group"] == 8
+    assert plan["grid"] == 128 and plan["cluster"] == 2
+    assert plan["sms"] == props.multi_processor_count
+    small = cu.phase_bf16_plan(kind, widths, 1000, dev)
+    assert small["rounds"] == 1 and small["grid"] == 8
+    assert small["cluster"] == 8
+
+
+# one step against the plain version in the kernel's order: chip_smoke.py's
+# BIGMB_STEP_REL
+_BF16_STEP_REL = {"K3": 1e-5, "K4": 2.5e-4}
+
+
+@pytest.mark.parametrize("kind", ["K3", "K4"])
+@pytest.mark.parametrize("mb,rows", [(2048, 128), (64, 64)])
+def test_bf16_phase_matches_plain_in_its_order(dev, kind, mb, rows):
+    """One step at 2x256 against the plain version summing in the kernel's
+    order (its rows a tile, its plan's group), each leaf of the net and its
+    moments within _BF16_STEP_REL of its two-norm: 128 rows a block on two
+    warpgroups, and 64 rows (a minibatch of 64) on one."""
+    kernel, plain, args = _bf16_phase_case(dev, kind, (256, 256), 1, mb)
+    widths = mlp.dims(args[2] if kind == "K3" else args[4])
+    plan = cu.phase_bf16_plan("value" if kind == "K3" else "policy", widths,
+                              mb, dev)
+    assert plan["rows"] == rows
+    got = kernel(*args)
+    want = plain(*args, plan["rows"], group=plan["group"])
+    assert _bf16_leaf_dist(kind, got, want) <= _BF16_STEP_REL[kind]
+
+
+@pytest.mark.parametrize("kind", ["K3", "K4"])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_bf16_phase_every_cluster_size(dev, kind, cluster):
+    """Each cluster size the plan can pick (forced), W multicast to the
+    cluster's blocks: one step at 2x256, minibatch 2048 (16 tiles), against
+    the plain version at the plan's rows and group, then two launches of
+    two steps, the same bits."""
+    kernel, plain, args = _bf16_phase_case(dev, kind, (256, 256), 1, 2048)
+    widths = mlp.dims(args[2] if kind == "K3" else args[4])
+    plan = cu.phase_bf16_plan("value" if kind == "K3" else "policy", widths,
+                              2048, dev, cluster=cluster)
+    assert plan["cluster"] == cluster and plan["grid"] % cluster == 0
+    got = kernel(*args, cluster=cluster)
+    want = plain(*args, plan["rows"], group=plan["group"])
+    assert _bf16_leaf_dist(kind, got, want) <= _BF16_STEP_REL[kind]
+    kernel, _, args = _bf16_phase_case(dev, kind, (256, 256), 2, 2048)
+    one = _phase_outputs(kernel(*args, cluster=cluster))
+    assert all(torch.equal(x, y) for x, y in zip(
+        one, _phase_outputs(kernel(*args, cluster=cluster))))
+
+
+# wgmma.cuh's products as the kernel runs them: K, N
+_WGMMA_CASES = {"forward": [(16, 256), (64, 64), (48, 192), (10, 128)],
+                "dx": [(256, 64), (64, 64), (192, 64), (40, 64)],
+                "dw": [(128, 256), (16, 64), (64, 192), (112, 128)],
+                "head_forward": [(64, 16), (10, 16)],
+                "head_dx": [(16, 256), (16, 192), (16, 64)],
+                "head_dw": [(128, 16), (16, 16)]}
+
+
+@pytest.mark.parametrize("mode,k,n", [(m, k, n) for m, cases in
+                                      _WGMMA_CASES.items()
+                                      for k, n in cases])
+def test_wgmma_product_matches_float64(dev, mode, k, n):
+    """One wgmma.cuh product (64 output rows) against float64 products of
+    the same bf16 operands: within float32 summation (each output's error
+    at most K x 2^-23 of the sum of |terms|), on the forward's, dX's and
+    dW's operand layouts, and the head's (16 columns, the 32-byte
+    swizzle)."""
+    g = torch.Generator().manual_seed(k * 1000 + n)
+    shapes = {"forward": ((64, k), (k, n)), "dx": ((64, k), (64, k)),
+              "dw": ((k, 64), (k, n)), "head_forward": ((64, k), (k, 16)),
+              "head_dx": ((64, 16), (n, 16)),
+              "head_dw": ((k, 64), (k, 16))}[mode]
+    a, b = (torch.randn(*s, generator=g) for s in shapes)
+    got = cu.wgmma_product(mode, a.to(dev), b.to(dev)).cpu().double()
+    at = a.T if mode in ("dw", "head_dw") else a
+    bt = b.T if mode in ("dx", "head_dx") else b
+    ab, bb = cu._bf(at).double(), cu._bf(bt).double()
+    want, scale = ab @ bb, ab.abs() @ bb.abs()
+    assert got.shape == want.shape
+    assert bool(((got - want).abs() <= k * 2.0 ** -23 * scale + 1e-30).all())
 
 
 @pytest.mark.parametrize("widths,what", [

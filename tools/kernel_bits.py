@@ -42,6 +42,11 @@ source left its arithmetic as it was.  ``--time`` also prints each
 launch's device time, with this checkout's ``chip_smoke.queued_ms`` (CUDA
 events around 20 launches queued behind a spin kernel): run parent,
 change, change, parent in one call to compare two builds on one card.
+With ``k7`` it then reads the ring block's row of the kernel table
+(chip_smoke.py checks that block without timing it): each kernel's bound
+(FP32 operations over the valid pairs or the bytes, and the 3xTF32
+bound), its plain version's device time and scaled_dot_product_attention's
+with the episode mask (chip_smoke.check_flash, timed).
 """
 from __future__ import annotations
 
@@ -285,6 +290,8 @@ def main() -> int:
         for name, fn in launches.items():
             print(f"{name}: {cs.queued_ms(fn, 20):.4f} ms a launch "
                   f"({args.root})", flush=True)
+    if args.time and args.kernel == "k7":
+        ring_row(cs, dev)
     if args.save:
         torch.save(got, args.save)
         print(f"saved {len(got)} launches' outputs of {args.root} to "
@@ -302,6 +309,25 @@ def main() -> int:
             for k, d in diff.items())
         print(f"{name}: {'DIFFER: ' + apart if diff else 'identical'}")
     return 1 if bad else 0
+
+
+def ring_row(cs, dev) -> None:
+    """The ring block of rel -1 (T 1024, B 4, H 4, hd 8), as chip_smoke.py
+    builds it: K7's three float32 kernels timed beside the plain version
+    and SDPA with the mask, and their bounds."""
+    T, B, H, hd = 1024, 4, 4, 8
+    case = cs.flash_case(T, B, H, hd, cs.random_dones(T, B, 0.02, 9, dev),
+                         11, dev, k_dones=cs.random_dones(T, B, 0.02, 10,
+                                                          dev))
+    name = "ring block rel -1 (T 1024, B 4, H 4, hd 8)"
+    _, times = cs.check_flash(name, case, -1, H, dev, True)
+    bounds, pairs = cs.flash_bounds(case, -1, H)
+    tf32 = cs.flash_tf32_bounds(pairs, hd)
+    for (kernel, t), (ms, by), tf in zip(times.items(), bounds, tf32):
+        print(f"{name}, {kernel}: device ms {t['ms']:.4f}, plain "
+              f"{t['plain_ms']:.4f}, SDPA {t['library_ms']:.4f}; bound "
+              f"{ms:.4f} ms ({by}), 3xTF32 bound {tf:.4f} ms; {pairs} valid "
+              f"(query, key) pairs", flush=True)
 
 
 def distance(a, b) -> str:
