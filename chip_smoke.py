@@ -20,8 +20,18 @@
    (64 envs x 200 steps, minibatch 256, 4 fits per epoch, kernel_backend
    "pallas"), with each kernel's launch count read around it (one cluster
    K3 and one cluster K4 a fit, none in global memory) and the wall per
-   epoch; then two epochs of the reference schedule PPOConfig(env=
-   "pendulum"), its K3 and K4 launches held to one a fit.
+   epoch.  Then checkpoint, resume and serving from the solved trainer
+   (checkpoint_phases): save and Trainer.from_checkpoint on the card,
+   every leaf and the config equal; a bench epoch resumed from a file
+   equal bit for bit to the uninterrupted one, with one epoch's launches;
+   serve.load_policy acting on 256 bench observations through K5's
+   forward (the launch counted, the plain version never run, mlp.apply
+   (..., "pallas")'s bits, within K5's tolerance of the plain version;
+   an act call's wall and device us) and the same rows through POST /act
+   of make_server; the reference ppo.c format out and back bitwise; the
+   CLI in process (--save, --resume, --eval-only), each returning 0 with
+   its launches counted.  Then two epochs of the reference schedule
+   PPOConfig(env="pendulum"), its K3 and K4 launches held to one a fit.
 5. Throughput path, kernels: K1 at 1024 envs, K2 at 200 x 1024 (past one
    block's shared memory, so a cluster of 16 blocks), and K5 (the
    whole-MLP forward and backward, 3xTF32 products on the tensor cores) at
@@ -4688,6 +4698,205 @@ def cluster_phases(dev, record):
            phase_bound(vw, GATE_STEPS, GATE_MB, 1))
 
 
+SERVE_ROWS = 256   # rows a serving call acts on (the bench's observations)
+
+
+def checkpoint_phases(tr, dev, counters, record):
+    """The port's front door on the card, from the solved bench trainer
+    ``tr``: save and Trainer.from_checkpoint (every leaf and the config
+    equal); a resumed bench epoch bit for bit equal to the uninterrupted
+    one, with one epoch's launches; serve.load_policy acting on
+    SERVE_ROWS bench observations through K5's forward (one launch a call,
+    the plain version never run, the actions mlp.apply(..., "pallas")'s
+    bits and within K5's tolerance of the plain version; an act call's
+    wall and device us), the same rows through POST /act of make_server
+    and a 400 for a wrong obs width; the reference format out and back
+    bitwise; the CLI in process: --save, --resume, --eval-only, each
+    returning 0 with its launches counted."""
+    import io
+    import shutil
+    import threading
+    import urllib.error
+    import urllib.request
+    from pathlib import Path
+
+    import torch
+
+    from ppoc_tpu_torch import cli, serve
+    from ppoc_tpu_torch.algo.trainer import Trainer
+    from ppoc_tpu_torch.envs import vector_reset
+    from ppoc_tpu_torch.models import mlp
+    from ppoc_tpu_torch.ops import adam, cuda_mlp as cm
+    from ppoc_tpu_torch.utils import ref_interop
+
+    t0 = time.perf_counter()
+    work = Path(__file__).resolve().parent / "build" / "checkpoint_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    names = [c.kernel for c in counters]
+
+    def reset():
+        for c in counters:
+            c.reset()
+        torch.cuda.synchronize()
+
+    def launched():
+        torch.cuda.synchronize()
+        return {k: v for k, v in zip(names, (c.n for c in counters)) if v}
+
+    def same_leaves(label, a, b):
+        la, lb = adam.tree_leaves(a), adam.tree_leaves(b)
+        if len(la) != len(lb) or not all(
+                (torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y)
+                for x, y in zip(la, lb)):
+            raise AssertionError(f"{label}: the states differ")
+        print(f"  {label}: {len(la)} leaves equal bit for bit", flush=True)
+
+    # 1. save, then rebuild from the file alone, on the card by default
+    p = str(work / "bench.bin")
+    tr.save(p)
+    back = Trainer.from_checkpoint(p)
+    check_on_card(back)
+    if back.cfg != tr.cfg:
+        raise AssertionError(f"config differs after load: {back.cfg}")
+    same_leaves("save, Trainer.from_checkpoint", tr.state, back.state)
+
+    # 2. resume: A trains 2 epochs, checkpointing after the first; B
+    # resumes from that file and trains the second
+    pa = str(work / "resume.bin")
+    a = Trainer(bench_config(), dev)
+    a.train(1, log=False, checkpoint_path=pa)
+    a.train(1, log=False, initial_eval=False)
+    b = Trainer.from_checkpoint(pa)
+    reset()
+    b.train(1, log=False, initial_eval=False)
+    n = launched()
+    same_leaves("a resumed epoch against the uninterrupted one", a.state,
+                b.state)
+    fits = b.cfg.fits_per_epoch
+    want = {"rollout[pendulum]/values": fits, "gae_norm": fits,
+            "value_phase": fits, "policy_phase": fits,
+            "rollout[pendulum]/metrics": 1}
+    print(f"  the resumed epoch's launches {n}", flush=True)
+    if n != want:
+        raise AssertionError(f"a resumed bench epoch must launch {want}")
+
+    # 3. serving through K5's forward; 4. the same rows over HTTP
+    pp = tr.state.policy_params["mlp"]
+    act_name = tr.cfg.activation
+    obs = vector_reset(tr.env, torch.Generator().manual_seed(17),
+                       SERVE_ROWS, dev)[1].contiguous()
+    plain_calls, real_plain = [0], cm.mlp_forward_plain
+
+    def counting_plain(*args, **kw):
+        plain_calls[0] += 1
+        return real_plain(*args, **kw)
+
+    cm.mlp_forward_plain = counting_plain
+    server = None
+    try:
+        reset()
+        act = serve.load_policy(p)
+        acts = act(obs)
+        server = serve.make_server(p, port=0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        url = "http://%s:%d" % server.server_address[:2]
+        with urllib.request.urlopen(url + "/spec", timeout=30) as r:
+            spec = json.loads(r.read().decode())
+
+        def post(rows):
+            req = urllib.request.Request(
+                url + "/act", data=json.dumps({"obs": rows}).encode(),
+                method="POST", headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return json.loads(r.read().decode())
+
+        http_acts = post(obs.cpu().tolist())["action"]
+        serve_n = launched()
+        try:
+            post([[0.0, 1.0]])
+            raise AssertionError("POST /act took a wrong obs width")
+        except urllib.error.HTTPError as e:
+            if e.code != 400:
+                raise
+            print(f"  POST /act with a wrong obs width: {e.code}",
+                  flush=True)
+    finally:
+        cm.mlp_forward_plain = real_plain
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+    print(f"  GET /spec {spec}; serving launches {serve_n}, plain "
+          f"versions run {plain_calls[0]}", flush=True)
+    if serve_n != {"mlp_forward": 2} or plain_calls[0]:
+        raise AssertionError("serving must launch K5's forward once a call "
+                             "(act, POST /act) and never its plain version")
+    direct = mlp.apply(pp, obs, act_name, "pallas")
+    if not torch.equal(acts, direct):
+        raise AssertionError("served actions differ from mlp.apply's bits")
+    if not torch.equal(torch.tensor(http_acts, dtype=torch.float32),
+                       acts.cpu()):
+        raise AssertionError("POST /act's actions differ from act's")
+    print(f"  served actions: mlp.apply(..., 'pallas')'s bits, over HTTP "
+          f"too", flush=True)
+    err = check(f"served actions, {SERVE_ROWS} rows, against K5's plain "
+                f"forward", max_err(acts, real_plain(pp, obs, act_name)[0]),
+                1e-5)
+    wall_us = 1e3 * timed_ms(lambda: act(obs), 200)
+    dev_us = 1e3 * device_ms(lambda: act(obs), 50)
+    print(f"  an act call on {SERVE_ROWS} rows: {wall_us:.1f} us wall, "
+          f"{dev_us:.1f} us device", flush=True)
+    times = timings(lambda: cm.mlp_forward_kernel(pp, obs, act_name),
+                    lambda: cm.mlp_forward_plain(pp, obs, act_name), 50, 20)
+    plan = cm.last_launch["forward"]
+    times.update(tile=plan["tile"], blocks=plan["blocks"])
+    pw = mlp.dims(pp)
+    record("mlp_forward", "serving: serve.load_policy act and POST /act",
+           [SERVE_ROWS] + pw, serve_n["mlp_forward"], err, times,
+           mlp_bounds(pw, SERVE_ROWS)[0])
+
+    # 5. the reference ppo.c format, out and back on the card
+    pr = str(work / "ref.bin")
+    ref_interop.export_trainer(tr, pr)
+    cfg = tr.cfg
+    imp = ref_interop.load_trainer(
+        pr, cfg.env, n_envs=cfg.n_envs, rollout_len=cfg.rollout_len,
+        minibatch_size=cfg.minibatch_size, fits_per_epoch=cfg.fits_per_epoch,
+        eval_envs=cfg.eval_envs, eval_len=cfg.eval_len,
+        kernel_backend=cfg.kernel_backend)
+    check_on_card(imp)
+    same_leaves("export_trainer, load_trainer (weights, log_std, three "
+                "Adams)", tr.state, imp.state)
+
+    # 6. the CLI in process, on the card (PPOC_PLATFORM unset)
+    q = str(work / "cli.bin")
+    rcfg = cli.config_from_args(cli.build_parser().parse_args([]))
+    f = rcfg.fits_per_epoch
+    train = {"rollout[pendulum]/values": f, "gae_norm": f,
+             "value_phase": f, "policy_phase": f}
+    for argv, want in (
+            (["--preset", "reference", "--n-epochs", "1", "--save", q,
+              "--jsonl"], dict(train, **{"rollout[pendulum]/metrics": 2})),
+            (["--resume", q, "--n-epochs", "1"],
+             dict(train, **{"rollout[pendulum]/metrics": 1})),
+            (["--eval-only", "--load", q], {"rollout[pendulum]/metrics": 1})):
+        out = io.StringIO()
+        reset()
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(out):
+            rc = cli.main(argv)
+        n = launched()
+        last = out.getvalue().strip().splitlines()[-1]
+        print(f"  cli.main({argv}): {rc}; launches {n}; {last!r}",
+              flush=True)
+        if rc != 0 or n != want:
+            raise AssertionError(f"the CLI must return 0 and launch {want}")
+    shutil.rmtree(work)
+    print(f"  the phase took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -4844,6 +5053,10 @@ def main() -> int:
            k3_t, phase_bound(widths, n_v, mb, 1))
     record("policy_phase", bench, [n_p, mb], launches["policy_phase"],
            k4_err, k4_t, phase_bound(widths, n_p, mb, 3))
+
+    header("[checkpoint, resume and serving: the solved bench trainer]",
+           flush=True)
+    checkpoint_phases(tr, dev, counters, record)
 
     header("[reference schedule: PPOConfig(env='pendulum'), 2 epochs]",
           flush=True)

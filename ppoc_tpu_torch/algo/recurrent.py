@@ -73,15 +73,8 @@ def draw_seq(env: Env, generator: torch.Generator, n_envs: int, length: int,
     loop = ppo.draw_loop(env, generator, n_envs, length, device)
     noise = None
     if not deterministic:
-        shape = (length, n_envs, env.spec.action_dim)
-        if env.spec.discrete:
-            u = torch.rand(shape, generator=generator, dtype=torch.float32)
-            u = u.clamp_min(torch.finfo(torch.float32).tiny)
-            noise = -torch.log(-torch.log(u))
-        else:
-            noise = torch.randn(shape, generator=generator,
-                                dtype=torch.float32)
-        noise = noise.to(device)
+        noise = policy_mod.draw_noise((length, n_envs, env.spec.action_dim),
+                                      env.spec.discrete, generator).to(device)
     return SeqDraws(loop.carry, loop.fresh, noise)
 
 

@@ -7,6 +7,11 @@ streams from it.  ``solve`` is a host loop over epochs plus evaluation
 (``ppo.train_until``), where the JAX package compiles that loop into one
 ``while_loop``.  The trainer runs on CUDA device 0 unless it is given
 another device (the CPU tests pass ``device="cpu"``).
+
+``save`` / ``load`` / ``from_checkpoint`` read and write the JAX package's
+checkpoint files (``utils/checkpoint.py``): params, all three Adam states
+and, in a file the port wrote, the generator's state, so a resumed run
+replays the remaining epochs bit for bit.
 """
 from __future__ import annotations
 
@@ -142,12 +147,27 @@ class Trainer:
 
     def train(self, n_epochs: Optional[int] = None, log: bool = True,
               stop_at_R: Optional[float] = None,
+              checkpoint_path: Optional[str] = None,
+              checkpoint_every: int = 1,
               initial_eval: bool = True,
-              eval_deterministic: bool = False) -> List[Dict[str, Any]]:
+              eval_deterministic: bool = False,
+              on_epoch_end=None,
+              epoch_offset: int = 0) -> List[Dict[str, Any]]:
         """Full training run; returns per-epoch metric dicts.  ``stop_at_R``
         stops once the eval mean undiscounted return reaches it.
         ``eval_deterministic`` scores each epoch with the mean policy, and
-        stop_at_R then gates on that R."""
+        stop_at_R then gates on that R.
+
+        ``checkpoint_path`` writes a checkpoint every ``checkpoint_every``
+        epochs, right after the epoch's evaluation, with ``epochs_done``
+        (``epoch_offset`` + epochs of this call) in its metadata; so
+        ``Trainer.from_checkpoint(path).train(..., initial_eval=False)``
+        replays the remaining epochs bit for bit (``initial_eval=False``
+        skips the pre-training evaluation, whose draws the interrupted run
+        already took).  ``on_epoch_end(i, row)`` is called after each
+        epoch's metrics and checkpoint; a truthy return stops training (the
+        CLI's preemption hook).  As ``ppoc_tpu/algo/trainer.py`` ``train``.
+        """
         n_epochs = self.cfg.n_epochs if n_epochs is None else n_epochs
         history: List[Dict[str, Any]] = []
         if initial_eval:
@@ -177,7 +197,13 @@ class Trainer:
                       f"Time {row['time_s']:f}s J: {row['J']:f} "
                       f"R: {row['R']:f} Episodes: {row['episodes']}",
                       flush=True)
+            if (checkpoint_path is not None and checkpoint_every > 0
+                    and (i + 1) % checkpoint_every == 0):
+                self.save(checkpoint_path,
+                          meta={"epochs_done": epoch_offset + i + 1})
             if stop_at_R is not None and ev.R >= stop_at_R:
+                break
+            if on_epoch_end is not None and on_epoch_end(i, row):
                 break
         return history
 
@@ -188,3 +214,64 @@ class Trainer:
             self.cfg, self.env, self.state, self.generator, target_R,
             max_epochs)
         return {"epochs": n, "R": R}
+
+    def save(self, path: str, meta: Optional[Dict[str, Any]] = None) -> None:
+        """Write the config, the TrainState and the generator's state
+        (``utils/checkpoint.py``)."""
+        from ppoc_tpu_torch.utils import checkpoint
+
+        checkpoint.save(path, self.cfg, self.env.spec, self.state,
+                        generator=self.generator, meta=meta)
+
+    def load(self, path: str) -> None:
+        """Restore params, the three Adam states and, from a file the port
+        wrote, the generator's position; the file's shapes must match this
+        trainer's (an attention positional table may grow)."""
+        from ppoc_tpu_torch.utils import checkpoint
+
+        self._restore(checkpoint.load(path), path)
+
+    def _restore(self, ck, path: str) -> None:
+        from ppoc_tpu_torch.utils import checkpoint, params
+
+        state = checkpoint.adapt_to_template(ck.state, self.state)
+        checkpoint._check_template(state, self.state)
+        self.state = params.train_state_from_numpy(state, self.device)
+        if ck.generator is not None:
+            self.generator.set_state(ck.generator)
+        else:
+            warnings.warn(
+                f"{path} holds no torch generator state (the JAX package "
+                f"writes its PRNG key words, which a torch.Generator cannot "
+                f"continue): params and the three Adam states are restored, "
+                f"the draw stream is not; this trainer keeps drawing from "
+                f"its own generator (seed {self.cfg.seed})",
+                checkpoint.DrawStreamWarning, stacklevel=3)
+
+    @classmethod
+    def from_checkpoint(cls, path: str, device=None,
+                        **overrides) -> "Trainer":
+        """Rebuild a Trainer -- config, env, nets, the three Adam states
+        and, from a file the port wrote, the generator's position -- from
+        the checkpoint alone.  ``overrides`` replace config fields; the
+        result is validated and refused where the port refuses it, as
+        ``Trainer(cfg)`` does.  A file saved with kernel_backend "jnp"
+        (the JAX package's, not ported) needs ``kernel_backend="pallas"``
+        (or "auto", "bf16") among the overrides."""
+        from ppoc_tpu_torch.utils import checkpoint
+
+        ck = checkpoint.load(path)
+        if ck.cfg is None:
+            raise ValueError(
+                f"{path}: version-2 checkpoint has no embedded config; "
+                f"construct Trainer(cfg) with the original config and call "
+                f".load(path) instead")
+        cfg = ck.cfg.replace(**overrides) if overrides else ck.cfg
+        if cfg.kernel_backend == "jnp":
+            raise NotImplementedError(
+                f"{path} was saved with kernel_backend 'jnp', which is not "
+                f"ported; pass the override Trainer.from_checkpoint(path, "
+                f"kernel_backend='pallas') to run it on the port's kernels")
+        tr = cls(cfg, device)
+        tr._restore(ck, path)
+        return tr

@@ -141,6 +141,18 @@ def entropy(params: Dict, obs: Optional[torch.Tensor] = None,
     return gaussian_entropy(params)
 
 
+def draw_noise(shape, discrete: bool,
+               generator: Optional[torch.Generator]) -> torch.Tensor:
+    """The noise :func:`act_from_out` reads, float32 on the CPU, from
+    ``generator``: standard normals for the Gaussian, Gumbel(0, 1) draws
+    -log(-log u) for the categorical."""
+    if discrete:
+        u = torch.rand(shape, generator=generator, dtype=torch.float32)
+        return -torch.log(-torch.log(
+            u.clamp_min(torch.finfo(torch.float32).tiny)))
+    return torch.randn(shape, generator=generator, dtype=torch.float32)
+
+
 def act_from_out(out: torch.Tensor, discrete: bool,
                  log_std: Optional[torch.Tensor] = None,
                  deterministic: bool = False,

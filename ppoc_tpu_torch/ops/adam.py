@@ -6,16 +6,22 @@
     denom   = sqrt(v / (1 - b2^t)) + eps          # eps OUTSIDE the sqrt
     p      -= lr / (1 - b1^t) * m / denom         # bias correction in the step
 
-A parameter tree is a tensor, or a list/tuple of trees (an MLP is a list of
-``(W, b)`` pairs), or a dict of trees (an attention trunk, whose leaves go
-in sorted key order, as ``jax.tree.leaves`` takes them).  The timestep ``t`` is a Python int: it only ever counts
-minibatch steps, and keeping it on the host spares a device sync.
+A parameter tree is a leaf (a tensor; where ``utils/checkpoint.py`` reads
+or checks a file, also a numpy array or an Adam timestep's int), or a
+list/tuple of trees (an MLP is a list of ``(W, b)`` pairs), or a dict of
+trees (an attention trunk, whose leaves go in sorted key order, as
+``jax.tree.leaves`` takes them); any other node is refused.  The timestep
+``t`` is a Python int: it only ever counts minibatch steps, and keeping it
+on the host spares a device sync.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, List, NamedTuple, Tuple
 
+import numpy as np
 import torch
+
+LEAF_TYPES = (torch.Tensor, np.ndarray, int)
 
 
 class AdamState(NamedTuple):
@@ -25,24 +31,27 @@ class AdamState(NamedTuple):
 
 
 def tree_map(fn: Callable, *trees):
-    """Map ``fn`` over the tensor leaves of same-shaped trees."""
+    """Map ``fn`` over the leaves of same-shaped trees."""
     head = trees[0]
-    if isinstance(head, torch.Tensor):
-        return fn(*trees)
     if isinstance(head, (list, tuple)):
         out = [tree_map(fn, *sub) for sub in zip(*trees)]
         return out if isinstance(head, list) else tuple(out)
     if isinstance(head, dict):
         return {k: tree_map(fn, *(t[k] for t in trees)) for k in sorted(head)}
+    if isinstance(head, LEAF_TYPES):
+        return fn(*trees)
     raise TypeError(f"unsupported parameter tree node {type(head).__name__}")
 
 
-def tree_leaves(tree) -> List[torch.Tensor]:
-    if isinstance(tree, torch.Tensor):
-        return [tree]
+def tree_leaves(tree) -> List[Any]:
+    """The leaves in ``jax.tree.leaves`` order (NamedTuples as tuples)."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
-    return [leaf for sub in tree for leaf in tree_leaves(sub)]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for sub in tree for leaf in tree_leaves(sub)]
+    if isinstance(tree, LEAF_TYPES):
+        return [tree]
+    raise TypeError(f"unsupported parameter tree node {type(tree).__name__}")
 
 
 def init(params) -> AdamState:

@@ -75,16 +75,22 @@ def adam_to_numpy(state: AdamState) -> AdamState:
                      t=int(state.t))
 
 
+def policy_from_numpy(policy_params, device) -> dict:
+    """A policy's params of numpy arrays (``{"mlp", "log_std"}``, or
+    ``{"mlp"}`` for a categorical policy) -> the port's tensors."""
+    pol = tree_from_numpy(dict(policy_params), device)
+    pol["mlp"] = _trunk(pol["mlp"])
+    return pol
+
+
 def train_state_from_numpy(ts, device):
     """A TrainState-shaped object of numpy arrays -> the port's TrainState,
     Gaussian (``log_std`` in the policy) or categorical (none), with MLP or
     attention trunks."""
     from ppoc_tpu_torch.algo.ppo import TrainState
 
-    pol = tree_from_numpy(dict(ts.policy_params), device)
-    pol["mlp"] = _trunk(pol["mlp"])
     return TrainState(
-        policy_params=pol,
+        policy_params=policy_from_numpy(ts.policy_params, device),
         v_params=_trunk(tree_from_numpy(ts.v_params, device)),
         opt_policy=adam_from_numpy(ts.opt_policy, device),
         opt_v=adam_from_numpy(ts.opt_v, device),

@@ -180,7 +180,11 @@ def test_port_never_imports_jax():
             "ppoc_tpu_torch.ops.cuda_update, ppoc_tpu_torch.ops.cuda_mlp, "
             "ppoc_tpu_torch.ops.cuda_attn, ppoc_tpu_torch.algo.recurrent, "
             "ppoc_tpu_torch.models.attn, ppoc_tpu_torch.envs.recall, "
-            "ppoc_tpu_torch.utils.params, ppoc_tpu_torch.config; "
+            "ppoc_tpu_torch.utils.params, ppoc_tpu_torch.config, "
+            "ppoc_tpu_torch.cli, ppoc_tpu_torch.serve, "
+            "ppoc_tpu_torch.utils.checkpoint, "
+            "ppoc_tpu_torch.utils.ref_interop, "
+            "ppoc_tpu_torch.utils.supervisor; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'ppoc_tpu' "
             "or m.startswith('ppoc_tpu.')); "
