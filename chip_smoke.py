@@ -214,6 +214,17 @@
    rows) as the bench's phases are held (its whole phase's distance
    printed only), timed beside the plain version and the generic phases
    (ppo.value_phase past the gate) on the same rows.
+24. The rest of the single-device MLP family, one epoch each through
+   Trainer with every launch counter held to the path's
+   (slice18_phases): STAB_BENCH and STAB_CARTPOLE (the five stabilisers:
+   K1 with the V planes, K2, the generic phases through K5, no K3/K4/K6;
+   the first fit's first value and policy steps against float64 beside
+   the plain step, the clip switched off as a control that must fail;
+   the first fit's target_kl freeze on the card and the CPU), the MoE
+   example ("moe:0": no kernel; the mixture on 12,800 rows against
+   float64, the top-2 gate; then "moe:2:bf16": K2 alone), AFFINE
+   (calibrate(bench_config(0)): the env loop through K5, K2, K3, K4, no
+   K1) and JNP (no kernel).
 
 Each phase's title line gives the seconds since the script started.
 Any failed check raises, so the script exits non-zero.  The last two lines
@@ -462,6 +473,31 @@ def bench_config(seed: int = 0):
     return PPOConfig(env="pendulum", seed=seed, n_envs=64, rollout_len=200,
                      minibatch_size=256, fits_per_epoch=4, eval_envs=64,
                      eval_len=200, kernel_backend="pallas")
+
+
+# the five stabilisers on top of bench_config: STAB_BENCH (pendulum) and
+# STAB_CARTPOLE (cartpole, eval_len 500)
+STAB = dict(max_grad_norm=0.5, clip_value=0.2, target_kl=0.02,
+            lr_anneal=True, ent_anneal=True, ent_coeff=0.01)
+
+
+def stab_config(seed: int = 0, env: str = "pendulum"):
+    """bench_config with the five stabilisers (the generic phases: the
+    fused gate refuses them)."""
+    cfg = bench_config(seed).replace(env=env, **STAB)
+    return cfg.replace(eval_len=500) if env == "cartpole" else cfg
+
+
+def moe_config(seed: int = 0, **kw):
+    """examples/moe_expert_parallel.py's single-device mixture: pendulum,
+    64 envs x 200 steps, minibatch 256, 4 fits, 4 experts, dense gating,
+    kernel_backend "pallas" (which a mixture runs as "moe:0")."""
+    from ppoc_tpu_torch import PPOConfig
+
+    return PPOConfig(env="pendulum", seed=seed, n_envs=64, rollout_len=200,
+                     minibatch_size=256, fits_per_epoch=4, n_epochs=6,
+                     eval_envs=64, n_experts=4,
+                     kernel_backend="pallas").replace(**kw)
 
 
 def card_line() -> str:
@@ -4897,6 +4933,509 @@ def checkpoint_phases(tr, dev, counters, record):
     print(f"  the phase took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# slice 18: the stabilisers, the mixture of experts, the affine env, "jnp"
+# ---------------------------------------------------------------------------
+
+# one generic step on the card (K5) and the same step on the plain path
+# (float32 products, TF32 off), each against the step in float64 on the
+# CPU from the same state and rows: per leaf, the kernel's largest distance
+# from float64 within STEP_F64_FACTOR times the plain step's, or within
+# a limit of its own: an Adam moment within STEP_MOMENT_REL of the leaf's
+# largest float64 magnitude (m is the clipped gradient scaled, v its
+# square), a weight within STEP_LR_SHARE of a learning rate (a first Adam
+# step moves an element by lr * g / (|g| + eps), so where |g| is near eps
+# the step's share of lr is set by the gradient's rounding).  A gradient
+# summed over 256 rows whose signs follow the advantages cancels: on the
+# first STAB_BENCH policy step K5's head gradient was 1.4e-4 of the leaf's
+# largest from float64, the plain step's 5x closer (an H100 80GB HBM3 at
+# 700 W); the clipped control parts by 1e10 of these limits
+STEP_F64_FACTOR = 4.0
+STEP_MOMENT_REL = {"m": 5e-4, "v": 1e-3}
+STEP_LR_SHARE = 1e-2
+# the mixture on the card against float64 on the CPU: within MOE_F64_FACTOR
+# times the plain CPU float32 form's own error, or within MOE_REL of the
+# leaf's largest magnitude (a weight gradient sums 12,800 rows, in
+# cuBLAS's order on the card: float32 sums of that length part by about
+# sqrt(12800) roundoffs, 7e-6 of the sum's scale)
+MOE_F64_FACTOR = 4.0
+MOE_REL = 1e-5
+MOE_ROWS = 12800
+# calibrate on the card against the CPU on the same draws: each statistic
+# within CALIB_REL of the CPU's scale for its dimension (the env steps'
+# float32 rounding differs between the two, and 200 steps of a driven
+# pendulum can carry a difference along; a fault -- draws not moved, the
+# wrong env, a dropped dimension -- is off by the scale itself)
+CALIB_REL = 5e-2
+
+
+def _leaf_pairs(a_ts, b_ts, part):
+    from ppoc_tpu_torch.ops import adam
+
+    def get(tree):
+        for name in part.split("."):
+            tree = getattr(tree, name)
+        return adam.tree_leaves(tree)
+
+    return list(zip(get(a_ts), get(b_ts)))
+
+
+def step_apart(got, plain, ref, parts, lr: float):
+    """(the largest ratio of a leaf's distance from ``ref`` over its limit,
+    that leaf, the kernel's and the plain step's distances there); over 1
+    is outside the limits above.  ``lr``: the step's learning rate."""
+    worst = (0.0, "", 0.0, 0.0)
+    for part in parts:
+        for i, ((a, b), (_, r)) in enumerate(zip(_leaf_pairs(got, plain, part),
+                                                 _leaf_pairs(got, ref, part))):
+            if r.numel() == 0:
+                continue
+            r = r.double()
+            e_k, e_p = max_err(a.cpu(), r), max_err(b.cpu(), r)
+            kind = part.rsplit(".", 1)[-1]
+            own = (STEP_MOMENT_REL[kind] * float(r.abs().max())
+                   if kind in STEP_MOMENT_REL else STEP_LR_SHARE * lr)
+            lim = max(STEP_F64_FACTOR * e_p, own, 1e-30)
+            if e_k / lim > worst[0]:
+                worst = (e_k / lim, f"{part}[{i}]", e_k, e_p)
+    return worst
+
+
+def to_cpu64(ts):
+    """A TrainState's tensors as float64 on the CPU."""
+    from ppoc_tpu_torch.algo import ppo
+    from ppoc_tpu_torch.ops import adam
+
+    def tree(t):
+        return adam.tree_map(lambda x: x.detach().cpu().double(), t)
+
+    def opt(o):
+        return adam.AdamState(m=tree(o.m), v=tree(o.v), t=o.t)
+
+    return ppo.TrainState(tree(ts.policy_params), tree(ts.v_params),
+                          opt(ts.opt_policy), opt(ts.opt_v),
+                          opt(ts.opt_log_std))
+
+
+def grad_norm(ts_noclip, opt: str) -> float:
+    """The global norm of a first step's unclipped gradient (the policy's
+    ``{"mlp", "log_std"}`` as one tree), from the first moments of the
+    step taken with the clip off, m = (1 - beta1) g."""
+    import torch
+
+    from ppoc_tpu_torch.ops import adam
+
+    m = adam.tree_leaves(getattr(ts_noclip, opt).m)
+    if opt == "opt_policy" and ts_noclip.opt_log_std.m.numel():
+        m = m + [ts_noclip.opt_log_std.m]
+    return float(torch.sqrt(sum(torch.sum(x.double() ** 2) for x in m))) / 0.1
+
+
+def check_first_steps(label, cfg, env, ts, draws, dev):
+    """The first fit's first value step and first policy step through K5
+    (the main path's backend) held to float64 beside the same steps on the
+    plain path (backend "jnp": float32 products), from ``ts`` on the same
+    rows (:func:`step_apart`): the rollout is K1's with the V planes
+    (V_old), the advantages K2's.  Each step is held with the clip engaged:
+    at cfg.max_grad_norm where it engages there, else also at half the
+    step's own unclipped norm.  Where it engaged, the kernel step with the
+    clip switched off, and for a Gaussian policy the step with log_std
+    outside the clip (the policy net clipped alone), are controls that
+    must fail the same check."""
+    import torch
+
+    from ppoc_tpu_torch.algo import ppo
+    from ppoc_tpu_torch.data import buffer
+    from ppoc_tpu_torch.models import mlp, policy as policy_mod
+    from ppoc_tpu_torch.ops import adam
+
+    traj, _, vpair = ppo.rollout(cfg, env, ts.policy_params, draws.seed,
+                                 cfg.n_envs, cfg.rollout_len,
+                                 v_params=ts.v_params)
+    adv, tgt = ppo.compute_advantages(cfg, env, traj, vpair)
+    buf = buffer.from_rollout(traj, adv, tgt, v_old=vpair[0])
+    n_mb, discrete = cfg.num_minibatches, env.spec.discrete
+    o, t, vo = buffer.gather_mb((buf.obs, buf.target, buf.v_old),
+                                draws.value_idx[0, 0])
+    pb = buffer.gather_mb((buf.obs, buf.action, buf.log_prob, buf.advantage),
+                          draws.policy_idx[0, 0])
+
+    def cpu64(x):
+        return x.cpu().double() if x.is_floating_point() else x.cpu()
+
+    def value_step(c, backend, state=ts, rows=(o, t, vo)):
+        return ppo.value_steps(c, state, [(*rows, None)], lambda p, b: (
+            mlp.apply(p, b[0], c.activation, backend)[..., 0]), n_mb,
+            backend)[0]
+
+    def policy_step(c, backend, state=ts, rows=pb):
+        def log_probs(p, b):
+            return (policy_mod.log_prob(p, b[0], b[1], c.activation,
+                                        backend, discrete),
+                    policy_mod.entropy(p, b[0], c.activation, backend,
+                                       discrete))
+
+        return ppo.policy_steps(c, state, [rows], log_probs, n_mb,
+                                backend, discrete)[0]
+
+    def apart_step(c):
+        # a faulty clip for a control: the policy net's gradient clipped
+        # alone and log_std's left as it is, the two kept apart
+        real = adam.clip_by_global_norm
+        adam.clip_by_global_norm = lambda g, n: dict(g, mlp=real(g["mlp"], n))
+        try:
+            return policy_step(c, "pallas")
+        finally:
+            adam.clip_by_global_norm = real
+
+    ts64 = to_cpu64(ts)
+    for name, step, parts, opt, rows, lr in (
+            ("value", value_step, ("v_params", "opt_v.m", "opt_v.v"),
+             "opt_v", (o, t, vo), cfg.lr_v),
+            ("policy", policy_step,
+             ("policy_params", "opt_policy.m", "opt_policy.v",
+              "opt_log_std.m", "opt_log_std.v"), "opt_policy", pb,
+             cfg.lr_policy)):
+        bare = step(cfg.replace(max_grad_norm=0.0), "pallas")
+        norm = grad_norm(bare, opt)
+        held = [cfg]
+        if cfg.max_grad_norm >= 0.99 * norm:
+            held.append(cfg.replace(max_grad_norm=norm / 2))
+            print(f"  the clip does not engage on the first {name} step at "
+                  f"max_grad_norm {cfg.max_grad_norm} (norm {norm:.4f}): "
+                  f"held again at max_grad_norm {norm / 2:.4f}", flush=True)
+        for c in held:
+            scale = min(1.0, c.max_grad_norm / max(norm, 1e-12))
+            got, plain = step(c, "pallas"), step(c, "jnp")
+            ref = step(c, "jnp", ts64, tuple(cpu64(x) for x in rows))
+            torch.cuda.synchronize()
+            ratio, leaf, e_k, e_p = step_apart(got, plain, ref, parts, lr)
+            check(f"{label}: the first {name} step through K5 at "
+                  f"max_grad_norm {c.max_grad_norm:.4f} against float64 "
+                  f"(clip scale {scale:.4f}; worst leaf {leaf}: kernel "
+                  f"{e_k:.3e}, plain {e_p:.3e})", ratio, 1.0,
+                  what="distance over the limit")
+            if scale >= 0.99:
+                continue
+            controls = [("the clip off", bare)]
+            if name == "policy" and not discrete:
+                controls.append(("log_std outside the clip", apart_step(c)))
+            for what, wrong in controls:
+                ctrl = step_apart(wrong, plain, ref, parts, lr)
+                print(f"  control, the {name} step with {what}: "
+                      f"{ctrl[0]:.3e} of the limit ({ctrl[1]})", flush=True)
+                if ctrl[0] <= 1.0:
+                    raise AssertionError(
+                        f"{label}: the {name} step with {what} passes the "
+                        f"check at max_grad_norm {c.max_grad_norm:.4f}; it "
+                        f"cannot see the clip")
+
+
+def replay_first_fit(cfg, env, ts, gen_state, dev):
+    """The epoch's first fit again, from the trainer's state and generator
+    position before the epoch: on the card, counting the steps on which
+    the clip engaged; then its GAE and policy phase on the CPU from the
+    card's rollout (the plain versions; the policy phase reads neither
+    the value phase's params nor its Adam state), for the freeze point.
+    Returns (card state, CPU policy phase's state, clip engagements: value
+    steps, policy steps, policy steps taken)."""
+    import torch
+
+    from ppoc_tpu_torch.algo import ppo
+    from ppoc_tpu_torch.data import buffer
+    from ppoc_tpu_torch.ops import adam
+    from ppoc_tpu_torch.utils import params as conv
+
+    gen = torch.Generator()
+    gen.set_state(gen_state)
+    draws = ppo.draw_fit(cfg, gen, dev, env)
+    traj, _, vpair = ppo.rollout(cfg, env, ts.policy_params, draws.seed,
+                                 cfg.n_envs, cfg.rollout_len,
+                                 v_params=ts.v_params)
+    engaged = []
+    real = adam.clip_by_global_norm
+
+    def counted(grads, max_norm):
+        norm = torch.sqrt(sum(torch.sum(g * g)
+                              for g in adam.tree_leaves(grads)))
+        engaged.append(norm > max_norm)
+        return real(grads, max_norm)
+
+    adam.clip_by_global_norm = counted
+    try:
+        card, _ = ppo.update_step(cfg, env, ts, traj, draws, vpair)
+    finally:
+        adam.clip_by_global_norm = real
+    n_v = cfg.n_epochs_value * cfg.num_minibatches
+    flags = [bool(x) for x in engaged]
+    traj = ppo.Transition(*(x.cpu() for x in traj))
+    adv, tgt = ppo.compute_advantages(cfg, env, traj,
+                                      tuple(v.cpu() for v in vpair))
+    cpu, _, _ = ppo.policy_phase(
+        cfg, conv.train_state_from_numpy(conv.train_state_to_numpy(ts),
+                                         "cpu"),
+        buffer.from_rollout(traj, adv, tgt), draws.policy_idx.cpu(),
+        env.spec.discrete)
+    return card, cpu, (sum(flags[:n_v]), sum(flags[n_v:]), len(flags) - n_v)
+
+
+def counted_run(counters, fn):
+    """(fn's result, the launch counts it made, its wall in s)."""
+    import torch
+
+    for c in counters:
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, read_counts(counters), time.perf_counter() - t0
+
+
+def expect_counts(label, counts, want):
+    """Every counter equal to ``want``'s (absent: 0)."""
+    bad = {k: (v, want.get(k, 0)) for k, v in counts.items()
+           if v != want.get(k, 0)}
+    bad.update({k: (0, v) for k, v in want.items() if k not in counts})
+    print(f"  {label}: launches {count_diff({k: 0 for k in counts}, counts)}",
+          flush=True)
+    if bad:
+        raise AssertionError(f"{label}: launch counts (got, want) {bad}")
+
+
+def on_card(tree) -> bool:
+    from ppoc_tpu_torch.ops import adam
+
+    return all(t.is_cuda for t in adam.tree_leaves(tree) if t.numel())
+
+
+def stab_path(cfg, label, dev, counters, record, bench_k1, bench_k2):
+    """One epoch of ``cfg`` (the five stabilisers) through Trainer on the
+    card: per fit one K1 with the V planes and one K2, no K3/K4/K6, and
+    K5's forwards and backwards as the minibatch counts and the policy's
+    steps imply; then the first fit replayed on the card and the CPU (the
+    target_kl freeze point of each, the clip's engagements), the first
+    value and policy steps held to the plain path, the last lr factor."""
+    import torch
+
+    from ppoc_tpu_torch.algo import ppo
+    from ppoc_tpu_torch.algo.trainer import Trainer
+    from ppoc_tpu_torch.data import buffer
+    from ppoc_tpu_torch.models import mlp
+
+    tr = Trainer(cfg)
+    check_on_card(tr)
+    ts0, gen0 = tr.state, tr.generator.get_state()
+    discrete, lane = tr.env.spec.discrete, tr.env.spec.name
+    fits = cfg.fits_per_epoch
+    n_v = cfg.n_epochs_value * cfg.num_minibatches
+    n_p = cfg.n_epochs_policy * cfg.num_minibatches
+    m, counts, wall = counted_run(counters, tr.train_epoch)
+    steps = tr.state.opt_policy.t
+    fwd_p = 2 if discrete else 1   # log-prob (+ entropy) forwards a step
+    step_ms = wall / (fits * (n_v + n_p)) * 1e3
+    print(f"  one epoch: {wall:.3f} s wall, {step_ms:.3f}"
+          f" ms a minibatch step; value loss {float(m.value_loss):.3f}, "
+          f"policy steps taken {steps} of {fits * n_p}", flush=True)
+    expect_counts(label, counts, {
+        f"rollout[{lane}]/values": fits, "gae_norm": fits,
+        "mlp_forward": fits * (n_v + fwd_p * n_p),
+        "mlp_backward": fits * n_v + fwd_p * steps})
+    if discrete and tr.state.opt_log_std.m.numel():
+        raise AssertionError("a categorical policy's log_std moments grew")
+    if discrete and tr.state.opt_log_std.t:
+        raise AssertionError("the categorical policy stepped its empty "
+                             "log_std Adam")
+    if not bool(torch.isfinite(mlp.flatten(tr.state.v_params)).all()):
+        raise AssertionError(f"{label}: non-finite value net")
+    factors = [float(ppo._anneal_factor(cfg, getattr(tr.state, o),
+                                        cfg.num_minibatches, e))
+               for o, e in (("opt_v", cfg.n_epochs_value),
+                            ("opt_policy", cfg.n_epochs_policy))]
+    print(f"  last lr factor: value {factors[0]:.6f}, policy {factors[1]:.6f}"
+          f" (Adam steps {tr.state.opt_v.t} and {steps})", flush=True)
+    ev, ev_counts, _ = counted_run(counters, tr.evaluate)
+    expect_counts(f"{label} evaluate()", ev_counts,
+                  {f"rollout[{lane}]/metrics": 1})
+    print(f"  evaluate(): R {ev.R:.3f}, episodes {int(ev.episodes)}",
+          flush=True)
+
+    card, cpu, (v_eng, p_eng, p_steps) = replay_first_fit(
+        cfg, tr.env, ts0, gen0, dev)
+    print(f"  first fit replayed: the clip engaged on {v_eng} of {n_v} value "
+          f"steps and {p_eng} of {p_steps} policy steps; target_kl froze the "
+          f"policy after minibatch {card.opt_policy.t} of {n_p} on the card, "
+          f"{cpu.opt_policy.t} on the CPU (its update on the card's "
+          f"rollout)", flush=True)
+    gen = torch.Generator()
+    gen.set_state(gen0)
+    draws = ppo.draw_fit(cfg, gen, dev, tr.env)
+    check_first_steps(label, cfg, tr.env, ts0, draws, dev)
+
+    traj, _ = ppo.rollout(cfg, tr.env, ts0.policy_params, draws.seed,
+                          cfg.n_envs, cfg.rollout_len)
+    x, = buffer.gather_mb((traj.obs.reshape(-1, traj.obs.shape[-1]),),
+                          draws.value_idx[0, 0])
+    vw = mlp.dims(ts0.v_params)
+    err, fwd, bwd = check_mlp(ts0.v_params, x, cfg.activation, dev)
+    path = (f"{label} generic phases, {cfg.n_envs} envs x "
+            f"{cfg.rollout_len} steps, mb {cfg.minibatch_size}")
+    fb, bb = mlp_bounds(vw, cfg.minibatch_size)
+    record("mlp_forward", path, [cfg.minibatch_size] + vw,
+           counts["mlp_forward"], err, fwd, fb)
+    record("mlp_backward", path, [cfg.minibatch_size] + vw,
+           counts["mlp_backward"], err, bwd, bb)
+    if not discrete:
+        T, E = cfg.rollout_len, cfg.n_envs
+        record(f"rollout[{lane}]", path + " (training rollouts)", [T, E],
+               counts[f"rollout[{lane}]/values"], *bench_k1)
+        record("gae_norm", path, [T, E], counts["gae_norm"], *bench_k2,
+               gae_bound(T, E))
+
+
+def check_moe(params, x, dev):
+    """The mixture (float32, TF32 off) on the card against float64 on the
+    CPU, forward and the gradients of a seeded projection of its output,
+    beside the plain CPU float32 form's error; the top-2 gate's rows."""
+    import torch
+
+    from ppoc_tpu_torch.models import moe
+    from ppoc_tpu_torch.ops import adam
+
+    g = torch.Generator().manual_seed(5)
+    w = torch.randn(x.shape[0], params["experts"][-1][0].shape[-1],
+                    generator=g)
+
+    def run(p, xx, ww):
+        q = adam.tree_map(lambda t: t.detach().clone().requires_grad_(), p)
+        out = moe.apply(q, xx, "relu", topk=2)
+        grads = torch.autograd.grad(torch.sum(out * ww), adam.tree_leaves(q))
+        return [out.detach()] + list(grads)
+
+    cpu = adam.tree_map(lambda t: t.detach().cpu(), params)
+    ref = run(adam.tree_map(lambda t: t.double(), cpu), x.cpu().double(),
+              w.double())
+    card = run(params, x, w.to(dev))
+    plain = run(cpu, x.cpu(), w)
+    torch.cuda.synchronize()
+    for i, (a, b, r) in enumerate(zip(card, plain, ref)):
+        e_card, e_cpu = max_err(a.cpu(), r), max_err(b, r)
+        what = "forward" if i == 0 else f"gradient leaf {i - 1}"
+        check(f"mixture {what} on {x.shape[0]} rows, card vs float64 "
+              f"(CPU float32 {e_cpu:.3e})", e_card,
+              max(MOE_F64_FACTOR * e_cpu, MOE_REL * float(r.abs().max())))
+    gate = moe.gate_weights(params, x, topk=2)
+    nz = (gate > 0).sum(dim=-1)
+    if not (bool((nz == 2).all())
+            and float((gate.sum(dim=-1) - 1).abs().max()) <= 1e-6):
+        raise AssertionError("a top-2 gate row is not two weights summing "
+                             "to 1")
+    print(f"  top-2 gate: every one of {x.shape[0]} rows two non-zero "
+          f"weights summing to 1 (within 1e-6)", flush=True)
+
+
+def slice18_phases(dev, counters, record, bench_k1, bench_k2):
+    """The paths slice 18 opens, each one epoch on the card through
+    Trainer with every launch counter read around it: STAB_BENCH and
+    STAB_CARTPOLE (the five stabilisers: K1, K2, K5, no whole-phase
+    kernel), the mixture of experts (no kernel under "moe:0", K2 alone
+    under "moe:2:bf16"), an affine env (the env loop through K5, then K2,
+    K3, K4; no K1) and "jnp" (no kernel)."""
+    import torch
+
+    from ppoc_tpu_torch.algo import ppo
+    from ppoc_tpu_torch.algo.trainer import Trainer
+    from ppoc_tpu_torch.envs import wrappers
+    from ppoc_tpu_torch.models import mlp
+
+    t_phase = time.perf_counter()
+    header("[STAB_BENCH: bench_config with max_grad_norm 0.5, clip_value "
+           "0.2, target_kl 0.02, lr and entropy annealing, ent_coeff 0.01]")
+    stab_path(stab_config(0), "STAB_BENCH", dev, counters, record, bench_k1,
+              bench_k2)
+    header("[STAB_CARTPOLE: the same stabilisers on cartpole, eval_len 500]")
+    stab_path(stab_config(0, "cartpole"), "STAB_CARTPOLE", dev, counters,
+              record, bench_k1, bench_k2)
+
+    header("[MOE: examples/moe_expert_parallel.py's single-device mixture, "
+           "4 experts, dense gating ('moe:0'), one epoch]")
+    tr = Trainer(moe_config())
+    check_on_card(tr)
+    assert tr.backend == "moe:0", tr.backend
+    m, counts, wall = counted_run(counters, tr.train_epoch)
+    ev, ev_counts, _ = counted_run(counters, tr.evaluate)
+    print(f"  one epoch {wall:.3f} s, value loss {float(m.value_loss):.3f}; "
+          f"evaluate() R {ev.R:.3f}", flush=True)
+    expect_counts("MOE moe:0 epoch", counts, {})
+    expect_counts("MOE moe:0 evaluate()", ev_counts, {})
+    if not (on_card(tr.state.v_params) and on_card(tr.state.policy_params)):
+        raise AssertionError("the mixture's state left the card")
+    header(f"[MOE: the mixture on {MOE_ROWS} rows against float64, the top-2 "
+           f"gate]")
+    x = torch.randn(MOE_ROWS, tr.env.spec.obs_dim,
+                    generator=torch.Generator().manual_seed(3)).to(dev)
+    check_moe(tr.state.policy_params["mlp"], x, dev)
+    header("[MOE: moe_topk 2, moe_aux_coeff 0.01 under 'bf16' "
+           "('moe:2:bf16'), one epoch]")
+    tr = Trainer(moe_config(moe_topk=2, moe_aux_coeff=0.01,
+                            kernel_backend="bf16"))
+    assert tr.backend == "moe:2:bf16", tr.backend
+    m, counts, wall = counted_run(counters, tr.train_epoch)
+    print(f"  one epoch {wall:.3f} s, value loss {float(m.value_loss):.3f}",
+          flush=True)
+    expect_counts("MOE moe:2:bf16 epoch", counts,
+                  {"gae_norm": tr.cfg.fits_per_epoch})
+    if not math.isfinite(float(m.value_loss)):
+        raise AssertionError("non-finite loss on the bf16 mixture")
+
+    header("[AFFINE: calibrate(bench_config(0)) on the card, one epoch "
+           "under 'pallas']")
+    t0 = time.perf_counter()
+    cfg = wrappers.calibrate(bench_config(0))
+    t_cal = time.perf_counter() - t0
+    cpu = wrappers.calibrate(bench_config(0), device="cpu")
+    apart = max(abs(a - b) / s for a, b, s in zip(
+        cfg.obs_loc + cfg.obs_scale, cpu.obs_loc + cpu.obs_scale,
+        cpu.obs_scale * 2))
+    print(f"  obs_loc {cfg.obs_loc}, obs_scale {cfg.obs_scale} ({t_cal:.3f} s "
+          f"on the card)", flush=True)
+    check("calibrate on the card against the CPU on the same draws",
+          apart, CALIB_REL, what="largest difference over the CPU's scale")
+    tr = Trainer(cfg)
+    assert tr.env.spec.name == "pendulum#affine"
+    fits = cfg.fits_per_epoch
+    m, counts, wall = counted_run(counters, tr.train_epoch)
+    print(f"  one epoch {wall:.3f} s, value loss {float(m.value_loss):.3f}",
+          flush=True)
+    expect_counts("AFFINE epoch", counts, {
+        "mlp_forward": fits * (cfg.rollout_len + 2), "gae_norm": fits,
+        "value_phase": fits, "policy_phase": fits})
+    ev, ev_counts, _ = counted_run(counters, tr.evaluate)
+    expect_counts("AFFINE evaluate()", ev_counts,
+                  {"mlp_forward": cfg.eval_len})
+    pp = tr.state.policy_params["mlp"]
+    pw = mlp.dims(pp)
+    draws = ppo.draw_eval(cfg, tr.env, torch.Generator().manual_seed(4), dev)
+    traj = ppo.rollout_env_loop(cfg, tr.env, tr.state.policy_params, draws)
+    err, fwd, _ = check_mlp(pp, traj.obs[0].contiguous(), cfg.activation, dev)
+    record("mlp_forward", f"AFFINE env-loop rollout, {cfg.n_envs} envs",
+           [cfg.n_envs] + pw, counts["mlp_forward"], err, fwd,
+           mlp_bounds(pw, cfg.n_envs)[0])
+
+    header("[JNP: bench_config(0) with kernel_backend 'jnp', one epoch]")
+    tr = Trainer(bench_config(0).replace(kernel_backend="jnp"))
+    m, counts, wall = counted_run(counters, tr.train_epoch)
+    ev, ev_counts, _ = counted_run(counters, tr.evaluate)
+    print(f"  one epoch {wall:.3f} s, value loss {float(m.value_loss):.3f}; "
+          f"evaluate() R {ev.R:.3f}", flush=True)
+    expect_counts("JNP epoch", counts, {})
+    expect_counts("JNP evaluate()", ev_counts, {})
+    if not (on_card(tr.state.v_params) and on_card(tr.state.policy_params)):
+        raise AssertionError("the jnp trainer's state left the card")
+    print(f"  slice 18 phases: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -5239,6 +5778,8 @@ def main() -> int:
     bf16_phases(dev, counters, record)
     bigmb_phases(dev, counters, record)
     cluster_phases(dev, record)
+    slice18_phases(dev, counters, record, (k1_err, k1_t, k1_bound),
+                   (k2_err, k2_t))
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
           f"build included", flush=True)

@@ -27,8 +27,22 @@ out without the V planes (its fused value forwards are gated to "pallas",
 forwards with bf16 products, then K2; no whole-phase kernel runs at any
 minibatch size, so both phases are generic, and every MLP product there
 and in the mean-policy evaluation is bf16 with float32 output
-(``models/mlp.bf16_dot``).  The JAX package's "jnp" backend (stochastic
-env-loop training rollout, doubling-scan GAE with Welford) is not ported.
+(``models/mlp.bf16_dot``).
+
+The "jnp" backend launches no kernel: every product is plain PyTorch, the
+training rollout is the stochastic env loop (:func:`rollout_env_loop`, one
+policy forward a step on noise drawn up front), the advantages the
+doubling-scan GAE with Welford moments (:func:`_seq_advantages`).  The
+env loop also serves, on any backend, a mixture-of-experts trunk
+(cfg.n_experts > 1, ``models/moe.py``; :func:`backend_of` names it
+"moe:<topk>[:bf16]", as the JAX Trainer does) and an env no rollout lane
+knows (an ``#affine`` one, ``envs/wrappers.affine_obs``); a mixture's
+products are library calls, its GAE K2 only under "moe:<k>:bf16".
+
+The stabilisers (max_grad_norm, clip_value, target_kl, lr_anneal,
+ent_anneal) are the JAX package's, in the generic phases only: the fused
+gate refuses them, as there (:func:`_stab_value_ok`,
+:func:`_stab_policy_ok`).
 
 An attention trunk (cfg.attn_dim > 0) takes the sequence path of
 ``algo/recurrent.py``, as the JAX package does: the rollout is a host loop
@@ -45,8 +59,8 @@ launches plus small PyTorch ops, driven eagerly from the host.
 Randomness is explicit: a fit's draws (:class:`FitDraws`) are the rollout's
 two seed words and the value/policy row-id (or block-id) streams (for a
 sequence trunk: its :class:`recurrent.SeqDraws` and the env-column
-streams), and an env-loop evaluation's (:class:`LoopDraws`) its start and
-reset states,
+streams), and an env-loop rollout's (:class:`LoopDraws`) its start and
+reset states and, unless it is the mean policy's, its action noise,
 drawn up front from the trainer's ``torch.Generator`` -- or handed in, so
 tests can feed both packages the same randomness.
 """
@@ -61,7 +75,7 @@ from ppoc_tpu_torch import envs
 from ppoc_tpu_torch.config import PPOConfig
 from ppoc_tpu_torch.data import buffer
 from ppoc_tpu_torch.envs.core import Env, vector_autoreset_step, vector_reset
-from ppoc_tpu_torch.models import attn, mlp, policy as policy_mod
+from ppoc_tpu_torch.models import attn, mlp, moe, policy as policy_mod
 from ppoc_tpu_torch.ops import (_build, adam, cuda_gae, cuda_mlp,
                                 cuda_rollout, cuda_update, gae as gae_ops,
                                 losses, resolve_backend, welford)
@@ -69,8 +83,24 @@ from ppoc_tpu_torch.ops import (_build, adam, cuda_gae, cuda_mlp,
 
 def backend_of(cfg: PPOConfig) -> str:
     """The backend cfg.kernel_backend selects: "pallas" (every MLP call
-    outside K1/K3/K4/K6 through K5) or "bf16" (bf16 products)."""
-    return resolve_backend(cfg.kernel_backend)
+    outside K1/K3/K4/K6 through K5), "bf16" (bf16 products) or "jnp" (no
+    kernel).  A mixture-of-experts config (cfg.n_experts > 1) gets its
+    gating in the string, "moe:<topk>", with ":bf16" under "bf16": the
+    JAX Trainer's rewrite (``ppoc_tpu/algo/trainer.py:170-178``), so no
+    dense-MLP kernel takes a mixture."""
+    backend = resolve_backend(cfg.kernel_backend)
+    if cfg.n_experts > 1 and cfg.attn_dim == 0:
+        return mlp.moe_backend(backend, cfg.moe_topk)
+    return backend
+
+
+def uses_rollout_kernel(cfg: PPOConfig, env: Env) -> bool:
+    """Does a stochastic rollout of cfg's MLP policy on ``env`` run K1?
+    Under "pallas" or "bf16" for an env with a rollout lane, as
+    ``ppoc_tpu/algo/ppo.py:352-359`` chooses; a mixture ("moe:*"), "jnp"
+    and an env without a lane (``pendulum#affine``) take the env loop."""
+    return (backend_of(cfg) in ("pallas", "bf16")
+            and env.spec.name in cuda_rollout.SUPPORTED)
 
 
 class Transition(NamedTuple):
@@ -101,13 +131,14 @@ class FitMetrics(NamedTuple):
 
 class FitDraws(NamedTuple):
     """All the randomness one fit consumes."""
-    seed: Optional[Tuple[int, int]]   # the rollout's two 32-bit seed words
-                                      # (None for a sequence trunk)
+    seed: Optional[Tuple[int, int]]   # K1's two 32-bit seed words (None
+                                      # where the rollout is a loop)
     value_idx: torch.Tensor     # [n_epochs_value, n_mb, mb] row ids, or
                                 # [.., mb / shuffle_block] block ids, or
                                 # [.., n_mb, seqs] env columns (sequence)
     policy_idx: torch.Tensor    # [n_epochs_policy, n_mb, ...] likewise
-    seq: Any = None             # a sequence trunk's recurrent.SeqDraws
+    seq: Any = None             # a loop rollout's LoopDraws: a sequence
+                                # trunk's decode loop or the env loop
 
 
 class EvalMetrics(NamedTuple):
@@ -125,8 +156,11 @@ def draw_fit(cfg: PPOConfig, generator: torch.Generator,
              device: torch.device, env: Optional[Env] = None) -> FitDraws:
     """Draw one fit's seed words and row-id (block-id, with
     cfg.shuffle_block) streams from ``generator``; for an attention trunk
-    the rollout's :class:`recurrent.SeqDraws` (from ``env``) and the
-    env-column streams instead."""
+    the rollout's :class:`LoopDraws` (from ``env``) and the env-column
+    streams instead; where the rollout is the env loop
+    (:func:`uses_rollout_kernel` false) its :class:`LoopDraws` with the
+    action noise, then the row-id streams."""
+    env = env if env is not None else envs.make_for(cfg)
     if cfg.attn_dim > 0:
         from ppoc_tpu_torch.algo import recurrent
 
@@ -138,7 +172,12 @@ def draw_fit(cfg: PPOConfig, generator: torch.Generator,
                         recurrent.draw_columns(cfg, generator,
                                                cfg.n_epochs_policy, device),
                         seq)
-    seed = cuda_rollout.seed_words(generator)
+    seed = loop = None
+    if uses_rollout_kernel(cfg, env):
+        seed = cuda_rollout.seed_words(generator)
+    else:
+        loop = draw_loop(env, generator, cfg.n_envs, cfg.rollout_len, device,
+                         noise=True)
     args = (cfg.steps_per_fit, cfg.num_minibatches, cfg.minibatch_size)
 
     def epoch():
@@ -151,7 +190,7 @@ def draw_fit(cfg: PPOConfig, generator: torch.Generator,
         return torch.stack([epoch() for _ in range(n_epochs)]).to(device)
 
     return FitDraws(seed, stream(cfg.n_epochs_value),
-                    stream(cfg.n_epochs_policy))
+                    stream(cfg.n_epochs_policy), loop)
 
 
 # --------------------------------------------------------------------------
@@ -163,7 +202,9 @@ def init_train_state(cfg: PPOConfig, env: Env, generator: torch.Generator,
     """Policy (Gaussian MLP + log_std, or categorical MLP for a discrete
     env), value net with the same trunk and a scalar head, and three fresh
     Adam states; a categorical policy's log_std state has empty moments,
-    as the JAX package's ``adam.init(jnp.zeros((0,)))``.
+    as the JAX package's ``adam.init(jnp.zeros((0,)))``.  With
+    cfg.n_experts > 1 both trunks are mixtures of that many experts
+    (``models/moe.py``), policy first.
 
     With cfg.attn_dim > 0 both trunks are attention encoders
     (``models/attn.py``) with MLP heads, drawn policy first, then value,
@@ -187,6 +228,16 @@ def init_train_state(cfg: PPOConfig, env: Env, generator: torch.Generator,
                 (spec.action_dim,), math.log(cfg.init_std),
                 dtype=torch.float32, device=device)
         v_params = trunk(1)
+    elif cfg.n_experts > 1:
+        policy_params = {"mlp": moe.init(
+            (spec.obs_dim, *cfg.hidden, spec.action_dim), cfg.n_experts,
+            generator, device)}
+        if not spec.discrete:
+            policy_params["log_std"] = torch.full(
+                (spec.action_dim,), math.log(cfg.init_std),
+                dtype=torch.float32, device=device)
+        v_params = moe.init((spec.obs_dim, *cfg.hidden, 1), cfg.n_experts,
+                            generator, device)
     else:
         policy_params = policy_mod.init(
             spec.obs_dim, spec.action_dim, cfg.hidden, cfg.init_std,
@@ -227,9 +278,12 @@ def rollout(cfg: PPOConfig, env: Env, policy_params: Dict[str, Any], seed,
     ``seed`` is K1's two 32-bit seed words; ``env_carry=None`` resets
     every env at entry.
 
-    An attention trunk takes the decode loop of ``recurrent.rollout_rnn``
-    instead (``seed``: its :class:`recurrent.SeqDraws`, which fix the
-    shape), always from a fresh window; the third element is then None."""
+    Where :func:`uses_rollout_kernel` says no (a mixture, "jnp", an env
+    without a lane) the stochastic env loop runs instead
+    (:func:`rollout_env_loop`; ``seed``: its :class:`LoopDraws` with the
+    action noise, which fix the shape), and an attention trunk the decode
+    loop of ``recurrent.rollout_rnn`` (``seed``: its :class:`LoopDraws`),
+    always from a fresh window; the third element is then None."""
     if attn.is_attn(policy_params["mlp"]):
         from ppoc_tpu_torch.algo import recurrent
 
@@ -239,6 +293,11 @@ def rollout(cfg: PPOConfig, env: Env, policy_params: Dict[str, Any], seed,
                              "supported with attn_dim > 0")
         traj, carry = recurrent.rollout_rnn(cfg, env, policy_params, seed,
                                             force_truncate)
+        return (traj, carry) + (() if v_params is None else (None,))
+    if not uses_rollout_kernel(cfg, env):
+        traj, carry = _env_loop(cfg, env, policy_params, seed, env_carry)
+        if force_truncate:
+            traj = _force_truncate_last(traj)
         return (traj, carry) + (() if v_params is None else (None,))
     fused_v = v_params is not None and backend_of(cfg) == "pallas"
     out = cuda_rollout.rollout_fused(
@@ -253,66 +312,94 @@ def rollout(cfg: PPOConfig, env: Env, policy_params: Dict[str, Any], seed,
 
 
 class LoopDraws(NamedTuple):
-    """All the randomness one mean-policy env-loop rollout consumes."""
+    """All the randomness one loop rollout consumes (the env loop here, a
+    sequence trunk's decode loop in ``algo/recurrent.py``)."""
     carry: Any   # (state, obs) the window starts from
     fresh: Any   # (state, obs) with leading dims [T, E]: what an env that
                  # finishes step t resets to
+    noise: Optional[torch.Tensor] = None  # [T, E, A] standard normals
+                 # (Gaussian) or [T, E, K] Gumbel draws (categorical);
+                 # None for the mean policy
 
 
 def draw_loop(env: Env, generator: torch.Generator, n_envs: int, length: int,
-              device) -> LoopDraws:
-    """Draw an env-loop rollout's start and reset states from
-    ``generator``."""
+              device, noise: bool = False) -> LoopDraws:
+    """Draw a loop rollout's start and reset states and, with ``noise``,
+    its action noise (``policy.draw_noise``) from ``generator``."""
     carry = vector_reset(env, generator, n_envs, device)
     state, obs = vector_reset(env, generator, length * n_envs, device)
 
     def lead(x):
         return x.reshape((length, n_envs) + x.shape[1:])
 
-    return LoopDraws(carry, (type(state)(*map(lead, state)), lead(obs)))
+    eps = None
+    if noise:
+        eps = policy_mod.draw_noise((length, n_envs, env.spec.action_dim),
+                                    env.spec.discrete, generator).to(device)
+    return LoopDraws(carry, (type(state)(*map(lead, state)), lead(obs)), eps)
 
 
 @torch.no_grad()
-def rollout_env_loop(cfg: PPOConfig, env: Env, policy_params: Dict[str, Any],
-                     draws: LoopDraws) -> Transition:
-    """The JAX package's env-loop rollout of the mean policy
-    (``ppoc_tpu/algo/ppo.py:387-424`` with ``deterministic=True``), for
-    evaluation: per step, the policy's mode (through K5, or bf16 products
-    under "bf16"), then
-    ``vector_autoreset_step`` with the drawn reset states.  Returns the
-    trajectory [T, E, ...] with its genuine done flags.  A stochastic
-    rollout is K1 (:func:`rollout`) on this backend, as in the JAX
-    package."""
-    state, obs = draws.carry
+def _env_loop(cfg: PPOConfig, env: Env, policy_params: Dict[str, Any],
+              draws: LoopDraws, env_carry=None):
+    """(trajectory, final (state, obs)) of the env loop, from ``env_carry``
+    or, when None, from the drawn start states."""
+    state, obs = draws.carry if env_carry is None else env_carry
     fstate, fobs = draws.fresh
     steps, backend = [], backend_of(cfg)
     for t in range(fobs.shape[0]):
-        action, logp = policy_mod.mode(policy_params, obs, cfg.activation,
-                                       backend, env.spec.discrete)
+        out = mlp.apply(policy_params["mlp"], obs, cfg.activation, backend)
+        action, logp = policy_mod.act_from_out(
+            out, env.spec.discrete, policy_params.get("log_std"),
+            draws.noise is None, None if draws.noise is None
+            else draws.noise[t])
         fresh = (type(fstate)(*(f[t] for f in fstate)), fobs[t])
         state, obs2, next_obs, reward, term, trunc = vector_autoreset_step(
             env, state, action, fresh=fresh)
         steps.append((obs, action, logp, next_obs, reward, term, trunc))
         obs = obs2
-    return Transition(*(torch.stack(col) for col in zip(*steps)))
+    return (Transition(*(torch.stack(col) for col in zip(*steps))),
+            (state, obs))
+
+
+def rollout_env_loop(cfg: PPOConfig, env: Env, policy_params: Dict[str, Any],
+                     draws: LoopDraws) -> Transition:
+    """The JAX package's env-loop rollout (``ppoc_tpu/algo/ppo.py:387-424``):
+    per step one policy forward (K5 under "pallas", bf16 products under
+    "bf16", plain PyTorch under "jnp", the mixture for a MoE trunk), the
+    action from ``draws.noise`` (the mode where it is None: the mean
+    policy), then ``vector_autoreset_step`` with the drawn reset states.
+    Returns the trajectory [T, E, ...] with its genuine done flags."""
+    return _env_loop(cfg, env, policy_params, draws)[0]
 
 
 # --------------------------------------------------------------------------
 # advantages
 # --------------------------------------------------------------------------
 
+@torch.no_grad()
+def value_planes(cfg: PPOConfig, v_params, traj: Transition):
+    """(V(s), V(s')) [T, E] as two whole-buffer forwards of ``v_params``
+    on cfg's backend (``ppoc_tpu/algo/ppo.py:450-452``), where the rollout
+    computed no planes."""
+    return tuple(mlp.apply(v_params, o, cfg.activation, backend_of(cfg))[..., 0]
+                 for o in (traj.obs, traj.next_obs))
+
+
 def compute_advantages(cfg: PPOConfig, env: Env, traj: Transition,
                        values_pair, v_params=None):
-    """GAE + whole-buffer normalisation (one K2 launch) on the rollout
-    kernel's (V(s), V(s')) planes, or with ``values_pair`` None (the
-    "bf16" backend) on two whole-buffer forwards of ``v_params``
-    (``ppoc_tpu/algo/ppo.py:439-444``); returns (advantages, targets),
-    both [T, E]."""
+    """GAE + whole-buffer normalisation on the rollout kernel's (V(s),
+    V(s')) planes, or with ``values_pair`` None on :func:`value_planes`
+    of ``v_params``; returns (advantages, targets), both [T, E].  One K2
+    launch under "pallas", "bf16" and "moe:<k>:bf16"; the doubling-scan
+    GAE and the Welford moments under "jnp" and "moe:<k>", as
+    ``ppoc_tpu/algo/ppo.py:457-486`` gates it."""
     if values_pair is None:
-        with torch.no_grad():
-            values_pair = tuple(
-                mlp.apply(v_params, o, cfg.activation, backend_of(cfg))[..., 0]
-                for o in (traj.obs, traj.next_obs))
+        values_pair = value_planes(cfg, v_params, traj)
+    backend = backend_of(cfg)
+    if not (backend in ("pallas", "bf16")
+            or (backend.startswith("moe:") and backend.endswith(":bf16"))):
+        return _seq_advantages(cfg, env, traj, values_pair)
     values, next_values = values_pair
     return cuda_gae.gae_norm_fused(
         traj.reward, values, next_values, traj.terminated, traj.truncated,
@@ -367,30 +454,35 @@ def kernel_fit(cfg: PPOConfig, optin: int,
     """The kernels ``cfg``'s MLP path launches on the card, in path order,
     each with its shared-memory needs from the widths alone (the ops
     modules' ``variant_bytes``) and the variant that fits a block's
-    ``optin`` bytes: K1 with the V planes (a fit's rollout; the
-    evaluation's, with the metrics, needs less), K5 on the policy and the
-    value net (the mean-policy evaluation, and the generic phases above the
-    fused gate), then under the gate K3 and K4, or K6 for a categorical
-    policy (the three kinds of one pair of cluster kernels, so the same
-    bytes).  Under the "bf16" backend only K1, without the V planes: the
-    MLP products are library calls and no whole-phase kernel runs.  K2
-    and K7 take no width-dependent shared memory, so an attention trunk's
-    list is empty.  Needs no card."""
-    if cfg.attn_dim > 0:
+    ``optin`` bytes: K1 with the V planes (a fit's rollout, for an env
+    with a lane; the evaluation's, with the metrics, needs less), K5 on
+    the policy and the value net (the mean-policy evaluation, the env-loop
+    rollout and the generic phases), then under the gate K3 and K4, or K6
+    for a categorical policy (the three kinds of one pair of cluster
+    kernels, so the same bytes).  Under the "bf16" backend only K1,
+    without the V planes: the MLP products are library calls and no
+    whole-phase kernel runs.  "jnp" and a mixture ("moe:*") launch no
+    kernel that takes the widths (K2 takes none), nor do K2 and K7 on an
+    attention trunk: their lists are empty.  Needs no card."""
+    backend = backend_of(cfg)
+    if cfg.attn_dim > 0 or backend not in ("pallas", "bf16"):
         return []
-    spec = (env if env is not None else envs.make_for(cfg)).spec
+    env = env if env is not None else envs.make_for(cfg)
+    spec = env.spec
     pw = (spec.obs_dim, *cfg.hidden, spec.action_dim)
     vw = (spec.obs_dim, *cfg.hidden, 1)
-    if backend_of(cfg) == "bf16":
+    lane = uses_rollout_kernel(cfg, env)
+    if backend == "bf16":
         plan = [(f"K1 (rollout, {spec.name} lane)", (pw,),
-                 cuda_rollout.variant_bytes(pw))]
+                 cuda_rollout.variant_bytes(pw))] if lane else []
     else:
-        plan = [(f"K1 (rollout, {spec.name} lane, with the V planes)",
-                 (pw, vw), cuda_rollout.variant_bytes(pw, vw)),
-                ("K5 (whole-MLP forward and backward, policy net)", (pw,),
-                 cuda_mlp.variant_bytes(pw)),
-                ("K5 (whole-MLP forward and backward, value net)", (vw,),
-                 cuda_mlp.variant_bytes(vw))]
+        plan = ([(f"K1 (rollout, {spec.name} lane, with the V planes)",
+                  (pw, vw), cuda_rollout.variant_bytes(pw, vw))]
+                if lane else [])
+        plan += [("K5 (whole-MLP forward and backward, policy net)", (pw,),
+                  cuda_mlp.variant_bytes(pw)),
+                 ("K5 (whole-MLP forward and backward, value net)", (vw,),
+                  cuda_mlp.variant_bytes(vw))]
     if _fused(cfg, _stab_value_ok(cfg)):
         plan.append(("K3 (value phase)", (vw,),
                      cuda_update.variant_bytes(vw)))
@@ -412,14 +504,156 @@ def _requiring_grad(tree):
     return adam.tree_map(lambda t: t.detach().requires_grad_(), tree)
 
 
-def _adam_step(cfg: PPOConfig, params, grads, opt, lr: float):
-    return adam.update(params, adam.tree_unflatten(params, list(grads)), opt,
-                       lr, cfg.adam_beta1, cfg.adam_beta2, cfg.adam_eps)
+def _grads(loss: torch.Tensor, params):
+    """d loss / d params as a tree shaped like ``params``."""
+    leaves = adam.tree_leaves(params)
+    return adam.tree_unflatten(params, list(torch.autograd.grad(loss, leaves)))
+
+
+def _adam_step(cfg: PPOConfig, params, grads, opt, lr):
+    return adam.update(params, grads, opt, lr, cfg.adam_beta1,
+                       cfg.adam_beta2, cfg.adam_eps)
 
 
 def _minibatches(idx: torch.Tensor):
     """The stream's minibatches in order: epoch-major, then minibatch."""
     return idx.reshape(-1, idx.shape[-1])
+
+
+# --- the stabilisers (``ppoc_tpu/algo/ppo.py:85-175``) -------------------------
+
+def _prep_grads(cfg: PPOConfig, grads):
+    """Clip the global norm of one step's whole gradient tree when
+    cfg.max_grad_norm > 0 (a Gaussian policy's ``{"mlp", "log_std"}`` as
+    one tree); shared by every phase, so the clip can never apply to one
+    and not another."""
+    if cfg.max_grad_norm > 0.0:
+        return adam.clip_by_global_norm(grads, cfg.max_grad_norm)
+    return grads
+
+
+def _anneal_factor(cfg: PPOConfig, opt: adam.AdamState, n_mb: int,
+                   epochs_per_fit: int) -> torch.Tensor:
+    """The remaining share of the cfg.n_epochs schedule in ``opt``'s own
+    Adam steps, max(0, 1 - t / total), as a 0-dim float32 CPU tensor: t
+    and total in float32 and a tensor division, the JAX package's
+    ``t.astype(f32) / f32(total)`` (a division by a Python scalar is a
+    reciprocal product on CUDA).  On the CPU, so no step waits for a copy
+    to the card; a CUDA op reads it as a scalar."""
+    total = cfg.n_epochs * cfg.fits_per_epoch * epochs_per_fit * n_mb
+    frac = (torch.tensor(float(opt.t), dtype=torch.float32)
+            / torch.tensor(float(max(total, 1)), dtype=torch.float32))
+    return torch.clamp(1.0 - frac, min=0.0)
+
+
+def _lr(base: float, cfg: PPOConfig, opt: adam.AdamState, n_mb: int,
+        epochs_per_fit: int):
+    """The learning rate of ``opt``'s next step: ``base``, or with
+    cfg.lr_anneal ``base`` times :func:`_anneal_factor` (a 0-dim float32
+    tensor, which ``adam.update`` takes as is)."""
+    if not cfg.lr_anneal:
+        return base
+    return base * _anneal_factor(cfg, opt, n_mb, epochs_per_fit)
+
+
+def _ent_coeff(cfg: PPOConfig, opt_policy: adam.AdamState, n_mb: int):
+    """The entropy coefficient: cfg.ent_coeff, or with cfg.ent_anneal
+    annealed by the policy net's Adam steps over n_epochs_policy."""
+    if not cfg.ent_anneal:
+        return cfg.ent_coeff
+    return cfg.ent_coeff * _anneal_factor(cfg, opt_policy, n_mb,
+                                          cfg.n_epochs_policy)
+
+
+def value_steps(cfg: PPOConfig, ts: TrainState, batches, values, n_mb: int,
+                backend: str):
+    """The generic value phase over ``batches`` (``ppoc_tpu/algo/ppo.py:
+    631-667``), shared with the sequence phase: per minibatch ``(obs,
+    target, v_old or None, extra)``, the predictions ``values(params,
+    batch)``, the MSE (the clipped loss against v_old with
+    cfg.clip_value), the mixture's load-balance term with
+    cfg.moe_aux_coeff, the gradient (K5's or K7's backward on the card),
+    :func:`_prep_grads` and one Adam step at :func:`_lr` of lr_v.
+    Returns (ts', mean minibatch loss)."""
+    aux_coeff, topk = moe.aux_setup(cfg, ts.v_params, backend)
+    v_params, opt_v, mb_losses = ts.v_params, ts.opt_v, []
+    for batch in batches:
+        o, t, vo = batch[:3]
+        params = _requiring_grad(v_params)
+        v = values(params, batch)
+        if cfg.clip_value > 0.0:
+            loss = losses.clipped_value_loss(v, vo, t, cfg.clip_value)
+        else:
+            loss = losses.value_loss(v, t)
+        if aux_coeff:
+            loss = loss + aux_coeff * moe.load_balance_loss(params, o, topk)
+        grads = _prep_grads(cfg, _grads(loss, params))
+        v_params, opt_v = _adam_step(
+            cfg, v_params, grads, opt_v,
+            _lr(cfg.lr_v, cfg, opt_v, n_mb, cfg.n_epochs_value))
+        mb_losses.append(loss.detach())
+    return (ts._replace(v_params=v_params, opt_v=opt_v),
+            torch.stack(mb_losses).mean())
+
+
+def policy_steps(cfg: PPOConfig, ts: TrainState, batches, log_probs,
+                 n_mb: int, backend: str, discrete: bool):
+    """The generic policy phase over ``batches`` (``ppoc_tpu/algo/ppo.py:
+    726-780``), shared with the sequence phase: per minibatch ``(obs,
+    action, old log-prob, advantage, extra)``, ``log_probs(params, batch)
+    -> (log-probs, entropy)``, the clipped surrogate minus the
+    (annealed) entropy coefficient times the entropy, plus the mixture's
+    load-balance term; its gradient through :func:`_prep_grads` (the
+    policy net and log_std as one tree) and one Adam step each for the
+    net and, if Gaussian, log_std, each at :func:`_lr` of its own
+    counter.
+
+    cfg.target_kl: once a minibatch's approximate KL, mean(old - new
+    log-prob) before its step, exceeds the target, every later step of the
+    phase is frozen -- params and both Adam states (the JAX package's
+    ``_freeze_where``) -- while the loss and entropy of every remaining
+    minibatch still enter the reported means, computed without a gradient.
+    Returns (ts', mean loss, mean entropy)."""
+    aux_coeff, topk = moe.aux_setup(cfg, ts.policy_params["mlp"], backend)
+    pol, opt_p, opt_ls = ts.policy_params, ts.opt_policy, ts.opt_log_std
+    stop, mb_losses, ents = False, [], []
+
+    def loss_of(params, batch):
+        o, _, lp, ad = batch[:4]
+        logp, ent = log_probs(params, batch)
+        loss = (losses.clipped_surrogate_loss(logp, lp, ad, cfg.clip_eps)
+                - _ent_coeff(cfg, opt_p, n_mb) * ent)
+        if aux_coeff:
+            loss = loss + aux_coeff * moe.load_balance_loss(
+                params["mlp"], o, topk)
+        return loss, ent, logp
+
+    for batch in batches:
+        if stop:
+            with torch.no_grad():
+                loss, ent, _ = loss_of(pol, batch)
+        else:
+            params = {k: _requiring_grad(v) for k, v in pol.items()}
+            loss, ent, logp = loss_of(params, batch)
+            grads = _prep_grads(cfg, _grads(loss, params))
+            mlp2, opt_p2 = _adam_step(
+                cfg, pol["mlp"], grads["mlp"], opt_p,
+                _lr(cfg.lr_policy, cfg, opt_p, n_mb, cfg.n_epochs_policy))
+            pol2 = {"mlp": mlp2}
+            if not discrete:
+                pol2["log_std"], opt_ls = _adam_step(
+                    cfg, pol["log_std"], grads["log_std"], opt_ls,
+                    _lr(cfg.lr_policy, cfg, opt_ls, n_mb,
+                        cfg.n_epochs_policy))
+            pol, opt_p = pol2, opt_p2
+            if cfg.target_kl > 0.0:
+                kl = torch.mean(batch[2] - logp.detach())
+                stop = bool(kl > cfg.target_kl)
+        mb_losses.append(loss.detach())
+        ents.append(ent.detach())
+    return (ts._replace(policy_params=pol, opt_policy=opt_p,
+                        opt_log_std=opt_ls),
+            torch.stack(mb_losses).mean(), torch.stack(ents).mean())
 
 
 def value_phase(cfg: PPOConfig, ts: TrainState, buf: buffer.RowBuffer,
@@ -428,37 +662,27 @@ def value_phase(cfg: PPOConfig, ts: TrainState, buf: buffer.RowBuffer,
     (ts', mean minibatch loss).
 
     Under the fused gate, one K3 launch on the pre-gathered rows.  Above
-    it, or under the "bf16" backend at any size, the JAX package's scan
-    branch (``ppoc_tpu/algo/ppo.py:631-667``) as a loop: per minibatch,
-    gather, the MSE loss through K5 (bf16 products under "bf16"),
-    ``torch.autograd.grad`` (K5's backward) and one Adam step.  The
-    stabilisers are not ported (the Trainer refuses them), so the JAX
-    package's ``_prep_grads`` and lr schedule are the identity and lr_v
-    here."""
+    it, under the "bf16" or "jnp" backend, for a mixture or with a value
+    stabiliser at any size, :func:`value_steps` on the gathered
+    minibatches, the predictions through K5 on "pallas" (bf16 products
+    under "bf16", plain PyTorch under "jnp")."""
     n_epochs, n_mb = idx.shape[:2]
     mb, blk = cfg.minibatch_size, cfg.shuffle_block
-    cols = (buf.obs, buf.target)
     if _fused(cfg, _stab_value_ok(cfg)):
-        obs_seq, tgt_seq = buffer.gather_mb(cols, idx, blk)
+        obs_seq, tgt_seq = buffer.gather_mb((buf.obs, buf.target), idx, blk)
         v2, opt2, loss = cuda_update.value_phase(
             obs_seq, tgt_seq, ts.v_params, ts.opt_v, n_epochs * n_mb, mb,
             cfg.activation, _hyper(cfg, cfg.lr_v))
         return ts._replace(v_params=v2, opt_v=opt2), loss
-    if not _stab_value_ok(cfg):
-        raise NotImplementedError("the value-phase stabilisers are not "
-                                  "ported yet (ROADMAP.md)")
-    v_params, opt_v, mb_losses = ts.v_params, ts.opt_v, []
     backend = backend_of(cfg)
-    for ids in _minibatches(idx):
-        o, t = buffer.gather_mb(cols, ids, blk)
-        params = _requiring_grad(v_params)
-        v = mlp.apply(params, o, cfg.activation, backend)[..., 0]
-        loss = losses.value_loss(v, t)
-        grads = torch.autograd.grad(loss, adam.tree_leaves(params))
-        v_params, opt_v = _adam_step(cfg, v_params, grads, opt_v, cfg.lr_v)
-        mb_losses.append(loss.detach())
-    return (ts._replace(v_params=v_params, opt_v=opt_v),
-            torch.stack(mb_losses).mean())
+    cols = (buf.obs, buf.target) + ((buf.v_old,) if cfg.clip_value > 0.0
+                                    else ())
+    batches = (tuple(buffer.gather_mb(cols, ids, blk)) + (None,) * (4 - len(cols))
+               for ids in _minibatches(idx))
+    return value_steps(
+        cfg, ts, batches,
+        lambda p, b: mlp.apply(p, b[0], cfg.activation, backend)[..., 0],
+        n_mb, backend)
 
 
 def policy_phase(cfg: PPOConfig, ts: TrainState, buf: buffer.RowBuffer,
@@ -468,13 +692,9 @@ def policy_phase(cfg: PPOConfig, ts: TrainState, buf: buffer.RowBuffer,
 
     Under the fused gate, one K4 launch, or one K6 launch for a categorical
     policy (``discrete``), as ``ppoc_tpu/algo/ppo.py:687-708`` chooses.
-    Above it, or under the "bf16" backend at any size, the JAX package's
-    scan branch (``ppoc_tpu/algo/ppo.py:726-780``): per minibatch, the
-    log-prob and entropy through K5 (bf16 products under "bf16"),
-    ``clipped_surrogate_loss - ent_coeff * entropy``,
-    ``torch.autograd.grad`` and one Adam step for the policy net, plus one
-    for log_std with its own state if the policy is Gaussian.  Without the
-    stabilisers the entropy coefficient is the constant cfg.ent_coeff."""
+    Above it, under the "bf16" or "jnp" backend, for a mixture or with a
+    policy stabiliser at any size, :func:`policy_steps` on the gathered
+    minibatches, the log-prob and entropy through K5 on "pallas"."""
     n_epochs, n_mb = idx.shape[:2]
     mb, blk = cfg.minibatch_size, cfg.shuffle_block
     cols = (buf.obs, buf.action, buf.log_prob, buf.advantage)
@@ -494,37 +714,18 @@ def policy_phase(cfg: PPOConfig, ts: TrainState, buf: buffer.RowBuffer,
             _hyper(cfg, cfg.lr_policy), cfg.clip_eps, cfg.ent_coeff)
         return ts._replace(policy_params={"mlp": params2, "log_std": ls2},
                            opt_policy=opt_p2, opt_log_std=opt_ls2), loss, ent
-    if not _stab_policy_ok(cfg):
-        raise NotImplementedError("the policy-phase stabilisers are not "
-                                  "ported yet (ROADMAP.md)")
-    opt_p, opt_ls = ts.opt_policy, ts.opt_log_std
-    mb_losses, ents, backend = [], [], backend_of(cfg)
-    for ids in _minibatches(idx):
-        o, a, lp, ad = buffer.gather_mb(cols, ids, blk)
-        params = {"mlp": _requiring_grad(pol["mlp"])}
-        if not discrete:
-            params["log_std"] = pol["log_std"].detach().requires_grad_()
-        logp = policy_mod.log_prob(params, o, a, cfg.activation, backend,
-                                   discrete)
-        ent = policy_mod.entropy(params, o, cfg.activation, backend, discrete)
-        loss = (losses.clipped_surrogate_loss(logp, lp, ad, cfg.clip_eps)
-                - cfg.ent_coeff * ent)
-        leaves = adam.tree_leaves(params["mlp"])
-        grads = torch.autograd.grad(
-            loss, leaves + ([] if discrete else [params["log_std"]]))
-        mlp2, opt_p = _adam_step(cfg, pol["mlp"], grads[:len(leaves)], opt_p,
-                                 cfg.lr_policy)
-        if discrete:
-            pol = {"mlp": mlp2}
-        else:
-            ls2, opt_ls = _adam_step(cfg, pol["log_std"], grads[-1:], opt_ls,
-                                     cfg.lr_policy)
-            pol = {"mlp": mlp2, "log_std": ls2}
-        mb_losses.append(loss.detach())
-        ents.append(ent.detach())
-    return (ts._replace(policy_params=pol, opt_policy=opt_p,
-                        opt_log_std=opt_ls),
-            torch.stack(mb_losses).mean(), torch.stack(ents).mean())
+    backend = backend_of(cfg)
+
+    def log_probs(params, b):
+        return (policy_mod.log_prob(params, b[0], b[1], cfg.activation,
+                                    backend, discrete),
+                policy_mod.entropy(params, b[0], cfg.activation, backend,
+                                   discrete))
+
+    batches = (tuple(buffer.gather_mb(cols, ids, blk))
+               for ids in _minibatches(idx))
+    return policy_steps(cfg, ts, batches, log_probs, n_mb, backend,
+                        discrete)
 
 
 def value_phase_fused(cfg: PPOConfig, ts: TrainState, buf: buffer.RowBuffer,
@@ -588,7 +789,8 @@ def _seq_advantages(cfg: PPOConfig, env: Env, traj: Transition,
                     values_pair):
     """GAE by the doubling scan, then the whole-buffer normalisation with
     Welford moments: the JAX package's "jnp" advantages, which its
-    sequence branch takes (``ppoc_tpu/algo/ppo.py:827-828``)."""
+    sequence branch and its "jnp" and "moe:<k>" backends take
+    (``ppoc_tpu/algo/ppo.py:475-486``, ``:827-828``)."""
     values, next_values = values_pair
     adv, target = gae_ops.gae(traj.reward, values, next_values,
                               traj.terminated, traj.truncated,
@@ -602,23 +804,29 @@ def _seq_advantages(cfg: PPOConfig, env: Env, traj: Transition,
 def update_step(cfg: PPOConfig, env: Env, ts: TrainState, traj: Transition,
                 draws: FitDraws, values_pair):
     """Learner half of a fit: GAE + normalisation, then the value and
-    policy phases on an already-collected trajectory.  A sequence trunk
-    (attention) computes its value planes itself and ignores
-    ``values_pair``."""
+    policy phases on an already-collected trajectory.  ``values_pair`` is
+    K1's (V(s), V(s')) planes or None (then :func:`value_planes`); with
+    cfg.clip_value its V(s) rides in the row buffer as V_old
+    (``ppoc_tpu/algo/ppo.py:843-855``).  A sequence trunk (attention)
+    computes its value planes itself and ignores ``values_pair``."""
     if attn.is_attn(ts.v_params):
         from ppoc_tpu_torch.algo import recurrent
 
         backend = backend_of(cfg)
         vpair = recurrent.compute_values_rnn(cfg, ts.v_params, traj, backend)
         adv, target = _seq_advantages(cfg, env, traj, vpair)
-        ts, v_loss = recurrent.value_phase_rnn(cfg, ts, traj, target,
-                                               draws.value_idx, backend)
+        ts, v_loss = recurrent.value_phase_rnn(
+            cfg, ts, traj, target, draws.value_idx, backend,
+            v_old=vpair[0] if cfg.clip_value > 0.0 else None)
         ts, p_loss, ent = recurrent.policy_phase_rnn(
             cfg, env, ts, traj, adv, draws.policy_idx, backend)
         return ts, FitMetrics(v_loss, p_loss, ent, traj.reward.mean())
-    adv, target = compute_advantages(cfg, env, traj, values_pair,
-                                     ts.v_params)
-    buf = buffer.from_rollout(traj, adv, target)
+    if values_pair is None:
+        values_pair = value_planes(cfg, ts.v_params, traj)
+    adv, target = compute_advantages(cfg, env, traj, values_pair)
+    buf = buffer.from_rollout(
+        traj, adv, target,
+        v_old=values_pair[0] if cfg.clip_value > 0.0 else None)
     ts, v_loss = value_phase(cfg, ts, buf, draws.value_idx)
     ts, p_loss, ent = policy_phase(cfg, ts, buf, draws.policy_idx,
                                    env.spec.discrete)
@@ -735,17 +943,19 @@ def eval_metrics_reference(traj: Transition, gamma: float) -> EvalMetrics:
 
 def draw_eval(cfg: PPOConfig, env: Env, generator: torch.Generator, device,
               deterministic: bool = False, n_envs: Optional[int] = None):
-    """Draw what one evaluation consumes: the env loop's
-    :class:`LoopDraws` for the mean policy, else K1's two seed words; for
-    an attention trunk the decode loop's :class:`recurrent.SeqDraws`."""
+    """Draw what one evaluation consumes: K1's two seed words for the
+    stochastic policy where :func:`uses_rollout_kernel`, else the env
+    loop's :class:`LoopDraws` (with the action noise unless
+    ``deterministic``); for an attention trunk the decode loop's."""
     n_envs = cfg.eval_envs if n_envs is None else n_envs
     if cfg.attn_dim > 0:
         from ppoc_tpu_torch.algo import recurrent
 
         return recurrent.draw_seq(env, generator, n_envs, cfg.eval_len,
                                   device, deterministic)
-    if deterministic:
-        return draw_loop(env, generator, n_envs, cfg.eval_len, device)
+    if deterministic or not uses_rollout_kernel(cfg, env):
+        return draw_loop(env, generator, n_envs, cfg.eval_len, device,
+                         noise=not deterministic)
     return cuda_rollout.seed_words(generator)
 
 
@@ -755,13 +965,14 @@ def evaluate(cfg: PPOConfig, env: Env, policy_params: Dict[str, Any], draws,
     """Evaluation over cfg.eval_len steps, with ``draws`` from
     :func:`draw_eval`, as ``ppoc_tpu/algo/ppo.py:1141-1194`` chooses:
 
-    * the stochastic policy is K1 (``draws``: its two seed words).  With
-      the completed-episode estimator the kernel sums the returns itself;
-      with cfg.eval_estimator "reference" the estimator reads K1's
-      trajectory;
-    * ``deterministic=True`` (the mean policy) runs the env loop, one K5
-      forward per step, bf16 products under "bf16" (``draws``: a
-      :class:`LoopDraws`, which also fixes the env count);
+    * the stochastic policy is K1 (``draws``: its two seed words) where
+      :func:`uses_rollout_kernel`.  With the completed-episode estimator
+      the kernel sums the returns itself; with cfg.eval_estimator
+      "reference" the estimator reads K1's trajectory;
+    * ``deterministic=True`` (the mean policy), and the stochastic policy
+      of a mixture, "jnp" or an env without a lane, run the env loop, one
+      policy forward per step (``draws``: a :class:`LoopDraws`, which also
+      fixes the env count);
     * an attention trunk, either way, runs the decode loop
       (``recurrent.rollout_rnn``; ``draws``: a ``SeqDraws``), as
       ``ppoc_tpu/algo/ppo.py:1164-1193`` does; no kernel launches."""
@@ -773,7 +984,7 @@ def evaluate(cfg: PPOConfig, env: Env, policy_params: Dict[str, Any], draws,
         traj, _ = recurrent.rollout_rnn(cfg, env, policy_params, draws,
                                         force_truncate=False,
                                         deterministic=deterministic)
-    elif deterministic:
+    elif deterministic or not uses_rollout_kernel(cfg, env):
         traj = rollout_env_loop(cfg, env, policy_params, draws)
     elif reference:
         traj, _ = rollout(cfg, env, policy_params, draws, n_envs,

@@ -16,10 +16,13 @@ package, so stored log-probs are float32), with its randomness drawn up
 front into a
 :class:`SeqDraws`; V(s) and V(s') come from one parallel pass plus a
 one-step decode of every next observation (:func:`compute_values_rnn`).
+The phases run the generic minibatch steps of ``algo/ppo.py``
+(``value_steps``, ``policy_steps``), so the stabilisers apply here as
+there; the aux value head (cfg.aux_value_coeff) is not ported.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -28,7 +31,6 @@ from ppoc_tpu_torch.config import PPOConfig
 from ppoc_tpu_torch.data import buffer
 from ppoc_tpu_torch.envs.core import Env, vector_autoreset_step
 from ppoc_tpu_torch.models import attn, policy as policy_mod
-from ppoc_tpu_torch.ops import adam, losses
 
 
 def _require_attn(trunk) -> None:
@@ -56,26 +58,16 @@ def _gather_seqs(arrs, idx: torch.Tensor):
 # rollout
 # --------------------------------------------------------------------------
 
-class SeqDraws(NamedTuple):
-    """All the randomness one sequence-trunk rollout consumes."""
-    carry: Any                      # (state, obs) the window starts from
-    fresh: Any                      # (state, obs) [T, E, ...]: what an env
-                                    # that finishes step t resets to
-    noise: Optional[torch.Tensor]   # [T, E, A] standard normals (Gaussian)
-                                    # or [T, E, K] Gumbel draws (categorical);
-                                    # None for the mean policy
+# all the randomness one sequence-trunk rollout consumes: the env loop's
+SeqDraws = ppo.LoopDraws
 
 
 def draw_seq(env: Env, generator: torch.Generator, n_envs: int, length: int,
              device, deterministic: bool = False) -> SeqDraws:
     """Draw a sequence rollout's start and reset states and, unless
     ``deterministic``, its action noise from ``generator``."""
-    loop = ppo.draw_loop(env, generator, n_envs, length, device)
-    noise = None
-    if not deterministic:
-        noise = policy_mod.draw_noise((length, n_envs, env.spec.action_dim),
-                                      env.spec.discrete, generator).to(device)
-    return SeqDraws(loop.carry, loop.fresh, noise)
+    return ppo.draw_loop(env, generator, n_envs, length, device,
+                         noise=not deterministic)
 
 
 def initial_seq_state(cfg: PPOConfig, policy_params, n_envs: int):
@@ -198,72 +190,48 @@ def draw_columns(cfg: PPOConfig, generator: torch.Generator, n_epochs: int,
 
 
 def _check_phase_options(cfg: PPOConfig) -> None:
-    if (cfg.max_grad_norm or cfg.lr_anneal or cfg.ent_anneal
-            or cfg.clip_value or cfg.target_kl or cfg.aux_value_coeff):
+    if cfg.aux_value_coeff:
         raise NotImplementedError(
-            "the stabilisers (max_grad_norm, lr/ent anneal, clip_value, "
-            "target_kl) and the aux value head are not ported to the "
-            "sequence phases yet (ROADMAP.md)")
+            "the aux value head (aux_value_coeff) is not ported to the "
+            "sequence phases yet (ROADMAP.md §1 item 8)")
 
 
 def value_phase_rnn(cfg: PPOConfig, ts, traj, target: torch.Tensor,
-                    idx: torch.Tensor, backend: str):
+                    idx: torch.Tensor, backend: str,
+                    v_old: Optional[torch.Tensor] = None):
     """n_epochs_value passes over the env-column stream ``idx``
-    [n_epochs, n_mb, seqs]: per minibatch the MSE of the trunk's parallel
-    pass against ``target``, ``torch.autograd.grad`` (K7's backward at
-    T >= FLASH_MIN_T on the card) and one Adam step.  Returns (ts', mean
-    minibatch loss)."""
+    [n_epochs, n_mb, seqs]: ``ppo.value_steps`` on the trunk's parallel
+    pass against ``target`` (K7's backward at T >= FLASH_MIN_T on the
+    card), clipped against ``v_old`` [T, E] (the rollout-time values) with
+    cfg.clip_value.  Returns (ts', mean minibatch loss)."""
     _check_phase_options(cfg)
     done = traj.terminated | traj.truncated
-    v_params, opt_v, mb_losses = ts.v_params, ts.opt_v, []
-    for cols in idx.reshape(-1, idx.shape[-1]):
+
+    def batch(cols):
         o, d, t = _gather_seqs((traj.obs, done, target), cols)
-        params = ppo._requiring_grad(v_params)
-        v = attn.apply_seq(params, o, d, cfg.activation,
-                           backend=backend)[..., 0]
-        loss = losses.value_loss(v, t)
-        grads = torch.autograd.grad(loss, adam.tree_leaves(params))
-        v_params, opt_v = ppo._adam_step(cfg, v_params, grads, opt_v, cfg.lr_v)
-        mb_losses.append(loss.detach())
-    return (ts._replace(v_params=v_params, opt_v=opt_v),
-            torch.stack(mb_losses).mean())
+        vo = None if v_old is None else _gather_seqs((v_old,), cols)[0]
+        return o, t, vo, d
+
+    return ppo.value_steps(
+        cfg, ts, (batch(c) for c in idx.reshape(-1, idx.shape[-1])),
+        lambda p, b: attn.apply_seq(p, b[0], b[3], cfg.activation,
+                                    backend=backend)[..., 0],
+        idx.shape[1], backend)
 
 
 def policy_phase_rnn(cfg: PPOConfig, env: Env, ts, traj, adv: torch.Tensor,
                      idx: torch.Tensor, backend: str):
     """n_epochs_policy passes of the clipped surrogate over the env-column
-    stream ``idx``: per minibatch the replayed log-probs and entropy,
-    ``surrogate - ent_coeff * entropy``, ``torch.autograd.grad`` and one
-    Adam step for the trunk, plus one for log_std with its own state if
-    the policy is Gaussian.  Returns (ts', mean loss, mean entropy)."""
+    stream ``idx``: ``ppo.policy_steps`` on the replayed log-probs and
+    entropy.  Returns (ts', mean loss, mean entropy)."""
     _check_phase_options(cfg)
     discrete = env.spec.discrete
     done = traj.terminated | traj.truncated
-    pol, opt_p, opt_ls = ts.policy_params, ts.opt_policy, ts.opt_log_std
-    mb_losses, ents = [], []
-    for cols in idx.reshape(-1, idx.shape[-1]):
-        o, a, d, lp, ad = _gather_seqs(
-            (traj.obs, traj.action, done, traj.log_prob, adv), cols)
-        params = {"mlp": ppo._requiring_grad(pol["mlp"])}
-        if not discrete:
-            params["log_std"] = pol["log_std"].detach().requires_grad_()
-        logp, ent = policy_log_probs_rnn(cfg, params, o, a, d, discrete,
-                                         backend)
-        loss = (losses.clipped_surrogate_loss(logp, lp, ad, cfg.clip_eps)
-                - cfg.ent_coeff * ent)
-        leaves = adam.tree_leaves(params["mlp"])
-        grads = torch.autograd.grad(
-            loss, leaves + ([] if discrete else [params["log_std"]]))
-        trunk, opt_p = ppo._adam_step(cfg, pol["mlp"], grads[:len(leaves)],
-                                  opt_p, cfg.lr_policy)
-        if discrete:
-            pol = {"mlp": trunk}
-        else:
-            ls, opt_ls = ppo._adam_step(cfg, pol["log_std"], grads[-1:], opt_ls,
-                                    cfg.lr_policy)
-            pol = {"mlp": trunk, "log_std": ls}
-        mb_losses.append(loss.detach())
-        ents.append(ent.detach())
-    return (ts._replace(policy_params=pol, opt_policy=opt_p,
-                        opt_log_std=opt_ls),
-            torch.stack(mb_losses).mean(), torch.stack(ents).mean())
+    batches = (_gather_seqs((traj.obs, traj.action, traj.log_prob, adv,
+                             done), cols)
+               for cols in idx.reshape(-1, idx.shape[-1]))
+    return ppo.policy_steps(
+        cfg, ts, batches,
+        lambda p, b: policy_log_probs_rnn(cfg, p, b[0], b[1], b[4],
+                                          discrete, backend),
+        idx.shape[1], backend, discrete)

@@ -24,7 +24,7 @@ import torch
 from ppoc_tpu_torch import envs
 from ppoc_tpu_torch.algo import ppo
 from ppoc_tpu_torch.config import PPOConfig, validate
-from ppoc_tpu_torch.ops import _build, resolve_backend
+from ppoc_tpu_torch.ops import _build
 
 
 class EvalWindowWarning(UserWarning):
@@ -33,24 +33,27 @@ class EvalWindowWarning(UserWarning):
 
 
 # PPOConfig fields whose non-default settings select parts of the JAX
-# package that are not ported yet, with the value that is supported.
+# package that are not ported yet: the value that is supported, and the
+# ROADMAP.md §1 item that ports them.
 _NOT_PORTED = {
-    "n_experts": 1, "moe_topk": 0, "moe_aux_coeff": 0.0, "rnn_hidden": 0,
-    "tp_size": 1, "pp_size": 1, "ep_size": 1, "sp_size": 1,
-    "zero1": False, "max_grad_norm": 0.0, "target_kl": 0.0,
-    "lr_anneal": False, "clip_value": 0.0, "ent_anneal": False,
-    "transplant_patience": 0, "aux_value_coeff": 0.0,
-    "fit_dispatch": "fused", "rollout_chunk": 0, "fits_per_program": 0,
+    "rnn_hidden": (0, 7), "transplant_patience": (0, 8),
+    "aux_value_coeff": (0.0, 8), "fit_dispatch": ("fused", 15),
+    "rollout_chunk": (0, 15), "fits_per_program": (0, 15),
+    "tp_size": (1, 16), "pp_size": (1, 16), "ep_size": (1, 16),
+    "sp_size": (1, 16), "zero1": (False, 16),
 }
 
 
 def check_ported(cfg: PPOConfig) -> None:
-    """Raise NotImplementedError for a config that needs an unported part."""
-    bad = {k: getattr(cfg, k) for k, ok in _NOT_PORTED.items()
+    """Raise NotImplementedError for a config that needs an unported part,
+    naming each field and its ROADMAP.md item."""
+    bad = {k: (getattr(cfg, k), item) for k, (ok, item) in _NOT_PORTED.items()
            if getattr(cfg, k) != ok}
     if bad:
         raise NotImplementedError(
-            f"not ported to ppoc_tpu_torch yet: {bad} (see ROADMAP.md)")
+            "not ported to ppoc_tpu_torch yet: " + ", ".join(
+                f"{k}={v!r} (ROADMAP.md §1 item {item})"
+                for k, (v, item) in bad.items()))
 
 
 def check_kernel_fit(cfg: PPOConfig, env, optin: int) -> None:
@@ -113,9 +116,11 @@ class Trainer:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.env = envs.make_for(cfg)
-        # "pallas"/"auto" or "bf16" (an attention trunk keeps "bf16", as
-        # ppoc_tpu/algo/trainer.py:150-158 does); refuses "jnp": not ported
-        resolve_backend(cfg.kernel_backend)
+        # "pallas"/"auto", "bf16" or "jnp" (an attention trunk keeps it, as
+        # ppoc_tpu/algo/trainer.py:150-158 does); a mixture-of-experts
+        # config runs "moe:<topk>[:bf16]", the JAX Trainer's rewrite
+        # (ppoc_tpu/algo/trainer.py:170-178, here ppo.backend_of)
+        self.backend = ppo.backend_of(cfg)
         if self.device.type == "cuda":
             check_kernel_fit(cfg, self.env, _build.smem_optin(self.device))
         self.generator = torch.Generator().manual_seed(cfg.seed)
@@ -255,9 +260,7 @@ class Trainer:
         and, from a file the port wrote, the generator's position -- from
         the checkpoint alone.  ``overrides`` replace config fields; the
         result is validated and refused where the port refuses it, as
-        ``Trainer(cfg)`` does.  A file saved with kernel_backend "jnp"
-        (the JAX package's, not ported) needs ``kernel_backend="pallas"``
-        (or "auto", "bf16") among the overrides."""
+        ``Trainer(cfg)`` does."""
         from ppoc_tpu_torch.utils import checkpoint
 
         ck = checkpoint.load(path)
@@ -267,11 +270,6 @@ class Trainer:
                 f"construct Trainer(cfg) with the original config and call "
                 f".load(path) instead")
         cfg = ck.cfg.replace(**overrides) if overrides else ck.cfg
-        if cfg.kernel_backend == "jnp":
-            raise NotImplementedError(
-                f"{path} was saved with kernel_backend 'jnp', which is not "
-                f"ported; pass the override Trainer.from_checkpoint(path, "
-                f"kernel_backend='pallas') to run it on the port's kernels")
         tr = cls(cfg, device)
         tr._restore(ck, path)
         return tr

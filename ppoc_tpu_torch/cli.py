@@ -40,8 +40,6 @@ _NOT_PORTED = (
      "seed and hyperparameter sweeps (sweep.py; ROADMAP.md §1 item 10)"),
     (("profile",), "profiler traces (utils/profiling.py; ROADMAP.md §1 "
                    "item 9)"),
-    (("calibrate",), "observation calibration (envs/wrappers.calibrate; "
-                     "ROADMAP.md §1 item 6)"),
     (("obs_norm", "reward_norm", "overlap", "actor", "vector_mode"),
      "the host actor and its gym:* envs (envs/gym_bridge.py, envs/host.py; "
      "ROADMAP.md §1 item 13)"),
@@ -118,7 +116,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--overlap", action="store_true", help=nyp)
     p.add_argument("--vector-mode", choices=["sync", "async"], default=None,
                    help=nyp)
-    p.add_argument("--calibrate", action="store_true", help=nyp)
+    p.add_argument("--calibrate", action="store_true",
+                   help="measure observation statistics with a random "
+                        "policy before training and bake them into "
+                        "obs_loc/obs_scale (envs.wrappers.calibrate)")
     p.add_argument("--obs-norm", action="store_true", help=nyp)
     p.add_argument("--reward-norm", action="store_true", help=nyp)
 
@@ -209,6 +210,23 @@ def main(argv=None) -> int:
     if cfg.env.startswith("gym:"):
         parser.error(f"--env {cfg.env}: the host bridge's gym:* envs are not "
                      f"ported to ppoc_tpu_torch yet (ROADMAP.md §1 item 13)")
+    if args.calibrate:
+        if args.resume or args.import_ref or args.load:
+            parser.error("--calibrate applies to fresh runs (--resume/"
+                         "--import-ref/--load carry weights trained under "
+                         "their OWN normalization -- calibrating underneath "
+                         "them would skew every observation the policy "
+                         "sees)")
+        if cfg.obs_loc or cfg.obs_scale:
+            parser.error("--calibrate would overwrite the explicit "
+                         "--obs-loc/--obs-scale values; pass one or the "
+                         "other")
+        from ppoc_tpu_torch.envs.wrappers import calibrate
+
+        cfg = calibrate(cfg, device=platform_device(parser))
+        print(f"calibrated obs_loc={tuple(round(x, 4) for x in cfg.obs_loc)} "
+              f"obs_scale={tuple(round(x, 4) for x in cfg.obs_scale)}",
+              file=sys.stderr)
     # fail fast, as a parser error, on what Trainer(cfg) would refuse
     try:
         config_mod.validate(cfg)
@@ -264,16 +282,9 @@ def main(argv=None) -> int:
                          f"({saved.cfg.env}), which is not ported "
                          f"(ROADMAP.md §1 item 13)")
         # config flags are ignored on --resume, but for --n-epochs (below)
-        # and --kernel-backend, which a file the JAX package saved with
-        # "jnp" (not ported) needs
+        # and --kernel-backend
         resume_kw = ({} if args.kernel_backend is None
                      else {"kernel_backend": args.kernel_backend})
-        if (saved.cfg is not None and saved.cfg.kernel_backend == "jnp"
-                and not resume_kw):
-            parser.error(f"{args.resume} was saved with kernel_backend "
-                         f"'jnp', which is not ported; pass "
-                         f"--kernel-backend pallas to resume it on the "
-                         f"port's kernels")
         trainer = Trainer.from_checkpoint(args.resume, device=device,
                                           **resume_kw)
         cfg = trainer.cfg

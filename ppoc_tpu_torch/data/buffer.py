@@ -9,7 +9,7 @@ blocks of that many rows, and a minibatch gathers whole blocks
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Sequence
+from typing import Any, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -21,13 +21,17 @@ class RowBuffer(NamedTuple):
     log_prob: torch.Tensor   # [N]
     advantage: torch.Tensor  # [N]
     target: torch.Tensor     # [N]  value targets V(s) + A
+    v_old: Optional[torch.Tensor] = None  # [N] rollout-time V(s), kept
+                                          # only for cfg.clip_value > 0
 
 
-def from_rollout(traj, advantage: torch.Tensor,
-                 target: torch.Tensor) -> RowBuffer:
-    """Flatten a [T, E, ...] rollout and its GAE outputs into [T*E, ...] rows
-    (row t*E + e is step t of env e).  Every column keeps its dtype, so a
-    discrete env's class ids stay int32 through here and ``gather_mb``."""
+def from_rollout(traj, advantage: torch.Tensor, target: torch.Tensor,
+                 v_old: Optional[torch.Tensor] = None) -> RowBuffer:
+    """Flatten a [T, E, ...] rollout and its GAE outputs (and the
+    rollout-time values ``v_old`` [T, E], for value clipping) into
+    [T*E, ...] rows (row t*E + e is step t of env e).  Every column keeps
+    its dtype, so a discrete env's class ids stay int32 through here and
+    ``gather_mb``."""
     n = traj.obs.shape[0] * traj.obs.shape[1]
     return RowBuffer(
         obs=traj.obs.reshape(n, -1),
@@ -35,6 +39,7 @@ def from_rollout(traj, advantage: torch.Tensor,
         log_prob=traj.log_prob.reshape(n),
         advantage=advantage.reshape(n),
         target=target.reshape(n),
+        v_old=None if v_old is None else v_old.reshape(n),
     )
 
 

@@ -14,6 +14,10 @@ The "bf16" backend (``ppoc_tpu/models/mlp.py:110-121``) rounds each
 layer's input and weights to bf16 and takes the product with a float32
 output, then adds the float32 bias: :func:`bf16_dot`.  Master weights stay
 float32.
+
+A mixture-of-experts tree (``models/moe.py``) dispatches structurally in
+:func:`apply`, ahead of the backend switch, with the gating options the
+backend string carries (:func:`moe_backend`).
 """
 from __future__ import annotations
 
@@ -112,9 +116,28 @@ def bf16_dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _Bf16Dot.apply(a, w)
 
 
+def moe_backend(base: str, topk: int) -> str:
+    """Encode a mixture's gating options as a backend string:
+    "moe:<topk>", with ":bf16" when ``base`` is "bf16"."""
+    return f"moe:{topk}" + (":bf16" if base == "bf16" else "")
+
+
+def _parse_moe_backend(backend: str):
+    """-> (topk, bf16) for a mixture under any backend string; a plain one
+    ("jnp", "pallas", "bf16") means dense gating."""
+    parts = backend.split(":")
+    if parts[0] == "moe":
+        return int(parts[1]), len(parts) > 2 and parts[2] == "bf16"
+    return 0, backend == "bf16"
+
+
 def apply(params: Params, x: torch.Tensor, activation: str = "relu",
           backend: str = "jnp") -> torch.Tensor:
     """Forward pass on a batch ``x`` of shape [..., fan_in].
+
+    A mixture-of-experts tree goes to ``moe.apply`` whatever the backend,
+    with the top-k and bf16 options :func:`_parse_moe_backend` reads from
+    it; no kernel of the port runs there.
 
     ``backend="pallas"`` runs the whole-MLP kernel K5
     (``ops/cuda_mlp.py``, the port of ``ops/pallas_mlp.py``): on a CUDA
@@ -124,6 +147,11 @@ def apply(params: Params, x: torch.Tensor, activation: str = "relu",
     activation in float32, as the JAX package's "bf16" backend; no kernel
     of the port runs.  ``backend="jnp"`` is the plain PyTorch forward.
     """
+    from ppoc_tpu_torch.models import moe
+
+    if moe.is_moe(params):
+        topk, bf16 = _parse_moe_backend(backend)
+        return moe.apply(params, x, activation, topk=topk, bf16=bf16)
     if backend == "pallas":
         from ppoc_tpu_torch.ops import cuda_mlp
 

@@ -15,14 +15,14 @@ def resolve_backend(kernel_backend: str) -> str:
     PyTorch versions for CPU tensors.  ``"bf16"`` is the JAX package's
     bf16 backend: K1 and K2 as under "pallas", the dense MLP's products
     on bf16 operands with float32 output, and on an attention trunk the
-    bf16 variant of the flash kernel K7.  The ``"jnp"`` backend
-    (stochastic env-loop training rollout, doubling-scan GAE with Welford)
-    is not ported yet.
+    bf16 variant of the flash kernel K7.  ``"jnp"`` runs no kernel: plain
+    PyTorch products, the stochastic env-loop training rollout and the
+    doubling-scan GAE with Welford moments.
     """
     if kernel_backend in ("pallas", "auto"):
         return "pallas"
-    if kernel_backend == "bf16":
-        return "bf16"
-    raise NotImplementedError(
-        f"kernel_backend {kernel_backend!r} is not ported yet; the port "
-        f"supports 'pallas', 'auto' and 'bf16'")
+    if kernel_backend in ("bf16", "jnp"):
+        return kernel_backend
+    raise ValueError(
+        f"unknown kernel_backend {kernel_backend!r}; expected 'pallas', "
+        f"'auto', 'bf16' or 'jnp'")

@@ -2,8 +2,8 @@
 
 Autograd of the clipped surrogate gives the reference's hand-written
 gradient: it flows only through the unclipped branch, because the clipped
-branch is constant in the ratio.  Value clipping (``clipped_value_loss``)
-arrives with the stabilisers in a later slice.
+branch is constant in the ratio.  ``clipped_value_loss`` is the PPO2
+value clipping of the ``clip_value`` stabiliser.
 """
 from __future__ import annotations
 
@@ -23,3 +23,12 @@ def clipped_surrogate_loss(log_probs: torch.Tensor,
 def value_loss(v_pred: torch.Tensor, v_target: torch.Tensor) -> torch.Tensor:
     """Mean squared error over all elements."""
     return torch.mean((v_pred - v_target) ** 2)
+
+
+def clipped_value_loss(v_pred: torch.Tensor, v_old: torch.Tensor,
+                       v_target: torch.Tensor, clip: float) -> torch.Tensor:
+    """PPO2 value clipping: the mean of the elementwise max of the
+    unclipped squared error and that of V_old + clip(V - V_old, +/-clip)."""
+    v_clipped = v_old + torch.clamp(v_pred - v_old, -clip, clip)
+    return torch.mean(torch.maximum((v_pred - v_target) ** 2,
+                                    (v_clipped - v_target) ** 2))

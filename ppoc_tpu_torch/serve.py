@@ -9,7 +9,9 @@ On the card a feedforward policy acts through the whole-MLP kernel K5's
 forward (``mlp.apply(..., "pallas")``); on the CPU (``device="cpu"``) the
 same call runs K5's plain version.  The file's kernel_backend is ignored,
 as the JAX package ignores it (it serves through "jnp", the same
-function).  ``deterministic=True`` (the default) serves the Gaussian mean
+function).  A mixture-of-experts policy acts through the plain mixture
+with the file's gating top-k (``mlp.moe_backend("jnp", cfg.moe_topk)``,
+as ``ppoc_tpu/serve.py:88-89``).  ``deterministic=True`` (the default) serves the Gaussian mean
 or the categorical argmax; ``False`` samples the stochastic policy, with
 noise drawn from a ``torch.Generator`` seeded by ``seed`` (not the JAX
 package's draws).  Attention checkpoints serve statefully through the
@@ -114,7 +116,8 @@ def load_policy(path: str, deterministic: bool = True, seed: int = 0,
 
 
 def _policy_actor(path, ck, deterministic, seed, device):
-    from ppoc_tpu_torch.models import attn, mlp, policy as policy_mod
+    from ppoc_tpu_torch.models import attn, mlp, moe, policy as policy_mod
+    from ppoc_tpu_torch.ops.adam import tree_leaves
 
     params, spec, norm = _load(path, ck, device)
     if attn.is_attn(params["mlp"]):
@@ -122,13 +125,15 @@ def _policy_actor(path, ck, deterministic, seed, device):
             f"{path} holds an attention policy, which needs a KV cache "
             f"between steps; use serve.load_attention_policy instead")
     cfg = ck.cfg
-    dev = params["mlp"][0][0].device
+    dev = tree_leaves(params["mlp"])[0].device
+    backend = (mlp.moe_backend("jnp", cfg.moe_topk)
+               if moe.is_moe(params["mlp"]) else "pallas")
     default_gen = torch.Generator().manual_seed(seed)
 
     @torch.no_grad()
     def act(obs, generator: Optional[torch.Generator] = None):
         x, single = _obs_tensor(obs, norm, dev)
-        out = mlp.apply(params["mlp"], x, cfg.activation, "pallas")
+        out = mlp.apply(params["mlp"], x, cfg.activation, backend)
         if deterministic:       # the mean, or the first of tied maxima
             a = (out.argmax(-1, keepdim=True).to(torch.int32)
                  if spec.discrete else out)

@@ -6,9 +6,10 @@ same bytes: the ``"PPOC"`` magic, the version, the full config as JSON
 five scalar hyperparameters, the dims, log_std, the policy and value
 trunks, and the three Adam states (m, v and the timestep), each flattened
 in the JAX package's leaf order (dict keys sorted, lists and tuples in
-order).  Dense trunks take the byte-identical version 3; attention trunks
-version 4, kind 4.  Version-2 files (no config) load through the template
-path.  The kinds whose trunks are not ported (1 mixture of experts, 2 and
+order: a mixture's ``experts`` before its ``router``).  Dense trunks take
+the byte-identical version 3; mixture-of-experts trunks version 4, kind 1;
+attention trunks version 4, kind 4.  Version-2 files (no config) load
+through the template path.  The kinds whose trunks are not ported (2 and
 3 GRU/LSTM, 5 attention with the auxiliary value head) are refused by
 name.
 
@@ -46,6 +47,7 @@ import numpy as np
 import torch
 
 from ppoc_tpu_torch.models.attn import is_attn
+from ppoc_tpu_torch.models.moe import is_moe
 from ppoc_tpu_torch.ops.adam import AdamState, tree_leaves, tree_unflatten
 
 MAGIC = b"PPOC"
@@ -56,7 +58,6 @@ GENERATOR_KEY = "torch_generator"   # the port's draw stream, under _meta
 # trunk kinds of a version-4 file that the port does not run, and where
 # ROADMAP.md places their port
 _REFUSED_KINDS = {
-    1: "a mixture-of-experts trunk (kind 1; ROADMAP.md §1 item 5)",
     2: "a GRU trunk (kind 2; ROADMAP.md §1 item 7)",
     3: "an LSTM trunk (kind 3; ROADMAP.md §1 item 7)",
     5: "an attention trunk with the auxiliary value head (kind 5; "
@@ -129,9 +130,23 @@ def _read_mlp(f) -> List[Tuple[np.ndarray, np.ndarray]]:
 
 
 def _write_trunk(f, trunk):
-    """Version-4 kind-tagged trunk: 0 = dense MLP, 4 = causal-attention
-    encoder (embed, pos, blocks, final LayerNorm, dense head;
-    ``models/attn.py``), in the JAX package's field order."""
+    """Version-4 kind-tagged trunk: 0 = dense MLP, 1 = mixture of experts
+    (router layer, then the stacked [E, fan_in, fan_out] expert layers;
+    ``models/moe.py``), 4 = causal-attention encoder (embed, pos, blocks,
+    final LayerNorm, dense head; ``models/attn.py``), in the JAX package's
+    field order."""
+    if is_moe(trunk):
+        _w(f, "i", 1)
+        wr, br = trunk["router"]
+        _w(f, "ii", *np.shape(wr))
+        _write_arr(f, wr)
+        _write_arr(f, br)
+        _w(f, "i", len(trunk["experts"]))
+        for w, b in trunk["experts"]:
+            _w(f, "iii", *np.shape(w))
+            _write_arr(f, w)
+            _write_arr(f, b)
+        return
     if not is_attn(trunk):
         _w(f, "i", 0)
         _write_mlp(f, trunk)
@@ -162,6 +177,15 @@ def _read_trunk(f):
         raise NotImplementedError(
             f"the checkpoint holds {_REFUSED_KINDS[kind]}, which is not "
             f"ported to ppoc_tpu_torch yet")
+    if kind == 1:
+        d_in, e = _r(f, "ii")
+        router = (_read_arr(f, (d_in, e)), _read_arr(f, (e,)))
+        experts = []
+        for _ in range(_r(f, "i")):
+            ne, fan_in, fan_out = _r(f, "iii")
+            experts.append((_read_arr(f, (ne, fan_in, fan_out)),
+                            _read_arr(f, (ne, fan_out))))
+        return {"router": router, "experts": experts}
     if kind != 4:
         raise ValueError(f"unknown trunk kind {kind}")
     d_in, d, t_max, n_heads, n_layers, ff = _r(f, "iiiiii")
@@ -215,12 +239,13 @@ def _unflat_adam(m: np.ndarray, v: np.ndarray, t: int, params):
 
 def _save_stream(f, cfg, spec, state, generator=None,
                  meta: Optional[Dict[str, Any]] = None) -> None:
-    """The checkpoint payload: version 4 when a trunk is an attention
-    encoder, else version 3.  ``state`` holds tensors or numpy arrays;
+    """The checkpoint payload: version 4 when a trunk is a mixture of
+    experts or an attention encoder, else version 3.  ``state`` holds tensors or numpy arrays;
     ``generator`` is a ``torch.Generator`` whose state rides under
     ``_meta``, or None (then the stream equals the JAX package's
     ``_save_stream`` with no key)."""
-    tagged = is_attn(state.policy_params["mlp"]) or is_attn(state.v_params)
+    tagged = any(is_attn(t) or is_moe(t)
+                 for t in (state.policy_params["mlp"], state.v_params))
     f.write(MAGIC)
     _w(f, "i", MOE_VERSION if tagged else VERSION)
     d = dataclasses.asdict(cfg)

@@ -4,7 +4,9 @@ The port keeps the JAX package's layouts (an MLP is a list of
 ``(W [in, out], b [out])`` pairs, a Gaussian policy ``{"mlp", "log_std"}``,
 a categorical policy ``{"mlp"}`` whose log_std optimizer holds empty
 ``(0,)`` moments, an attention trunk a dict of lists of dicts of tuples
-with an MLP ``"head"`` (``models/attn.py``), an Adam state ``(m, v, t)``),
+with an MLP ``"head"`` (``models/attn.py``), a mixture of experts
+``{"router": (W, b), "experts": [(W, b), ...]}`` (``models/moe.py``), an
+Adam state ``(m, v, t)``),
 so conversion is leaf by leaf: numpy arrays in
 (for instance ``jax.device_get`` of a ``ppoc_tpu`` TrainState), tensors out,
 and back.  Nothing here imports jax: any object with the right attribute
@@ -47,7 +49,11 @@ def _mlp_list(tree) -> list:
 
 def _trunk(tree):
     """A trunk tree in the port's layout: an MLP as a list of (W, b)
-    tuples; an attention trunk with its head so, the rest as it came."""
+    tuples; an attention trunk with its head so, the rest as it came; a
+    mixture's experts so and its router a tuple."""
+    if isinstance(tree, dict) and "experts" in tree:
+        return dict(tree, router=tuple(tree["router"]),
+                    experts=_mlp_list(tree["experts"]))
     if isinstance(tree, dict):
         return dict(tree, head=_mlp_list(tree["head"]))
     return _mlp_list(tree)
@@ -85,8 +91,8 @@ def policy_from_numpy(policy_params, device) -> dict:
 
 def train_state_from_numpy(ts, device):
     """A TrainState-shaped object of numpy arrays -> the port's TrainState,
-    Gaussian (``log_std`` in the policy) or categorical (none), with MLP or
-    attention trunks."""
+    Gaussian (``log_std`` in the policy) or categorical (none), with MLP,
+    mixture-of-experts or attention trunks."""
     from ppoc_tpu_torch.algo.ppo import TrainState
 
     return TrainState(

@@ -89,8 +89,9 @@ def supervise(
 def build_restart_argv(argv: Sequence[str],
                        checkpoint_path: str) -> List[str]:
     """A CLI argv in its crash-restart form: any --load / --resume /
-    --import-ref / --n-epochs and the --supervise flag itself are
-    stripped, then ``--resume CKPT`` points the run at the checkpoint (bit
+    --import-ref / --n-epochs, --calibrate (a fresh-run flag: its
+    statistics live in the checkpoint's config) and the --supervise flag
+    itself are stripped, then ``--resume CKPT`` points the run at the checkpoint (bit
     for bit; the remaining epochs from the file's epochs_done: on
     --resume an explicit --n-epochs means "this many more", but a restart
     must finish the original schedule).  The JAX package's ``--load``
@@ -106,6 +107,8 @@ def build_restart_argv(argv: Sequence[str],
             continue
         if a in drop_with_value:
             skip = True
+            continue
+        if a == "--calibrate":
             continue
         if any(a.startswith(d + "=") for d in drop_with_value):
             continue

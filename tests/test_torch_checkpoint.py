@@ -150,20 +150,26 @@ def test_jax_file_loads_bitwise(tmp_path, kind, container):
     assert ck.meta == jk.meta == {"epochs_done": 4}
     np.testing.assert_array_equal(ck.key, jck._key_data(jk.key))
     assert ck.generator is None
-    # into a Trainer: the saved "jnp" backend needs the override
+    # into a Trainer, on the saved "jnp" backend and on the port's kernels
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)
-        tr = Trainer.from_checkpoint(p, device="cpu",
-                                     kernel_backend="pallas")
-    assert_leaves_equal(tr.state, ns)
+        for kw in ({}, {"kernel_backend": "pallas"}):
+            tr = Trainer.from_checkpoint(p, device="cpu", **kw)
+            assert_leaves_equal(tr.state, ns)
 
 
 def test_jnp_backend_is_refused_naming_the_override(tmp_path):
+    """A "jnp" file now runs on "jnp" (the port's backend without
+    kernels) with no override, and on the kernels with one."""
     p = str(tmp_path / "j.bin")
     write_jax_file(p, "dense_gaussian", "plain")
-    with pytest.raises(NotImplementedError,
-                       match="kernel_backend='pallas'"):
-        Trainer.from_checkpoint(p, device="cpu")
+    with pytest.warns(checkpoint.DrawStreamWarning):
+        tr = Trainer.from_checkpoint(p, device="cpu")
+    assert tr.backend == "jnp"
+    with pytest.warns(checkpoint.DrawStreamWarning):
+        tr = Trainer.from_checkpoint(p, device="cpu",
+                                     kernel_backend="pallas")
+    assert tr.backend == "pallas"
 
 
 def test_jax_file_keeps_params_and_adam_not_the_draw_stream(tmp_path):
@@ -179,16 +185,34 @@ def test_jax_file_keeps_params_and_adam_not_the_draw_stream(tmp_path):
     assert torch.equal(tr.generator.get_state(), before)
 
 
-def test_refused_config_is_refused_by_name(tmp_path):
-    p = str(tmp_path / "j.bin")
-    cfg = kind_config("dense_gaussian").replace(max_grad_norm=0.5)
+def _jax_file_of(p, cfg):
     buf = io.BytesIO()
     jck._save_stream(buf, jax_config(cfg), jenvs.make(cfg.env).spec,
-                     jax_state(random_state(cfg, 1)))
+                     jax_state(random_state(cfg.replace(zero1=False), 1)))
     with open(p, "wb") as f:
         f.write(buf.getvalue())
-    with pytest.raises(NotImplementedError, match="max_grad_norm"):
+
+
+def test_refused_config_is_refused_by_name(tmp_path):
+    """A config field the port does not run (zero1, ROADMAP.md §1 item 16)
+    is refused by name and item."""
+    p = str(tmp_path / "j.bin")
+    _jax_file_of(p, kind_config("dense_gaussian").replace(zero1=True))
+    with pytest.raises(NotImplementedError, match="zero1.*item 16"):
         Trainer.from_checkpoint(p, device="cpu", kernel_backend="pallas")
+
+
+def test_stabiliser_config_loads(tmp_path):
+    """A JAX file whose config carries the stabilisers (refused before
+    they were ported) rebuilds a Trainer with them, every leaf equal."""
+    p = str(tmp_path / "j.bin")
+    cfg = kind_config("dense_gaussian").replace(max_grad_norm=0.5,
+                                                target_kl=0.02)
+    _jax_file_of(p, cfg)
+    with pytest.warns(checkpoint.DrawStreamWarning):
+        tr = Trainer.from_checkpoint(p, device="cpu")
+    assert (tr.cfg.max_grad_norm, tr.cfg.target_kl) == (0.5, 0.02)
+    assert_leaves_equal(tr.state, random_state(cfg, 1))
 
 
 # --- port -> JAX --------------------------------------------------------------
@@ -412,13 +436,9 @@ def _refused_trunk(kind: int, rng):
     return dict(trunk, aux_head=[(a(8, 1), a(1))])
 
 
-@pytest.mark.parametrize("kind,name", [(1, "mixture-of-experts"),
-                                       (2, "GRU"), (3, "LSTM"),
-                                       (5, "auxiliary value head")])
-def test_unported_trunk_kinds_are_refused_by_name(tmp_path, kind, name):
-    """A version-4 file with a mixture-of-experts, GRU, LSTM or aux-head
-    trunk (written by the JAX package) is refused, naming the trunk and
-    ROADMAP.md §1."""
+def _jax_trunk_file(tmp_path, kind):
+    """A version-4 file the JAX package writes with a kind-``kind`` policy
+    trunk; returns (path, numpy state)."""
     rng = np.random.default_rng(kind)
     cfg = kind_config("dense_gaussian")
     ns = random_state(cfg, 0)
@@ -431,8 +451,30 @@ def test_unported_trunk_kinds_are_refused_by_name(tmp_path, kind, name):
                      jax_state(ns))
     p = tmp_path / "k.bin"
     p.write_bytes(buf.getvalue())
+    return str(p), ns
+
+
+def test_moe_trunk_kind_loads(tmp_path):
+    """Kind 1, a mixture of experts (refused before it was ported), loads
+    leaf for leaf, and the port writes it back byte for byte."""
+    p, ns = _jax_trunk_file(tmp_path, 1)
+    ck = checkpoint.load(p)
+    assert_leaves_equal(ck.state, ns)
+    buf = io.BytesIO()
+    checkpoint._save_stream(buf, ck.cfg, envs.make("pendulum").spec,
+                            ck.state)
+    with open(p, "rb") as f:
+        assert buf.getvalue() == f.read()
+
+
+@pytest.mark.parametrize("kind,name", [(2, "GRU"), (3, "LSTM"),
+                                       (5, "auxiliary value head")])
+def test_unported_trunk_kinds_are_refused_by_name(tmp_path, kind, name):
+    """A version-4 file with a GRU, LSTM or aux-head trunk (written by
+    the JAX package) is refused, naming the trunk and ROADMAP.md §1."""
+    p, _ = _jax_trunk_file(tmp_path, kind)
     with pytest.raises(NotImplementedError, match=f"{name}.*ROADMAP.md §1"):
-        checkpoint.load(str(p))
+        checkpoint.load(p)
 
 
 # --- attention trunks (tests/test_attn.py) --------------------------------------

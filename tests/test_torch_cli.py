@@ -71,13 +71,13 @@ def test_every_config_field_has_a_flag():
     (["--num-processes", "2"], "item 16"), (["--process-id", "0"],
                                            "item 16"),
     (["--sweep", "2"], "item 10"), (["--grid", "lr-v=1e-3"], "item 10"),
-    (["--profile", "d"], "item 9"), (["--calibrate"], "item 6"),
+    (["--profile", "d"], "item 9"),
     (["--obs-norm"], "item 13"), (["--reward-norm"], "item 13"),
     (["--overlap"], "item 13"), (["--actor", "host"], "item 13"),
     (["--vector-mode", "async"], "item 13"),
     (["--env", "gym:Pendulum-v1"], "item 13"),
-    (["--kernel-backend", "jnp"], "kernel_backend 'jnp'"),
-    (["--max-grad-norm", "0.5"], "max_grad_norm"),
+    (["--rnn-hidden", "8"], "item 7"), (["--zero1", "true"], "item 16"),
+    (["--n-experts", "2", "--ep-size", "2"], "item 16"),
 ])
 def test_unported_flags_are_refused_by_name(argv, item, capsys):
     with pytest.raises(SystemExit) as e:
@@ -85,6 +85,36 @@ def test_unported_flags_are_refused_by_name(argv, item, capsys):
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert item in err and "ppoc_tpu_torch: error:" in err
+
+
+@pytest.mark.parametrize("argv", [
+    ["--kernel-backend", "jnp"], ["--max-grad-norm", "0.5"], ["--calibrate"],
+    ["--n-experts", "2", "--moe-topk", "1"],
+])
+def test_lifted_flags_train(argv, tmp_path, capsys, on_cpu):
+    """The flags the port used to refuse (the "jnp" backend, the
+    stabilisers, --calibrate, a mixture) now train and save; --calibrate
+    writes its statistics into the config and says so."""
+    ck = str(tmp_path / "l.bin")
+    assert cli.main(BASE + argv + ["--n-epochs", "1", "--save", ck]) == 0
+    cfg = checkpoint.load(ck).cfg
+    if argv == ["--calibrate"]:
+        assert len(cfg.obs_loc) == 1 and len(cfg.obs_scale) == 1
+        assert "calibrated obs_loc=" in capsys.readouterr().err
+    else:
+        assert getattr(cfg, argv[0][2:].replace("-", "_")) != getattr(
+            PPOConfig(), argv[0][2:].replace("-", "_"))
+
+
+def test_calibrate_refusals(tmp_path, capsys):
+    """--calibrate with --resume/--load, or with explicit statistics, is
+    a parser error, as in the JAX CLI."""
+    for argv in (["--calibrate", "--load", "x.bin"],
+                 ["--calibrate", "--obs-loc", "0.0", "--obs-scale", "1.0"]):
+        with pytest.raises(SystemExit) as e:
+            cli.main(BASE + argv)
+        assert e.value.code == 2
+        assert "--calibrate" in capsys.readouterr().err
 
 
 def test_flag_validation(capsys):
@@ -150,16 +180,14 @@ def test_resume_mid_schedule_equals_the_straight_run(tmp_path, on_cpu):
 
 def test_resume_of_a_jax_jnp_file_takes_the_backend_flag(tmp_path, capsys,
                                                          on_cpu):
-    """A file the JAX package saved with kernel_backend "jnp" resumes only
-    with --kernel-backend, and the refusal names that flag."""
+    """A file the JAX package saved with kernel_backend "jnp" resumes on
+    "jnp" as it is, and on the port's kernels with --kernel-backend."""
     from test_torch_checkpoint import write_jax_file
 
     p = str(tmp_path / "j.bin")
     write_jax_file(p, "dense_gaussian", "plain")
-    with pytest.raises(SystemExit) as e:
-        cli.main(["--resume", p, "--n-epochs", "1"])
-    assert e.value.code == 2
-    assert "--kernel-backend pallas" in capsys.readouterr().err
+    with pytest.warns(checkpoint.DrawStreamWarning):
+        assert cli.main(["--resume", p, "--n-epochs", "1"]) == 0
     with pytest.warns(checkpoint.DrawStreamWarning):
         assert cli.main(["--resume", p, "--n-epochs", "1", "--kernel-backend",
                          "pallas", "--save", p]) == 0
@@ -180,7 +208,7 @@ def test_solve_r(tmp_path, capsys, on_cpu):
 def test_build_restart_argv():
     argv = ["--env", "simple", "--load", "old.bin", "--supervise", "3",
             "--save", "ck.bin", "--checkpoint-every", "1", "--n-epochs", "4",
-            "--import-ref=r.bin"]
+            "--import-ref=r.bin", "--calibrate"]
     out = supervisor.build_restart_argv(argv, "ck.bin")
     assert out == ["--env", "simple", "--save", "ck.bin",
                    "--checkpoint-every", "1", "--resume", "ck.bin"]

@@ -74,7 +74,7 @@ def test_autoreset_step_resets_done_envs_only():
 def test_make_unknown_env_and_unported_wrapper():
     with pytest.raises(KeyError, match="pendulum"):
         envs.make("nope")
-    with pytest.raises(NotImplementedError, match="obs_loc"):
-        envs.make_for(PPOConfig(env="pendulum", obs_loc=(0.0,) * 3,
-                                obs_scale=(1.0,) * 3))
+    wrapped = envs.make_for(PPOConfig(env="pendulum", obs_loc=(0.0,) * 3,
+                                      obs_scale=(2.0,) * 3))
+    assert wrapped.spec.name == "pendulum#affine"
     assert envs.make_for(PPOConfig(env="pendulum")).spec.gamma == 0.99

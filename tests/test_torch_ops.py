@@ -114,5 +114,6 @@ def test_resolve_backend():
     assert resolve_backend("pallas") == "pallas"
     assert resolve_backend("auto") == "pallas"
     assert resolve_backend("bf16") == "bf16"
-    with pytest.raises(NotImplementedError, match="jnp"):
-        resolve_backend("jnp")
+    assert resolve_backend("jnp") == "jnp"
+    with pytest.raises(ValueError, match="'jnp'"):
+        resolve_backend("tpu")

@@ -325,7 +325,7 @@ def test_attention_trainer_on_cpu(monkeypatch):
     (dict(sp_size=2), "sp_size"), (dict(transplant_patience=3),
                                    "transplant_patience"),
     (dict(aux_value_coeff=0.5), "aux_value_coeff"),
-    (dict(clip_value=0.2), "clip_value"), (dict(target_kl=0.01), "target_kl"),
+    (dict(zero1=True), "zero1"), (dict(tp_size=2), "tp_size"),
     (dict(fit_dispatch="phased"), "fit_dispatch"),
     (dict(rollout_chunk=4), "rollout_chunk"),
     (dict(fits_per_program=1), "fits_per_program")])
@@ -333,6 +333,16 @@ def test_unported_sequence_options_are_refused(kw, match):
     cfg = dataclasses.replace(_port(_jcfg()), **kw)
     with pytest.raises((NotImplementedError, ValueError), match=match):
         Trainer(cfg, "cpu")
+
+
+def test_sequence_stabilizers_train(monkeypatch):
+    """The stabilisers the sequence phases used to refuse train an epoch
+    on the attention trunk (their parity: tests/test_torch_stabilizers.py)."""
+    monkeypatch.setattr(attn, "FLASH_MIN_T", 8)
+    cfg = dataclasses.replace(_port(_jcfg()), clip_value=0.2, target_kl=0.01,
+                              max_grad_norm=0.5, lr_anneal=True)
+    hist = Trainer(cfg, "cpu").train(n_epochs=1, log=False)
+    assert np.isfinite(hist[0]["value_loss"])
 
 
 def test_bf16_sequence_trainer_is_ported():

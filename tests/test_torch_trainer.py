@@ -147,11 +147,28 @@ def test_same_seed_same_training():
 
 def test_unported_options_are_refused():
     check_ported(_cfg())
-    for kw in (dict(max_grad_norm=0.5), dict(n_experts=2),
-               dict(clip_value=0.2), dict(lr_anneal=True),
-               dict(kernel_backend="jnp")):
-        with pytest.raises(NotImplementedError, match=list(kw)[0]):
+    for kw, item in ((dict(rnn_hidden=8), 7), (dict(tp_size=2), 16),
+                     (dict(zero1=True), 16),
+                     (dict(n_experts=2, ep_size=2), 16)):
+        with pytest.raises(NotImplementedError,
+                           match=f"{list(kw)[-1]}.*item {item}"):
             Trainer(_cfg(**kw), "cpu")
+
+
+@pytest.mark.parametrize("kw,backend", [
+    (dict(max_grad_norm=0.5), "pallas"), (dict(n_experts=2), "moe:0"),
+    (dict(clip_value=0.2), "pallas"), (dict(lr_anneal=True), "pallas"),
+    (dict(target_kl=0.01, ent_anneal=True), "pallas"),
+    (dict(kernel_backend="jnp"), "jnp"),
+    (dict(n_experts=2, moe_topk=1, moe_aux_coeff=0.01,
+          kernel_backend="bf16"), "moe:1:bf16"),
+])
+def test_lifted_options_train(kw, backend):
+    """What the port used to refuse (the stabilisers, a mixture, "jnp")
+    builds a Trainer with the JAX package's backend string and trains."""
+    tr = Trainer(_cfg(**kw), "cpu")
+    assert tr.backend == backend
+    assert np.isfinite(float(tr.train_epoch().value_loss))
 
 
 def test_trainer_defaults_to_the_card():

@@ -1,19 +1,25 @@
 """Solve parity over seeds on the card: the port's epochs to solve Pendulum
 against the JAX package's.
 
-    python3 tools/seed_parity.py [--bench-seeds 20] [--ref-seeds 10]
+    python3 tools/seed_parity.py [--configs bench_config reference
+        stab_bench moe_dense] [--seeds N]
 
-Runs ``Trainer(bench_config(seed)).solve(-200, 40)`` for seeds 0..19 (64
-envs x 200 steps, minibatch 256, 4 fits an epoch) and the reference
-schedule, ``Trainer(reference_preset(seed=seed)).solve(-200, 40)`` (15 x
-200, minibatch 64, 10 fits), for seeds 0..9, on CUDA device 0 through the
-hand kernels.  Prints the card's name and power limit, the epochs and final
-R per seed, each config's mean, and a two-sided Mann-Whitney U test against
-the JAX package's epochs on its "jnp" backend (``JAX_JNP_EPOCHS``) and
-against the port's own plain versions on the CPU (``PORT_CPU_EPOCHS``),
-both tabulated in ROADMAP.md §1 A item 2 from a CPU run (torch 2.13, jax
-0.9.0, the tree at 2da26c8); the JAX package is not rerun here.  Writes the
-same as JSON to ``chiprun_out/seed_parity.json``.
+Runs ``Trainer(cfg(seed)).solve(-200, 40)`` on CUDA device 0 for each
+config: ``bench_config`` (64 envs x 200 steps, minibatch 256, 4 fits an
+epoch; seeds 0..19), the reference schedule ``reference_preset`` (15 x
+200, minibatch 64, 10 fits; 0..9), ``stab_bench`` (chip_smoke's
+``stab_config``: bench_config with the five stabilisers; 0..4) and
+``moe_dense`` (chip_smoke's ``moe_config``: the MoE example's 4-expert
+mixture, dense gating; 0..4); ``--seeds`` caps every config's count.
+Prints the card's name and power limit, the epochs and final R per seed,
+each config's mean, and a two-sided Mann-Whitney U test against the JAX
+package's epochs on its "jnp" backend (``JAX_JNP_EPOCHS``) and, where
+tabulated, against the port's own plain versions on the CPU
+(``PORT_CPU_EPOCHS``), all from CPU runs: bench_config and the reference
+schedule's in ROADMAP.md §1 A item 2 (torch 2.13, jax 0.9.0, the tree at
+2da26c8), stab_bench's and moe_dense's from ``tools/jax_seed_solve.py``
+(jax 0.9.0); the JAX package is not rerun here.  Writes the same as JSON
+to ``chiprun_out/seed_parity.json``.
 """
 from __future__ import annotations
 
@@ -31,6 +37,8 @@ JAX_JNP_EPOCHS = {
     "bench_config": [6, 5, 6, 5, 5, 4, 5, 4, 4, 5, 5, 6, 4, 4, 5, 8, 6, 4, 4,
                      7],
     "reference": [6, 3, 4, 7, 3, 4, 5, 40, 13, 3],
+    "stab_bench": [18, 20, 15, 21, 22],
+    "moe_dense": [6, 4, 5, 4, 5],
 }
 PORT_CPU_EPOCHS = {
     "bench_config": [7, 6, 6, 5, 6, 8, 4, 5, 7, 10, 5, 4, 5, 7, 4, 6, 4, 5, 5,
@@ -41,8 +49,10 @@ PORT_CPU_EPOCHS = {
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--bench-seeds", type=int, default=20)
-    ap.add_argument("--ref-seeds", type=int, default=10)
+    ap.add_argument("--configs", nargs="+", default=list(JAX_JNP_EPOCHS),
+                    choices=list(JAX_JNP_EPOCHS))
+    ap.add_argument("--seeds", type=int, default=None,
+                    help="at most this many seeds a config")
     args = ap.parse_args()
 
     import torch
@@ -53,7 +63,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import bench_config, card_line
+    from chip_smoke import bench_config, card_line, moe_config, stab_config
     from ppoc_tpu_torch import reference_preset
     from ppoc_tpu_torch.algo.trainer import Trainer
 
@@ -61,10 +71,13 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
     out = {"card": card, "torch": torch.__version__, "configs": {}}
-    for name, make, n in (("bench_config", bench_config, args.bench_seeds),
-                          ("reference",
-                           lambda s: reference_preset(seed=s),
-                           args.ref_seeds)):
+    makers = {"bench_config": bench_config,
+              "reference": lambda s: reference_preset(seed=s),
+              "stab_bench": stab_config, "moe_dense": moe_config}
+    for name in args.configs:
+        make = makers[name]
+        n = len(JAX_JNP_EPOCHS[name])
+        n = n if args.seeds is None else min(n, args.seeds)
         rows = []
         for seed in range(n):
             tr = Trainer(make(seed))
@@ -80,20 +93,21 @@ def main() -> int:
                    "mean": statistics.mean(epochs),
                    "solved": sum(r["solved"] for r in rows), "rows": rows}
         for label, other in (("jax_jnp", JAX_JNP_EPOCHS[name][:n]),
-                             ("port_cpu", PORT_CPU_EPOCHS[name][:n])):
+                             ("port_cpu", PORT_CPU_EPOCHS.get(name, [])[:n])):
+            if not other:
+                continue
             u = mannwhitneyu(epochs, other, alternative="two-sided")
             summary[label] = {"epochs": other,
                               "mean": statistics.mean(other),
                               "U": float(u.statistic),
                               "p": float(u.pvalue)}
         out["configs"][name] = summary
+        tests = "; ".join(
+            f"against {label} (mean {summary[label]['mean']:.2f}) U "
+            f"{summary[label]['U']} p {summary[label]['p']:.4f}"
+            for label in ("jax_jnp", "port_cpu") if label in summary)
         print(f"{name}: epochs {epochs}, mean {summary['mean']:.2f}, solved "
-              f"{summary['solved']}/{n}; against JAX jnp (mean "
-              f"{summary['jax_jnp']['mean']:.2f}) U {summary['jax_jnp']['U']}"
-              f" p {summary['jax_jnp']['p']:.4f}; against the port's CPU "
-              f"plain versions (mean {summary['port_cpu']['mean']:.2f}) U "
-              f"{summary['port_cpu']['U']} p {summary['port_cpu']['p']:.4f}",
-              flush=True)
+              f"{summary['solved']}/{n}; {tests}", flush=True)
     dest = ROOT / "chiprun_out"
     dest.mkdir(exist_ok=True)
     (dest / "seed_parity.json").write_text(json.dumps(out, indent=1))
