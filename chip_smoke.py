@@ -225,6 +225,20 @@
    float64, the top-2 gate; then "moe:2:bf16": K2 alone), AFFINE
    (calibrate(bench_config(0)): the env loop through K5, K2, K3, K4, no
    K1) and JNP (no kernel).
+25. The recurrent family and the last sequence-trunk options
+   (slice19_phases), each through Trainer with every launch counter read
+   around it: RNN_RECALL (examples/recurrent_memory.py's GRU, up to 5
+   epochs to R > 0.9, no kernel; the epoch-0 replay ratio over a fit),
+   PENDULUM_PO_GRU at full width and CARTPOLE_PO_GRU (one fit each, no
+   kernel; the BPTT gradient and the value planes of one minibatch
+   against float64 on the card beside the CPU's float32), LSTM_RECALL
+   (one epoch, the cell against float64), PO_STACK (pendulum_po_stack
+   under "pallas": the env loop through K5, K2, K3, K4, no K1; K5's and
+   K3/K4's rows at its widths), the critic->policy transplant on a GRU
+   and an attention trainer, AUX_XL (recall_xl with the aux value head:
+   K7 in the policy phase, the hidden plane through K7 against the plain
+   core, the aux gradient) and SERVE_RNN (a GRU and an LSTM file served
+   on the card, 200 steps against the CPU's cell).
 
 Each phase's title line gives the seconds since the script started.
 Any failed check raises, so the script exits non-zero.  The last two lines
@@ -5436,6 +5450,434 @@ def slice18_phases(dev, counters, record, bench_k1, bench_k2):
           flush=True)
 
 
+# --- slice 19: the recurrent family, the transplant, the aux value head ----
+
+# examples/recurrent_memory.py's GRU (docs/RESULTS.md: R 1.0 by epoch 2)
+RNN_RECALL = dict(env="recall", n_envs=128, rollout_len=6,
+                  minibatch_size=192, fits_per_epoch=8, eval_envs=256,
+                  eval_len=6, hidden=(32,), seed=0, lr_policy=1e-3,
+                  lr_v=1e-3, rnn_hidden=16)
+RNN_RECALL_EPOCHS = 5
+
+
+def rnn_recall_config(seed: int = 0):
+    """RNN_RECALL with ``seed`` (tools/seed_parity.py's rnn_recall)."""
+    from ppoc_tpu_torch import PPOConfig
+
+    return PPOConfig(**dict(RNN_RECALL, seed=seed))
+# docs/RESULTS.md's pendulum_po schedule at full width, its depth cut to
+# one fit (fits_per_epoch 4 there): 64 envs x 200, minibatch 800 (4
+# sequences), rnn_hidden 32, head (64,)
+PO_GRU = dict(env="pendulum_po", n_envs=64, rollout_len=200,
+              minibatch_size=800, fits_per_epoch=1, eval_envs=64,
+              eval_len=200, rnn_hidden=32, hidden=(64,), seed=0)
+# the same on cartpole_po (the categorical head), the fit's value epochs cut
+# from 10 to 4 (depth): its wall is the host's, ~130 ms a minibatch step
+CARTPOLE_PO_GRU = dict(PO_GRU, env="cartpole_po", eval_len=500,
+                       n_epochs_value=4)
+# the memoryless route to the same task: 4 stacked frames into a (64, 64)
+# MLP on the same schedule, "pallas", one epoch of 4 fits
+PO_STACK = dict(env="pendulum_po_stack", n_envs=64, rollout_len=200,
+                minibatch_size=800, fits_per_epoch=4, eval_envs=64,
+                eval_len=200, hidden=(64, 64), seed=0,
+                kernel_backend="pallas")
+# the epoch-0 replay against the rollout, over a fit's rows, fixed before
+# the first chip run: |exp(logp_replay - logp_rollout) - 1| at most this.
+# The replay takes every step's input product in one matmul where the
+# rollout takes one a step, and the head over the window at once, so the
+# two sum in other orders: float32 roundings of the gates carried through
+# 6 cell steps, about 1e-6 of a log-prob near 1
+REPLAY_TOL = 1e-5
+# the GRU/LSTM on the card against float64 on the card: within
+# RNN_F64_FACTOR times the CPU float32 form's own error, or within RNN_REL
+# of the leaf's largest magnitude (a gradient sums 800 rows through 200
+# steps of the chain, in cuBLAS's order on the card)
+RNN_F64_FACTOR = 4.0
+RNN_REL = 1e-5
+# a served step on the card against the CPU's cell from the same state:
+# actions and states within this of the larger of 1 and their magnitude
+SERVE_REL = 1e-5
+SERVE_STEPS = 200
+
+
+def ratio_gap(cfg, tr, dev, seed: int = 11) -> float:
+    """The largest |exp(logp_replay - logp_rollout) - 1| over one fit's
+    rollout: the update's replay of the window from a zero state against
+    the log-probs the rollout stored, both on the card."""
+    import torch
+
+    from ppoc_tpu_torch.algo import ppo, recurrent
+
+    draws = ppo.draw_fit(cfg, torch.Generator().manual_seed(seed), dev,
+                         tr.env)
+    pp = tr.state.policy_params
+    traj, _ = recurrent.rollout_rnn(cfg, tr.env, pp, draws.seq)
+    with torch.no_grad():
+        logp, _ = recurrent.policy_log_probs_rnn(
+            cfg, pp, traj.obs, traj.action, traj.terminated | traj.truncated,
+            tr.env.spec.discrete, ppo.backend_of(cfg))
+    return float((torch.exp(logp - traj.log_prob) - 1).abs().max())
+
+
+def check_rnn_f64(label, cfg, tr, dev, seed: int = 21):
+    """One fit's rollout on the card, then on its first value minibatch
+    (``seqs`` env columns, the whole window) the value loss's BPTT
+    gradient and, on the whole window, compute_values_rnn: float32 on the
+    card against float64 on the card, beside the CPU float32 form's error
+    (:data:`RNN_F64_FACTOR`, :data:`RNN_REL`)."""
+    import torch
+
+    from ppoc_tpu_torch.algo import ppo, recurrent
+    from ppoc_tpu_torch.models import gru
+    from ppoc_tpu_torch.ops import adam, losses
+
+    draws = ppo.draw_fit(cfg, torch.Generator().manual_seed(seed), dev,
+                         tr.env)
+    vp = tr.state.v_params
+    traj, _ = recurrent.rollout_rnn(cfg, tr.env, tr.state.policy_params,
+                                    draws.seq)
+    vpair = recurrent.compute_values_rnn(cfg, vp, traj, "jnp")
+    _, target = ppo._seq_advantages(cfg, tr.env, traj, vpair)
+    cols = draws.value_idx[0, 0]
+    done = traj.terminated | traj.truncated
+    o, d, t = (x.index_select(1, cols) for x in (traj.obs, done, target))
+
+    def run(p, tj, o, d, t):
+        q = adam.tree_map(lambda x: x.detach().clone().requires_grad_(), p)
+        v = gru.apply_seq(q, o, d, cfg.activation)[..., 0]
+        grads = torch.autograd.grad(losses.value_loss(v, t),
+                                    adam.tree_leaves(q))
+        return list(grads) + list(recurrent.compute_values_rnn(
+            cfg, p, tj, "jnp"))
+
+    def cast(dt, where):
+        return (adam.tree_map(lambda x: x.detach().to(where, dt), vp),
+                ppo.Transition(*(x.to(where, dt) if x.is_floating_point()
+                                 else x.to(where) for x in traj)),
+                o.to(where, dt), d.to(where), t.to(where, dt))
+
+    card = run(vp, traj, o, d, t)
+    ref = [x.cpu() for x in run(*cast(torch.float64, dev))]
+    plain = run(*cast(torch.float32, "cpu"))
+    torch.cuda.synchronize()
+    names = [f"gradient leaf {i}" for i in range(len(card) - 2)] + [
+        "V(s)", "V(s')"]
+    worst = 0.0
+    for name, a, b, r in zip(names, card, plain, ref):
+        e_card, e_cpu = max_err(a.cpu(), r), max_err(b, r)
+        lim = max(RNN_F64_FACTOR * e_cpu, RNN_REL * float(r.abs().max()))
+        worst = max(worst, e_card / lim)
+        if e_card > lim:
+            raise AssertionError(
+                f"{label}: {name} on the card is {e_card:.3e} from float64, "
+                f"the CPU's float32 {e_cpu:.3e} (limit {lim:.3e})")
+    print(f"  {label}: {gru.cell_kind(vp)} BPTT gradient ({len(names) - 2} "
+          f"leaves, {o.shape[1]} sequences x {o.shape[0]} steps) and V(s), "
+          f"V(s') on {traj.obs.shape[1]} x {traj.obs.shape[0]}, card vs "
+          f"float64: worst {worst:.3e} of the limit; largest |diff| card "
+          f"{max(max_err(a.cpu(), r) for a, r in zip(card, ref)):.3e}, CPU "
+          f"float32 {max(max_err(b, r) for b, r in zip(plain, ref)):.3e}",
+          flush=True)
+    return worst
+
+
+def rnn_fit(label, cfg, dev, counters, epochs: int = 1, **train):
+    """Trainer(cfg) on the card, ``epochs`` epochs (``train``: stop_at_R)
+    with every counter read around them and held to none, then
+    evaluate(deterministic=True) likewise; prints the wall, the ms a
+    minibatch step and an env step's rate.  Returns (trainer, history)."""
+    from ppoc_tpu_torch.algo import ppo, recurrent
+    from ppoc_tpu_torch.algo.trainer import Trainer
+
+    tr = Trainer(cfg)
+    check_on_card(tr)
+    assert tr.backend == "jnp" and ppo.kernel_fit(cfg, 232448) == []
+    hist, counts, wall = counted_run(
+        counters, lambda: tr.train(epochs, log=False, **train))
+    seqs, n_mb = recurrent.seq_minibatch_plan(cfg.n_envs, cfg.rollout_len,
+                                              cfg.minibatch_size)
+    fits = len(hist) * cfg.fits_per_epoch
+    steps = fits * n_mb * (cfg.n_epochs_value + cfg.n_epochs_policy)
+    fit_s = sum(h["time_s"] for h in hist)
+    print(f"  {label}: {len(hist)} epochs ({fits} fits) in {wall:.3f} s with "
+          f"evaluation, {fit_s:.3f} s fitting: {fit_s / steps * 1e3:.3f} ms "
+          f"a minibatch step ({seqs} sequences x {cfg.rollout_len} steps), "
+          f"{fits * cfg.steps_per_fit / fit_s:.0f} env-steps/s; R "
+          f"{[round(h['R'], 4) for h in hist]}", flush=True)
+    expect_counts(label, counts, {})
+    ev, ev_counts, ev_wall = counted_run(
+        counters, lambda: tr.evaluate(deterministic=True))
+    print(f"  {label} evaluate(deterministic=True): R {ev.R:.3f}, episodes "
+          f"{int(ev.episodes)}, {ev_wall:.3f} s", flush=True)
+    expect_counts(f"{label} evaluate()", ev_counts, {})
+    if not (on_card(tr.state.v_params) and on_card(tr.state.policy_params)):
+        raise AssertionError(f"{label}: the state left the card")
+    if not all(math.isfinite(h[k]) for h in hist
+               for k in ("value_loss", "policy_loss")):
+        raise AssertionError(f"{label}: non-finite loss {hist}")
+    return tr, hist
+
+
+def check_transplant(label, tr):
+    """transplant_value_trunk on the card: the policy's encoder (cell or
+    attn) equal to the critic's bit for bit, the action head and log_std
+    as they were, the policy Adam restarted, the state on the card."""
+    import torch
+
+    from ppoc_tpu_torch.ops import adam
+
+    pol = tr.state.policy_params
+    part = "attn" if "attn" in pol["mlp"] else "cell"
+    head = [t.clone() for t in adam.tree_leaves(pol["mlp"]["head"])]
+    log_std = pol["log_std"].clone()
+    if all(torch.equal(a, b) for a, b in zip(
+            adam.tree_leaves(pol["mlp"][part]),
+            adam.tree_leaves(tr.state.v_params[part]))):
+        raise AssertionError(f"{label}: policy and critic encoders already "
+                             f"equal before the transplant")
+    tr.transplant_value_trunk()
+    pol = tr.state.policy_params
+    same = [torch.equal(a, b) for a, b in zip(
+        adam.tree_leaves(pol["mlp"][part]),
+        adam.tree_leaves(tr.state.v_params[part]))]
+    kept = [torch.equal(a, b) for a, b in zip(
+        adam.tree_leaves(pol["mlp"]["head"]), head)]
+    if not (all(same) and all(kept) and torch.equal(pol["log_std"], log_std)
+            and tr.state.opt_policy.t == 0
+            and not any(bool(x.any()) for x in adam.tree_leaves(
+                tr.state.opt_policy.m))
+            and on_card(tr.state.policy_params)
+            and on_card(tr.state.opt_policy.m)):
+        raise AssertionError(f"{label}: transplant: encoder equal {same}, "
+                             f"head kept {kept}, Adam t "
+                             f"{tr.state.opt_policy.t}")
+    print(f"  {label}: the policy's {part} ({len(same)} leaves) equals the "
+          f"critic's bit for bit, the head ({len(kept)} leaves) and log_std "
+          f"kept, the policy Adam at t 0 with zero moments, all on the card",
+          flush=True)
+
+
+def check_aux_hidden(tr, dev):
+    """The trained AUX_XL policy trunk at its window, T 1024 (recall_xl's
+    rollout episodes and random ones): apply_seq(return_hidden=True) through K7
+    ("pallas") against the materialised core ("jnp") -- the outputs and
+    the hidden plane to FLASH_OUT_TOL, the aux loss's gradients over every
+    leaf to FLASH_GRAD_TOL of the leaf's largest magnitude (at least 1) --
+    and the aux head's gradient non-zero and finite.  Returns the largest
+    difference."""
+    import torch
+
+    from ppoc_tpu_torch.models import attn, mlp
+    from ppoc_tpu_torch.ops import adam
+
+    cfg = tr.cfg
+    p = tr.state.policy_params["mlp"]
+    T, E = attn.window(p) - 1, 4           # recall_xl's 1024
+    g = torch.Generator().manual_seed(14)
+    xs = torch.randn(T, E, tr.env.spec.obs_dim, generator=g).to(dev)
+    dones = torch.cat([dones_of_rollout("recall_xl", T, 2, dev),
+                       random_dones(T, 2, 0.02, 15, dev)], dim=1)
+    tgt = torch.randn(T, E, generator=g).to(dev)
+    res = {}
+    for backend in ("pallas", "jnp"):
+        q = adam.tree_map(lambda t: t.detach().requires_grad_(), p)
+        out, hid = attn.apply_seq(q, xs, dones, cfg.activation,
+                                  backend=backend, return_hidden=True)
+        vhat = mlp.apply(q["aux_head"], hid, cfg.activation, "jnp")[..., 0]
+        loss = cfg.aux_value_coeff * torch.mean(torch.square(vhat - tgt))
+        # what the aux loss reaches: the encoder, then the aux head
+        res[backend] = (out.detach(), hid.detach(), torch.autograd.grad(
+            loss, adam.tree_leaves(q["attn"]) + adam.tree_leaves(
+                q["aux_head"])))
+    torch.cuda.synchronize()
+    err = max(max_err(res["pallas"][i], res["jnp"][i]) for i in (0, 1))
+    check("apply_seq(return_hidden=True): outputs and hidden plane, K7 vs "
+          "the materialised core", err, FLASH_OUT_TOL)
+    ratio = max(max_err(a, b) / max(1.0, float(b.abs().max())) for a, b in
+                zip(res["pallas"][2], res["jnp"][2]))
+    check(f"the aux loss's {len(res['jnp'][2])} gradient leaves, K7 vs the "
+          f"materialised core, over the leaf's max (at least 1)", ratio,
+          FLASH_GRAD_TOL, what="ratio")
+    n_aux = len(adam.tree_leaves(p["aux_head"]))
+    aux = res["pallas"][2][-n_aux:]
+    norm = math.sqrt(sum(float((x * x).sum()) for x in aux))
+    if not (math.isfinite(norm) and norm > 0):
+        raise AssertionError(f"the aux head's gradient: norm {norm}")
+    print(f"  the aux head's gradient through K7: norm {norm:.4e} over "
+          f"{n_aux} leaves, finite and non-zero", flush=True)
+    return max(err, *(max_err(a, b) for a, b in
+                      zip(res["pallas"][2], res["jnp"][2])))
+
+
+def serve_rnn(label, tr, dev, work):
+    """Save ``tr`` (a GRU or LSTM trainer), load_recurrent_policy on the
+    card and on the CPU, and step SERVE_STEPS batches of 64 random
+    observations, lanes zeroed at random: each card step held to the
+    CPU's cell from the card's state (:data:`SERVE_REL`); the us of an act
+    call (its action read back to the host)."""
+    import torch
+
+    from ppoc_tpu_torch import serve
+    from ppoc_tpu_torch.models import gru
+
+    path = str(work / f"{label}.bin")
+    tr.save(path)
+    act = serve.load_recurrent_policy(path)
+    cpu = serve.load_recurrent_policy(path, device="cpu")
+    width = act.state_size
+    if width != gru.state_size(tr.state.policy_params["mlp"]):
+        raise AssertionError(f"{label}: served state width {width}")
+    g = torch.Generator().manual_seed(8)
+    B, d = 64, tr.env.spec.obs_dim
+    obs = torch.randn(SERVE_STEPS, B, d, generator=g)
+    reset = torch.rand(SERVE_STEPS, B, 1, generator=g) < 0.1
+    h = act.initial_state(B)
+    worst = 0.0
+    torch.cuda.synchronize()
+    t_total = 0.0
+    for t in range(SERVE_STEPS):
+        t0 = time.perf_counter()
+        a, h2 = act(obs[t], h)
+        a_host = a.cpu()
+        t_total += time.perf_counter() - t0
+        a_ref, h_ref = cpu(obs[t], h.cpu())
+        for x, r in ((a_host, a_ref), (h2.cpu(), h_ref)):
+            worst = max(worst, max_err(x, r) / max(1.0, float(r.abs().max())))
+        h = torch.where(reset[t].to(dev), 0.0, h2)
+    check(f"{label}: {SERVE_STEPS} served steps of {B} rows, card vs the CPU's "
+          f"cell from the same state (actions and states, over max(1, |x|))",
+          worst, SERVE_REL, what="ratio")
+    print(f"  {label}: an act call {t_total / SERVE_STEPS * 1e6:.1f} us "
+          f"({B} rows, state {width} wide, the action read back)",
+          flush=True)
+
+
+def slice19_phases(dev, counters, record):
+    """The paths slice 19 opens, each through Trainer on the card with
+    every launch counter read around it: the GRU/LSTM family (no kernel)
+    on recall, pendulum_po and cartpole_po; pendulum_po_stack's
+    memoryless route (the env loop through K5, K2, K3, K4); the transplant;
+    the aux value head on recall_xl (K7); recurrent serving."""
+    import shutil
+    from pathlib import Path
+
+    import torch
+
+    from ppoc_tpu_torch import PPOConfig
+    from ppoc_tpu_torch.algo import ppo
+    from ppoc_tpu_torch.algo.trainer import Trainer
+    from ppoc_tpu_torch.models import mlp
+    from ppoc_tpu_torch.ops import cuda_update as cu
+
+    t_phase = time.perf_counter()
+    work = Path(__file__).resolve().parent / "build" / "slice19_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+
+    header(f"[RNN_RECALL: examples/recurrent_memory.py's GRU (rnn_hidden "
+           f"16), up to {RNN_RECALL_EPOCHS} epochs to R > {RECALL_LEARNED}]")
+    cfg = PPOConfig(**RNN_RECALL)
+    gap = ratio_gap(cfg, Trainer(cfg), dev)
+    print(f"  epoch-0 replay against the rollout over a fit's "
+          f"{cfg.steps_per_fit} rows: largest |ratio - 1| {gap:.3e}",
+          flush=True)
+    check("epoch-0 replay ratio, |exp(logp_replay - logp_rollout) - 1|", gap,
+          REPLAY_TOL, what="largest")
+    gru_tr, hist = rnn_fit("RNN_RECALL", cfg, dev, counters,
+                           RNN_RECALL_EPOCHS, stop_at_R=RECALL_LEARNED)
+    if not hist[-1]["R"] > RECALL_LEARNED:
+        raise AssertionError(f"RNN_RECALL: R {hist[-1]['R']} after "
+                             f"{len(hist)} epochs")
+
+    header("[PENDULUM_PO_GRU: pendulum_po, 64 envs x 200, mb 800, rnn_hidden "
+           "32, head (64,), one fit]")
+    cfg = PPOConfig(**PO_GRU)
+    tr, _ = rnn_fit("PENDULUM_PO_GRU", cfg, dev, counters)
+    check_rnn_f64("PENDULUM_PO_GRU", cfg, tr, dev)
+
+    header("[CARTPOLE_PO_GRU: the same schedule on cartpole_po (categorical), "
+           "eval_len 500, one fit of 4 value epochs]")
+    rnn_fit("CARTPOLE_PO_GRU", PPOConfig(**CARTPOLE_PO_GRU), dev, counters)
+
+    header("[LSTM_RECALL: RNN_RECALL with rnn_cell 'lstm', one epoch]")
+    cfg = PPOConfig(**dict(RNN_RECALL, rnn_cell="lstm"))
+    lstm_tr, _ = rnn_fit("LSTM_RECALL", cfg, dev, counters)
+    check_rnn_f64("LSTM_RECALL", cfg, lstm_tr, dev)
+
+    header("[PO_STACK: pendulum_po_stack (4 frames), hidden (64, 64), the same "
+           "schedule, 'pallas', one epoch]")
+    cfg = PPOConfig(**PO_STACK)
+    tr = Trainer(cfg)
+    check_on_card(tr)
+    ts0 = tr.state
+    fits, T = cfg.fits_per_epoch, cfg.rollout_len
+    m, counts, wall = counted_run(counters, tr.train_epoch)
+    print(f"  one epoch ({fits} fits) {wall:.3f} s, value loss "
+          f"{float(m.value_loss):.3f}", flush=True)
+    expect_counts("PO_STACK epoch", counts, {
+        "mlp_forward": fits * (T + 2), "gae_norm": fits,
+        "value_phase": fits, "policy_phase": fits})
+    ev, ev_counts, _ = counted_run(counters, tr.evaluate)
+    print(f"  evaluate(): R {ev.R:.3f}, episodes {int(ev.episodes)}",
+          flush=True)
+    expect_counts("PO_STACK evaluate()", ev_counts,
+                  {"mlp_forward": cfg.eval_len})
+    pp, vp = ts0.policy_params, ts0.v_params
+    pw, vw = mlp.dims(pp["mlp"]), mlp.dims(vp)
+    draws = ppo.draw_fit(cfg, torch.Generator().manual_seed(4), dev, tr.env)
+    traj = ppo.rollout_env_loop(cfg, tr.env, pp, draws.seq)
+    err, fwd, _ = check_mlp(pp["mlp"], traj.obs[0].contiguous(),
+                            cfg.activation, dev)
+    path = f"PO_STACK env-loop rollout, {cfg.n_envs} envs"
+    record("mlp_forward", path, [cfg.n_envs] + pw, counts["mlp_forward"],
+           err, fwd, mlp_bounds(pw, cfg.n_envs)[0])
+    traj = ppo._force_truncate_last(traj)
+    adv, tgt = ppo.compute_advantages(cfg, tr.env, traj, None, vp)
+    vcols, pcols = phase_rows(cfg, traj, adv, tgt, dev)
+    header(f"[K3 value phase, K4 policy phase on PO_STACK's rows, widths {vw} "
+           f"and {pw}, mb {cfg.minibatch_size}]")
+    k3 = check_value_phase(cfg, ts0, vcols)
+    k4 = check_phase(
+        "policy phase", cu.policy_phase_kernel, cu.policy_phase_plain,
+        (pp["mlp"], pp["log_std"], ts0.opt_policy, ts0.opt_log_std), pcols,
+        cfg, cfg.lr_policy, [(cfg.clip_eps, cfg.ent_coeff),
+                             (cfg.clip_eps, 0.01)], WHOLE_RATIO["K4"])
+    mb = cfg.minibatch_size
+    n_v = cfg.n_epochs_value * cfg.num_minibatches
+    n_p = cfg.n_epochs_policy * cfg.num_minibatches
+    path = f"PO_STACK, {cfg.n_envs} envs x {T} steps, mb {mb}"
+    record("value_phase", path, [n_v, mb] + vw, counts["value_phase"], *k3,
+           phase_bound(vw, n_v, mb, 1))
+    record("policy_phase", path, [n_p, mb] + pw, counts["policy_phase"], *k4,
+           phase_bound(pw, n_p, mb, 3))
+
+    header("[TRANSPLANT: transplant_value_trunk on the trained RNN_RECALL "
+           "trainer and on an attention recall trainer after one fit]")
+    check_transplant("RNN_RECALL", gru_tr)
+    atr = Trainer(PPOConfig(**dict(RECALL, fits_per_epoch=1)))
+    atr.train_epoch()
+    check_transplant("attention RECALL", atr)
+    if not math.isfinite(float(atr.train_epoch().value_loss)):
+        raise AssertionError("the attention trainer after its transplant")
+
+    header("[AUX_XL: recall_xl with aux_value_coeff 0.5, one fit, K7 launches "
+           "by phase]")
+    xl = dict(RECALL_XL, aux_value_coeff=0.5, fits_per_epoch=1)
+    aux_tr, by_phase, _, _, _ = recall_xl_path(dev, counters, config=xl)
+    if not all(by_phase["policy phase"][k] for k in K7_NAMES):
+        raise AssertionError(f"AUX_XL: K7 in the policy phase "
+                             f"{by_phase['policy phase']}")
+    check_aux_hidden(aux_tr, dev)
+
+    header(f"[SERVE_RNN: the GRU and the LSTM served on the card, "
+           f"{SERVE_STEPS} steps against the CPU's cell]")
+    serve_rnn("RNN_RECALL", gru_tr, dev, work)
+    serve_rnn("LSTM_RECALL", lstm_tr, dev, work)
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"  slice 19 phases: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -5780,6 +6222,7 @@ def main() -> int:
     cluster_phases(dev, record)
     slice18_phases(dev, counters, record, (k1_err, k1_t, k1_bound),
                    (k2_err, k2_t))
+    slice19_phases(dev, counters, record)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
           f"build included", flush=True)

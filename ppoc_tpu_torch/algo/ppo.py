@@ -51,7 +51,11 @@ one-step decode, the advantages from the doubling-scan GAE and the
 Welford moments (the JAX "jnp" GAE the sequence branch runs there), and
 both phases fit on minibatches of whole env columns; every parallel pass of
 a window of at least 1024 steps runs its attention core through the flash
-kernel K7 (``ops/cuda_attn.py``), its bf16 variant under "bf16".
+kernel K7 (``ops/cuda_attn.py``), its bf16 variant under "bf16".  A
+GRU/LSTM trunk (cfg.rnn_hidden > 0, ``models/gru.py``) takes the same
+sequence path on "jnp" whatever the config's backend, as the JAX Trainer
+forces it: its rollout steps the cell, V(s) and V(s') come from one time
+loop, and no kernel launches.
 
 The JAX package compiles a fit into one program; here a fit is a few kernel
 launches plus small PyTorch ops, driven eagerly from the host.
@@ -75,7 +79,7 @@ from ppoc_tpu_torch import envs
 from ppoc_tpu_torch.config import PPOConfig
 from ppoc_tpu_torch.data import buffer
 from ppoc_tpu_torch.envs.core import Env, vector_autoreset_step, vector_reset
-from ppoc_tpu_torch.models import attn, mlp, moe, policy as policy_mod
+from ppoc_tpu_torch.models import attn, gru, mlp, moe, policy as policy_mod
 from ppoc_tpu_torch.ops import (_build, adam, cuda_gae, cuda_mlp,
                                 cuda_rollout, cuda_update, gae as gae_ops,
                                 losses, resolve_backend, welford)
@@ -87,18 +91,29 @@ def backend_of(cfg: PPOConfig) -> str:
     kernel).  A mixture-of-experts config (cfg.n_experts > 1) gets its
     gating in the string, "moe:<topk>", with ":bf16" under "bf16": the
     JAX Trainer's rewrite (``ppoc_tpu/algo/trainer.py:170-178``), so no
-    dense-MLP kernel takes a mixture."""
+    dense-MLP kernel takes a mixture.  A GRU/LSTM trunk (cfg.rnn_hidden >
+    0) runs "jnp" whatever cfg.kernel_backend says, as the JAX Trainer
+    forces it (``ppoc_tpu/algo/trainer.py:149-159``)."""
     backend = resolve_backend(cfg.kernel_backend)
+    if cfg.rnn_hidden > 0:
+        return "jnp"
     if cfg.n_experts > 1 and cfg.attn_dim == 0:
         return mlp.moe_backend(backend, cfg.moe_topk)
     return backend
+
+
+def is_seq(trunk) -> bool:
+    """Is ``trunk`` a sequence trunk (attention or GRU/LSTM), which rolls
+    out and fits through ``algo/recurrent.py``?"""
+    return attn.is_attn(trunk) or gru.is_rnn(trunk)
 
 
 def uses_rollout_kernel(cfg: PPOConfig, env: Env) -> bool:
     """Does a stochastic rollout of cfg's MLP policy on ``env`` run K1?
     Under "pallas" or "bf16" for an env with a rollout lane, as
     ``ppoc_tpu/algo/ppo.py:352-359`` chooses; a mixture ("moe:*"), "jnp"
-    and an env without a lane (``pendulum#affine``) take the env loop."""
+    (so a GRU/LSTM trunk) and an env without a lane (``pendulum#affine``,
+    the ``_po`` envs) take the env loop or a sequence trunk's."""
     return (backend_of(cfg) in ("pallas", "bf16")
             and env.spec.name in cuda_rollout.SUPPORTED)
 
@@ -155,13 +170,13 @@ def _hyper(cfg: PPOConfig, lr: float) -> cuda_update.Hyper:
 def draw_fit(cfg: PPOConfig, generator: torch.Generator,
              device: torch.device, env: Optional[Env] = None) -> FitDraws:
     """Draw one fit's seed words and row-id (block-id, with
-    cfg.shuffle_block) streams from ``generator``; for an attention trunk
-    the rollout's :class:`LoopDraws` (from ``env``) and the env-column
-    streams instead; where the rollout is the env loop
-    (:func:`uses_rollout_kernel` false) its :class:`LoopDraws` with the
-    action noise, then the row-id streams."""
+    cfg.shuffle_block) streams from ``generator``; for a sequence trunk
+    (attention or GRU/LSTM) the rollout's :class:`LoopDraws` (from
+    ``env``) and the env-column streams instead; where the rollout is the
+    env loop (:func:`uses_rollout_kernel` false) its :class:`LoopDraws`
+    with the action noise, then the row-id streams."""
     env = env if env is not None else envs.make_for(cfg)
-    if cfg.attn_dim > 0:
+    if cfg.attn_dim > 0 or cfg.rnn_hidden > 0:
         from ppoc_tpu_torch.algo import recurrent
 
         seq = recurrent.draw_seq(env, generator, cfg.n_envs, cfg.rollout_len,
@@ -210,8 +225,23 @@ def init_train_state(cfg: PPOConfig, env: Env, generator: torch.Generator,
     (``models/attn.py``) with MLP heads, drawn policy first, then value,
     as the JAX package draws them; their positional tables cover
     max(rollout_len, eval_len) + 1 steps, so the next-token decode at a
-    window's last row gets a position of its own."""
+    window's last row gets a position of its own.  With
+    cfg.aux_value_coeff > 0 the policy trunk also carries ``aux_head``, a
+    scalar MLP head [d, *hidden, 1] over the final-LN plane (the JAX
+    package's PPG auxiliary value head, ``ppoc_tpu/algo/ppo.py:229-236``),
+    drawn right after the policy trunk from the generator's next numbers
+    (the JAX package draws it from a split of the key its policy trunk
+    already consumed, ``ROADMAP.md`` §3).
+
+    With cfg.rnn_hidden > 0 both trunks are GRU or LSTM cells
+    (cfg.rnn_cell, ``models/gru.py``) with MLP heads [H, *hidden, out],
+    drawn policy first, then value (``ppoc_tpu/algo/ppo.py:245-260``)."""
     spec = env.spec
+
+    def log_std():
+        return torch.full((spec.action_dim,), math.log(cfg.init_std),
+                          dtype=torch.float32, device=device)
+
     if cfg.attn_dim > 0:
         t_max = max(cfg.rollout_len, cfg.eval_len) + 1
         ff = cfg.attn_ff or 4 * cfg.attn_dim
@@ -223,19 +253,28 @@ def init_train_state(cfg: PPOConfig, env: Env, generator: torch.Generator,
                              generator, device)
 
         policy_params = {"mlp": trunk(spec.action_dim)}
+        if cfg.aux_value_coeff > 0.0:
+            policy_params["mlp"]["aux_head"] = mlp.init(
+                (cfg.attn_dim, *cfg.hidden, 1), generator, device)
         if not spec.discrete:
-            policy_params["log_std"] = torch.full(
-                (spec.action_dim,), math.log(cfg.init_std),
-                dtype=torch.float32, device=device)
+            policy_params["log_std"] = log_std()
+        v_params = trunk(1)
+    elif cfg.rnn_hidden > 0:
+        def trunk(out_dim):
+            return gru.init(spec.obs_dim, cfg.rnn_hidden,
+                            (cfg.rnn_hidden, *cfg.hidden, out_dim),
+                            generator, device, cell=cfg.rnn_cell)
+
+        policy_params = {"mlp": trunk(spec.action_dim)}
+        if not spec.discrete:
+            policy_params["log_std"] = log_std()
         v_params = trunk(1)
     elif cfg.n_experts > 1:
         policy_params = {"mlp": moe.init(
             (spec.obs_dim, *cfg.hidden, spec.action_dim), cfg.n_experts,
             generator, device)}
         if not spec.discrete:
-            policy_params["log_std"] = torch.full(
-                (spec.action_dim,), math.log(cfg.init_std),
-                dtype=torch.float32, device=device)
+            policy_params["log_std"] = log_std()
         v_params = moe.init((spec.obs_dim, *cfg.hidden, 1), cfg.n_experts,
                             generator, device)
     else:
@@ -281,16 +320,17 @@ def rollout(cfg: PPOConfig, env: Env, policy_params: Dict[str, Any], seed,
     Where :func:`uses_rollout_kernel` says no (a mixture, "jnp", an env
     without a lane) the stochastic env loop runs instead
     (:func:`rollout_env_loop`; ``seed``: its :class:`LoopDraws` with the
-    action noise, which fix the shape), and an attention trunk the decode
-    loop of ``recurrent.rollout_rnn`` (``seed``: its :class:`LoopDraws`),
-    always from a fresh window; the third element is then None."""
-    if attn.is_attn(policy_params["mlp"]):
+    action noise, which fix the shape), and a sequence trunk the loop of
+    ``recurrent.rollout_rnn`` (``seed``: its :class:`LoopDraws`), always
+    from a fresh window; the third element is then None."""
+    if is_seq(policy_params["mlp"]):
         from ppoc_tpu_torch.algo import recurrent
 
         if env_carry is not None:
             raise ValueError("sequence-trunk rollouts always start from a "
                              "fresh window; reset_per_fit=False is not "
-                             "supported with attn_dim > 0")
+                             "supported with attn_dim > 0 or "
+                             "rnn_hidden > 0")
         traj, carry = recurrent.rollout_rnn(cfg, env, policy_params, seed,
                                             force_truncate)
         return (traj, carry) + (() if v_params is None else (None,))
@@ -461,9 +501,10 @@ def kernel_fit(cfg: PPOConfig, optin: int,
     for a categorical policy (the three kinds of one pair of cluster
     kernels, so the same bytes).  Under the "bf16" backend only K1,
     without the V planes: the MLP products are library calls and no
-    whole-phase kernel runs.  "jnp" and a mixture ("moe:*") launch no
-    kernel that takes the widths (K2 takes none), nor do K2 and K7 on an
-    attention trunk: their lists are empty.  Needs no card."""
+    whole-phase kernel runs.  "jnp" (so a GRU/LSTM trunk) and a mixture
+    ("moe:*") launch no kernel that takes the widths (K2 takes none), nor
+    do K2 and K7 on an attention trunk: their lists are empty.  Needs no
+    card."""
     backend = backend_of(cfg)
     if cfg.attn_dim > 0 or backend not in ("pallas", "bf16"):
         return []
@@ -613,6 +654,8 @@ def policy_steps(cfg: PPOConfig, ts: TrainState, batches, log_probs,
     phase is frozen -- params and both Adam states (the JAX package's
     ``_freeze_where``) -- while the loss and entropy of every remaining
     minibatch still enter the reported means, computed without a gradient.
+    A third element of ``log_probs``' result is a loss term added to the
+    minibatch's loss (the sequence phase's auxiliary value loss).
     Returns (ts', mean loss, mean entropy)."""
     aux_coeff, topk = moe.aux_setup(cfg, ts.policy_params["mlp"], backend)
     pol, opt_p, opt_ls = ts.policy_params, ts.opt_policy, ts.opt_log_std
@@ -620,9 +663,11 @@ def policy_steps(cfg: PPOConfig, ts: TrainState, batches, log_probs,
 
     def loss_of(params, batch):
         o, _, lp, ad = batch[:4]
-        logp, ent = log_probs(params, batch)
+        logp, ent, *extra = log_probs(params, batch)
         loss = (losses.clipped_surrogate_loss(logp, lp, ad, cfg.clip_eps)
                 - _ent_coeff(cfg, opt_p, n_mb) * ent)
+        for term in extra:
+            loss = loss + term
         if aux_coeff:
             loss = loss + aux_coeff * moe.load_balance_loss(
                 params["mlp"], o, topk)
@@ -807,9 +852,12 @@ def update_step(cfg: PPOConfig, env: Env, ts: TrainState, traj: Transition,
     policy phases on an already-collected trajectory.  ``values_pair`` is
     K1's (V(s), V(s')) planes or None (then :func:`value_planes`); with
     cfg.clip_value its V(s) rides in the row buffer as V_old
-    (``ppoc_tpu/algo/ppo.py:843-855``).  A sequence trunk (attention)
-    computes its value planes itself and ignores ``values_pair``."""
-    if attn.is_attn(ts.v_params):
+    (``ppoc_tpu/algo/ppo.py:843-855``).  A sequence trunk (attention or
+    GRU/LSTM) computes its value planes itself and ignores
+    ``values_pair``; with cfg.aux_value_coeff > 0 its policy phase also
+    fits the aux head to the value targets (``ppoc_tpu/algo/ppo.py:
+    818-836``)."""
+    if is_seq(ts.v_params):
         from ppoc_tpu_torch.algo import recurrent
 
         backend = backend_of(cfg)
@@ -819,7 +867,8 @@ def update_step(cfg: PPOConfig, env: Env, ts: TrainState, traj: Transition,
             cfg, ts, traj, target, draws.value_idx, backend,
             v_old=vpair[0] if cfg.clip_value > 0.0 else None)
         ts, p_loss, ent = recurrent.policy_phase_rnn(
-            cfg, env, ts, traj, adv, draws.policy_idx, backend)
+            cfg, env, ts, traj, adv, draws.policy_idx, backend,
+            target=target if cfg.aux_value_coeff > 0.0 else None)
         return ts, FitMetrics(v_loss, p_loss, ent, traj.reward.mean())
     if values_pair is None:
         values_pair = value_planes(cfg, ts.v_params, traj)
@@ -946,9 +995,9 @@ def draw_eval(cfg: PPOConfig, env: Env, generator: torch.Generator, device,
     """Draw what one evaluation consumes: K1's two seed words for the
     stochastic policy where :func:`uses_rollout_kernel`, else the env
     loop's :class:`LoopDraws` (with the action noise unless
-    ``deterministic``); for an attention trunk the decode loop's."""
+    ``deterministic``); for a sequence trunk its loop's."""
     n_envs = cfg.eval_envs if n_envs is None else n_envs
-    if cfg.attn_dim > 0:
+    if cfg.attn_dim > 0 or cfg.rnn_hidden > 0:
         from ppoc_tpu_torch.algo import recurrent
 
         return recurrent.draw_seq(env, generator, n_envs, cfg.eval_len,
@@ -973,12 +1022,13 @@ def evaluate(cfg: PPOConfig, env: Env, policy_params: Dict[str, Any], draws,
       of a mixture, "jnp" or an env without a lane, run the env loop, one
       policy forward per step (``draws``: a :class:`LoopDraws`, which also
       fixes the env count);
-    * an attention trunk, either way, runs the decode loop
-      (``recurrent.rollout_rnn``; ``draws``: a ``SeqDraws``), as
-      ``ppoc_tpu/algo/ppo.py:1164-1193`` does; no kernel launches."""
+    * a sequence trunk, either way, runs its loop (``recurrent.
+      rollout_rnn``: the attention decode or the GRU/LSTM cell; ``draws``:
+      a ``SeqDraws``), as ``ppoc_tpu/algo/ppo.py:1163-1193`` does; no
+      kernel launches."""
     n_envs = cfg.eval_envs if n_envs is None else n_envs
     reference = cfg.eval_estimator == "reference"
-    if attn.is_attn(policy_params["mlp"]):
+    if is_seq(policy_params["mlp"]):
         from ppoc_tpu_torch.algo import recurrent
 
         traj, _ = recurrent.rollout_rnn(cfg, env, policy_params, draws,

@@ -12,6 +12,11 @@ another device (the CPU tests pass ``device="cpu"``).
 checkpoint files (``utils/checkpoint.py``): params, all three Adam states
 and, in a file the port wrote, the generator's state, so a resumed run
 replays the remaining epochs bit for bit.
+
+A sequence trunk's plateau rescue is the JAX package's: with
+cfg.transplant_patience > 0, ``train`` copies the critic's encoder into
+the policy (``transplant_value_trunk``) once eval R has failed to gain
+0.05 over its best for that many epochs.
 """
 from __future__ import annotations
 
@@ -36,8 +41,7 @@ class EvalWindowWarning(UserWarning):
 # package that are not ported yet: the value that is supported, and the
 # ROADMAP.md §1 item that ports them.
 _NOT_PORTED = {
-    "rnn_hidden": (0, 7), "transplant_patience": (0, 8),
-    "aux_value_coeff": (0.0, 8), "fit_dispatch": ("fused", 15),
+    "fit_dispatch": ("fused", 15),
     "rollout_chunk": (0, 15), "fits_per_program": (0, 15),
     "tp_size": (1, 16), "pp_size": (1, 16), "ep_size": (1, 16),
     "sp_size": (1, 16), "zero1": (False, 16),
@@ -116,10 +120,11 @@ class Trainer:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.env = envs.make_for(cfg)
-        # "pallas"/"auto", "bf16" or "jnp" (an attention trunk keeps it, as
-        # ppoc_tpu/algo/trainer.py:150-158 does); a mixture-of-experts
-        # config runs "moe:<topk>[:bf16]", the JAX Trainer's rewrite
-        # (ppoc_tpu/algo/trainer.py:170-178, here ppo.backend_of)
+        # "pallas"/"auto", "bf16" or "jnp" (an attention trunk keeps it, a
+        # GRU/LSTM trunk runs "jnp", as ppoc_tpu/algo/trainer.py:149-159
+        # does); a mixture-of-experts config runs "moe:<topk>[:bf16]", the
+        # JAX Trainer's rewrite (ppoc_tpu/algo/trainer.py:170-178, here
+        # ppo.backend_of)
         self.backend = ppo.backend_of(cfg)
         if self.device.type == "cuda":
             check_kernel_fit(cfg, self.env, _build.smem_optin(self.device))
@@ -137,8 +142,9 @@ class Trainer:
     def evaluate(self, deterministic: bool = False) -> ppo.EvalMetrics:
         """Stochastic eval by default (one K1 launch);
         ``deterministic=True`` rolls out the policy mean, the mean-policy
-        protocol, through the env loop.  An attention trunk evaluates
-        through its decode loop either way.  Returns Python floats."""
+        protocol, through the env loop.  A sequence trunk evaluates
+        through its own loop (the attention decode, the GRU/LSTM cell)
+        either way.  Returns Python floats."""
         draws = ppo.draw_eval(self.cfg, self.env, self.generator,
                               self.device, deterministic)
         m = ppo.evaluate(self.cfg, self.env, self.state.policy_params, draws,
@@ -172,9 +178,16 @@ class Trainer:
         already took).  ``on_epoch_end(i, row)`` is called after each
         epoch's metrics and checkpoint; a truthy return stops training (the
         CLI's preemption hook).  As ``ppoc_tpu/algo/trainer.py`` ``train``.
+
+        With cfg.transplant_patience > 0 (a sequence trunk) an epoch whose
+        R does not reach the best so far + 0.05 counts toward a plateau;
+        after that many such epochs in a row :meth:`transplant_value_trunk`
+        runs, once a run, and marks the epoch's row ``"transplanted":
+        True`` (``ppoc_tpu/algo/trainer.py:879-931``).
         """
         n_epochs = self.cfg.n_epochs if n_epochs is None else n_epochs
         history: List[Dict[str, Any]] = []
+        best_R, since_improve, transplanted = -float("inf"), 0, False
         if initial_eval:
             m0 = self.evaluate(deterministic=eval_deterministic)
             if log:
@@ -208,9 +221,47 @@ class Trainer:
                           meta={"epochs_done": epoch_offset + i + 1})
             if stop_at_R is not None and ev.R >= stop_at_R:
                 break
+            if self.cfg.transplant_patience > 0 and not transplanted:
+                if ev.R >= best_R + 0.05:
+                    best_R, since_improve = ev.R, 0
+                else:
+                    since_improve += 1
+                    if since_improve >= self.cfg.transplant_patience:
+                        self.transplant_value_trunk()
+                        transplanted = True
+                        row["transplanted"] = True
+                        if log:
+                            print(f"Epoch: {i} plateau ({since_improve} "
+                                  f"epochs < +0.05 R) — critic->policy "
+                                  f"encoder transplant", flush=True)
             if on_epoch_end is not None and on_epoch_end(i, row):
                 break
         return history
+
+    def transplant_value_trunk(self) -> None:
+        """Replace the policy trunk's encoder -- the attention encoder
+        (``attn``) or the GRU/LSTM cell (``cell``) -- with a copy of the
+        critic's, keeping the action head, the aux head and log_std, and
+        start the policy net's Adam afresh over the new trunk (moments 0,
+        t 0); the log_std Adam is kept (``ppoc_tpu/algo/trainer.py:
+        933-966``).  The JAX package's measured rescue for a policy whose
+        encoder cannot find the recall cue while the critic's has.  Raises
+        ValueError on a dense trunk, which has no encoder to transplant."""
+        from ppoc_tpu_torch.ops import adam
+
+        ts = self.state
+        old = ts.policy_params["mlp"]
+        if not ppo.is_seq(old):
+            raise ValueError(
+                "transplant_value_trunk needs a sequence trunk (attention "
+                "or GRU/LSTM): dense trunks have no shared encoder to "
+                "transplant")
+        part = "attn" if "attn" in old else "cell"
+        trunk = dict(old)
+        trunk[part] = adam.tree_map(torch.clone, ts.v_params[part])
+        self.state = ts._replace(
+            policy_params=dict(ts.policy_params, mlp=trunk),
+            opt_policy=adam.init(trunk))
 
     def solve(self, target_R: float, max_epochs: int = 100) -> Dict[str, Any]:
         """Train until eval R >= target_R (or max_epochs); returns

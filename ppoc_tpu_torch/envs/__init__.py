@@ -3,9 +3,11 @@
 Ported: Pendulum, the simple integrator, MountainCarContinuous (raw and
 with normalised observations, ``mountain_car_norm``) and the two-link
 reacher (continuous), CartPole and Acrobot (discrete), and the recall
-memory tasks of the sequence trunks (``recall`` ... ``recall_16k``).  Of
-the wrappers the static ``normalize_obs`` and the config-carried
-``affine_obs`` (with ``calibrate``) are ported.
+memory tasks of the sequence trunks (``recall`` ... ``recall_16k``) and
+the partially observable ``pendulum_po``, ``cartpole_po`` and
+``pendulum_po_stack``.  Of the wrappers the static ``normalize_obs``, the
+config-carried ``affine_obs`` (with ``calibrate``), ``mask_obs`` and
+``stack_obs`` are ported.
 """
 from .core import (Env, EnvSpec, make, register, vector_autoreset_step,
                    vector_reset)
@@ -16,7 +18,8 @@ from . import pendulum as _pendulum  # noqa: F401  (registers "pendulum")
 from . import reacher as _reacher  # noqa: F401  (registers "reacher")
 from . import recall as _recall  # noqa: F401  (registers "recall", ...)
 from . import simple as _simple  # noqa: F401  (registers "simple")
-from . import wrappers as _wrappers  # noqa: F401  ("mountain_car_norm")
+from . import wrappers as _wrappers  # noqa: F401  ("mountain_car_norm",
+#                                       the _po envs)
 
 
 def make_for(cfg) -> Env:

@@ -212,10 +212,14 @@ def _mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def apply_seq(params: AttnParams, xs: torch.Tensor,
               reset_after: torch.Tensor, activation: str,
-              with_cache: bool = False, backend: str = "jnp"):
+              with_cache: bool = False, backend: str = "jnp",
+              return_hidden: bool = False):
     """Head outputs [T, ..., out] for a whole window [T, ..., in], every
     step in parallel.  ``with_cache=True`` also returns the per-layer keys
-    and values (lists of [T, ..., H, hd]) for :func:`decode_next`.
+    and values (lists of [T, ..., H, hd]) for :func:`decode_next`;
+    ``return_hidden=True`` (without the cache) returns ``(out, hidden)``,
+    ``hidden`` the final-LN plane [T, ..., d] the head reads, which the
+    auxiliary value head reads too (``ppoc_tpu/models/attn.py:234-236``).
     ``backend="pallas"`` at T >= FLASH_MIN_T runs the attention core
     through K7; ``backend="bf16"`` runs the ``BF16_SITES`` products in
     bf16, and its core through K7's bf16 variant at T >= FLASH_MIN_T when
@@ -262,9 +266,12 @@ def apply_seq(params: AttnParams, xs: torch.Tensor,
         h = h + _dot(o.reshape(o.shape[:-2] + (-1,)), blk["wo"],
                      site("out")) + blk["bo"]
         h = h + _ff(_ln(h, blk["ln2"]), blk, activation, site("ff"))
-    out = mlp.apply(params["head"], _ln(h, attn["lnf"]), activation,
+    hn = _ln(h, attn["lnf"])
+    out = mlp.apply(params["head"], hn, activation,
                     "bf16" if site("head") else "jnp")
-    return (out, ks, vs) if with_cache else out
+    if with_cache:
+        return out, ks, vs
+    return (out, hn) if return_hidden else out
 
 
 def decode_next(params: AttnParams, x_next: torch.Tensor,

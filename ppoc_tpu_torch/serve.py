@@ -14,15 +14,16 @@ with the file's gating top-k (``mlp.moe_backend("jnp", cfg.moe_topk)``,
 as ``ppoc_tpu/serve.py:88-89``).  ``deterministic=True`` (the default) serves the Gaussian mean
 or the categorical argmax; ``False`` samples the stochastic policy, with
 noise drawn from a ``torch.Generator`` seeded by ``seed`` (not the JAX
-package's draws).  Attention checkpoints serve statefully through the
-KV-cache decode step (``load_attention_policy``), which has no kernel, as
-in the JAX package.  Files from either package load
-(``utils/checkpoint.py``).
+package's draws).  Sequence checkpoints serve statefully, with no kernel,
+as in the JAX package: a GRU/LSTM policy through one cell step a call,
+the caller holding the state (``load_recurrent_policy``), an attention
+policy through the KV-cache decode step (``load_attention_policy``; an
+auxiliary value head in the file is never read).  Files from either
+package load (``utils/checkpoint.py``).
 
-Not ported: recurrent (GRU/LSTM) policies, ROADMAP.md §1 item 7; the
-``.obsnorm.npz`` running-statistics sidecar of the host actor, §1 item 13.
-The config-carried affine normalisation (``obs_loc`` / ``obs_scale``) is
-applied.
+Not ported: the ``.obsnorm.npz`` running-statistics sidecar of the host
+actor, ROADMAP.md §1 item 13.  The config-carried affine normalisation
+(``obs_loc`` / ``obs_scale``) is applied.
 """
 from __future__ import annotations
 
@@ -116,10 +117,16 @@ def load_policy(path: str, deterministic: bool = True, seed: int = 0,
 
 
 def _policy_actor(path, ck, deterministic, seed, device):
-    from ppoc_tpu_torch.models import attn, mlp, moe, policy as policy_mod
+    from ppoc_tpu_torch.models import (attn, gru, mlp, moe,
+                                       policy as policy_mod)
     from ppoc_tpu_torch.ops.adam import tree_leaves
 
     params, spec, norm = _load(path, ck, device)
+    if gru.is_rnn(params["mlp"]):
+        raise ValueError(
+            f"{path} holds a recurrent (GRU/LSTM) policy, which needs a "
+            f"hidden state between steps; use serve.load_recurrent_policy "
+            f"instead")
     if attn.is_attn(params["mlp"]):
         raise ValueError(
             f"{path} holds an attention policy, which needs a KV cache "
@@ -154,11 +161,62 @@ def _policy_actor(path, ck, deterministic, seed, device):
 
 def load_recurrent_policy(path: str, deterministic: bool = True,
                           seed: int = 0, device=None):
-    """GRU/LSTM trunks are not ported yet (ROADMAP.md §1 item 7)."""
-    raise NotImplementedError(
-        "recurrent (GRU/LSTM) policies are not ported to ppoc_tpu_torch "
-        "yet (ROADMAP.md §1 item 7); the checkpoint reader refuses their "
-        "trunks too")
+    """Load a GRU/LSTM-trunk checkpoint and return a stateful actor whose
+    state the caller holds:
+
+        act = ppoc_tpu_torch.serve.load_recurrent_policy("model.bin")
+        h = act.initial_state(batch_size)      # zeros: an episode start
+        action, h = act(obs, h)                # [B, obs] -> ([B, act], h')
+
+    ``h`` is [B, gru.state_size] (``act.state_size``): H wide for a GRU,
+    2H (h ‖ c) for an LSTM; zero a lane's row at its episode start.  One
+    cell step and the head a call, on ``device`` (CUDA device 0 unless
+    given), with no kernel (``ppoc_tpu/serve.py:175-229``).  A single
+    [obs_dim] observation takes a single [S] state."""
+    from ppoc_tpu_torch.utils import checkpoint
+
+    return _recurrent_actor(path, checkpoint.load(path), deterministic,
+                            seed, device)
+
+
+def _recurrent_actor(path, ck, deterministic, seed, device):
+    from ppoc_tpu_torch.models import gru, policy as policy_mod
+
+    params, spec, norm = _load(path, ck, device)
+    if not gru.is_rnn(params["mlp"]):
+        raise ValueError(
+            f"{path} holds a non-recurrent policy; use serve.load_policy "
+            f"or serve.load_attention_policy")
+    cfg = ck.cfg
+    dev = params["mlp"]["cell"]["wh"].device
+    default_gen = torch.Generator().manual_seed(seed)
+
+    @torch.no_grad()
+    def act(obs, h, generator: Optional[torch.Generator] = None):
+        x, single = _obs_tensor(obs, norm, dev)
+        if not isinstance(h, torch.Tensor):
+            h = np.array(h, np.float32)
+        h = torch.as_tensor(h, dtype=torch.float32, device=dev)
+        if h.dim() == 1:
+            h = h[None]
+        noise = None
+        if not deterministic:
+            noise = policy_mod.draw_noise(
+                (x.shape[0], spec.action_dim), spec.discrete,
+                default_gen if generator is None else generator).to(dev)
+        h2, out = gru.step(params["mlp"], h, x, cfg.activation)
+        a, _ = policy_mod.act_from_out(out, spec.discrete,
+                                       params.get("log_std"), deterministic,
+                                       noise)
+        return (a[0], h2[0]) if single else (a, h2)
+
+    act.initial_state = lambda batch_size=None: gru.initial_state(
+        params["mlp"], () if batch_size is None else (batch_size,))
+    act.state_size = gru.state_size(params["mlp"])
+    act.recurrent = True
+    act.cfg = cfg
+    act.spec = spec
+    return act
 
 
 def load_attention_policy(path: str, deterministic: bool = True,
@@ -233,7 +291,15 @@ def make_server(path: str, host: str = "127.0.0.1", port: int = 8000,
       GET  /spec  -> {env, obs_dim, action_dim, discrete, recurrent,
                       rnn_hidden, deterministic} (+ attention, protocol,
                       window for an attention policy)
-      POST /act   -> body {"obs": [[...]] | [...]}, reply {"action": ...}
+      POST /act   -> body {"obs": [[...]] | [...], "h": [[...]]?},
+                     reply {"action": ..., "h": ...?}
+
+    A GRU/LSTM policy's state travels with the request: "h" is [B, S]
+    (one row per obs; S = H for a GRU, 2H for an LSTM, whose state is h ‖
+    c), omitted or null at an episode start (zeros), and the reply's "h"
+    is the next call's.  The JAX package's server checks "h" against
+    [B, rnn_hidden], and so refuses an LSTM's own state; this one checks
+    it against the state's width.
 
     Attention checkpoints serve statefully, the KV cache kept per session:
       POST /act {"obs": ..., "session": "my-id", "done": [bools]?}
@@ -251,14 +317,18 @@ def make_server(path: str, host: str = "127.0.0.1", port: int = 8000,
     import json
     import threading
 
-    from ppoc_tpu_torch.models import attn
+    from ppoc_tpu_torch.models import attn, gru
     from ppoc_tpu_torch.utils import checkpoint
 
     ck = checkpoint.load(path)
-    attention = attn.is_attn(ck.state.policy_params["mlp"])
-    actor = _attention_actor if attention else _policy_actor
+    trunk = ck.state.policy_params["mlp"]
+    attention, recurrent = attn.is_attn(trunk), gru.is_rnn(trunk)
+    actor = (_attention_actor if attention else
+             _recurrent_actor if recurrent else _policy_actor)
     act = actor(path, ck, deterministic, seed, device)
     spec = act.spec
+    rnn_hidden = int(act.cfg.rnn_hidden) if recurrent else 0
+    width = act.state_size if recurrent else 0
     lock = threading.Lock()
     sessions = {}  # attention: session id -> KV cache (insertion = LRU)
 
@@ -279,8 +349,8 @@ def make_server(path: str, host: str = "127.0.0.1", port: int = 8000,
                 return self._reply(404, {"error": f"unknown path {self.path}"})
             info = {"env": spec.name, "obs_dim": spec.obs_dim,
                     "action_dim": spec.action_dim,
-                    "discrete": spec.discrete, "recurrent": False,
-                    "rnn_hidden": 0, "deterministic": deterministic}
+                    "discrete": spec.discrete, "recurrent": recurrent,
+                    "rnn_hidden": rnn_hidden, "deterministic": deterministic}
             if attention:
                 info.update(attention=True, protocol="session",
                             window=int(act.window))
@@ -307,6 +377,8 @@ def make_server(path: str, host: str = "127.0.0.1", port: int = 8000,
                         f"obs must be [B, {spec.obs_dim}], got {obs.shape}")
                 if attention:
                     return self._act_attention(req, obs, single)
+                if recurrent:
+                    return self._act_recurrent(req, obs, single)
                 with lock:
                     a = act(obs).cpu().numpy()
                 out = a.tolist()
@@ -316,6 +388,26 @@ def make_server(path: str, host: str = "127.0.0.1", port: int = 8000,
             except Exception as e:  # device/runtime failure: a 500 body a
                 # non-Python client can read, not a dropped socket
                 self._reply(500, {"error": f"{type(e).__name__}: {e}"})
+
+        def _act_recurrent(self, req, obs, single):
+            h = req.get("h")
+            if h is None:
+                h = act.initial_state(obs.shape[0])
+            else:
+                h = np.asarray(h, np.float32)
+                if single and h.ndim == 1:
+                    h = h[None]
+                if h.shape != (obs.shape[0], width):
+                    raise ValueError(
+                        f"h must be [{obs.shape[0]}, {width}] (one row per "
+                        f"obs, the state's width), got {h.shape}")
+            with lock:
+                a, h2 = act(obs, h)
+                a, h2 = a.cpu().numpy(), h2.cpu().numpy()
+            out = {"action": a.tolist(), "h": h2.tolist()}
+            if single:
+                out = {k: v[0] for k, v in out.items()}
+            self._reply(200, out)
 
         def _act_attention(self, req, obs, single):
             sid = req.get("session")

@@ -7,11 +7,11 @@ five scalar hyperparameters, the dims, log_std, the policy and value
 trunks, and the three Adam states (m, v and the timestep), each flattened
 in the JAX package's leaf order (dict keys sorted, lists and tuples in
 order: a mixture's ``experts`` before its ``router``).  Dense trunks take
-the byte-identical version 3; mixture-of-experts trunks version 4, kind 1;
-attention trunks version 4, kind 4.  Version-2 files (no config) load
-through the template path.  The kinds whose trunks are not ported (2 and
-3 GRU/LSTM, 5 attention with the auxiliary value head) are refused by
-name.
+the byte-identical version 3; the others version 4 with a kind tag: 1 a
+mixture of experts, 2 a GRU and 3 an LSTM (the cell, then the head), 4 an
+attention encoder, 5 an attention encoder with the auxiliary value head
+(kind 4 and then the aux MLP).  Version-2 files (no config) load through
+the template path.
 
 The file is written in the CRC blob container (int64 payload length, the
 payload, the payload's crc32), the JAX package's native format, here in
@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ppoc_tpu_torch.models.attn import is_attn
+from ppoc_tpu_torch.models.gru import cell_kind, is_rnn
 from ppoc_tpu_torch.models.moe import is_moe
 from ppoc_tpu_torch.ops.adam import AdamState, tree_leaves, tree_unflatten
 
@@ -54,15 +55,6 @@ MAGIC = b"PPOC"
 VERSION = 3       # plain dense-MLP trunks
 MOE_VERSION = 4   # kind-tagged trunks (the JAX package's name for it)
 GENERATOR_KEY = "torch_generator"   # the port's draw stream, under _meta
-
-# trunk kinds of a version-4 file that the port does not run, and where
-# ROADMAP.md places their port
-_REFUSED_KINDS = {
-    2: "a GRU trunk (kind 2; ROADMAP.md §1 item 7)",
-    3: "an LSTM trunk (kind 3; ROADMAP.md §1 item 7)",
-    5: "an attention trunk with the auxiliary value head (kind 5; "
-       "ROADMAP.md §1 item 8)",
-}
 
 
 class DrawStreamWarning(UserWarning):
@@ -132,9 +124,11 @@ def _read_mlp(f) -> List[Tuple[np.ndarray, np.ndarray]]:
 def _write_trunk(f, trunk):
     """Version-4 kind-tagged trunk: 0 = dense MLP, 1 = mixture of experts
     (router layer, then the stacked [E, fan_in, fan_out] expert layers;
-    ``models/moe.py``), 4 = causal-attention encoder (embed, pos, blocks,
-    final LayerNorm, dense head; ``models/attn.py``), in the JAX package's
-    field order."""
+    ``models/moe.py``), 2 / 3 = GRU / LSTM (d_in and G*H, wx, wh, b, then
+    the dense head; ``models/gru.py``), 4 = causal-attention encoder
+    (embed, pos, blocks, final LayerNorm, dense head; ``models/attn.py``),
+    5 = kind 4 and then the aux value head's MLP, in the JAX package's
+    field order (``ppoc_tpu/utils/checkpoint.py:100-145``)."""
     if is_moe(trunk):
         _w(f, "i", 1)
         wr, br = trunk["router"]
@@ -147,11 +141,19 @@ def _write_trunk(f, trunk):
             _write_arr(f, w)
             _write_arr(f, b)
         return
+    if is_rnn(trunk):
+        _w(f, "i", 3 if cell_kind(trunk) == "lstm" else 2)
+        cell = trunk["cell"]
+        _w(f, "ii", *np.shape(cell["wx"]))
+        for name in ("wx", "wh", "b"):
+            _write_arr(f, cell[name])
+        _write_mlp(f, trunk["head"])
+        return
     if not is_attn(trunk):
         _w(f, "i", 0)
         _write_mlp(f, trunk)
         return
-    _w(f, "i", 4)
+    _w(f, "i", 5 if "aux_head" in trunk else 4)
     a = trunk["attn"]
     we, be = a["embed"]
     n_heads, _ = a["blocks"][0]["wqkv"].shape[-2:]
@@ -167,16 +169,20 @@ def _write_trunk(f, trunk):
     _write_arr(f, a["lnf"][0])
     _write_arr(f, a["lnf"][1])
     _write_mlp(f, trunk["head"])
+    if "aux_head" in trunk:
+        _write_mlp(f, trunk["aux_head"])
 
 
 def _read_trunk(f):
     kind = _r(f, "i")
     if kind == 0:
         return _read_mlp(f)
-    if kind in _REFUSED_KINDS:
-        raise NotImplementedError(
-            f"the checkpoint holds {_REFUSED_KINDS[kind]}, which is not "
-            f"ported to ppoc_tpu_torch yet")
+    if kind in (2, 3):
+        d_in, hg = _r(f, "ii")
+        wx = _read_arr(f, (d_in, hg))
+        wh = _read_arr(f, (hg // (4 if kind == 3 else 3), hg))
+        b = _read_arr(f, (hg,))
+        return {"cell": {"wx": wx, "wh": wh, "b": b}, "head": _read_mlp(f)}
     if kind == 1:
         d_in, e = _r(f, "ii")
         router = (_read_arr(f, (d_in, e)), _read_arr(f, (e,)))
@@ -186,7 +192,7 @@ def _read_trunk(f):
             experts.append((_read_arr(f, (ne, fan_in, fan_out)),
                             _read_arr(f, (ne, fan_out))))
         return {"router": router, "experts": experts}
-    if kind != 4:
+    if kind not in (4, 5):
         raise ValueError(f"unknown trunk kind {kind}")
     d_in, d, t_max, n_heads, n_layers, ff = _r(f, "iiiiii")
     hd = d // n_heads
@@ -204,8 +210,11 @@ def _read_trunk(f):
             blk[name] = tuple(_read_arr(f, s) for s in shapes)
         blocks.append(blk)
     lnf = (_read_arr(f, (d,)), _read_arr(f, (d,)))
-    return {"attn": {"embed": (we, be), "pos": pos, "blocks": blocks,
-                     "lnf": lnf}, "head": _read_mlp(f)}
+    trunk = {"attn": {"embed": (we, be), "pos": pos, "blocks": blocks,
+                      "lnf": lnf}, "head": _read_mlp(f)}
+    if kind == 5:
+        trunk["aux_head"] = _read_mlp(f)
+    return trunk
 
 
 def _flat_adam(state, params) -> Tuple[np.ndarray, np.ndarray, int]:
@@ -240,11 +249,12 @@ def _unflat_adam(m: np.ndarray, v: np.ndarray, t: int, params):
 def _save_stream(f, cfg, spec, state, generator=None,
                  meta: Optional[Dict[str, Any]] = None) -> None:
     """The checkpoint payload: version 4 when a trunk is a mixture of
-    experts or an attention encoder, else version 3.  ``state`` holds tensors or numpy arrays;
+    experts, a GRU/LSTM or an attention encoder, else version 3.
+    ``state`` holds tensors or numpy arrays;
     ``generator`` is a ``torch.Generator`` whose state rides under
     ``_meta``, or None (then the stream equals the JAX package's
     ``_save_stream`` with no key)."""
-    tagged = any(is_attn(t) or is_moe(t)
+    tagged = any(is_attn(t) or is_moe(t) or is_rnn(t)
                  for t in (state.policy_params["mlp"], state.v_params))
     f.write(MAGIC)
     _w(f, "i", MOE_VERSION if tagged else VERSION)

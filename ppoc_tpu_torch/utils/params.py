@@ -4,7 +4,9 @@ The port keeps the JAX package's layouts (an MLP is a list of
 ``(W [in, out], b [out])`` pairs, a Gaussian policy ``{"mlp", "log_std"}``,
 a categorical policy ``{"mlp"}`` whose log_std optimizer holds empty
 ``(0,)`` moments, an attention trunk a dict of lists of dicts of tuples
-with an MLP ``"head"`` (``models/attn.py``), a mixture of experts
+with an MLP ``"head"`` and, with the auxiliary value head, an MLP
+``"aux_head"`` (``models/attn.py``), a GRU/LSTM trunk ``{"cell": {"wx",
+"wh", "b"}, "head"}`` (``models/gru.py``), a mixture of experts
 ``{"router": (W, b), "experts": [(W, b), ...]}`` (``models/moe.py``), an
 Adam state ``(m, v, t)``),
 so conversion is leaf by leaf: numpy arrays in
@@ -49,19 +51,22 @@ def _mlp_list(tree) -> list:
 
 def _trunk(tree):
     """A trunk tree in the port's layout: an MLP as a list of (W, b)
-    tuples; an attention trunk with its head so, the rest as it came; a
+    tuples; an attention or GRU/LSTM trunk with its head (and an attention
+    trunk's aux head) so, the rest (the encoder, the cell) as it came; a
     mixture's experts so and its router a tuple."""
     if isinstance(tree, dict) and "experts" in tree:
         return dict(tree, router=tuple(tree["router"]),
                     experts=_mlp_list(tree["experts"]))
     if isinstance(tree, dict):
-        return dict(tree, head=_mlp_list(tree["head"]))
+        heads = {k: _mlp_list(tree[k]) for k in ("head", "aux_head")
+                 if k in tree}
+        return dict(tree, **heads)
     return _mlp_list(tree)
 
 
 def trunk_from_numpy(tree, device):
-    """One trunk (an MLP or an attention encoder with its head) of numpy
-    arrays -> the port's tensors."""
+    """One trunk (an MLP, a mixture, an attention encoder or a GRU/LSTM
+    cell with its head) of numpy arrays -> the port's tensors."""
     return _trunk(tree_from_numpy(tree, device))
 
 
@@ -92,7 +97,7 @@ def policy_from_numpy(policy_params, device) -> dict:
 def train_state_from_numpy(ts, device):
     """A TrainState-shaped object of numpy arrays -> the port's TrainState,
     Gaussian (``log_std`` in the policy) or categorical (none), with MLP,
-    mixture-of-experts or attention trunks."""
+    mixture-of-experts, attention or GRU/LSTM trunks."""
     from ppoc_tpu_torch.algo.ppo import TrainState
 
     return TrainState(

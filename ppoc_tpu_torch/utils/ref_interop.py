@@ -281,7 +281,7 @@ def export_trainer(trainer, path: str) -> None:
     if not isinstance(pol, list):
         raise ValueError(
             "reference checkpoints only represent dense MLP trunks; an "
-            "attention (or mixture-of-experts) trunk has no "
+            "attention, GRU/LSTM (or mixture-of-experts) trunk has no "
             "load_ppo-compatible layout")
     acts = [cfg.activation] * (len(pol) - 1) + ["none"]
 

@@ -33,7 +33,8 @@ from ppoc_tpu_torch.utils import checkpoint, params as conv
 
 torch.set_num_threads(1)
 
-# the four trunk kinds the port runs, at tiny widths
+# the trunk kinds the port runs, at tiny widths (file kinds 0, 2, 3, 4 and
+# 5; kind 1, the mixture, is test_moe_trunk_kind_loads')
 KINDS = {
     "dense_gaussian": dict(env="pendulum", hidden=(8, 8)),
     "dense_categorical": dict(env="cartpole", hidden=(8, 8)),
@@ -41,6 +42,11 @@ KINDS = {
                           attn_layers=1, attn_heads=2),
     "attn_categorical": dict(env="cartpole", hidden=(8,), attn_dim=8,
                              attn_layers=2, attn_heads=2),
+    "gru": dict(env="recall", hidden=(8,), rnn_hidden=4),
+    "lstm": dict(env="cartpole_po", hidden=(8,), rnn_hidden=4,
+                 rnn_cell="lstm"),
+    "attn_aux": dict(env="recall", hidden=(8,), attn_dim=8, attn_layers=1,
+                     attn_heads=2, aux_value_coeff=0.5),
 }
 BASE = dict(n_envs=8, rollout_len=6, minibatch_size=24, fits_per_epoch=1,
             eval_envs=8, eval_len=6, kernel_backend="jnp", seed=5)
@@ -217,7 +223,8 @@ def test_stabiliser_config_loads(tmp_path):
 
 # --- port -> JAX --------------------------------------------------------------
 
-@pytest.mark.parametrize("kind", ["dense_gaussian", "attn_categorical"])
+@pytest.mark.parametrize("kind", ["dense_gaussian", "attn_categorical",
+                                  "lstm", "attn_aux"])
 def test_port_file_loads_in_jax(tmp_path, kind):
     """The JAX package's load (and, dense, its Trainer.from_checkpoint)
     reads the port's file: every leaf equal, epochs_done read."""
@@ -248,7 +255,8 @@ def test_port_file_loads_in_jax(tmp_path, kind):
 def test_stream_bytes_equal_jax(kind):
     """Same state, config and _meta, no key and no generator: the port's
     payload is the JAX package's, byte for byte (version 3 dense, version 4
-    kind 4 attention, whose Adam moments go in jax.tree.leaves order)."""
+    kind 4 attention, 5 with the aux head, 2 GRU and 3 LSTM, whose Adam
+    moments go in jax.tree.leaves order)."""
     cfg = kind_config(kind)
     ns = random_state(cfg, 2)
     ours, theirs = io.BytesIO(), io.BytesIO()
@@ -259,7 +267,7 @@ def test_stream_bytes_equal_jax(kind):
                      jax_state(ns), meta={"epochs_done": 9})
     assert ours.getvalue() == theirs.getvalue()
     assert ours.getvalue()[4:8] == struct.pack(
-        "<i", 4 if kind.startswith("attn") else 3)
+        "<i", 3 if kind.startswith("dense") else 4)
 
 
 @pytest.mark.parametrize("kind", ["dense_gaussian", "dense_categorical"])
@@ -467,14 +475,20 @@ def test_moe_trunk_kind_loads(tmp_path):
         assert buf.getvalue() == f.read()
 
 
-@pytest.mark.parametrize("kind,name", [(2, "GRU"), (3, "LSTM"),
-                                       (5, "auxiliary value head")])
-def test_unported_trunk_kinds_are_refused_by_name(tmp_path, kind, name):
-    """A version-4 file with a GRU, LSTM or aux-head trunk (written by
-    the JAX package) is refused, naming the trunk and ROADMAP.md §1."""
-    p, _ = _jax_trunk_file(tmp_path, kind)
-    with pytest.raises(NotImplementedError, match=f"{name}.*ROADMAP.md §1"):
-        checkpoint.load(p)
+@pytest.mark.parametrize("kind", [2, 3, 5])
+def test_sequence_trunk_kinds_load(tmp_path, kind):
+    """Kinds 2 (GRU), 3 (LSTM) and 5 (attention with the aux value head),
+    refused before they were ported, load leaf for leaf from a JAX file
+    whose config does not describe them (the trunk's shapes alone decide
+    the cell), and the port writes them back byte for byte."""
+    p, ns = _jax_trunk_file(tmp_path, kind)
+    ck = checkpoint.load(p)
+    assert_leaves_equal(ck.state, ns)
+    buf = io.BytesIO()
+    checkpoint._save_stream(buf, ck.cfg, envs.make("pendulum").spec,
+                            ck.state)
+    with open(p, "rb") as f:
+        assert buf.getvalue() == f.read()
 
 
 # --- attention trunks (tests/test_attn.py) --------------------------------------

@@ -76,7 +76,7 @@ def test_every_config_field_has_a_flag():
     (["--overlap"], "item 13"), (["--actor", "host"], "item 13"),
     (["--vector-mode", "async"], "item 13"),
     (["--env", "gym:Pendulum-v1"], "item 13"),
-    (["--rnn-hidden", "8"], "item 7"), (["--zero1", "true"], "item 16"),
+    (["--zero1", "true"], "item 16"),
     (["--n-experts", "2", "--ep-size", "2"], "item 16"),
 ])
 def test_unported_flags_are_refused_by_name(argv, item, capsys):
@@ -90,11 +90,15 @@ def test_unported_flags_are_refused_by_name(argv, item, capsys):
 @pytest.mark.parametrize("argv", [
     ["--kernel-backend", "jnp"], ["--max-grad-norm", "0.5"], ["--calibrate"],
     ["--n-experts", "2", "--moe-topk", "1"],
+    ["--rnn-hidden", "4", "--rnn-cell", "lstm"],
+    ["--transplant-patience", "1", "--rnn-hidden", "4"],
+    ["--aux-value-coeff", "0.5", "--attn-dim", "8", "--attn-layers", "1"],
 ])
 def test_lifted_flags_train(argv, tmp_path, capsys, on_cpu):
     """The flags the port used to refuse (the "jnp" backend, the
-    stabilisers, --calibrate, a mixture) now train and save; --calibrate
-    writes its statistics into the config and says so."""
+    stabilisers, --calibrate, a mixture, a GRU/LSTM trunk, the transplant,
+    the aux value head) now train and save; --calibrate writes its
+    statistics into the config and says so."""
     ck = str(tmp_path / "l.bin")
     assert cli.main(BASE + argv + ["--n-epochs", "1", "--save", ck]) == 0
     cfg = checkpoint.load(ck).cfg

@@ -30,7 +30,7 @@ from ppoc_tpu.models import attn as jattn
 from ppoc_tpu_torch import PPOConfig, envs
 from ppoc_tpu_torch.algo import ppo, recurrent
 from ppoc_tpu_torch.algo.trainer import Trainer
-from ppoc_tpu_torch.envs import cartpole, recall
+from ppoc_tpu_torch.envs import cartpole, pendulum, recall
 from ppoc_tpu_torch.models import attn
 from ppoc_tpu_torch.utils import params as conv
 
@@ -38,7 +38,9 @@ torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 V_TOL = dict(rtol=1e-3, atol=1e-7)
-STATE = {"recall": recall.RecallState, "cartpole": cartpole.CartPoleState}
+STATE = {"recall": recall.RecallState, "cartpole": cartpole.CartPoleState,
+         "cartpole_po": cartpole.CartPoleState,
+         "pendulum_po": pendulum.PendulumState}
 
 
 def _jcfg(env="recall", **kw):
@@ -183,13 +185,24 @@ def test_compute_values_rnn_matches_jax(monkeypatch):
                                    atol=1e-5)
 
 
-@pytest.mark.parametrize("env", ["recall", "cartpole"])
-def test_replayed_log_probs_match_rollout(env):
-    """The update's parallel replay recomputes the log-probs the decode
+TRUNKS = {"attn": dict(attn_dim=16, attn_layers=2, attn_heads=2),
+          "gru": dict(rnn_hidden=8), "lstm": dict(rnn_hidden=8,
+                                                  rnn_cell="lstm")}
+
+
+@pytest.mark.parametrize("env,trunk", [
+    pytest.param("recall", "attn", id="recall"),
+    pytest.param("cartpole", "attn", id="cartpole"),
+    pytest.param("recall", "gru", id="recall-gru"),
+    pytest.param("cartpole_po", "gru", id="cartpole_po-gru"),
+    pytest.param("recall", "lstm", id="recall-lstm"),
+    pytest.param("pendulum_po", "lstm", id="pendulum_po-lstm")])
+def test_replayed_log_probs_match_rollout(env, trunk):
+    """The update's replay (the attention trunk's parallel pass, the
+    GRU/LSTM time loop from a zero state) recomputes the log-probs the
     rollout stored: epoch-0 ratios are 1 to float noise."""
     cfg = PPOConfig(env=env, n_envs=16, rollout_len=12, minibatch_size=48,
-                    hidden=(16,), attn_dim=16, attn_layers=2, attn_heads=2,
-                    eval_len=12)
+                    hidden=(16,), eval_len=12, **TRUNKS[trunk])
     e = envs.make(env)
     g = torch.Generator().manual_seed(0)
     ts = ppo.init_train_state(cfg, e, g, "cpu")
@@ -321,10 +334,7 @@ def test_attention_trainer_on_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(attn_dim=0, rnn_hidden=8), "rnn_hidden"),
-    (dict(sp_size=2), "sp_size"), (dict(transplant_patience=3),
-                                   "transplant_patience"),
-    (dict(aux_value_coeff=0.5), "aux_value_coeff"),
+    (dict(sp_size=2), "sp_size"),
     (dict(zero1=True), "zero1"), (dict(tp_size=2), "tp_size"),
     (dict(fit_dispatch="phased"), "fit_dispatch"),
     (dict(rollout_chunk=4), "rollout_chunk"),

@@ -90,6 +90,92 @@ def test_attention_serves_jax_actions(tmp_path, kind):
     assert s["t"] == int(js["t"]) == 3
 
 
+@pytest.mark.parametrize("kind", ["gru", "lstm"])
+def test_recurrent_serves_jax_actions(tmp_path, kind):
+    """A GRU (Gaussian, recall) and an LSTM (categorical, cartpole_po)
+    policy step by step against the JAX package's load_recurrent_policy,
+    each step from the JAX package's state: actions as above, the next
+    state rtol 1e-5 / atol 1e-6; one vector with one state row; and
+    load_policy points to the recurrent loader in both packages."""
+    p = _jax_file(tmp_path, kind)
+    act = serve.load_recurrent_policy(p, device="cpu")
+    jact = jserve.load_recurrent_policy(p)
+    width = 8 if kind == "lstm" else 4
+    assert act.recurrent and act.state_size == width
+    for load in (lambda: serve.load_policy(p, device="cpu"),
+                 lambda: jserve.load_policy(p)):
+        with pytest.raises(ValueError, match="load_recurrent_policy"):
+            load()
+    rng = np.random.default_rng(4)
+    jh = jact.initial_state(8)
+    assert act.initial_state(8).shape == (8, width) == np.shape(jh)
+    for t in range(6):
+        obs = rng.normal(size=(8, act.spec.obs_dim)).astype(np.float32)
+        a, h = act(obs, np.asarray(jh))
+        ja, jh = jact(obs, jh)
+        _close(a.numpy(), ja)
+        np.testing.assert_allclose(h.numpy(), np.asarray(jh), rtol=1e-5,
+                                   atol=1e-6)
+        jh = np.where(rng.random((8, 1)) < 0.3, 0.0, np.asarray(jh))
+    a1, h1 = act(obs[0], act.initial_state())
+    ja1, jh1 = jact(obs[0], jact.initial_state())
+    assert h1.shape == (width,)
+    _close(a1.numpy(), ja1)
+
+
+@pytest.mark.parametrize("kind", ["gru", "lstm"])
+def test_http_recurrent_takes_back_its_own_state(tmp_path, kind):
+    """The recurrent HTTP protocol: /spec says recurrent with rnn_hidden;
+    a request without "h" starts from zeros and the reply's "h" is the
+    state, H wide for a GRU and 2H (h ‖ c) for an LSTM; posting it back
+    continues the episode as load_recurrent_policy does.  The JAX
+    package's server checks "h" against [B, rnn_hidden] and so refuses an
+    LSTM's own state (400) -- the fault this server does not copy -- while
+    it takes a GRU's."""
+    p = _jax_file(tmp_path, kind)
+    width = 8 if kind == "lstm" else 4
+    obs = np.random.default_rng(5).normal(size=(3, 2)).astype(np.float32)
+    act = serve.load_recurrent_policy(p, device="cpu")
+    a1, h1 = act(obs, act.initial_state(3))
+    a2, h2 = act(obs, h1)
+    server, thread, base = _serve(p)
+    try:
+        spec = _get(base + "/spec")
+        assert spec["recurrent"] is True and spec["rnn_hidden"] == 4
+        out = _post(base + "/act", {"obs": obs.tolist()})
+        assert np.shape(out["h"]) == (3, width)
+        _close(np.asarray(out["action"], a1.numpy().dtype), a1.numpy())
+        out2 = _post(base + "/act", {"obs": obs.tolist(), "h": out["h"]})
+        _close(np.asarray(out2["action"], a2.numpy().dtype), a2.numpy())
+        np.testing.assert_allclose(np.asarray(out2["h"], np.float32),
+                                   h2.numpy(), rtol=1e-6, atol=1e-7)
+        one = _post(base + "/act", {"obs": obs[0].tolist(),
+                                    "h": out["h"][0]})
+        assert np.shape(one["h"]) == (width,)
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _post(base + "/act", {"obs": obs.tolist(),
+                                  "h": np.zeros((3, width + 1)).tolist()})
+        assert e.value.code == 400
+    finally:
+        _stop(server, thread)
+    jserver = jserve.make_server(p, port=0)
+    jthread = threading.Thread(target=jserver.serve_forever, daemon=True)
+    jthread.start()
+    jbase = "http://%s:%d" % jserver.server_address[:2]
+    try:
+        jout = _post(jbase + "/act", {"obs": obs.tolist()})
+        assert np.shape(jout["h"]) == (3, width)
+        if kind == "gru":
+            _post(jbase + "/act", {"obs": obs.tolist(), "h": jout["h"]})
+        else:
+            with pytest.raises(urllib.error.HTTPError) as e:
+                _post(jbase + "/act", {"obs": obs.tolist(), "h": jout["h"]})
+            assert e.value.code == 400
+            assert "h must be [3, 4]" in json.loads(e.value.read())["error"]
+    finally:
+        _stop(jserver, jthread)
+
+
 def test_affine_obs_normalisation_matches_jax(tmp_path):
     """obs_loc / obs_scale in the file's config are applied before acting,
     as the JAX package applies them."""
@@ -155,8 +241,6 @@ def test_stochastic_categorical_serving(tmp_path):
 
 def test_unported_serving_paths_are_refused(tmp_path):
     p = _jax_file(tmp_path, "dense_gaussian")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 7"):
-        serve.load_recurrent_policy(p, device="cpu")
     open(p + ".obsnorm.npz", "wb").write(b"x")
     with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 13"):
         serve.load_policy(p, device="cpu")

@@ -147,7 +147,7 @@ def test_same_seed_same_training():
 
 def test_unported_options_are_refused():
     check_ported(_cfg())
-    for kw, item in ((dict(rnn_hidden=8), 7), (dict(tp_size=2), 16),
+    for kw, item in ((dict(tp_size=2), 16),
                      (dict(zero1=True), 16),
                      (dict(n_experts=2, ep_size=2), 16)):
         with pytest.raises(NotImplementedError,
@@ -192,7 +192,8 @@ def test_train_state_numpy_roundtrip():
 
 def test_port_never_imports_jax():
     """Neither jax nor any module of the JAX package ppoc_tpu is loaded by
-    importing the port's entry points."""
+    importing the port's entry points, nor by building a GRU, an LSTM and
+    an aux-head attention trainer and training the GRU a fit."""
     code = ("import sys; import ppoc_tpu_torch.algo.trainer, "
             "ppoc_tpu_torch.ops.cuda_update, ppoc_tpu_torch.ops.cuda_mlp, "
             "ppoc_tpu_torch.ops.cuda_attn, ppoc_tpu_torch.algo.recurrent, "
@@ -201,7 +202,14 @@ def test_port_never_imports_jax():
             "ppoc_tpu_torch.cli, ppoc_tpu_torch.serve, "
             "ppoc_tpu_torch.utils.checkpoint, "
             "ppoc_tpu_torch.utils.ref_interop, "
-            "ppoc_tpu_torch.utils.supervisor; "
+            "ppoc_tpu_torch.utils.supervisor, ppoc_tpu_torch.models.gru; "
+            "from ppoc_tpu_torch import PPOConfig as C; "
+            "T = ppoc_tpu_torch.algo.trainer.Trainer; "
+            "k = dict(env='recall', n_envs=8, rollout_len=6, "
+            "minibatch_size=24, fits_per_epoch=1, eval_len=6, hidden=(4,)); "
+            "T(C(rnn_hidden=4, **k), 'cpu').train_epoch(); "
+            "T(C(rnn_hidden=4, rnn_cell='lstm', **k), 'cpu'); "
+            "T(C(attn_dim=4, attn_heads=2, aux_value_coeff=0.5, **k), 'cpu'); "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'ppoc_tpu' "
             "or m.startswith('ppoc_tpu.')); "

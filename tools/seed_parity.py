@@ -1,24 +1,28 @@
-"""Solve parity over seeds on the card: the port's epochs to solve Pendulum
-against the JAX package's.
+"""Solve parity over seeds on the card: the port's epochs to solve against
+the JAX package's.
 
     python3 tools/seed_parity.py [--configs bench_config reference
-        stab_bench moe_dense] [--seeds N]
+        stab_bench moe_dense rnn_recall] [--seeds N]
 
-Runs ``Trainer(cfg(seed)).solve(-200, 40)`` on CUDA device 0 for each
+Runs ``Trainer(cfg(seed)).solve(target, 40)`` on CUDA device 0 for each
 config: ``bench_config`` (64 envs x 200 steps, minibatch 256, 4 fits an
 epoch; seeds 0..19), the reference schedule ``reference_preset`` (15 x
 200, minibatch 64, 10 fits; 0..9), ``stab_bench`` (chip_smoke's
 ``stab_config``: bench_config with the five stabilisers; 0..4) and
 ``moe_dense`` (chip_smoke's ``moe_config``: the MoE example's 4-expert
-mixture, dense gating; 0..4); ``--seeds`` caps every config's count.
+mixture, dense gating; 0..4), each solving Pendulum to R -200, and
+``rnn_recall`` (chip_smoke's ``RNN_RECALL``: examples/recurrent_memory.py's
+GRU on recall; 0..4) solving to R 0.9; ``--seeds`` caps every config's
+count.
 Prints the card's name and power limit, the epochs and final R per seed,
 each config's mean, and a two-sided Mann-Whitney U test against the JAX
 package's epochs on its "jnp" backend (``JAX_JNP_EPOCHS``) and, where
 tabulated, against the port's own plain versions on the CPU
 (``PORT_CPU_EPOCHS``), all from CPU runs: bench_config and the reference
 schedule's in ROADMAP.md §1 A item 2 (torch 2.13, jax 0.9.0, the tree at
-2da26c8), stab_bench's and moe_dense's from ``tools/jax_seed_solve.py``
-(jax 0.9.0); the JAX package is not rerun here.  Writes the same as JSON
+2da26c8), stab_bench's, moe_dense's and rnn_recall's from
+``tools/jax_seed_solve.py`` (jax 0.9.0); the JAX package is not rerun
+here.  Writes the same as JSON
 to ``chiprun_out/seed_parity.json``.
 """
 from __future__ import annotations
@@ -31,7 +35,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-SOLVE_R = -200.0
+SOLVE_R = {"rnn_recall": 0.9}      # the rest: Pendulum's -200
 MAX_EPOCHS = 40
 JAX_JNP_EPOCHS = {
     "bench_config": [6, 5, 6, 5, 5, 4, 5, 4, 4, 5, 5, 6, 4, 4, 5, 8, 6, 4, 4,
@@ -39,6 +43,7 @@ JAX_JNP_EPOCHS = {
     "reference": [6, 3, 4, 7, 3, 4, 5, 40, 13, 3],
     "stab_bench": [18, 20, 15, 21, 22],
     "moe_dense": [6, 4, 5, 4, 5],
+    "rnn_recall": [2, 11, 2, 2, 2],
 }
 PORT_CPU_EPOCHS = {
     "bench_config": [7, 6, 6, 5, 6, 8, 4, 5, 7, 10, 5, 4, 5, 7, 4, 6, 4, 5, 5,
@@ -63,7 +68,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import bench_config, card_line, moe_config, stab_config
+    from chip_smoke import (bench_config, card_line, moe_config,
+                            rnn_recall_config, stab_config)
     from ppoc_tpu_torch import reference_preset
     from ppoc_tpu_torch.algo.trainer import Trainer
 
@@ -73,19 +79,20 @@ def main() -> int:
     out = {"card": card, "torch": torch.__version__, "configs": {}}
     makers = {"bench_config": bench_config,
               "reference": lambda s: reference_preset(seed=s),
-              "stab_bench": stab_config, "moe_dense": moe_config}
+              "stab_bench": stab_config, "moe_dense": moe_config,
+              "rnn_recall": rnn_recall_config}
     for name in args.configs:
-        make = makers[name]
+        make, target = makers[name], SOLVE_R.get(name, -200.0)
         n = len(JAX_JNP_EPOCHS[name])
         n = n if args.seeds is None else min(n, args.seeds)
         rows = []
         for seed in range(n):
             tr = Trainer(make(seed))
             t0 = time.perf_counter()
-            res = tr.solve(SOLVE_R, max_epochs=MAX_EPOCHS)
+            res = tr.solve(target, max_epochs=MAX_EPOCHS)
             torch.cuda.synchronize()
             rows.append({"seed": seed, "epochs": res["epochs"],
-                         "R": res["R"], "solved": res["R"] >= SOLVE_R,
+                         "R": res["R"], "solved": res["R"] >= target,
                          "wall_s": time.perf_counter() - t0})
             print(f"{name} seed {seed}: {json.dumps(rows[-1])}", flush=True)
         epochs = [r["epochs"] for r in rows]
