@@ -239,6 +239,26 @@
    K7 in the policy phase, the hidden plane through K7 against the plain
    core, the aux gradient) and SERVE_RNN (a GRU and an LSTM file served
    on the card, 200 steps against the CPU's cell).
+26. The host actor, the sweeps and the tooling (slice20_phases), with
+   every launch counter read around each run: HOST_SOLVE
+   (HostTrainer(bench_config) on the C++ engine's pendulum, the device
+   actor, "pallas": solve(-200, 40) through train(stop_at_R); a fit 200
+   actor K5 forwards, 2 value-plane K5 forwards, K2, K3, K4, no K1; the
+   first host fit's K5, K2, K3 and K4 against their plain versions, K3
+   and K4 step by step against float64 as the bench's), HOST_OVERLAP
+   (the host actor overlapped, 2 epochs: a fit 2 K5, K2, K3, K4, no actor
+   launch; each window's stored log-probs those of the weights before the
+   update it overlapped, bit for bit; the fit wall and device idle share
+   serial against overlapped), HOST_CARTPOLE (one fit: K6 with K3 and K2
+   on a host trajectory), HOST_SIDECAR (RunningObsNorm and
+   RunningRewardNorm, save, serve.load_policy on the card against
+   HostPolicy on the normalised observations, a fresh load restoring both
+   statistics exactly), SWEEP (solve_many(bench_config(0), [0, 1, 2]):
+   lane 0 equal to the same run's Trainer.solve bit for bit, each lane's
+   K1-K4 and wall) and PROFILE / NAN (profiling.trace of a bench epoch
+   naming K3's and K4's kernels; nan_guard over a bench fit, then over an
+   update on observations with one NaN, which must raise).  No phase
+   needs gymnasium.
 
 Each phase's title line gives the seconds since the script started.
 Any failed check raises, so the script exits non-zero.  The last two lines
@@ -274,6 +294,7 @@ import contextlib
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -5372,8 +5393,8 @@ def slice18_phases(dev, counters, record, bench_k1, bench_k2):
               record, bench_k1, bench_k2)
 
     header("[MOE: examples/moe_expert_parallel.py's single-device mixture, "
-           "4 experts, dense gating ('moe:0'), one epoch]")
-    tr = Trainer(moe_config())
+           "4 experts, dense gating ('moe:0'), one epoch of one fit]")
+    tr = Trainer(moe_config(fits_per_epoch=1))   # no kernel: depth cut
     check_on_card(tr)
     assert tr.backend == "moe:0", tr.backend
     m, counts, wall = counted_run(counters, tr.train_epoch)
@@ -5436,8 +5457,10 @@ def slice18_phases(dev, counters, record, bench_k1, bench_k2):
            [cfg.n_envs] + pw, counts["mlp_forward"], err, fwd,
            mlp_bounds(pw, cfg.n_envs)[0])
 
-    header("[JNP: bench_config(0) with kernel_backend 'jnp', one epoch]")
-    tr = Trainer(bench_config(0).replace(kernel_backend="jnp"))
+    header("[JNP: bench_config(0) with kernel_backend 'jnp', one epoch of "
+           "one fit]")
+    tr = Trainer(bench_config(0).replace(kernel_backend="jnp",
+                                         fits_per_epoch=1))  # no kernel
     m, counts, wall = counted_run(counters, tr.train_epoch)
     ev, ev_counts, _ = counted_run(counters, tr.evaluate)
     print(f"  one epoch {wall:.3f} s, value loss {float(m.value_loss):.3f}; "
@@ -5466,15 +5489,15 @@ def rnn_recall_config(seed: int = 0):
 
     return PPOConfig(**dict(RNN_RECALL, seed=seed))
 # docs/RESULTS.md's pendulum_po schedule at full width, its depth cut to
-# one fit (fits_per_epoch 4 there): 64 envs x 200, minibatch 800 (4
-# sequences), rnn_hidden 32, head (64,)
+# one fit (fits_per_epoch 4 there) of 4 value epochs (10 there): 64 envs x
+# 200, minibatch 800 (4 sequences), rnn_hidden 32, head (64,).  No kernel
+# runs; its wall is the host's, ~130 ms a minibatch step
 PO_GRU = dict(env="pendulum_po", n_envs=64, rollout_len=200,
               minibatch_size=800, fits_per_epoch=1, eval_envs=64,
-              eval_len=200, rnn_hidden=32, hidden=(64,), seed=0)
-# the same on cartpole_po (the categorical head), the fit's value epochs cut
-# from 10 to 4 (depth): its wall is the host's, ~130 ms a minibatch step
-CARTPOLE_PO_GRU = dict(PO_GRU, env="cartpole_po", eval_len=500,
-                       n_epochs_value=4)
+              eval_len=200, rnn_hidden=32, hidden=(64,), seed=0,
+              n_epochs_value=4)
+# the same on cartpole_po (the categorical head)
+CARTPOLE_PO_GRU = dict(PO_GRU, env="cartpole_po", eval_len=500)
 # the memoryless route to the same task: 4 stacked frames into a (64, 64)
 # MLP on the same schedule, "pallas", one epoch of 4 fits
 PO_STACK = dict(env="pendulum_po_stack", n_envs=64, rollout_len=200,
@@ -5790,7 +5813,7 @@ def slice19_phases(dev, counters, record):
                              f"{len(hist)} epochs")
 
     header("[PENDULUM_PO_GRU: pendulum_po, 64 envs x 200, mb 800, rnn_hidden "
-           "32, head (64,), one fit]")
+           "32, head (64,), one fit of 4 value epochs]")
     cfg = PPOConfig(**PO_GRU)
     tr, _ = rnn_fit("PENDULUM_PO_GRU", cfg, dev, counters)
     check_rnn_f64("PENDULUM_PO_GRU", cfg, tr, dev)
@@ -5878,6 +5901,367 @@ def slice19_phases(dev, counters, record):
           flush=True)
 
 
+# --- slice 20: the host actor, the sweeps, profiling and NaN tooling ---------
+
+# HOST_SOLVE's stop: the bench's solve target within 40 epochs
+HOST_SOLVE_EPOCHS = 40
+# HOST_SIDECAR: served actions on the card against HostPolicy's numpy
+# forward on the normalised observations, relative to the larger of 1 and
+# the largest |action| (K5's 3xTF32 products against numpy's float32 dot)
+SIDECAR_REL = 1e-6
+# the overlap's timing: fits timed for the wall, fits profiled for device
+# time
+OVERLAP_FITS = 8
+OVERLAP_PROFILED = 4
+# the profiler's names for K3's and K4's replicated cluster instances
+# (demangled, with or without the enum's cast, or mangled)
+PHASE_KERNEL = re.compile(r"cluster_phase_kernel(?:<(?:\(Kind\))?|IL4Kind)"
+                          r"(\d|VALUE|POLICY)")
+
+
+def host_trainer(cfg, actor="device", overlap=False, venv=None,
+                 eval_venv=None):
+    """HostTrainer(cfg) on the C++ engine's env of cfg's name, on CUDA
+    device 0 by default (the train venv seed 0, the eval venv seed 1)."""
+    from ppoc_tpu_torch.envs import host
+
+    venv = venv or host.NativeHostVecEnv(cfg.env, cfg.n_envs)
+    eval_venv = eval_venv or host.NativeHostVecEnv(cfg.env, cfg.eval_envs,
+                                                   seed=1)
+    tr = host.HostTrainer(cfg, venv, eval_venv, actor=actor, overlap=overlap)
+    check_on_card(tr)
+    return tr
+
+
+def host_fit_rows(cfg, tr, dev):
+    """The first host fit of ``tr`` (a fresh trainer), its kernels against
+    their plain versions: the device actor's window, K5 on its first
+    step's observations (the actor's forward), the two value-plane
+    forwards, K2 on those planes, then K3 and K4 on the fit's rows
+    (check_phases' holds).  Returns {kernel: (err, timings)} and the
+    widths."""
+    import types
+
+    from ppoc_tpu_torch.algo import ppo
+    from ppoc_tpu_torch.models import mlp
+    from ppoc_tpu_torch.ops import cuda_update as cu
+
+    ts = tr.state
+    traj = tr._collect()
+    pp = ts.policy_params
+    k5 = check_mlp(pp["mlp"], traj.obs[0].contiguous(), cfg.activation, dev)
+    v, vn = ppo.value_planes(cfg, ts.v_params, traj)
+    raw = types.SimpleNamespace(**traj._asdict(), value=v, next_value=vn)
+    adv, tgt, k2_err, k2_t = check_gae(cfg, raw, dev)
+    vcols, pcols = phase_rows(cfg, raw, adv, tgt, dev, draw_seed=5)
+    k3 = check_value_phase(cfg, ts, vcols)
+    k4 = check_phase(
+        "policy phase", cu.policy_phase_kernel, cu.policy_phase_plain,
+        (pp["mlp"], pp["log_std"], ts.opt_policy, ts.opt_log_std), pcols,
+        cfg, cfg.lr_policy, [(cfg.clip_eps, cfg.ent_coeff),
+                             (cfg.clip_eps, 0.01)], WHOLE_RATIO["K4"])
+    return ({"mlp_forward": k5[:2], "gae_norm": (k2_err, k2_t),
+             "value_phase": k3, "policy_phase": k4},
+            mlp.dims(pp["mlp"]), mlp.dims(ts.v_params))
+
+
+def stale_windows(tr, fits: int):
+    """``fits`` overlapped fits, each window the host actor collects while
+    an update runs held to the weights before that update: its stored
+    log-probs are HostPolicy(those weights).log_prob of its actions, bit
+    for bit (the primed first window too).  Returns the windows held."""
+    import numpy as np
+
+    def held(policy, traj, what):
+        obs = traj.obs.numpy().reshape(-1, traj.obs.shape[-1])
+        act = traj.action.numpy().reshape(-1, traj.action.shape[-1])
+        if not np.array_equal(policy.log_prob(obs, act),
+                              traj.log_prob.numpy().reshape(-1)):
+            raise AssertionError(f"HOST_OVERLAP: {what}'s log-probs are not "
+                                 f"those of the weights that collected it")
+
+    pre = tr.host_policy()
+    tr._pending = tr._collect(device="cpu")
+    held(pre, tr._pending, "the primed window")
+    for i in range(fits):
+        pre = tr.host_policy()
+        tr._train_fit_overlapped()
+        held(pre, tr._pending, f"window {i + 1}")
+    return fits + 1
+
+
+def fit_wall(tr, fit, dev):
+    """(wall s a fit, device ms a fit, idle share) of ``fit`` on ``tr``,
+    after one warm fit: OVERLAP_FITS fits timed between syncs, then
+    OVERLAP_PROFILED under the profiler for the device's kernel time."""
+    import torch
+
+    fit()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(OVERLAP_FITS):
+        fit()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / OVERLAP_FITS
+    dev_ms = device_ms(fit, OVERLAP_PROFILED, warm=False)
+    return wall, dev_ms, 1.0 - dev_ms / 1e3 / wall
+
+
+def trace_names(trace_dir) -> set:
+    """Every event name in the Chrome traces under ``trace_dir``."""
+    from pathlib import Path
+
+    names = set()
+    for f in Path(trace_dir).glob("*.json"):
+        names |= {e.get("name", "") for e in
+                  json.loads(f.read_text()).get("traceEvents", [])}
+    return names
+
+
+def slice20_phases(dev, counters, record):
+    """The paths slice 20 opens, each on the card with every launch counter
+    read around it: the host actor (HOST_SOLVE, HOST_OVERLAP,
+    HOST_CARTPOLE, HOST_SIDECAR) on the C++ engine, the sweeps (SWEEP) and
+    the tooling (PROFILE / NAN).  Gymnasium is not used."""
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from ppoc_tpu_torch import serve, sweep
+    from ppoc_tpu_torch.algo import ppo
+    from ppoc_tpu_torch.algo.trainer import Trainer
+    from ppoc_tpu_torch.envs import host, wrappers
+    from ppoc_tpu_torch.utils import debug, profiling
+
+    t_phase = time.perf_counter()
+    work = Path(__file__).resolve().parent / "build" / "slice20_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cfg = bench_config(0)
+    fits, T = cfg.fits_per_epoch, cfg.rollout_len
+
+    header(f"[HOST_SOLVE: HostTrainer(bench_config) on the C++ engine's "
+           f"pendulum, the device actor, train(stop_at_R={SOLVE_R}, "
+           f"n_epochs={HOST_SOLVE_EPOCHS})]")
+    tr = host_trainer(cfg)
+    assert tr.backend == "pallas", tr.backend
+    hist, counts, wall = counted_run(counters, lambda: tr.train(
+        n_epochs=HOST_SOLVE_EPOCHS, log=False, stop_at_R=SOLVE_R))
+    n = len(hist)
+    print(f"  epochs {n} (the bench solve: 7), final R {hist[-1]['R']:.3f}, "
+          f"R {[round(h['R'], 3) for h in hist]}, wall {wall:.3f} s, "
+          f"{sum(h['time_s'] for h in hist) / (n * fits):.4f} s a fit",
+          flush=True)
+    if not (math.isfinite(hist[-1]["R"]) and hist[-1]["R"] >= SOLVE_R):
+        raise AssertionError(f"HOST_SOLVE: not solved in "
+                             f"{HOST_SOLVE_EPOCHS} epochs: {hist}")
+    expect_counts("HOST_SOLVE", counts, {
+        "mlp_forward": n * (fits * (T + 2) + cfg.eval_len),
+        "gae_norm": n * fits, "value_phase": n * fits,
+        "policy_phase": n * fits})
+    header("[HOST_SOLVE's first fit: K5, K2, K3, K4 against their plain "
+           "versions]")
+    rows, pw, vw = host_fit_rows(cfg, host_trainer(cfg), dev)
+    mb = cfg.minibatch_size
+    n_v = cfg.n_epochs_value * cfg.num_minibatches
+    n_p = cfg.n_epochs_policy * cfg.num_minibatches
+    path = f"HOST_SOLVE, the device actor, {cfg.n_envs} envs x {T} steps"
+    record("mlp_forward", path + " (the actors' and the value planes' "
+           "forwards, evaluation included)", [cfg.n_envs] + pw,
+           counts["mlp_forward"],
+           *rows["mlp_forward"], mlp_bounds(pw, cfg.n_envs)[0])
+    record("gae_norm", path, [T, cfg.n_envs], counts["gae_norm"],
+           *rows["gae_norm"], gae_bound(T, cfg.n_envs))
+    record("value_phase", path, [n_v, mb] + vw, counts["value_phase"],
+           *rows["value_phase"], phase_bound(vw, n_v, mb, 1))
+    record("policy_phase", path, [n_p, mb] + pw, counts["policy_phase"],
+           *rows["policy_phase"], phase_bound(pw, n_p, mb, 3))
+
+    header("[HOST_OVERLAP: the host actor overlapped with the learner, 2 "
+           "epochs]")
+    tr = host_trainer(cfg, actor="host", overlap=True)
+    held, counts, wall = counted_run(counters,
+                                     lambda: stale_windows(tr, 2 * fits))
+    print(f"  {held} windows' log-probs those of the weights before the "
+          f"update each overlapped, bit for bit ({wall:.3f} s)", flush=True)
+    expect_counts("HOST_OVERLAP, 2 epochs", counts, {
+        "mlp_forward": 2 * fits * 2, "gae_norm": 2 * fits,
+        "value_phase": 2 * fits, "policy_phase": 2 * fits})
+    ev, counts, _ = counted_run(counters, tr.evaluate)
+    print(f"  evaluate(): R {ev.R:.3f} (the host actor's numpy policy)",
+          flush=True)
+    expect_counts("HOST_OVERLAP evaluate()", counts, {})
+    serial = host_trainer(cfg, actor="host")
+    over = host_trainer(cfg, actor="host", overlap=True)
+    s_wall, s_dev, s_idle = fit_wall(serial, serial.train_fit, dev)
+    o_wall, o_dev, o_idle = fit_wall(over, over._train_fit_overlapped, dev)
+    print(f"  a fit, seed 0, the host actor: serial {s_wall * 1e3:.2f} ms "
+          f"wall, {s_dev:.2f} ms device, idle {s_idle:.1%}; overlapped "
+          f"{o_wall * 1e3:.2f} ms wall, {o_dev:.2f} ms device, idle "
+          f"{o_idle:.1%} ({s_wall / o_wall:.2f}x)", flush=True)
+
+    header("[HOST_CARTPOLE: one fit on the C++ engine's cartpole, eval_len "
+           "500]")
+    ccfg = cfg.replace(env="cartpole", eval_len=500)
+    tr = host_trainer(ccfg)
+    m, counts, wall = counted_run(counters, tr.train_fit)
+    print(f"  one fit {wall:.3f} s, value loss {float(m.value_loss):.3f}, "
+          f"entropy {float(m.entropy):.4f}", flush=True)
+    expect_counts("HOST_CARTPOLE fit", counts, {
+        "mlp_forward": T + 2, "gae_norm": 1, "value_phase": 1,
+        "policy_phase_categorical": 1})
+
+    header("[HOST_SIDECAR: RunningObsNorm and RunningRewardNorm, one epoch, "
+           "save, serve on the card, load]")
+
+    def normed():
+        venv = wrappers.RunningRewardNorm(wrappers.RunningObsNorm(
+            host.NativeHostVecEnv("pendulum", cfg.n_envs)), gamma=0.99)
+        eval_venv = wrappers.RunningObsNorm(
+            host.NativeHostVecEnv("pendulum", cfg.eval_envs, seed=1),
+            stats=venv.stats, update=False)
+        return host_trainer(cfg, actor="host", venv=venv,
+                            eval_venv=eval_venv)
+
+    tr = normed()
+    m, counts, wall = counted_run(counters, tr.train_epoch)
+    expect_counts("HOST_SIDECAR epoch", counts, {
+        "mlp_forward": 2 * fits, "gae_norm": fits, "value_phase": fits,
+        "policy_phase": fits})
+    ck = str(work / "sidecar.bin")
+    tr.save(ck)
+    raw = host.NativeHostVecEnv("pendulum", SERVE_ROWS, seed=7).reset()
+    act, counts, _ = counted_run(counters,
+                                 lambda: serve.load_policy(ck)(raw))
+    expect_counts("HOST_SIDECAR act", counts, {"mlp_forward": 1})
+    z = tr.venv.stats.normalize(raw, clip=10.0)
+    want, _ = tr.host_policy().sample(z, np.random.default_rng(0),
+                                      deterministic=True)
+    if act.device != dev:
+        raise AssertionError(f"HOST_SIDECAR: the served actions are on "
+                             f"{act.device}, not the card")
+    check(f"HOST_SIDECAR: {SERVE_ROWS} served actions against HostPolicy on "
+          f"the normalised observations", float(np.abs(
+              act.cpu().numpy() - want).max()) / max(1.0, float(np.abs(
+                  want).max())), SIDECAR_REL, what="max |diff| / max(1, "
+                                                   "|action|)")
+    fresh = normed()
+    fresh.load(ck)
+    for mine, theirs, what in ((fresh.venv.stats, tr.venv.stats, "obs"),
+                               (fresh.venv.ret_stats, tr.venv.ret_stats,
+                                "return")):
+        if not (mine.count == theirs.count
+                and np.array_equal(mine.mean, theirs.mean)
+                and np.array_equal(mine.m2, theirs.m2)):
+            raise AssertionError(f"HOST_SIDECAR: the {what} statistics did "
+                                 f"not load exactly")
+    print(f"  one epoch {wall:.3f} s; the obs statistics over "
+          f"{int(tr.venv.stats.count)} rows and the return statistics over "
+          f"{int(tr.venv.ret_stats.count)} restored exactly", flush=True)
+
+    header("[SWEEP: solve_many(bench_config(0), [0, 1, 2], -200, 40), lane 0 "
+           "against Trainer(bench_config(0)).solve]")
+    lanes = []
+    for seed in (0, 1, 2):
+        out, counts, wall = counted_run(counters, lambda: sweep.solve_many(
+            cfg, [seed], SOLVE_R, 40))
+        e = out["epochs"][0]
+        expect_counts(f"SWEEP lane {seed}", counts, {
+            "rollout[pendulum]/values": e * fits,
+            "rollout[pendulum]/metrics": e, "gae_norm": e * fits,
+            "value_phase": e * fits, "policy_phase": e * fits})
+        print(f"  lane {seed}: epochs {e}, R {out['R'][0]:.3f}, wall "
+              f"{wall:.3f} s", flush=True)
+        lanes.append((e, out["R"][0]))
+    out, counts, wall = counted_run(counters, lambda: sweep.solve_many(
+        cfg, [0, 1, 2], SOLVE_R, 40))
+    tr = Trainer(cfg)
+    res = tr.solve(SOLVE_R, 40)
+    print(f"  three lanes {wall:.3f} s: epochs {out['epochs']}, R "
+          f"{[round(r, 3) for r in out['R']]}; Trainer.solve epochs "
+          f"{res['epochs']}, R {res['R']:.3f}", flush=True)
+    if list(zip(out["epochs"], out["R"])) != lanes:
+        raise AssertionError(f"SWEEP: the three-lane run {out['epochs']} "
+                             f"{out['R']} is not its lanes' {lanes}")
+    if (out["epochs"][0], out["R"][0]) != (res["epochs"], res["R"]):
+        raise AssertionError(f"SWEEP: lane 0 {out['epochs'][0]} "
+                             f"{out['R'][0]} is not Trainer.solve's {res}")
+    from ppoc_tpu_torch.ops import adam
+    for a, b in zip(adam.tree_leaves(tuple(out["states"])),
+                    adam.tree_leaves(tuple(tr.state))):
+        if not torch.equal(torch.as_tensor(a)[0].to(dev),
+                           torch.as_tensor(b).to(dev)):
+            raise AssertionError("SWEEP: lane 0's state is not "
+                                 "Trainer.solve's bit for bit")
+    if not all(r >= SOLVE_R for r in out["R"]):
+        raise AssertionError(f"SWEEP: a lane did not solve: {out}")
+
+    header("[PROFILE / NAN: profiling.trace of a bench epoch; nan_guard over "
+           "a bench fit and an update on one NaN observation]")
+    tr = Trainer(cfg)
+    trace_dir = work / "trace"
+    with profiling.trace(str(trace_dir)):
+        tr.train_epoch()
+        profiling.sync(tr.state)
+    found = {m.group(1) for name in trace_names(trace_dir)
+             for m in [PHASE_KERNEL.search(name)] if m}
+    print(f"  trace: K3/K4 cluster instances named {sorted(found)}",
+          flush=True)
+    if not ({"0", "VALUE"} & found and {"1", "POLICY"} & found):
+        raise AssertionError(f"PROFILE: the trace names no K3 or no K4 "
+                             f"kernel: {sorted(found)}")
+    env, ts = tr.env, tr.state
+    draws = ppo.draw_fit(cfg, torch.Generator().manual_seed(6), dev, env)
+    t0 = time.perf_counter()
+    with debug.nan_guard():
+        _, m = ppo.fit_step(cfg, env, ts, draws)
+    print(f"  nan_guard over a bench fit: clean, value loss "
+          f"{float(m.value_loss):.3f} ({time.perf_counter() - t0:.3f} s)",
+          flush=True)
+    traj, _, _ = ppo.rollout(cfg, env, ts.policy_params, draws.seed,
+                             cfg.n_envs, T, v_params=ts.v_params)
+    obs = traj.obs.clone()
+    obs[17, 5, 1] = float("nan")
+    try:
+        with debug.nan_guard():
+            ppo.update_step(cfg, env, ts, traj._replace(obs=obs), draws,
+                            None)
+    except FloatingPointError as e:
+        print(f"  the NaN control raised: {e}", flush=True)
+    else:
+        raise AssertionError("NAN: an update on a NaN observation passed "
+                             "the guard")
+    err, _ = debug.checked(lambda: ppo.fit_step(cfg, env, ts, draws))()
+    if err.get() is not None:
+        raise AssertionError(f"NAN: checked(fit_step) found {err.get()}")
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"  slice 20 phases: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def launch_counters():
+    """Every kernel wrapper's launch counter (K1 by lane, mode and
+    variant; the rest by kernel and variant)."""
+    from ppoc_tpu_torch.ops import (cuda_attn, cuda_gae, cuda_mlp,
+                                    cuda_rollout, cuda_update)
+
+    return [*cuda_rollout.lane_launches.values(),
+            *cuda_rollout.global_launches.values(), cuda_gae.launches,
+            cuda_update.value_launches, cuda_update.policy_launches,
+            cuda_update.categorical_launches,
+            cuda_update.value_global_launches,
+            cuda_update.policy_global_launches,
+            cuda_update.categorical_global_launches, cuda_mlp.fwd_launches,
+            cuda_mlp.bwd_launches, cuda_mlp.fwd_global_launches,
+            cuda_mlp.bwd_global_launches, cuda_attn.fwd_launches,
+            cuda_attn.dq_launches, cuda_attn.dkv_launches,
+            cuda_attn.fwd_bf16_launches, cuda_attn.dq_bf16_launches,
+            cuda_attn.dkv_bf16_launches, cuda_update.value_bf16_launches,
+            cuda_update.policy_bf16_launches]
+
+
 def main() -> int:
     import torch
 
@@ -5909,19 +6293,7 @@ def main() -> int:
         if "registers" in line or "spill" in line.lower():
             print("  nvcc:", line.strip(), flush=True)
     _build.load()
-    counters = [*cuda_rollout.lane_launches.values(),
-                *cuda_rollout.global_launches.values(), cuda_gae.launches,
-                cuda_update.value_launches, cuda_update.policy_launches,
-                cuda_update.categorical_launches,
-                cuda_update.value_global_launches,
-                cuda_update.policy_global_launches,
-                cuda_update.categorical_global_launches, cuda_mlp.fwd_launches,
-                cuda_mlp.bwd_launches, cuda_mlp.fwd_global_launches,
-                cuda_mlp.bwd_global_launches, cuda_attn.fwd_launches,
-                cuda_attn.dq_launches, cuda_attn.dkv_launches,
-                cuda_attn.fwd_bf16_launches, cuda_attn.dq_bf16_launches,
-                cuda_attn.dkv_bf16_launches, cuda_update.value_bf16_launches,
-                cuda_update.policy_bf16_launches]
+    counters = launch_counters()
     results = []
 
     def record(name, path, shape, launches, err, times, bound, library=None):
@@ -6223,6 +6595,7 @@ def main() -> int:
     slice18_phases(dev, counters, record, (k1_err, k1_t, k1_bound),
                    (k2_err, k2_t))
     slice19_phases(dev, counters, record)
+    slice20_phases(dev, counters, record)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
           f"build included", flush=True)

@@ -193,6 +193,15 @@ def draw_fit(cfg: PPOConfig, generator: torch.Generator,
     else:
         loop = draw_loop(env, generator, cfg.n_envs, cfg.rollout_len, device,
                          noise=True)
+    return draw_streams(cfg, generator, device)._replace(seed=seed, seq=loop)
+
+
+def draw_streams(cfg: PPOConfig, generator: torch.Generator,
+                 device: torch.device) -> FitDraws:
+    """Draw one fit's value and policy row-id (block-id, with
+    cfg.shuffle_block) streams from ``generator``: the draws of a learner
+    on a trajectory collected elsewhere (``envs/host.py``), with no seed
+    words and no loop draws."""
     args = (cfg.steps_per_fit, cfg.num_minibatches, cfg.minibatch_size)
 
     def epoch():
@@ -204,8 +213,8 @@ def draw_fit(cfg: PPOConfig, generator: torch.Generator,
     def stream(n_epochs):
         return torch.stack([epoch() for _ in range(n_epochs)]).to(device)
 
-    return FitDraws(seed, stream(cfg.n_epochs_value),
-                    stream(cfg.n_epochs_policy), loop)
+    return FitDraws(None, stream(cfg.n_epochs_value),
+                    stream(cfg.n_epochs_policy))
 
 
 # --------------------------------------------------------------------------
@@ -489,8 +498,8 @@ class KernelFit(NamedTuple):
     variant: Optional[str]
 
 
-def kernel_fit(cfg: PPOConfig, optin: int,
-               env: Optional[Env] = None) -> List[KernelFit]:
+def kernel_fit(cfg: PPOConfig, optin: int, env: Optional[Env] = None,
+               rollout: bool = True) -> List[KernelFit]:
     """The kernels ``cfg``'s MLP path launches on the card, in path order,
     each with its shared-memory needs from the widths alone (the ops
     modules' ``variant_bytes``) and the variant that fits a block's
@@ -503,8 +512,9 @@ def kernel_fit(cfg: PPOConfig, optin: int,
     without the V planes: the MLP products are library calls and no
     whole-phase kernel runs.  "jnp" (so a GRU/LSTM trunk) and a mixture
     ("moe:*") launch no kernel that takes the widths (K2 takes none), nor
-    do K2 and K7 on an attention trunk: their lists are empty.  Needs no
-    card."""
+    do K2 and K7 on an attention trunk: their lists are empty.
+    ``rollout=False`` lists a host actor's learner (``envs/host.py``),
+    which launches no K1 whatever the env's name.  Needs no card."""
     backend = backend_of(cfg)
     if cfg.attn_dim > 0 or backend not in ("pallas", "bf16"):
         return []
@@ -512,7 +522,7 @@ def kernel_fit(cfg: PPOConfig, optin: int,
     spec = env.spec
     pw = (spec.obs_dim, *cfg.hidden, spec.action_dim)
     vw = (spec.obs_dim, *cfg.hidden, 1)
-    lane = uses_rollout_kernel(cfg, env)
+    lane = rollout and uses_rollout_kernel(cfg, env)
     if backend == "bf16":
         plan = [(f"K1 (rollout, {spec.name} lane)", (pw,),
                  cuda_rollout.variant_bytes(pw))] if lane else []

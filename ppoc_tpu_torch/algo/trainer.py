@@ -60,11 +60,13 @@ def check_ported(cfg: PPOConfig) -> None:
                 for k, (v, item) in bad.items()))
 
 
-def check_kernel_fit(cfg: PPOConfig, env, optin: int) -> None:
+def check_kernel_fit(cfg: PPOConfig, env, optin: int,
+                     rollout: bool = True) -> None:
     """Raise NotImplementedError if a kernel of cfg's path takes its nets
     in neither variant within a block's ``optin`` bytes of shared memory
-    (``ppo.kernel_fit``), naming the first such kernel and its widths."""
-    for k in ppo.kernel_fit(cfg, optin, env):
+    (``ppo.kernel_fit``; ``rollout=False``: a host actor's learner, no
+    K1), naming the first such kernel and its widths."""
+    for k in ppo.kernel_fit(cfg, optin, env, rollout):
         if k.variant is None:
             raise NotImplementedError(
                 f"{k.kernel} takes the nets {' and '.join(map(str, k.widths))}"
@@ -111,6 +113,29 @@ def score(trainer, episodes: int = 100, deterministic: bool = True,
             f"eval_len >= the env horizon?")
     return {"J": tot_j / tot_n, "R": tot_r / tot_n,
             "episodes": int(tot_n), "rounds": rounds}
+
+
+def restore(trainer, ck, path: str) -> None:
+    """Put checkpoint ``ck`` (read from ``path``) into ``trainer`` (a
+    Trainer or an ``envs/host.HostTrainer``): params and the three Adam
+    states on its device, the file's shapes held to its own (an attention
+    positional table may grow), and, from a file the port wrote, the
+    generator's position."""
+    from ppoc_tpu_torch.utils import checkpoint, params
+
+    state = checkpoint.adapt_to_template(ck.state, trainer.state)
+    checkpoint._check_template(state, trainer.state)
+    trainer.state = params.train_state_from_numpy(state, trainer.device)
+    if ck.generator is not None:
+        trainer.generator.set_state(ck.generator)
+    else:
+        warnings.warn(
+            f"{path} holds no torch generator state (the JAX package "
+            f"writes its PRNG key words, which a torch.Generator cannot "
+            f"continue): params and the three Adam states are restored, "
+            f"the draw stream is not; this trainer keeps drawing from "
+            f"its own generator (seed {trainer.cfg.seed})",
+            checkpoint.DrawStreamWarning, stacklevel=4)
 
 
 class Trainer:
@@ -288,21 +313,7 @@ class Trainer:
         self._restore(checkpoint.load(path), path)
 
     def _restore(self, ck, path: str) -> None:
-        from ppoc_tpu_torch.utils import checkpoint, params
-
-        state = checkpoint.adapt_to_template(ck.state, self.state)
-        checkpoint._check_template(state, self.state)
-        self.state = params.train_state_from_numpy(state, self.device)
-        if ck.generator is not None:
-            self.generator.set_state(ck.generator)
-        else:
-            warnings.warn(
-                f"{path} holds no torch generator state (the JAX package "
-                f"writes its PRNG key words, which a torch.Generator cannot "
-                f"continue): params and the three Adam states are restored, "
-                f"the draw stream is not; this trainer keeps drawing from "
-                f"its own generator (seed {self.cfg.seed})",
-                checkpoint.DrawStreamWarning, stacklevel=3)
+        restore(self, ck, path)
 
     @classmethod
     def from_checkpoint(cls, path: str, device=None,

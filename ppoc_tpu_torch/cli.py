@@ -3,6 +3,8 @@
     python -m ppoc_tpu_torch --env pendulum --n-epochs 10 --save model.bin
     python -m ppoc_tpu_torch --resume model.bin --n-epochs 5
     python -m ppoc_tpu_torch --eval-only --load model.bin --det-eval
+    python -m ppoc_tpu_torch --env gym:Pendulum-v1 --actor host --overlap
+    python -m ppoc_tpu_torch --sweep 4 --solve-R -200
 
 Builds the env and trainer, evaluates, trains n_epochs with per-epoch
 metrics lines and saves the model.  Every PPOConfig field is a flag, on
@@ -13,14 +15,21 @@ JAX package's checkpoint files and the reference ppo.c format
 (``utils/checkpoint.py``, ``utils/ref_interop.py``); ``--supervise``
 restarts a crashed or preempted run from its checkpoint
 (``utils/supervisor.py``).  SIGTERM with ``--save`` finishes the epoch,
-checkpoints and exits with ``supervisor.PREEMPTED_EXIT``.
+checkpoints and exits with ``supervisor.PREEMPTED_EXIT``.  ``--env
+gym:<id>`` trains on a Gymnasium env through the host bridge
+(``envs/gym_bridge.GymTrainer``, with ``--actor``, ``--overlap``,
+``--vector-mode``, ``--obs-norm``, ``--reward-norm``); ``--sweep`` /
+``--grid`` run seed and hyperparameter sweeps (``sweep.py``); ``--profile
+DIR`` writes a profiler trace of the training run (``utils/profiling``).
+All under the JAX CLI's guards.
 
-The JAX CLI's flags whose modules are not ported are kept and refused by
-name, with the ROADMAP.md item that ports them.
+The JAX CLI's multi-device flags are kept and refused by name, with the
+ROADMAP.md item that ports them.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -36,13 +45,6 @@ _NOT_PORTED = (
     (("mesh", "coordinator", "num_processes", "process_id"),
      "multi-device and multi-host training (parallel/; ROADMAP.md §1 "
      "item 16)"),
-    (("sweep", "grid"),
-     "seed and hyperparameter sweeps (sweep.py; ROADMAP.md §1 item 10)"),
-    (("profile",), "profiler traces (utils/profiling.py; ROADMAP.md §1 "
-                   "item 9)"),
-    (("obs_norm", "reward_norm", "overlap", "actor", "vector_mode"),
-     "the host actor and its gym:* envs (envs/gym_bridge.py, envs/host.py; "
-     "ROADMAP.md §1 item 13)"),
 )
 
 
@@ -107,21 +109,45 @@ def build_parser() -> argparse.ArgumentParser:
                    help=nyp)
     p.add_argument("--process-id", type=int, default=None, metavar="I",
                    help=nyp)
-    p.add_argument("--sweep", type=int, default=0, metavar="S", help=nyp)
+    p.add_argument("--sweep", type=int, default=0, metavar="S",
+                   help="seed sweep: train S seeds (seed..seed+S-1), one "
+                        "Trainer a lane (sweep.py); with --solve-R per-seed "
+                        "epochs and R, else per-seed learning curves. "
+                        "On-device envs")
     p.add_argument("--grid", action="append", default=None,
-                   metavar="HP=V1,V2,...", help=nyp)
-    p.add_argument("--profile", metavar="DIR", default=None, help=nyp)
-    p.add_argument("--actor", choices=["host", "device"], default=None,
-                   help=nyp)
-    p.add_argument("--overlap", action="store_true", help=nyp)
-    p.add_argument("--vector-mode", choices=["sync", "async"], default=None,
-                   help=nyp)
+                   metavar="HP=V1,V2,...",
+                   help="hyperparameter grid axis (repeatable): train every "
+                        "combination of the values, crossed with --sweep S "
+                        "seeds if given (sweep.solve_grid / train_grid); HP "
+                        "is one of sweep.SWEEPABLE_HPARAMS")
+    p.add_argument("--profile", metavar="DIR", default=None,
+                   help="write a torch.profiler Chrome trace of the "
+                        "training run into DIR (utils/profiling.trace)")
+    p.add_argument("--actor", choices=["host", "device"], default="host",
+                   help="gym:* envs only: 'host', a numpy policy on the "
+                        "host, weights copied once a fit; 'device', one "
+                        "batched policy forward a step on the card")
+    p.add_argument("--overlap", action="store_true",
+                   help="gym:* envs: collect window i+1 on the host while "
+                        "the card fits window i (one-fit-stale actor "
+                        "weights; requires --actor host)")
+    p.add_argument("--vector-mode", choices=["sync", "async"],
+                   default="sync",
+                   help="gym:* envs only: gymnasium.vector stepping mode")
     p.add_argument("--calibrate", action="store_true",
-                   help="measure observation statistics with a random "
-                        "policy before training and bake them into "
-                        "obs_loc/obs_scale (envs.wrappers.calibrate)")
-    p.add_argument("--obs-norm", action="store_true", help=nyp)
-    p.add_argument("--reward-norm", action="store_true", help=nyp)
+                   help="on-device envs only: measure observation "
+                        "statistics with a random policy before training "
+                        "and bake them into obs_loc/obs_scale "
+                        "(envs.wrappers.calibrate)")
+    p.add_argument("--obs-norm", action="store_true",
+                   help="gym:* envs only: running observation "
+                        "normalisation (envs.wrappers.RunningObsNorm), its "
+                        "statistics saved as an .obsnorm.npz sidecar")
+    p.add_argument("--reward-norm", action="store_true",
+                   help="gym:* envs only: training rewards scaled by the "
+                        "running std of the discounted return "
+                        "(envs.wrappers.RunningRewardNorm); evaluation "
+                        "reports raw-reward J/R")
 
     # every config field becomes a flag
     for f in dataclasses.fields(PPOConfig):
@@ -182,6 +208,80 @@ def _json_safe(row: dict) -> dict:
             for k, v in row.items()}
 
 
+def _sweep(parser, args, cfg, device) -> int:
+    """--sweep / --grid: the JAX CLI's sweep branch (``ppoc_tpu/cli.py:
+    288-360``), its guards and its output lines, one Trainer a lane."""
+    from ppoc_tpu_torch import sweep as sweep_mod
+
+    if args.sweep and args.sweep < 1:
+        parser.error(f"--sweep needs a positive seed count, got {args.sweep}")
+    if (cfg.env.startswith("gym:") or args.load or args.resume
+            or args.import_ref or args.eval_only):
+        parser.error("--sweep/--grid run fresh on-device single-device "
+                     "training only (no gym:/--mesh/--load/--resume/"
+                     "--import-ref/--eval-only)")
+    if args.save or args.export_ref or args.det_eval \
+            or args.stop_at_R is not None:
+        parser.error("--save/--export-ref/--det-eval/--stop-at-R do not "
+                     "apply to --sweep/--grid (per-lane statistics only; "
+                     "use --solve-R for the stop threshold, then train the "
+                     "winning config normally to get a checkpoint)")
+    seeds = list(range(cfg.seed, cfg.seed + max(args.sweep, 1)))
+    if args.grid:
+        axes = {}
+        for spec in args.grid:
+            name, eq, vals = spec.partition("=")
+            name = name.replace("-", "_")
+            if not eq or not vals:
+                parser.error(f"--grid expects HP=V1,V2,... , got {spec!r}")
+            if name not in sweep_mod.SWEEPABLE_HPARAMS:
+                parser.error(f"--grid {name}: not sweepable; choose from "
+                             f"{', '.join(sweep_mod.SWEEPABLE_HPARAMS)}")
+            try:
+                axes[name] = [float(v) for v in vals.split(",")]
+            except ValueError:
+                parser.error(f"--grid {spec!r}: values must be numbers")
+        if args.solve_R is not None:
+            out = sweep_mod.solve_grid(cfg, axes, target_R=args.solve_R,
+                                       seeds=seeds, max_epochs=cfg.n_epochs,
+                                       device=device)
+            for c, e, r in zip(out["combos"], out["epochs"], out["R"]):
+                hp = {k: v for k, v in c.items() if k != "seed"}
+                print(f"{hp} seed={c['seed']} solved={r >= args.solve_R} "
+                      f"epochs={e} R={r:f}")
+            best = out["combos"][out["best"]]
+            print(f"best: {best} (epochs={out['epochs'][out['best']]}, "
+                  f"R={out['R'][out['best']]:f})")
+            return 0
+        out = sweep_mod.train_grid(cfg, axes, seeds=seeds,
+                                   n_epochs=args.n_epochs, device=device)
+        for c, curve in zip(out["combos"], out["R"]):
+            row = dict(c)
+            row["R"] = [round(float(x), 3) if math.isfinite(float(x))
+                        else None for x in curve]
+            print(json.dumps(row))
+        return 0
+    if args.solve_R is not None:
+        out = sweep_mod.solve_many(cfg, seeds, target_R=args.solve_R,
+                                   max_epochs=cfg.n_epochs, device=device)
+        for s, e, r in zip(seeds, out["epochs"], out["R"]):
+            print(f"seed={s} solved={r >= args.solve_R} epochs={e} R={r:f}")
+        return 0
+    out = sweep_mod.train_many(cfg, seeds, n_epochs=args.n_epochs,
+                               device=device)
+    R = out["R"]
+    for i, s in enumerate(seeds):
+        print(json.dumps({"seed": s,
+                          "R": [round(float(x), 3) for x in R[i]]}))
+    if R.shape[1]:   # --n-epochs 0 has no final epoch to summarise
+        print(f"final R over {len(seeds)} seeds: "
+              f"mean={float(R[:, -1].mean()):.3f} "
+              f"std={float(R[:, -1].std()):.3f} "
+              f"min={float(R[:, -1].min()):.3f} "
+              f"max={float(R[:, -1].max()):.3f}")
+    return 0
+
+
 def main(argv=None) -> int:
     from ppoc_tpu_torch import config as config_mod
     from ppoc_tpu_torch.algo import trainer as trainer_mod
@@ -207,16 +307,14 @@ def main(argv=None) -> int:
               "(a checkpoint is written at the end when --save is given)",
               file=sys.stderr)
     cfg = config_from_args(args)
-    if cfg.env.startswith("gym:"):
-        parser.error(f"--env {cfg.env}: the host bridge's gym:* envs are not "
-                     f"ported to ppoc_tpu_torch yet (ROADMAP.md §1 item 13)")
+    gym = cfg.env.startswith("gym:")
     if args.calibrate:
-        if args.resume or args.import_ref or args.load:
-            parser.error("--calibrate applies to fresh runs (--resume/"
-                         "--import-ref/--load carry weights trained under "
-                         "their OWN normalization -- calibrating underneath "
-                         "them would skew every observation the policy "
-                         "sees)")
+        if gym or args.resume or args.import_ref or args.load:
+            parser.error("--calibrate applies to fresh on-device-env runs "
+                         "(gym:* envs use --obs-norm; --resume/--import-ref/"
+                         "--load carry weights trained under their OWN "
+                         "normalization -- calibrating underneath them "
+                         "would skew every observation the policy sees)")
         if cfg.obs_loc or cfg.obs_scale:
             parser.error("--calibrate would overwrite the explicit "
                          "--obs-loc/--obs-scale values; pass one or the "
@@ -241,20 +339,48 @@ def main(argv=None) -> int:
         if not (args.save and args.checkpoint_every > 0):
             parser.error("--supervise requires --save PATH and "
                          "--checkpoint-every N (the restart source)")
-        if args.solve_R is not None or args.eval_only:
+        if args.solve_R is not None or args.eval_only or args.sweep \
+                or args.grid:
             parser.error("--supervise applies to epoch-loop training, not "
-                         "--solve-R/--eval-only")
+                         "--solve-R/--eval-only/--sweep/--grid (sweeps "
+                         "write no checkpoint to restart from)")
         first = [a for i, a in enumerate(raw_argv)
                  if a != "--supervise" and not a.startswith("--supervise=")
                  and not (i > 0 and raw_argv[i - 1] == "--supervise")]
-        restart = supervisor.build_restart_argv(raw_argv, args.save)
+        restart = supervisor.build_restart_argv(raw_argv, args.save,
+                                                gym_env=gym)
         return supervisor.supervise(first, restart, args.save,
                                     max_restarts=args.supervise)
 
     device = platform_device(parser)
+    if args.sweep or args.grid:
+        return _sweep(parser, args, cfg, device)
     Trainer = trainer_mod.Trainer
     epoch_offset = 0  # cumulative epochs_done carried across restarts
-    if args.import_ref:
+    if gym:
+        # the host bridge on any Gymnasium env (the reference's
+        # create_gym_env path, src/main.c:25)
+        if args.solve_R is not None or args.resume or args.import_ref:
+            parser.error("gym:* envs use the host bridge; --solve-R, "
+                         "--resume, --import-ref and --mesh apply to "
+                         "on-device envs only")
+        from ppoc_tpu_torch.envs.gym_bridge import GymTrainer
+
+        trainer = GymTrainer(cfg, cfg.env[4:], vector_mode=args.vector_mode,
+                             actor=args.actor, obs_norm=args.obs_norm,
+                             reward_norm=args.reward_norm,
+                             overlap=args.overlap, device=device)
+        if args.load:
+            trainer.load(args.load)
+    elif args.obs_norm or args.reward_norm:
+        parser.error("--obs-norm/--reward-norm apply to gym:* host-bridge "
+                     "envs; on-device envs use --calibrate (config-carried "
+                     "static normalization)")
+    elif args.overlap:
+        parser.error("--overlap (host actor/learner pipelining) applies to "
+                     "gym:* host-bridge envs; on-device envs have no host "
+                     "actor to overlap")
+    elif args.import_ref:
         if args.load or args.resume:
             parser.error("--import-ref replaces --load/--resume")
         # hyperparameters the reference file carries win unless the
@@ -279,8 +405,9 @@ def main(argv=None) -> int:
         saved = checkpoint.load(args.resume)
         if saved.cfg is not None and saved.cfg.env.startswith("gym:"):
             parser.error(f"{args.resume} was trained on the host bridge "
-                         f"({saved.cfg.env}), which is not ported "
-                         f"(ROADMAP.md §1 item 13)")
+                         f"({saved.cfg.env}); --resume is device-only — use "
+                         f"--env {saved.cfg.env} --load {args.resume} "
+                         f"instead")
         # config flags are ignored on --resume, but for --n-epochs (below)
         # and --kernel-backend
         resume_kw = ({} if args.kernel_backend is None
@@ -359,14 +486,26 @@ def main(argv=None) -> int:
             os._exit(98)  # a simulated hard crash: no cleanup, no save
         return preempted["flag"]
 
+    prof_ctx = contextlib.nullcontext()
+    if args.profile:
+        from ppoc_tpu_torch.utils import profiling
+
+        prof_ctx = profiling.trace(args.profile)
     try:
-        history = trainer.train(log=not args.jsonl, stop_at_R=args.stop_at_R,
-                                initial_eval=not args.resume,
-                                eval_deterministic=args.det_eval,
-                                on_epoch_end=on_epoch_end, **train_kw)
+        with prof_ctx:
+            # a gym env skips the pre-training evaluation: a whole host
+            # rollout (HostTrainer.train's default too)
+            history = trainer.train(log=not args.jsonl,
+                                    stop_at_R=args.stop_at_R,
+                                    initial_eval=not (args.resume or gym),
+                                    eval_deterministic=args.det_eval,
+                                    on_epoch_end=on_epoch_end, **train_kw)
     finally:
         if prev_handler is not None:
             signal.signal(signal.SIGTERM, prev_handler)
+    if args.profile:
+        print(f"profiler trace written to {args.profile} (open with "
+              f"Perfetto or chrome://tracing)", file=sys.stderr)
     if preempted["flag"]:
         if args.save:
             n_done = epoch_offset + len(history)

@@ -7,13 +7,19 @@ config-carried :func:`affine_obs` (``cfg.obs_loc``/``obs_scale``) and
 the partial observability of the recurrent family, :func:`mask_obs` (the
 ``pendulum_po`` and ``cartpole_po`` envs) and :func:`stack_obs` (the
 memoryless route, ``pendulum_po_stack``).  Physics, rewards and episode
-structure are untouched.  The running normalisation of host environments
-is not ported yet.
+structure are untouched.
+
+The host actor's running normalisers, :class:`RunningStats`,
+:class:`RunningObsNorm` and :class:`RunningRewardNorm`
+(``ppoc_tpu/envs/wrappers.py:258-430``), wrap a host-protocol venv
+(``envs/host.py``).  They are float64 numpy on the host, with the JAX
+package's update order, so their outputs equal its bit for bit.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -201,3 +207,158 @@ def make_mountain_car_norm() -> Env:
         high=np.array([mc.MAX_POSITION, mc.MAX_SPEED], np.float32),
         name="mountain_car_norm",
     )
+
+
+class RunningStats:
+    """Running mean and variance over observation rows: batched Welford
+    (Chan's merge) in float64 on the host.  One instance is shared between
+    the training and the eval venv's wrappers, so evaluation sees the
+    training feature space."""
+
+    def __init__(self, dim: int):
+        self.count = 0.0
+        self.mean = np.zeros(dim, np.float64)
+        self.m2 = np.zeros(dim, np.float64)
+
+    def update(self, batch: np.ndarray) -> None:
+        b = np.asarray(batch, np.float64).reshape(-1, self.mean.shape[0])
+        n = b.shape[0]
+        if n == 0:
+            return
+        bmean = b.mean(axis=0)
+        bm2 = np.square(b - bmean).sum(axis=0)
+        tot = self.count + n
+        delta = bmean - self.mean
+        self.mean = self.mean + delta * (n / tot)
+        self.m2 = self.m2 + bm2 + np.square(delta) * (self.count * n / tot)
+        self.count = tot
+
+    def variance(self) -> np.ndarray:
+        if self.count < 1:
+            return np.ones_like(self.m2)
+        return self.m2 / self.count
+
+    def normalize(self, x: np.ndarray, clip: float, eps: float = 1e-8
+                  ) -> np.ndarray:
+        if self.count < 2:     # no information yet: identity
+            return np.asarray(x, np.float32)
+        z = (np.asarray(x, np.float64) - self.mean) / np.sqrt(
+            self.variance() + eps)
+        return np.clip(z, -clip, clip).astype(np.float32)
+
+    def state_dict(self) -> dict:
+        return {"count": np.float64(self.count), "mean": self.mean,
+                "m2": self.m2}
+
+    def load_state_dict(self, d) -> None:
+        self.count = float(d["count"])
+        self.mean = np.asarray(d["mean"], np.float64).copy()
+        self.m2 = np.asarray(d["m2"], np.float64).copy()
+
+    def save(self, path: str, **extra) -> None:
+        """Write the sidecar atomically (a temporary file, then a rename),
+        so a crash mid-save leaves the old sidecar or the new one, never a
+        truncated zip; ``extra`` scalars (clip, eps) ride along so serving
+        replays the exact normalisation."""
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            np.savez(f, **self.state_dict(), **extra)
+        os.replace(tmp, path)
+
+    @classmethod
+    def load(cls, path: str) -> "RunningStats":
+        d = np.load(path)
+        out = cls(int(np.asarray(d["mean"]).shape[0]))
+        out.load_state_dict(d)
+        return out
+
+
+class RunningObsNorm:
+    """Host-protocol venv wrapper: observations normalised by the running
+    mean and variance.  The statistics update on the actor side only
+    (``update=False``, with a shared ``stats``, for the eval venv, which
+    reads them without writing)."""
+
+    def __init__(self, venv, stats: Optional[RunningStats] = None,
+                 update: bool = True, clip: float = 10.0, eps: float = 1e-8):
+        self.venv = venv
+        self.spec = venv.spec
+        self.n_envs = venv.n_envs
+        self.stats = RunningStats(venv.spec.obs_dim) if stats is None else stats
+        self.update = update
+        self.clip = float(clip)
+        self.eps = float(eps)
+
+    def _norm(self, x: np.ndarray) -> np.ndarray:
+        return self.stats.normalize(x, self.clip, self.eps)
+
+    def reset(self) -> np.ndarray:
+        obs = self.venv.reset()
+        if self.update:
+            self.stats.update(obs)
+        return self._norm(obs)
+
+    def step(self, actions: np.ndarray):
+        obs_after, next_obs, reward, term, trunc = self.venv.step(actions)
+        if self.update:
+            self.stats.update(obs_after)
+        # both streams with the same (post-update) statistics, so the GAE
+        # bootstrap V(next_obs) and the policy input agree; next_obs
+        # differs from obs_after only at done rows, so only those are
+        # normalised again
+        n_after = self._norm(obs_after)
+        done = np.nonzero(np.asarray(term) | np.asarray(trunc))[0]
+        if done.size == 0:
+            n_next = n_after
+        else:
+            n_next = n_after.copy()
+            n_next[done] = self._norm(next_obs[done])
+        return n_after, n_next, reward, term, trunc
+
+    def close(self):
+        self.venv.close()
+
+
+class RunningRewardNorm:
+    """Host-protocol venv wrapper: rewards divided (not centred) by the
+    running standard deviation of the discounted return G_t = gamma
+    G_{t-1} + r_t per env, reset at episode ends.  For the training venv
+    only: evaluation reports raw-reward J and R.  The obs statistics of an
+    inner :class:`RunningObsNorm` pass through as ``stats``."""
+
+    def __init__(self, venv, gamma: float, clip: float = 10.0,
+                 eps: float = 1e-8, update: bool = True,
+                 ret_stats: Optional[RunningStats] = None):
+        self.venv = venv
+        self.spec = venv.spec
+        self.n_envs = venv.n_envs
+        self.gamma = float(gamma)
+        self.clip = float(clip)
+        self.eps = float(eps)
+        self.update = update
+        self.ret_stats = RunningStats(1) if ret_stats is None else ret_stats
+        self._ret = np.zeros(venv.n_envs, np.float64)
+
+    @property
+    def stats(self):
+        return getattr(self.venv, "stats", None)
+
+    def reset(self) -> np.ndarray:
+        self._ret[:] = 0.0
+        return self.venv.reset()
+
+    def step(self, actions: np.ndarray):
+        obs_after, next_obs, reward, term, trunc = self.venv.step(actions)
+        r = np.asarray(reward, np.float64)
+        self._ret = self.gamma * self._ret + r
+        if self.update:
+            self.ret_stats.update(self._ret[:, None])
+        done = np.asarray(term) | np.asarray(trunc)
+        self._ret[done] = 0.0
+        if self.ret_stats.count >= 2:
+            scale = np.sqrt(self.ret_stats.variance()[0] + self.eps)
+            r = np.clip(r / scale, -self.clip, self.clip)
+        return obs_after, next_obs, r.astype(np.float32), term, trunc
+
+    def close(self):
+        self.venv.close()

@@ -21,9 +21,12 @@ policy through the KV-cache decode step (``load_attention_policy``; an
 auxiliary value head in the file is never read).  Files from either
 package load (``utils/checkpoint.py``).
 
-Not ported: the ``.obsnorm.npz`` running-statistics sidecar of the host
-actor, ROADMAP.md §1 item 13.  The config-carried affine normalisation
-(``obs_loc`` / ``obs_scale``) is applied.
+A policy trained behind the host actor's running normalisation
+(``envs/wrappers.RunningObsNorm``) sees its observations normalised with
+the statistics, clip and eps of the ``.obsnorm.npz`` sidecar beside the
+file, as ``ppoc_tpu/serve.py:93-115``; the config-carried affine
+normalisation (``obs_loc`` / ``obs_scale``) likewise, and a file with both
+is refused as ambiguous.
 """
 from __future__ import annotations
 
@@ -80,14 +83,38 @@ def _load(path: str, ck, device):
         raise ValueError(
             f"{path}: version-2 checkpoint has no embedded config; re-save "
             f"it with this version (Trainer.save) first")
-    if os.path.exists(path + ".obsnorm.npz"):
-        raise NotImplementedError(
-            f"{path} has an .obsnorm.npz sidecar: the host actor's running "
-            f"observation statistics (envs/wrappers.RunningStats) are not "
-            f"ported yet (ROADMAP.md §1 item 13)")
     dev = resolve_device(device)
+    norm = _affine_norm(ck.cfg, dev)
+    sidecar = path + ".obsnorm.npz"
+    if os.path.exists(sidecar):
+        if norm is not None:
+            raise ValueError(
+                f"{path} carries BOTH config obs_loc/obs_scale and an "
+                f".obsnorm.npz sidecar; ambiguous normalization")
+        norm = _sidecar_norm(sidecar, dev)
     pol = params.policy_from_numpy(ck.state.policy_params, dev)
-    return pol, _resolve_spec(ck.cfg, ck.dims), _affine_norm(ck.cfg, dev)
+    return pol, _resolve_spec(ck.cfg, ck.dims), norm
+
+
+def _sidecar_norm(sidecar: str, dev):
+    """obs -> the training-time running normalisation from an
+    ``.obsnorm.npz`` sidecar (``envs/wrappers.RunningStats``, with the
+    sidecar's clip and eps, else the wrapper's defaults), in float64 on the
+    host as the wrapper computes it, the result float32 on ``dev``
+    (``ppoc_tpu/serve.py:93-115``)."""
+    from ppoc_tpu_torch.envs.wrappers import RunningStats
+
+    saved = np.load(sidecar)
+    stats = RunningStats(int(np.asarray(saved["mean"]).shape[0]))
+    stats.load_state_dict(saved)
+    clip = float(saved["clip"]) if "clip" in saved else 10.0
+    eps = float(saved["eps"]) if "eps" in saved else 1e-8
+
+    def norm(x):
+        z = stats.normalize(x.detach().cpu().numpy(), clip=clip, eps=eps)
+        return torch.as_tensor(z).to(dev)
+
+    return norm
 
 
 def _obs_tensor(obs, norm, dev):

@@ -300,20 +300,25 @@ def blob(payload: bytes) -> bytes:
 
 
 def save(path: str, cfg, spec, state, generator=None,
+         keep_sidecars: tuple = (),
          meta: Optional[Dict[str, Any]] = None) -> None:
     """Write cfg (full config JSON), the env dims, the TrainState and the
     generator's state to ``path`` in the CRC blob container.
 
     Stale normalisation sidecars (``<path>.obsnorm.npz`` /
-    ``.retnorm.npz``, which the JAX package's host trainer writes) are
-    removed after the write, so a re-save at the same path never leaves
-    foreign statistics for serving to apply (the port writes neither)."""
+    ``.retnorm.npz``, the host trainer's running statistics) are removed
+    after the write, so a re-save at the same path by a trainer without
+    them never leaves foreign statistics for serving to apply.  A trainer
+    that owns them names their suffixes in ``keep_sidecars`` and re-writes
+    them itself right after this call (``envs/host.HostTrainer.save``), as
+    ``ppoc_tpu/utils/checkpoint.py:253-298``: deleting those here would
+    open a window with a valid checkpoint and no statistics."""
     buf = io.BytesIO()
     _save_stream(buf, cfg, spec, state, generator, meta=meta)
     with open(path, "wb") as f:
         f.write(blob(buf.getvalue()))
     for sidecar in (".obsnorm.npz", ".retnorm.npz"):
-        if os.path.exists(path + sidecar):
+        if sidecar not in keep_sidecars and os.path.exists(path + sidecar):
             os.remove(path + sidecar)
 
 

@@ -12,7 +12,8 @@ the newest checkpoint until the original schedule completes:
     crash-looping.
   * CLI ``--supervise N`` (``ppoc_tpu_torch/cli.py``) builds the restart
     argv (:func:`build_restart_argv`): ``--resume CKPT``, bit for bit, the
-    remaining epochs from the checkpoint's ``epochs_done``.
+    remaining epochs from the checkpoint's ``epochs_done``; a gym
+    host-bridge env ``--load CKPT`` on its own flags.
   * Graceful preemption: the supervised child traps SIGTERM, finishes the
     epoch, checkpoints and exits with :data:`PREEMPTED_EXIT`.
     ``PPOC_FAULT_EPOCH=k`` hard-kills the child right after global epoch
@@ -86,21 +87,23 @@ def supervise(
     return rc  # pragma: no cover (the loop always returns)
 
 
-def build_restart_argv(argv: Sequence[str],
-                       checkpoint_path: str) -> List[str]:
+def build_restart_argv(argv: Sequence[str], checkpoint_path: str,
+                       gym_env: bool = False) -> List[str]:
     """A CLI argv in its crash-restart form: any --load / --resume /
-    --import-ref / --n-epochs, --calibrate (a fresh-run flag: its
-    statistics live in the checkpoint's config) and the --supervise flag
-    itself are stripped, then ``--resume CKPT`` points the run at the checkpoint (bit
-    for bit; the remaining epochs from the file's epochs_done: on
-    --resume an explicit --n-epochs means "this many more", but a restart
-    must finish the original schedule).  The JAX package's ``--load``
-    restart of the host bridge's gym envs comes with them (ROADMAP.md §1
-    item 13)."""
+    --import-ref, --calibrate (a fresh-run flag: its statistics live in
+    the checkpoint's config) and the --supervise flag itself are stripped,
+    then the run is pointed at the checkpoint.  An on-device env restarts
+    with ``--resume CKPT`` (bit for bit; --n-epochs is stripped too, since
+    on --resume it means "this many more", and a restart finishes the
+    original schedule from the file's epochs_done).  A gym host-bridge env
+    (``gym_env``) restarts from its flags with ``--load CKPT``, keeping
+    --n-epochs: the optimisation state exact, the episodes fresh
+    (``ppoc_tpu/utils/supervisor.py:103-145``)."""
     out: List[str] = []
     skip = False
-    drop_with_value = {"--load", "--resume", "--import-ref", "--supervise",
-                       "--n-epochs"}
+    drop_with_value = {"--load", "--resume", "--import-ref", "--supervise"}
+    if not gym_env:
+        drop_with_value.add("--n-epochs")
     for a in argv:
         if skip:
             skip = False
@@ -113,4 +116,5 @@ def build_restart_argv(argv: Sequence[str],
         if any(a.startswith(d + "=") for d in drop_with_value):
             continue
         out.append(a)
-    return out + ["--resume", checkpoint_path]
+    return out + (["--load", checkpoint_path] if gym_env
+                  else ["--resume", checkpoint_path])

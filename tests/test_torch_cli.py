@@ -3,7 +3,9 @@ elastic supervisor (utils/supervisor.py), mirroring tests/test_cli.py and
 tests/test_supervisor.py: every PPOConfig field a flag, the presets,
 --save then --resume on the CPU (PPOC_PLATFORM=cpu), each flag whose
 module is not ported refused by name, the supervisor's restart loop with
-stub runners, and one fault drill end to end in subprocesses.
+stub runners, and one fault drill end to end in subprocesses.  The host
+bridge's gym:* path with its actor and normaliser flags, --sweep/--grid
+and --profile route as the JAX CLI routes them, under its guards.
 """
 import dataclasses
 import json
@@ -70,12 +72,6 @@ def test_every_config_field_has_a_flag():
     (["--mesh", "4"], "item 16"), (["--coordinator", "h:1"], "item 16"),
     (["--num-processes", "2"], "item 16"), (["--process-id", "0"],
                                            "item 16"),
-    (["--sweep", "2"], "item 10"), (["--grid", "lr-v=1e-3"], "item 10"),
-    (["--profile", "d"], "item 9"),
-    (["--obs-norm"], "item 13"), (["--reward-norm"], "item 13"),
-    (["--overlap"], "item 13"), (["--actor", "host"], "item 13"),
-    (["--vector-mode", "async"], "item 13"),
-    (["--env", "gym:Pendulum-v1"], "item 13"),
     (["--zero1", "true"], "item 16"),
     (["--n-experts", "2", "--ep-size", "2"], "item 16"),
 ])
@@ -216,6 +212,110 @@ def test_build_restart_argv():
     out = supervisor.build_restart_argv(argv, "ck.bin")
     assert out == ["--env", "simple", "--save", "ck.bin",
                    "--checkpoint-every", "1", "--resume", "ck.bin"]
+
+
+def test_build_restart_argv_gym_uses_load():
+    """A gym host-bridge run restarts from its flags with --load, keeping
+    --n-epochs, as the JAX supervisor's."""
+    from ppoc_tpu.utils import supervisor as jsupervisor
+
+    argv = ["--env", "gym:Pendulum-v1", "--supervise", "3", "--save",
+            "ck.bin", "--checkpoint-every", "1", "--n-epochs", "4",
+            "--obs-norm", "--resume=x.bin"]
+    out = supervisor.build_restart_argv(argv, "ck.bin", gym_env=True)
+    assert out == jsupervisor.build_restart_argv(argv, "ck.bin", gym_env=True)
+    assert out[-2:] == ["--load", "ck.bin"] and "--n-epochs" in out
+
+
+GYM = ["--env", "gym:Pendulum-v1", "--n-envs", "4", "--rollout-len", "32",
+       "--minibatch-size", "32", "--fits-per-epoch", "1", "--hidden", "8",
+       "8", "--eval-envs", "2", "--eval-len", "200", "--n-epochs", "1"]
+
+
+@pytest.mark.parametrize("argv", [
+    [], ["--actor", "device"], ["--overlap"],
+    ["--obs-norm", "--reward-norm", "--vector-mode", "sync"],
+])
+def test_gym_env_trains_through_the_host_bridge(argv, tmp_path, capsys,
+                                                 on_cpu):
+    """--env gym:<id> trains a GymTrainer (the JAX CLI's default actor
+    "host"), skips the pre-training evaluation, saves the config under
+    the gym name and, with --obs-norm/--reward-norm, both sidecars; --load
+    restores them."""
+    pytest.importorskip("gymnasium")
+    ck = str(tmp_path / "g.bin")
+    assert cli.main(GYM + argv + ["--save", ck]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("Epoch: 0") and "J:" in out
+    assert checkpoint.load(ck).cfg.env == "gym:Pendulum-v1"
+    norm = "--obs-norm" in argv
+    assert os.path.exists(ck + ".obsnorm.npz") == norm
+    assert os.path.exists(ck + ".retnorm.npz") == norm
+    assert cli.main(GYM + argv + ["--load", ck, "--eval-only"]) == 0
+    assert capsys.readouterr().out.startswith("J:")
+
+
+@pytest.mark.parametrize("argv,what", [
+    (GYM + ["--solve-R", "0"], "host bridge"),
+    (GYM + ["--import-ref", "x.bin"], "host bridge"),
+    (GYM + ["--calibrate"], "--calibrate"),
+    (GYM + ["--overlap", "--actor", "device"], "overlap=True requires"),
+    (BASE + ["--obs-norm"], "--obs-norm/--reward-norm apply to gym"),
+    (BASE + ["--reward-norm"], "--obs-norm/--reward-norm apply to gym"),
+    (BASE + ["--overlap"], "--overlap (host actor"),
+    (BASE + ["--sweep", "-1"], "positive seed count"),
+    (BASE + ["--sweep", "2", "--save", "x.bin"], "do not apply"),
+    (BASE + ["--sweep", "2", "--det-eval"], "do not apply"),
+    (BASE + ["--sweep", "2", "--load", "x.bin"], "fresh on-device"),
+    (GYM + ["--sweep", "2"], "fresh on-device"),
+    (BASE + ["--sweep", "2", "--supervise", "2", "--save", "x.bin",
+             "--checkpoint-every", "1"], "--supervise applies"),
+    (BASE + ["--grid", "lr-policy"], "HP=V1,V2"),
+    (BASE + ["--grid", "minibatch_size=32,64"], "not sweepable"),
+    (BASE + ["--grid", "lr-policy=a,b"], "must be numbers"),
+    (BASE + ["--grid", "lr-policy=1e-4", "--save", "x.bin"], "do not apply"),
+    (BASE + ["--grid", "lr-policy=1e-4", "--mesh", "2"], "item 16"),
+])
+def test_host_bridge_and_sweep_guards(argv, what, capsys, on_cpu):
+    """The JAX CLI's guards on the gym path, the normaliser and overlap
+    flags and --sweep/--grid: each a parser error naming its reason (the
+    JAX CLI exits on each of these argvs too, tests/test_sweep.py and
+    tests/test_cli.py)."""
+    pytest.importorskip("gymnasium")
+    with pytest.raises((SystemExit, ValueError)) as e:
+        cli.main(argv)
+    if e.type is SystemExit:
+        assert e.value.code == 2
+        assert what in capsys.readouterr().err
+    else:
+        assert what in str(e.value)
+
+
+@pytest.mark.parametrize("argv,lines", [
+    (["--sweep", "2", "--solve-R=-1e9"], ["seed=1 solved=True epochs=1",
+                                          "seed=2 solved=True epochs=1"]),
+    (["--sweep", "2", "--n-epochs", "1"], ['{"seed": 1, "R": [',
+                                           "final R over 2 seeds: mean="]),
+    (["--grid", "lr-policy=1e-3,3e-4", "--solve-R=-1e9"],
+     ["{'lr_policy': 0.001} seed=1 solved=True epochs=1", "best: "]),
+    (["--grid", "clip-eps=0.1", "--sweep", "2", "--n-epochs", "1"],
+     ['{"clip_eps": 0.1, "seed": 1, "R": [',
+      '{"clip_eps": 0.1, "seed": 2, "R": [']),
+])
+def test_sweep_and_grid_print_the_jax_lines(argv, lines, capsys, on_cpu):
+    """--sweep and --grid run one Trainer a lane (seeds from --seed) and
+    print the JAX CLI's lines."""
+    assert cli.main(BASE[:-2] + argv) == 0
+    out = capsys.readouterr().out
+    for line in lines:
+        assert line in out, out
+
+
+def test_profile_writes_a_trace(tmp_path, capsys, on_cpu):
+    d = str(tmp_path / "prof")
+    assert cli.main(BASE + ["--n-epochs", "1", "--profile", d]) == 0
+    assert "profiler trace written to" in capsys.readouterr().err
+    assert any(f.endswith(".json") for f in os.listdir(d))
 
 
 def test_supervise_restarts_until_success(tmp_path):

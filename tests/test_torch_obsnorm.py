@@ -1,6 +1,7 @@
 """Port parity for the affine observation wrapper and ``calibrate``
 (``ppoc_tpu_torch/envs/wrappers.py``): tests/test_obsnorm.py:19-123
-mirrored (its sweep case waits for ``sweep.py``, ROADMAP.md §1 item 10),
+mirrored (its sweep case is tests/test_torch_sweep.py's
+``test_sweep_respects_affine``),
 and an affine env under "pallas": the env loop through K5's plain
 version, the two whole-buffer V forwards, K2, K3 and K4, against the JAX
 package's fit on ``pendulum#affine`` with its kernels in interpret mode

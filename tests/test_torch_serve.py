@@ -240,10 +240,53 @@ def test_stochastic_categorical_serving(tmp_path):
 
 
 def test_unported_serving_paths_are_refused(tmp_path):
-    p = _jax_file(tmp_path, "dense_gaussian")
-    open(p + ".obsnorm.npz", "wb").write(b"x")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 13"):
+    """The running-statistics sidecar is served now (below); what stays
+    refused is the JAX server's ambiguous case, a file whose config
+    carries obs_loc/obs_scale beside an .obsnorm.npz sidecar."""
+    from ppoc_tpu_torch.envs.wrappers import RunningStats
+
+    cfg = PPOConfig(env="pendulum", hidden=(8,), obs_loc=(0.0, 0.0, 0.0),
+                    obs_scale=(1.0, 2.0, 8.0))
+    from ppoc_tpu_torch.algo.trainer import Trainer
+    tr = Trainer(cfg, "cpu")
+    p = str(tmp_path / "both.bin")
+    tr.save(p)
+    RunningStats(3).save(p + ".obsnorm.npz", clip=np.float64(10.0))
+    with pytest.raises(ValueError, match="ambiguous normalization"):
         serve.load_policy(p, device="cpu")
+
+
+def test_obsnorm_sidecar_serves_jax_actions(tmp_path):
+    """A JAX host trainer's file with its .obsnorm.npz sidecar (clip 3,
+    eps 1e-4, statistics from the native engine's stream): the port serves
+    the JAX package's deterministic actions on raw observations (within
+    REL), acting on the sidecar's normalisation; without the sidecar the
+    actions differ."""
+    import shutil
+
+    from ppoc_tpu import PPOConfig as JPPOConfig
+    from ppoc_tpu.envs import host as jhost, wrappers as jwrappers
+
+    cfg = JPPOConfig(env="pendulum", n_envs=8, rollout_len=16,
+                     minibatch_size=32, eval_envs=4, hidden=(16, 16),
+                     kernel_backend="jnp")
+    venv = jwrappers.RunningObsNorm(jhost.NativeHostVecEnv("pendulum", 8),
+                                    clip=3.0, eps=1e-4)
+    venv.reset()
+    for _ in range(40):
+        venv.step(np.random.default_rng(0).uniform(-2, 2, (8, 1)))
+    tr = jhost.HostTrainer(cfg, venv, jhost.NativeHostVecEnv("pendulum", 4))
+    p = str(tmp_path / "n.bin")
+    tr.save(p)
+    raw = np.random.default_rng(1).normal(size=(64, 3)).astype(np.float32)
+    raw[:, 2] *= 8.0
+    ours = serve.load_policy(p, device="cpu")(raw)
+    _close(ours.numpy(), np.asarray(jserve.load_policy(p)(raw)))
+    shutil.copy(p, tmp_path / "bare.bin")
+    bare = serve.load_policy(str(tmp_path / "bare.bin"), device="cpu")
+    assert not np.allclose(bare(raw).numpy(), ours.numpy())
+    z = venv.stats.normalize(raw, clip=3.0, eps=1e-4)
+    _close(ours.numpy(), bare(z).numpy())
 
 
 def test_serving_runs_on_the_card_by_default(tmp_path):
