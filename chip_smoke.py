@@ -259,6 +259,20 @@
    naming K3's and K4's kernels; nan_guard over a bench fit, then over an
    update on observations with one NaN, which must raise).  No phase
    needs gymnasium.
+27. The relief valves and the single-device examples (slice21_phases),
+   with every launch counter read around each run: VALVES
+   (bench_config against bench_config with fits_per_program=2, two
+   epochs each: every param and Adam leaf, the metrics and the K1-K4
+   launches equal; the committed recall_curriculum_1024_s0.bin against
+   the same with fit_dispatch="phased" and rollout_chunk=256, one fit
+   each: bit for bit, K7's three kernels alone and equal; the 8192 and
+   16384 rungs built on the card with their own valves and
+   check_kernel_fit), CURRICULUM (examples_torch/recall_xl_curriculum.py
+   resuming the committed 512, 1024 and 2048 rungs in a temporary
+   directory: each rung evaluated, R >= 0.9, exit 0, no launch, no file
+   rewritten) and TRAIN_PENDULUM (examples_torch/train_pendulum.py at
+   full size: solved, K1-K4 as the bench solve's, its ppo_model.bin
+   reloaded to every leaf and an equal mean-policy evaluation).
 
 Each phase's title line gives the seconds since the script started.
 Any failed check raises, so the script exits non-zero.  The last two lines
@@ -298,6 +312,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 SOLVE_R = -200.0
 THROUGHPUT_EPOCHS = 4
@@ -4797,7 +4812,7 @@ def checkpoint_phases(tr, dev, counters, record):
     from ppoc_tpu_torch.algo.trainer import Trainer
     from ppoc_tpu_torch.envs import vector_reset
     from ppoc_tpu_torch.models import mlp
-    from ppoc_tpu_torch.ops import adam, cuda_mlp as cm
+    from ppoc_tpu_torch.ops import cuda_mlp as cm
     from ppoc_tpu_torch.utils import ref_interop
 
     t0 = time.perf_counter()
@@ -4814,14 +4829,6 @@ def checkpoint_phases(tr, dev, counters, record):
     def launched():
         torch.cuda.synchronize()
         return {k: v for k, v in zip(names, (c.n for c in counters)) if v}
-
-    def same_leaves(label, a, b):
-        la, lb = adam.tree_leaves(a), adam.tree_leaves(b)
-        if len(la) != len(lb) or not all(
-                (torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y)
-                for x, y in zip(la, lb)):
-            raise AssertionError(f"{label}: the states differ")
-        print(f"  {label}: {len(la)} leaves equal bit for bit", flush=True)
 
     # 1. save, then rebuild from the file alone, on the card by default
     p = str(work / "bench.bin")
@@ -5214,6 +5221,21 @@ def replay_first_fit(cfg, env, ts, gen_state, dev):
     return card, cpu, (sum(flags[:n_v]), sum(flags[n_v:]), len(flags) - n_v)
 
 
+def same_leaves(label, a, b) -> None:
+    """Every leaf of two trees (a TrainState: params and the three Adam
+    states) equal bit for bit."""
+    import torch
+
+    from ppoc_tpu_torch.ops import adam
+
+    la, lb = adam.tree_leaves(a), adam.tree_leaves(b)
+    if len(la) != len(lb) or not all(
+            (torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y)
+            for x, y in zip(la, lb)):
+        raise AssertionError(f"{label}: the states differ")
+    print(f"  {label}: {len(la)} leaves equal bit for bit", flush=True)
+
+
 def counted_run(counters, fn):
     """(fn's result, the launch counts it made, its wall in s)."""
     import torch
@@ -5241,7 +5263,9 @@ def expect_counts(label, counts, want):
 def on_card(tree) -> bool:
     from ppoc_tpu_torch.ops import adam
 
-    return all(t.is_cuda for t in adam.tree_leaves(tree) if t.numel())
+    # a TrainState's leaves include the Adam steps, Python ints
+    return all(t.is_cuda for t in adam.tree_leaves(tree)
+               if hasattr(t, "is_cuda") and t.numel())
 
 
 def stab_path(cfg, label, dev, counters, record, bench_k1, bench_k2):
@@ -6241,6 +6265,214 @@ def slice20_phases(dev, counters, record):
           flush=True)
 
 
+# slice 21: the relief valves and the single-device examples
+VALVE_EPOCHS = 2              # VALVES (a): bench epochs a side
+VALVE_CHUNK = 256             # VALVES (b): rollout_chunk on the 1024 file
+CURRICULUM_RUNGS = (512, 1024, 2048)
+CURRICULUM_R = 0.9            # the script's own bar on the last rung
+# the rungs' stochastic R on the CPU (the port's plain versions, generator
+# seed 0, 64 episodes): a card evaluation draws other samples
+CURRICULUM_CPU_R = {1024: 0.969, 2048: 0.953}
+
+
+def load_example(name: str):
+    """examples_torch/<name>.py as a module of its own."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "examples_torch" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"_example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(mod, argv, cwd, counters):
+    """``mod.main(argv)`` in ``cwd`` with its standard output captured and
+    echoed indented: (exit code, the output, launches, wall in s)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.chdir(cwd), contextlib.redirect_stdout(buf):
+        rc, counts, wall = counted_run(counters, lambda: mod.main(argv))
+    out = buf.getvalue()
+    for line in out.splitlines():
+        print(f"    | {line}", flush=True)
+    return rc, out, counts, wall
+
+
+def nonzero(counts) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def slice21_phases(dev, counters, record):
+    """The paths slice 21 opens, on the card with every launch counter read
+    around each: VALVES (the relief valves as the no-ops they are in an
+    eager port: a valved bench run and a valved run of the committed 1024
+    rung bit for bit as without them, with equal launches; the 8192 and
+    16384 rungs built on the card with their own valves), CURRICULUM
+    (examples_torch/recall_xl_curriculum.py resuming the committed 512,
+    1024 and 2048 rungs by evaluation) and TRAIN_PENDULUM
+    (examples_torch/train_pendulum.py at full size, its file reloaded).
+    ``record`` is unused: no kernel here is new, each is checked and timed
+    against its plain version where its path first runs."""
+    import filecmp
+    import shutil
+    from pathlib import Path
+
+    from ppoc_tpu_torch.algo import ppo
+    from ppoc_tpu_torch.algo.trainer import Trainer, check_kernel_fit
+    from ppoc_tpu_torch.models import attn
+    from ppoc_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    work = root / "build" / "slice21_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+
+    cfg = bench_config(0)
+    header(f"[VALVES (a): bench_config and bench_config with "
+           f"fits_per_program=2, {VALVE_EPOCHS} epochs each from seed 0]")
+    runs = {}
+    for label, kw in (("fused", {}),
+                      ("fits_per_program=2", dict(fits_per_program=2))):
+        tr = Trainer(cfg.replace(**kw))
+        check_on_card(tr)
+        metrics, counts, wall = counted_run(counters, lambda: [
+            tuple(float(x) for x in tr.train_epoch())
+            for _ in range(VALVE_EPOCHS)])
+        runs[label] = (tr, metrics, counts)
+        print(f"  {label}: wall {wall:.3f} s, metrics {metrics}, launches "
+              f"{nonzero(counts)}", flush=True)
+    (a, m_a, n_a), (b, m_b, n_b) = runs.values()
+    same_leaves("VALVES (a)", a.state, b.state)
+    if m_a != m_b or n_a != n_b:
+        raise AssertionError(f"VALVES (a): metrics or launches differ: "
+                             f"{m_a} {m_b} {n_a} {n_b}")
+    fits = VALVE_EPOCHS * cfg.fits_per_epoch
+    expect_counts("VALVES (a), each side", n_b, {
+        "rollout[pendulum]/values": fits, "gae_norm": fits,
+        "value_phase": fits, "policy_phase": fits})
+
+    rung = root / "recall_curriculum_1024_s0.bin"
+    header(f"[VALVES (b): Trainer.from_checkpoint({rung.name}) and the same "
+           f"with fit_dispatch='phased', rollout_chunk={VALVE_CHUNK}; one "
+           f"epoch each, cut to one fit]")
+    runs = {}
+    for label, kw in (("fused", {}),
+                      ("phased", dict(fit_dispatch="phased",
+                                      rollout_chunk=VALVE_CHUNK))):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")   # a JAX file: no draw stream
+            tr = Trainer.from_checkpoint(str(rung), fits_per_epoch=1, **kw)
+        check_on_card(tr)
+        metrics, counts, wall = counted_run(
+            counters, lambda: tuple(float(x) for x in tr.train_epoch()))
+        runs[label] = (tr, metrics, counts)
+        print(f"  {label}: wall {wall:.3f} s, metrics {metrics}, launches "
+              f"{nonzero(counts)}", flush=True)
+    (a, m_a, n_a), (b, m_b, n_b) = runs.values()
+    same_leaves("VALVES (b)", a.state, b.state)
+    if m_a != m_b or n_a != n_b:
+        raise AssertionError(f"VALVES (b): metrics or launches differ: "
+                             f"{m_a} {m_b} {n_a} {n_b}")
+    if min(n_b[k] for k in K7_NAMES) < 1:
+        raise AssertionError(f"VALVES (b): the fit launched no K7: {n_b}")
+    expect_counts("VALVES (b), each side: K7 alone", n_b,
+                  {k: n_b[k] for k in K7_NAMES})
+
+    header("[VALVES (c): the 8192 and 16384 rungs with their own valves, "
+           "built on the card; no fit]")
+    for T in (8192, 16384):
+        path = root / f"recall_curriculum_{T}_s0.bin"
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            tr = Trainer.from_checkpoint(str(path))
+        check_on_card(tr)
+        check_kernel_fit(tr.cfg, tr.env, _build.smem_optin(dev))
+        c = tr.cfg
+        window = attn.window(tr.state.policy_params["mlp"])
+        if window != T + 1 or not on_card(tr.state):
+            raise AssertionError(f"VALVES (c): {path.name}: table {window}")
+        fit = [(k.kernel, k.variant)
+               for k in ppo.kernel_fit(c, _build.smem_optin(dev), tr.env)]
+        print(f"  {path.name}: fit_dispatch {c.fit_dispatch!r}, "
+              f"rollout_chunk {c.rollout_chunk}, fits_per_program "
+              f"{c.fits_per_program}; pos table {window} slots; on "
+              f"{tr.device}; kernel_fit {fit} "
+              f"({time.perf_counter() - t0:.2f} s)", flush=True)
+
+    header(f"[CURRICULUM: examples_torch/recall_xl_curriculum.py 0 "
+           f"{CURRICULUM_RUNGS[-1]}, resuming the committed rungs "
+           f"{list(CURRICULUM_RUNGS)} by evaluation]")
+    cur = work / "curriculum"
+    cur.mkdir()
+    for T in CURRICULUM_RUNGS:
+        shutil.copy(root / f"recall_curriculum_{T}_s0.bin", cur)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        rc, out, counts, wall = run_example(
+            load_example("recall_xl_curriculum"),
+            ["recall_xl_curriculum.py", "0", str(CURRICULUM_RUNGS[-1])],
+            cur, counters)
+    rs = {int(t): float(r) for t, r in re.findall(
+        r"T=(\d+) \(\w+\): resumed from \S+, evaluated R ([\d.]+)", out)}
+    print(f"  exit {rc}, wall {wall:.3f} s; R by rung {rs} (the CPU's "
+          f"{CURRICULUM_CPU_R}); launches {nonzero(counts)} (the decode "
+          f"loop: PyTorch ops, no kernel)", flush=True)
+    if rc != 0 or sorted(rs) != list(CURRICULUM_RUNGS[1:]) or min(
+            rs.values()) < CURRICULUM_R:
+        raise AssertionError(f"CURRICULUM: exit {rc}, R {rs}")
+    expect_counts("CURRICULUM", counts, {})
+    for T in CURRICULUM_RUNGS:
+        name = f"recall_curriculum_{T}_s0.bin"
+        if not filecmp.cmp(cur / name, root / name, shallow=False):
+            raise AssertionError(f"CURRICULUM rewrote {name}")
+    if len(list(cur.iterdir())) != len(CURRICULUM_RUNGS):
+        raise AssertionError(f"CURRICULUM wrote {list(cur.iterdir())}")
+
+    header("[TRAIN_PENDULUM: examples_torch/train_pendulum.py at full size, "
+           "then its ppo_model.bin reloaded]")
+    mod = load_example("train_pendulum")
+    made = []
+
+    class Recorded(mod.Trainer):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            made.append(self)
+
+    mod.Trainer = Recorded
+    tp = work / "train_pendulum"
+    tp.mkdir()
+    rc, out, counts, wall = run_example(mod, ["train_pendulum.py"], tp,
+                                        counters)
+    m = re.search(r"solved=(\w+) after (\d+) epochs, R=(-?[\d.]+)", out)
+    if rc != 0 or m is None or m.group(1) != "True":
+        raise AssertionError(f"TRAIN_PENDULUM: exit {rc}, {out!r}")
+    n = int(m.group(2))
+    tr = made[0]
+    check_on_card(tr)
+    fits = n * tr.cfg.fits_per_epoch
+    print(f"  exit {rc}, {n} epochs, wall {wall:.3f} s", flush=True)
+    expect_counts("TRAIN_PENDULUM", counts, {
+        "rollout[pendulum]/values": fits, "rollout[pendulum]/metrics": n,
+        "gae_norm": fits, "value_phase": fits, "policy_phase": fits})
+    back = Trainer.from_checkpoint(str(tp / "ppo_model.bin"))
+    check_on_card(back)
+    same_leaves("TRAIN_PENDULUM's file", tr.state, back.state)
+    ev, ev_back = (t.evaluate(deterministic=True) for t in (tr, back))
+    print(f"  deterministic evaluation: saving trainer {ev}, reloaded "
+          f"{ev_back}", flush=True)
+    if ev != ev_back or not ev.episodes:
+        raise AssertionError(f"TRAIN_PENDULUM: the reloaded trainer's "
+                             f"evaluation {ev_back} != {ev}")
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"  slice 21 phases: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def launch_counters():
     """Every kernel wrapper's launch counter (K1 by lane, mode and
     variant; the rest by kernel and variant)."""
@@ -6596,6 +6828,7 @@ def main() -> int:
                    (k2_err, k2_t))
     slice19_phases(dev, counters, record)
     slice20_phases(dev, counters, record)
+    slice21_phases(dev, counters, record)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
           f"build included", flush=True)

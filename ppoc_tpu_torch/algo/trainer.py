@@ -20,6 +20,7 @@ the policy (``transplant_value_trunk``) once eval R has failed to gain
 """
 from __future__ import annotations
 
+import os
 import time
 import warnings
 from typing import Any, Dict, List, Optional
@@ -39,10 +40,10 @@ class EvalWindowWarning(UserWarning):
 
 # PPOConfig fields whose non-default settings select parts of the JAX
 # package that are not ported yet: the value that is supported, and the
-# ROADMAP.md §1 item that ports them.
+# ROADMAP.md §1 item that ports them.  The relief valves (fit_dispatch,
+# rollout_chunk, fits_per_program) are not here: the port runs every fit
+# eagerly, so each is already what it asks for (``solve`` refuses them).
 _NOT_PORTED = {
-    "fit_dispatch": ("fused", 15),
-    "rollout_chunk": (0, 15), "fits_per_program": (0, 15),
     "tp_size": (1, 16), "pp_size": (1, 16), "ep_size": (1, 16),
     "sp_size": (1, 16), "zero1": (False, 16),
 }
@@ -84,6 +85,24 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "the port runs on CUDA device 0 by default, and CUDA is not "
             "available; pass device=\"cpu\" to run on the CPU")
+    return torch.device("cuda", 0)
+
+
+def platform_device() -> torch.device:
+    """The device ``PPOC_PLATFORM`` pins, for the CLI, serving and the
+    examples (``examples_torch/``): "cpu" -> the CPU; unset, "cuda" or
+    "gpu" -> CUDA device 0, which raises without CUDA rather than fall
+    back to the CPU."""
+    plat = os.environ.get("PPOC_PLATFORM", "")
+    if plat == "cpu":
+        return torch.device("cpu")
+    if plat not in ("", "cuda", "gpu"):
+        raise ValueError(f"PPOC_PLATFORM={plat!r}: the port runs on 'cpu' "
+                         f"or 'cuda'")
+    if not torch.cuda.is_available():
+        raise RuntimeError("the port runs on CUDA device 0, and CUDA is not "
+                           "available; set PPOC_PLATFORM=cpu to run on the "
+                           "CPU")
     return torch.device("cuda", 0)
 
 
@@ -290,7 +309,17 @@ class Trainer:
 
     def solve(self, target_R: float, max_epochs: int = 100) -> Dict[str, Any]:
         """Train until eval R >= target_R (or max_epochs); returns
-        {"epochs": n, "R": R}."""
+        {"epochs": n, "R": R}.  Refuses a config that sets a relief valve,
+        as the JAX package's ``solve`` does (``ppoc_tpu/algo/trainer.py:
+        970-978``)."""
+        if (self.cfg.fit_dispatch != "fused" or self.cfg.fits_per_program
+                or self.cfg.rollout_chunk):
+            raise ValueError(
+                "solve() does not take the fit_dispatch/fits_per_program/"
+                "rollout_chunk relief valves: the JAX package refuses them "
+                "there, since its solve compiles the whole train-until loop "
+                "as one program; use train(stop_at_R=...) with these "
+                "settings")
         self.state, n, R = ppo.train_until(
             self.cfg, self.env, self.state, self.generator, target_R,
             max_epochs)

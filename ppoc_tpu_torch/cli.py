@@ -185,20 +185,14 @@ def config_from_args(args: argparse.Namespace) -> PPOConfig:
 
 
 def platform_device(parser: argparse.ArgumentParser):
-    """The device ``PPOC_PLATFORM`` pins: "cpu" -> the CPU; unset, "cuda"
-    or "gpu" -> None, CUDA device 0, a parser error without CUDA."""
-    import torch
+    """The device ``PPOC_PLATFORM`` pins (``algo/trainer.platform_device``),
+    its refusals as parser errors."""
+    from ppoc_tpu_torch.algo import trainer as trainer_mod
 
-    plat = os.environ.get("PPOC_PLATFORM", "")
-    if plat == "cpu":
-        return "cpu"
-    if plat not in ("", "cuda", "gpu"):
-        parser.error(f"PPOC_PLATFORM={plat!r}: the port runs on 'cpu' or "
-                     f"'cuda'")
-    if not torch.cuda.is_available():
-        parser.error("the port runs on CUDA device 0, and CUDA is not "
-                     "available; set PPOC_PLATFORM=cpu to run on the CPU")
-    return None
+    try:
+        return trainer_mod.platform_device()
+    except (ValueError, RuntimeError) as e:
+        parser.error(str(e))
 
 
 def _json_safe(row: dict) -> dict:

@@ -8,8 +8,10 @@ equal presets, and ``validate`` accepting and rejecting the same configs
 with the same messages.  The field comments are kept short; the JAX
 module documents each field at length.
 
-Many fields select parts of the JAX package that the port has not ported
-yet; ``algo/trainer.py`` ``check_ported`` refuses those settings.
+The multi-device fields (``tp_size``, ``pp_size``, ``ep_size``,
+``sp_size``, ``zero1``) select parts of the JAX package that the port has
+not ported yet; ``algo/trainer.py`` ``check_ported`` refuses those
+settings.
 """
 from __future__ import annotations
 
@@ -82,9 +84,13 @@ class PPOConfig:
     shuffle_block: int = 0     # >0: shuffle minibatches in blocks of rows
     transplant_patience: int = 0
     aux_value_coeff: float = 0.0
-    fit_dispatch: str = "fused"
-    rollout_chunk: int = 0
-    fits_per_program: int = 0
+    # the relief valves: in the JAX package each changes only how a fit is
+    # compiled and dispatched, on the same key stream.  The port runs every
+    # fit eagerly, stage by stage and step by step, so a valve changes
+    # nothing but what ``validate`` and ``Trainer.solve`` accept
+    fit_dispatch: str = "fused"   # "fused" | "phased" (sequence trunks)
+    rollout_chunk: int = 0        # decode segment (with "phased")
+    fits_per_program: int = 0     # fits a compiled program (0: the epoch)
     norm_adv_global: bool = True
     reset_per_fit: bool = True
 

@@ -336,10 +336,11 @@ def test_attention_trainer_on_cpu(monkeypatch):
 @pytest.mark.parametrize("kw,match", [
     (dict(sp_size=2), "sp_size"),
     (dict(zero1=True), "zero1"), (dict(tp_size=2), "tp_size"),
-    (dict(fit_dispatch="phased"), "fit_dispatch"),
-    (dict(rollout_chunk=4), "rollout_chunk"),
-    (dict(fits_per_program=1), "fits_per_program")])
+    (dict(rollout_chunk=4), "rollout_chunk")])
 def test_unported_sequence_options_are_refused(kw, match):
+    """Item 16's modes, and a rollout_chunk that validate refuses (without
+    fit_dispatch="phased").  The relief valves themselves are accepted:
+    tests/test_torch_fit_dispatch.py, test_torch_fits_per_program.py."""
     cfg = dataclasses.replace(_port(_jcfg()), **kw)
     with pytest.raises((NotImplementedError, ValueError), match=match):
         Trainer(cfg, "cpu")
